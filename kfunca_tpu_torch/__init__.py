@@ -8,7 +8,11 @@ hand-written CUDA kernel under `csrc/`, built with nvcc at first use
 
 Ported so far: the single-chip paged-KV serving path
 (models/serve.InferenceServer) with its paged decode attention kernel
-(ops/pallas_kernels/paged_attention.py, csrc/paged_attention.cu).
+(ops/pallas_kernels/paged_attention.py, csrc/paged_attention.cu), and the
+training path (models/train.make_train_step, models/trainer.Trainer, the
+losses, data, eval and checkpoints) with the flash attention forward and
+backward kernels (ops/attention.py, ops/pallas_kernels/flash_attention.py,
+csrc/flash_attention.cu).
 
 Entry points run on the CUDA device unless the caller passes
 device="cpu"; on CPU tensors each kernel wrapper runs its plain PyTorch

@@ -1,0 +1,668 @@
+// Causal flash attention for Hopper (sm_90a): forward with per-row
+// logsumexp (K1) and backward dq / dk / dv (K2), with grouped kv heads (GQA)
+// and an optional sliding window.
+//
+// Replaces the TPU kernels of
+//   kfunca_tpu/ops/pallas_kernels/flash_attention.py:
+//     flash_attention_fwd_stats / flash_attention_forward (body _fwd_kernel)
+//     flash_attention_backward (body _fused_bwd_kernel)
+//
+// Contract:
+//   q, g, out, dq (B, H, Sq, hd); k, v, dk, dv (B, Hkv, Skv, hd); all
+//   contiguous, one dtype (fp32 or bf16); hd is 64 or 128 here (the Python
+//   wrapper zero-pads other head dims and passes the scale of the true one).
+//   scores = scale * q.k; row i attends column j when j <= i, j < Skv and,
+//   with a window, j > i - window (top-left aligned causal mask).  Query
+//   head h reads kv head h / (H / Hkv).
+//   Softmax state (running max, running sum, accumulator) is fp32.  Masked
+//   scores count as the finite -1e30 for the running max and contribute an
+//   explicit 0 to the sums, so a row that sees no valid column ends with
+//   l == 0: it divides by 1 (out = 0) and gets lse = 0, never -inf.  The
+//   backward recomputes P = exp(scale * q.k - lse) with the same explicit 0
+//   on masked pairs, so such rows, and kv rows that no q row reads, get
+//   exact-zero gradients.  lse = m + log(l) is the natural logarithm.
+//   fp32 inputs run in plain fp32 FFMA (never TF32).  bf16 inputs are
+//   widened to fp32 when a tile is staged; P and dS stay fp32 into the
+//   second product (the TPU kernel rounds them to bf16 there), and results
+//   are rounded once to bf16 on the way out.
+//
+// What bounds it: operations.  At the training shape (B=1, H=32, Hkv=8,
+// S=8192, hd=128, window 4096) the forward does 4*hd flops per unmasked
+// (row, column) pair and moves ~0.17 GB: thousands of flops per byte,
+// against the ~295 flop/byte where a Hopper card's tensor cores, not its
+// memory, become the limit.  The backward does 10*hd per pair.
+//
+// What the design does about that, staying simple:
+//   * only live tiles are visited: tiles above the diagonal or wholly
+//     behind the window are never loaded or multiplied, so the work is
+//     O(S * window);
+//   * 64 x 64 tiles; q, k, v (and dO) tiles sit in shared memory as fp32
+//     with rows padded by 4 floats, so every inner-loop read is a 16-byte
+//     load free of bank conflicts; each of the 256 threads keeps a 4 x 4
+//     block of the score tile and a 4 x (hd/16) block of the output tile in
+//     registers (8 FMAs per 16-byte shared load in the score product, ~10
+//     in the second product);
+//   * the rows of a score tile owned by one warp are also consumed by that
+//     warp alone in the second product, so P / dS pass through shared
+//     memory with a warp-level sync only; block-wide syncs happen only
+//     around the tile loads;
+//   * the backward is two kernels that each own what they write (dq per q
+//     tile; dk, dv per kv tile with the GQA group summed in registers), so
+//     there are no atomics, no per-head partials in memory, and the
+//     gradients are bitwise repeatable.  delta = rowsum(dO * O) comes from a
+//     small pre-pass.
+// Left for later: the tensor cores (wgmma on bf16 tiles; this version's
+// ceiling is the 67 TFLOP/s fp32 pipe, not the 989 TFLOP/s bf16 one), TMA /
+// cp.async double buffering so loads overlap the math, larger q tiles per
+// block to re-use K/V more, and fusing the dq pass into the dk/dv pass.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 64;        // q rows and kv rows per tile
+constexpr int kTLD = kTile + 4;  // row stride of the P / dS tile (floats)
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ void store16(uint4 raw, float* dst, float) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
+}
+
+__device__ __forceinline__ void store16(uint4 raw, float* dst, __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]);
+  const float2 d = __bfloat1622float2(h[3]);
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
+}
+
+__device__ __forceinline__ void store4(float* dst, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b,
+                                       float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned int*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned int*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = raw;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// max / sum over the 16 lanes that share a row group (same ty)
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ bool attends(int row, int col, int Sq, int Skv,
+                                        int window) {
+  return col <= row && col < Skv && row < Sq &&
+         (window <= 0 || col > row - window);
+}
+
+// Stage rows [row0, row0 + 64) of a (n_rows, HD) matrix into shared memory
+// as fp32 with row stride HD + 4; rows at or past n_rows become zeros.  All
+// of a thread's 16-byte loads are issued before any is stored.
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst,
+                                          const T* __restrict__ src, int row0,
+                                          int n_rows) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int VPR = HD / E;  // 16-byte vectors per row
+  constexpr int PER = kTile * VPR / kThreads;
+  constexpr int LD = HD + 4;
+  uint4 raw[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    const int r = i / VPR;
+    raw[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows)
+      raw[u] = __ldg(reinterpret_cast<const uint4*>(
+          src + (long long)(row0 + r) * HD + (i % VPR) * E));
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    store16(raw[u], dst + (i / VPR) * LD + (i % VPR) * E, T());
+  }
+}
+
+// s[i][j] = A[ty + 16 i, :] . B[tx + 16 j, :] over HD, both tiles in shared
+// memory with row stride HD + 4.
+template <int HD>
+__device__ __forceinline__ void tile_scores(const float* __restrict__ A,
+                                            const float* __restrict__ B,
+                                            int ty, int tx, float (&s)[4][4]) {
+  constexpr int LD = HD + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j];
+        x = fmaf(a[i].x, b[j].x, x);
+        x = fmaf(a[i].y, b[j].y, x);
+        x = fmaf(a[i].z, b[j].z, x);
+        x = fmaf(a[i].w, b[j].w, x);
+        s[i][j] = x;
+      }
+  }
+}
+
+// acc[i][c] += sum_kk Tm[ty + 16 i, kk] * C[kk, col(c)], with Tm a 64 x 64
+// tile (row stride kTLD) and C a 64 x HD tile (row stride HD + 4).  Thread
+// tx owns columns 64 * (c / 4) + 4 * tx + (c % 4).
+template <int HD>
+__device__ __forceinline__ void tile_accum(const float* __restrict__ Tm,
+                                           const float* __restrict__ C, int ty,
+                                           int tx, float (&acc)[4][HD / 16]) {
+  constexpr int LD = HD + 4;
+  constexpr int NV = HD / 64;
+#pragma unroll 2
+  for (int kk = 0; kk < kTile; kk += 4) {
+    float t[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 tv =
+          *reinterpret_cast<const float4*>(Tm + (ty + 16 * i) * kTLD + kk);
+      t[i][0] = tv.x;
+      t[i][1] = tv.y;
+      t[i][2] = tv.z;
+      t[i][3] = tv.w;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const float4 cv = *reinterpret_cast<const float4*>(
+            C + (kk + u) * LD + c * 64 + tx * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * c + 0] = fmaf(t[i][u], cv.x, acc[i][4 * c + 0]);
+          acc[i][4 * c + 1] = fmaf(t[i][u], cv.y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(t[i][u], cv.z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(t[i][u], cv.w, acc[i][4 * c + 3]);
+        }
+      }
+  }
+}
+
+// rows [row0, row0 + 64) of an (n_rows, HD) output from the per-thread
+// accumulators, scaled per row
+template <typename T, int HD>
+__device__ __forceinline__ void store_tile(T* __restrict__ dst, int row0,
+                                           int n_rows, int ty, int tx,
+                                           const float (&acc)[4][HD / 16],
+                                           const float (&mul)[4]) {
+  constexpr int NV = HD / 64;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      store4(dst + (long long)row * HD + c * 64 + tx * 4,
+             acc[i][4 * c + 0] * mul[i], acc[i][4 * c + 1] * mul[i],
+             acc[i][4 * c + 2] * mul[i], acc[i][4 * c + 3] * mul[i]);
+  }
+}
+
+// first and last kv tile a q tile starting at row0 reads (last < first: none)
+__device__ __forceinline__ void kv_tile_range(int row0, int Sq, int Skv,
+                                              int window, int& first,
+                                              int& last) {
+  const int row_last = min(row0 + kTile - 1, Sq - 1);
+  last = min(row_last, Skv - 1) / kTile;
+  first = 0;
+  if (window > 0 && row0 - window + 1 > 0) first = (row0 - window + 1) / kTile;
+}
+
+// ---------------------------------------------------------------------------
+// K1: forward.  grid (q tiles, H, B); the heaviest (last) q tiles start first.
+// Shared memory (fp32): Q | K | V (64 x (HD+4) each) | P (64 x 68).
+// ---------------------------------------------------------------------------
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, float* __restrict__ lse, int H, int Hkv, int Sq,
+    int Skv, int window, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LD = HD + 4;
+  float* Q_s = smem;
+  float* K_s = Q_s + kTile * LD;
+  float* V_s = K_s + kTile * LD;
+  float* P_s = V_s + kTile * LD;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int row0 = qt * kTile;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  const T* qh = q + ((long long)b * H + h) * Sq * HD;
+  const T* kh = k + ((long long)b * Hkv + kvh) * Skv * HD;
+  const T* vh = v + ((long long)b * Hkv + kvh) * Skv * HD;
+  load_tile<T, HD>(Q_s, qh, row0, Sq);
+
+  float m[4], l[4], acc[4][HD / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) acc[i][c] = 0.f;
+  }
+
+  int kt_first, kt_last;
+  kv_tile_range(row0, Sq, Skv, window, kt_first, kt_last);
+  for (int kt = kt_first; kt <= kt_last; ++kt) {
+    const int col0 = kt * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, HD>(K_s, kh, col0, Skv);
+    load_tile<T, HD>(V_s, vh, col0, Skv);
+    __syncthreads();
+
+    float s[4][4];
+    tile_scores<HD>(Q_s, K_s, ty, tx, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty + 16 * i;
+      bool ok[4];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ok[j] = attends(row, col0 + tx + 16 * j, Sq, Skv, window);
+        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = half_warp_max(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        sum += p;
+        P_s[(ty + 16 * i) * kTLD + tx + 16 * j] = p;
+      }
+      sum = half_warp_sum(sum);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) acc[i][c] *= alpha;
+    }
+    __syncwarp();  // P rows ty + 16 i are written and read by this warp only
+    tile_accum<HD>(P_s, V_s, ty, tx, acc);
+  }
+
+  float inv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) inv[i] = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+  store_tile<T, HD>(out + ((long long)b * H + h) * Sq * HD, row0, Sq, ty, tx,
+                    acc, inv);
+  if (lse != nullptr && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty + 16 * i;
+      if (row < Sq)
+        lse[((long long)b * H + h) * Sq + row] =
+            l[i] == 0.f ? 0.f : m[i] + logf(l[i]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, pre-pass: delta[row] = sum_d g[row, d] * out[row, d]; one warp per row.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void flash_delta_kernel(const T* __restrict__ g,
+                                   const T* __restrict__ out,
+                                   float* __restrict__ delta,
+                                   long long n_rows, int hd) {
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  float a = 0.f;
+  for (int d = lane; d < hd; d += 32)
+    a = fmaf(to_float(g[row * hd + d]), to_float(out[row * hd + d]), a);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+  if (lane == 0) delta[row] = a;
+}
+
+// ---------------------------------------------------------------------------
+// K2, dq.  grid (q tiles, H, B).  Shared: Q | dO | K | V | dS.
+// dq[row] = scale * sum_col dS[row, col] k[col],
+// dS = P * (dO.v - delta), P = exp(scale q.k - lse) on attended pairs.
+// ---------------------------------------------------------------------------
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ g, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int H, int Hkv,
+    int Sq, int Skv, int window, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LD = HD + 4;
+  float* Q_s = smem;
+  float* G_s = Q_s + kTile * LD;
+  float* K_s = G_s + kTile * LD;
+  float* V_s = K_s + kTile * LD;
+  float* P_s = V_s + kTile * LD;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int row0 = qt * kTile;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  const long long qoff = ((long long)b * H + h) * Sq;
+  const T* kh = k + ((long long)b * Hkv + kvh) * Skv * HD;
+  const T* vh = v + ((long long)b * Hkv + kvh) * Skv * HD;
+  load_tile<T, HD>(Q_s, q + qoff * HD, row0, Sq);
+  load_tile<T, HD>(G_s, g + qoff * HD, row0, Sq);
+
+  float lse_r[4], delta_r[4], acc[4][HD / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 16 * i;
+    lse_r[i] = row < Sq ? lse[qoff + row] : 0.f;
+    delta_r[i] = row < Sq ? delta[qoff + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) acc[i][c] = 0.f;
+  }
+
+  int kt_first, kt_last;
+  kv_tile_range(row0, Sq, Skv, window, kt_first, kt_last);
+  for (int kt = kt_first; kt <= kt_last; ++kt) {
+    const int col0 = kt * kTile;
+    __syncthreads();
+    load_tile<T, HD>(K_s, kh, col0, Skv);
+    load_tile<T, HD>(V_s, vh, col0, Skv);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    tile_scores<HD>(Q_s, K_s, ty, tx, s);
+    tile_scores<HD>(G_s, V_s, ty, tx, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = attends(row, col0 + tx + 16 * j, Sq, Skv, window);
+        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
+        P_s[(ty + 16 * i) * kTLD + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
+      }
+    }
+    __syncwarp();
+    tile_accum<HD>(P_s, K_s, ty, tx, acc);
+  }
+
+  float mul[4] = {scale, scale, scale, scale};
+  store_tile<T, HD>(dq + qoff * HD, row0, Sq, ty, tx, acc, mul);
+}
+
+// ---------------------------------------------------------------------------
+// K2, dk and dv.  grid (kv tiles, Hkv, B).  Shared: K | V | Q | dO | P^T.
+// The block walks the q heads of its GQA group and the q tiles that read its
+// kv tile (from the diagonal to the window's end), keeping the transposed
+// score tile (kv rows x q rows), so that
+//   dv[col] += sum_row P[row, col] dO[row],  dk[col] += sum_row dS[row, col] q[row]
+// are the same second product as the forward's, summed over the group in
+// registers.  A kv tile that no q row reads writes zeros.
+// ---------------------------------------------------------------------------
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ g, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int H, int Hkv, int Sq, int Skv, int window, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LD = HD + 4;
+  float* K_s = smem;
+  float* V_s = K_s + kTile * LD;
+  float* Q_s = V_s + kTile * LD;
+  float* G_s = Q_s + kTile * LD;
+  float* P_s = G_s + kTile * LD;
+
+  const int kt = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = H / Hkv;
+  const int col0 = kt * kTile;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  const long long kvoff = ((long long)b * Hkv + kvh) * Skv;
+  load_tile<T, HD>(K_s, k + kvoff * HD, col0, Skv);
+  load_tile<T, HD>(V_s, v + kvoff * HD, col0, Skv);
+
+  float dk_acc[4][HD / 16], dv_acc[4][HD / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  // q tiles holding a row that attends a column of this kv tile
+  const int qt_first = kt;  // rows >= col0 (q and kv tiles are equally tall)
+  int qt_last = (Sq - 1) / kTile;
+  if (window > 0) {
+    const long long r = (long long)col0 + kTile - 1 + window - 1;
+    if (r / kTile < qt_last) qt_last = (int)(r / kTile);
+  }
+
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = kvh * group + gi;
+    const long long qoff = ((long long)b * H + h) * Sq;
+    for (int qt = qt_first; qt <= qt_last; ++qt) {
+      const int row0 = qt * kTile;
+      __syncthreads();
+      load_tile<T, HD>(Q_s, q + qoff * HD, row0, Sq);
+      load_tile<T, HD>(G_s, g + qoff * HD, row0, Sq);
+      float lse_c[4], delta_c[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = row0 + tx + 16 * j;
+        lse_c[j] = row < Sq ? lse[qoff + row] : 0.f;
+        delta_c[j] = row < Sq ? delta[qoff + row] : 0.f;
+      }
+      __syncthreads();
+
+      // transposed tiles: index [i][j] is kv row ty + 16 i, q row tx + 16 j
+      float st[4][4], dpt[4][4];
+      tile_scores<HD>(K_s, Q_s, ty, tx, st);
+      tile_scores<HD>(V_s, G_s, ty, tx, dpt);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = attends(row0 + tx + 16 * j, col0 + ty + 16 * i, Sq,
+                                  Skv, window);
+          const float p = ok ? expf(st[i][j] * scale - lse_c[j]) : 0.f;
+          st[i][j] = p;
+          P_s[(ty + 16 * i) * kTLD + tx + 16 * j] = p;
+        }
+      __syncwarp();
+      tile_accum<HD>(P_s, G_s, ty, tx, dv_acc);
+      __syncwarp();  // every lane has read P before dS overwrites it
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          P_s[(ty + 16 * i) * kTLD + tx + 16 * j] =
+              st[i][j] * (dpt[i][j] - delta_c[j]);
+      __syncwarp();
+      tile_accum<HD>(P_s, Q_s, ty, tx, dk_acc);
+    }
+  }
+
+  float one[4] = {1.f, 1.f, 1.f, 1.f};
+  float mul[4] = {scale, scale, scale, scale};
+  store_tile<T, HD>(dv + kvoff * HD, col0, Skv, ty, tx, dv_acc, one);
+  store_tile<T, HD>(dk + kvoff * HD, col0, Skv, ty, tx, dk_acc, mul);
+}
+
+template <int HD> constexpr size_t fwd_smem() {
+  return sizeof(float) * (3 * kTile * (HD + 4) + kTile * kTLD);
+}
+template <int HD> constexpr size_t bwd_smem() {
+  return sizeof(float) * (4 * kTile * (HD + 4) + kTile * kTLD);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int HD>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int H, int Hkv, int Sq, int Skv, int window,
+               float scale, cudaStream_t stream) {
+  const size_t smem = fwd_smem<HD>();
+  const cudaError_t e = allow_smem(flash_fwd_kernel<T, HD>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
+  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, H, Hkv, Sq, Skv,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* g,
+               const void* out, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int B, int H, int Hkv, int Sq, int Skv,
+               int window, float scale, cudaStream_t stream) {
+  const size_t smem = bwd_smem<HD>();
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, HD>, smem);
+  if (e != cudaSuccess) return (int)e;
+  e = allow_smem(flash_bwd_dkv_kernel<T, HD>, smem);
+  if (e != cudaSuccess) return (int)e;
+
+  const long long n_rows = (long long)B * H * Sq;
+  const int rows_per_block = kThreads / 32;
+  flash_delta_kernel<T>
+      <<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), kThreads,
+         0, stream>>>(static_cast<const T*>(g), static_cast<const T*>(out),
+                      delta, n_rows, HD);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const dim3 grid_q((Sq + kTile - 1) / kTile, H, B);
+  flash_bwd_dq_kernel<T, HD><<<grid_q, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
+      static_cast<T*>(dq), H, Hkv, Sq, Skv, window, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const dim3 grid_kv((Skv + kTile - 1) / kTile, Hkv, B);
+  flash_bwd_dkv_kernel<T, HD><<<grid_kv, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Skv, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  dtype: 0 = float32,
+// 1 = bfloat16 for every tensor but lse and delta (float32).  hd must be 64
+// or 128; window <= 0 means no window; scale multiplies q.k.  Each returns
+// cudaGetLastError() after its launches (0 on success).  The caller checks
+// shapes, dtypes and contiguity and allocates every output and the (B, H,
+// Sq) float32 delta scratch.
+
+// out (B, H, Sq, hd); lse (B, H, Sq) float32, or NULL to skip the statistic
+extern "C" int kf_flash_attention_fwd(const void* q, const void* k,
+                                      const void* v, void* out, void* lse,
+                                      int B, int H, int Hkv, int Sq, int Skv,
+                                      int hd, int window, float scale,
+                                      int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (B <= 0 || H <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || H % Hkv)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && hd == 128)
+    return launch_fwd<__nv_bfloat16, 128>(q, k, v, out, l, B, H, Hkv, Sq, Skv,
+                                          window, scale, s);
+  if (dtype == 1 && hd == 64)
+    return launch_fwd<__nv_bfloat16, 64>(q, k, v, out, l, B, H, Hkv, Sq, Skv,
+                                         window, scale, s);
+  if (dtype == 0 && hd == 128)
+    return launch_fwd<float, 128>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
+                                  scale, s);
+  if (dtype == 0 && hd == 64)
+    return launch_fwd<float, 64>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
+                                 scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dq (B, H, Sq, hd); dk, dv (B, Hkv, Skv, hd); three launches: delta, dq,
+// dk/dv
+extern "C" int kf_flash_attention_bwd(const void* q, const void* k,
+                                      const void* v, const void* g,
+                                      const void* out, const void* lse,
+                                      void* delta, void* dq, void* dk,
+                                      void* dv, int B, int H, int Hkv, int Sq,
+                                      int Skv, int hd, int window, float scale,
+                                      int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (B <= 0 || H <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || H % Hkv)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && hd == 128)
+    return launch_bwd<__nv_bfloat16, 128>(q, k, v, g, out, l, dl, dq, dk, dv,
+                                          B, H, Hkv, Sq, Skv, window, scale, s);
+  if (dtype == 1 && hd == 64)
+    return launch_bwd<__nv_bfloat16, 64>(q, k, v, g, out, l, dl, dq, dk, dv, B,
+                                         H, Hkv, Sq, Skv, window, scale, s);
+  if (dtype == 0 && hd == 128)
+    return launch_bwd<float, 128>(q, k, v, g, out, l, dl, dq, dk, dv, B, H,
+                                  Hkv, Sq, Skv, window, scale, s);
+  if (dtype == 0 && hd == 64)
+    return launch_bwd<float, 64>(q, k, v, g, out, l, dl, dq, dk, dv, B, H, Hkv,
+                                 Sq, Skv, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

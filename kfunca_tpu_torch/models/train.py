@@ -1,0 +1,417 @@
+"""Training step: loss -> grad -> optimizer update on one device.
+
+Counterpart of kfunca_tpu/models/train.py.  The optimizers are written out
+over the params tree: adamw (default), sgd with nesterov, lion, adafactor
+(factored second moments) and muon (Newton-Schulz orthogonalized momentum
+for matrices, adamw for 1-D leaves), with fp32 master params and moments,
+linear-warmup + cosine-decay schedule, global-norm clipping, the no-decay
+mask for 1-D params, a params EMA, and in-step gradient accumulation.
+
+Scalars of the update (step, lr, bias corrections, the clip scale) are
+0-dim fp32 tensors on the params' device, computed in fp32 as the JAX
+package computes them, and never read back to the host inside the step.
+
+The JAX step is a pure function whose buffers the caller donates; here the
+update runs under torch.no_grad() and WRITES params and moments in place,
+returning the same tensors in new containers: a caller who needs the old
+values clones them first.
+
+make_sharded_train_step belongs to the parallel/ slice of the port.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..runtime.backend import resolve_device
+from ..utils.tree import tree_leaves, tree_map, tree_unflatten
+from .transformer import TransformerConfig, loss_fn, loss_fn_chunked
+
+_STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    """The JAX package's OptConfig, field for field."""
+
+    # "adamw", "sgd" (momentum/nesterov), "lion" (sign-momentum),
+    # "adafactor" (factored second moments) or "muon"
+    algo: str = "adamw"
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    momentum: float = 0.9
+    nesterov: bool = False
+    # linear warmup over warmup_steps, then cosine decay to lr * min_lr_frac
+    # at total_steps (None: constant lr)
+    warmup_steps: int = 0
+    total_steps: int | None = None
+    min_lr_frac: float = 0.1
+    clip_norm: float | None = None  # global-norm clipping (None: off)
+    decay_mask_1d: bool = True  # no weight decay on 1-D params
+    ema_decay: float | None = None  # fp32 "ema" tree in opt_state
+    muon_beta: float = 0.95
+    # moment STORAGE dtype, "float32" or "bfloat16"; moments compute in fp32
+    # every step (cast in, cast out); master params and the EMA stay fp32
+    state_dtype: str = "float32"
+
+
+def _f32(x) -> float:
+    """x rounded to fp32, as a Python float (exact in fp32 arithmetic)."""
+    return float(np.float32(x))
+
+
+def schedule_lr(oc: OptConfig, step):
+    """lr at `step` (1-based; a 0-dim tensor or a number) as a 0-dim fp32
+    tensor: warmup -> cosine -> floor."""
+    t = step.float() if isinstance(step, torch.Tensor) else torch.tensor(
+        float(step), dtype=torch.float32)
+    lr = torch.full_like(t, oc.lr)
+    if oc.warmup_steps > 0:
+        lr = lr * torch.clamp(t / _f32(oc.warmup_steps), max=1.0)
+    if oc.total_steps is not None:
+        frac = (t - oc.warmup_steps) / _f32(
+            max(1, oc.total_steps - oc.warmup_steps))
+        frac = torch.clamp(frac, 0.0, 1.0)
+        cos = 0.5 * (1.0 + torch.cos(math.pi * frac))
+        floor = _f32(oc.min_lr_frac)
+        lr = lr * (floor + _f32(np.float32(1.0) - np.float32(floor)) * cos)
+    return lr
+
+
+def global_norm(grads):
+    leaves = tree_leaves(grads)
+    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
+
+
+def check_params_device(params, device):
+    """`device`, after checking that every params leaf lives on it."""
+    devices = {p.device for p in tree_leaves(params)}
+    if devices != {device}:
+        raise ValueError(f"params are on {sorted(map(str, devices))}, this "
+                         f"call runs on {device}")
+    return device
+
+
+def init_opt_state(params, oc: OptConfig | None = None, device=None):
+    """Optimizer state for oc.algo (default adamw) on `device` (default: the
+    CUDA device; params must already be there).
+
+    adamw: m + v per param.  sgd / lion: m only.  adafactor: for ndim >= 2
+    leaves, row means `vr` (shape[:-1]) and column means `vc`
+    (shape[:-2] + (n,)) replace the full v; ndim < 2 leaves keep a full
+    `v1`.  Unused slots hold 0-dim zeros so every field stays a
+    params-shaped tree."""
+    dev = check_params_device(params, resolve_device(device))
+    algo = oc.algo if oc is not None else "adamw"
+    sd = _STATE_DTYPES[oc.state_dtype] if oc is not None else torch.float32
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=sd, device=dev)
+
+    def dummy():
+        return torch.zeros((), dtype=torch.float32, device=dev)
+
+    def small(p):
+        return zeros(p) if p.ndim < 2 else dummy()
+
+    state = {"step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if algo in ("adamw", "sgd", "lion", "muon"):
+        state["m"] = tree_map(zeros, params)
+    if algo == "adamw":
+        state["v"] = tree_map(zeros, params)
+    if algo == "muon":  # second moment only for the 1-D adamw leaves
+        state["v1"] = tree_map(small, params)
+    if oc is not None and oc.ema_decay is not None:
+        state["ema"] = tree_map(lambda p: p.detach().float().clone(), params)
+    if algo == "adafactor":
+        f32 = dict(dtype=torch.float32, device=dev)
+        state["vr"] = tree_map(
+            lambda p: torch.zeros(p.shape[:-1], **f32) if p.ndim >= 2
+            else dummy(), params)
+        state["vc"] = tree_map(
+            lambda p: torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)
+            if p.ndim >= 2 else dummy(), params)
+        state["v1"] = tree_map(small, params)
+    return state
+
+
+def _clip_and_lr(grads, opt_state, oc: OptConfig):
+    step = opt_state["step"] + 1
+    gscale = 1.0
+    if oc.clip_norm is not None:
+        gn = global_norm(grads)
+        gscale = torch.clamp(_f32(oc.clip_norm) / (gn + 1e-12), max=1.0)
+    return step, schedule_lr(oc, step), gscale
+
+
+def _wd(p, oc: OptConfig) -> float:
+    return oc.weight_decay if (p.ndim >= 2 or not oc.decay_mask_1d) else 0.0
+
+
+def _leafwise(upd, params, grads, *states):
+    """upd(p, g, *state leaves) on every leaf; it writes p and its state
+    leaves in place."""
+    for leaves in zip(tree_leaves(params), tree_leaves(grads),
+                      *(tree_leaves(s) for s in states)):
+        upd(*leaves)
+
+
+def adamw_update(params, grads, opt_state, oc: OptConfig):
+    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
+    t = step.float()
+    bc1 = 1.0 - oc.beta1 ** t
+    bc2 = 1.0 - oc.beta2 ** t
+
+    def upd(p, g, m, v):
+        g = g.float() * gscale
+        m32 = oc.beta1 * m.float() + (1 - oc.beta1) * g
+        v32 = oc.beta2 * v.float() + (1 - oc.beta2) * g * g
+        p.sub_(lr * ((m32 / bc1) / (torch.sqrt(v32 / bc2) + oc.eps)
+                     + _wd(p, oc) * p))
+        m.copy_(m32)  # rounds to the storage dtype
+        v.copy_(v32)
+
+    _leafwise(upd, params, grads, opt_state["m"], opt_state["v"])
+    return params, {"step": step, "m": opt_state["m"], "v": opt_state["v"]}
+
+
+def sgd_update(params, grads, opt_state, oc: OptConfig):
+    """SGD with momentum (optionally Nesterov) + decoupled weight decay."""
+    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
+    mu = _f32(oc.momentum)
+
+    def upd(p, g, m):
+        g = g.float() * gscale
+        m32 = mu * m.float() + g
+        u = g + mu * m32 if oc.nesterov else m32
+        p.sub_(lr * (u + _wd(p, oc) * p))
+        m.copy_(m32)
+
+    _leafwise(upd, params, grads, opt_state["m"])
+    return params, {"step": step, "m": opt_state["m"]}
+
+
+def lion_update(params, grads, opt_state, oc: OptConfig):
+    """Lion: sign of a beta1-interpolated momentum; one moment, update
+    magnitude == lr exactly."""
+    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
+
+    def upd(p, g, m):
+        g = g.float() * gscale
+        m32 = m.float()
+        u = torch.sign(oc.beta1 * m32 + (1 - oc.beta1) * g)
+        p.sub_(lr * (u + _wd(p, oc) * p))
+        m.copy_(oc.beta2 * m32 + (1 - oc.beta2) * g)
+
+    _leafwise(upd, params, grads, opt_state["m"])
+    return params, {"step": step, "m": opt_state["m"]}
+
+
+def adafactor_update(params, grads, opt_state, oc: OptConfig):
+    """Adafactor, momentum-free: factored second moments for matrices
+    (row/col mean-square EMAs), full v for 1-D leaves; decay 1 - t^-0.8;
+    update RMS-clipped at 1.0."""
+    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
+    b2 = 1.0 - step.float() ** -0.8
+    eps = 1e-30
+
+    def upd(p, g, vr, vc, v1):
+        g = g.float() * gscale
+        g2 = g * g + eps
+        if p.ndim >= 2:
+            vr.copy_(b2 * vr + (1 - b2) * g2.mean(dim=-1))
+            vc.copy_(b2 * vc + (1 - b2) * g2.mean(dim=-2))
+            # rank-1 reconstruction, normalized by the shared total mean
+            denom = vr.mean(dim=-1, keepdim=True)
+            vhat = vr[..., :, None] * vc[..., None, :] / denom[..., None]
+        else:
+            vhat = b2 * v1.float() + (1 - b2) * g2
+            v1.copy_(vhat)
+        u = g / torch.sqrt(vhat)
+        # clip the update's RMS to 1.0
+        rms_u = torch.sqrt(torch.mean(u * u) + eps)
+        u = u / torch.clamp(rms_u, min=1.0)
+        p.sub_(lr * (u + _wd(p, oc) * p))
+
+    _leafwise(upd, params, grads, opt_state["vr"], opt_state["vc"],
+              opt_state["v1"])
+    return params, {"step": step, "vr": opt_state["vr"],
+                    "vc": opt_state["vc"], "v1": opt_state["v1"]}
+
+
+def _newton_schulz5(g, steps: int = 5):
+    """Approximate orthogonalization of a (..., r, c) matrix: 5 iterations
+    of the quintic Newton-Schulz polynomial (Muon's coefficients) on the
+    Frobenius-normalized input, in fp32; a tall matrix is iterated on its
+    wide orientation, where x @ x.T is smallest."""
+    a, b, c = 3.4445, -4.7750, 2.0315
+    x = g / (torch.linalg.matrix_norm(g, keepdim=True) + 1e-7)
+    transposed = x.shape[-2] > x.shape[-1]
+    if transposed:
+        x = x.transpose(-2, -1)
+    for _ in range(steps):
+        A = x @ x.transpose(-2, -1)
+        B = b * A + c * (A @ A)
+        x = a * x + B @ x
+    return x.transpose(-2, -1) if transposed else x
+
+
+def muon_update(params, grads, opt_state, oc: OptConfig):
+    """Muon: nesterov momentum orthogonalized by Newton-Schulz for every
+    >= 2-D param, scaled by sqrt(max(1, r/c)); ndim < 2 leaves run the
+    adamw rule."""
+    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
+    mu = _f32(oc.muon_beta)
+    t = step.float()
+    bc1 = 1.0 - oc.beta1 ** t
+    bc2 = 1.0 - oc.beta2 ** t
+
+    def upd(p, g, m, v1):
+        g = g.float() * gscale
+        if p.ndim >= 2:
+            m32 = mu * m.float() + g
+            o = _newton_schulz5(g + mu * m32)  # nesterov-style lookahead
+            scale = _f32(math.sqrt(max(1.0, p.shape[-2] / p.shape[-1])))
+            p.sub_(lr * (scale * o + _wd(p, oc) * p))
+            m.copy_(m32)
+            return
+        m32 = oc.beta1 * m.float() + (1 - oc.beta1) * g
+        v32 = oc.beta2 * v1.float() + (1 - oc.beta2) * g * g
+        u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + oc.eps)
+        p.sub_(lr * (u + _wd(p, oc) * p))
+        m.copy_(m32)
+        v1.copy_(v32)
+
+    _leafwise(upd, params, grads, opt_state["m"], opt_state["v1"])
+    return params, {"step": step, "m": opt_state["m"], "v1": opt_state["v1"]}
+
+
+_UPDATES = {
+    "adamw": adamw_update,
+    "sgd": sgd_update,
+    "lion": lion_update,
+    "adafactor": adafactor_update,
+    "muon": muon_update,
+}
+
+
+@torch.no_grad()
+def apply_update(params, grads, opt_state, oc: OptConfig):
+    """Dispatch to oc.algo's update rule (state from init_opt_state(p, oc));
+    maintains the params EMA afterwards when oc.ema_decay is set.  Params
+    and state leaves are updated in place."""
+    try:
+        fn = _UPDATES[oc.algo]
+    except KeyError:
+        raise ValueError(
+            f"unknown optimizer algo {oc.algo!r}; one of {sorted(_UPDATES)}"
+        ) from None
+    new_params, new_state = fn(params, grads, opt_state, oc)
+    if oc.ema_decay is not None:
+        d = np.float32(oc.ema_decay)
+        keep, take = float(d), float(np.float32(1.0) - d)
+        for e, p in zip(tree_leaves(opt_state["ema"]),
+                        tree_leaves(new_params)):
+            e.copy_(keep * e + take * p.float())
+        new_state["ema"] = opt_state["ema"]
+    return new_params, new_state
+
+
+def ema_params(opt_state, dtype=None):
+    """The EMA params tree (requires OptConfig(ema_decay=...)); cast to
+    `dtype` if given: the smoothed weights for eval/serving."""
+    ema = opt_state["ema"]
+    if dtype is not None:
+        ema = tree_map(lambda e: e.to(dtype), ema)
+    return ema
+
+
+def make_train_step(cfg: TransformerConfig, oc: OptConfig = OptConfig(),
+                    grad_accum: int = 1, loss_chunk: int | None = None,
+                    ignore_index: int | None = None,
+                    with_metrics: bool = False, device=None):
+    """Returns train_step(params, opt_state, tokens, targets) -> (params,
+    opt_state, loss) on `device` (default: the CUDA device; raises without
+    one).  params and opt_state must be on that device; tokens and targets
+    (numpy arrays or tensors) are moved there.
+
+    Gradients come from torch.autograd.grad over the param leaves; the
+    params are fp32 masters and every use casts them to cfg.act_dtype.
+    The update writes params and moments in place (see the module
+    docstring), so the returned trees hold the tensors that came in.
+
+    grad_accum > 1 splits the batch into that many microbatches and sums
+    their fp32 gradients before ONE update: activations live for one
+    microbatch at a time.  loss_chunk streams the LM head in vocab chunks
+    of that width (transformer.loss_fn_chunked).  ignore_index masks loss
+    positions whose target equals it.  with_metrics=True returns
+    {"loss", "grad_norm" (pre-clip), "lr", "step"} in place of the loss."""
+    dev = resolve_device(device)
+
+    def loss(params, tokens, targets):
+        if loss_chunk is None:
+            return loss_fn(params, tokens, targets, cfg,
+                           ignore_index=ignore_index)
+        return loss_fn_chunked(params, tokens, targets, cfg, loss_chunk,
+                               ignore_index=ignore_index)
+
+    def value_and_grad(params, tokens, targets):
+        leaves = tree_leaves(params)
+        # views that share the masters' storage and carry the gradient
+        views = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss_v = loss(tree_unflatten(params, views), tokens, targets)
+        grads = torch.autograd.grad(loss_v, views)
+        return loss_v.detach(), tree_unflatten(params, grads)
+
+    def stats(loss_v, grads, opt_state):
+        if not with_metrics:
+            return loss_v
+        step = opt_state["step"] + 1
+        return {"loss": loss_v, "grad_norm": global_norm(grads),
+                "lr": schedule_lr(oc, step), "step": step}
+
+    def on_device(x):
+        return torch.as_tensor(x).to(dev, non_blocking=True)
+
+    def train_step(params, opt_state, tokens, targets):
+        check_params_device(params, dev)
+        tokens, targets = on_device(tokens), on_device(targets)
+        if grad_accum <= 1:
+            loss_v, grads = value_and_grad(params, tokens, targets)
+        else:
+            b = tokens.shape[0]
+            if b % grad_accum:
+                raise ValueError(
+                    f"batch {b} not divisible by grad_accum={grad_accum}")
+            mb = b // grad_accum
+            g_sum, l_sum = None, 0.0
+            for i in range(grad_accum):
+                loss_i, g = value_and_grad(params, tokens[i * mb:(i + 1) * mb],
+                                           targets[i * mb:(i + 1) * mb])
+                g = tree_map(lambda x: x.float(), g)
+                g_sum = g if g_sum is None else tree_map(
+                    lambda a, x: a.add_(x), g_sum, g)
+                l_sum = l_sum + loss_i
+            inv = _f32(1.0 / grad_accum)
+            grads = tree_map(lambda x: x.mul_(inv), g_sum)
+            loss_v = l_sum * inv
+        with torch.no_grad():
+            out = stats(loss_v, grads, opt_state)
+            params, opt_state = apply_update(params, grads, opt_state, oc)
+        return params, opt_state, out
+
+    return train_step
+
+
+def make_sharded_train_step(*args, **kwargs):
+    raise NotImplementedError(
+        "the sharded train step over a (dp, tp) mesh belongs to the "
+        "parallel/ slice of the port")

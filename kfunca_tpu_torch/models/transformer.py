@@ -8,9 +8,11 @@ are (B, H, S, hd), and the dict keys are the same.  Parameters may be
 stored in any float dtype; every use casts them to the activation dtype
 first, as the JAX package does.
 
-Ported here: the config, init_params, the norms, split_qkv, apply_qk_norm,
-the matmul helper and the dense MLP (swiglu, geglu, gelu).  The training
-forward (flash attention), MoE, MLA and LoRA are later slices.
+Ported here: the config, init_params, the norms, RoPE, split_qkv,
+apply_qk_norm, the matmul helper, the dense MLP (swiglu, geglu, gelu), the
+attention mixer over the flash kernels (ops/attention.py), the block, the
+training forward and the two losses.  MoE, MLA and LoRA are later slices
+and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.attention import causal_attention_fn, make_flash_attention
 from ..runtime.backend import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -227,23 +231,73 @@ def apply_qk_norm(q, k, p, cfg: TransformerConfig):
             rms_norm(k, p["k_norm"], cfg.norm_eps))
 
 
+def _rope(x, theta: float, pos_scale: float = 1.0, pct: float = 1.0):
+    """Rotary embeddings over the head dim at positions 0..S-1; x:
+    (B, H, S, D).  pos_scale < 1 is linear position interpolation; pct < 1
+    rotates only the first pct of the head dims, the tail passes through."""
+    if pct < 1.0:
+        rot = int(x.shape[-1] * pct) & ~1  # even
+        return torch.cat([_rope(x[..., :rot], theta, pos_scale), x[..., rot:]],
+                         dim=-1)
+    s, half = x.shape[2], x.shape[-1] // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    pos = torch.arange(s, dtype=torch.float32, device=x.device) * pos_scale
+    ang = pos[:, None] * freqs[None, :]  # (S, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+class _MmFp32Out(torch.autograd.Function):
+    """(N, in) @ (in, out) on the card for a 16-bit y with an fp32 result:
+    torch.mm's out_dtype=float32, which has no autograd formula of its own.
+
+    The weight arrives in its storage dtype (fp32 master params in
+    training) and is cast inside, so the backward hands back dw in that
+    dtype with no 16-bit rounding.  The backward's products are 16-bit
+    with fp32 accumulation, as the forward's: the fp32 cotangent g is
+    ROUNDED to y's dtype first (the JAX package multiplies the fp32
+    cotangent as it is), dy = g @ w.T comes back in y's dtype and
+    dw = y.T @ g in fp32.  The cast weight is made again in the backward
+    rather than saved."""
+
+    @staticmethod
+    def forward(ctx, y, w):
+        ctx.save_for_backward(y, w)
+        return torch.mm(y, w.to(y.dtype), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g = g.to(y.dtype)
+        dy = dw = None
+        if ctx.needs_input_grad[0]:
+            dy = torch.mm(g, w.to(y.dtype).t())
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(y.t(), g, out_dtype=torch.float32).to(w.dtype)
+        return dy, dw
+
+
 def _plain_mm(y, w):
     """y @ w in y's dtype with an fp32 result, like the JAX package's
     jnp.dot(y, w.astype(y.dtype), preferred_element_type=float32): the
     product of a bf16 pair is NOT rounded to bf16 before the caller uses
     it (the MLP's gate/up reach silu in fp32).  On the card that is
-    torch.mm's out_dtype=float32; on the CPU, which lacks it, the bf16
-    inputs are widened to fp32, whose products of bf16 values are exact."""
+    torch.mm's out_dtype=float32 (differentiable through _MmFp32Out); on
+    the CPU, which lacks it, the bf16 inputs are widened to fp32, whose
+    products of bf16 values are exact."""
     if isinstance(w, tuple):
         raise NotImplementedError(
             "quantized (intN, scale) weights are a later slice of the port")
-    w = w.to(y.dtype)
     if y.dtype == torch.float32:
-        return y @ w
+        return y @ w.to(y.dtype)
     if y.is_cuda:
-        out = torch.mm(y.reshape(-1, y.shape[-1]), w, out_dtype=torch.float32)
+        out = _MmFp32Out.apply(y.reshape(-1, y.shape[-1]), w)
         return out.reshape(*y.shape[:-1], w.shape[1])
-    return y.float() @ w.float()
+    return y.float() @ w.to(y.dtype).float()
 
 
 def mlp(y, p, cfg: TransformerConfig):
@@ -267,10 +321,113 @@ def mlp(y, p, cfg: TransformerConfig):
     return _plain_mm((g * up).to(y.dtype), p["w_down"])
 
 
+def attention_mixer(y, p, cfg: TransformerConfig):
+    """Causal self-attention over the normed block input y (B, S, d): fused
+    QKV projection -> RoPE -> flash kernel -> output projection.  Returns
+    the post-wo output (B, S, d) fp32."""
+    if cfg.attention == "mla":
+        raise NotImplementedError("MLA blocks are a later slice of the port")
+    if "lora" in p:
+        raise NotImplementedError("LoRA adapters are a later slice of the port")
+    b, s, dm = y.shape
+    qkv = _plain_mm(y, p["wqkv"])
+    if "bqkv" in p:
+        qkv = qkv + p["bqkv"].float()
+    q, k, v = split_qkv(qkv.to(y.dtype), cfg)
+    q, k = apply_qk_norm(q, k, p, cfg)
+    if cfg.pos == "rope":
+        theta, pscale = cfg.rope_params()
+        q = _rope(q, theta, pscale, cfg.rope_pct)
+        k = _rope(k, theta, pscale, cfg.rope_pct)
+    if cfg.kv_heads == cfg.n_heads and cfg.attention_window is None:
+        attn = causal_attention_fn(q, k, v)
+    else:
+        attn = make_flash_attention(window=cfg.attention_window)(q, k, v)
+    attn = attn.transpose(1, 2).reshape(b, s, dm)
+    o = _plain_mm(attn, p["wo"])
+    if "bo" in p:
+        o = o + p["bo"].float()
+    return o
+
+
+def _block(x, p, cfg: TransformerConfig):
+    y = apply_norm(x, p, "attn_norm", cfg)
+    o = attention_mixer(y, p, cfg)
+    if cfg.parallel_residual:  # GPT-NeoX/GPT-J: branches share the input
+        y = apply_norm(x, p, "mlp_norm", cfg)
+        return x + o.to(x.dtype) + mlp(y, p, cfg).to(x.dtype)
+    x = x + o.to(x.dtype)
+    y = apply_norm(x, p, "mlp_norm", cfg)
+    return x + mlp(y, p, cfg).to(x.dtype)
+
+
 def embed_tokens(params, tokens, cfg: TransformerConfig):
     """Token embedding in the activation dtype; cfg.embed_scale applies
     Gemma's sqrt(d_model) normalizer, cast to the activation dtype."""
-    x = params["embed"][tokens].to(cfg.act_dtype)
+    x = params["embed"][tokens.long()].to(cfg.act_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.act_dtype)
     return x
+
+
+def hidden_states(params, tokens, cfg: TransformerConfig):
+    """tokens: (B, S) integers -> final-norm trunk output (B, S, d_model).
+    cfg.remat recomputes each block in the backward pass instead of saving
+    its activations (torch.utils.checkpoint, non-reentrant)."""
+    _check_supported(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][: tokens.shape[1]].to(cfg.act_dtype)
+    for p in params["blocks"]:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_block, x, p, cfg, use_reentrant=False)
+        else:
+            x = _block(x, p, cfg)
+    return apply_norm(x, params, "final_norm", cfg)
+
+
+def _head(params):
+    """The (d_model, vocab) head in its storage dtype: the tied embedding's
+    gradient is then the sum of the gather's and the head's."""
+    return params["lm_head"] if "lm_head" in params else params["embed"].T
+
+
+def forward(params, tokens, cfg: TransformerConfig):
+    """tokens: (B, S) integers -> logits (B, S, vocab) fp32."""
+    return _plain_mm(hidden_states(params, tokens, cfg), _head(params))
+
+
+def _masked_mean(nll, targets, ignore_index):
+    """Token-mean NLL; positions with target == ignore_index contribute
+    nothing (padding / prompt-only tokens in SFT)."""
+    if ignore_index is None:
+        return nll.mean()
+    mask = (targets != ignore_index).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(params, tokens, targets, cfg: TransformerConfig,
+            ignore_index: int | None = None):
+    logits = forward(params, tokens, cfg)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    targets = targets.long()
+    safe = targets if ignore_index is None else targets.clamp_min(0)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return _masked_mean(nll, targets, ignore_index)
+
+
+def loss_fn_chunked(params, tokens, targets, cfg: TransformerConfig,
+                    vocab_chunk: int = 4096, ignore_index: int | None = None):
+    """loss_fn without ever materializing the (B, S, vocab) logits: the LM
+    head is streamed in vocab chunks with an online logsumexp
+    (models/loss.py).  Same loss and gradients; peak memory drops from
+    O(B*S*V) to O(B*S*vocab_chunk)."""
+    from .loss import chunked_softmax_xent
+
+    x = hidden_states(params, tokens, cfg)
+    b, s, d = x.shape
+    # ignored targets (< 0) never hit any chunk, so their gathered logit is
+    # 0 and their nll is just the (finite) lse, masked out below
+    nll = chunked_softmax_xent(x.reshape(b * s, d), _head(params),
+                               targets.reshape(-1), vocab_chunk)
+    return _masked_mean(nll, targets.reshape(-1), ignore_index)

@@ -1,10 +1,12 @@
-"""Carry transformer parameters between the JAX package and the port.
+"""Carry transformer parameters and optimizer state between the JAX
+package and the port.
 
-Both packages use one parameter layout (see models/transformer.py), so a
-JAX params pytree maps leaf for leaf onto the port's dict of tensors.  The
-conversion goes through numpy: the port never imports JAX, and a caller
-holding JAX arrays passes them as they are (each leaf goes through
-np.asarray) or as numpy arrays.
+Both packages use one parameter layout (see models/transformer.py) and one
+optimizer-state layout (see models/train.py), so a JAX pytree maps leaf for
+leaf onto the port's dicts of tensors, and both can start a step from the
+same (params, opt_state).  The conversion goes through numpy: the port
+never imports JAX, and a caller holding JAX arrays passes them as they are
+(each leaf goes through np.asarray) or as numpy arrays.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from ..runtime.backend import resolve_device
+from ..utils.tree import tree_map
 from .transformer import TransformerConfig, _check_supported
 
 
@@ -44,24 +47,29 @@ def params_from_jax(tree, cfg: TransformerConfig, device=None, dtype=None):
             raise ValueError(f"wqkv {np.shape(blk['wqkv'])} does not match "
                              f"the config's ({cfg.d_model}, {cfg.qkv_out})")
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [conv(v) for v in x]
-        return _to_tensor(x, dev, dtype)
-
-    return conv(tree)
+    return tree_map(lambda x: _to_tensor(x, dev, dtype), tree)
 
 
-def params_to_numpy(params):
-    """The port's params -> the same tree of numpy arrays (bf16 tensors
-    widen exactly to float32, which numpy can hold)."""
-    if isinstance(params, dict):
-        return {k: params_to_numpy(v) for k, v in params.items()}
-    if isinstance(params, list):
-        return [params_to_numpy(v) for v in params]
-    t = params.detach().cpu()
+def opt_state_from_jax(tree, device=None):
+    """JAX optimizer state (init_opt_state's layout: "step", "m", "v", ...)
+    -> the port's on `device` (default: the CUDA device), every leaf in its
+    own dtype (int32 step, fp32 or bf16 moments, 0-dim dummies)."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: _to_tensor(x, dev, None), tree)
+
+
+def _to_numpy(t):
+    t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors (params, optimizer state) -> the same tree of
+    numpy arrays (bf16 tensors widen exactly to float32, which numpy can
+    hold)."""
+    return tree_map(_to_numpy, tree)
+
+
+params_to_numpy = tree_to_numpy  # the same walk, under the params' name

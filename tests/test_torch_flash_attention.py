@@ -1,0 +1,209 @@
+"""Port parity: flash attention forward (K1) and backward (K2).
+
+The same numpy inputs go through the JAX package's Pallas kernels, run in
+interpret mode on the CPU as the JAX package's own tests run them, and
+through the port's plain PyTorch versions, which the port's wrappers run
+for CPU tensors and which the CUDA kernels are held against on the card
+(tests/test_torch_cuda.py, chip_smoke.py).  fp32 throughout, atol and rtol
+1e-4 as in tests/test_pallas_kernels.py: the two sum the same fp32 terms
+in another order.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from kfunca_tpu.ops import attention as jattn
+from kfunca_tpu.ops.pallas_kernels import flash_attention as jfa
+from kfunca_tpu_torch.ops import attention as tattn
+from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as tfa
+
+# (b, h, hkv, sq, skv, d, window): the shapes of tests/test_pallas_kernels.py
+# (MHA, ragged everything, tiles that do not divide, GQA 4:2 and 6:3,
+# windows 64 and 130)
+CASES = {
+    "mha": (1, 2, 2, 128, 128, 128, None),
+    "ragged": (1, 1, 1, 35, 67, 40, None),
+    "ragged_tiles": (1, 2, 2, 100, 160, 64, None),
+    "gqa_4_2": (1, 4, 2, 256, 256, 64, None),
+    "gqa_6_3_window_64": (1, 6, 3, 256, 256, 64, 64),
+    "gqa_window_130": (1, 4, 2, 384, 384, 64, 130),
+}
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _inputs(case, seed=0):
+    b, h, hkv, sq, skv, d, _ = case
+    rng = np.random.default_rng(seed)
+    u = lambda *s: rng.uniform(-1, 1, s).astype(np.float32)
+    return u(b, h, sq, d), u(b, hkv, skv, d), u(b, hkv, skv, d), u(b, h, sq, d)
+
+
+def _jax_kernels(q, k, v, g, window):
+    """(out, lse, dq, dk, dv) from the Pallas kernels in interpret mode."""
+    q, k, v, g = map(jnp.asarray, (q, k, v, g))
+    out, lse = jfa.flash_attention_fwd_stats(q, k, v, bq=128, bk=128,
+                                             window=window, interpret=True)
+    grads = jfa.flash_attention_backward(q, k, v, g, out=out, lse=lse, bq=128,
+                                         bk=128, window=window, interpret=True)
+    return tuple(np.asarray(x) for x in (out, lse, *grads))
+
+
+@functools.lru_cache(maxsize=None)
+def _both(name):
+    """One case through both packages: (JAX results, port results)."""
+    case = CASES[name]
+    q, k, v, g = _inputs(case)
+    want = _jax_kernels(q, k, v, g, case[-1])
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = tfa.flash_attention_fwd_stats(tq, tk, tv, window=case[-1])
+    grads = tfa.flash_attention_backward(tq, tk, tv, tg, out, lse,
+                                         window=case[-1])
+    return want, tuple(x.numpy() for x in (out, lse, *grads))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_forward_matches_the_jax_kernel(name):
+    want, got = _both(name)
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+    np.testing.assert_allclose(got[1], want[1], **TOL)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_backward_matches_the_jax_kernel(name):
+    want, got = _both(name)
+    for w, g in zip(want[2:], got[2:]):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, **TOL)
+
+
+def test_unread_kv_rows_get_exact_zero_gradients():
+    """Skv 160 over Sq 100: kv rows 100.. are read by no q row."""
+    _, got = _both("ragged_tiles")
+    dk, dv = got[3], got[4]
+    assert not dk[:, :, 100:].any() and not dv[:, :, 100:].any()
+    assert np.abs(dk[:, :, :100]).min() > 0
+
+
+def test_rows_without_a_valid_column():
+    """Window 64, Sq 300 over Skv 64: rows 127.. attend no column.  The
+    port gives them out = 0, lse = 0 and exact-zero gradients.  The Pallas
+    kernel leaves such rows to its block layout (the column sum of V over a
+    padded tile, or an unwritten block), so it is the reference on the rows
+    that do attend a column: its out, lse and dq there, and its dk/dv when
+    it is given those rows alone."""
+    case = (1, 2, 1, 300, 64, 64, 64)
+    q, k, v, g = _inputs(case, seed=1)
+    live = 64 + 64 - 1
+    want = _jax_kernels(q[:, :, :live], k, v, g[:, :, :live], 64)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = tfa.flash_attention_fwd_stats(tq, tk, tv, window=64)
+    dq, dk, dv = tfa.flash_attention_backward(tq, tk, tv, tg, out, lse,
+                                              window=64)
+    for got, w in zip((out, lse, dq), want[:3]):
+        np.testing.assert_allclose(got[:, :, :live].numpy(), w, **TOL)
+        assert not got[:, :, live:].any()
+    np.testing.assert_allclose(dk.numpy(), want[3], **TOL)
+    np.testing.assert_allclose(dv.numpy(), want[4], **TOL)
+    # the whole-tensor JAX kernel agrees on the live rows too
+    full = _jax_kernels(q, k, v, g, 64)
+    np.testing.assert_allclose(out[:, :, :live].numpy(), full[0][:, :, :live],
+                               **TOL)
+
+
+def _vjp_pair(jfn, tfn, case, seed=2):
+    q, k, v, g = _inputs(case, seed)
+    jout, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+    want = (jout, *vjp(jnp.asarray(g)))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    tout = tfn(*leaves)
+    got = (tout, *torch.autograd.grad(tout, leaves, torch.from_numpy(g)))
+    for w, t in zip(want, got):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(w), **TOL)
+
+
+def test_causal_attention_fn_gradients_match_jax():
+    _vjp_pair(jattn.causal_attention_fn, tattn.causal_attention_fn,
+              (1, 2, 2, 96, 96, 32, None))
+
+
+@pytest.mark.parametrize("window", [None, 32, 130])
+def test_make_flash_attention_gradients_match_jax(window):
+    _vjp_pair(jattn.make_flash_attention(window),
+              tattn.make_flash_attention(window),
+              (2, 4, 2, 160, 160, 64, window))
+
+
+def test_make_flash_attention_is_cached_per_window():
+    assert tattn.make_flash_attention(32) is tattn.make_flash_attention(32)
+    assert tattn.make_flash_attention(32) is not tattn.make_flash_attention(64)
+
+
+def test_causal_attention_fn_refuses_grouped_heads():
+    q, k, v, _ = map(torch.from_numpy, _inputs((1, 4, 2, 8, 8, 16, None)))
+    with pytest.raises(ValueError, match="make_flash_attention"):
+        tattn.causal_attention_fn(q, k, v)
+
+
+def test_oracles_match_jax():
+    case = (1, 4, 2, 40, 56, 32, 9)
+    q, k, v, _ = _inputs(case, seed=3)
+    want = jattn._sdpa_xla_gqa(*map(jnp.asarray, (q, k, v)), 9)
+    got = tattn._sdpa_xla_gqa(*map(torch.from_numpy, (q, k, v)), 9)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    q, k, v, _ = _inputs((1, 2, 2, 40, 40, 32, None), seed=4)
+    want = jattn._sdpa_xla(*map(jnp.asarray, (q, k, v)))
+    got = tattn._sdpa_xla(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_fp16_rides_the_fp32_path_and_bf16_rounds_once():
+    q, k, v, _ = _inputs((1, 2, 2, 48, 48, 32, None), seed=5)
+    ref = tfa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)))[0]
+    half = tattn.causal_attention_fn(
+        *(torch.from_numpy(x).half() for x in (q, k, v)))
+    assert half.dtype == torch.float16
+    # fp16 inputs carry 2^-11 relative error each; values are of order 1
+    np.testing.assert_allclose(half.float().numpy(), ref.numpy(), atol=3e-3)
+    b16 = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
+    out, lse = tfa.flash_attention_fwd_stats(*b16)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    exact = tfa.flash_attention_plain(*(t.float() for t in b16))[0]
+    assert torch.equal(out, exact.bfloat16())
+
+
+def test_plain_attention_context_routes_to_the_plain_version(monkeypatch):
+    q, k, v, _ = map(torch.from_numpy, _inputs((1, 2, 1, 16, 16, 8, None)))
+    calls = []
+    monkeypatch.setattr(tattn, "flash_attention_fwd_stats",
+                        lambda *a, **kw: calls.append(1))
+    with tattn.plain_attention():
+        out = tattn.make_flash_attention(5)(q, k, v)
+    assert calls == [] and not tattn._plain
+    torch.testing.assert_close(out, tfa.flash_attention_plain(q, k, v, 5)[0])
+
+
+def test_wrappers_check_their_arguments():
+    q, k, v, g = map(torch.from_numpy, _inputs((1, 4, 2, 8, 8, 16, None)))
+    with pytest.raises(ValueError, match="window"):
+        tfa.flash_attention_fwd_stats(q, k, v, window=0)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        tfa.flash_attention_fwd_stats(q[:, :3], k, v)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.flash_attention_fwd_stats(q, k.double(), v)
+    with pytest.raises(ValueError, match="q's shape"):
+        tfa.flash_attention_backward(q, k, v, g[:, :, :4], q, None)
+    out, lse = tfa.flash_attention_fwd_stats(q, k, v, save_stats=False)
+    assert lse is None
+    assert torch.equal(out, tfa.flash_attention_forward(q, k, v))
+    # on the CPU nothing is launched
+    assert tfa.flash_attention_fwd_stats.launches == 0
+    assert tfa.flash_attention_backward.launches == 0

@@ -11,7 +11,11 @@ from pathlib import Path
 import pytest
 import torch
 
-from kfunca_tpu_torch.models import generate, serve, transformer, weights
+import numpy as np
+
+from kfunca_tpu_torch.models import (
+    data, eval as evaluation, generate, serve, train, trainer, transformer,
+    weights)
 from kfunca_tpu_torch.runtime import backend
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -35,7 +39,11 @@ def test_importing_the_port_loads_no_jax():
         "pkg.__name__ + '.')]",
         "for name in names:",
         "    importlib.import_module(name)",
-        "assert 'kfunca_tpu_torch.models.serve' in names, names",
+        "for want in ('models.serve', 'models.train', 'models.trainer',",
+        "             'models.loss', 'models.data', 'models.eval',",
+        "             'ops.attention', 'ops.pallas_kernels.flash_attention',",
+        "             'utils.checkpoint'):",
+        "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
     ])
@@ -62,7 +70,7 @@ def test_no_jax_import_in_the_source():
     assert bad == []
 
 
-def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = transformer.TransformerConfig(**SMALL)
     params = transformer.init_params(0, cfg, device="cpu")
@@ -71,9 +79,18 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                  lambda: generate.init_kv_cache(cfg, 1, 8),
                  lambda: weights.params_from_jax(
                      weights.params_to_numpy(params), cfg),
-                 lambda: serve.InferenceServer(params, cfg)):
+                 lambda: serve.InferenceServer(params, cfg),
+                 lambda: train.make_train_step(cfg),
+                 lambda: train.init_opt_state(params),
+                 lambda: weights.opt_state_from_jax({"step": np.int32(0)}),
+                 lambda: trainer.Trainer(
+                     cfg, trainer.TrainerConfig(str(tmp_path), 1)),
+                 lambda: evaluation.evaluate(params, cfg, []),
+                 lambda: evaluation.perplexity(params, cfg, np.zeros(600)),
+                 lambda: data.TokenDataset(np.zeros(64, np.int32), 8, 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert not list(tmp_path.iterdir())  # the refused Trainer made nothing
     srv = serve.InferenceServer(params, cfg, device="cpu")
     assert srv.device == torch.device("cpu")
     backend.sync(srv.device)  # nothing to wait for on the CPU
@@ -87,6 +104,32 @@ def test_server_checks_params_device():
     params["embed"] = params["embed"].to("meta")
     with pytest.raises(ValueError, match="params are on"):
         serve.InferenceServer(params, cfg, device="cpu")
+
+
+def test_training_entry_points_check_params_device():
+    """A step made for one device refuses params that live on another, as
+    the server does."""
+    cfg = transformer.TransformerConfig(**SMALL)
+    params = transformer.init_params(0, cfg, device="cpu")
+    step = train.make_train_step(cfg, device="cpu")
+    opt = train.init_opt_state(params, device="cpu")
+    tokens = np.zeros((1, 8), np.int32)
+    step(params, opt, tokens, tokens)  # the CPU, when asked, runs
+    params["embed"] = params["embed"].to("meta")
+    with pytest.raises(ValueError, match="params are on"):
+        step(params, opt, tokens, tokens)
+    with pytest.raises(ValueError, match="params are on"):
+        train.init_opt_state(params, device="cpu")
+    with pytest.raises(ValueError, match="params are on"):
+        evaluation.evaluate(params, cfg, [(tokens, tokens)], device="cpu")
+
+
+def test_main_path_never_calls_the_library_attention():
+    """scaled_dot_product_attention is chip_smoke.py's yardstick only."""
+    hits = [str(f.relative_to(ROOT)) for f in sorted(PORT.rglob("*.py"))
+            if "scaled_dot_product_attention" in f.read_text()]
+    assert hits == []
+    assert "scaled_dot_product_attention" in (ROOT / "chip_smoke.py").read_text()
 
 
 def test_chip_smoke_fails_without_a_card():

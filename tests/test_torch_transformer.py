@@ -8,6 +8,7 @@ of the values involved, not bit for bit.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -243,3 +244,196 @@ def test_weights_round_trip_exact():
     with pytest.raises(ValueError, match="wqkv"):
         params_from_jax(jp, dataclasses.replace(tc, n_kv_heads=4),
                         device="cpu")
+
+
+# -- the training forward, the losses and their gradients ---------------------
+
+# __graft_entry__._tiny_cfg()'s fields
+TINY = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=256,
+            max_seq_len=128)
+MODEL_CASES = {
+    # fp32: sums of 128-256 fp32 terms in another order
+    "tiny_fp32": (dict(TINY, dtype="float32"), 1e-5),
+    # bf16 activations: both packages round to bf16 at the same places, but
+    # their fp32 sums differ in the last bits, which now and then flips a
+    # bf16 rounding (2^-8 relative) somewhere upstream; logits are ~0.3
+    "tiny_bf16": (dict(TINY, dtype="bfloat16"), 2e-2),
+    "gqa_window": (dict(SMALL, attention_window=24), 1e-5),
+    "remat": (dict(TINY, dtype="float32", remat=True), 1e-5),
+    "mha_neox": (dict(TINY, dtype="float32", norm="layernorm", pos="learned",
+                      mlp_type="gelu", proj_bias=True,
+                      parallel_residual=True, qk_norm=True), 1e-5),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _model(name):
+    kw, tol = MODEL_CASES[name]
+    jc, tc = jtf.TransformerConfig(**kw), ttf.TransformerConfig(**kw)
+    jp = jtf.init_params(jax.random.PRNGKey(3), jc)
+    rng = np.random.default_rng(9)
+    if name == "gqa_window":  # an untied head, as an HF import carries
+        jp["lm_head"] = jnp.asarray(
+            rng.uniform(-1, 1, (jc.d_model, jc.vocab_size)) / 16, jnp.float32)
+    window = rng.integers(0, jc.vocab_size, (2, 49)).astype(np.int32)
+    return jc, tc, jp, window[:, :-1], window[:, 1:], tol
+
+
+def _torch_value_and_grad(fn, tp, *args, **kw):
+    leaves = jax.tree_util.tree_leaves(tp)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss = fn(tp, *args, **kw)
+    grads = torch.autograd.grad(loss, leaves)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def _assert_grads_close(grads, jgrads, tol):
+    want = jax.tree_util.tree_leaves_with_path(jgrads)
+    assert len(grads) == len(want)
+    for g, (path, w) in zip(grads, want):
+        w = np.asarray(w, np.float32)
+        # relative to the leaf's largest entry: small entries of a leaf are
+        # sums that cancel, and carry the absolute error of the large ones
+        scale = max(float(np.abs(w).max()), 1e-6)
+        np.testing.assert_allclose(_np(g), w, atol=tol * scale, rtol=tol * 10,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("name", list(MODEL_CASES))
+def test_forward_logits(name):
+    jc, tc, jp, tokens, _, tol = _model(name)
+    tp = params_from_jax(jp, tc, device="cpu")
+    want = np.asarray(jtf.forward(jp, jnp.asarray(tokens), jc))
+    with torch.no_grad():
+        got = ttf.forward(tp, torch.from_numpy(tokens), tc)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_np(got), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("name", list(MODEL_CASES))
+def test_loss_fn_and_gradients(name):
+    jc, tc, jp, tokens, targets, tol = _model(name)
+    tp = params_from_jax(jp, tc, device="cpu")
+    want, jgrads = jax.value_and_grad(jtf.loss_fn)(
+        jp, jnp.asarray(tokens), jnp.asarray(targets), jc)
+    got, grads = _torch_value_and_grad(
+        ttf.loss_fn, tp, torch.from_numpy(tokens), torch.from_numpy(targets),
+        tc)
+    assert float(got) == pytest.approx(float(want), abs=tol)
+    _assert_grads_close(grads, jgrads, max(tol, 1e-4))
+
+
+@pytest.mark.parametrize("name,chunk", [
+    ("tiny_fp32", 64), ("tiny_fp32", 100), ("gqa_window", 64),
+    ("tiny_bf16", 100)])
+def test_loss_fn_chunked_and_gradients(name, chunk):
+    """Vocab 256 in chunks of 64 and in ragged chunks of 100 (the last one
+    padded with -inf columns)."""
+    jc, tc, jp, tokens, targets, tol = _model(name)
+    tp = params_from_jax(jp, tc, device="cpu")
+    want, jgrads = jax.value_and_grad(jtf.loss_fn_chunked)(
+        jp, jnp.asarray(tokens), jnp.asarray(targets), jc, chunk)
+    got, grads = _torch_value_and_grad(
+        ttf.loss_fn_chunked, tp, torch.from_numpy(tokens),
+        torch.from_numpy(targets), tc, chunk)
+    assert float(got) == pytest.approx(float(want), abs=tol)
+    _assert_grads_close(grads, jgrads, max(tol, 1e-4))
+    plain, _ = _torch_value_and_grad(
+        ttf.loss_fn, tp, torch.from_numpy(tokens), torch.from_numpy(targets),
+        tc)
+    assert float(got) == pytest.approx(float(plain), abs=max(tol, 1e-5))
+
+
+@pytest.mark.parametrize("loss", ["loss_fn", "loss_fn_chunked"])
+def test_ignore_index(loss):
+    jc, tc, jp, tokens, targets, tol = _model("tiny_fp32")
+    tp = params_from_jax(jp, tc, device="cpu")
+    targets = targets.copy()
+    targets[0, :20] = -100
+    targets[1, ::3] = -100
+    extra = (32,) if loss == "loss_fn_chunked" else ()
+    want, jgrads = jax.value_and_grad(getattr(jtf, loss))(
+        jp, jnp.asarray(tokens), jnp.asarray(targets), jc, *extra,
+        ignore_index=-100)
+    got, grads = _torch_value_and_grad(
+        getattr(ttf, loss), tp, torch.from_numpy(tokens),
+        torch.from_numpy(targets), tc, *extra, ignore_index=-100)
+    assert float(got) == pytest.approx(float(want), abs=tol)
+    _assert_grads_close(grads, jgrads, 1e-4)
+    # every target ignored: the mean divides by max(count, 1)
+    none = np.full_like(targets, -100)
+    got = getattr(ttf, loss)(tp, torch.from_numpy(tokens),
+                             torch.from_numpy(none), tc, *extra,
+                             ignore_index=-100)
+    assert float(got) == 0.0
+
+
+def test_tied_head_gradient_sums_both_uses():
+    """params["embed"] feeds the gather and, transposed, the head."""
+    jc, tc, jp, tokens, targets, _ = _model("tiny_fp32")
+    assert "lm_head" not in jp
+    tp = params_from_jax(jp, tc, device="cpu")
+    _, grads = _torch_value_and_grad(
+        ttf.loss_fn, tp, torch.from_numpy(tokens), torch.from_numpy(targets),
+        tc)
+    leaves = jax.tree_util.tree_leaves_with_path(tp)
+    (g_embed,) = [g for g, (path, _) in zip(grads, leaves)
+                  if jax.tree_util.keystr(path) == "['embed']"]
+    unseen = np.setdiff1d(np.arange(256), tokens)
+    # rows of tokens the batch never reads still get the head's gradient
+    assert len(unseen) > 50 and float(g_embed[unseen].abs().min()) > 0
+
+
+def test_rope_matches_jax():
+    x = np.random.default_rng(12).standard_normal((2, 3, 37, 64)).astype(
+        np.float32)
+    for kw in ({}, {"pos_scale": 0.25}, {"pct": 0.5}):
+        want = np.asarray(jtf._rope(jnp.asarray(x), 10000.0, **kw))
+        got = _np(ttf._rope(torch.from_numpy(x), 10000.0, **kw))
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+def test_chunked_softmax_xent_against_the_naive_loss():
+    """As tests/test_loss.py: a non-uniform cotangent, fp32 and bf16, a
+    ragged last chunk, and a negative (ignored) target."""
+    from kfunca_tpu_torch.models.loss import chunked_softmax_xent
+
+    rng = np.random.default_rng(13)
+    n, d, v = 24, 32, 150
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = (rng.standard_normal((d, v)) * 0.2).astype(np.float32)
+    targets = rng.integers(0, v, n)
+    cot = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        tx = torch.from_numpy(x).to(dtype).requires_grad_(True)
+        tw = torch.from_numpy(w).requires_grad_(True)
+        tt = torch.from_numpy(targets)
+        nll = chunked_softmax_xent(tx, tw, tt, 64)
+        assert nll.dtype == torch.float32
+        gx, gw = torch.autograd.grad(nll, (tx, tw), torch.from_numpy(cot))
+        logits = ttf._plain_mm(tx, tw)
+        ref = -torch.log_softmax(logits, -1).gather(1, tt[:, None])[:, 0]
+        rx, rw = torch.autograd.grad(ref, (tx, tw), torch.from_numpy(cot))
+        np.testing.assert_allclose(_np(nll), _np(ref), atol=tol, rtol=tol)
+        np.testing.assert_allclose(_np(gx), _np(rx), atol=tol, rtol=tol)
+        np.testing.assert_allclose(_np(gw), _np(rw), atol=tol, rtol=tol)
+    neg = chunked_softmax_xent(torch.from_numpy(x), torch.from_numpy(w),
+                               torch.full((n,), -100), 64)
+    lse = torch.logsumexp(torch.from_numpy(x) @ torch.from_numpy(w), -1)
+    np.testing.assert_allclose(_np(neg), _np(lse), atol=1e-5, rtol=1e-5)
+
+
+def test_unported_branches_raise():
+    _, tc = _cfgs()
+    tp = ttf.init_params(0, tc, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        ttf.forward(tp, toks, dataclasses.replace(tc, attention="mla"))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        ttf.forward(tp, toks, dataclasses.replace(tc, n_experts=4))
+    lora = dict(tp, blocks=[dict(b, lora={}) for b in tp["blocks"]])
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        ttf.forward(lora, toks, tc)
