@@ -1,14 +1,15 @@
-"""Forward pass with a dense KV cache: the serving engine's prefill.
+"""Autoregressive generation with a dense KV cache, and the serving
+engine's prefill.
 
 Counterpart of kfunca_tpu/models/generate.py (init_kv_cache, _rope_at,
-cached_attention_mixer, _block_with_cache, forward_with_cache).  The
-attention here is plain fp32 einsum attention over the cache with a
+cached_attention_mixer, _block_with_cache, forward_with_cache, generate,
+beam_search).  The attention here is plain fp32 einsum attention over the cache with a
 position mask, as in the JAX package, which computes it outside any
 Pallas kernel.  The JAX cache update is a functional
 dynamic_update_slice; the port writes the new K/V into the cache tensors
-in place and returns the same list.
-
-generate() and beam_search() are later slices of the port.
+in place and returns the same list.  The JAX generate and beam_search
+compile prefill and a lax.scan of decode steps into one program; here the
+decode loop is a Python loop.
 """
 
 from __future__ import annotations
@@ -134,3 +135,102 @@ def forward_with_cache(params, tokens, cache, start_pos: int,
         x, _ = _block_with_cache(x, p, lc, start_pos, cfg)
     x = apply_norm(x, params, "final_norm", cfg)
     return _plain_mm(x, lm_head_weight(params, x.dtype)), cache
+
+
+@torch.no_grad()
+def generate(params, prompt, cfg: TransformerConfig, max_new: int,
+             temperature: float = 0.0, generator=None):
+    """Greedy (temperature 0) or sampled generation.
+
+    prompt: (B, T_prompt) integer tensor on the params' device.  Returns
+    (B, max_new) int32 generated tokens.  Sampling draws from `generator`
+    (a torch.Generator on that device; seeded with 0 when None).  torch and
+    jax.random draw different numbers, so only greedy output equals the
+    JAX package's token for token."""
+    b, t_prompt = prompt.shape
+    dev = prompt.device
+    cache = init_kv_cache(cfg, b, t_prompt + max_new, dev)
+    if generator is None and temperature != 0.0:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    logits, cache = forward_with_cache(params, prompt, cache, 0, cfg)
+    last = logits[:, -1]
+    toks = []
+    for i in range(max_new):
+        if temperature == 0.0:
+            tok = torch.argmax(last, dim=-1)
+        else:
+            probs = torch.softmax(last.float() / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        toks.append(tok.int())
+        lg, cache = forward_with_cache(params, tok[:, None], cache,
+                                       t_prompt + i, cfg)
+        last = lg[:, -1]
+    return torch.stack(toks, dim=1)
+
+
+@torch.no_grad()
+def beam_search(params, prompt, cfg: TransformerConfig, max_new: int,
+                beam: int = 4, length_penalty: float = 0.0,
+                eos: int | None = None):
+    """Beam-search decoding, beams as batch lanes.
+
+    prompt (B, T) integer tensor -> (tokens (B, beam, max_new) int32,
+    scores (B, beam) fp32), beams sorted best-first.  Scores are summed raw
+    log-probs; with length_penalty a > 0 the final ranking divides by the
+    GNMT penalty ((5 + len) / 6) ** a.  `eos` freezes finished beams: they
+    emit eos forever at unchanged score, so shorter finished hypotheses
+    compete with live ones.  Prefill runs once at (B, T); the cache is then
+    tiled to B*beam lanes and reordered by parent beam each step."""
+    b, t_prompt = prompt.shape
+    dev = prompt.device
+    w, v_size = beam, cfg.vocab_size
+
+    cache = init_kv_cache(cfg, b, t_prompt + max_new, dev)
+    logits, cache = forward_with_cache(params, prompt, cache, 0, cfg)
+    cache = [{k: v.repeat_interleave(w, dim=0) for k, v in lc.items()}
+             for lc in cache]
+    lp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+    lp = lp.repeat_interleave(w, dim=0)  # (B*w, V)
+
+    # beam 0 starts at 0, the rest at -1e30, so step 1 picks w DISTINCT
+    # continuations of the single prompt hypothesis
+    scores = torch.tensor([0.0] + [NEG_INF] * (w - 1), device=dev).repeat(b, 1)
+    seqs = torch.zeros((b, w, max_new), dtype=torch.int32, device=dev)
+    done = torch.zeros((b, w), dtype=torch.bool, device=dev)
+    lengths = torch.zeros((b, w), dtype=torch.int32, device=dev)
+    if eos is not None:  # finished beams: only eos continues, at no cost
+        frozen = torch.full((v_size,), NEG_INF, device=dev)
+        frozen[eos] = 0.0
+
+    for i in range(max_new):
+        lp = lp.reshape(b, w, v_size)
+        if eos is not None:
+            lp = torch.where(done[:, :, None], frozen, lp)
+        total = scores[:, :, None] + lp  # (B, w, V)
+        # sorted, and lax.top_k's order among equal values: lowest index first
+        scores, top_idx = torch.topk(total.reshape(b, w * v_size), w, dim=1)
+        parent = top_idx // v_size  # (B, w)
+        tok = top_idx % v_size
+
+        # reorder histories and per-beam state by parent
+        seqs = seqs.gather(1, parent[:, :, None].expand(-1, -1, max_new))
+        seqs[:, :, i] = tok.int()
+        done = done.gather(1, parent)
+        lengths = lengths.gather(1, parent)
+        lengths = torch.where(done, lengths, lengths + 1)
+        if eos is not None:
+            done = done | (tok == eos)
+        # reorder the KV cache: lane index = batch index * w + parent
+        lane = (torch.arange(b, device=dev)[:, None] * w + parent).reshape(-1)
+        cache = [{k: v[lane] for k, v in lc.items()} for lc in cache]
+
+        lg, cache = forward_with_cache(params, tok.reshape(b * w, 1), cache,
+                                       t_prompt + i, cfg)
+        lp = torch.log_softmax(lg[:, -1].float(), dim=-1)
+
+    ranked = scores
+    if length_penalty > 0.0:
+        ranked = scores / ((5.0 + lengths.float()) / 6.0) ** length_penalty
+    order = torch.argsort(-ranked, dim=1, stable=True)
+    seqs = seqs.gather(1, order[:, :, None].expand(-1, -1, max_new))
+    return seqs, ranked.gather(1, order)

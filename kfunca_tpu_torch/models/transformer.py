@@ -290,8 +290,8 @@ def _plain_mm(y, w):
     the CPU, which lacks it, the bf16 inputs are widened to fp32, whose
     products of bf16 values are exact."""
     if isinstance(w, tuple):
-        raise NotImplementedError(
-            "quantized (intN, scale) weights are a later slice of the port")
+        raise TypeError("quantized (intN, scale) weights take the decode "
+                        "step's matmul (models/serve._mm)")
     if y.dtype == torch.float32:
         return y @ w.to(y.dtype)
     if y.is_cuda:
@@ -300,25 +300,27 @@ def _plain_mm(y, w):
     return y.float() @ w.to(y.dtype).float()
 
 
-def mlp(y, p, cfg: TransformerConfig):
-    """Dense MLP (swiglu, geglu or tanh/erf-GELU); returns fp32."""
+def mlp(y, p, cfg: TransformerConfig, mm=_plain_mm):
+    """Dense MLP (swiglu, geglu or tanh/erf-GELU); returns fp32.  `mm` is
+    the matmul, so that the paged decode step can pass one that takes
+    quantized (intN, scale) weights (models/serve._mm)."""
     if "experts" in p:
         raise NotImplementedError("MoE blocks are a later slice of the port")
     if cfg.mlp_type == "gelu":
-        h = _plain_mm(y, p["w_fc"])
+        h = mm(y, p["w_fc"])
         if "b_fc" in p:
             h = h + p["b_fc"].float()
         approx = "none" if cfg.gelu_exact else "tanh"
         act = F.gelu(h, approximate=approx).to(y.dtype)
-        out = _plain_mm(act, p["w_proj"])
+        out = mm(act, p["w_proj"])
         if "b_proj" in p:
             out = out + p["b_proj"].float()
         return out
-    gate = _plain_mm(y, p["w_gate"])
-    up = _plain_mm(y, p["w_up"])
+    gate = mm(y, p["w_gate"])
+    up = mm(y, p["w_up"])
     g = (F.gelu(gate, approximate="tanh") if cfg.mlp_type == "geglu"
          else F.silu(gate))
-    return _plain_mm((g * up).to(y.dtype), p["w_down"])
+    return mm((g * up).to(y.dtype), p["w_down"])
 
 
 def attention_mixer(y, p, cfg: TransformerConfig):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.quant import pack_int4
 from ..runtime.backend import resolve_device
 from ..utils.tree import tree_map
 from .transformer import TransformerConfig, _check_supported
@@ -48,6 +49,31 @@ def params_from_jax(tree, cfg: TransformerConfig, device=None, dtype=None):
                              f"the config's ({cfg.d_model}, {cfg.qkv_out})")
 
     return tree_map(lambda x: _to_tensor(x, dev, dtype), tree)
+
+
+def decode_params_from_jax(tree, device=None):
+    """A JAX `quantize_decode_params` pytree -> the port's decode params on
+    `device` (default: the CUDA device): quantized weights are
+    (intN array, fp32 scales) tuples there and here.  int8 pairs cross as
+    they are.  numpy has no int4, so the caller hands jnp.int4 weights over
+    widened (`w.astype(jnp.int8)`); a pair whose scales are 2-D group
+    scales is such a widened int4 weight and is packed two values a byte
+    (ops/quant.pack_int4).  Float leaves keep their dtype."""
+    dev = resolve_device(device)
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v) for v in x]
+        if isinstance(x, tuple):
+            w, scale = (_to_tensor(leaf, "cpu", None) for leaf in x)
+            if scale.ndim == 2:
+                w = pack_int4(w.to(torch.int8))
+            return w.to(dev), scale.to(dev)
+        return _to_tensor(x, dev, None)
+
+    return walk(tree)
 
 
 def opt_state_from_jax(tree, device=None):

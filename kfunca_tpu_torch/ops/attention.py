@@ -47,7 +47,8 @@ def plain_attention():
     """Route this module's attention through the kernels' plain versions
     (and their autograd gradient) whatever the device: the yardstick an
     end-to-end check holds the kernel path against.  No entry point of the
-    package enters it."""
+    package enters it.  It flips a module-level flag and is not thread-safe:
+    for chip_smoke.py and the tests only."""
     global _plain
     before, _plain = _plain, True
     try:

@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from kfunca_tpu_torch.models import data, serve, train, transformer
+from kfunca_tpu_torch.models import data, generate, serve, train, transformer
 from kfunca_tpu_torch.ops import attention
+from kfunca_tpu_torch.ops import quant as tq
 from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+from kfunca_tpu_torch.ops.pallas_kernels import paged_attention as pa
 from kfunca_tpu_torch.ops.pallas_kernels.paged_attention import (
+    paged_decode_attention,
     paged_decode_attention_dma,
     paged_decode_attention_plain,
 )
@@ -144,6 +147,247 @@ def test_server_on_the_card_matches_the_cpu(cuda):
     assert out["cuda"][0] == out["cpu"][0]
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert max(abs(x - y) for x, y in zip(a, b)) <= 1e-4
+
+
+# -- int8 KV (K4-int8), split pools (K6) and the int8 matmul (K5) --------------
+
+
+def _forms_case(dev, dtype, positions, form, quantized, h=8, hkv=2, hd=128,
+                page=16, max_pages=6, layers=2, seed=0):
+    """One pool form on the card; dead pages and dead scale rows poisoned.
+    Returns (q, pool, pool_v, scales, tables, positions, page_base)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = len(positions)
+    n_pages = b * max_pages + 1
+    total, base = layers * n_pages, (layers - 1) * n_pages
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+    tables = perm[: b * max_pages].reshape(b, max_pages).int().contiguous()
+    pools = []
+    for _ in range(2):
+        if quantized:
+            pool = torch.full((total, page, hkv, hd), 85, dtype=torch.int8,
+                              device=dev)
+        else:
+            pool = torch.full((total, page, hkv, hd), float("nan"),
+                              dtype=dtype, device=dev)
+        for i, p in enumerate(positions):
+            live = min(p // page + 1, max_pages)
+            rows = tables[i, :live].long() + base
+            vals = torch.randn((live, page, hkv, hd), generator=gen,
+                               device=dev)
+            pool[rows] = ((vals * 40).clamp(-127, 127).to(torch.int8)
+                          if quantized else vals.to(dtype))
+        pools.append(pool)
+    scales = None
+    if quantized:
+        scales = []
+        for _ in range(2):
+            sc = torch.full((total, page, hkv), float("nan"), device=dev)
+            for i, p in enumerate(positions):
+                live = min(p // page + 1, max_pages)
+                vals = torch.rand((live, page, hkv), generator=gen,
+                                  device=dev) * 0.02 + 0.005
+                slot = torch.arange(live * page, device=dev).reshape(live, page)
+                vals[slot > p] = float("nan")  # never read
+                sc[tables[i, :live].long() + base] = vals
+            scales.append(sc)
+        scales = tuple(scales)
+    k, v = pools
+    if form == "fused":
+        pool = torch.cat([k.reshape(total, page, -1),
+                          v.reshape(total, page, -1)], dim=-1).contiguous()
+        pool_v = None
+        if quantized:
+            rows = torch.full((total, page, 128), float("nan"), device=dev)
+            rows[..., :hkv], rows[..., hkv:2 * hkv] = scales
+            scales = rows
+    else:
+        pool, pool_v = k, v
+        if form == "split_flat":
+            pool, pool_v = k.reshape(total, page, -1), v.reshape(total, page, -1)
+        if form == "split_head_major":
+            scales = tuple(t.transpose(1, 2).contiguous() for t in scales)
+    q = (torch.randn((b, h, hd), generator=gen, device=dev)
+         / math.sqrt(hd)).to(dtype)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    return q, pool, pool_v, scales, tables, pos, base
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 37])
+@pytest.mark.parametrize("form,quantized", [
+    ("fused", True), ("split", True), ("split_head_major", True),
+    ("split", False), ("split_flat", False)])
+def test_dma_kernel_pool_forms_match_plain(cuda, dtype, window, form,
+                                           quantized):
+    q, pool, pool_v, scales, tables, pos, base = _forms_case(
+        cuda, dtype, [0, 15, 16, 40, 95], form, quantized)
+    kw = dict(window=window, page_base=base, pool_v=pool_v, scales=scales,
+              head_major_scales=form == "split_head_major")
+    before = paged_decode_attention_dma.launches
+    got = paged_decode_attention_dma(q, pool, tables, pos, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_dma.launches == before + 1
+    _close(got, paged_decode_attention_plain(q, pool, tables, pos, **kw),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("form", ["split", "split_flat"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+def test_split_pool_kernel_matches_plain(cuda, dtype, window, form, quantized):
+    q, pool, pool_v, scales, tables, pos, base = _forms_case(
+        cuda, dtype, [3, 31, 32, 95], form, quantized, h=4, hkv=4, hd=64)
+    before = (paged_decode_attention.launches,
+              paged_decode_attention_dma.launches)
+    got = paged_decode_attention(q, pool, pool_v, tables, pos, window=window,
+                                 scales=scales, page_base=base, fanin=4)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches,
+            paged_decode_attention_dma.launches) == (before[0] + 1, before[1])
+    want = paged_decode_attention_plain(q, pool, tables, pos, window=window,
+                                        page_base=base, pool_v=pool_v,
+                                        scales=scales)
+    _close(got, want, dtype)
+    with pa.plain_paged_attention():  # the plain context launches nothing
+        again = paged_decode_attention(q, pool, pool_v, tables, pos,
+                                       window=window, scales=scales,
+                                       page_base=base)
+    assert torch.equal(again, want)
+    assert paged_decode_attention.launches == before[0] + 1
+
+
+def test_int8_kernel_raises_on_what_it_does_not_take(cuda):
+    q, pool, pool_v, scales, tables, pos, _ = _forms_case(
+        cuda, torch.float32, [3, 20], "split", True, hd=72)
+    with pytest.raises(ValueError, match="head_dim % 16"):  # 16 int8 a load
+        paged_decode_attention(q, pool, pool_v, tables, pos, scales=scales)
+    q, pool, pool_v, scales, tables, pos, _ = _forms_case(
+        cuda, torch.float32, [3, 20], "split", True)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode_attention(q, pool, pool_v, tables, pos, scales=(
+            scales[0].transpose(1, 2).contiguous().transpose(1, 2), scales[1]))
+    with pytest.raises(ValueError, match="different devices"):
+        paged_decode_attention(q, pool, pool_v, tables, pos,
+                               scales=(scales[0].cpu(), scales[1]))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 512, 384), (1, 96, 40), (5, 130, 67),
+                                   (37, 300, 129), (300, 2048, 256),
+                                   (8, 4096, 4096)])
+def test_matmul_q8_kernel_is_bit_equal_to_plain(cuda, m, k, n):
+    """fp32 output: the exact integer sum times the same two scales in the
+    same order, so the kernel and the plain version agree bit for bit;
+    bf16 output rounds that value once more (at most one bf16 step)."""
+    gen = torch.Generator(device=cuda).manual_seed(m * k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda).to(torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda).to(torch.int8)
+    sa = torch.rand(m, generator=gen, device=cuda) * 0.02 + 0.001
+    sb = torch.rand(n, generator=gen, device=cuda) * 0.02 + 0.001
+    before = tq.matmul_q8.launches
+    got = tq.matmul_q8(a, b, sa, sb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tq.matmul_q8.launches == before + 1
+    want = tq.matmul_q8_plain(a, b, sa, sb, out_dtype=torch.float32)
+    assert torch.equal(got, want)
+    oracle = ((a.cpu().long() @ b.cpu().long()).float() * sa.cpu()[:, None]) \
+        * sb.cpu()[None, :]
+    assert torch.equal(got.cpu(), oracle)
+    got16, want16 = tq.matmul_q8(a, b, sa, sb), tq.matmul_q8_plain(a, b, sa, sb)
+    torch.testing.assert_close(got16.float(), want16.float(), atol=0,
+                               rtol=2.0 ** -7)
+    with tq.plain_matmul_q8():
+        assert torch.equal(tq.matmul_q8(a, b, sa, sb, torch.float32), want)
+    assert tq.matmul_q8.launches == before + 2
+
+
+def test_matmul_q8_has_one_engine_and_wrapper_checks(cuda, monkeypatch):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randint(-127, 128, (8, 256), generator=gen, device=cuda).to(torch.int8)
+    b = torch.randint(-127, 128, (256, 64), generator=gen, device=cuda).to(torch.int8)
+    sa, sb = torch.ones(8, device=cuda), torch.ones(64, device=cuda)
+    want = tq.matmul_q8(a, b, sa, sb, torch.float32)
+    before = tq.matmul_q8.launches
+    # the JAX package's engine knob does not take CUDA tensors off the kernel
+    monkeypatch.setenv("KFUNCA_GEMM_ENGINE", "xla")
+    assert torch.equal(tq.matmul_q8_auto(a, b, sa, sb, torch.float32), want)
+    assert tq.matmul_q8.launches == before + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.matmul_q8(a, b.t().contiguous().t(), sa, sb)
+    with pytest.raises(ValueError, match="different devices"):
+        tq.matmul_q8(a, b, sa.cpu(), sb)
+
+
+@pytest.mark.parametrize("options", [
+    dict(quantize_weights=True), dict(quantize_kv=True),
+    dict(quantize_weights=True, quantize_kv=True),
+    dict(quantize_weights="int4"), dict(fused_pool=False),
+    dict(fused_pool=False, quantize_kv=True)],
+    ids=["w8", "kv8", "w8kv8", "w4", "split", "split_kv8"])
+def test_server_options_on_the_card_match_the_cpu(cuda, options):
+    """Each serving option on the card against the same server on the CPU:
+    the same greedy tokens; log-probs within 1e-4 unquantized and 0.05
+    quantized (an int8 rounding can land on the other neighbour when the
+    two devices sum in another order); each kernel launched as often as the
+    option implies."""
+    cfg = transformer.TransformerConfig(**SMALL, attention_window=24)
+    params = transformer.init_params(0, cfg, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in (5, 17, 30, 9, 40)]
+    kw = dict(batch_slots=2, page_size=8, n_pages=40, max_pages_per_seq=10)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        srv = serve.InferenceServer(_to(params, dev), cfg, device=dev, **kw,
+                                    **options)
+        rids = [srv.submit(pr, max_new=12) for pr in prompts]
+        before = (paged_decode_attention_dma.launches,
+                  paged_decode_attention.launches, tq.matmul_q8.launches)
+        res = srv.run()
+        got = (paged_decode_attention_dma.launches - before[0],
+               paged_decode_attention.launches - before[1],
+               tq.matmul_q8.launches - before[2])
+        out[dev] = ([res[r] for r in rids],
+                    [srv.requests[r].logprobs for r in rids])
+        assert srv.pool.available == kw["n_pages"] - 1
+        attn = cfg.n_layers * srv.decode_steps
+        fused = options.get("fused_pool", True)
+        q8 = ((5 * cfg.n_layers + 1) * srv.decode_steps
+              if options.get("quantize_weights") in (True, "int8") else 0)
+        assert got == ((attn if fused else 0, 0 if fused else attn, q8)
+                       if dev == "cuda" else (0, 0, 0))
+    assert out["cuda"][0] == out["cpu"][0]
+    tol = 0.05 if (options.get("quantize_weights")
+                   or options.get("quantize_kv")) else 1e-4
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert max(abs(x - y) for x, y in zip(a, b)) <= tol
+
+
+def test_prefix_cache_and_generate_on_the_card(cuda):
+    cfg = transformer.TransformerConfig(**SMALL)
+    params = transformer.init_params(0, cfg, device=cuda)
+    gen = torch.Generator().manual_seed(4)
+    prefix = torch.randint(0, 256, (24,), generator=gen).tolist()
+    prompts = [prefix + torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in (3, 9, 14)]
+    kw = dict(batch_slots=2, page_size=8, n_pages=40, max_pages_per_seq=10)
+    toks = {}
+    for cache in (True, False):
+        srv = serve.InferenceServer(params, cfg, prefix_cache=cache, **kw)
+        rids = [srv.submit(p, max_new=8) for p in prompts]
+        res = srv.run()
+        toks[cache] = [res[r] for r in rids]
+        assert (srv.throughput_stats()["prefix_hit_pages"] > 0) == cache
+    assert toks[True] == toks[False]
+    batch = torch.tensor([p[:27] for p in prompts], device=cuda)
+    greedy = generate.generate(params, batch, cfg, 8)
+    srv = serve.InferenceServer(params, cfg, **kw)
+    rids = [srv.submit(p[:27], max_new=8) for p in prompts]
+    res = srv.run()
+    assert greedy.tolist() == [res[r] for r in rids]
+    beams, scores = generate.beam_search(params, batch, cfg, 8, beam=1)
+    assert torch.equal(beams[:, 0], greedy) and scores.is_cuda
 
 
 # -- flash attention forward (K1) and backward (K2) ---------------------------

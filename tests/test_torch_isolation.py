@@ -42,6 +42,8 @@ def test_importing_the_port_loads_no_jax():
         "for want in ('models.serve', 'models.train', 'models.trainer',",
         "             'models.loss', 'models.data', 'models.eval',",
         "             'ops.attention', 'ops.pallas_kernels.flash_attention',",
+        "             'ops.pallas_kernels.paged_attention', 'ops.quant',",
+        "             'models.generate', 'models.weights',",
         "             'utils.checkpoint'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
@@ -130,6 +132,38 @@ def test_main_path_never_calls_the_library_attention():
             if "scaled_dot_product_attention" in f.read_text()]
     assert hits == []
     assert "scaled_dot_product_attention" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_main_path_never_calls_the_library_int8_matmul():
+    """`torch._int_mm` is chip_smoke.py's yardstick only, and no environment
+    knob takes the int8 product off the port's own kernel."""
+    for word in ("_int_mm", "KFUNCA_GEMM_ENGINE"):
+        hits = [str(f.relative_to(ROOT)) for f in sorted(PORT.rglob("*.py"))
+                if word in f.read_text()]
+        assert hits == [], word
+    assert "_int_mm" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_quantized_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = transformer.TransformerConfig(**SMALL)
+    params = transformer.init_params(0, cfg, device="cpu")
+    tree = {"embed": np.zeros((2, 2), np.float32),
+            "blocks": [{"wo": (np.zeros((2, 2), np.int8),
+                               np.ones((2,), np.float32))}]}
+    for call in (lambda: serve.InferenceServer(params, cfg, quantize_kv=True,
+                                               quantize_weights=True),
+                 lambda: weights.decode_params_from_jax(tree)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    got = weights.decode_params_from_jax(tree, device="cpu")
+    assert isinstance(got["blocks"][0]["wo"], tuple)
+    assert got["blocks"][0]["wo"][0].dtype == torch.int8
+    # generate and beam_search run where their prompt and params live
+    prompt = torch.zeros((1, 4), dtype=torch.int64)
+    assert generate.generate(params, prompt, cfg, 2).shape == (1, 2)
+    assert generate.beam_search(params, prompt, cfg, 2, beam=2)[0].shape == (
+        1, 2, 2)
 
 
 def test_chip_smoke_fails_without_a_card():
