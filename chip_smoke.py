@@ -67,7 +67,27 @@ Phases (any failure raises and the script exits non-zero):
      without the cache;
  19. generate and beam_search on the card against the server's tokens;
  20. profile a few w8kv8 decode steps;
- 21. print the kernels line, the card line and, last, the result line.
+ 21. hold the eager API's kernels against their plain versions: K9
+     elementwise (the eight ops at 4096^2 in fp32/bf16/fp16, integer
+     division by 0 and INT_MIN / -1, float -> int saturation), K8 reduce_2d
+     and K7 welford_norm_stat at 16387^2 (and a ragged 1000 x 333), K3
+     matmul at 4096^3 in bf16/fp16/fp32, ragged and m = 1 with every
+     epilogue, and int8;
+ 22. time each, its plain version and a library yardstick (torch.add,
+     torch.sum / torch.amax, torch.var_mean + rsqrt, torch.matmul) beside
+     its bound;
+ 23. drive `import kfunca_tpu_torch as kfunca` at bench.py's sizes: an eager
+     MLP step (gemm, relu, gemm, + x, mean, backward) at Mistral-7B-v0.1
+     widths in bf16 with the engine knobs at `pallas` (K3 = 6, K8 = 1,
+     K9 = 9 launches asserted) and at their defaults (none), held against
+     each other, and in fp32 at d 1024; norm_stat / sum / mean at 16387^2;
+     the elementwise ops at 4096^2 with an out= write through a permuted
+     view; sort / topk with NaN and ties; the eager causal attention
+     forward and backward (K1, K2) at B=1, H=32, S=2048, hd=128;
+ 24. profile one eager MLP step, and time an eager 256-element add's host
+     cost per op;
+ 25. print the kernels line (ten entries), the card line and, last, the
+     result line.
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -1700,6 +1720,566 @@ def quant_phases(card, reference):
     ]
 
 
+# -- phase 21-25: the eager Tensor API (K3, K7, K8, K9) ------------------------
+
+ENGINE_KNOBS = ("KFUNCA_GEMM_ENGINE", "KFUNCA_REDUCE_ENGINE",
+                "KFUNCA_ELEMENTWISE_ENGINE")
+# bench.py's eager shapes: 4096^2 elementwise and GEMM, 16387^2 reductions
+EW_SHAPE = (4096, 4096)
+RED_SHAPE = (16387, 16387)
+GEMM_MKN = (4096, 4096, 4096)
+# the eager MLP block at Mistral-7B-v0.1 widths, and the fp32 check's
+MLP_BF16 = dict(tokens=4096, d=4096, ff=14336, dtype=torch.bfloat16)
+MLP_FP32 = dict(tokens=4096, d=1024, ff=3584, dtype=torch.float32)
+# one eager MLP step z = gemm(relu(gemm(x, W1)), W2) + x, m = z.mean(0),
+# m.backward(ones) with the three knobs at `pallas`: K3 2 forward + 4
+# backward; K8 the mean; K9 the forward add, the tape's 7 gradient clones
+# (interior nodes z, gemm(a, W2), relu's a and gemm(x, W1); leaves W2, W1
+# and x's first gradient) and x's second gradient added into x.grad
+MLP_LAUNCHES = {"matmul": 6, "reduce_2d": 1, "elementwise": 9,
+                "welford_norm_stat": 0}
+
+
+@contextlib.contextmanager
+def engines(pallas: bool):
+    """The three engine knobs at `pallas`, or unset (their defaults)."""
+    before = {k: os.environ.get(k) for k in ENGINE_KNOBS}
+    for k in ENGINE_KNOBS:
+        if pallas:
+            os.environ[k] = "pallas"
+        else:
+            os.environ.pop(k, None)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def eager_wrappers():
+    from kfunca_tpu_torch.ops.pallas_kernels import (
+        elementwise, matmul, reduce, welford)
+    return {"matmul": matmul.matmul, "welford_norm_stat":
+            welford.welford_norm_stat, "reduce_2d": reduce.reduce_2d,
+            "elementwise": elementwise.elementwise}
+
+
+def eager_launches(counts=None):
+    """Launch counts of K3, K7, K8 and K9 (and K1, K2); with `counts`, the
+    counts since that snapshot."""
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+
+    now = {k: f.launches for k, f in eager_wrappers().items()}
+    now["flash_attention_fwd_stats"] = fa.flash_attention_fwd_stats.launches
+    now["flash_attention_backward"] = fa.flash_attention_backward.launches
+    return now if counts is None else {k: now[k] - counts[k] for k in now}
+
+
+def reset_eager_launches():
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+
+    for f in (*eager_wrappers().values(), fa.flash_attention_fwd_stats,
+              fa.flash_attention_backward):
+        f.launches = 0
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max(1, max |ref|), in fp64."""
+    got, ref = got.double(), ref.double()
+    check(bool(torch.isfinite(got).all()), "result is finite")
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
+
+
+def k9_checks(ew) -> float:
+    """K9 against its plain version: the eight ops at 4096^2 in fp32,
+    bf16 and fp16; integer division with zero and INT_MIN / -1 divisors;
+    float -> int saturation.  Exact, but exp within 1 ulp of its type
+    (both round the same fp32 expf; a 16-bit result can land one step
+    over a rounding boundary)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    a = torch.randn(EW_SHAPE, generator=gen, device="cuda")
+    b = torch.randn(EW_SHAPE, generator=gen, device="cuda")
+    b = torch.where(b.abs() < 1e-3, 1.0, b)
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        x, y = a.to(dt), b.to(dt)
+        for op in ew.OPS:
+            args = (x, y) if op in ("add", "sub", "mul", "div") else (x,)
+            got = ew.elementwise(op, *args, acc_dt=torch.float32, out_dt=dt)
+            want = ew.elementwise_plain(op, *args, acc_dt=torch.float32,
+                                        out_dt=dt)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs()
+            tol = (torch.finfo(dt).eps * want.double().abs() if op == "exp"
+                   else torch.zeros_like(err))
+            check(bool((err <= tol).all()), f"K9 {op} {dt} within "
+                  f"{'1 ulp' if op == 'exp' else 'exact'} of plain (max "
+                  f"{err.max().item():.3g})")
+            worst = max(worst, err.max().item())
+    for dt in (torch.int32, torch.int64):
+        lo = torch.iinfo(dt).min
+        x = torch.randint(-1000, 1000, EW_SHAPE, generator=gen, device="cuda",
+                          dtype=dt)
+        y = torch.randint(-5, 6, EW_SHAPE, generator=gen, device="cuda",
+                          dtype=dt)  # zeros and -1 among them
+        x[0, :4] = lo
+        y[0, :4] = torch.tensor([-1, 0, 1, -1], device="cuda", dtype=dt)
+        got = ew.elementwise("div", x, y, acc_dt=torch.int64, out_dt=dt)
+        want = ew.elementwise_plain("div", x, y, acc_dt=torch.int64, out_dt=dt)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K9 {dt} division exact")
+        check(got[0, :4].tolist() == [lo, -1, lo, lo] and
+              bool((got[y == 0] == -1).all()),
+              "x / 0 = -1 and INT_MIN / -1 = INT_MIN (lax.div)")
+    f = torch.tensor([1.5, -2.5, 300.7, -1e10, float("nan")], device="cuda")
+    for dt in (torch.int8, torch.uint8, torch.int32):
+        got = ew.elementwise("copy", f, acc_dt=dt, out_dt=dt)
+        want = ew.elementwise_plain("copy", f, acc_dt=dt, out_dt=dt)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K9 float -> {dt} saturates as plain")
+    return worst
+
+
+def k8_checks(rd) -> float:
+    """K8 against its plain version at 16387^2: sum / mean / max of fp32,
+    and of bf16 into bf16.  Both sum in fp32 in other orders: within
+    1e-5 of the column's sum of |x| (bf16 output: plus one bf16 step,
+    2^-8 of the value); max exact."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    x = torch.randn(RED_SHAPE, generator=gen, device="cuda") * 2.0 + 0.5
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        mass = xd.float().abs().sum(0, keepdim=True)
+        for op in ("sum", "mean", "max"):
+            got = rd.reduce_2d(xd, op)
+            want = rd.reduce_2d_plain(xd, op)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs()
+            if op == "max":
+                tol = torch.zeros_like(err)
+            else:
+                scale = 1.0 if op == "sum" else 1.0 / RED_SHAPE[0]
+                tol = 1e-5 * mass.double() * scale
+                if dt != torch.float32:
+                    tol = tol + want.double().abs() * 2.0 ** -8
+            check(bool((err <= tol).all()), f"K8 {op} {dt} within tolerance "
+                  f"(max err {err.max().item():.3g})")
+            worst = max(worst, err.max().item())
+    return worst
+
+
+def k7_checks(wf) -> float:
+    """K7 against its plain (two-pass) version at 16387^2 and a ragged
+    1000 x 333: mean within 1e-5 of mean |x|, invstd within 1e-4
+    relative (fp32 in other orders; Welford against two passes)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    worst = 0.0
+    for shape in (RED_SHAPE, (1000, 333)):
+        x = torch.randn(shape, generator=gen, device="cuda") * 3.0 + 1.0
+        m, s = wf.welford_norm_stat(x)
+        pm, ps = wf.welford_norm_stat_plain(x)
+        torch.cuda.synchronize()
+        em = (m - pm).abs().max().item()
+        es = ((s - ps).abs() / ps.abs()).max().item()
+        check(em <= 1e-5 * x.abs().mean().item() and es <= 1e-4,
+              f"K7 {shape} mean err {em:.3g}, invstd rel err {es:.3g}")
+        worst = max(worst, em, (s - ps).abs().max().item())
+    return worst
+
+
+def k3_checks(mm) -> float:
+    """K3 against its plain version: 4096^3 in bf16, fp16 and fp32; ragged
+    (4095, 4097, 1000) and m = 1 with every epilogue; int8.  fp32 within
+    1e-4 x max(1, max |ref|) (fp32 sums in other orders); 16-bit within
+    2^-7 of max |ref| (both round one fp32 result; a hair's difference can
+    flip a rounding); int8 exact."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    worst = 0.0
+
+    def held(got, want, dt, what):
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        top = want.double().abs().max().item()
+        tol = 1e-4 * max(1.0, top) if dt == torch.float32 else 2.0 ** -7 * top
+        check(err <= tol, f"K3 {what} {dt}: max err {err:.3g} <= {tol:.3g}")
+        worst = max(worst, err)
+
+    m, k, n = GEMM_MKN
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        a = (torch.randn((m, k), generator=gen, device="cuda")).to(dt)
+        b = (torch.randn((k, n), generator=gen, device="cuda") / 64).to(dt)
+        held(mm.matmul(a, b), mm.matmul_plain(a, b), dt, f"{m}x{k}x{n}")
+    for m, k, n in ((4095, 4097, 1000), (1, 4096, 4096)):
+        bias = torch.randn(n, generator=gen, device="cuda")
+        res = torch.randn((m, n), generator=gen, device="cuda")
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            a = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            b = (torch.randn((k, n), generator=gen, device="cuda") / 64).to(dt)
+            for epi in ("", "bias", "relu", "bias_gelu", "silu", "bias_silu_res",
+                        "res"):
+                kw = dict(bias=bias if "bias" in epi else None,
+                          residual=res if "res" in epi else None, epilogue=epi)
+                held(mm.matmul(a, b, **kw), mm.matmul_plain(a, b, **kw), dt,
+                     f"{m}x{k}x{n} {epi or 'plain'}")
+        a8 = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        b8 = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        got, want = mm.matmul(a8, b8), mm.matmul_plain(a8, b8)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"K3 int8 {m}x{k}x{n} exact")
+    return worst
+
+
+def eager_timing():
+    """Phase 22: each kernel, its plain version and a library yardstick at
+    the phase-21 shapes, with the bound from this run's inputs."""
+    from kfunca_tpu_torch.ops.pallas_kernels import (
+        elementwise as ew, matmul as mm, reduce as rd, welford as wf)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    out = {}
+
+    def bound(nbytes, flops, dt):
+        t_b = nbytes / HBM_BYTES_PER_S
+        t_f = flops / PEAK_FLOPS[dt]
+        return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+    a = torch.randn(EW_SHAPE, generator=gen, device="cuda")
+    b = torch.randn(EW_SHAPE, generator=gen, device="cuda")
+    f32 = torch.float32
+    bms, by = bound(3 * a.numel() * 4, a.numel(), f32)
+    out["k9"] = dict(
+        ms=time_ms(lambda: ew.elementwise("add", a, b, acc_dt=f32, out_dt=f32)),
+        plain_ms=time_ms(lambda: ew.elementwise_plain("add", a, b, acc_dt=f32,
+                                                      out_dt=f32)),
+        library_ms=time_ms(lambda: torch.add(a, b)), bound_ms=bms, bound_by=by,
+        what="add, 4096^2 fp32")
+    del a, b
+    x = torch.randn(RED_SHAPE, generator=gen, device="cuda")
+    r, c = RED_SHAPE
+    bms, by = bound((r * c + c) * 4, r * c, f32)
+    out["k8"] = dict(ms=time_ms(lambda: rd.reduce_2d(x, "sum"), reps=10),
+                     plain_ms=time_ms(lambda: rd.reduce_2d_plain(x, "sum"),
+                                      reps=10),
+                     library_ms=time_ms(lambda: torch.sum(x, 0), reps=10),
+                     bound_ms=bms, bound_by=by, what="sum, 16387^2 fp32")
+    out["k8"]["max_ms"] = time_ms(lambda: rd.reduce_2d(x, "max"), reps=10)
+    out["k8"]["max_library_ms"] = time_ms(lambda: torch.amax(x, 0), reps=10)
+    # Welford: 4 flops an element (sub, divide, two fused multiply-adds)
+    bms, by = bound((r * c + 2 * c) * 4, 4 * r * c, f32)
+
+    def library_norm_stat():
+        var, mean = torch.var_mean(x, 0, correction=0)
+        return mean, torch.rsqrt(var + 1e-12)
+
+    out["k7"] = dict(ms=time_ms(lambda: wf.welford_norm_stat(x), reps=10),
+                     plain_ms=time_ms(lambda: wf.welford_norm_stat_plain(x),
+                                      reps=10),
+                     library_ms=time_ms(library_norm_stat, reps=10),
+                     bound_ms=bms, bound_by=by, what="16387^2 fp32")
+    del x
+    m, k, n = GEMM_MKN
+    for dt, key in ((torch.bfloat16, "k3"), (torch.float32, "k3_fp32")):
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dt)
+        bms, by = bound((m * k + k * n + m * n) * a.element_size(),
+                        2 * m * k * n, dt)
+        out[key] = dict(ms=time_ms(lambda: mm.matmul(a, b), reps=10),
+                        plain_ms=time_ms(lambda: mm.matmul_plain(a, b), reps=10),
+                        library_ms=time_ms(lambda: torch.matmul(a, b), reps=10),
+                        bound_ms=bms, bound_by=by,
+                        what=f"{m}x{k}x{n} {str(dt)[6:]}")
+    return out
+
+
+def mlp_inputs(spec, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t, d, ff, dt = spec["tokens"], spec["d"], spec["ff"], spec["dtype"]
+    x = torch.randn((t, d), generator=gen, device="cuda").to(dt)
+    w1 = (torch.randn((d, ff), generator=gen, device="cuda")
+          / math.sqrt(d)).to(dt)
+    w2 = (torch.randn((ff, d), generator=gen, device="cuda")
+          / math.sqrt(ff)).to(dt)
+    return x, w1, w2
+
+
+def eager_mlp(kfunca, x_t, w1_t, w2_t):
+    """One eager MLP step through the kfunca API; returns the output, the
+    mean and the three gradients as torch tensors."""
+    x = kfunca.from_torch(x_t).set_requires_grad(True)
+    w1 = kfunca.from_torch(w1_t).set_requires_grad(True)
+    w2 = kfunca.from_torch(w2_t).set_requires_grad(True)
+    h = kfunca.gemm(x, w1)
+    a = h.relu()
+    z = kfunca.gemm(a, w2) + x
+    m = z.mean(0)
+    m.backward(kfunca.from_torch(torch.ones_like(m.to_torch())))
+    got = dict(z=z.to_torch(), m=m.to_torch(), gx=x.grad().to_torch(),
+               gw1=w1.grad().to_torch(), gw2=w2.grad().to_torch())
+    torch.cuda.synchronize()
+    return got
+
+
+def mlp_phase(kfunca, spec, seed, tol_of):
+    """The MLP step with the knobs at `pallas` (launches asserted) and at
+    their defaults (no launch of K3, K7, K8, K9), held against each
+    other; returns the kernel run's host ms, launches and worst error."""
+    x, w1, w2 = mlp_inputs(spec, seed)
+    with engines(True):
+        eager_mlp(kfunca, x, w1, w2)  # warm
+        before = eager_launches()
+        t0 = time.perf_counter()
+        got = eager_mlp(kfunca, x, w1, w2)
+        ms = (time.perf_counter() - t0) * 1e3
+        n = eager_launches(before)
+    want_n = {k: v for k, v in n.items() if k in MLP_LAUNCHES}
+    check(want_n == MLP_LAUNCHES, f"eager MLP launches {want_n} == "
+          f"{MLP_LAUNCHES}")
+    with engines(False):
+        before = eager_launches()
+        t0 = time.perf_counter()
+        ref = eager_mlp(kfunca, x, w1, w2)
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        n0 = eager_launches(before)
+    check(all(n0[k] == 0 for k in MLP_LAUNCHES),
+          f"default engines launch no eager kernel ({n0})")
+    worst = 0.0
+    for key in got:
+        err = (got[key].double() - ref[key].double()).abs().max().item()
+        top = ref[key].double().abs().max().item()
+        tol = tol_of(top)
+        check(err <= tol, f"eager MLP {key}: kernels vs defaults max err "
+              f"{err:.3g} <= {tol:.3g}")
+        print(f"    {key}: max |kernels - defaults| {err:.3g}, max |defaults| "
+              f"{top:.3g}", flush=True)
+        worst = max(worst, err / max(top, 1e-30))
+    return dict(ms=ms, ref_ms=ref_ms, launches=n, worst_rel=worst)
+
+
+# lax.sort / lax.top_k orders of these rows, read from the JAX package on
+# the CPU: NaN last both ways in sort, -0.0 and 0.0 tied; top_k by the
+# float total order (+NaN first, -NaN last), ties by index
+SORT_ROW = [3.0, float("nan"), -0.0, 0.0, 1.0, 3.0, -float("nan"),
+            float("inf"), -float("inf"), 3.0, 0.0, -0.0]
+SORT_ASC = [[8, 2, 3, 10, 11, 4, 0, 5, 9, 7, 1, 6],
+            [3, 0, 1, 8, 9, 7, 2, 6, 11, 4, 5, 10]]
+SORT_DESC = [[7, 0, 5, 9, 4, 2, 3, 10, 11, 8, 1, 6],
+             [4, 2, 6, 11, 7, 0, 1, 8, 9, 3, 5, 10]]
+TOPK_LARGEST = [[1, 7, 0, 5, 9], [10, 4, 2, 6, 11]]
+TOPK_SMALLEST = [[8, 2, 3, 10, 11], [3, 0, 1, 8, 9]]
+
+
+def eager_ops_phase(kfunca):
+    """norm_stat / sum / mean at 16387^2, the elementwise ops at 4096^2
+    (an out= write through a permuted view among them), sort / topk with
+    NaN and ties, and the eager causal attention forward and backward;
+    each held against torch."""
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    big = torch.randn(RED_SHAPE, generator=gen, device="cuda") * 2.0 + 0.5
+    t = kfunca.from_torch(big)
+    with engines(True):
+        mean_t, invstd_t = t.norm_stat(0)
+        s_t, mu_t = t.sum(0), t.mean(0)
+    var, mean = torch.var_mean(big, 0, correction=0, keepdim=True)
+    mass = big.abs().sum(0, keepdim=True)
+    # as phase 21: fp32 sums in other orders, 1e-5 of the sum of |x|
+    check(bool(((mean_t.to_torch() - mean).abs()
+                <= 1e-5 * mass / RED_SHAPE[0]).all())
+          and rel_err(invstd_t.to_torch(), torch.rsqrt(var + 1e-12)) <= 1e-4,
+          "norm_stat through Tensor")
+    check(bool(((s_t.to_torch() - big.sum(0, keepdim=True)).abs()
+                <= 1e-5 * mass).all())
+          and bool(((mu_t.to_torch() - big.mean(0, keepdim=True)).abs()
+                    <= 1e-5 * mass / RED_SHAPE[0]).all()),
+          "sum and mean through Tensor")
+    del t, big, mean_t, invstd_t, s_t, mu_t
+
+    a_t = torch.randn(EW_SHAPE, generator=gen, device="cuda")
+    b_t = torch.randn(EW_SHAPE, generator=gen, device="cuda") + 3.0
+    a, b = kfunca.from_torch(a_t), kfunca.from_torch(b_t)
+    with engines(True):
+        results = {"add": (a + b, a_t + b_t), "sub": (a - b, a_t - b_t),
+                   "mul": (a * b, a_t * b_t), "div": (a / b, a_t / b_t),
+                   "neg": (-a, -a_t), "abs": (a.abs(), a_t.abs()),
+                   "exp": (a.exp(), torch.exp(a_t)),
+                   "copy": (a.clone(), a_t),
+                   "convert": (a.bfloat16(), a_t.bfloat16())}
+        c_t = torch.randn(EW_SHAPE, generator=gen, device="cuda")
+        c = kfunca.from_torch(c_t)
+        ptr = c.data_ptr()
+        view = c.permute(1, 0)
+        view += a  # out= through a permuted view of c's storage
+        qi = kfunca.from_torch(torch.tensor([7, -7, 5, -2 ** 31], device="cuda",
+                                            dtype=torch.int32))
+        di = kfunca.from_torch(torch.tensor([2, 2, 0, -1], device="cuda",
+                                            dtype=torch.int32))
+        quotient = (qi / di).to_torch().tolist()
+    for op, (got, want) in results.items():
+        g = got.to_torch()
+        err = (g.double() - want.double()).abs()
+        # exact, but exp within 1 ulp (expf on both sides, as in phase 21)
+        tol = (torch.finfo(want.dtype).eps * want.double().abs()
+               if op == "exp" else torch.zeros_like(err))
+        check(g.dtype == want.dtype and bool((err <= tol).all()),
+              f"eager {op} through Tensor (max err {err.max().item():.3g})")
+    check(c.data_ptr() == ptr and torch.equal(c.to_torch(), c_t + a_t.t()),
+          "+= through a permuted view writes the shared storage in place")
+    check(quotient == [3, -3, -1, -2 ** 31], f"int32 division {quotient}")
+
+    row = kfunca.from_torch(torch.tensor([SORT_ROW, SORT_ROW[::-1]],
+                                         device="cuda"))
+    asc, desc = row.sort(1, False)[1], row.sort(1, True)[1]
+    top, bottom = row.topk(5, 1, True)[1], row.topk(5, 1, False)[1]
+    got = [x.to_torch().tolist() for x in (asc, desc, top, bottom)]
+    check(got == [SORT_ASC, SORT_DESC, TOPK_LARGEST, TOPK_SMALLEST],
+          f"sort / topk orders of NaN, -0.0 and ties {got}")
+
+    # K1 / K2 through the eager attention: B=1, H=32, S=2048, hd=128, bf16
+    shape = (1, 32, 2048, 128)
+    q_t, k_t, v_t, g_t = (torch.randn(shape, generator=gen, device="cuda")
+                          .bfloat16() for _ in range(4))
+    q, k, v = (kfunca.from_torch(x).set_requires_grad(True)
+               for x in (q_t, k_t, v_t))
+    out = kfunca.causal_attention(q, k, v)
+    out.backward(kfunca.from_torch(g_t))
+    ref = fa.flash_attention_plain(q_t, k_t, v_t)[0]
+    dq, dk, dv = fa.flash_attention_backward_plain(q_t, k_t, v_t, g_t)
+    for name, got_, want in (("out", out, ref), ("dq", q.grad(), dq),
+                             ("dk", k.grad(), dk), ("dv", v.grad(), dv)):
+        got_ = got_.to_torch()
+        err = (got_.double() - want.double()).abs().max().item()
+        tol = 2.0 ** -7 * want.double().abs().max().item()
+        check(err <= tol, f"eager attention {name}: {err:.3g} <= {tol:.3g}")
+
+
+def host_cost_per_op(kfunca, n=2000):
+    """Host microseconds per eager add of two 256-element fp32 tensors
+    (bench.py's dispatch-overhead reading), default engine and K9."""
+    a = kfunca.from_torch(torch.ones(256, device="cuda"))
+    b = kfunca.from_torch(torch.ones(256, device="cuda"))
+    us = {}
+    for label, pallas in (("default", False), ("K9", True)):
+        with engines(pallas):
+            for _ in range(50):
+                a + b
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                a + b
+            torch.cuda.synchronize()
+            us[label] = (time.perf_counter() - t0) / n * 1e6
+    return us
+
+
+def eager_profile(kfunca):
+    """torch.profiler over one eager MLP step at Mistral-7B-v0.1 widths
+    with the knobs at `pallas` (after the main path: not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w1, w2 = mlp_inputs(MLP_BF16, SEED + 27)
+    with engines(True):
+        eager_mlp(kfunca, x, w1, w2)  # warm
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eager_mlp(kfunca, x, w1, w2)
+            wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary(prof, wall_us, 1, n_top=10)
+
+
+def eager_phases(card):
+    """Phases 21-24; returns the kernels-line entries of K3, K7, K8, K9."""
+    import kfunca_tpu_torch as kfunca
+    from kfunca_tpu_torch.ops.pallas_kernels import (
+        elementwise as ew, matmul as mm, reduce as rd, welford as wf)
+
+    print("[21] K9, K8, K7 and K3 vs their plain versions", flush=True)
+    errs = {"k9": k9_checks(ew), "k8": k8_checks(rd), "k7": k7_checks(wf),
+            "k3": k3_checks(mm)}
+    for key, err in errs.items():
+        print(f"  {key}: max abs err {err:.3g}", flush=True)
+    free_device_memory()
+    timing = eager_timing()
+    for key, t in timing.items():
+        extra = (f"; max {t['max_ms']:.4f} ms, torch.amax "
+                 f"{t['max_library_ms']:.4f} ms" if "max_ms" in t else "")
+        print(f"[22] {key} ({t['what']}): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){extra}; {card}",
+              flush=True)
+    free_device_memory()
+
+    print("[23] the eager Tensor API through `import kfunca_tpu_torch as "
+          "kfunca`", flush=True)
+    # the main path: every count starts at 0 here and is read at the end
+    reset_eager_launches()
+    runs = {}
+    for label, spec, seed, tol_of in (
+            ("bf16 MLP, Mistral-7B-v0.1 widths", MLP_BF16, SEED + 28,
+             lambda top: 2.0 ** -7 * top),
+            ("fp32 MLP, d 1024, ff 3584", MLP_FP32, SEED + 29,
+             lambda top: 1e-4 * max(1.0, top))):
+        r = mlp_phase(kfunca, spec, seed, tol_of)
+        runs[label] = r
+        print(f"  {label} ({spec['tokens']} tokens): kernels "
+              f"{r['ms']:.1f} ms, defaults {r['ref_ms']:.1f} ms host clock a "
+              f"step (forward + backward); launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }; worst "
+              f"relative difference {r['worst_rel']:.3g}; {card}", flush=True)
+        free_device_memory()
+    eager_ops_phase(kfunca)
+    launches = eager_launches()
+    print(f"  norm_stat/sum/mean 16387^2, elementwise 4096^2 (out= through a "
+          f"permuted view), sort/topk with NaN and ties, eager attention "
+          f"B=1 H=32 S=2048 hd=128 bf16 forward + backward: all held; "
+          f"phase-23 launches {launches}", flush=True)
+    check(launches["welford_norm_stat"] >= 1
+          and launches["flash_attention_fwd_stats"] >= 1
+          and launches["flash_attention_backward"] >= 1,
+          "phase 23 launched K7, K1 and K2")
+    free_device_memory()
+
+    prof = eager_profile(kfunca)
+    print_profile("[24] eager MLP step profile (bf16, Mistral-7B-v0.1 "
+                  "widths, knobs at pallas, profiler on)", prof, card)
+    us = host_cost_per_op(kfunca)
+    print(f"[24] host cost of an eager 256-element add: default "
+          f"{us['default']:.1f} us/op, K9 {us['K9']:.1f} us/op; {card}",
+          flush=True)
+    free_device_memory()
+
+    sources = {"k3": "matmul", "k7": "reduce", "k8": "reduce",
+               "k9": "elementwise"}
+
+    def entry(name, key, line, n, err):
+        t = timing[key]
+        return {"name": name, "route": "cuda",
+                "source": f"kfunca_tpu_torch/csrc/{sources[key]}.cu",
+                "replaces": f"kfunca_tpu/ops/pallas_kernels/{line}",
+                "launches": n, "max_abs_err": err, "max_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+
+    return [entry("matmul", "k3", "matmul.py:85", launches["matmul"],
+                  errs["k3"]),
+            entry("welford_norm_stat", "k7", "welford.py:81",
+                  launches["welford_norm_stat"], errs["k7"]),
+            entry("reduce_2d", "k8", "reduce.py:57", launches["reduce_2d"],
+                  errs["k8"]),
+            entry("elementwise", "k9", "elementwise.py:56",
+                  launches["elementwise"], errs["k9"])]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1766,6 +2346,8 @@ def main() -> int:
         })
     free_device_memory()
     kernels += quant_phases(card, reference)
+    free_device_memory()
+    kernels += eager_phases(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

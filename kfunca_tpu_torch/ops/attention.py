@@ -21,8 +21,12 @@ finfo.min and gives the mean of V.  A model never meets such a row
 fp16 inputs ride the fp32 path: fp16 values embed exactly in fp32, so they
 are widened before the kernel and the results narrowed after.
 
-The eager-Tensor `causal_attention` with its AttentionGradFunction belongs
-to the eager-Tensor slice of the port.
+The eager-Tensor `causal_attention` (kfunca_tpu/ops/attention.py:119-154)
+runs the same kernel wrappers on the kfunca tape, without torch.autograd:
+its forward launches K1 and keeps (out, lse) on its AttentionGradFunction,
+whose backward launches K2 from them (the JAX package's tape re-runs the
+forward inside jax.vjp instead; the gradients are the same).  fp64 runs
+the einsum oracle, as it does in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +37,9 @@ import math
 
 import torch
 
+from ..core.iterator import check
+from ..core.tensor import GradFunction, Tensor
+from ..runtime.launcher import Launcher
 from .pallas_kernels.flash_attention import (
     flash_attention_backward,
     flash_attention_fwd_stats,
@@ -133,3 +140,70 @@ def make_flash_attention(window: int | None = None):
         return _apply(q, k, v, window)
 
     return fn
+
+
+# -- the eager-Tensor causal attention ---------------------------------------
+
+
+def _eager_forward(q, k, v):
+    """out for torch arrays: K1 for fp32 / bf16 (fp16 widened to fp32), the
+    einsum oracle for fp64."""
+    if q.dtype == torch.float64:
+        return _sdpa_xla(q, k, v)
+    if q.dtype == torch.float16:
+        out = flash_attention_fwd_stats(q.float(), k.float(), v.float())[0]
+        return out.to(torch.float16)
+    return flash_attention_fwd_stats(q, k, v)[0]
+
+
+def _eager_backward(q, k, v, g):
+    """(dq, dk, dv) for cotangent g at the current q, k, v: K1 recomputes
+    (out, lse) and K2 takes them, as the JAX package's jax.vjp recomputes
+    its forward; the oracle's gradient for fp64."""
+    if q.dtype == torch.float64:
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            return torch.autograd.grad(_sdpa_xla(*leaves), leaves, g)
+    dt = q.dtype
+    if dt == torch.float16:
+        q, k, v = q.float(), k.float(), v.float()
+    out, lse = flash_attention_fwd_stats(q, k, v)
+    grads = flash_attention_backward(q, k, v, g.to(out.dtype), out, lse)
+    return tuple(x.to(dt) for x in grads)
+
+
+class AttentionGradFunction(GradFunction):
+    def __init__(self, q: Tensor, k: Tensor, v: Tensor):
+        super().__init__([q, k, v])
+
+    def backward(self, grad_output: Tensor):
+        from .elementwise import wrap_array
+
+        q, k, v = self.inputs
+        dq, dk, dv = Launcher.instance().submit(
+            _eager_backward, q._array(), k._array(), v._array(),
+            grad_output._array(), name="causal_attention_bwd",
+            device=q.torch_device())
+        return [wrap_array(dq, q.dtype()), wrap_array(dk, k.dtype()),
+                wrap_array(dv, v.dtype())]
+
+
+def causal_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """Causal attention of (B, H, Sq, D) q over (B, H, Skv, D) k, v on the
+    kfunca tape."""
+    from .elementwise import wrap_array
+
+    check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "attention: rank-4 (B,H,S,D) inputs")
+    check(q.dtype() == k.dtype() == v.dtype(), "attention: dtype mismatch")
+    check(q.device() == k.device() == v.device(), "attention: device mismatch")
+    b, h, sq, d = q.sizes()
+    check(k.sizes() == [b, h, k.shape(2), d], "attention: k shape mismatch")
+    check(v.sizes() == k.sizes(), "attention: v shape mismatch")
+    out = Launcher.instance().submit(
+        _eager_forward, q._array(), k._array(), v._array(),
+        name="causal_attention", device=q.torch_device())
+    out = wrap_array(out, q.dtype())
+    if q.requires_grad() or k.requires_grad() or v.requires_grad():
+        out.set_requires_grad(True)
+        out.set_grad_fn(AttentionGradFunction(q, k, v))
+    return out

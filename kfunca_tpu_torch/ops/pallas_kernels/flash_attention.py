@@ -41,7 +41,6 @@ allocator hands freed memory only to later work on the same stream.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -158,10 +157,9 @@ def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None):
     out = torch.empty_like(qc)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if save_stats else None)
-    fn = _kernels.load("flash_attention").kf_flash_attention_fwd
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 5 + [i32] * 7 + [ctypes.c_float, i32, vp]
-    fn.restype = i32
+    vp, i32 = _kernels.VP, _kernels.I32
+    fn = _kernels.function("flash_attention", "kf_flash_attention_fwd",
+                           (vp,) * 5 + (i32,) * 7 + (_kernels.F32, i32, vp))
     err = fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
              lse.data_ptr() if save_stats else None, b, h, hkv, sq, skv, dp,
              0 if window is None else int(window), 1.0 / math.sqrt(d),
@@ -211,10 +209,9 @@ def flash_attention_backward(q, k, v, g, out, lse, window=None):
     gc, oc, lc = _prep(g, dp), _prep(out, dp), lse.contiguous()
     dq, dk, dv = torch.empty_like(qc), torch.empty_like(kc), torch.empty_like(vc)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _kernels.load("flash_attention").kf_flash_attention_bwd
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 10 + [i32] * 7 + [ctypes.c_float, i32, vp]
-    fn.restype = i32
+    vp, i32 = _kernels.VP, _kernels.I32
+    fn = _kernels.function("flash_attention", "kf_flash_attention_bwd",
+                           (vp,) * 10 + (i32,) * 7 + (_kernels.F32, i32, vp))
     err = fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
              oc.data_ptr(), lc.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, dp,

@@ -26,7 +26,6 @@ it.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 
 import torch
 
@@ -223,12 +222,11 @@ def _run(entry, q, pool, pool_v, page_tables, positions, window, scales,
                          "== 0 and 16-byte aligned pools")
     if sk is not None and sv.stride() != sk.stride():
         raise ValueError("the two scale pools must share one layout")
-    lib = _kernels.load("paged_attention")
-    fn = getattr(lib, f"kf_{entry.__name__}")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp, vp, vp, i64, vp, vp, i64, i64, i64, vp, vp, vp, i32,
-                   i32, i32, i32, i32, i32, i64, i64, i32, i32, i32, vp]
-    fn.restype = i32
+    vp, i32, i64 = _kernels.VP, _kernels.I32, _kernels.I64
+    fn = _kernels.function(
+        "paged_attention", f"kf_{entry.__name__}",
+        (vp, vp, vp, i64, vp, vp, i64, i64, i64, vp, vp, vp, i32,
+         i32, i32, i32, i32, i32, i64, i64, i32, i32, i32, vp))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     s_ptrs = (None, None) if sk is None else (sk.data_ptr(), sv.data_ptr())

@@ -38,7 +38,6 @@ k-group, summed across groups in fp32.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 
 import torch
 
@@ -189,11 +188,9 @@ def matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
     split = q8_split_k(m, k, n)
     scratch = (torch.empty((split, m, n), dtype=torch.int32,
                            device=a_q8.device) if split > 1 else None)
-    lib = _kernels.load("quant")
-    fn = lib.kf_matmul_q8
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
-    fn.restype = i32
+    vp, i32 = _kernels.VP, _kernels.I32
+    fn = _kernels.function("quant", "kf_matmul_q8",
+                           (vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp))
     stream = torch.cuda.current_stream(a_q8.device).cuda_stream
     err = fn(a_q8.data_ptr(), b_q8.data_ptr(), sa.data_ptr(), sb.data_ptr(),
              out.data_ptr(), None if scratch is None else scratch.data_ptr(),

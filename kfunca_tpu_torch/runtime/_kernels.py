@@ -29,7 +29,11 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
+
+# argument types of the kernels' C entry points
+VP, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 def nvcc_path() -> str:
@@ -112,3 +116,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes) -> object:
+    """The C entry point `symbol` of `csrc/<name>.cu`, its argument types
+    set once, when it is first looked up; every entry point returns a CUDA
+    error code (0 on success)."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
+    return fn

@@ -21,8 +21,8 @@ def resolve_device(device=None) -> torch.device:
     Raises RuntimeError when CUDA is asked for (explicitly or by default)
     and no CUDA device is present.  Selecting CUDA also pins the matmul
     precision to the JAX package's: fp32 at full fp32 (Precision.HIGHEST;
-    TF32 would keep only ~3 decimal digits), and bf16 products summed in
-    fp32 (preferred_element_type=float32), never in reduced precision."""
+    TF32 would keep only ~3 decimal digits), and bf16 / fp16 products summed
+    in fp32 (preferred_element_type=float32), never in reduced precision."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -32,6 +32,7 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":

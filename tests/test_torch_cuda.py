@@ -573,3 +573,256 @@ def test_prefetcher_stages_batches_on_the_card(cuda):
             np.testing.assert_array_equal(targets.cpu().numpy(), want[1])
     finally:
         pf.close()
+
+
+# -- the eager Tensor API's kernels: K3, K7, K8, K9 -----------------------------
+
+
+def _eager_kernels():
+    from kfunca_tpu_torch.ops.pallas_kernels import (
+        elementwise, matmul, reduce, welford)
+    return elementwise, matmul, reduce, welford
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16,
+                                   torch.int32, torch.int64])
+def test_elementwise_kernel_matches_plain(cuda, dtype):
+    """K9: exact against its plain version (exp within 1 ulp of its type:
+    the same expf rounds once more into a 16-bit type), integer division
+    with XLA's x / 0 = -1 and INT_MIN / -1 = INT_MIN."""
+    ew = _eager_kernels()[0]
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    if dtype.is_floating_point:
+        a = torch.randn((33, 71), generator=gen, device=cuda).to(dtype)
+        b = (torch.rand((33, 71), generator=gen, device=cuda) + 0.5).to(dtype)
+        acc = torch.float32
+        ops = ew.OPS
+    else:
+        a = torch.randint(-50, 50, (33, 71), generator=gen, device=cuda, dtype=dtype)
+        b = torch.randint(-3, 4, (33, 71), generator=gen, device=cuda, dtype=dtype)
+        a[0, 0], b[0, 0] = torch.iinfo(dtype).min, -1
+        acc = torch.int64
+        ops = ("add", "sub", "mul", "div", "copy", "neg", "abs")
+    for op in ops:
+        args = (a, b) if op in ("add", "sub", "mul", "div") else (a,)
+        before = ew.elementwise.launches
+        got = ew.elementwise(op, *args, acc_dt=acc, out_dt=dtype)
+        torch.cuda.synchronize()
+        assert ew.elementwise.launches == before + 1
+        want = ew.elementwise_plain(op, *args, acc_dt=acc, out_dt=dtype)
+        if op == "exp":
+            tol = torch.finfo(dtype).eps * want.double().abs()
+            assert bool(((got.double() - want.double()).abs() <= tol).all())
+        else:
+            assert torch.equal(got, want), op
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (300, 70), (1000, 333)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduce_kernels_match_plain(cuda, shape, dtype):
+    """K8 (sum, mean, max) and K7 (fp32) against their plain versions:
+    fp32 sums in other orders within 1e-5 of the column's sum of |x|
+    (bf16 out: plus one bf16 step); max exact."""
+    _, _, rd, wf = _eager_kernels()
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3 + 1).to(dtype)
+    mass = x.float().abs().sum(0, keepdim=True).double()
+    for op in ("sum", "mean", "max"):
+        got, want = rd.reduce_2d(x, op), rd.reduce_2d_plain(x, op)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs()
+        if op == "max":
+            assert torch.equal(got, want)
+            continue
+        tol = 1e-5 * mass * (1.0 if op == "sum" else 1.0 / shape[0])
+        if dtype != torch.float32:
+            tol = tol + want.double().abs() * 2.0 ** -8
+        assert bool((err <= tol).all()), (op, err.max().item())
+    if dtype == torch.float32:
+        m, s = wf.welford_norm_stat(x)
+        pm, ps = wf.welford_norm_stat_plain(x)
+        torch.cuda.synchronize()
+        assert (m - pm).abs().max().item() <= 1e-5 * x.abs().mean().item()
+        assert ((s - ps).abs() / ps).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("mkn", [(1, 64, 8), (37, 100, 53), (130, 45, 137),
+                                 (256, 512, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_matmul_kernel_matches_plain(cuda, mkn, dtype):
+    """K3 with every epilogue: fp32 within 1e-4 x max(1, max |ref|), 16-bit
+    within 2^-7 of max |ref|; int8 exact."""
+    mm = _eager_kernels()[1]
+    m, k, n = mkn
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=cuda) / 8).to(dtype)
+    bias = torch.randn(n, generator=gen, device=cuda)
+    res = torch.randn((m, n), generator=gen, device=cuda)
+    for epi in ("", "bias", "relu", "bias_gelu", "silu", "bias_silu_res"):
+        kw = dict(bias=bias if "bias" in epi else None,
+                  residual=res if "res" in epi else None, epilogue=epi)
+        got, want = mm.matmul(a, b, **kw), mm.matmul_plain(a, b, **kw)
+        torch.cuda.synchronize()
+        top = want.double().abs().max().item()
+        tol = 1e-4 * max(1.0, top) if dtype == torch.float32 else 2.0 ** -7 * top
+        assert got.dtype == dtype
+        assert (got.double() - want.double()).abs().max().item() <= tol, epi
+    a8 = torch.randint(-128, 128, (m, k), generator=gen, device=cuda, dtype=torch.int8)
+    b8 = torch.randint(-128, 128, (k, n), generator=gen, device=cuda, dtype=torch.int8)
+    assert torch.equal(mm.matmul(a8, b8), mm.matmul_plain(a8, b8))
+
+
+def _eager_mlp_step(kfunca, dev, x, w1, w2):
+    xs, a1, a2 = (kfunca.from_numpy(v, dev).set_requires_grad(True) for v in (x, w1, w2))
+    z = kfunca.gemm(kfunca.gemm(xs, a1).relu(), a2) + xs
+    m = z.mean(0)
+    m.backward(kfunca.from_numpy(np.ones((1, x.shape[1]), np.float32), dev))
+    return [t.to_torch().cpu() for t in (z, m, xs.grad(), a1.grad(), a2.grad())]
+
+
+def test_eager_api_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One eager MLP step with the three knobs at `pallas`: the card (K3 six
+    times, K8 once, K9 nine times) against the CPU's plain versions, fp32
+    within 1e-4 of each tensor's largest value."""
+    import kfunca_tpu_torch as kfunca
+
+    ew, mm, rd, wf = _eager_kernels()
+    for knob in ("KFUNCA_GEMM_ENGINE", "KFUNCA_REDUCE_ENGINE",
+                 "KFUNCA_ELEMENTWISE_ENGINE"):
+        monkeypatch.setenv(knob, "pallas")
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((256, 256)).astype(np.float32)
+    w1 = (rng.standard_normal((256, 512)) / 16).astype(np.float32)
+    w2 = (rng.standard_normal((512, 256)) / 23).astype(np.float32)
+    before = (mm.matmul.launches, rd.reduce_2d.launches, ew.elementwise.launches)
+    card = _eager_mlp_step(kfunca, 0, x, w1, w2)
+    torch.cuda.synchronize()
+    after = (mm.matmul.launches, rd.reduce_2d.launches, ew.elementwise.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (6, 1, 9)
+    cpu = _eager_mlp_step(kfunca, "cpu", x, w1, w2)
+    for got, want in zip(card, cpu):
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_eager_norm_stat_and_attention_launch_their_kernels(cuda):
+    import kfunca_tpu_torch as kfunca
+
+    _, _, _, wf = _eager_kernels()
+    x = np.random.default_rng(6).standard_normal((500, 70)).astype(np.float32)
+    before = wf.welford_norm_stat.launches
+    m, s = kfunca.from_numpy(x, 0).norm_stat(0)
+    assert wf.welford_norm_stat.launches == before + 1
+    cm, cs = kfunca.from_numpy(x, "cpu").norm_stat(0)
+    assert np.allclose(m.numpy(), cm.numpy(), atol=1e-5)
+    assert np.allclose(s.numpy(), cs.numpy(), rtol=1e-4)
+    qkv = [np.random.default_rng(i).standard_normal((1, 2, 40, 64)).astype(np.float32)
+           for i in range(4)]
+    f0, b0 = fa.flash_attention_fwd_stats.launches, fa.flash_attention_backward.launches
+    grads = {}
+    for dev in (0, "cpu"):
+        q, k, v = (kfunca.from_numpy(t, dev).set_requires_grad(True) for t in qkv[:3])
+        out = kfunca.causal_attention(q, k, v)
+        out.backward(kfunca.from_numpy(qkv[3], dev))
+        grads[dev] = [t.numpy() for t in (out, q.grad(), k.grad(), v.grad())]
+    # K1 twice: the forward, and the backward's recompute of (out, lse)
+    assert fa.flash_attention_fwd_stats.launches == f0 + 2
+    assert fa.flash_attention_backward.launches == b0 + 1
+    for got, want in zip(grads[0], grads["cpu"]):
+        assert np.abs(got - want).max() <= 1e-4 * max(1.0, np.abs(want).max())
+
+
+def test_eager_kernel_engines_raise_rather_than_fall_back(cuda, monkeypatch):
+    import kfunca_tpu_torch as kfunca
+
+    ew, mm, rd, wf = _eager_kernels()
+    with pytest.raises(TypeError, match="share one of"):
+        mm.matmul(torch.ones((4, 4), device=cuda, dtype=torch.float64),
+                  torch.ones((4, 4), device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        rd.reduce_2d(torch.ones((4, 4), device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError, match="2-D float32"):
+        wf.welford_norm_stat(torch.ones((4, 4), device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="share one shape"):
+        ew.elementwise("add", torch.ones(4, device=cuda), torch.ones(3, device=cuda),
+                       acc_dt=torch.float32, out_dt=torch.float32)
+    monkeypatch.setenv("KFUNCA_PALLAS_SORT", "1")
+    t = kfunca.from_numpy(np.arange(10, dtype=np.float32), 0)
+    with pytest.raises(NotImplementedError, match="K10"):
+        t.sort(0, False)
+    # CPU tensors take the default sort, as the JAX package off the TPU
+    vals, _ = kfunca.from_numpy(np.arange(10, dtype=np.float32), "cpu").sort(0, True)
+    assert vals.numpy().tolist() == list(range(9, -1, -1))
+
+
+def test_device_info_and_launcher_modes_on_the_card(cuda, capsys):
+    """device_info measures the card's copy bandwidth and bf16 matmul rate;
+    profiling mode times every eager op with CUDA events; sync mode
+    synchronizes after each op."""
+    import kfunca_tpu_torch as kfunca
+    from kfunca_tpu_torch.utils.profiling import PROFILER
+
+    kfunca.device_info()
+    out = capsys.readouterr().out
+    assert torch.cuda.get_device_name(0) in out
+    bw = float(out.split("measured copy bandwidth :")[1].split()[0])
+    tf = float(out.split("measured bf16 matmul    :")[1].split()[0])
+    assert bw > 100 and tf > 10
+    t = kfunca.from_numpy(np.ones((512, 512), np.float32), 0)
+    PROFILER.records.clear()
+    kfunca.launcher.set_profiling_mode(True)
+    try:
+        (t + t).sum(0)
+    finally:
+        kfunca.launcher.set_profiling_mode(False)
+    assert [r.name for r in PROFILER.records] == ["add", "sum"]
+    assert all(r.seconds > 0 for r in PROFILER.records)
+    kfunca.launcher.set_sync_mode(True)
+    try:
+        assert (t * 2.0).numpy()[0, 0] == 2.0
+    finally:
+        kfunca.launcher.set_sync_mode(False)
+    assert kfunca.device_count() == torch.cuda.device_count()
+    with pytest.raises(IndexError):
+        kfunca.from_numpy(np.ones(2, np.float32), torch.cuda.device_count())
+
+
+def test_eager_attention_gradient_ignores_an_edit_of_its_result(cuda):
+    """The backward recomputes (out, lse) from q, k and v with K1, as the
+    JAX package's backward does: an in-place op on the returned tensor
+    before backward reaches no gradient."""
+    import kfunca_tpu_torch as kfunca
+
+    rng = np.random.default_rng(8)
+    q, k, v, g = (rng.standard_normal((1, 2, 64, 64)).astype(np.float32)
+                  for _ in range(4))
+    grads = []
+    for edit in (False, True):
+        ts = [kfunca.from_numpy(x, 0).set_requires_grad(True) for x in (q, k, v)]
+        out = kfunca.causal_attention(*ts)
+        if edit:
+            out += 5.0
+        out.backward(kfunca.from_numpy(g, 0))
+        grads.append([t.grad().numpy() for t in ts])
+    for a, b in zip(*grads):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_from_torch_lands_on_the_card_by_default(cuda):
+    """from_torch, like the JAX package's from_jax(arr, device=0), puts a
+    CPU torch tensor on the card unless "cpu" is asked for."""
+    import kfunca_tpu_torch as kfunca
+
+    t = kfunca.from_torch(torch.arange(6.0).reshape(2, 3))
+    assert t.torch_device().type == "cuda" and t.device() != "cpu"
+    assert t.to_torch().cpu().tolist() == [[0.0, 1.0, 2.0], [3.0, 4.0, 5.0]]
+    assert kfunca.from_torch(torch.ones(3), "cpu").device() == "cpu"
+
+
+def test_elementwise_kernel_counts_no_launch_for_an_empty_operand(cuda):
+    """K9 launches nothing for empty operands, so its count stays."""
+    ew = _eager_kernels()[0]
+    before = ew.elementwise.launches
+    e = torch.empty((0, 5), device=cuda)
+    got = ew.elementwise("add", e, e, acc_dt=torch.float32, out_dt=torch.float32)
+    assert got.shape == (0, 5) and ew.elementwise.launches == before

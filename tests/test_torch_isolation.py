@@ -44,7 +44,15 @@ def test_importing_the_port_loads_no_jax():
         "             'ops.attention', 'ops.pallas_kernels.flash_attention',",
         "             'ops.pallas_kernels.paged_attention', 'ops.quant',",
         "             'models.generate', 'models.weights',",
-        "             'utils.checkpoint'):",
+        "             'utils.checkpoint', 'core.dtype', 'core.storage',",
+        "             'core.overlap', 'core.materialize', 'core.iterator',",
+        "             'core.tensor', 'core.dispatch', 'ops.elementwise',",
+        "             'ops.reduce', 'ops.gemm', 'ops.shape_ops', 'ops.index',",
+        "             'ops.sort', 'ops.pallas_kernels.elementwise',",
+        "             'ops.pallas_kernels.reduce', 'ops.pallas_kernels.welford',",
+        "             'ops.pallas_kernels.matmul', 'runtime.launcher',",
+        "             'runtime.allocator', 'utils.errors', 'utils.compare',",
+        "             'utils.device_info', 'utils.profiling'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -136,12 +144,22 @@ def test_main_path_never_calls_the_library_attention():
 
 def test_main_path_never_calls_the_library_int8_matmul():
     """`torch._int_mm` is chip_smoke.py's yardstick only, and no environment
-    knob takes the int8 product off the port's own kernel."""
-    for word in ("_int_mm", "KFUNCA_GEMM_ENGINE"):
-        hits = [str(f.relative_to(ROOT)) for f in sorted(PORT.rglob("*.py"))
-                if word in f.read_text()]
-        assert hits == [], word
+    knob takes the int8 product off the port's own kernel: the eager GEMM's
+    KFUNCA_GEMM_ENGINE is read in ops/gemm.py alone, which takes floating
+    types only, and ops/quant.py reads no knob."""
+    hits = [str(f.relative_to(ROOT)) for f in sorted(PORT.rglob("*.py"))
+            if "_int_mm" in f.read_text()]
+    assert hits == []
     assert "_int_mm" in (ROOT / "chip_smoke.py").read_text()
+    readers = [str(f.relative_to(PORT)) for f in sorted(PORT.rglob("*.py"))
+               if 'environ.get("KFUNCA_GEMM_ENGINE"' in f.read_text()]
+    assert readers == ["ops/gemm.py"]
+    assert "os.environ" not in (PORT / "ops" / "quant.py").read_text()
+    import kfunca_tpu_torch as kfunca
+
+    a = kfunca.from_numpy(np.ones((2, 2), np.int8), "cpu")
+    with pytest.raises(RuntimeError, match="floating dtypes only"):
+        kfunca.gemm(a, a)
 
 
 def test_quantized_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
@@ -193,3 +211,46 @@ def test_chip_smoke_fails_away_from_the_repo(tmp_path):
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "kfunca_tpu_torch" in out.stderr
+
+
+def test_eager_api_refuses_the_cpu_unless_asked(monkeypatch):
+    """`import kfunca_tpu_torch as kfunca`: every factory and benchmark
+    takes the card by default (CUDA index 0) and raises without one; with
+    "cpu" the same calls run the plain PyTorch path."""
+    import kfunca_tpu_torch as kfunca
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arr = np.ones((2, 3), np.float32)
+    for call in (lambda: kfunca.from_numpy(arr),
+                 lambda: kfunca.from_numpy(arr, 0),
+                 lambda: kfunca.empty((2, 3), kfunca.float),
+                 lambda: kfunca.zeros([4], kfunca.int),
+                 lambda: kfunca.empty_strided((2, 2), (1, 2), kfunca.half),
+                 lambda: kfunca.from_torch(torch.ones(3)),
+                 lambda: kfunca.from_torch(torch.ones(3), 0),
+                 lambda: kfunca.from_storage_numpy(arr, (3,), (1,), 0),
+                 lambda: kfunca.device_info(run_benchmarks=False)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    t = kfunca.from_numpy(arr, "cpu")
+    assert t.device() == "cpu" and t.torch_device() == torch.device("cpu")
+    assert (t + t).numpy().tolist() == (arr + arr).tolist()
+    assert kfunca.empty_like(t).device() == "cpu"
+    assert kfunca.from_torch(torch.ones(3), "cpu").device() == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        kfunca.from_numpy(arr, "meta")
+
+
+def test_eager_surface_is_the_reference_surface_less_autotune():
+    """The port's __all__ is kfunca_tpu/__init__.py's, less `autotune`
+    (read from the source: this test imports no JAX)."""
+    import kfunca_tpu_torch as kfunca
+
+    tree = ast.parse((ROOT / "kfunca_tpu" / "__init__.py").read_text())
+    ref = next(ast.literal_eval(node.value) for node in tree.body
+               if isinstance(node, ast.Assign)
+               and getattr(node.targets[0], "id", "") == "__all__")
+    assert sorted(kfunca.__all__) == sorted(n for n in ref if n != "autotune")
+    for name in kfunca.__all__:
+        assert hasattr(kfunca, name), name
+    assert not hasattr(kfunca, "autotune")
