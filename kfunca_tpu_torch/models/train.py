@@ -333,6 +333,17 @@ def ema_params(opt_state, dtype=None):
     return ema
 
 
+def _value_and_grad(loss, params, tokens, targets):
+    """(loss, grads) of loss(params, tokens, targets) by autograd over the
+    param leaves."""
+    # views that share the masters' storage and carry the gradient
+    views = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss_v = loss(tree_unflatten(params, views), tokens, targets)
+    grads = torch.autograd.grad(loss_v, views)
+    return loss_v.detach(), tree_unflatten(params, grads)
+
+
 def make_train_step(cfg: TransformerConfig, oc: OptConfig = OptConfig(),
                     grad_accum: int = 1, loss_chunk: int | None = None,
                     ignore_index: int | None = None,
@@ -362,15 +373,6 @@ def make_train_step(cfg: TransformerConfig, oc: OptConfig = OptConfig(),
         return loss_fn_chunked(params, tokens, targets, cfg, loss_chunk,
                                ignore_index=ignore_index)
 
-    def value_and_grad(params, tokens, targets):
-        leaves = tree_leaves(params)
-        # views that share the masters' storage and carry the gradient
-        views = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss_v = loss(tree_unflatten(params, views), tokens, targets)
-        grads = torch.autograd.grad(loss_v, views)
-        return loss_v.detach(), tree_unflatten(params, grads)
-
     def stats(loss_v, grads, opt_state):
         if not with_metrics:
             return loss_v
@@ -385,7 +387,7 @@ def make_train_step(cfg: TransformerConfig, oc: OptConfig = OptConfig(),
         check_params_device(params, dev)
         tokens, targets = on_device(tokens), on_device(targets)
         if grad_accum <= 1:
-            loss_v, grads = value_and_grad(params, tokens, targets)
+            loss_v, grads = _value_and_grad(loss, params, tokens, targets)
         else:
             b = tokens.shape[0]
             if b % grad_accum:
@@ -394,8 +396,9 @@ def make_train_step(cfg: TransformerConfig, oc: OptConfig = OptConfig(),
             mb = b // grad_accum
             g_sum, l_sum = None, 0.0
             for i in range(grad_accum):
-                loss_i, g = value_and_grad(params, tokens[i * mb:(i + 1) * mb],
-                                           targets[i * mb:(i + 1) * mb])
+                loss_i, g = _value_and_grad(loss, params,
+                                            tokens[i * mb:(i + 1) * mb],
+                                            targets[i * mb:(i + 1) * mb])
                 g = tree_map(lambda x: x.float(), g)
                 g_sum = g if g_sum is None else tree_map(
                     lambda a, x: a.add_(x), g_sum, g)
@@ -407,6 +410,25 @@ def make_train_step(cfg: TransformerConfig, oc: OptConfig = OptConfig(),
             out = stats(loss_v, grads, opt_state)
             params, opt_state = apply_update(params, grads, opt_state, oc)
         return params, opt_state, out
+
+    return train_step
+
+
+def make_loss_train_step(loss, oc: OptConfig, device=None):
+    """train_step(params, opt_state, tokens, targets) -> (params, opt_state,
+    loss) for any model's loss(params, tokens, targets): autograd over the
+    param leaves, then apply_update in place, as make_train_step does.  The
+    step of the Mamba and hybrid families (their JAX steps are
+    value_and_grad + apply_update)."""
+    dev = resolve_device(device)
+
+    def train_step(params, opt_state, tokens, targets):
+        check_params_device(params, dev)
+        tokens = torch.as_tensor(tokens).to(dev, non_blocking=True)
+        targets = torch.as_tensor(targets).to(dev, non_blocking=True)
+        loss_v, grads = _value_and_grad(loss, params, tokens, targets)
+        params, opt_state = apply_update(params, grads, opt_state, oc)
+        return params, opt_state, loss_v
 
     return train_step
 

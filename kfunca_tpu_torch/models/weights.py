@@ -51,6 +51,62 @@ def params_from_jax(tree, cfg: TransformerConfig, device=None, dtype=None):
     return tree_map(lambda x: _to_tensor(x, dev, dtype), tree)
 
 
+def _check_shape(tree, key, want):
+    got = tuple(np.shape(tree[key]))
+    if got != tuple(want):
+        raise ValueError(f"{key} {got} does not match the config's "
+                         f"{tuple(want)}")
+
+
+def _check_mixer(blk, mcfg):
+    di, r, n = mcfg.d_inner, mcfg.rank, mcfg.d_state
+    for key, want in (("in_proj", (mcfg.d_model, 2 * di)),
+                      ("conv_w", (mcfg.d_conv, di)),
+                      ("x_proj", (di, r + 2 * n)), ("dt_proj", (r, di)),
+                      ("A_log", (di, n)), ("out_proj", (di, mcfg.d_model))):
+        _check_shape(blk, key, want)
+
+
+def mamba_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_mamba_params pytree -> the port's Mamba params on
+    `device` (default: the CUDA device); `dtype` recasts every float leaf
+    (None keeps each leaf's dtype).  Checks the tree against the
+    MambaConfig `cfg`."""
+    dev = resolve_device(device)
+    if len(tree["layers"]) != cfg.n_layers:
+        raise ValueError(f"{len(tree['layers'])} layers for a config of "
+                         f"{cfg.n_layers}")
+    _check_shape(tree, "embed", (cfg.vocab_size, cfg.d_model))
+    for layer in tree["layers"]:
+        _check_mixer(layer, cfg)
+    return tree_map(lambda x: _to_tensor(x, dev, dtype), tree)
+
+
+def hybrid_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_hybrid_params pytree -> the port's hybrid params on
+    `device` (default: the CUDA device), each block checked against the
+    HybridConfig `cfg`'s layer kinds and widths."""
+    dev = resolve_device(device)
+    kinds = cfg.layer_kinds()
+    if len(tree["blocks"]) != len(kinds):
+        raise ValueError(f"{len(tree['blocks'])} blocks for a config of "
+                         f"{len(kinds)} layers")
+    _check_shape(tree, "embed", (cfg.vocab_size, cfg.d_model))
+    for blk, kind in zip(tree["blocks"], kinds):
+        _check_shape(blk, "w_gate", (cfg.d_model, cfg.d_ff))
+        if kind == "attn":
+            if "wqkv" not in blk:
+                raise ValueError("an attention layer of the config holds no "
+                                 "wqkv in the tree")
+            _check_shape(blk, "wqkv", (cfg.d_model, cfg.tcfg.qkv_out))
+        else:
+            if "in_proj" not in blk:
+                raise ValueError("an SSM layer of the config holds no "
+                                 "in_proj in the tree")
+            _check_mixer(blk, cfg.mcfg)
+    return tree_map(lambda x: _to_tensor(x, dev, dtype), tree)
+
+
 def decode_params_from_jax(tree, device=None):
     """A JAX `quantize_decode_params` pytree -> the port's decode params on
     `device` (default: the CUDA device): quantized weights are

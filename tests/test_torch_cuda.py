@@ -826,3 +826,115 @@ def test_elementwise_kernel_counts_no_launch_for_an_empty_operand(cuda):
     e = torch.empty((0, 5), device=cuda)
     got = ew.elementwise("add", e, e, acc_dt=torch.float32, out_dt=torch.float32)
     assert got.shape == (0, 5) and ew.elementwise.launches == before
+
+
+# -- K11: the selective scan --------------------------------------------------
+
+SSM_SHAPES = [  # (B, L, di, N, lb)
+    (2, 64, 64, 16, 16),
+    (1, 1, 33, 16, 16),
+    (2, 37, 45, 5, 8),
+    (1, 100, 96, 16, 32),
+    (3, 19, 5152, 16, 16),
+]
+
+
+def _ssm_case(dev, b, L, di, n, seed=0, dt_scale=1.0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dt = torch.nn.functional.softplus(normal(b, L, di) - 4.0) * dt_scale
+    u = normal(b, L, di)
+    bm, c = normal(b, L, n), normal(b, L, n)
+    a_t = -torch.arange(1, n + 1, dtype=torch.float32, device=dev)[:, None] \
+        .expand(n, di).contiguous()
+    return dt, u, bm, c, a_t, normal(b, L, di)
+
+
+def _ssm_close(got, want, what):
+    # fp32: the same recurrence with sums in other orders
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert torch.isfinite(got).all(), what
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-4, msg=what)
+
+
+@pytest.mark.parametrize("shape", SSM_SHAPES, ids=str)
+def test_ssm_scan_kernels_match_plain(cuda, shape):
+    from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as ss
+
+    b, L, di, n, lb = shape
+    dt, u, bm, c, a_t, dy = _ssm_case(cuda, b, L, di, n)
+    y, hb = ss.ssm_scan_fwd(dt, u, bm, c, a_t, lb)
+    ref_y, ref_hb = ss.ssm_scan_plain(dt, u, bm, c, a_t, lb)
+    torch.cuda.synchronize()
+    _ssm_close(y, ref_y, "y")
+    _ssm_close(hb, ref_hb, "h_bound")
+    got = ss.ssm_scan_bwd(dt, u, bm, c, a_t, hb, dy, lb)
+    want = ss.ssm_scan_bwd_plain(dt, u, bm, c, a_t, dy, lb)
+    for g, w, name in zip(got, want, ("ddt", "du", "dbm", "dc", "da_t")):
+        _ssm_close(g, w, name)
+    again = ss.ssm_scan_bwd(dt, u, bm, c, a_t, hb, dy, lb)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_ssm_scan_kernels_with_an_underflowing_decay(cuda):
+    """dt * A so negative that exp underflows to 0: finite, as plain."""
+    from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as ss
+
+    dt, u, bm, c, a_t, dy = _ssm_case(cuda, 1, 40, 64, 16, dt_scale=1e4)
+    assert float(torch.exp(dt[..., None] * a_t.t()).min()) == 0.0
+    y, hb = ss.ssm_scan_fwd(dt, u, bm, c, a_t)
+    _ssm_close(y, ss.ssm_scan_plain(dt, u, bm, c, a_t)[0], "y")
+    got = ss.ssm_scan_bwd(dt, u, bm, c, a_t, hb, dy)
+    for g, w in zip(got, ss.ssm_scan_bwd_plain(dt, u, bm, c, a_t, dy)):
+        _ssm_close(g, w, "grad")
+
+
+def test_ssm_scan_refuses_what_the_kernels_do_not_take(cuda):
+    from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as ss
+
+    dt, u, bm, c, a_t, dy = _ssm_case(cuda, 1, 8, 32, 16)
+    with pytest.raises(ValueError, match="lb"):
+        ss.ssm_scan_fwd(dt, u, bm, c, a_t, lb=4)
+    big = torch.zeros((1, 8, 17), device=cuda)
+    with pytest.raises(ValueError, match="state width"):
+        ss.ssm_scan_fwd(dt, u, big, big, torch.zeros((17, 32), device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        ss.ssm_scan_fwd(dt.bfloat16(), u, bm, c, a_t)
+
+
+def test_mamba_step_launches_the_scan_once_a_layer(cuda):
+    """One train step of a 3-layer Mamba on the card: K11 forward and
+    backward each launch once a layer, and the loss equals the plain
+    engine's; KFUNCA_SSM_ENGINE=xla launches neither."""
+    import os
+
+    from kfunca_tpu_torch.models import mamba
+    from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as ss
+
+    cfg = mamba.MambaConfig(vocab_size=128, d_model=48, n_layers=3,
+                            d_state=16, dtype="float32")
+    params = mamba.init_mamba_params(0, cfg, device=cuda)
+    tokens = torch.randint(0, 128, (2, 40), device=cuda)
+    targets = torch.roll(tokens, -1, 1)
+    losses = {}
+    for eng in ("pallas", "xla"):
+        os.environ["KFUNCA_SSM_ENGINE"] = eng
+        try:
+            ss.ssm_scan_fwd.launches = ss.ssm_scan_bwd.launches = 0
+            opt = train.init_opt_state(params, device=cuda)
+            p = {k: (v.clone() if torch.is_tensor(v) else
+                     [{n: t.clone() for n, t in layer.items()} for layer in v])
+                 for k, v in params.items()}
+            _, _, loss = mamba.make_mamba_train_step(cfg)(p, opt, tokens,
+                                                          targets)
+            torch.cuda.synchronize()
+            losses[eng] = float(loss)
+            want = 3 if eng == "pallas" else 0
+            assert (ss.ssm_scan_fwd.launches, ss.ssm_scan_bwd.launches) == (
+                want, want)
+        finally:
+            del os.environ["KFUNCA_SSM_ENGINE"]
+    assert abs(losses["pallas"] - losses["xla"]) < 1e-5

@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
         "             'ops.pallas_kernels.reduce', 'ops.pallas_kernels.welford',",
         "             'ops.pallas_kernels.matmul', 'runtime.launcher',",
         "             'runtime.allocator', 'utils.errors', 'utils.compare',",
-        "             'utils.device_info', 'utils.profiling'):",
+        "             'utils.device_info', 'utils.profiling', 'models.mamba',",
+        "             'models.mamba_serve', 'models.hybrid',",
+        "             'ops.pallas_kernels.ssm_scan'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -211,6 +213,49 @@ def test_chip_smoke_fails_away_from_the_repo(tmp_path):
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "kfunca_tpu_torch" in out.stderr
+
+
+def test_mamba_family_refuses_the_cpu_unless_asked(monkeypatch):
+    """The Mamba and hybrid entry points take the card by default and raise
+    without one; asked for the CPU they run the plain path, and the server
+    and generate run where their params live."""
+    from kfunca_tpu_torch.models import hybrid, mamba, mamba_serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mc = mamba.MambaConfig(vocab_size=64, d_model=16, n_layers=1, d_state=4,
+                           dtype="float32")
+    hc = hybrid.HybridConfig(vocab_size=64, d_model=16, n_layers=2, d_ff=32,
+                             n_heads=2, d_state=4, attn_every=2,
+                             attn_offset=1, dtype="float32")
+    mp = mamba.init_mamba_params(0, mc, device="cpu")
+    hp = hybrid.init_hybrid_params(0, hc, device="cpu")
+    for call in (lambda: mamba.init_mamba_params(0, mc),
+                 lambda: mamba.init_mamba_state(mc, 1),
+                 lambda: mamba.make_mamba_train_step(mc),
+                 lambda: mamba.params_from_hf_mamba(
+                     mamba.to_hf_mamba(mp, mc), mc),
+                 lambda: weights.mamba_params_from_jax(
+                     weights.tree_to_numpy(mp), mc),
+                 lambda: hybrid.init_hybrid_params(0, hc),
+                 lambda: hybrid.init_hybrid_state(hc, 1, 8),
+                 lambda: hybrid.make_hybrid_train_step(hc),
+                 lambda: weights.hybrid_params_from_jax(
+                     weights.tree_to_numpy(hp), hc)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    tokens = np.zeros((1, 8), np.int32)
+    opt = train.init_opt_state(mp, device="cpu")
+    mamba.make_mamba_train_step(mc, device="cpu")(mp, opt, tokens, tokens)
+    prompt = torch.zeros((1, 3), dtype=torch.int64)
+    assert mamba.generate(mp, prompt, mc, 2).shape == (1, 2)
+    assert hybrid.generate(hp, prompt, hc, 2).shape == (1, 2)
+    srv = mamba_serve.MambaServer(mp, mc, batch_slots=1)
+    assert srv.device == torch.device("cpu")
+    rid = srv.submit([1, 2], max_new=2)
+    assert len(srv.run()[rid]) == 2
+    mp["embed"] = mp["embed"].to("meta")
+    with pytest.raises(ValueError, match="params are on"):
+        mamba_serve.MambaServer(mp, mc)
 
 
 def test_eager_api_refuses_the_cpu_unless_asked(monkeypatch):

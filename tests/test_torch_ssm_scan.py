@@ -1,0 +1,269 @@
+"""Port parity: the selective scan K11 (forward and backward).
+
+The plain PyTorch version is held against the JAX package's Pallas kernels
+in interpret mode (lb=4, dib=128, as tests/test_pallas_kernels.py runs
+them) on shared numpy inputs: y, h_bound and the five gradients, with a
+di spanning two tiles.  A pure-torch emulation of the CUDA kernels' tiling
+(csrc/ssm_scan.cu: blocks of 32 channels with four lanes a channel,
+L-blocks of lb with a ragged last one, the state carried in registers
+across blocks, the backward's shared-memory history, per-block partial sums
+over channels in a fixed order, then the sums of the partials) is held
+against the plain version at
+ragged shapes, L = 1 and an underflowing dA.  fp32 throughout: the forward
+to 1e-5 and the gradients to 1e-4 (other summation orders).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from kfunca_tpu.ops.pallas_kernels import ssm_scan as jscan
+from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as tscan
+
+NAMES = ("ddt", "du", "dbm", "dc", "da_t")
+
+
+def _inputs(b=2, L=16, di=128, n=8, seed=0, dt_hi=0.1):
+    rng = np.random.RandomState(seed)
+    dt = rng.uniform(0.001, dt_hi, (b, L, di)).astype(np.float32)
+    u = rng.normal(size=(b, L, di)).astype(np.float32)
+    bm = rng.normal(size=(b, L, n)).astype(np.float32)
+    c = rng.normal(size=(b, L, n)).astype(np.float32)
+    a_t = (-rng.uniform(0.5, 2.0, (n, di))).astype(np.float32)
+    dy = rng.normal(size=(b, L, di)).astype(np.float32)
+    return dt, u, bm, c, a_t, dy
+
+
+def _t(*arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+@pytest.fixture(scope="module")
+def jax_case():
+    """The interpret-mode JAX kernels' outputs on two shapes (one and two
+    di tiles)."""
+    out = {}
+    for key, shape in (("one_tile", dict(b=2, L=16, di=128, n=8, seed=0)),
+                       ("two_tiles", dict(b=1, L=8, di=256, n=8, seed=3))):
+        dt, u, bm, c, a_t, dy = _inputs(**shape)
+        j = [jnp.asarray(x) for x in (dt, u, bm, c, a_t)]
+        y, hb = jscan.ssm_scan_fwd(*j, lb=4, dib=128, interpret=True)
+        grads = jscan.ssm_scan_bwd(*j, hb, jnp.asarray(dy), lb=4, dib=128,
+                                   interpret=True)
+        out[key] = ((dt, u, bm, c, a_t, dy), np.asarray(y), np.asarray(hb),
+                    [np.asarray(g) for g in grads])
+    return out
+
+
+@pytest.mark.parametrize("key", ["one_tile", "two_tiles"])
+def test_plain_forward_matches_the_jax_kernel(jax_case, key):
+    (dt, u, bm, c, a_t, _), y, hb, _ = jax_case[key]
+    got_y, got_hb = tscan.ssm_scan_fwd(*_t(dt, u, bm, c, a_t), lb=4)
+    np.testing.assert_allclose(got_y.numpy(), y, rtol=1e-5, atol=1e-5)
+    assert got_hb.shape == hb.shape
+    np.testing.assert_allclose(got_hb.numpy(), hb, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("key", ["one_tile", "two_tiles"])
+def test_plain_backward_matches_the_jax_kernel(jax_case, key):
+    (dt, u, bm, c, a_t, dy), _, _, grads = jax_case[key]
+    x = _t(dt, u, bm, c, a_t)
+    _, hb = tscan.ssm_scan_fwd(*x, lb=4)
+    got = tscan.ssm_scan_bwd(*x, hb, torch.from_numpy(dy), lb=4)
+    for g, want, name in zip(got, grads, NAMES):
+        assert g.shape == want.shape, name
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_differentiable_scan_matches_the_jax_kernel_vjp(jax_case):
+    """ssm_scan (the autograd.Function) routes its backward through
+    ssm_scan_bwd: autograd's gradients are the JAX kernel's."""
+    (dt, u, bm, c, a_t, dy), y, _, grads = jax_case["one_tile"]
+    leaves = [t.requires_grad_(True) for t in _t(dt, u, bm, c, a_t)]
+    out = tscan.ssm_scan(*leaves, lb=4)
+    np.testing.assert_allclose(out.detach().numpy(), y, rtol=1e-5, atol=1e-5)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dy))
+    for g, want, name in zip(got, grads, NAMES):
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+# -- the CUDA kernels' tiling, emulated -----------------------------------------
+
+CH = tscan.CHANNELS_PER_BLOCK
+G = 4  # lanes a channel; lane g holds states g * S .. g * S + S - 1
+S = tscan.MAX_STATE // G
+
+
+def _lane_sum(terms):
+    """A sum over a channel's states as the kernels take it: each lane adds
+    its S states in order, then two shuffles add lanes (0+1) + (2+3)."""
+    zero = torch.zeros_like(terms[0])
+    lanes = []
+    for g in range(G):
+        acc = zero
+        for s in range(g * S, min(g * S + S, len(terms))):
+            acc = acc + terms[s]
+        lanes.append(acc)
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def emulate_fwd(dt, u, bm, c, a_t, lb):
+    """ssm_fwd_kernel: a block of CH channels walks L in blocks of lb,
+    writing the state entering each block, then per step each state's
+    exponential and multiply-add, y summed over the states lane-wise."""
+    b, L, di = dt.shape
+    n = bm.shape[2]
+    nblk = -(-L // lb)
+    y = torch.zeros_like(dt)
+    hb = torch.zeros((b, nblk, n, di))
+    for ib in range(b):
+        for c0 in range(0, di, CH):
+            ch = slice(c0, min(c0 + CH, di))
+            a = a_t[:, ch]
+            h = [torch.zeros(a.shape[1]) for _ in range(n)]
+            for k in range(nblk):
+                t0, ln = k * lb, min(lb, L - k * lb)
+                for s in range(n):
+                    hb[ib, k, s, ch] = h[s]
+                for t in range(t0, t0 + ln):
+                    terms = []
+                    for s in range(n):
+                        da = torch.exp(dt[ib, t, ch] * a[s])
+                        h[s] = da * h[s] + u[ib, t, ch] * bm[ib, t, s]
+                        terms.append(c[ib, t, s] * h[s])
+                    y[ib, t, ch] = _lane_sum(terms)
+    return y, hb
+
+
+def _ordered_sum(x, dim):
+    """Sum over `dim` one slice after another (the kernels' fixed order)."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for i in range(x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+def emulate_bwd(dt, u, bm, c, a_t, hb, dy, lb):
+    """ssm_bwd_kernel + sum_parts_kernel: blocks in reverse; each block's
+    states recomputed from h_bound into a history, the reverse recurrence
+    with the carry g = dA_{t+1} * delta_{t+1} crossing block boundaries,
+    per-(channel block) partials of dbm and dc summed over the block's
+    channels in order, per-batch partials of da_t; then the partials summed
+    in order."""
+    b, L, di = dt.shape
+    n = bm.shape[2]
+    nblk = -(-L // lb)
+    ncb = -(-di // CH)
+    ddt, du = torch.zeros_like(dt), torch.zeros_like(dt)
+    dbp = torch.zeros((b, ncb, L, n))
+    dcp = torch.zeros((b, ncb, L, n))
+    datp = torch.zeros((b, n, di))
+    for ib in range(b):
+        for cb in range(ncb):
+            ch = slice(cb * CH, min(cb * CH + CH, di))
+            a = a_t[:, ch]
+            w = a.shape[1]
+            g = [torch.zeros(w) for _ in range(n)]
+            da = [torch.zeros(w) for _ in range(n)]
+            for k in range(nblk - 1, -1, -1):
+                t0, ln = k * lb, min(lb, L - k * lb)
+                hist = torch.zeros((ln + 1, n, w))  # slot i: h entering step i
+                cbuf = torch.zeros((ln, n, w))
+                h = [hb[ib, k, s, ch].clone() for s in range(n)]
+                hist[0] = torch.stack(h)
+                for i in range(ln):
+                    t = t0 + i
+                    for s in range(n):
+                        dA = torch.exp(dt[ib, t, ch] * a[s])
+                        h[s] = dA * h[s] + u[ib, t, ch] * bm[ib, t, s]
+                        hist[i + 1, s] = h[s]
+                        cbuf[i, s] = h[s] * dy[ib, t, ch]
+                for i in range(ln - 1, -1, -1):
+                    t = t0 + i
+                    tdt, tdu = [], []
+                    for s in range(n):
+                        dA = torch.exp(dt[ib, t, ch] * a[s])
+                        delta = g[s] + c[ib, t, s] * dy[ib, t, ch]
+                        dda = delta * hist[i, s] * dA
+                        tdt.append(dda * a[s])
+                        da[s] = da[s] + dda * dt[ib, t, ch]
+                        tdu.append(delta * bm[ib, t, s])
+                        hist[i + 1, s] = delta * u[ib, t, ch]
+                        g[s] = dA * delta
+                    ddt[ib, t, ch] = _lane_sum(tdt)
+                    du[ib, t, ch] = _lane_sum(tdu)
+                dbp[ib, cb, t0:t0 + ln] = _ordered_sum(hist[1:], 2)
+                dcp[ib, cb, t0:t0 + ln] = _ordered_sum(cbuf, 2)
+            for s in range(n):
+                datp[ib, s, ch] = da[s]
+    return (ddt, du, _ordered_sum(dbp, 1), _ordered_sum(dcp, 1),
+            _ordered_sum(datp, 0))
+
+
+EDGES = {
+    # ragged L-block and a ragged channel block
+    "ragged": dict(b=2, L=37, di=45, n=5, lb=8),
+    "one_step": dict(b=1, L=1, di=33, n=3, lb=16),
+    "many_blocks": dict(b=1, L=50, di=32, n=4, lb=8),
+    # dt * A so negative that dA underflows to exactly 0
+    "underflow": dict(b=1, L=19, di=40, n=4, lb=16, dt_hi=80.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_kernel_tiling_emulation_matches_plain(case):
+    kw = dict(EDGES[case])
+    lb = kw.pop("lb")
+    dt, u, bm, c, a_t, dy = _t(*_inputs(seed=7, **kw))
+    if case == "underflow":
+        a_t = a_t * 20.0
+        assert float(torch.exp(dt[..., None] * a_t.t()).min()) == 0.0
+    y, hb = emulate_fwd(dt, u, bm, c, a_t, lb)
+    ref_y, ref_hb = tscan.ssm_scan_plain(dt, u, bm, c, a_t, lb)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, ref_y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hb, ref_hb, rtol=1e-5, atol=1e-5)
+    got = emulate_bwd(dt, u, bm, c, a_t, hb, dy, lb)
+    want = tscan.ssm_scan_bwd_plain(dt, u, bm, c, a_t, dy, lb)
+    for g, r, name in zip(got, want, NAMES):
+        assert g.shape == r.shape, name
+        assert torch.isfinite(g).all(), name
+        tol = 1e-4 * max(1.0, float(r.abs().max()))
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=tol, msg=name)
+
+
+@pytest.mark.parametrize("lb", [1, 4, 16, 64])
+def test_plain_block_length_changes_only_h_bound(lb):
+    """y and the gradients do not depend on lb (the chunking); h_bound
+    holds the state entering every lb-th step."""
+    dt, u, bm, c, a_t, dy = _t(*_inputs(b=1, L=23, di=16, n=4, seed=2))
+    y, hb = tscan.ssm_scan_plain(dt, u, bm, c, a_t, lb)
+    y1, hb1 = tscan.ssm_scan_plain(dt, u, bm, c, a_t, 1)
+    torch.testing.assert_close(y, y1, rtol=1e-5, atol=1e-5)
+    assert hb.shape == (1, math.ceil(23 / lb), 4, 16)
+    torch.testing.assert_close(hb, hb1[:, ::lb], rtol=1e-5, atol=1e-5)
+    g = tscan.ssm_scan_bwd_plain(dt, u, bm, c, a_t, dy, lb)
+    g1 = tscan.ssm_scan_bwd_plain(dt, u, bm, c, a_t, dy, 1)
+    for a, b_, name in zip(g, g1, NAMES):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    dt, u, bm, c, a_t, dy = _t(*_inputs(b=1, L=4, di=8, n=2))
+    with pytest.raises(TypeError, match="float32 only"):
+        tscan.ssm_scan_fwd(dt.half(), u, bm, c, a_t)
+    with pytest.raises(ValueError, match="a_t"):
+        tscan.ssm_scan_fwd(dt, u, bm, c, a_t.t())
+    with pytest.raises(ValueError, match="dy"):
+        tscan.ssm_scan_bwd(dt, u, bm, c, a_t, None, dy[:, :2])
+    meta = [t.to("meta") for t in (dt, u, bm, c, a_t)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tscan.ssm_scan_fwd(*meta)
+    assert tscan.ssm_scan_fwd.launches == 0
+    assert tscan.ssm_scan_bwd.launches == 0
