@@ -86,14 +86,16 @@ Phases (any failure raises and the script exits non-zero):
      forward and backward (K1, K2) at B=1, H=32, S=2048, hd=128;
  24. profile one eager MLP step, and time an eager 256-element add's host
      cost per op;
- 25. (at the end, after phase 31) print the kernels line (twelve entries),
-     the card line and, last, the result line;
+ 25. (at the end, after phase 36) print the kernels line (thirteen
+     entries), the card line and, last, the result line;
  26. hold the selective-scan kernels K11 (forward and backward) against
      their plain PyTorch version (the chunked scan) at the Mamba training
      shape (B=4, L=2048, di=5120, N=16, fp32, S4D A, softplus dt) and at
      edge shapes (L = 1, L not a multiple of the block, di = 64 and
-     5120 + 32, B = 1, an underflowing decay); two backward runs bitwise
-     equal;
+     5120 + 32, B = 1, an underflowing decay, N = 32 and N = 20); two
+     backward runs bitwise equal; then loss and gradients of a 2-layer
+     MambaConfig(d_state=32) at mamba-2.8b width through K11 against the
+     chunked scan, as phase 29 does at N = 16;
  27. time each pass, its plain version (no library call computes the
      selective scan) beside its bound;
  28. take 6 AdamW steps through make_mamba_train_step at
@@ -111,7 +113,27 @@ Phases (any failure raises and the script exits non-zero):
  31. the hybrid stack at AI21-Jamba2-3B widths: 4 training steps at 8
      layers (K1 and K2 once a step, K11 seven times), then generate at all
      28 layers, fp32 and bf16, with the recurrent decode held to the
-     parallel forward (K1 + K11) on every generated position.
+     parallel forward (K1 + K11) on every generated position;
+ 32. hold the bitonic sort K10 against its plain version (a stable
+     torch.sort), keys and indices bitwise, fp32 and int32, at (8192, 512),
+     (8192, 1024), (64, 8192 = MAX_N), (3, 1), (5, 129) and (1000, 1000),
+     with duplicates, +-inf, INT32_MIN / INT32_MAX, NaN of both signs and
+     -0.0 beside 0.0;
+ 33. time K10, its plain version and torch.sort(stable=True) at (8192,
+     512) and (8192, 1024) fp32 beside the bound (12 B an element) and this
+     design's shared-memory bound;
+ 34. drive sort / topk through `import kfunca_tpu_torch as kfunca` with
+     KFUNCA_PALLAS_SORT=1 (fp32, bf16, int32, uint8; both directions;
+     dim 0 too; topk 512 of 1024): bitwise the default engine's results,
+     K10 launches = calls, and no K10 for a row past 1024;
+ 35. the native core (csrc/core.cpp, g++): loaded; the eager host cost per
+     op with it, with KFUNCA_NO_NATIVE=1 and with the K9 knob; a 2-layer
+     fp32 server at Mistral-7B-v0.1 width with prefix_cache=True gives the
+     same tokens with the core and without it;
+ 36. autotune into a temporary cache: K3's tile at bf16 4096^3 and K4's
+     page size at 8 slots x 1024 x 4096; then gemm under the pallas knob
+     launches the recorded tile and InferenceServer(page_size=None) takes
+     the recorded page size.
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -2337,6 +2359,9 @@ SSM_EDGES = [  # (B, L, di, N, lb, dt scale), each held fwd and bwd
     (1, 300, 64, 16, 8, 1.0),
     (1, 129, 5152, 16, 32, 1.0),
     (1, 64, 256, 16, 16, 1e4),  # dt * A down to -1.6e5: dA underflows to 0
+    # state widths past one group of 16: two full groups, a ragged second
+    (2, 257, 5120, 32, 16, 1.0),
+    (1, 100, 1000, 20, 8, 1.0),
 ]
 
 
@@ -2402,7 +2427,7 @@ def ssm_checks(ss) -> float:
         if scale > 1.0:
             check(float(torch.exp(x["dt"][..., None] * x["a_t"].t()).min())
                   == 0.0, "the decay underflows to 0")
-        err = ssm_hold(ss, x, lb, f"B={b} L={L} di={di} lb={lb}")
+        err = ssm_hold(ss, x, lb, f"B={b} L={L} di={di} N={n} lb={lb}")
         print(f"  B={b} L={L} di={di} N={n} lb={lb} dt x{scale:g}: worst "
               f"{err:.3g} of max |ref|", flush=True)
         worst = max(worst, err)
@@ -2532,14 +2557,15 @@ def mamba_train_phase(ss, card):
     return r["launches"][:2]
 
 
-def mamba_end_to_end_fp32():
+def mamba_end_to_end_fp32(d_state=MAMBA["d_state"], phase=29):
     """loss_fn and every gradient through K11 against the same function on
     the chunked plain scan (KFUNCA_SSM_ENGINE=xla), fp32, 2 layers at full
     width, 2 x 512 tokens; two kernel runs bitwise equal."""
     from kfunca_tpu_torch.models.mamba import MambaConfig, loss_fn
     from kfunca_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
-    cfg = MambaConfig(**{**MAMBA, "n_layers": 2, "dtype": "float32"})
+    cfg = MambaConfig(**{**MAMBA, "n_layers": 2, "dtype": "float32",
+                         "d_state": d_state})
     params = mamba_params(cfg, SEED + 51, torch.float32)
     window = np.random.default_rng(SEED + 51).integers(0, cfg.vocab_size,
                                                        (2, 513))
@@ -2571,7 +2597,8 @@ def mamba_end_to_end_fp32():
     check(loss_k == loss_k2 and all(torch.equal(a, b) for a, b in
                                     zip(grads_k, grads_k2)),
           "two runs through the kernels give bitwise-equal gradients")
-    print(f"[29] fp32, 2 layers at mamba-2.8b width, 2 x 512 tokens: loss "
+    print(f"[{phase}] fp32, 2 layers at mamba-2.8b width, d_state {d_state}, "
+          f"2 x 512 tokens: loss "
           f"{loss_k:.6f} (K11) vs {loss_p:.6f} (chunked plain scan), worst "
           f"gradient leaf off by {worst:.3g} of its max; two kernel runs "
           f"bitwise equal", flush=True)
@@ -2791,6 +2818,8 @@ def ssm_phases(fa, card):
           flush=True)
     worst = ssm_checks(ss)
     free_device_memory()
+    mamba_end_to_end_fp32(d_state=32, phase=26)
+    free_device_memory()
     timing = ssm_timing(ss)
     free_device_memory()
     s = SSM_SHAPE
@@ -2823,12 +2852,380 @@ def ssm_phases(fa, card):
     return out
 
 
+# -- phase 32-36: K10 and the sort engine, the native core, autotune ---------
+
+# docs/SORT_ENGINE.md's shape, and the dispatcher's longest rows
+SORT_SHAPES = [(8192, 512), (8192, 1024)]
+K10_CHECKS = [(8192, 512), (8192, 1024), (64, 8192), (3, 1), (5, 129),
+              (1000, 1000)]
+# the card's shared-memory bandwidth: 128 B a clock an SM x 132 SMs x
+# 1.98 GHz (the H100 SXM's boost clock)
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
+
+
+def k10_keys(gen, rows, n, dtype):
+    """Keys with duplicates every 7th column, +-inf (fp32) or INT32_MIN and
+    INT32_MAX (int32), NaN of both signs in every third row (fp32) and
+    -0.0 beside 0.0."""
+    if dtype == torch.int32:
+        k = torch.randint(-1000, 1000, (rows, n), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        k[:, 1::11] = torch.iinfo(torch.int32).max
+        k[:, 2::13] = torch.iinfo(torch.int32).min
+    else:
+        k = torch.randn((rows, n), generator=gen, device="cuda")
+        k[:, 1::11] = float("inf")
+        k[:, 2::13] = -float("inf")
+        k[:, 3::17] = -0.0
+        k[:, 4::17] = 0.0
+        k[::3, 5::9] = float("nan")
+        k[::3, 6::19] = -float("nan")
+    k[:, ::7] = k[:, :1].clone()
+    return k
+
+
+def k10_checks(bs) -> float:
+    """K10 against its plain version (a stable torch.sort): keys and
+    indices bitwise, fp32 and int32, at the SORT_ENGINE shapes, at MAX_N,
+    and at edge shapes.  Returns the largest |difference| (0.0)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    for dtype in (torch.float32, torch.int32):
+        for rows, n in K10_CHECKS:
+            keys = k10_keys(gen, rows, n, dtype)
+            got_k, got_i = bs.bitonic_sort_pairs(keys)
+            want_k, want_i = bs.bitonic_sort_pairs_plain(keys)
+            torch.cuda.synchronize()
+            check(torch.equal(got_i, want_i) and torch.equal(
+                got_k.view(torch.int32), want_k.view(torch.int32)),
+                f"K10 {dtype} ({rows}, {n}): keys and indices bitwise equal "
+                f"to the plain version")
+            if dtype == torch.float32:
+                nan_row = got_k[0].isnan()
+                check(not bool(nan_row[:int((~nan_row).sum())].any()),
+                      "NaN sorts after every number")
+            del keys, got_k, got_i, want_k, want_i
+    print(f"  fp32 and int32 at {K10_CHECKS}: keys and indices bitwise equal "
+          f"to the plain version (NaN of both signs last, ties by index, "
+          f"-0.0 tied with 0.0, INT32_MAX before the pads)", flush=True)
+    return 0.0
+
+
+def k10_bounds(rows, n):
+    """(bound ms, what bounds it) of the contract (12 B an element: the
+    key read, the key and the index written; the compare-exchanges at the
+    fp32 rate), and this design's shared-memory bound."""
+    p = 1 << max(7, (n - 1).bit_length())
+    log2p = p.bit_length() - 1
+    exchanges = rows * (p // 2) * log2p * (log2p + 1) // 2
+    t_bytes = 12 * rows * n / HBM_BYTES_PER_S
+    t_ops = exchanges / PEAK_FLOPS[torch.float32]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=12 * rows * n, exchanges=exchanges,
+                smem_ms=exchanges * 32 / SMEM_BYTES_PER_S * 1e3)
+
+
+def k10_timing(bs) -> dict:
+    """Phase 33: K10, its plain version and torch.sort(stable=True) at the
+    SORT_ENGINE shapes, fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    out = {}
+    for rows, n in SORT_SHAPES:
+        keys = torch.randn((rows, n), generator=gen, device="cuda")
+        t = k10_bounds(rows, n)
+        t.update(ms=time_ms(lambda: bs.bitonic_sort_pairs(keys)),
+                 plain_ms=time_ms(lambda: bs.bitonic_sort_pairs_plain(keys)),
+                 library_ms=time_ms(lambda: torch.sort(keys, dim=-1,
+                                                       stable=True)))
+        out[rows, n] = t
+    return out
+
+
+def sort_engine_phase(kfunca, bs) -> int:
+    """Phase 34: kfunca sort / topk with KFUNCA_PALLAS_SORT=1 against the
+    default engine, bitwise; K10's count equals the calls made, and a row
+    longer than 1024 runs no K10.  Returns K10's launches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+
+    def make(shape, dtype):
+        if dtype == torch.uint8:
+            return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                                 dtype=torch.uint8)
+        if dtype == torch.int32:
+            return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                                 device="cuda", dtype=torch.int32)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x[::5, 3::41] = float("nan")  # NaN last both ways in either engine
+        return x.to(dtype)
+
+    def run(x, knob, *call):
+        if knob:
+            os.environ["KFUNCA_PALLAS_SORT"] = "1"
+        try:
+            vals, idx = getattr(x, call[0])(*call[1:])
+            return vals.to_torch(), idx.to_torch()
+        finally:
+            os.environ.pop("KFUNCA_PALLAS_SORT", None)
+
+    def same_bits(a, b):  # torch.equal is False wherever a NaN stands
+        if a.is_floating_point():
+            ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+            a, b = a.view(ints), b.view(ints)
+        return torch.equal(a, b)
+
+    bs.bitonic_sort_pairs.launches = 0  # the main path starts here
+    calls = 0
+    cases = [(shape, 1) for shape in SORT_SHAPES] + [((1000, 512), 0)]
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
+        for shape, dim in cases:
+            x = kfunca.from_torch(make(shape, dtype))
+            for desc in (False, True):
+                got = run(x, True, "sort", dim, desc)
+                want = run(x, False, "sort", dim, desc)
+                calls += 1
+                check(all(same_bits(g, w) for g, w in zip(got, want)),
+                      f"K10 sort {dtype} {shape} dim {dim} desc {desc} equals "
+                      f"the default engine")
+            del x
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
+        base = make((4096, 1024), dtype)
+        if dtype.is_floating_point:
+            base = torch.nan_to_num(base)  # top_k orders NaN by its bits
+        x = kfunca.from_torch(base)
+        for largest in (True, False):
+            got = run(x, True, "topk", 512, 1, largest)
+            want = run(x, False, "topk", 512, 1, largest)
+            calls += 1
+            check(all(same_bits(g, w) for g, w in zip(got, want)),
+                  f"K10 topk 512 of 1024 {dtype} largest {largest} equals the "
+                  f"default engine")
+    torch.cuda.synchronize()
+    n = bs.bitonic_sort_pairs.launches
+    check(n == calls, f"K10 launched once a call ({n} launches, {calls} calls)")
+    long_row = kfunca.from_torch(make((8, 1025), torch.float32))
+    run(long_row, True, "sort", 1, False)
+    check(bs.bitonic_sort_pairs.launches == n,
+          "a row longer than 1024 runs no K10")
+    print(f"  sort at {SORT_SHAPES} (last dim) and (1000, 512) (dim 0), topk "
+          f"512 of 1024 largest and smallest, fp32 / bf16 / int32 / uint8: "
+          f"equal to the default engine bitwise; K10 launches {n} = calls",
+          flush=True)
+    return n
+
+
+def host_cost_native(kfunca, n=2000):
+    """Host microseconds an eager add of two 256-element fp32 tensors
+    (bench.py's reading; same shapes, so the planner's fast path) and of a
+    (256,) + (1,) broadcast add (the native planner's path): with the core,
+    with KFUNCA_NO_NATIVE=1, and with the K9 knob and the core (K9 takes
+    the equal shapes; the broadcast add stays plain torch)."""
+    from kfunca_tpu_torch.ops.pallas_kernels import elementwise as ew
+
+    a = kfunca.from_torch(torch.ones(256, device="cuda"))
+    b = kfunca.from_torch(torch.ones(256, device="cuda"))
+    c = kfunca.from_torch(torch.ones(1, device="cuda"))
+    times = {}
+    for _ in range(3):  # the settings in turns; each keeps its median
+        for label, env in (("core", {}),
+                           ("no_native", {"KFUNCA_NO_NATIVE": "1"}),
+                           ("K9", {"KFUNCA_ELEMENTWISE_ENGINE": "pallas"})):
+            os.environ.update(env)
+            try:
+                for op, rhs in (("same", b), ("broadcast", c)):
+                    for _ in range(50):
+                        a + rhs
+                    torch.cuda.synchronize()
+                    before = ew.elementwise.launches
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        a + rhs
+                    torch.cuda.synchronize()
+                    times.setdefault((label, op), []).append(
+                        (time.perf_counter() - t0) / n * 1e6)
+                    # K9 takes no broadcast: a broadcast add stays plain torch
+                    want = label == "K9" and op == "same"
+                    check((ew.elementwise.launches > before) == want,
+                          f"K9 launches only under its knob, for equal shapes "
+                          f"({label}, {op})")
+            finally:
+                for k in env:
+                    os.environ.pop(k)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def native_phase(kfunca, card):
+    """Phase 35: the native core is loaded; the eager host cost per op with
+    and without it and through K9; a 2-layer fp32 server at
+    Mistral-7B-v0.1 width with prefix_cache=True gives the same tokens with
+    the core and without it."""
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.runtime import _native
+
+    lib = _native.get_lib()
+    check(lib is not None, "the native core is loaded")
+    print(f"[35] native core {_native.library_path().name} loaded (g++, "
+          f"from kfunca_tpu_torch/csrc/core.cpp)", flush=True)
+    us = host_cost_native(kfunca)
+    for op in ("same", "broadcast"):
+        print(f"[35] host cost of an eager {'256 + 256' if op == 'same' else '256 + 1 broadcast'}"
+              f"-element add: core {us['core', op]:.1f} us/op, "
+              f"KFUNCA_NO_NATIVE=1 {us['no_native', op]:.1f} us/op, K9 "
+              f"{us['K9', op]:.1f} us/op; {card}", flush=True)
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": 2, "dtype": "float32",
+                               "attention_window": None})
+    params = mistral_params(cfg, SEED + 63, torch.float32)
+    rng = np.random.default_rng(SEED + 63)
+    prefix = rng.integers(0, cfg.vocab_size, 128).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in (5, 40, 77, 16)]
+    runs = {}
+    for native in (True, False):
+        if not native:
+            os.environ["KFUNCA_NO_NATIVE"] = "1"
+        try:
+            with torch.no_grad():
+                srv = InferenceServer(params, cfg, batch_slots=2, page_size=16,
+                                      n_pages=64, max_pages_per_seq=16,
+                                      prefix_cache=True)
+                check((srv.pool._lib is not None) == native,
+                      "the server's page pool follows KFUNCA_NO_NATIVE")
+                rids = [srv.submit(p, max_new=12) for p in prompts]
+                out = srv.run()
+            runs[native] = ([out[r] for r in rids],
+                            srv.throughput_stats()["prefix_hit_pages"])
+        finally:
+            os.environ.pop("KFUNCA_NO_NATIVE", None)
+    check(runs[True] == runs[False] and runs[True][1] > 0,
+          f"prefix-cache serving: the same tokens and page hits with the core "
+          f"and without ({runs[True][1]} hits)")
+    print(f"  2-layer fp32 server at Mistral-7B-v0.1 width, prefix_cache: "
+          f"{len(prompts)} requests x 12 tokens equal with the core and "
+          f"without it, {runs[True][1]} prefix pages reused in both",
+          flush=True)
+    return us
+
+
+def autotune_phase(kfunca, card):
+    """Phase 36: autotune into a temporary cache: K3's tile at bf16 4096^3
+    and K4's page size at 8 slots x 1024 x 4096; then `gemm` under the
+    pallas knob launches the recorded tile and InferenceServer(page_size=
+    None) takes the recorded page size."""
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.ops import gemm as og
+    from kfunca_tpu_torch.ops.pallas_kernels import matmul as mm
+    from kfunca_tpu_torch.runtime import autotune as at
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["KFUNCA_AUTOTUNE_CACHE"] = os.path.join(tmp, "at.json")
+        at._CACHE = None
+        try:
+            g = kfunca.autotune("gemm", 4096, 4096, 4096, dtype=torch.bfloat16,
+                                verbose=False)
+            d = kfunca.autotune("decode_page", 8, 1024, 4096, verbose=False)
+            for label, r in (("gemm bf16 4096^3 (K3 tile)", g),
+                             ("decode_page 8 x 1024 x 4096 (K4 page)", d)):
+                times = ", ".join(f"{c['params']}: {c['ms']:.4f} ms"
+                                  for c in r["all"])
+                print(f"[36] autotune {label}: winner {r['params']} "
+                      f"{r['ms']:.4f} ms; {times}; {card}", flush=True)
+            seen = []
+            real = og.k3_matmul
+
+            def spy(*args, **kw):
+                seen.append({k: kw[k] for k in ("bm", "bn") if k in kw})
+                return real(*args, **kw)
+
+            og.k3_matmul = spy
+            os.environ["KFUNCA_GEMM_ENGINE"] = "pallas"
+            try:
+                at.record("gemm", at.shape_bucket(1024, 1024, 1024),
+                          torch.bfloat16, {"bm": 64, "bn": 64})
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 64)
+                for n in (4096, 1024):
+                    x = torch.randn((n, n), generator=gen, device="cuda").bfloat16()
+                    w = (torch.randn((n, n), generator=gen, device="cuda")
+                         / 64).bfloat16()
+                    before = mm.matmul.launches
+                    out = kfunca.gemm(kfunca.from_torch(x),
+                                      kfunca.from_torch(w)).to_torch()
+                    torch.cuda.synchronize()
+                    want = at.lookup("gemm", at.shape_bucket(n, n, n),
+                                     torch.bfloat16)
+                    check(mm.matmul.launches == before + 1 and seen[-1] == want,
+                          f"gemm {n}^3 under the pallas knob launched K3 at "
+                          f"the recorded tile {want} (got {seen[-1]})")
+                    ref = mm.matmul_plain(x, w)
+                    err = (out.double() - ref.double()).abs().max().item()
+                    tol = 2.0 ** -7 * ref.double().abs().max().item()
+                    check(err <= tol, f"gemm {n}^3 at {want}: {err:.3g} <= "
+                          f"{tol:.3g}")
+            finally:
+                og.k3_matmul = real
+                os.environ.pop("KFUNCA_GEMM_ENGINE", None)
+            cfg = TransformerConfig(**{**MISTRAL, "n_layers": 2})
+            params = mistral_params(cfg, SEED + 65, torch.bfloat16)
+            with torch.no_grad():
+                srv = InferenceServer(params, cfg, batch_slots=8,
+                                      page_size=None, n_pages=256,
+                                      max_pages_per_seq=32)
+                check(srv.page_size == d["params"]["page_size"],
+                      f"InferenceServer(page_size=None) takes the recorded "
+                      f"{d['params']} (got {srv.page_size})")
+                rid = srv.submit(list(range(1, 40)), max_new=4)
+                check(len(srv.run()[rid]) == 4, "the tuned server serves")
+            print(f"  gemm under KFUNCA_GEMM_ENGINE=pallas launched K3 at "
+                  f"the recorded tiles ({seen}); InferenceServer(page_size="
+                  f"None) took page size {srv.page_size} and served",
+                  flush=True)
+        finally:
+            os.environ.pop("KFUNCA_AUTOTUNE_CACHE", None)
+            at._CACHE = None
+    return g, d
+
+
+def runtime_phases(card):
+    """Phases 32-36; returns the kernels-line entry of K10."""
+    import kfunca_tpu_torch as kfunca
+    from kfunca_tpu_torch.ops.pallas_kernels import bitonic_sort as bs
+
+    print("[32] K10 bitonic sort vs its plain version", flush=True)
+    err = k10_checks(bs)
+    free_device_memory()
+    timing = k10_timing(bs)
+    for (rows, n), t in timing.items():
+        print(f"[33] K10 at ({rows}, {n}) fp32: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, torch.sort(stable=True) "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; {t['bytes']} B); this design's "
+              f"shared-memory bound {t['smem_ms']:.4f} ms ({t['exchanges']} "
+              f"compare-exchanges x 32 B); {card}", flush=True)
+    free_device_memory()
+    print("[34] the sort engine through `import kfunca_tpu_torch as kfunca`, "
+          "KFUNCA_PALLAS_SORT=1", flush=True)
+    launches = sort_engine_phase(kfunca, bs)
+    free_device_memory()
+    native_phase(kfunca, card)
+    free_device_memory()
+    autotune_phase(kfunca, card)
+    free_device_memory()
+    t = timing[SORT_SHAPES[0]]
+    return [{"name": "bitonic_sort_pairs", "route": "cuda",
+             "source": "kfunca_tpu_torch/csrc/bitonic_sort.cu",
+             "replaces": "kfunca_tpu/ops/pallas_kernels/bitonic_sort.py:89",
+             "launches": launches, "max_abs_err": err, "max_err": err,
+             "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": t["library_ms"]}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
-    from kfunca_tpu_torch.runtime import _kernels
+    from kfunca_tpu_torch.runtime import _kernels, _native
     from kfunca_tpu_torch.runtime.backend import resolve_device
 
     resolve_device()  # fp32 matmuls at full precision, as the JAX package
@@ -2839,8 +3236,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _kernels.build()
+    check(_native.get_lib() is not None, "the native core builds (g++)")
     print(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc, sm_90a)", flush=True)
+          f"(nvcc, sm_90a) and the native core "
+          f"{_native.library_path().name} (g++)", flush=True)
     for name in sorted(built):
         for line in _kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -2893,6 +3292,8 @@ def main() -> int:
     kernels += eager_phases(card)
     free_device_memory()
     kernels += ssm_phases(fa, card)
+    free_device_memory()
+    kernels += runtime_phases(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

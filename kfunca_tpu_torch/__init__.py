@@ -7,14 +7,19 @@ hand-written CUDA kernel under `csrc/`, built with nvcc at first use
 (runtime/_kernels.py) and bound through ctypes.
 
 `import kfunca_tpu_torch as kfunca` gives the eager Tensor API of the
-reference (kfunca_tpu/__init__.py, less `autotune`, which waits for a
-later slice): strided Tensors over storages (core/), kfunca's dtype
-promotion, elementwise, reduction, shape, index and sort ops, the GEMM,
-eager causal attention and kfunca's own autograd tape.  Its engine knobs
-are the JAX package's, read at dispatch time: KFUNCA_GEMM_ENGINE=pallas
-runs K3 (csrc/matmul.cu), KFUNCA_REDUCE_ENGINE=pallas K8 for sum and mean
-(csrc/reduce.cu; K7, the Welford kernel in the same file, is norm_stat's
-default), KFUNCA_ELEMENTWISE_ENGINE=pallas K9 (csrc/elementwise.cu).
+reference (kfunca_tpu/__init__.py): strided Tensors over storages (core/),
+kfunca's dtype promotion, elementwise, reduction, shape, index and sort
+ops, the GEMM, eager causal attention, kfunca's own autograd tape and
+`autotune`.  Its engine knobs are the JAX package's, read at dispatch
+time: KFUNCA_GEMM_ENGINE=pallas runs K3 (csrc/matmul.cu, at the tile
+`autotune("gemm", ...)` recorded), KFUNCA_REDUCE_ENGINE=pallas K8 for sum
+and mean (csrc/reduce.cu; K7, the Welford kernel in the same file, is
+norm_stat's default), KFUNCA_ELEMENTWISE_ENGINE=pallas K9
+(csrc/elementwise.cu), KFUNCA_PALLAS_SORT=1 K10 for sort and topk
+(csrc/bitonic_sort.cu).  The host-side planning (promotion, broadcasting,
+view loop nests, the tape schedule, the server's page pool, queue and
+prefix index) runs in the native core (csrc/core.cpp, built by g++ at
+first use) unless KFUNCA_NO_NATIVE=1.
 
     import numpy as np
     import kfunca_tpu_torch as kfunca
@@ -58,6 +63,7 @@ from .ops.gemm import gemm
 from .ops.quant import gemm_w8, quantize_cols
 from .ops.shape_ops import concat as cat
 from .runtime.allocator import memstat
+from .runtime.autotune import autotune
 from .runtime.launcher import Launcher
 from .utils.compare import all_close, max_diff
 from .utils.device_info import device_info
@@ -102,6 +108,7 @@ __all__ = [
     "causal_attention",
     "device_info",
     "memstat",
+    "autotune",
     "Launcher",
     "launcher",
     "set_device",

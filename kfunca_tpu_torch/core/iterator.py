@@ -3,16 +3,18 @@
 Counterpart of kfunca_tpu/core/iterator.py (the reference TensorIterator
 build pipeline, tensor_iterator.cpp:486-528).  The plan records the
 broadcast output shape and the common dtype; execution runs on dense views
-(core/materialize.py).  The JAX package runs this in its native C++ planner
-when it is built and in Python otherwise; the port keeps the Python
-planner, which tests/test_native_core.py pins equal to the native one.  The
-native core's loader waits for a later slice.
+(core/materialize.py).  As in the JAX package, broadcasting and promotion
+run in the native core (csrc/core.cpp: kf_broadcast_shapes, kf_promote)
+when it is loaded and in Python otherwise (KFUNCA_NO_NATIVE=1);
+tests/test_torch_native_core.py holds the two together.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
+from ..runtime import _native
 from ..utils.errors import check
 from .dtype import ScalarType, accumulate_type, promote
 
@@ -52,6 +54,23 @@ class LoopPlan:
     device: object
 
 
+def _native_plan(lib, inputs):
+    """Broadcast shape and common dtype through the native core."""
+    shapes = [t.sizes() for t in inputs]
+    ndims = _native.i64_array([len(s) for s in shapes])
+    flat = _native.i64_array([d for s in shapes for d in s])
+    out_ndim = ctypes.c_int64()
+    out_shape = (ctypes.c_int64 * MAX_TENSOR_DIMS)()
+    check(max(len(s) for s in shapes) <= MAX_TENSOR_DIMS, "too many dims")
+    rc = lib.kf_broadcast_shapes(len(shapes), ndims, flat,
+                                 ctypes.byref(out_ndim), out_shape)
+    check(rc == 0, "broadcast shape mismatch:", shapes)
+    common = ScalarType.Undefined
+    for t in inputs:
+        common = ScalarType(lib.kf_promote(common, t.dtype()))
+    return tuple(out_shape[i] for i in range(out_ndim.value)), common
+
+
 def plan_loops(inputs, out=None) -> LoopPlan:
     """Plan an elementwise op over `inputs` (Tensors): common-device check
     -> dtype promotion -> broadcast shape -> output-shape validation
@@ -66,6 +85,8 @@ def plan_loops(inputs, out=None) -> LoopPlan:
         for t in inputs[1:]
     ):
         shape, common = first.shape, first.dtype
+    elif (lib := _native.get_lib()) is not None:
+        shape, common = _native_plan(lib, inputs)
     else:
         common = ScalarType.Undefined
         for t in inputs:

@@ -6,7 +6,10 @@ A torch tensor has them, so a view with non-negative strides is
 `torch.as_strided` over the storage: reading it copies nothing and writing
 through it updates the storage in place.  Negative strides (legal for
 as_strided views inside a storage, not for torch.as_strided) go through a
-flat gather or scatter of the addresses the view names.
+flat gather or scatter of the addresses the view names.  Those addresses
+are built over the view's loop nest as `plan_view` reorders and coalesces
+it (the native core's kf_plan_loop_nest, or its Python form), so a view
+whose dims merge in memory indexes fewer dims.
 
 Writes refuse a self-overlapping target (reference memory_overlap.h; on the
 card such a write is a data race), and a value that shares memory with the
@@ -17,10 +20,11 @@ held before it (the JAX package's semantics: its buffers are immutable).
 from __future__ import annotations
 
 import math
-from functools import lru_cache
+from functools import cmp_to_key, lru_cache
 
 import torch
 
+from ..runtime import _native
 from ..utils.errors import check
 from .dtype import cast
 from .overlap import may_self_overlap
@@ -55,8 +59,68 @@ def numel_of(shape) -> int:
     return int(math.prod(shape)) if shape else 1
 
 
-def flat_indices(shape, strides, offset: int, device) -> torch.Tensor:
-    """int64 storage address of every element of the view, in its shape."""
+def _plan_view_py(shape, strides):
+    """Python form of kf_plan_loop_nest for one operand: stable-sort dims
+    by descending stride (ties: larger extent first), then merge adjacent
+    dims that are contiguous in memory."""
+    ndim = len(shape)
+
+    def cmp(a, b):
+        sa, sb = strides[a], strides[b]
+        if sa != 0 and sb != 0:
+            if sa != sb:
+                return -1 if sa > sb else 1
+            if shape[a] != shape[b]:
+                return -1 if shape[a] > shape[b] else 1
+        return 0
+
+    perm = sorted(range(ndim), key=cmp_to_key(cmp))
+    nshp = [shape[p] for p in perm]
+    nstr = [strides[p] for p in perm]
+    cshape, cstr = [nshp[0]], [nstr[0]]
+    for d in range(1, ndim):
+        if cshape[-1] == 1:
+            cshape[-1], cstr[-1] = nshp[d], nstr[d]
+        elif nshp[d] == 1:
+            pass
+        elif cstr[-1] == nstr[d] * nshp[d]:
+            cshape[-1] *= nshp[d]
+            cstr[-1] = nstr[d]
+        else:
+            cshape.append(nshp[d])
+            cstr.append(nstr[d])
+    return tuple(perm), tuple(nshp), tuple(cshape), tuple(cstr)
+
+
+def plan_view(shape: tuple, strides: tuple):
+    """(perm, permuted shape, coalesced shape, coalesced strides) of one
+    view's loop nest, through the native core when it is loaded; None for
+    a 0-d view.  A gather over the coalesced nest, reshaped to the
+    permuted shape and permuted back, is the view."""
+    if not shape:
+        return None
+    lib = _native.get_lib()
+    if lib is None:
+        return _plan_view_py(shape, strides)
+    return _plan_view_native(lib, tuple(shape), tuple(strides))
+
+
+@lru_cache(maxsize=4096)
+def _plan_view_native(lib, shape: tuple, strides: tuple):
+    ndim = len(shape)
+    out_shape, out_strides, out_perm = (_native.i64_array([0] * ndim)
+                                        for _ in range(3))
+    rank = lib.kf_plan_loop_nest(1, ndim, _native.i64_array(shape),
+                                 _native.i64_array(strides), out_shape,
+                                 out_strides, out_perm, None)
+    check(rank > 0, "loop-nest planner failed for", shape, strides)
+    perm = tuple(out_perm[i] for i in range(ndim))
+    return (perm, tuple(shape[p] for p in perm),
+            tuple(out_shape[i] for i in range(rank)),
+            tuple(out_strides[i] for i in range(rank)))
+
+
+def _nest_indices(shape, strides, offset: int, device) -> torch.Tensor:
     idx = torch.full(tuple(shape), int(offset), dtype=torch.int64, device=device)
     for d, (n, s) in enumerate(zip(shape, strides)):
         if n > 1 and s != 0:
@@ -64,6 +128,18 @@ def flat_indices(shape, strides, offset: int, device) -> torch.Tensor:
             view[d] = n
             idx = idx + torch.arange(n, device=device).reshape(view) * int(s)
     return idx
+
+
+def flat_indices(shape, strides, offset: int, device) -> torch.Tensor:
+    """int64 storage address of every element of the view, in its shape,
+    built over the view's coalesced loop nest (`plan_view`)."""
+    plan = plan_view(tuple(shape), tuple(strides))
+    if plan is None:
+        return torch.full((), int(offset), dtype=torch.int64, device=device)
+    perm, nshp, cshape, cstrides = plan
+    inv = sorted(range(len(perm)), key=perm.__getitem__)
+    return (_nest_indices(cshape, cstrides, offset, device)
+            .reshape(nshp).permute(inv))
 
 
 def read_view(data: torch.Tensor, shape, strides, offset: int) -> torch.Tensor:

@@ -4,9 +4,8 @@ Counterpart of kfunca_tpu/core/storage.py (the reference's TensorStorage,
 tensor_impl.h:62-92): a span of device memory that views read and write.
 Here the span is a flat 1-D torch tensor on an explicit device, and every
 write goes INTO that tensor, so a storage's address never changes and
-every view of it sees every write.  The allocator keeps the reference's
-size-class bookkeeping beside it (runtime/allocator.py); PyTorch's caching
-allocator owns the memory.
+every view of it sees every write.  PyTorch's caching allocator owns the
+memory; runtime/allocator.py reads its statistics.
 
 Devices.  A kfunca device is a CUDA index (an int, default 0) or "cpu".
 An index resolves to the card through runtime/backend.resolve_device,
@@ -18,9 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..runtime.allocator import DeviceAllocator
 from ..runtime.backend import resolve_device
-from .dtype import ScalarType, element_size, to_torch
+from .dtype import ScalarType, to_torch
 
 
 def torch_device(device) -> torch.device:
@@ -47,7 +45,7 @@ def device_key(dev: torch.device):
 
 
 class Storage:
-    __slots__ = ("numel", "dtype", "device", "block", "data", "__weakref__")
+    __slots__ = ("numel", "dtype", "device", "data", "__weakref__")
 
     def __init__(self, numel: int, dtype: ScalarType, device=0, data=None,
                  zero: bool = False):
@@ -55,7 +53,6 @@ class Storage:
         tensor of `numel` elements in `dtype`, which no other storage
         holds).  Otherwise fresh memory: uninitialized, as the reference's
         cudaMalloc, or zeros with `zero`."""
-        self.block = None
         dev = data.device if data is not None else torch_device(device)
         self.numel = int(numel)
         self.dtype = dtype
@@ -67,8 +64,6 @@ class Storage:
             data.shape, self.numel)
         assert data.dtype == to_torch(dtype), (data.dtype, dtype)
         self.data = data
-        nbytes = max(self.numel, 1) * element_size(dtype)
-        self.block = DeviceAllocator.instance().allocate(nbytes, self.device)
 
     @property
     def torch_device(self) -> torch.device:
@@ -77,10 +72,3 @@ class Storage:
     @property
     def base_ptr(self) -> int:
         return self.data.data_ptr()
-
-    def __del__(self):
-        try:
-            if self.block is not None:
-                DeviceAllocator.instance().free(self.block)
-        except Exception:
-            pass  # interpreter teardown

@@ -500,8 +500,19 @@ class Tensor:
     def _schedule(n_nodes, edges):
         """Execution order for the tape (reference two-pass BFS,
         tensor.cpp:86-126): a node runs only after every consumer has
-        delivered its gradient.  The Python scheduler of the JAX package
-        (its native kf_tape_schedule waits for the native core's loader)."""
+        delivered its gradient.  Runs in the native core's scheduler
+        (csrc/core.cpp kf_tape_schedule) when it is loaded; Python
+        otherwise."""
+        from ..runtime import _native
+
+        lib = _native.get_lib()
+        if lib is not None and edges:
+            src = _native.i64_array([e[0] for e in edges])
+            dst = _native.i64_array([e[1] for e in edges])
+            out = _native.i64_array([0] * n_nodes)
+            n = lib.kf_tape_schedule(n_nodes, len(edges), src, dst, 0, out)
+            check(n >= 0, "tape scheduler: edge out of range")
+            return [out[i] for i in range(n)]
         uses = [0] * n_nodes
         children = [[] for _ in range(n_nodes)]
         for u, v in edges:

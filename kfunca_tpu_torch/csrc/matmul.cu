@@ -21,10 +21,13 @@
 // bf16: 137 GFLOP against 100 MB of operands, ~1,400 operations a byte,
 // far past the card's ~295).  Two device bodies, chosen by input type:
 //   * bf16 / fp16: tensor cores through mma.sync.m16n8k16 with fp32
-//     accumulators.  A block of 8 warps owns a 128 x 128 output tile, a
-//     warp 64 x 32 of it (4 x 4 mma tiles); 128 x 32 tiles of a and
-//     32 x 128 tiles of b are staged in shared memory with 16-byte loads
-//     (padded rows keep the fragment reads free of bank conflicts);
+//     accumulators.  A block of 8 warps (2 x 4) owns a BM x BN output
+//     tile, a warp BM/2 x BN/4 of it; BM x 32 tiles of a and 32 x BN tiles
+//     of b are staged in shared memory with 16-byte loads (padded rows
+//     keep the fragment reads free of bank conflicts).  The tile is a
+//     template parameter, the launch's choice: 128 x 128 (the default),
+//     128 x 64, 64 x 128 and 64 x 64 are built (runtime/autotune.py
+//     sweeps them; smaller tiles give more blocks on small outputs);
 //   * fp32 and int8: CUDA-core FMA.  A block of 256 threads owns a
 //     128 x 128 tile, a thread 8 x 8 of it from registers, over k steps of
 //     8 staged in shared memory (a transposed).
@@ -100,9 +103,8 @@ __device__ __forceinline__ void finish(void* out, int code, int row, int col,
 
 // -- bf16 / fp16: tensor cores (mma.sync m16n8k16, fp32 accumulators) -------
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
+constexpr int kBK = 32;
 constexpr int kAStride = kBK + 8;  // shared row strides, in 16-bit elements
-constexpr int kBStride = kBN + 8;
 
 template <bool kBf16>
 __device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
@@ -140,37 +142,41 @@ __device__ __forceinline__ uint4 load8(const uint16_t* row, int c, int cols,
   return r;
 }
 
-template <bool kBf16>
+// BM x BN output tile: a warp owns BM/2 x BN/4 of it, MI x NI mma tiles
+template <bool kBf16, int BM, int BN>
 __global__ void __launch_bounds__(kThreads) mma_gemm_kernel(
     const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
     void* __restrict__ out, int out_code, int m, int n, int k, Epilogue e,
     bool a_vec, bool b_vec) {
-  __shared__ __align__(16) uint16_t as[kBM * kAStride];
+  constexpr int MI = BM / 32, NI = BN / 32;
+  constexpr int kBStride = BN + 8;
+  constexpr int kBChunks = BN / 8;  // 8-element chunks in a row of b
+  __shared__ __align__(16) uint16_t as[BM * kAStride];
   __shared__ __align__(16) uint16_t bs[kBK * kBStride];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps
   const int g = lane >> 2, t4 = lane & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
-  float acc[4][4][4];
+  float acc[MI][NI][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NI; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
 
   for (int k0 = 0; k0 < k; k0 += kBK) {
-    // a tile: 128 rows x 32 columns, 4 chunks of 8 a row
-    for (int c = tid; c < kBM * kBK / 8; c += kThreads) {
+    // a tile: BM rows x 32 columns, 4 chunks of 8 a row
+    for (int c = tid; c < BM * kBK / 8; c += kThreads) {
       const int r = c >> 2, kc = (c & 3) * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (m0 + r < m) v = load8(a + (long long)(m0 + r) * k, k0 + kc, k, a_vec);
       *reinterpret_cast<uint4*>(as + r * kAStride + kc) = v;
     }
-    // b tile: 32 rows x 128 columns, 16 chunks of 8 a row
-    for (int c = tid; c < kBK * kBN / 8; c += kThreads) {
-      const int r = c >> 4, nc = (c & 15) * 8;
+    // b tile: 32 rows x BN columns, BN / 8 chunks of 8 a row
+    for (int c = tid; c < kBK * kBChunks; c += kThreads) {
+      const int r = c / kBChunks, nc = (c % kBChunks) * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (k0 + r < k) v = load8(b + (long long)(k0 + r) * n, n0 + nc, n, b_vec);
       *reinterpret_cast<uint4*>(bs + r * kBStride + nc) = v;
@@ -179,39 +185,67 @@ __global__ void __launch_bounds__(kThreads) mma_gemm_kernel(
 
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bf[4][2];
+      uint32_t af[MI][4], bf[NI][2];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const uint16_t* p = as + (wm * 64 + mi * 16 + g) * kAStride + kk + t4 * 2;
+      for (int mi = 0; mi < MI; ++mi) {
+        const uint16_t* p =
+            as + (wm * (BM / 2) + mi * 16 + g) * kAStride + kk + t4 * 2;
         af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
         af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kAStride);
         af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
         af[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kAStride + 8);
       }
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint16_t* p = bs + (kk + t4 * 2) * kBStride + wn * 32 + ni * 8 + g;
+      for (int ni = 0; ni < NI; ++ni) {
+        const uint16_t* p =
+            bs + (kk + t4 * 2) * kBStride + wn * (BN / 4) + ni * 8 + g;
         bf[ni][0] = p[0] | ((uint32_t)p[kBStride] << 16);
         bf[ni][1] = p[8 * kBStride] | ((uint32_t)p[9 * kBStride] << 16);
       }
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma16816<kBf16>(acc[mi][ni], af[mi], bf[ni]);
+        for (int ni = 0; ni < NI; ++ni)
+          mma16816<kBf16>(acc[mi][ni], af[mi], bf[ni]);
     }
     __syncthreads();
   }
 
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int row = m0 + wm * 64 + mi * 16 + g + (r >> 1) * 8;
-        const int col = n0 + wn * 32 + ni * 8 + t4 * 2 + (r & 1);
+        const int row = m0 + wm * (BM / 2) + mi * 16 + g + (r >> 1) * 8;
+        const int col = n0 + wn * (BN / 4) + ni * 8 + t4 * 2 + (r & 1);
         finish(out, out_code, row, col, m, n, acc[mi][ni][r], e);
       }
+}
+
+template <bool kBf16, int BM, int BN>
+int launch_mma(const uint16_t* a, const uint16_t* b, void* out, int out_code,
+               int m, int n, int k, const Epilogue& e, bool a_vec, bool b_vec,
+               cudaStream_t s) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  mma_gemm_kernel<kBf16, BM, BN><<<grid, kThreads, 0, s>>>(
+      a, b, out, out_code, m, n, k, e, a_vec, b_vec);
+  return (int)cudaGetLastError();
+}
+
+template <bool kBf16>
+int launch_mma_tile(const uint16_t* a, const uint16_t* b, void* out,
+                    int out_code, int m, int n, int k, const Epilogue& e,
+                    bool a_vec, bool b_vec, int bm, int bn, cudaStream_t s) {
+  if (bm == 128 && bn == 128)
+    return launch_mma<kBf16, 128, 128>(a, b, out, out_code, m, n, k, e, a_vec, b_vec, s);
+  if (bm == 128 && bn == 64)
+    return launch_mma<kBf16, 128, 64>(a, b, out, out_code, m, n, k, e, a_vec, b_vec, s);
+  if (bm == 64 && bn == 128)
+    return launch_mma<kBf16, 64, 128>(a, b, out, out_code, m, n, k, e, a_vec, b_vec, s);
+  if (bm == 64 && bn == 64)
+    return launch_mma<kBf16, 64, 64>(a, b, out, out_code, m, n, k, e, a_vec, b_vec, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // -- fp32 and int8: CUDA-core FMA -------------------------------------------
@@ -279,12 +313,14 @@ __global__ void __launch_bounds__(kThreads) simt_gemm_kernel(
 // 7 bf16, 8 fp32; out_code: 4 int32, 6 fp16, 7 bf16, 8 fp32 (dtype codes of
 // kfunca_tpu_torch/core/dtype.py).  a (m, k) and b (k, n) are contiguous
 // row-major; bias (n,) and residual (m, n) are contiguous fp32 or null;
-// act: 0 none, 1 tanh-GELU, 2 SiLU, 3 ReLU.  Returns cudaGetLastError()
-// after the launch (0 on success).
+// act: 0 none, 1 tanh-GELU, 2 SiLU, 3 ReLU; (bm, bn): the output tile of
+// the bf16 / fp16 body, one of 128 x 128, 128 x 64, 64 x 128, 64 x 64
+// (the fp32 and int8 body takes 128 x 128 only).  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int kf_matmul(const void* a, const void* b, const void* bias,
                          const void* residual, void* out, int in_code,
-                         int out_code, int m, int k, int n, int act,
-                         void* stream) {
+                         int out_code, int m, int k, int n, int act, int bm,
+                         int bn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || n <= 0 || k <= 0 || act < 0 || act > 3)
     return (int)cudaErrorInvalidValue;
@@ -297,17 +333,15 @@ extern "C" int kf_matmul(const void* a, const void* b, const void* bias,
   if (in_code == 6 || in_code == 7) {
     const bool a_vec = k % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
     const bool b_vec = n % 8 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
-    const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
     const uint16_t* ap = static_cast<const uint16_t*>(a);
     const uint16_t* bp = static_cast<const uint16_t*>(b);
     if (in_code == 7)
-      mma_gemm_kernel<true><<<grid, block, 0, s>>>(ap, bp, out, out_code, m, n,
-                                                   k, e, a_vec, b_vec);
-    else
-      mma_gemm_kernel<false><<<grid, block, 0, s>>>(ap, bp, out, out_code, m, n,
-                                                    k, e, a_vec, b_vec);
-    return (int)cudaGetLastError();
+      return launch_mma_tile<true>(ap, bp, out, out_code, m, n, k, e, a_vec,
+                                   b_vec, bm, bn, s);
+    return launch_mma_tile<false>(ap, bp, out, out_code, m, n, k, e, a_vec,
+                                  b_vec, bm, bn, s);
   }
+  if (bm != kSB || bn != kSB) return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kSB - 1) / kSB, (m + kSB - 1) / kSB);
   if (in_code == 8) {
     simt_gemm_kernel<float, float><<<grid, block, 0, s>>>(

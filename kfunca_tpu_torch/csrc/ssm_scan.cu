@@ -15,8 +15,11 @@
 //   gives ddt (the dA path only: u is an independent input), du, dbm and dc
 //   (summed over di) and da_t (summed over B and L).
 // Any L and di: the ragged last L-block and the channels past di are
-// masked here.  N is at most 16 (every published Mamba-1 and Jamba state
-// width); the wrapper refuses more.
+// masked here.  Any N: a thread block walks the states in groups of
+// kMaxN = 16 (every published Mamba-1 and Jamba state width is one group),
+// each group a full walk over L; from the second group on y (forward) and
+// ddt, du (backward) add to what the earlier groups left, in the same
+// thread and in group order, so the sums stay in a fixed order.
 //
 // What bounds it.  Per (b, t, d, n) the forward does one exponential and
 // three multiply-adds; the backward needs the exponential again.  At the
@@ -28,7 +31,7 @@
 // between grid steps in VMEM scratch; on the card the blocks run at once,
 // so the walk over L moves inside the thread:
 //   * four adjacent lanes own one (batch, channel) pair, each holding four
-//     of its N states, the matching values of A and (backward) the reverse
+//     of a group's 16 states, the matching values of A and (backward) the reverse
 //     carry and the da sums in registers; sums over the states (y, ddt,
 //     du) meet by two shuffles.  A block is 32 adjacent channels (128
 //     threads): 2,560 warps at the training shape, ~19 an SM;
@@ -56,7 +59,7 @@
 namespace {
 
 constexpr int kCh = 32;      // channels per block
-constexpr int kMaxN = 16;    // state width the kernels take
+constexpr int kMaxN = 16;    // states in one group (one walk over L)
 constexpr int kG = 4;        // lanes per channel, splitting its states
 constexpr int kS = kMaxN / kG;  // states per thread, in registers
 constexpr int kThreads = kCh * kG;
@@ -83,11 +86,14 @@ __global__ void __launch_bounds__(kThreads) ssm_fwd_kernel(
   const bool live = d < di;
   const int nblk = (L + LB - 1) / LB;
   const long long row0 = (long long)b * L;
+  // states n0 .. n0 + ng - 1 of this group; s below counts within it
+  for (int n0 = 0; n0 < n; n0 += kMaxN) {
+  const int ng = min(kMaxN, n - n0);
   float a[kS], h[kS];
 #pragma unroll
   for (int j = 0; j < kS; ++j) {
     const int s = grp * kS + j;
-    a[j] = (live && s < n) ? a_t[(long long)s * di + d] : 0.0f;
+    a[j] = (live && s < ng) ? a_t[(long long)(n0 + s) * di + d] : 0.0f;
     h[j] = 0.0f;
   }
   for (int k = 0; k < nblk; ++k) {
@@ -96,16 +102,16 @@ __global__ void __launch_bounds__(kThreads) ssm_fwd_kernel(
     __syncthreads();  // the previous block's reads of sB / sC are done
     for (int i = tid; i < LB * kMaxN; i += kThreads) {
       const int tt = i / kMaxN, s = i % kMaxN;
-      const bool ok = tt < len && s < n;
-      sB[tt][s] = ok ? bm[(row0 + t0 + tt) * n + s] : 0.0f;
-      sC[tt][s] = ok ? c[(row0 + t0 + tt) * n + s] : 0.0f;
+      const bool ok = tt < len && s < ng;
+      sB[tt][s] = ok ? bm[(row0 + t0 + tt) * n + n0 + s] : 0.0f;
+      sC[tt][s] = ok ? c[(row0 + t0 + tt) * n + n0 + s] : 0.0f;
     }
     __syncthreads();
     if (live) {
-      float* hbp = hb + ((long long)b * nblk + k) * n * (long long)di + d;
+      float* hbp = hb + (((long long)b * nblk + k) * n + n0) * (long long)di + d;
 #pragma unroll
       for (int j = 0; j < kS; ++j)
-        if (grp * kS + j < n) hbp[(long long)(grp * kS + j) * di] = h[j];
+        if (grp * kS + j < ng) hbp[(long long)(grp * kS + j) * di] = h[j];
     }
     // a channel's lanes load the same values (one sector a warp); a lane
     // of a channel past di computes on zeros, as the shuffles need it
@@ -123,17 +129,21 @@ __global__ void __launch_bounds__(kThreads) ssm_fwd_kernel(
 #pragma unroll
         for (int j = 0; j < kS; ++j) {
           const int s = grp * kS + j;
-          if (s < n) {
+          if (s < ng) {
             const float dA = expf(dtv[i] * a[j]);
             h[j] = dA * h[j] + uv[i] * sB[i][s];
             acc += sC[i][s] * h[j];
           }
         }
         acc = group_sum(acc);
-        if (live && grp == 0) y[(row0 + t0 + i) * di + d] = acc;
+        if (live && grp == 0) {
+          float* yp = y + (row0 + t0 + i) * di + d;
+          *yp = n0 == 0 ? acc : *yp + acc;
+        }
       }
     }
   }
+  }  // state groups
 }
 
 template <int LB>
@@ -165,11 +175,14 @@ __global__ void __launch_bounds__(kThreads) ssm_bwd_kernel(
   const int cols = min(kCh, di - (int)blockIdx.x * kCh);
   const int nblk = (L + LB - 1) / LB;
   const long long row0 = (long long)b * L;
+  // states n0 .. n0 + ng - 1 of this group; s below counts within it
+  for (int n0 = 0; n0 < n; n0 += kMaxN) {
+  const int ng = min(kMaxN, n - n0);
   float a[kS], g[kS], da[kS];
 #pragma unroll
   for (int j = 0; j < kS; ++j) {
     const int s = grp * kS + j;
-    a[j] = (live && s < n) ? a_t[(long long)s * di + d] : 0.0f;
+    a[j] = (live && s < ng) ? a_t[(long long)(n0 + s) * di + d] : 0.0f;
     g[j] = 0.0f;   // dA_{t+1} * delta_{t+1}, carried from the right
     da[j] = 0.0f;
   }
@@ -179,9 +192,9 @@ __global__ void __launch_bounds__(kThreads) ssm_bwd_kernel(
     __syncthreads();  // the previous block's reduction reads are done
     for (int i = tid; i < LB * kMaxN; i += kThreads) {
       const int tt = i / kMaxN, s = i % kMaxN;
-      const bool ok = tt < len && s < n;
-      sB[tt][s] = ok ? bm[(row0 + t0 + tt) * n + s] : 0.0f;
-      sC[tt][s] = ok ? c[(row0 + t0 + tt) * n + s] : 0.0f;
+      const bool ok = tt < len && s < ng;
+      sB[tt][s] = ok ? bm[(row0 + t0 + tt) * n + n0 + s] : 0.0f;
+      sC[tt][s] = ok ? c[(row0 + t0 + tt) * n + n0 + s] : 0.0f;
     }
     __syncthreads();
     float dtv[LB], uv[LB], dyv[LB];
@@ -193,12 +206,13 @@ __global__ void __launch_bounds__(kThreads) ssm_bwd_kernel(
       dyv[i] = (live && i < len) ? dy[off] : 0.0f;
     }
     // recompute the block's states from the one entering it
-    const float* hbp = hb + ((long long)b * nblk + k) * n * (long long)di + d;
+    const float* hbp =
+        hb + (((long long)b * nblk + k) * n + n0) * (long long)di + d;
     float h[kS];
 #pragma unroll
     for (int j = 0; j < kS; ++j) {
       const int s = grp * kS + j;
-      h[j] = (live && s < n) ? hbp[(long long)s * di] : 0.0f;
+      h[j] = (live && s < ng) ? hbp[(long long)s * di] : 0.0f;
       hist[j * kRow + tid] = h[j];
     }
 #pragma unroll
@@ -207,7 +221,7 @@ __global__ void __launch_bounds__(kThreads) ssm_bwd_kernel(
 #pragma unroll
         for (int j = 0; j < kS; ++j) {
           const int s = grp * kS + j;
-          if (s < n) {
+          if (s < ng) {
             const float dA = expf(dtv[i] * a[j]);
             h[j] = dA * h[j] + uv[i] * sB[i][s];
             hist[((i + 1) * kS + j) * kRow + tid] = h[j];
@@ -224,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) ssm_bwd_kernel(
 #pragma unroll
         for (int j = 0; j < kS; ++j) {
           const int s = grp * kS + j;
-          if (s < n) {
+          if (s < ng) {
             const float dA = expf(dtv[i] * a[j]);
             const float delta = g[j] + sC[i][s] * dyv[i];
             const float hp = hist[(i * kS + j) * kRow + tid];
@@ -241,16 +255,16 @@ __global__ void __launch_bounds__(kThreads) ssm_bwd_kernel(
         sdu = group_sum(sdu);
         if (live && grp == 0) {
           const long long off = (row0 + t0 + i) * di + d;
-          ddt[off] = sdt;
-          du[off] = sdu;
+          ddt[off] = n0 == 0 ? sdt : ddt[off] + sdt;
+          du[off] = n0 == 0 ? sdu : du[off] + sdu;
         }
       }
     }
     __syncthreads();
     // dbm and dc of this block's steps, summed over the block's channels
     // in a fixed order
-    for (int r = tid; r < len * n; r += kThreads) {
-      const int i = r / n, s = r % n;
+    for (int r = tid; r < len * ng; r += kThreads) {
+      const int i = r / ng, s = r % ng;
       const int j = s % kS, col = s / kS;
       const float* pb = hist + ((i + 1) * kS + j) * kRow + col;
       const float* pc = cbuf + (i * kS + j) * kRow + col;
@@ -259,7 +273,8 @@ __global__ void __launch_bounds__(kThreads) ssm_bwd_kernel(
         sb += pb[cc * kG];
         sc += pc[cc * kG];
       }
-      const long long o = (((long long)b * ncb + blockIdx.x) * L + t0 + i) * n + s;
+      const long long o =
+          (((long long)b * ncb + blockIdx.x) * L + t0 + i) * n + n0 + s;
       dbp[o] = sb;
       dcp[o] = sc;
     }
@@ -268,9 +283,10 @@ __global__ void __launch_bounds__(kThreads) ssm_bwd_kernel(
 #pragma unroll
     for (int j = 0; j < kS; ++j) {
       const int s = grp * kS + j;
-      if (s < n) datp[((long long)b * n + s) * di + d] = da[j];
+      if (s < ng) datp[((long long)b * n + n0 + s) * di + d] = da[j];
     }
   }
+  }  // state groups
 }
 
 // out[o, j] = sum_p in[o, p, j], p in order
@@ -324,7 +340,7 @@ int launch_bwd(const float* dt, const float* u, const float* bm,
 }
 
 bool bad_shape(int b, int L, int di, int n) {
-  return b <= 0 || L <= 0 || di <= 0 || n <= 0 || n > kMaxN;
+  return b <= 0 || L <= 0 || di <= 0 || n <= 0;
 }
 
 }  // namespace

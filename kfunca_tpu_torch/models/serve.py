@@ -26,7 +26,8 @@ Counterpart of kfunca_tpu/models/serve.py, single-device path:
     kernel (ops/quant.py), or (packed int4, group scales) pairs, w4a8.
     Prefill keeps the fp params.
   * Prefix caching (prefix_cache): full prompt pages are content-hashed
-    (chained per-page hash) and shared read-only between sequences;
+    (chained per-page hash: the native core's 128-bit chain, or sha1 in
+    the Python form) and shared read-only between sequences;
     admission reuses the longest cached page prefix and prefills only the
     suffix.  Pages are refcounted; cache-only pages evict LRU under pool
     pressure.
@@ -47,9 +48,10 @@ penalties and constrained decoding.
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import math
 import time
-import hashlib
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -62,6 +64,7 @@ from ..ops.pallas_kernels.paged_attention import (
 from ..ops.quant import (
     gemm_w4, gemm_w8, quantize_cols, quantize_cols_int4, quantize_vecs,
 )
+from ..runtime import _native
 from ..runtime.backend import resolve_device
 from .generate import _rope_at, forward_with_cache, init_kv_cache
 from .transformer import (
@@ -73,7 +76,9 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
-# page allocator and admission queue (the JAX package's Python fallbacks)
+# page allocator, admission queue and prefix index: the native core's
+# kf_page_pool_*, kf_queue_* and kf_pcache_* when it is loaded, their Python
+# forms otherwise (KFUNCA_NO_NATIVE=1), as in the JAX package
 # ---------------------------------------------------------------------------
 
 
@@ -82,19 +87,38 @@ class PagePool:
 
     def __init__(self, n_pages: int):
         self.n_pages = n_pages
-        self._free = list(range(n_pages - 1, -1, -1))
+        self._lib = _native.get_lib()
+        if self._lib is not None:
+            self._id = self._lib.kf_page_pool_create(n_pages)
+        else:
+            self._free = list(range(n_pages - 1, -1, -1))
 
     def alloc(self, count: int) -> list[int] | None:
         """`count` page indices, or None if the pool can't satisfy it."""
+        if count == 0:
+            return []
+        if self._lib is not None:
+            out = _native.i64_array([0] * count)
+            if self._lib.kf_page_alloc(self._id, count, out) < 0:
+                return None
+            return list(out)
         if len(self._free) < count:
             return None
         return [self._free.pop() for _ in range(count)]
 
     def free(self, pages: list[int]) -> None:
-        self._free.extend(pages)
+        if not pages:
+            return
+        if self._lib is not None:
+            self._lib.kf_page_free(self._id, len(pages),
+                                   _native.i64_array(list(pages)))
+        else:
+            self._free.extend(pages)
 
     @property
     def available(self) -> int:
+        if self._lib is not None:
+            return int(self._lib.kf_page_pool_available(self._id))
         return len(self._free)
 
 
@@ -102,33 +126,66 @@ class RequestQueue:
     """FIFO admission queue."""
 
     def __init__(self):
-        self._items: deque[int] = deque()
+        self._lib = _native.get_lib()
+        if self._lib is not None:
+            self._id = self._lib.kf_queue_create()
+        else:
+            self._items: deque[int] = deque()
 
     def push(self, item: int) -> None:
-        self._items.append(item)
+        if self._lib is not None:
+            self._lib.kf_queue_push(self._id, item)
+        else:
+            self._items.append(item)
 
     def pop(self) -> int | None:
+        if self._lib is not None:
+            v = int(self._lib.kf_queue_pop(self._id))
+            return None if v < 0 else v
         return self._items.popleft() if self._items else None
 
     def __len__(self) -> int:
+        if self._lib is not None:
+            return int(self._lib.kf_queue_size(self._id))
         return len(self._items)
 
 
 class PrefixIndex:
     """LRU-ordered prefix-cache index: chained prompt-page content hash ->
-    KV page id (the JAX package's Python fallback: a dict in insertion
-    order, oldest first).
+    KV page id.
 
-    Keys are 20-byte sha1 digests that commit to the whole token prefix
-    [0, (i+1)*page_size) and the seed (the adapter id)."""
+    Keys are opaque: (u64, u64) pairs from the native core's 128-bit
+    splitmix chain (kf_pcache_hash_chain), or 20-byte sha1 digests from the
+    Python form (a dict in insertion order, oldest first).  Both commit to
+    the whole token prefix [0, (i+1)*page_size) and the seed (the adapter
+    id)."""
 
     def __init__(self):
-        self._d: dict = {}
+        self._lib = _native.get_lib()
+        if self._lib is not None:
+            self._id = self._lib.kf_pcache_create()
+        else:
+            self._d: dict = {}
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        if lib is not None:
+            lib.kf_pcache_destroy(self._id)
 
     def hash_chain(self, prompt, page_size: int, seed: int) -> list:
         """One chained content hash per FULL page of `prompt` under `seed`."""
+        n_pages = len(prompt) // page_size
+        if n_pages == 0:
+            return []
+        if self._lib is not None:
+            toks = np.ascontiguousarray(prompt, dtype=np.int32)
+            out = (ctypes.c_uint64 * (2 * n_pages))()
+            self._lib.kf_pcache_hash_chain(
+                toks.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                len(toks), page_size, seed, out)
+            return [(out[2 * i], out[2 * i + 1]) for i in range(n_pages)]
         hashes, h = [], np.int32(seed).tobytes()
-        for i in range(len(prompt) // page_size):
+        for i in range(n_pages):
             h = hashlib.sha1(
                 h + np.asarray(prompt[i * page_size:(i + 1) * page_size],
                                np.int32).tobytes()).digest()
@@ -137,15 +194,23 @@ class PrefixIndex:
 
     def get(self, key):
         """Mapped page id, or None (does NOT touch LRU order)."""
+        if self._lib is not None:
+            v = int(self._lib.kf_pcache_get(self._id, key[0], key[1]))
+            return None if v < 0 else v
         return self._d.get(key)
 
     def touch(self, key) -> None:
         """Move an entry to most-recently-used."""
-        if key in self._d:
+        if self._lib is not None:
+            self._lib.kf_pcache_touch(self._id, key[0], key[1])
+        elif key in self._d:
             self._d[key] = self._d.pop(key)
 
     def put(self, key, page: int) -> bool:
         """Insert at MRU; False (and no change) if the key already exists."""
+        if self._lib is not None:
+            return int(self._lib.kf_pcache_put(self._id, key[0], key[1],
+                                               page)) == 1
         if key in self._d:
             return False
         self._d[key] = page
@@ -153,13 +218,27 @@ class PrefixIndex:
 
     def erase(self, key):
         """Remove; returns the page that was mapped, or None."""
+        if self._lib is not None:
+            v = int(self._lib.kf_pcache_erase(self._id, key[0], key[1]))
+            return None if v < 0 else v
         return self._d.pop(key, None)
 
     def lru_items(self) -> list:
         """(key, page) snapshot in LRU order, oldest first."""
+        if self._lib is not None:
+            n = int(self._lib.kf_pcache_size(self._id))
+            if n <= 0:
+                return []
+            ab = (ctypes.c_uint64 * (2 * n))()
+            pages = _native.i64_array([0] * n)
+            n = int(self._lib.kf_pcache_lru(self._id, ab, pages, n))
+            return [((ab[2 * i], ab[2 * i + 1]), int(pages[i]))
+                    for i in range(n)]
         return list(self._d.items())
 
     def __len__(self) -> int:
+        if self._lib is not None:
+            return max(0, int(self._lib.kf_pcache_size(self._id)))
         return len(self._d)
 
     def __contains__(self, key) -> bool:
@@ -490,7 +569,7 @@ class InferenceServer:
         params,
         cfg: TransformerConfig,
         batch_slots: int = 4,
-        page_size: int = 16,
+        page_size: int | None = 16,
         n_pages: int = 256,
         max_pages_per_seq: int = 16,
         temperature: float = 0.0,
@@ -550,6 +629,15 @@ class InferenceServer:
             self._decode_params = params
         self.cfg = cfg
         self.B = batch_slots
+        if page_size is None:
+            # the card's autotune cache (kfunca.autotune("decode_page",
+            # slots, H*hd, context) records the winner), else 16
+            from ..runtime import autotune
+
+            hit = autotune.lookup(
+                "decode_page", autotune.shape_bucket(batch_slots, hkv * hd),
+                torch.bfloat16)
+            page_size = int(hit["page_size"]) if hit else 16
         self.page_size = page_size
         self.max_pages = max_pages_per_seq
         self.temperature = float(temperature)

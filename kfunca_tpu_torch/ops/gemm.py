@@ -17,6 +17,9 @@ Engine, read at dispatch time (KFUNCA_GEMM_ENGINE, as in the JAX package):
   * `pallas`: K3, the hand-written kernel (ops/pallas_kernels/matmul.py),
     for fp32 / bf16 / fp16; on CUDA tensors it launches or the call raises,
     on CPU tensors its plain version runs.  fp64 stays on the vendor path.
+    The output tile is the card's recorded autotune winner for the shape
+    class and dtype (runtime/autotune.py, kfunca.autotune("gemm", m, k,
+    n)), else the kernel's default.
 The backward (dA = alpha * g @ B^T, dB = alpha * A^T @ g) goes through the
 same engine, so K3 runs twice per gemm node there.
 """
@@ -30,6 +33,7 @@ import torch
 from ..core.dtype import is_floating_type, to_torch
 from ..core.iterator import check
 from ..core.tensor import GradFunction, Tensor, adopt_flat
+from ..runtime import autotune
 from ..runtime.launcher import Launcher
 from .pallas_kernels.matmul import matmul as k3_matmul
 
@@ -61,7 +65,10 @@ def matmul_2d(A, B, out_dtype, engine: str | None = None):
         ct = torch.promote_types(A.dtype, B.dtype)
         A, B = A.to(ct), B.to(ct)
     if engine == "pallas" and A.dtype in _K3_DTYPES:
-        return k3_matmul(A, B, out_dtype=out_dtype)
+        tuned = autotune.lookup(
+            "gemm", autotune.shape_bucket(A.shape[0], A.shape[1], B.shape[1]),
+            A.dtype)
+        return k3_matmul(A, B, out_dtype=out_dtype, **(tuned or {}))
     return _library_mm(A, B, out_dtype)
 
 

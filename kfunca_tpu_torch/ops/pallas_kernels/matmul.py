@@ -12,7 +12,10 @@ of tanh-GELU / SiLU / ReLU, + residual (m, n); then the store in
 `out_dtype` (default: the input dtype, int32 for int8).  `epilogue` names
 its parts as the TPU kernel does ("bias", "bias_gelu", "silu", "bias_res",
 ...).  The TPU kernel's block sizes (`bm`, `bn`, `bk`, `vmem_limit`) are
-VMEM choices and are not taken.
+VMEM choices; of them the card's kernel takes the output tile (`bm`, `bn`)
+of its bf16 / fp16 body, one of TILES (default 128 x 128), which
+runtime/autotune.py sweeps; the fp32 and int8 body has a fixed 128 x 128
+tile.  `bk` and `vmem_limit` are not taken.
 
 Layout: the kernel reads row-major a and b.  A transposed view (the gemm
 backward's a^T and b^T) is copied to row-major first, and bias / residual
@@ -29,6 +32,9 @@ from ...runtime import _kernels
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 _OUT = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 _ACTS = {"gelu": 1, "silu": 2, "relu": 3}
+# the output tiles (bm, bn) csrc/matmul.cu builds for bf16 / fp16 inputs
+TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
+DEFAULT_TILE = (128, 128)
 # |acc| <= k * 128 * 128 must fit an int32
 MAX_K_INT8 = (2 ** 31 - 1) // (128 * 128)
 
@@ -107,14 +113,27 @@ def matmul_plain(a, b, bias=None, residual=None, out_dtype=None, epilogue=""):
     return cast(acc, out_dtype)
 
 
-def matmul(a, b, bias=None, residual=None, out_dtype=None, epilogue=""):
+def _check_tile(dtype, bm, bn):
+    if dtype in (torch.bfloat16, torch.float16):
+        if (bm, bn) not in TILES:
+            raise ValueError(f"the bf16 / fp16 kernel takes tiles {TILES}, "
+                             f"got ({bm}, {bn})")
+    elif (bm, bn) != DEFAULT_TILE:
+        raise ValueError(f"the fp32 and int8 kernel has a fixed "
+                         f"{DEFAULT_TILE} tile, got ({bm}, {bn})")
+
+
+def matmul(a, b, bias=None, residual=None, out_dtype=None, epilogue="",
+           bm=DEFAULT_TILE[0], bn=DEFAULT_TILE[1]):
     """(m, k) @ (k, n) -> (m, n) with the fused epilogue.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (counted in `matmul.launches`) or raise.  Any m, k, n: the kernel masks
-    ragged edges itself."""
+    ragged edges itself.  (bm, bn) is the kernel's output tile (TILES);
+    the plain version takes none."""
     out_dtype = out_dtype or _default_out(a)
     _check(a, b, bias, residual, out_dtype, epilogue)
+    _check_tile(a.dtype, bm, bn)
     if a.device.type == "cpu":
         return matmul_plain(a, b, bias, residual, out_dtype, epilogue)
     if a.device.type != "cuda":
@@ -128,12 +147,13 @@ def matmul(a, b, bias=None, residual=None, out_dtype=None, epilogue=""):
     residual = None if residual is None else residual.float().contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     vp, i32 = _kernels.VP, _kernels.I32
-    fn = _kernels.function("matmul", "kf_matmul", (vp,) * 5 + (i32,) * 6 + (vp,))
+    fn = _kernels.function("matmul", "kf_matmul", (vp,) * 5 + (i32,) * 8 + (vp,))
     err = fn(a.data_ptr(), b.data_ptr(),
              None if bias is None else bias.data_ptr(),
              None if residual is None else residual.data_ptr(), out.data_ptr(),
              int(from_torch(a.dtype)), int(from_torch(out_dtype)), m, k, n,
-             _act(epilogue), torch.cuda.current_stream(a.device).cuda_stream)
+             _act(epilogue), bm, bn,
+             torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
     matmul.launches += 1

@@ -20,7 +20,9 @@ Differences from the TPU kernels, by design: any L and di (the TPU kernel
 asserts L % lb == 0 and di % dib == 0; the card's kernels mask the ragged
 edges), so there is no `dib` argument; `lb` is 8, 16 or 32 on the card (the
 backward keeps a block's lb states a channel in shared memory), any
-positive value in the plain version; N is at most 16 on the card.  Only
+positive value in the plain version.  Any N: the card's kernels walk the
+states in groups of 16 (`STATE_GROUP`), adding each group's share of y,
+ddt and du to the earlier groups' in a fixed order.  Only
 fp32 is taken, as the TPU kernels compute in fp32: the recurrence
 compounds rounding multiplicatively.
 
@@ -40,7 +42,7 @@ from ...runtime import _kernels
 
 LB = 16  # the state is written out every LB steps
 KERNEL_LBS = (8, 16, 32)
-MAX_STATE = 16  # the kernels hold N states a thread in registers
+STATE_GROUP = 16  # states the kernels hold in registers in one walk over L
 CHANNELS_PER_BLOCK = 32  # one warp of adjacent channels a block
 
 
@@ -135,9 +137,6 @@ def _check_cuda(dt, bm, lb):
         raise ValueError(f"unsupported device {dt.device}")
     if lb not in KERNEL_LBS:
         raise ValueError(f"the kernels take lb in {KERNEL_LBS}, got {lb}")
-    if bm.shape[2] > MAX_STATE:
-        raise ValueError(f"state width {bm.shape[2]} exceeds the kernels' "
-                         f"{MAX_STATE} states a thread")
     if min(dt.shape) == 0 or bm.shape[2] == 0:
         raise ValueError(f"the kernels need non-empty inputs, got dt "
                          f"{tuple(dt.shape)}, N {bm.shape[2]}")

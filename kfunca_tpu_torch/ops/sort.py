@@ -19,11 +19,20 @@ sort, with the JAX package's contract and its orders where torch's differ:
     the bits mapped to ordered integers (torch.topk promises no order for
     ties).
 
-KFUNCA_PALLAS_SORT=1 selects the JAX package's bitonic kernel (K10), which
-is not ported yet: on CUDA tensors where the JAX package would run it, the
-port raises NotImplementedError; CPU tensors take the default engine, as
-the JAX package does off the TPU.  Bool keys are unsupported, as in the
-reference.
+KFUNCA_PALLAS_SORT=1 (read at dispatch time) selects the bitonic sort
+kernel K10 (ops/pallas_kernels/bitonic_sort.py, csrc/bitonic_sort.cu)
+wherever the JAX package would run its Pallas kernel (`_pallas_eligible`):
+keys that are not Double, Long or Bool in rows that pad to at most 1024.
+`_k10_sort` is the JAX package's `_pallas_sort_jit`: `dim` moved last in
+dense rows, float keys widened to fp32 and integer keys to int32,
+descending as a negated (float) or bit-inverted (int32) key, int64
+indices; topk with k > 256 is a full K10 sort, then a narrow.  On CUDA
+tensors the engine launches K10 or raises; on CPU tensors it runs K10's
+plain version, as the port's other engine knobs do, so the CPU tests reach
+the key transforms.  The values come back by gathering the input along the
+sorted indices, so each keeps its own bits; the order (NaN last both ways,
+-0.0 tied with 0.0) is the default engine's.  Bool keys are unsupported,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -37,38 +46,49 @@ from ..core.iterator import check, maybe_wrap_dim
 from ..core.tensor import Tensor
 from ..runtime.launcher import Launcher
 from .elementwise import wrap_array
+from .pallas_kernels import bitonic_sort
 
 TOP_K_MAX = 2048  # lax.top_k serves k up to this (ops/sort.py of the JAX package)
-K10_DISPATCH_MAX_N = 1024  # the bitonic dispatcher's padded row limit (bitonic_sort.py:45)
 
 _INT_OF = {torch.float16: torch.int16, torch.bfloat16: torch.int16,
            torch.float32: torch.int32, torch.float64: torch.int64}
 
 
-def _check_k10(t: Tensor, dim: int) -> None:
-    """Raise where the JAX package would run its Pallas sort (K10)."""
+def _pallas_eligible(t: Tensor, dim: int) -> bool:
+    """Where the JAX package runs K10: the knob set, keys that are not
+    64-bit or Bool, and rows that pad to at most DISPATCH_MAX_N."""
     if os.environ.get("KFUNCA_PALLAS_SORT", "0") != "1":
-        return
-    if t.torch_device().type != "cuda":
-        return
+        return False
     if t.dtype() in (ScalarType.Double, ScalarType.Long, ScalarType.Bool):
-        return  # the JAX package keeps 64-bit keys on XLA
-    n = max(t.shape(dim), 128)
-    if 1 << (n - 1).bit_length() <= K10_DISPATCH_MAX_N:
-        raise NotImplementedError(
-            "KFUNCA_PALLAS_SORT=1 selects the bitonic sort kernel K10 "
-            "(kfunca_tpu/ops/pallas_kernels/bitonic_sort.py:89), which the "
-            "port has not ported yet; unset it to use the default sort")
+        return False  # the JAX package keeps 64-bit keys on XLA
+    return (bitonic_sort.padded_length(t.shape(dim))
+            <= bitonic_sort.DISPATCH_MAX_N)
+
+
+def _k10_sort(x, descending: bool):
+    """(values, int64 indices) of a stable sort of x along its last dim
+    through K10, with the JAX package's key transforms."""
+    shape = x.shape
+    if x.numel() == 0:
+        return x.clone(), torch.zeros(shape, dtype=torch.int64, device=x.device)
+    flat = x.reshape(-1, shape[-1])
+    if flat.is_floating_point():
+        keys = flat.to(torch.float32)
+        keys = -keys if descending else keys
+    else:
+        keys = flat.to(torch.int32)
+        keys = ~keys if descending else keys
+    _, idx = bitonic_sort.bitonic_sort_pairs(keys.contiguous())
+    idx = idx.to(torch.int64)
+    return torch.gather(flat, -1, idx).reshape(shape), idx.reshape(shape)
 
 
 def _ascending_key(x, descending: bool):
-    """A key whose stable ascending sort is lax.sort's order of x.  Float
-    keys are made canonical: every NaN positive (greatest) and -0.0 equal
-    to 0.0 (+ 0.0 turns -0.0 into 0.0), since torch's CUDA sort orders by
-    the bits and would put a negative NaN first and -0.0 below 0.0."""
+    """A key whose stable ascending sort is lax.sort's order of x: float
+    keys negated for descending and made canonical (bitonic_sort.sort_key:
+    every NaN positive, -0.0 equal to 0.0), integer keys bit-inverted."""
     if x.is_floating_point():
-        k = (-x if descending else x) + 0.0
-        return torch.where(torch.isnan(k), torch.full_like(k, float("nan")), k)
+        return bitonic_sort.sort_key(-x if descending else x)
     return ~x.to(torch.int64) if descending else x
 
 
@@ -87,11 +107,11 @@ def _total_order_key(x):
 def sort(t: Tensor, dim: int, descending: bool):
     check(t.dtype() != ScalarType.Bool, "sort: Bool unsupported")
     dim = maybe_wrap_dim(dim, t.dim())
-    _check_k10(t, dim)
+    engine = _k10_sort if _pallas_eligible(t, dim) else _stable_sort
 
     def run():
         x = t._array().movedim(dim, -1)
-        vals, idx = _stable_sort(x, bool(descending))
+        vals, idx = engine(x, bool(descending))
         return vals.movedim(-1, dim), idx.movedim(-1, dim)
 
     vals, idx = Launcher.instance().submit(run, name="sort", device=t.torch_device())
@@ -103,12 +123,15 @@ def topk(t: Tensor, k: int, dim: int, largest: bool):
     dim = maybe_wrap_dim(dim, t.dim())
     k = int(k)
     check(0 < k <= t.shape(dim), "topk: invalid k")
-    if k > 256:
-        _check_k10(t, dim)
+    # reference semantics exactly: topk = full sort + narrow(k), on K10
+    k10 = k > 256 and _pallas_eligible(t, dim)
 
     def run():
         x = t._array().movedim(dim, -1)
-        if largest and k <= TOP_K_MAX and x.is_floating_point():
+        if k10:
+            vals, idx = _k10_sort(x, bool(largest))
+            vals, idx = vals[..., :k], idx[..., :k]
+        elif largest and k <= TOP_K_MAX and x.is_floating_point():
             _, idx = torch.sort(_total_order_key(x), dim=-1, descending=True,
                                 stable=True)
             idx = idx[..., :k]

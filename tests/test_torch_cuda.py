@@ -673,6 +673,27 @@ def test_matmul_kernel_matches_plain(cuda, mkn, dtype):
     assert torch.equal(mm.matmul(a8, b8), mm.matmul_plain(a8, b8))
 
 
+@pytest.mark.parametrize("tile", [(128, 128), (128, 64), (64, 128), (64, 64)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_matmul_kernel_every_tile_matches_plain(cuda, tile, dtype):
+    """K3's 16-bit body at each built tile, ragged and m = 1 shapes, with an
+    epilogue: within 2^-7 of max |ref| (one rounding of an fp32 sum)."""
+    mm = _eager_kernels()[1]
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    for m, k, n in ((1, 64, 8), (130, 45, 137), (256, 512, 384)):
+        a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        b = (torch.randn((k, n), generator=gen, device=cuda) / 8).to(dtype)
+        bias = torch.randn(n, generator=gen, device=cuda)
+        for epi in ("", "bias_gelu"):
+            kw = dict(bias=bias if epi else None, epilogue=epi)
+            got = mm.matmul(a, b, bm=tile[0], bn=tile[1], **kw)
+            want = mm.matmul_plain(a, b, **kw)
+            torch.cuda.synchronize()
+            top = want.double().abs().max().item()
+            assert (got.double() - want.double()).abs().max().item() <= 2.0 ** -7 * top
+
+
 def _eager_mlp_step(kfunca, dev, x, w1, w2):
     xs, a1, a2 = (kfunca.from_numpy(v, dev).set_requires_grad(True) for v in (x, w1, w2))
     z = kfunca.gemm(kfunca.gemm(xs, a1).relu(), a2) + xs
@@ -746,13 +767,22 @@ def test_eager_kernel_engines_raise_rather_than_fall_back(cuda, monkeypatch):
     with pytest.raises(ValueError, match="share one shape"):
         ew.elementwise("add", torch.ones(4, device=cuda), torch.ones(3, device=cuda),
                        acc_dt=torch.float32, out_dt=torch.float32)
+    from kfunca_tpu_torch.ops.pallas_kernels import bitonic_sort as bs
+
+    with pytest.raises(TypeError, match="float32 or int32"):
+        bs.bitonic_sort_pairs(torch.ones((2, 4), device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="exceed"):
+        bs.bitonic_sort_pairs(torch.ones((1, bs.MAX_N + 1), device=cuda))
+    # the sort knob on the card launches K10; CPU tensors run its plain version
     monkeypatch.setenv("KFUNCA_PALLAS_SORT", "1")
+    before = bs.bitonic_sort_pairs.launches
     t = kfunca.from_numpy(np.arange(10, dtype=np.float32), 0)
-    with pytest.raises(NotImplementedError, match="K10"):
-        t.sort(0, False)
-    # CPU tensors take the default sort, as the JAX package off the TPU
+    vals, _ = t.sort(0, True)
+    assert bs.bitonic_sort_pairs.launches == before + 1
+    assert vals.numpy().tolist() == list(range(9, -1, -1))
     vals, _ = kfunca.from_numpy(np.arange(10, dtype=np.float32), "cpu").sort(0, True)
     assert vals.numpy().tolist() == list(range(9, -1, -1))
+    assert bs.bitonic_sort_pairs.launches == before + 1
 
 
 def test_device_info_and_launcher_modes_on_the_card(cuda, capsys):
@@ -836,6 +866,8 @@ SSM_SHAPES = [  # (B, L, di, N, lb)
     (2, 37, 45, 5, 8),
     (1, 100, 96, 16, 32),
     (3, 19, 5152, 16, 16),
+    (2, 40, 64, 32, 16),  # two groups of 16 states
+    (1, 37, 45, 20, 8),  # a ragged second group
 ]
 
 
@@ -898,9 +930,9 @@ def test_ssm_scan_refuses_what_the_kernels_do_not_take(cuda):
     dt, u, bm, c, a_t, dy = _ssm_case(cuda, 1, 8, 32, 16)
     with pytest.raises(ValueError, match="lb"):
         ss.ssm_scan_fwd(dt, u, bm, c, a_t, lb=4)
-    big = torch.zeros((1, 8, 17), device=cuda)
-    with pytest.raises(ValueError, match="state width"):
-        ss.ssm_scan_fwd(dt, u, big, big, torch.zeros((17, 32), device=cuda))
+    empty = torch.zeros((1, 8, 0), device=cuda)
+    with pytest.raises(ValueError, match="non-empty"):
+        ss.ssm_scan_fwd(dt, u, empty, empty, torch.zeros((0, 32), device=cuda))
     with pytest.raises(TypeError, match="float32"):
         ss.ssm_scan_fwd(dt.bfloat16(), u, bm, c, a_t)
 
@@ -938,3 +970,128 @@ def test_mamba_step_launches_the_scan_once_a_layer(cuda):
         finally:
             del os.environ["KFUNCA_SSM_ENGINE"]
     assert abs(losses["pallas"] - losses["xla"]) < 1e-5
+
+
+def test_mamba_with_32_states_runs_k11_forward_and_backward(cuda):
+    """MambaConfig(d_state=32), 2 layers: loss and every gradient through
+    K11 (one forward and one backward launch a layer) against the chunked
+    scan (KFUNCA_SSM_ENGINE=xla), fp32 within 1e-4 of each leaf's max."""
+    import os
+
+    from kfunca_tpu_torch.models import mamba
+    from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as ss
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+    cfg = mamba.MambaConfig(vocab_size=128, d_model=64, n_layers=2,
+                            d_state=32, dtype="float32")
+    params = mamba.init_mamba_params(1, cfg, device=cuda)
+    tokens = torch.randint(0, 128, (2, 45), device=cuda)
+    targets = torch.roll(tokens, -1, 1)
+    out = {}
+    for eng in ("pallas", "xla"):
+        os.environ["KFUNCA_SSM_ENGINE"] = eng
+        try:
+            before = (ss.ssm_scan_fwd.launches, ss.ssm_scan_bwd.launches)
+            views = [p.detach().requires_grad_(True)
+                     for p in tree_leaves(params)]
+            loss = mamba.loss_fn(tree_unflatten(params, views), tokens,
+                                 targets, cfg)
+            grads = torch.autograd.grad(loss, views)
+            torch.cuda.synchronize()
+            n = (ss.ssm_scan_fwd.launches - before[0],
+                 ss.ssm_scan_bwd.launches - before[1])
+            assert n == ((2, 2) if eng == "pallas" else (0, 0))
+            out[eng] = (float(loss), grads)
+        finally:
+            del os.environ["KFUNCA_SSM_ENGINE"]
+    assert abs(out["pallas"][0] - out["xla"][0]) < 1e-5
+    for gk, gp in zip(out["pallas"][1], out["xla"][1]):
+        assert torch.isfinite(gk).all()
+        assert (gk - gp).abs().max() <= 1e-4 * gp.abs().max().clamp_min(1e-30)
+
+
+# -- K10: the bitonic sort, and the sort engine --------------------------------
+
+
+def _k10_keys(cuda, rows, n, dtype, gen):
+    if dtype == torch.int32:
+        k = torch.randint(-50, 50, (rows, n), generator=gen, device=cuda,
+                          dtype=torch.int32)
+        k[:, ::11] = torch.iinfo(torch.int32).max
+        k[:, 1::13] = torch.iinfo(torch.int32).min
+    else:
+        k = torch.randn((rows, n), generator=gen, device=cuda)
+        k[:, ::9] = float("nan")
+        k[:, 1::10] = -float("nan")
+        k[:, 2::11] = -0.0
+        k[:, 3::11] = 0.0
+        k[:, 4::12] = float("inf")
+        k[:, 5::12] = -float("inf")
+    k[:, ::7] = k[:, :1].clone()  # duplicates
+    return k
+
+
+@pytest.mark.parametrize("rows,n", [(3, 1), (5, 129), (40, 512), (7, 1000),
+                                    (2, 4096), (2, 8192)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32], ids=str)
+def test_bitonic_sort_kernel_matches_plain(cuda, rows, n, dtype):
+    """K10 against its plain version (a stable torch.sort of the keys):
+    keys and indices bitwise, NaN after every number with ties by index,
+    -0.0 tied with 0.0, INT32_MAX before the pads."""
+    from kfunca_tpu_torch.ops.pallas_kernels import bitonic_sort as bs
+
+    gen = torch.Generator(device=cuda).manual_seed(rows * n)
+    keys = _k10_keys(cuda, rows, n, dtype, gen)
+    before = bs.bitonic_sort_pairs.launches
+    got_k, got_i = bs.bitonic_sort_pairs(keys)
+    want_k, want_i = bs.bitonic_sort_pairs_plain(keys)
+    torch.cuda.synchronize()
+    assert bs.bitonic_sort_pairs.launches == before + 1
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_k.view(torch.int32), want_k.view(torch.int32))
+
+
+def test_sort_engine_on_the_card_matches_the_default_engine(cuda, monkeypatch):
+    """kfunca sort / topk with KFUNCA_PALLAS_SORT=1 (K10) against the
+    default engine, bitwise, in every dtype the engine takes and along a
+    non-last dim; rows that pad past 1024 launch no K10."""
+    import kfunca_tpu_torch as kfunca
+    from kfunca_tpu_torch.ops.pallas_kernels import bitonic_sort as bs
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    base = torch.randn((6, 300), generator=gen, device=cuda) * 50
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+                  torch.int16, torch.int8, torch.uint8):
+        x = kfunca.from_torch(base.to(dtype) if dtype.is_floating_point
+                              else base.clamp(0 if dtype == torch.uint8 else -100,
+                                              100).to(dtype))
+        for dim, desc in ((1, False), (1, True), (0, True)):
+            monkeypatch.delenv("KFUNCA_PALLAS_SORT", raising=False)
+            want = [r.to_torch() for r in x.sort(dim, desc)]
+            wtop = [r.to_torch() for r in x.topk(280, 1, desc)]
+            monkeypatch.setenv("KFUNCA_PALLAS_SORT", "1")
+            before = bs.bitonic_sort_pairs.launches
+            got = [r.to_torch() for r in x.sort(dim, desc)]
+            gtop = [r.to_torch() for r in x.topk(280, 1, desc)]
+            assert bs.bitonic_sort_pairs.launches == before + 2
+            for g, w in zip(got + gtop, want + wtop):
+                assert torch.equal(g, w), (dtype, dim, desc)
+    long_row = kfunca.from_torch(torch.randn((2, 1025), device=cuda))
+    before = bs.bitonic_sort_pairs.launches
+    long_row.sort(1, False)
+    assert bs.bitonic_sort_pairs.launches == before
+
+
+def test_native_core_is_loaded_on_the_card(cuda):
+    """The card's machine has g++ (nvcc needs it): the core builds and
+    loads by default, and the eager API and the server run through it."""
+    import kfunca_tpu_torch as kfunca
+    from kfunca_tpu_torch.runtime import _native
+
+    lib = _native.get_lib()
+    assert lib is not None and _native.library_path().exists()
+    assert serve.PagePool(4)._lib is lib
+    a = kfunca.from_numpy(np.ones((3, 1), np.float32), 0)
+    b = kfunca.from_numpy(np.ones((1, 4), np.int32), 0)
+    assert list((a + b).sizes()) == [3, 4]
+    assert len(serve.PrefixIndex().hash_chain(list(range(32)), 8, 0)[0]) == 2

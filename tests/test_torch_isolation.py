@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
         "             'runtime.allocator', 'utils.errors', 'utils.compare',",
         "             'utils.device_info', 'utils.profiling', 'models.mamba',",
         "             'models.mamba_serve', 'models.hybrid',",
-        "             'ops.pallas_kernels.ssm_scan'):",
+        "             'ops.pallas_kernels.ssm_scan',",
+        "             'ops.pallas_kernels.bitonic_sort', 'runtime._native',",
+        "             'runtime.autotune'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -80,6 +82,22 @@ def test_no_jax_import_in_the_source():
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _foreign(m)]
     assert bad == []
+
+
+def test_every_source_the_port_builds_lies_in_the_port():
+    """The CUDA kernels (csrc/*.cu, nvcc) and the native core (csrc/core.cpp,
+    g++) build from the port's own sources into the port's build/: nothing
+    is read or written under kfunca_tpu/."""
+    from kfunca_tpu_torch.runtime import _kernels, _native
+
+    sources = sorted(_kernels.CSRC.glob("*.cu")) + [_native.SRC]
+    assert {"bitonic_sort.cu", "ssm_scan.cu", "matmul.cu", "core.cpp"} <= {
+        p.name for p in sources}
+    for src in sources:
+        assert src.exists() and src.resolve().is_relative_to(PORT / "csrc"), src
+    for lib in [_kernels.library_path(p.stem) for p in sources[:-1]] + [
+            _native.library_path()]:
+        assert lib.resolve().is_relative_to(PORT / "build"), lib
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
@@ -287,15 +305,18 @@ def test_eager_api_refuses_the_cpu_unless_asked(monkeypatch):
 
 
 def test_eager_surface_is_the_reference_surface_less_autotune():
-    """The port's __all__ is kfunca_tpu/__init__.py's, less `autotune`
-    (read from the source: this test imports no JAX)."""
+    """The port's __all__ is kfunca_tpu/__init__.py's, `autotune` included
+    now that runtime/autotune.py is ported (read from the source: this test
+    imports no JAX)."""
     import kfunca_tpu_torch as kfunca
 
     tree = ast.parse((ROOT / "kfunca_tpu" / "__init__.py").read_text())
     ref = next(ast.literal_eval(node.value) for node in tree.body
                if isinstance(node, ast.Assign)
                and getattr(node.targets[0], "id", "") == "__all__")
-    assert sorted(kfunca.__all__) == sorted(n for n in ref if n != "autotune")
+    assert sorted(kfunca.__all__) == sorted(ref)
     for name in kfunca.__all__:
         assert hasattr(kfunca, name), name
-    assert not hasattr(kfunca, "autotune")
+    from kfunca_tpu_torch.runtime.autotune import autotune
+
+    assert kfunca.autotune is autotune

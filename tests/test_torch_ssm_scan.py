@@ -9,7 +9,8 @@ L-blocks of lb with a ragged last one, the state carried in registers
 across blocks, the backward's shared-memory history, per-block partial sums
 over channels in a fixed order, then the sums of the partials) is held
 against the plain version at
-ragged shapes, L = 1 and an underflowing dA.  fp32 throughout: the forward
+ragged shapes, L = 1, an underflowing dA and state widths past one group
+of 16 (N = 32 and a ragged N = 20).  fp32 throughout: the forward
 to 1e-5 and the gradients to 1e-4 (other summation orders).
 """
 
@@ -96,21 +97,28 @@ def test_differentiable_scan_matches_the_jax_kernel_vjp(jax_case):
 # -- the CUDA kernels' tiling, emulated -----------------------------------------
 
 CH = tscan.CHANNELS_PER_BLOCK
-G = 4  # lanes a channel; lane g holds states g * S .. g * S + S - 1
-S = tscan.MAX_STATE // G
+G = 4  # lanes a channel; lane g holds states g * S .. g * S + S - 1 of a group
+NG = tscan.STATE_GROUP  # states a walk over L
+S = NG // G
 
 
 def _lane_sum(terms):
-    """A sum over a channel's states as the kernels take it: each lane adds
-    its S states in order, then two shuffles add lanes (0+1) + (2+3)."""
+    """A sum over a channel's states as the kernels take it: per group of
+    NG states, each lane adds its S states in order, then two shuffles add
+    lanes (0+1) + (2+3); the groups' sums add in group order."""
     zero = torch.zeros_like(terms[0])
-    lanes = []
-    for g in range(G):
-        acc = zero
-        for s in range(g * S, min(g * S + S, len(terms))):
-            acc = acc + terms[s]
-        lanes.append(acc)
-    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+    total = None
+    for n0 in range(0, len(terms), NG):
+        group = terms[n0:n0 + NG]
+        lanes = []
+        for g in range(G):
+            acc = zero
+            for s in range(g * S, min(g * S + S, len(group))):
+                acc = acc + group[s]
+            lanes.append(acc)
+        part = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+        total = part if total is None else total + part
+    return total
 
 
 def emulate_fwd(dt, u, bm, c, a_t, lb):
@@ -213,6 +221,9 @@ EDGES = {
     "many_blocks": dict(b=1, L=50, di=32, n=4, lb=8),
     # dt * A so negative that dA underflows to exactly 0
     "underflow": dict(b=1, L=19, di=40, n=4, lb=16, dt_hi=80.0),
+    # two full groups of states, and a ragged second group
+    "two_groups": dict(b=1, L=11, di=36, n=32, lb=8),
+    "ragged_groups": dict(b=2, L=9, di=33, n=20, lb=8),
 }
 
 
