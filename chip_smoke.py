@@ -86,7 +86,7 @@ Phases (any failure raises and the script exits non-zero):
      forward and backward (K1, K2) at B=1, H=32, S=2048, hd=128;
  24. profile one eager MLP step, and time an eager 256-element add's host
      cost per op;
- 25. (at the end, after phase 36) print the kernels line (thirteen
+ 25. (at the end, after phase 40) print the kernels line (fifteen
      entries), the card line and, last, the result line;
  26. hold the selective-scan kernels K11 (forward and backward) against
      their plain PyTorch version (the chunked scan) at the Mamba training
@@ -133,7 +133,28 @@ Phases (any failure raises and the script exits non-zero):
  36. autotune into a temporary cache: K3's tile at bf16 4096^3 and K4's
      page size at 8 slots x 1024 x 4096; then gemm under the pallas knob
      launches the recorded tile and InferenceServer(page_size=None) takes
-     the recorded page size.
+     the recorded page size;
+ 37. hold the ring-attention hop kernels K12 (forward and backward)
+     against their plain versions at the ring's shard shape (B=1, H=32,
+     s_local=8192, D=128; a past, a diagonal and a wholly-future hop, the
+     last leaving carry and accumulators bit for bit) in bf16 and fp32, and
+     at edge shapes (a ragged s_local of 200, head dims 64 and 40,
+     unaligned offsets, a padding row that hop_lse sends to 0); two
+     backward runs bitwise equal;
+ 38. time each hop kind, forward and backward, its plain version (in
+     chunks of 8 heads) beside its bound (unmasked pairs x 4 / 10 x hd
+     flops at 989 TFLOP/s); no PyTorch call merges a softmax carry;
+ 39. the ring at Mistral-7B-v0.1's attention width (32 heads of 128, the
+     kv heads repeated) over its 32,768-token context, B=1, cp=4 shards on
+     one card through LocalRing, bf16, forward and backward through K12:
+     launches = 16 + 16 asserted, forward / backward ms, peak memory, held
+     against K1/K2 over the gathered sequence and, at S=8192 in fp32,
+     against the einsum oracle (`_ring_einsum` under autograd) at 1e-4 x
+     max(1, max |ref|); scaled_dot_product_attention(is_causal=True) over the
+     gathered sequence as the yardstick;
+ 40. __graft_entry__.dryrun_multichip's ring phase (cp=4, B=1, H=2,
+     S=128, D=64, fp32): forward within 2e-5 of the causal oracle, finite
+     gradients of sum(sin(ring(q, k, v))).
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -3220,6 +3241,393 @@ def runtime_phases(card):
              "library_ms": t["library_ms"]}]
 
 
+# -- phases 37-40: K12 and context-parallel ring attention --------------------
+
+# The ring at Mistral-7B-v0.1's attention width (32 heads of 128; its 8 kv
+# heads repeated to 32, because the ring takes equal heads) over its
+# 32,768-token context (max_position_embeddings), B = 1, cp = 4 shards on
+# one card through LocalRing, bf16.
+RING = dict(b=1, h=32, hkv=8, s=32768, d=128, cp=4)
+# the einsum oracle (`_ring_einsum` under autograd) keeps every hop's
+# (B*H, S/cp, S/cp) fp32 scores for its backward: it is held to the
+# kernels' ring, in fp32 and 8 heads at a time, at this shorter sequence
+RING_PLAIN_S = 8192
+HOP_SHAPE = dict(b=1, h=32, s=8192, d=128)  # one shard of RING
+HOP_KINDS = {"past": (8192, 0), "diagonal": (8192, 8192),
+             "future": (0, 8192)}  # (q_off, kv_off)
+# small shapes that hit the edges: (B, H, Sq, Skv, D, q_off, kv_off) - a
+# ragged s_local of 200 (past and diagonal), head dim 64, head dim 40
+# (padded to 64), unaligned offsets, and a hop that leaves rows 0..63 of
+# its q shard with no column (a padding row: hop_lse gives it 0)
+HOP_EDGES = [
+    (1, 4, 200, 200, 128, 400, 200),
+    (1, 4, 200, 200, 128, 400, 400),
+    (2, 3, 256, 256, 64, 256, 0),
+    (1, 2, 96, 96, 40, 96, 96),
+    (1, 3, 130, 100, 128, 37, 50),
+    (1, 2, 128, 128, 128, 0, 64),
+]
+
+
+def hop_inputs(gen, dtype, b, h, sq, skv, d):
+    """q (pre-scaled by 1/sqrt(d)), k, v, g in dtype; a forward carry as
+    after an earlier hop; a global lse and delta; backward accumulators."""
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = (mk(b, h, sq, d) / math.sqrt(d)).to(dtype)
+    k, v, g = (mk(b, h, n, d).to(dtype) for n in (skv, skv, sq))
+    carry = (mk(b * h, sq), mk(b * h, sq).abs() + 1, mk(b * h, sq, d))
+    stats = (mk(b * h, sq) + 3, mk(b * h, sq))
+    accs = (mk(b * h, sq, d), mk(b * h, skv, d), mk(b * h, skv, d))
+    return q, k, v, g, carry, stats, accs
+
+
+def head_chunks(q, heads=8):
+    """Slices of heads that are also slices of the (B*H, ...) rows of the
+    carry when B = 1 (else all heads at once): the plain hops materialize
+    (B*H, Sq, Skv) fp32 scores, which at s_local = 8192 fit only a few
+    heads at a time."""
+    if q.shape[0] != 1:
+        return [slice(None)]
+    return [slice(h0, h0 + heads) for h0 in range(0, q.shape[1], heads)]
+
+
+def hop_plain(rh, q, k, v, carry, q_off, kv_off):
+    for hs in head_chunks(q):
+        rh.flash_attention_hop_plain(q[:, hs], k[:, hs], v[:, hs],
+                                     *(t[hs] for t in carry), q_off, kv_off)
+
+
+def bwd_hop_plain(rh, q, k, v, g, stats, accs, q_off, kv_off):
+    for hs in head_chunks(q):
+        rh.flash_attention_bwd_hop_plain(
+            q[:, hs], k[:, hs], v[:, hs], g[:, hs], *(t[hs] for t in stats),
+            *(t[hs] for t in accs), q_off, kv_off)
+
+
+def hop_err(got, ref, what) -> float:
+    """Max |got - ref| of two fp32 results after checking it against
+    1e-4 x max(1, max |ref|): both routes widen the same inputs (fp32 or
+    bf16) to fp32 and keep p and ds in fp32, so they differ only by the
+    order of fp32 sums (the kernel merges the carry a 64-column tile at a
+    time, the plain version the hop at once)."""
+    check(bool(torch.isfinite(got).all()), f"{what} is finite")
+    err = float((got - ref).abs().max())
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    check(err <= tol, f"{what}: kernel vs plain {err:.3g} > {tol:.3g}")
+    return err
+
+
+def hop_case_check(rh, dtype, gen, b, h, sq, skv, d, q_off, kv_off, tag):
+    """One hop, forward and backward, kernel against plain; a wholly-future
+    hop must leave carry and accumulators bit for bit.  Returns the worst
+    (forward, backward) errors."""
+    q, k, v, g, carry, stats, accs = hop_inputs(gen, dtype, b, h, sq, skv, d)
+    got = [t.clone() for t in carry]
+    rh.flash_attention_hop(q, k, v, *got, q_off, kv_off)
+    gacc = [t.clone() for t in accs]
+    rh.flash_attention_bwd_hop(q, k, v, g, *stats, *gacc, q_off, kv_off)
+    torch.cuda.synchronize()
+    want = [t.clone() for t in carry]
+    hop_plain(rh, q, k, v, want, q_off, kv_off)
+    wacc = [t.clone() for t in accs]
+    bwd_hop_plain(rh, q, k, v, g, stats, wacc, q_off, kv_off)
+    e1 = max(hop_err(a, w, f"{n} {tag}")
+             for a, w, n in zip(got, want, ("m", "l", "acc")))
+    e2 = max(hop_err(a, w, f"{n} {tag}")
+             for a, w, n in zip(gacc, wacc, ("dq", "dk", "dv")))
+    if kv_off > q_off + sq - 1:
+        check(all(torch.equal(a, t) for a, t in zip(got + gacc,
+                                                    list(carry + accs))),
+              f"a wholly-future hop leaves the carry and the accumulators "
+              f"bit for bit ({tag})")
+    return e1, e2
+
+
+def padding_row_check(rh):
+    """From a fresh carry, a hop whose kv shard starts at column 64 of the
+    q shard leaves rows 0..63 with no column: hop_lse gives them 0 and
+    hop_finalize 0, and the backward leaves their dq as it was."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    q, k, v, g, _, _, accs = hop_inputs(gen, torch.float32, 1, 2, 128, 128,
+                                        128)
+    m, l, acc = rh.hop_carry_init(1, 2, 128, 128, device="cuda")
+    rh.flash_attention_hop(q, k, v, m, l, acc, 0, 64)
+    lse = rh.hop_lse(m, l)
+    out = rh.hop_finalize(l, acc, 1, 2, 128, 128, torch.float32)
+    check(not lse[:, :64].any() and not out[:, :, :64].any()
+          and bool((l[:, 64:] > 0).all()),
+          "rows with no column over the ring get lse = 0 and out = 0")
+    delta = rh.flat_rows((g * out).sum(-1))
+    dq = [t.clone() for t in accs]
+    rh.flash_attention_bwd_hop(q, k, v, g, lse, delta, *dq, 0, 64)
+    check(torch.equal(dq[0][:, :64], accs[0][:, :64]),
+          "a padding row's dq is left as it was")
+
+
+def ring_hop_checks(rh) -> tuple[float, float]:
+    """Phase 37: K12 against its plain version at the ring's shard shape
+    (B=1, H=32, s_local=8192, D=128; past, diagonal and future hops) in
+    bf16 and fp32, at the edges, a padding row, and a bitwise-repeatable
+    backward.  Returns the worst (forward, backward) errors."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    b, h, s, d = (HOP_SHAPE[n] for n in ("b", "h", "s", "d"))
+    worst = [0.0, 0.0]
+    cases = [((b, h, s, s, d) + offs, f"{kind} {b}x{h}x{s}x{d}")
+             for kind, offs in HOP_KINDS.items()]
+    cases += [(case, "x".join(map(str, case[:5])) + f" at {case[5]}/{case[6]}")
+              for case in HOP_EDGES]
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, tag in cases:
+            tag = f"{tag} {str(dtype)[6:]}"
+            e1, e2 = hop_case_check(rh, dtype, gen, *case, tag)
+            print(f"  {tag}: forward max err {e1:.3g}, backward {e2:.3g}",
+                  flush=True)
+            worst = [max(worst[0], e1), max(worst[1], e2)]
+            free_device_memory()
+    padding_row_check(rh)
+    q, k, v, g, _, stats, accs = hop_inputs(gen, torch.bfloat16, b, h, s, s,
+                                            d)
+    runs = []
+    for _ in range(2):
+        runs.append([t.clone() for t in accs])
+        rh.flash_attention_bwd_hop(q, k, v, g, *stats, *runs[-1],
+                                   *HOP_KINDS["past"])
+    check(all(torch.equal(x, y) for x, y in zip(*runs)),
+          "two backward hops give bitwise-equal dq, dk, dv")
+    print("  padding row: lse 0, out 0, dq untouched; the backward is "
+          "bitwise repeatable", flush=True)
+    return worst[0], worst[1]
+
+
+def hop_bounds(kind, b, h, s, d, item):
+    """Least time of one hop: the unmasked pairs at 4 d (forward) and 10 d
+    (backward) flops at the bf16 rate, against its bytes (q, k, v (and g)
+    read once, the fp32 carry (accumulators) read and written once, the
+    backward's lse and delta read once).  A future hop needs nothing."""
+    pairs = {"past": s * s, "diagonal": s * (s + 1) // 2, "future": 0}[kind]
+    if not pairs:
+        return {"fwd": (0.0, "operations"), "bwd": (0.0, "operations")}
+    rows, acc = b * h * s, b * h * s * d * 4
+    work = {"fwd": (4 * d * pairs * b * h,
+                    3 * b * h * s * d * item + 2 * (2 * rows * 4 + acc)),
+            "bwd": (10 * d * pairs * b * h,
+                    4 * b * h * s * d * item + 2 * rows * 4 + 2 * 3 * acc)}
+    out = {}
+    for key, (flops, nbytes) in work.items():
+        t_ops = flops / PEAK_FLOPS[torch.bfloat16]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[key] = (max(t_ops, t_bytes) * 1e3,
+                    "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def ring_hop_timing(rh) -> dict:
+    """Phase 38: each hop kind, kernel and plain (in chunks of 8 heads, at
+    the same shape), at B=1, H=32, s_local=8192, D=128, bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 73)
+    b, h, s, d = (HOP_SHAPE[n] for n in ("b", "h", "s", "d"))
+    q, k, v, g, carry, stats, accs = hop_inputs(gen, torch.bfloat16, b, h, s,
+                                                s, d)
+    res = {}
+    for kind, offs in HOP_KINDS.items():
+        bounds = hop_bounds(kind, b, h, s, d, q.element_size())
+        fwd = lambda: rh.flash_attention_hop(q, k, v, *carry, *offs)
+        bwd = lambda: rh.flash_attention_bwd_hop(q, k, v, g, *stats, *accs,
+                                                 *offs)
+        res[kind] = {
+            "fwd": dict(ms=time_ms(fwd, reps=20), bound_ms=bounds["fwd"][0],
+                        bound_by=bounds["fwd"][1]),
+            "bwd": dict(ms=time_ms(bwd, reps=10), bound_ms=bounds["bwd"][0],
+                        bound_by=bounds["bwd"][1]),
+        }
+        if kind != "future":
+            res[kind]["fwd"]["plain_ms"] = time_ms(
+                lambda: hop_plain(rh, q, k, v, carry, *offs), reps=3, warm=1)
+            res[kind]["bwd"]["plain_ms"] = time_ms(
+                lambda: bwd_hop_plain(rh, q, k, v, g, stats, accs, *offs),
+                reps=3, warm=1)
+            free_device_memory()
+    return res
+
+
+def ring_inputs(gen, b, h, hkv, s, d, dtype):
+    """q, k, v (kv heads repeated to h) and a cotangent g."""
+    def mk(heads):
+        return torch.randn((b, heads, s, d), generator=gen,
+                           device="cuda").to(dtype)
+
+    q, k, v, g = mk(h), mk(hkv), mk(hkv), mk(h)
+    return (q, k.repeat_interleave(h // hkv, dim=1),
+            v.repeat_interleave(h // hkv, dim=1), g)
+
+
+def ring_pass(fn, q, k, v, g):
+    """out and (dq, dk, dv) of one forward and backward."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    return out.detach(), grads
+
+
+def sdpa_ring_yardstick(q, k, v, g) -> tuple[float, float]:
+    """Yardstick only (the port never calls it): scaled_dot_product_attention
+    with is_causal=True over the gathered sequence, forward and backward."""
+    import torch.nn.functional as F
+
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    with torch.no_grad():
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True), reps=10)
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    bwd = time_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), g,
+                                              retain_graph=True), reps=5,
+                  warm=1)
+    return fwd, bwd
+
+
+def full_ring_phase(rh, ra, fa, card) -> tuple[int, int]:
+    """Phase 39: the ring at Mistral-7B-v0.1's attention width over its
+    32,768-token context through LocalRing(4) with K12, held against K1/K2
+    on the gathered sequence and, at S = 8192 in fp32, against the einsum
+    oracle.
+    Returns the (forward, backward) launches of the full-width call."""
+    b, h, hkv, s, d, cp = (RING[n] for n in ("b", "h", "hkv", "s", "d", "cp"))
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 74)
+    q, k, v, g = ring_inputs(gen, b, h, hkv, s, d, dtype)
+    ring = ra.make_ring_attention(ra.LocalRing(cp))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rh.flash_attention_hop.launches = 0
+    rh.flash_attention_bwd_hop.launches = 0
+    out, grads = ring_pass(ring, q, k, v, g)
+    torch.cuda.synchronize()
+    launches = (rh.flash_attention_hop.launches,
+                rh.flash_attention_bwd_hop.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(launches == (cp * cp, cp * cp),
+          f"the ring launches each hop cp^2 = {cp * cp} times a pass (got "
+          f"{launches})")
+    # against the port's own K1 / K2 over the gathered sequence
+    ref_out, lse = fa.flash_attention_fwd_stats(q, k, v)
+    ref_grads = fa.flash_attention_backward(q, k, v, g, ref_out, lse)
+    errs = [flash_err(out, ref_out, dtype, "ring out vs K1")]
+    errs += [flash_err(a, r, dtype, f"ring {n} vs K2")
+             for a, r, n in zip(grads, ref_grads, ("dq", "dk", "dv"))]
+    del ref_out, lse, ref_grads, out, grads
+    free_device_memory()
+    times = []
+    for _ in range(3):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        o = ring(*leaves)
+        ev[1].record()
+        torch.autograd.grad(o, leaves, g)
+        ev[2].record()
+        ev[2].synchronize()
+        times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        del o, leaves
+    fwd_ms, bwd_ms = (float(np.median([t[i] for t in times])) for i in (0, 1))
+    lib_fwd, lib_bwd = sdpa_ring_yardstick(q, k, v, g)
+    pairs = s * (s + 1) // 2 * b * h
+    print(f"[39] ring attention, LocalRing({cp}) at B={b}, H={h} (kv heads "
+          f"{hkv} repeated), S={s}, D={d}, bf16: forward {fwd_ms:.2f} ms, "
+          f"backward {bwd_ms:.2f} ms (bounds {4 * d * pairs / 989e9:.2f} / "
+          f"{10 * d * pairs / 989e9:.2f} ms by operations), peak "
+          f"{peak / 2**30:.2f} GiB above the inputs; launches {launches[0]} "
+          f"+ {launches[1]}; vs K1/K2 on the gathered sequence: out "
+          f"{errs[0]:.3g}, dq/dk/dv {max(errs[1:]):.3g}; SDPA is_causal on "
+          f"the gathered sequence {lib_fwd:.2f} / {lib_bwd:.2f} ms; {card}",
+          flush=True)
+    del q, k, v, g
+    free_device_memory()
+    # the kernels' ring in fp32 against the einsum oracle, which shares no
+    # code with the hop loop, at a shorter sequence; heads are independent,
+    # so the oracle runs 8 at a time
+    q, k, v, g = ring_inputs(gen, b, h, hkv, RING_PLAIN_S, d, torch.float32)
+    got = ring_pass(ring, q, k, v, g)
+    parts = [ring_pass(lambda *t: ra._ring_einsum(*t, ra.LocalRing(cp)),
+                       q[:, hs], k[:, hs], v[:, hs], g[:, hs])
+             for hs in head_chunks(q)]
+    oracle = [torch.cat([p[0] for p in parts], dim=1)]
+    oracle += [torch.cat([p[1][i] for p in parts], dim=1) for i in range(3)]
+    errs = [flash_err(a, r, torch.float32, f"ring {n} at S={RING_PLAIN_S}, "
+                      "kernels vs the einsum oracle")
+            for a, r, n in zip((got[0],) + tuple(got[1]), oracle,
+                               ("out", "dq", "dk", "dv"))]
+    print(f"[39] fp32 at S={RING_PLAIN_S}, cp={cp}: the kernels' ring vs the "
+          f"einsum oracle (limit 1e-4 x max(1, max |ref|)), out "
+          f"{errs[0]:.3g}, dq/dk/dv {max(errs[1:]):.3g}", flush=True)
+    return launches
+
+
+def dryrun_ring_phase(ra):
+    """Phase 40: __graft_entry__.dryrun_multichip's ring phase (n = 4,
+    B=1, H=2, S=4 x 32, D=64, fp32) on the card, through K12."""
+    from kfunca_tpu_torch.ops.attention import _sdpa_xla
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q, k, v = (torch.randn((1, 2, 4 * 32, 64), generator=gen, device="cuda")
+               for _ in range(3))
+    ring = ra.make_ring_attention(ra.LocalRing(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ring(*leaves)
+    loss = torch.sin(out).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    md = float((out.detach() - _sdpa_xla(q, k, v)).abs().max())
+    check(md < 2e-5, f"ring-attn parity vs causal oracle: maxdiff {md}")
+    check(all(bool(torch.isfinite(t).all()) for t in grads),
+          "finite ring gradients")
+    print(f"[40] dryrun ring-attn OK: cp=4 s_local=32, fwd maxdiff={md:.2e} "
+          f"loss={float(loss.detach()):.4f}", flush=True)
+
+
+def ring_phases(card):
+    """Phases 37-40; returns the kernels-line entries of K12."""
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+    from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
+    from kfunca_tpu_torch.parallel import ring_attention as ra
+
+    print("[37] K12 ring hop (forward, backward) vs its plain version",
+          flush=True)
+    err_f, err_b = ring_hop_checks(rh)
+    free_device_memory()
+    timing = ring_hop_timing(rh)
+    free_device_memory()
+    shape = "B=1, H=32, s_local=8192, D=128, bf16"
+    for kind, t in timing.items():
+        for key, label in (("fwd", "forward"), ("bwd", "backward")):
+            r = t[key]
+            plain = (f"{r['plain_ms']:.3f} ms (in chunks of 8 heads)"
+                     if "plain_ms" in r else "not timed (no work)")
+            print(f"[38] K12 {label}, {kind} hop ({shape}): kernel "
+                  f"{r['ms']:.4f} ms, plain {plain}, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library: none "
+                  f"(no PyTorch call merges a softmax carry); {card}",
+                  flush=True)
+    launches = full_ring_phase(rh, ra, fa, card)
+    free_device_memory()
+    dryrun_ring_phase(ra)
+    free_device_memory()
+    src = "kfunca_tpu_torch/csrc/ring_hop.cu"
+    jax_src = "kfunca_tpu/ops/pallas_kernels/ring_hop.py"
+    out = []
+    for name, line, key, n, err in (
+            ("flash_attention_hop", 72, "fwd", launches[0], err_f),
+            ("flash_attention_bwd_hop", 221, "bwd", launches[1], err_b)):
+        t = timing["past"][key]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": f"{jax_src}:{line}", "launches": n,
+                    "max_abs_err": err, "max_err": err, "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": None})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3294,6 +3702,8 @@ def main() -> int:
     kernels += ssm_phases(fa, card)
     free_device_memory()
     kernels += runtime_phases(card)
+    free_device_memory()
+    kernels += ring_phases(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,11 @@
 
 Each `csrc/<name>.cu` is compiled by nvcc for Hopper (sm_90a) into
 `build/lib<name>-<hash>.so`, a shared library with a plain C interface
-that the kernel wrappers call through ctypes.  The hash covers the source
-and the compiler flags, so an edited source is rebuilt on its next use and
-a stale library is never loaded.  Nothing is compiled at import: the first
-wrapper call on a CUDA tensor builds what it needs.  A failed build raises;
-there is no fallback.
+that the kernel wrappers call through ctypes.  The hash covers the source,
+the headers under csrc/ and the compiler flags, so an edited source or
+header is rebuilt on its next use and a stale library is never loaded.
+Nothing is compiled at import: the first wrapper call on a CUDA tensor
+builds what it needs.  A failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -51,10 +51,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to under the current source and flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where `csrc/<name>.cu` builds to under the current source, the
+    headers under csrc/ (which any source may include) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"".join(parts)).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 

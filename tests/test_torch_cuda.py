@@ -10,6 +10,7 @@ machine that has only PyTorch:
 """
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1095,3 +1096,205 @@ def test_native_core_is_loaded_on_the_card(cuda):
     b = kfunca.from_numpy(np.ones((1, 4), np.int32), 0)
     assert list((a + b).sizes()) == [3, 4]
     assert len(serve.PrefixIndex().hash_chain(list(range(32)), 8, 0)[0]) == 2
+
+
+# -- K12: the ring-attention hop, and the ring on one card ---------------------
+
+# (B, H, Sq, Skv, D, q_off, kv_off): diagonal, past, wholly future, ragged
+# shards with unaligned offsets, head dim 40 (padded to 64)
+HOP_CASES = [
+    (1, 4, 256, 256, 128, 256, 256),
+    (2, 3, 128, 128, 64, 128, 0),
+    (1, 2, 128, 128, 128, 0, 128),
+    (1, 2, 200, 200, 64, 200, 0),
+    (1, 3, 130, 100, 128, 37, 50),
+    (1, 2, 96, 96, 40, 96, 96),
+]
+
+
+def _hop_case(dev, dtype, case, seed=0):
+    b, h, sq, skv, d, _, _ = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev)
+    q = (mk(b, h, sq, d) / math.sqrt(d)).to(dtype)
+    k, v, g = mk(b, h, skv, d).to(dtype), mk(b, h, skv, d).to(dtype), \
+        mk(b, h, sq, d).to(dtype)
+    # a carry from an earlier (past) hop, and a global lse / delta
+    carry = (mk(b * h, sq), mk(b * h, sq).abs() + 1, mk(b * h, sq, d))
+    stats = (mk(b * h, sq) + 3, mk(b * h, sq))
+    accs = (mk(b * h, sq, d), mk(b * h, skv, d), mk(b * h, skv, d))
+    return q, k, v, g, carry, stats, accs
+
+
+# A hop's outputs are fp32 whatever its inputs: both routes widen the same
+# inputs to fp32 and keep p and ds in fp32, and differ by the order of fp32
+# sums (the kernel merges the carry a tile at a time, the plain version the
+# hop at once).  The ring's bf16 results are those fp32 values rounded once
+# to bf16, where a hair's difference can land on the neighbouring value,
+# up to 2^-7 of the element away.
+def _hop_close(got, want):
+    got, want = got.detach(), want.detach()
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert torch.isfinite(got).all()
+    rtol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", HOP_CASES, ids=str)
+def test_ring_hop_kernels_match_plain(cuda, dtype, case):
+    from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
+
+    q_off, kv_off = case[-2:]
+    q, k, v, g, carry, (lse, delta), accs = _hop_case(cuda, dtype, case)
+    n1, n2 = rh.flash_attention_hop.launches, rh.flash_attention_bwd_hop.launches
+    got = [t.clone() for t in carry]
+    rh.flash_attention_hop(q, k, v, *got, q_off, kv_off)
+    want = [t.clone() for t in carry]
+    rh.flash_attention_hop_plain(q, k, v, *want, q_off, kv_off)
+    gacc = [t.clone() for t in accs]
+    rh.flash_attention_bwd_hop(q, k, v, g, lse, delta, *gacc, q_off, kv_off)
+    wacc = [t.clone() for t in accs]
+    rh.flash_attention_bwd_hop_plain(q, k, v, g, lse, delta, *wacc, q_off,
+                                     kv_off)
+    torch.cuda.synchronize()
+    assert rh.flash_attention_hop.launches == n1 + 1
+    assert rh.flash_attention_bwd_hop.launches == n2 + 1
+    for a, w in zip(got + gacc, want + wacc):
+        _hop_close(a, w)
+    if kv_off > q_off + case[2] - 1:  # a wholly-future hop changes nothing
+        assert all(torch.equal(a, t) for a, t in zip(got + gacc,
+                                                     list(carry + accs)))
+
+
+def test_ring_hop_backward_is_bitwise_repeatable(cuda):
+    from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
+
+    q, k, v, g, _, (lse, delta), accs = _hop_case(
+        cuda, torch.bfloat16, (1, 8, 512, 512, 128, 512, 0))
+    runs = []
+    for _ in range(2):
+        runs.append([t.clone() for t in accs])
+        rh.flash_attention_bwd_hop(q, k, v, g, lse, delta, *runs[-1], 512, 0)
+    assert all(torch.equal(a, b_) for a, b_ in zip(*runs))
+
+
+def test_ring_hop_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
+    from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
+
+    q, k, v, g, carry, _, _ = _hop_case(cuda, torch.float32,
+                                        (1, 2, 16, 16, 64, 0, 0))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rh.flash_attention_hop(q.half(), k.half(), v.half(), *carry, 0, 0)
+    with pytest.raises(ValueError, match="limit of 128"):
+        big = torch.zeros((1, 1, 8, 160), device=cuda)
+        rh.flash_attention_hop(big, big, big, *rh.hop_carry_init(
+            1, 1, 8, 160, device=cuda), 0, 0)
+    with pytest.raises(ValueError, match="is on cpu"):
+        rh.flash_attention_hop(q, k, v, carry[0].cpu(), *carry[1:], 0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 4])
+def test_local_ring_with_the_kernels_matches_the_plain_ring(cuda, dtype, n):
+    """LocalRing(n) on the card: K12 against the plain hops, forward and
+    the three gradients, n^2 launches of each hop a pass, and the result
+    against causal attention over the gathered sequence.  In fp32 it is
+    also held, gradients included, against the einsum oracle
+    (`_ring_einsum` under autograd), which shares no code with the hop
+    loop."""
+    from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
+    from kfunca_tpu_torch.parallel import ring_attention as ra
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, g = (torch.randn((1, 4, 64 * n + 32 * n, 128), generator=gen,
+                              device=cuda).to(dtype) for _ in range(4))
+    ring = ra.LocalRing(n)
+    res = {}
+    for use_kernel in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n1, n2 = (rh.flash_attention_hop.launches,
+                  rh.flash_attention_bwd_hop.launches)
+        out = ra.ring_attention_spmd(*leaves, ring=ring, use_kernel=use_kernel)
+        grads = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        launched = (rh.flash_attention_hop.launches - n1,
+                    rh.flash_attention_bwd_hop.launches - n2)
+        assert launched == ((n * n, n * n) if use_kernel else (0, 0))
+        res[use_kernel] = (out, *grads)
+    for a, w in zip(res[True], res[False]):
+        assert a.dtype == dtype
+        _hop_close(a, w)
+    if dtype == torch.float32:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = ra._ring_einsum(*leaves, ring)
+        oracle = (out, *torch.autograd.grad(out, leaves, g))
+        for a, w in zip(res[True], oracle):
+            _hop_close(a, w)
+    ref = attention._sdpa_xla(q.float(), k.float(), v.float())
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7 * float(ref.abs().max())
+    assert float((res[True][0].detach().float() - ref).abs().max()) < tol
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_ring_on_cuda_takes_the_kernels_whatever_the_dtype(cuda, n):
+    """The default route (use_kernel=None) on CUDA tensors: fp16 runs K12
+    widened to fp32 (n^2 launches of each hop a pass) and comes back in
+    fp16, equal to the fp32 ring rounded; fp64 reaches the wrapper and is
+    refused there, never run by the plain hops."""
+    from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
+    from kfunca_tpu_torch.parallel import ring_attention as ra
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, g = (torch.randn((1, 4, 96 * n, 64), generator=gen, device=cuda)
+                  .half() for _ in range(4))
+    fn = ra.make_ring_attention(ra.LocalRing(n))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n1, n2 = rh.flash_attention_hop.launches, rh.flash_attention_bwd_hop.launches
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (rh.flash_attention_hop.launches - n1,
+            rh.flash_attention_bwd_hop.launches - n2) == (n * n, n * n)
+    assert out.dtype == torch.float16
+    assert all(t.dtype == torch.float16 for t in grads)
+    wide = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = fn(*wide)
+    want_grads = torch.autograd.grad(want, wide, g.float())
+    for a, w in zip((out, *grads), (want, *want_grads)):
+        assert torch.equal(a, w.detach().half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fn(q.double(), k.double(), v.double())
+
+
+def test_process_group_ring_over_nccl_matches_the_local_ring(cuda, tmp_path):
+    """make_ring_attention over a 4-card `cp` DeviceMesh (NCCL, one process
+    a card, K12 on each) gives the bits of LocalRing(4) on one card: the
+    same hops on the same shards in the same order.  Needs four cards."""
+    import sys
+
+    from kfunca_tpu_torch.parallel import ring_attention as ra
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ring_ranks
+
+    n = 4
+    rng = np.random.default_rng(11)
+    arrays = {name: rng.standard_normal((1, 8, n * 512, 128)).astype(np.float32)
+              for name in "qkv"}
+    np.savez(tmp_path / "inputs.npz", **arrays)
+    torch.multiprocessing.start_processes(
+        torch_ring_ranks.run_rank,
+        args=(n, str(tmp_path / "store"), str(tmp_path / "inputs.npz"),
+              str(tmp_path), "nccl", "bfloat16"),
+        nprocs=n, join=True, start_method="spawn")
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(n)]
+    leaves = [torch.from_numpy(arrays[name]).to(cuda, torch.bfloat16)
+              .requires_grad_(True) for name in "qkv"]
+    out = ra.make_ring_attention(ra.LocalRing(n))(*leaves)
+    grads = torch.autograd.grad(torch.sin(out.float()).sum(), leaves)
+    for key, want in zip(("out", "dq", "dk", "dv"), (out, *grads)):
+        got = np.concatenate([r[key] for r in ranks], axis=2)
+        assert np.array_equal(got, want.detach().float().cpu().numpy()), key

@@ -56,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
         "             'models.mamba_serve', 'models.hybrid',",
         "             'ops.pallas_kernels.ssm_scan',",
         "             'ops.pallas_kernels.bitonic_sort', 'runtime._native',",
-        "             'runtime.autotune'):",
+        "             'runtime.autotune', 'ops.pallas_kernels.ring_hop',",
+        "             'parallel', 'parallel.ring_attention'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -91,13 +92,31 @@ def test_every_source_the_port_builds_lies_in_the_port():
     from kfunca_tpu_torch.runtime import _kernels, _native
 
     sources = sorted(_kernels.CSRC.glob("*.cu")) + [_native.SRC]
-    assert {"bitonic_sort.cu", "ssm_scan.cu", "matmul.cu", "core.cpp"} <= {
+    assert {"bitonic_sort.cu", "ssm_scan.cu", "matmul.cu", "ring_hop.cu",
+            "core.cpp"} <= {
         p.name for p in sources}
     for src in sources:
         assert src.exists() and src.resolve().is_relative_to(PORT / "csrc"), src
     for lib in [_kernels.library_path(p.stem) for p in sources[:-1]] + [
             _native.library_path()]:
         assert lib.resolve().is_relative_to(PORT / "build"), lib
+
+
+def test_an_edited_header_renames_every_library(monkeypatch, tmp_path):
+    """K1/K2 and K12 include csrc/attention_tile.cuh: a library's name
+    hashes every header under csrc/, so an edited header rebuilds them."""
+    from kfunca_tpu_torch.runtime import _kernels
+
+    for name in ("flash_attention.cu", "ring_hop.cu"):
+        assert '#include "attention_tile.cuh"' in (
+            PORT / "csrc" / name).read_text()
+    (tmp_path / "a.cu").write_text("source")
+    (tmp_path / "tile.cuh").write_text("one")
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    first = _kernels.library_path("a")
+    assert _kernels.library_path("a") == first
+    (tmp_path / "tile.cuh").write_text("two")
+    assert _kernels.library_path("a") != first
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
