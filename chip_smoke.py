@@ -23,20 +23,24 @@ Phases (any failure raises and the script exits non-zero):
      (forward_with_cache from a fresh cache; no paged kernel);
   7. profile a few decode steps of a full batch (device busy share, device
      time by kernel);
-  8. hold the flash attention forward (K1) and backward (K2) kernels
-     against their plain PyTorch versions at Mistral-7B-v0.1 attention
-     widths (B=1, H=32, Hkv=8, hd=128, S=8192, window 4096; bf16 and fp32)
+  8. hold the flash attention forward (K1) and backward (K2; bf16 on its
+     wgmma body, fp32 on its fp32 body, asserted by the launch counts)
+     kernels against their plain PyTorch versions at Mistral-7B-v0.1
+     attention widths (B=1, H=32, Hkv=8, hd=128, S=8192, window 4096; bf16
+     and fp32)
      and at small shapes that hit the edges (no window, window 37,
      Sq != Skv both ways, ragged tiles, head dims 64 and 40, a row with no
-     valid column);
+     valid column); two bf16 K2 runs bitwise equal;
   9. time K1 and K2 (each alone), their plain versions and the library
      yardstick (scaled_dot_product_attention, forward and backward) at the
      full attention shape, beside the bound;
  10. take 6 AdamW training steps through make_train_step at Mistral-7B-v0.1
      widths (depth cut to 4 layers, 1 x 8192 tokens, bf16 activations, fp32
      master params), then 2 steps with loss_chunk and grad_accum; K1 and K2
-     launches must each equal layers x steps (x microbatches);
- 11. profile 2 training steps (device busy share, device time by kernel);
+     launches must each equal layers x steps (x microbatches), every K2
+     launch on its wgmma body;
+ 11. profile 2 training steps (device busy share, device time by kernel,
+     K2's share);
  12. hold the kernel path against the plain attention path end to end in
      fp32 (loss and every gradient of loss_fn, 2 layers at full width), and
      check that two kernel runs give bitwise-equal gradients;
@@ -72,14 +76,16 @@ Phases (any failure raises and the script exits non-zero):
      division by 0 and INT_MIN / -1, float -> int saturation), K8 reduce_2d
      and K7 welford_norm_stat at 16387^2 (and a ragged 1000 x 333), K3
      matmul at 4096^3 in bf16/fp16/fp32, ragged and m = 1 with every
-     epilogue, and int8;
+     epilogue, and int8 (each 16-bit case on the body the route rule
+     names: wgmma for k, n multiples of 8, else mma.sync);
  22. time each, its plain version and a library yardstick (torch.add,
      torch.sum / torch.amax, torch.var_mean + rsqrt, torch.matmul) beside
-     its bound;
+     its bound; K3 also at each wgmma tile and on its mma.sync body;
  23. drive `import kfunca_tpu_torch as kfunca` at bench.py's sizes: an eager
      MLP step (gemm, relu, gemm, + x, mean, backward) at Mistral-7B-v0.1
-     widths in bf16 with the engine knobs at `pallas` (K3 = 6, K8 = 1,
-     K9 = 9 launches asserted) and at their defaults (none), held against
+     widths in bf16 with the engine knobs at `pallas` (K3 = 6 on the wgmma
+     body, K8 = 1, K9 = 9 launches asserted) and at their defaults (none),
+     held against
      each other, and in fp32 at d 1024; norm_stat / sum / mean at 16387^2;
      the elementwise ops at 4096^2 with an out= write through a permuted
      view; sort / topk with NaN and ties; the eager causal attention
@@ -111,7 +117,8 @@ Phases (any failure raises and the script exits non-zero):
      log-prob stands within 1e-4 nat (fp32) or 0.25 nat (bf16) of the
      parallel forward through K11;
  31. the hybrid stack at AI21-Jamba2-3B widths: 4 training steps at 8
-     layers (K1 and K2 once a step, K11 seven times), then generate at all
+     layers (K1 and K2 once a step, K2 on its wgmma body, K11 seven
+     times), then generate at all
      28 layers, fp32 and bf16, with the recurrent decode held to the
      parallel forward (K1 + K11) on every generated position;
  32. hold the bitonic sort K10 against its plain version (a stable
@@ -130,8 +137,9 @@ Phases (any failure raises and the script exits non-zero):
      op with it, with KFUNCA_NO_NATIVE=1 and with the K9 knob; a 2-layer
      fp32 server at Mistral-7B-v0.1 width with prefix_cache=True gives the
      same tokens with the core and without it;
- 36. autotune into a temporary cache: K3's tile at bf16 4096^3 and K4's
-     page size at 8 slots x 1024 x 4096; then gemm under the pallas knob
+ 36. autotune into a temporary cache: K3's tile at bf16 4096^3 and at the
+     MLP step's three GEMM shapes, and K4's page size at 8 slots x 1024 x
+     4096; then gemm under the pallas knob
      launches the recorded tile and InferenceServer(page_size=None) takes
      the recorded page size;
  37. hold the ring-attention hop kernels K12 (forward and backward)
@@ -483,7 +491,22 @@ def profile_summary(prof, wall_us, steps, n_top=8):
         end = max(end, t)
     return dict(wall_ms=wall_us / steps / 1e3, busy_ms=busy / steps / 1e3,
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top],
-                steps=steps)
+                steps=steps, by_name=by_name)
+
+
+# K2's device functions: the stats / delta pre-pass, dq and dk/dv (the bf16
+# wgmma bodies and the fp32 ones)
+K2_KERNELS = ("flash_stats_kernel", "flash_delta_kernel", "flash_bwd_dq",
+              "flash_bwd_dkv")
+
+
+def kernel_share(prof, names) -> tuple[float, float]:
+    """(ms a step, share of the busy time) of the kernels whose names
+    contain one of `names`, from profile_summary's result."""
+    us = sum(t for n, t in prof["by_name"].items()
+             if any(k in n for k in names))
+    ms = us / prof["steps"] / 1e3
+    return ms, ms / prof["busy_ms"] if prof["busy_ms"] else 0.0
 
 
 def print_profile(label, prof, card):
@@ -573,9 +596,21 @@ def flash_checks(fa) -> tuple[float, float]:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, g = flash_case(dtype, gen, **case)
             out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
+            n_wg = fa.flash_attention_backward.launches_wgmma
             dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
                                                      window=window)
             torch.cuda.synchronize()
+            check(fa.flash_attention_backward.launches_wgmma - n_wg
+                  == (dtype == torch.bfloat16),
+                  f"K2 {dtype} took the "
+                  f"{'wgmma' if dtype == torch.bfloat16 else 'fp32'} body")
+            if dtype == torch.bfloat16:
+                again = fa.flash_attention_backward(q, k, v, g, out, lse,
+                                                    window=window)
+                check(all(torch.equal(x, y)
+                          for x, y in zip((dq, dk, dv), again)),
+                      "two bf16 K2 runs give bitwise-equal dq, dk, dv")
+                del again
             r_out, r_lse, r_dq, r_dk, r_dv = flash_plain(fa, q, k, v, g,
                                                          window)
             tag = "x".join(str(case[n]) for n in ("b", "h", "hkv", "sq",
@@ -749,9 +784,13 @@ def training_phases(fa, card):
     # the main path: launch counts start at 0 here and are read after it
     fa.flash_attention_fwd_stats.launches = 0
     fa.flash_attention_backward.launches = 0
+    fa.flash_attention_backward.launches_wgmma = 0
     params, opt, metrics, seconds = run_steps(step, ds, params, opt, 0, steps)
     launches = (fa.flash_attention_fwd_stats.launches,
                 fa.flash_attention_backward.launches)
+    check(fa.flash_attention_backward.launches_wgmma == launches[1],
+          f"every K2 launch took the bf16 wgmma body "
+          f"({fa.flash_attention_backward.launches_wgmma} of {launches[1]})")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for m in metrics:
         print(f"  step {int(m['step'])}: loss {m['loss']:.4f}, grad norm "
@@ -781,9 +820,12 @@ def training_phases(fa, card):
     ds2 = TokenDataset(corpus, TRAIN_SEQ // 2, 2, seed=SEED + 2)
     fa.flash_attention_fwd_stats.launches = 0
     fa.flash_attention_backward.launches = 0
+    fa.flash_attention_backward.launches_wgmma = 0
     params, opt, metrics2, seconds2 = run_steps(accum, ds2, params, opt, 0, 2)
     launches2 = (fa.flash_attention_fwd_stats.launches,
                  fa.flash_attention_backward.launches)
+    check(fa.flash_attention_backward.launches_wgmma == launches2[1],
+          "every K2 launch of the accumulating steps took the wgmma body")
     check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
               for m in metrics2), "loss_chunk/grad_accum losses are finite")
     want2 = cfg.n_layers * 2 * 2
@@ -802,10 +844,14 @@ def training_phases(fa, card):
         t0 = time.perf_counter()
         params, opt, _, _ = run_steps(step, ds, params, opt, steps, 2)
         wall_us = (time.perf_counter() - t0) * 1e6
+    prof = profile_summary(prof, wall_us, 2, n_top=12)
     print_profile(f"[11] training step profile (bf16, {cfg.n_layers} layers, "
-                  f"1 x {TRAIN_SEQ}, 2 steps, profiler on)",
-                  profile_summary(prof, wall_us, 2, n_top=12), card)
-    return dict(launches=launches, ms_step=ms_step, peak_gb=peak_gb)
+                  f"1 x {TRAIN_SEQ}, 2 steps, profiler on)", prof, card)
+    k2_ms, k2_share = kernel_share(prof, K2_KERNELS)
+    print(f"[11] K2 (stats pre-pass, dq, dk/dv): {k2_ms:.2f} ms/step, "
+          f"{100 * k2_share:.1f}% of the device's busy time", flush=True)
+    return dict(launches=launches, ms_step=ms_step, peak_gb=peak_gb,
+                k2_ms=k2_ms, k2_share=k2_share)
 
 
 def loss_and_grads(params, tokens, targets, cfg):
@@ -1840,8 +1886,11 @@ def eager_launches(counts=None):
     from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
 
     now = {k: f.launches for k, f in eager_wrappers().items()}
+    now["matmul_wgmma"] = eager_wrappers()["matmul"].launches_wgmma
+    now["matmul_mma"] = eager_wrappers()["matmul"].launches_mma
     now["flash_attention_fwd_stats"] = fa.flash_attention_fwd_stats.launches
     now["flash_attention_backward"] = fa.flash_attention_backward.launches
+    now["flash_backward_wgmma"] = fa.flash_attention_backward.launches_wgmma
     return now if counts is None else {k: now[k] - counts[k] for k in now}
 
 
@@ -1851,6 +1900,9 @@ def reset_eager_launches():
     for f in (*eager_wrappers().values(), fa.flash_attention_fwd_stats,
               fa.flash_attention_backward):
         f.launches = 0
+    eager_wrappers()["matmul"].launches_wgmma = 0
+    eager_wrappers()["matmul"].launches_mma = 0
+    fa.flash_attention_backward.launches_wgmma = 0
 
 
 def rel_err(got, ref) -> float:
@@ -1960,15 +2012,26 @@ def k7_checks(wf) -> float:
 
 def k3_checks(mm) -> float:
     """K3 against its plain version: 4096^3 in bf16, fp16 and fp32; ragged
-    (4095, 4097, 1000) and m = 1 with every epilogue; int8.  fp32 within
-    1e-4 x max(1, max |ref|) (fp32 sums in other orders); 16-bit within
-    2^-7 of max |ref| (both round one fp32 result; a hair's difference can
-    flip a rounding); int8 exact."""
+    (4095, 4097, 1000: the mma.sync body, k odd), ragged with 16-byte rows
+    (4095, 4104, 1000: the wgmma body, a k tail of 8) and m = 1 with every
+    epilogue; int8.  Each 16-bit case asserts the body the route rule
+    names.  fp32 within 1e-4 x max(1, max |ref|) (fp32 sums in other
+    orders); 16-bit within 2^-7 of max |ref| (both round one fp32 result;
+    a hair's difference can flip a rounding); int8 exact."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
     worst = 0.0
+    counts = {}
 
     def held(got, want, dt, what):
         nonlocal worst
+        if dt in (torch.bfloat16, torch.float16):
+            body = mm.route(*shape, dt, a.data_ptr(), b.data_ptr())
+            took = (mm.matmul.launches_wgmma - counts["wgmma"],
+                    mm.matmul.launches_mma - counts["mma"])
+            check(took == ((1, 0) if body == "wgmma" else (0, 1)),
+                  f"K3 {what} {dt} took the {body} body {took}")
+        counts.update(wgmma=mm.matmul.launches_wgmma,
+                      mma=mm.matmul.launches_mma)
         torch.cuda.synchronize()
         err = (got.double() - want.double()).abs().max().item()
         top = want.double().abs().max().item()
@@ -1976,12 +2039,14 @@ def k3_checks(mm) -> float:
         check(err <= tol, f"K3 {what} {dt}: max err {err:.3g} <= {tol:.3g}")
         worst = max(worst, err)
 
-    m, k, n = GEMM_MKN
+    counts.update(wgmma=mm.matmul.launches_wgmma, mma=mm.matmul.launches_mma)
+    m, k, n = shape = GEMM_MKN
     for dt in (torch.bfloat16, torch.float16, torch.float32):
         a = (torch.randn((m, k), generator=gen, device="cuda")).to(dt)
         b = (torch.randn((k, n), generator=gen, device="cuda") / 64).to(dt)
         held(mm.matmul(a, b), mm.matmul_plain(a, b), dt, f"{m}x{k}x{n}")
-    for m, k, n in ((4095, 4097, 1000), (1, 4096, 4096)):
+    for m, k, n in ((4095, 4097, 1000), (4095, 4104, 1000), (1, 4096, 4096)):
+        shape = (m, k, n)
         bias = torch.randn(n, generator=gen, device="cuda")
         res = torch.randn((m, n), generator=gen, device="cuda")
         for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -1993,6 +2058,8 @@ def k3_checks(mm) -> float:
                           residual=res if "res" in epi else None, epilogue=epi)
                 held(mm.matmul(a, b, **kw), mm.matmul_plain(a, b, **kw), dt,
                      f"{m}x{k}x{n} {epi or 'plain'}")
+        counts.update(wgmma=mm.matmul.launches_wgmma,
+                      mma=mm.matmul.launches_mma)
         a8 = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
                            dtype=torch.int8)
         b8 = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
@@ -2009,6 +2076,7 @@ def eager_timing():
     the phase-21 shapes, with the bound from this run's inputs."""
     from kfunca_tpu_torch.ops.pallas_kernels import (
         elementwise as ew, matmul as mm, reduce as rd, welford as wf)
+    from kfunca_tpu_torch.runtime import autotune
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
     out = {}
@@ -2058,11 +2126,26 @@ def eager_timing():
         b = torch.randn((k, n), generator=gen, device="cuda").to(dt)
         bms, by = bound((m * k + k * n + m * n) * a.element_size(),
                         2 * m * k * n, dt)
-        out[key] = dict(ms=time_ms(lambda: mm.matmul(a, b), reps=10),
+        # the tile gemm under the pallas knob takes here (shipped autotune
+        # entry, else the default)
+        tile = autotune.lookup("gemm", autotune.shape_bucket(m, k, n), dt) \
+            if dt == torch.bfloat16 else None
+        tile = tile or {}
+        out[key] = dict(ms=time_ms(lambda: mm.matmul(a, b, **tile), reps=10),
                         plain_ms=time_ms(lambda: mm.matmul_plain(a, b), reps=10),
                         library_ms=time_ms(lambda: torch.matmul(a, b), reps=10),
-                        bound_ms=bms, bound_by=by,
+                        bound_ms=bms, bound_by=by, tile=tile,
                         what=f"{m}x{k}x{n} {str(dt)[6:]}")
+    # the wgmma body at every built tile, and the kept mma.sync body (the
+    # route for other strides) at its fixed tile, on the same operands
+    a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    b = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+    out["k3"]["tiles_ms"] = {
+        f"{bm}x{bn}": time_ms(lambda: mm.matmul(a, b, bm=bm, bn=bn), reps=10)
+        for bm, bn in mm.TILES}
+    out["k3"]["mma_ms"] = time_ms(
+        lambda: mm._launch(a, b, None, None, torch.bfloat16, "", "mma",
+                           *mm.MMA_TILE), reps=10)
     return out
 
 
@@ -2109,6 +2192,11 @@ def mlp_phase(kfunca, spec, seed, tol_of):
     want_n = {k: v for k, v in n.items() if k in MLP_LAUNCHES}
     check(want_n == MLP_LAUNCHES, f"eager MLP launches {want_n} == "
           f"{MLP_LAUNCHES}")
+    if spec["dtype"] != torch.float32:  # every 16-bit GEMM of the step
+        check(n["matmul_wgmma"] == MLP_LAUNCHES["matmul"]
+              and n["matmul_mma"] == 0,
+              f"the MLP step's K3 launches took the wgmma body "
+              f"({n['matmul_wgmma']} wgmma, {n['matmul_mma']} mma.sync)")
     with engines(False):
         before = eager_launches()
         t0 = time.perf_counter()
@@ -2279,6 +2367,10 @@ def eager_phases(card):
     for key, t in timing.items():
         extra = (f"; max {t['max_ms']:.4f} ms, torch.amax "
                  f"{t['max_library_ms']:.4f} ms" if "max_ms" in t else "")
+        if "mma_ms" in t:
+            extra = (f"; at tile {t['tile'] or 'default'}; wgmma tiles "
+                     f"{ {k: round(v, 4) for k, v in t['tiles_ms'].items()} }, "
+                     f"the mma.sync body {t['mma_ms']:.4f} ms")
         print(f"[22] {key} ({t['what']}): kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){extra}; {card}",
@@ -2313,6 +2405,11 @@ def eager_phases(card):
           and launches["flash_attention_fwd_stats"] >= 1
           and launches["flash_attention_backward"] >= 1,
           "phase 23 launched K7, K1 and K2")
+    check(launches["flash_backward_wgmma"] == launches[
+        "flash_attention_backward"] and launches["matmul_mma"] == 0
+          and launches["matmul_wgmma"] >= 6,
+          "phase 23's K2 launches took the bf16 wgmma body, its 16-bit K3 "
+          "launches the wgmma body")
     free_device_memory()
 
     prof = eager_profile(kfunca)
@@ -2329,13 +2426,16 @@ def eager_phases(card):
 
     def entry(name, key, line, n, err):
         t = timing[key]
-        return {"name": name, "route": "cuda",
-                "source": f"kfunca_tpu_torch/csrc/{sources[key]}.cu",
-                "replaces": f"kfunca_tpu/ops/pallas_kernels/{line}",
-                "launches": n, "max_abs_err": err, "max_err": err,
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]}
+        e = {"name": name, "route": "cuda",
+             "source": f"kfunca_tpu_torch/csrc/{sources[key]}.cu",
+             "replaces": f"kfunca_tpu/ops/pallas_kernels/{line}",
+             "launches": n, "max_abs_err": err, "max_err": err,
+             "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": t["library_ms"]}
+        if "mma_ms" in t:  # K3: the kept mma.sync body, same operands
+            e["mma_body_ms"] = t["mma_ms"]
+        return e
 
     return [entry("matmul", "k3", "matmul.py:85", launches["matmul"],
                   errs["k3"]),
@@ -2514,6 +2614,7 @@ def ssm_train(make_step, cfg, params, steps, ss, fa=None):
     if fa is not None:
         fa.flash_attention_fwd_stats.launches = 0
         fa.flash_attention_backward.launches = 0
+        fa.flash_attention_backward.launches_wgmma = 0
     losses, seconds = [], []
     for i in range(steps):
         tokens, targets = ds.batch_at(i)
@@ -2525,6 +2626,10 @@ def ssm_train(make_step, cfg, params, steps, ss, fa=None):
     launches = (ss.ssm_scan_fwd.launches, ss.ssm_scan_bwd.launches,
                 fa.flash_attention_fwd_stats.launches if fa else 0,
                 fa.flash_attention_backward.launches if fa else 0)
+    if fa is not None:
+        check(fa.flash_attention_backward.launches_wgmma == launches[3],
+              f"every K2 launch ({launches[3]}) took the bf16 wgmma body "
+              f"({fa.flash_attention_backward.launches_wgmma})")
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(all(math.isfinite(v) for v in losses), "every loss is finite")
     # the tied head at std 0.02 over 2560 widths gives logits of std ~1,
@@ -3129,7 +3234,8 @@ def native_phase(kfunca, card):
 
 def autotune_phase(kfunca, card):
     """Phase 36: autotune into a temporary cache: K3's tile at bf16 4096^3
-    and K4's page size at 8 slots x 1024 x 4096; then `gemm` under the
+    and at the eager MLP step's three GEMM shapes, and K4's page size at 8
+    slots x 1024 x 4096; then `gemm` under the
     pallas knob launches the recorded tile and InferenceServer(page_size=
     None) takes the recorded page size."""
     from kfunca_tpu_torch.models.serve import InferenceServer
@@ -3144,8 +3250,15 @@ def autotune_phase(kfunca, card):
         try:
             g = kfunca.autotune("gemm", 4096, 4096, 4096, dtype=torch.bfloat16,
                                 verbose=False)
+            # the eager MLP step's three GEMM shape classes (phase 23)
+            mlp = [(mkn, kfunca.autotune("gemm", *mkn, dtype=torch.bfloat16,
+                                         verbose=False))
+                   for mkn in ((4096, 4096, 14336), (4096, 14336, 4096),
+                               (14336, 4096, 4096))]
             d = kfunca.autotune("decode_page", 8, 1024, 4096, verbose=False)
             for label, r in (("gemm bf16 4096^3 (K3 tile)", g),
+                             *((f"gemm bf16 {'x'.join(map(str, mkn))} (K3 "
+                                f"tile, the MLP step's)", r) for mkn, r in mlp),
                              ("decode_page 8 x 1024 x 4096 (K4 page)", d)):
                 times = ", ".join(f"{c['params']}: {c['ms']:.4f} ms"
                                   for c in r["all"])
@@ -3162,7 +3275,7 @@ def autotune_phase(kfunca, card):
             os.environ["KFUNCA_GEMM_ENGINE"] = "pallas"
             try:
                 at.record("gemm", at.shape_bucket(1024, 1024, 1024),
-                          torch.bfloat16, {"bm": 64, "bn": 64})
+                          torch.bfloat16, {"bm": 128, "bn": 256})
                 gen = torch.Generator(device="cuda").manual_seed(SEED + 64)
                 for n in (4096, 1024):
                     x = torch.randn((n, n), generator=gen, device="cuda").bfloat16()

@@ -19,28 +19,46 @@
 //
 // What bounds it: operations at the shapes the eager API runs (4096^3
 // bf16: 137 GFLOP against 100 MB of operands, ~1,400 operations a byte,
-// far past the card's ~295).  Two device bodies, chosen by input type:
-//   * bf16 / fp16: tensor cores through mma.sync.m16n8k16 with fp32
-//     accumulators.  A block of 8 warps (2 x 4) owns a BM x BN output
-//     tile, a warp BM/2 x BN/4 of it; BM x 32 tiles of a and 32 x BN tiles
-//     of b are staged in shared memory with 16-byte loads (padded rows
-//     keep the fragment reads free of bank conflicts).  The tile is a
-//     template parameter, the launch's choice: 128 x 128 (the default),
-//     128 x 64, 64 x 128 and 64 x 64 are built (runtime/autotune.py
-//     sweeps them; smaller tiles give more blocks on small outputs);
+// far past the card's ~295), so the tensor cores' rate, which only wgmma
+// reaches, and keeping them fed.  Three device bodies, chosen from the
+// input type and the shape before the launch (ops/pallas_kernels/
+// matmul.route states the rule):
+//   * bf16 / fp16 with k % 8 == 0 and n % 8 == 0 and 16-byte aligned a and
+//     b (every row then starts on 16 bytes, as TMA needs; any m): wgmma fed
+//     by TMA.  A block of three warpgroups owns a 128 x BN output tile (BN
+//     = 64, 128 or 256: the launch's choice, runtime/autotune.py sweeps
+//     them).  Warpgroup 0 is the producer: one thread keeps a ring of
+//     stages full, each a 128 x 64 box of a (K-major) and BN / 64 boxes of
+//     64 x 64 of b (MN-major: b is read in place, as wgmma's transpose-B
+//     operand), 128-byte swizzled, signalled on a full barrier per stage;
+//     setmaxnreg gives it 40 registers.  Warpgroups 1 and 2 each run
+//     wgmma m64nBNk16 over 64 rows of the tile (four k16 steps a stage),
+//     fp32 accumulators in registers (232 registers a thread), and hand a
+//     stage back on its empty barrier once the wgmma that read it has
+//     completed (one group stays in flight).  TMA zero-fills the boxes
+//     past the edges, so ragged m, n and k need no padding.  The epilogue
+//     runs on the accumulator registers and stores the masked tile;
+//   * bf16 / fp16 otherwise (a row stride TMA cannot take): mma.sync
+//     m16n8k16 with fp32 accumulators, one fixed 128 x 64 tile (8 warps as
+//     2 x 4, a warp 64 x 16), k steps of 32 staged in one shared buffer
+//     with 16-byte loads;
 //   * fp32 and int8: CUDA-core FMA.  A block of 256 threads owns a
 //     128 x 128 tile, a thread 8 x 8 of it from registers, over k steps of
 //     8 staged in shared memory (a transposed).
 // The TPU kernel's (2048, 512, 2048) VMEM blocks and its sequential k grid
 // do not carry over: the k loop runs inside the block, and the blocks of
 // the output tile grid run at once.
-// Left for later: wgmma and TMA with a multi-stage shared-memory ring, which
-// the tensor cores' full rate needs; a tensor-core path for int8.
+// Left for later: a persistent grid (one tile's epilogue overlapping the
+// next one's loads), TMA stores of the output, clusters with multicast
+// loads, and a tensor-core path for fp32 (TF32 is not the contract) and
+// int8.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -101,7 +119,62 @@ __device__ __forceinline__ void finish(void* out, int code, int row, int col,
   else store(out, code, i, v);
 }
 
-// -- bf16 / fp16: tensor cores (mma.sync m16n8k16, fp32 accumulators) -------
+// the epilogue on two adjacent columns, called (not inlined) from the wgmma
+// body's unrolled store loop, which would otherwise hold 64-128 inlined
+// copies of it
+__device__ __noinline__ float2 epilogue_pair(float v0, float v1, int row,
+                                             int col, int n,
+                                             const Epilogue& e) {
+  return make_float2(apply_epilogue(v0, row, col, n, e),
+                     apply_epilogue(v1, row, col + 1, n, e));
+}
+
+// two adjacent columns (col even, col + 1 < n when col < n: n % 8 == 0) of
+// one row, the epilogue applied to each, stored as one 4- or 8-byte word;
+// the output type is a template parameter, so the caller's unrolled loop
+// over its accumulator registers holds no branch on it
+template <int kCode>
+__device__ __forceinline__ void finish2(void* out, int row, int col, int m,
+                                        int n, float v0, float v1,
+                                        const Epilogue& e) {
+  if (row >= m || col >= n) return;
+  const long long i = (long long)row * n + col;
+  if (e.any) {
+    const float2 v = epilogue_pair(v0, v1, row, col, n, e);
+    v0 = v.x;
+    v1 = v.y;
+  }
+  if (kCode == 6) {
+    *reinterpret_cast<__half2*>(static_cast<__half*>(out) + i) =
+        __floats2half2_rn(v0, v1);
+  } else if (kCode == 7) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + i) =
+        __floats2bfloat162_rn(v0, v1);
+  } else if (kCode == 8) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) =
+        make_float2(v0, v1);
+  } else {
+    store(out, 4, i, v0);
+    store(out, 4, i + 1, v1);
+  }
+}
+
+// the m64nN accumulator of one consumer warpgroup stored from its
+// registers: warp w of the group holds rows 16w + g and 16w + g + 8 of the
+// 64, columns 8j + 2t and 8j + 2t + 1 of each 8-wide chunk j
+template <int kCode, int N>
+__device__ __forceinline__ void store_acc(void* out, int row, int col, int m,
+                                          int n, const float (&acc)[N / 2],
+                                          const Epilogue& e) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      finish2<kCode>(out, row + 8 * i, col + 8 * j, m, n, acc[4 * j + 2 * i],
+                     acc[4 * j + 2 * i + 1], e);
+}
+
+// -- bf16 / fp16, other strides: mma.sync m16n8k16, fp32 accumulators -----
 
 constexpr int kBK = 32;
 constexpr int kAStride = kBK + 8;  // shared row strides, in 16-bit elements
@@ -223,6 +296,8 @@ __global__ void __launch_bounds__(kThreads) mma_gemm_kernel(
       }
 }
 
+constexpr int kMmaBM = 128, kMmaBN = 64;  // the body's one tile
+
 template <bool kBf16, int BM, int BN>
 int launch_mma(const uint16_t* a, const uint16_t* b, void* out, int out_code,
                int m, int n, int k, const Epilogue& e, bool a_vec, bool b_vec,
@@ -233,18 +308,146 @@ int launch_mma(const uint16_t* a, const uint16_t* b, void* out, int out_code,
   return (int)cudaGetLastError();
 }
 
+// -- bf16 / fp16, k % 8 == 0, n % 8 == 0: wgmma fed by TMA --------------------
+
+constexpr int kWgBM = 128;       // output rows of a block: 2 consumers x 64
+constexpr int kWgBK = 64;        // k per stage: one 128-byte row of a's box
+constexpr int kWgThreads = 384;  // producer warpgroup + two consumers
+
+template <int BN>
+struct WgTile {
+  static constexpr int kABytes = kWgBM * kWgBK * 2;      // 16 KB
+  static constexpr int kBBytes = kWgBK * BN * 2;         // BN / 64 boxes of 8 KB
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = (192 * 1024) / kStageBytes;  // 4, 6 or 8
+  static constexpr size_t kSmem =
+      (size_t)kStages * kStageBytes + 2 * kStages * sizeof(uint64_t) + 1024;
+};
+
+template <bool kBf16, int BN>
+__global__ void __launch_bounds__(kWgThreads, 1) wgmma_gemm_kernel(
+    const __grid_constant__ CUtensorMap map_a,
+    const __grid_constant__ CUtensorMap map_b, void* __restrict__ out,
+    int out_code, int m, int n, int k, Epilogue e) {
+  using T = WgTile<BN>;
+  constexpr int S = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * T::kStageBytes);
+  uint64_t* empty = full + S;
+  const int wg = threadIdx.x / 128;
+  // grouped order: consecutive blocks walk 8 row tiles of a column band, so
+  // the blocks in flight share a and b panels in L2
+  const int tiles_m = (m + kWgBM - 1) / kWgBM, tiles_n = (n + BN - 1) / BN;
+  const int per_group = 8 * tiles_n;
+  const int first_m = (blockIdx.x / per_group) * 8;
+  const int group_m = min(tiles_m - first_m, 8);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first_m + in_group % group_m) * kWgBM;
+  const int n0 = (in_group / group_m) * BN;
+  const int nk = (k + kWgBK - 1) / kWgBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);   // the producer's expect_tx
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S;
+        hopper::mbar_wait(&empty[s], ((kt / S) & 1) ^ 1);
+        uint8_t* st = smem + s * T::kStageBytes;
+        hopper::mbar_expect_tx(&full[s], T::kStageBytes);
+        hopper::tma_load_2d(st, &map_a, &full[s], kt * kWgBK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          hopper::tma_load_2d(st + T::kABytes + j * 8192, &map_b, &full[s],
+                              n0 + 64 * j, kt * kWgBK);
+      }
+    }
+  } else {  // consumers: rows 64 (wg - 1) .. of the tile
+    hopper::regs_inc<232>();
+    const int c = wg - 1;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % S;
+      hopper::mbar_wait(&full[s], (kt / S) & 1);
+      const uint8_t* st = smem + s * T::kStageBytes;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        // a: K-major, rows 64c.., k16 step = 32 bytes along the row;
+        // b: MN-major, k16 step = 16 rows of 128 bytes, 64 columns a box
+        const uint64_t da = hopper::desc_sw128(st + c * 8192 + kk * 32, 16, 1024);
+        const uint64_t db =
+            hopper::desc_sw128(st + T::kABytes + kk * 2048, 8192, 1024);
+        hopper::wgmma_ss<kBf16, 1>(acc, da, db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::fence_regs(acc);
+      // the previous stage's products are done: hand it back
+      hopper::wgmma_wait<1>();
+      if (kt > 0 && threadIdx.x % 128 == 0)
+        hopper::mbar_arrive(&empty[(kt - 1) % S]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+
+    const int lane = threadIdx.x & 31, w = (threadIdx.x / 32) & 3;
+    const int row = m0 + 64 * c + 16 * w + (lane >> 2);
+    const int col = n0 + 2 * (lane & 3);
+    switch (out_code) {
+      case 6: store_acc<6, BN>(out, row, col, m, n, acc, e); break;
+      case 7: store_acc<7, BN>(out, row, col, m, n, acc, e); break;
+      case 8: store_acc<8, BN>(out, row, col, m, n, acc, e); break;
+      default: store_acc<4, BN>(out, row, col, m, n, acc, e); break;
+    }
+  }
+}
+
+template <bool kBf16, int BN>
+int launch_wgmma(const void* a, const void* b, void* out, int out_code, int m,
+                 int n, int k, const Epilogue& e, cudaStream_t s) {
+  CUtensorMap map_a, map_b;
+  const uint64_t dims_a[2] = {(uint64_t)k, (uint64_t)m};
+  const uint64_t dims_b[2] = {(uint64_t)n, (uint64_t)k};
+  const uint64_t stride_a[1] = {(uint64_t)k * 2}, stride_b[1] = {(uint64_t)n * 2};
+  const uint32_t box_a[2] = {kWgBK, kWgBM}, box_b[2] = {64, kWgBK};
+  if (!hopper::make_map(&map_a, a, kBf16, 2, dims_a, stride_a, box_a) ||
+      !hopper::make_map(&map_b, b, kBf16, 2, dims_b, stride_b, box_b))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = WgTile<BN>::kSmem;
+  const cudaError_t err =
+      hopper::allow_smem(wgmma_gemm_kernel<kBf16, BN>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles =
+      (long long)((n + BN - 1) / BN) * ((m + kWgBM - 1) / kWgBM);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  wgmma_gemm_kernel<kBf16, BN><<<(unsigned)tiles, kWgThreads, smem, s>>>(
+      map_a, map_b, out, out_code, m, n, k, e);
+  return (int)cudaGetLastError();
+}
+
 template <bool kBf16>
-int launch_mma_tile(const uint16_t* a, const uint16_t* b, void* out,
-                    int out_code, int m, int n, int k, const Epilogue& e,
-                    bool a_vec, bool b_vec, int bm, int bn, cudaStream_t s) {
-  if (bm == 128 && bn == 128)
-    return launch_mma<kBf16, 128, 128>(a, b, out, out_code, m, n, k, e, a_vec, b_vec, s);
-  if (bm == 128 && bn == 64)
-    return launch_mma<kBf16, 128, 64>(a, b, out, out_code, m, n, k, e, a_vec, b_vec, s);
-  if (bm == 64 && bn == 128)
-    return launch_mma<kBf16, 64, 128>(a, b, out, out_code, m, n, k, e, a_vec, b_vec, s);
-  if (bm == 64 && bn == 64)
-    return launch_mma<kBf16, 64, 64>(a, b, out, out_code, m, n, k, e, a_vec, b_vec, s);
+int launch_wgmma_tile(const void* a, const void* b, void* out, int out_code,
+                      int m, int n, int k, const Epilogue& e, int bm, int bn,
+                      cudaStream_t s) {
+  if (bm != kWgBM) return (int)cudaErrorInvalidValue;
+  if (bn == 256)
+    return launch_wgmma<kBf16, 256>(a, b, out, out_code, m, n, k, e, s);
+  if (bn == 128)
+    return launch_wgmma<kBf16, 128>(a, b, out, out_code, m, n, k, e, s);
+  if (bn == 64)
+    return launch_wgmma<kBf16, 64>(a, b, out, out_code, m, n, k, e, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -313,14 +516,16 @@ __global__ void __launch_bounds__(kThreads) simt_gemm_kernel(
 // 7 bf16, 8 fp32; out_code: 4 int32, 6 fp16, 7 bf16, 8 fp32 (dtype codes of
 // kfunca_tpu_torch/core/dtype.py).  a (m, k) and b (k, n) are contiguous
 // row-major; bias (n,) and residual (m, n) are contiguous fp32 or null;
-// act: 0 none, 1 tanh-GELU, 2 SiLU, 3 ReLU; (bm, bn): the output tile of
-// the bf16 / fp16 body, one of 128 x 128, 128 x 64, 64 x 128, 64 x 64
-// (the fp32 and int8 body takes 128 x 128 only).  Returns
-// cudaGetLastError() after the launch (0 on success).
+// act: 0 none, 1 tanh-GELU, 2 SiLU, 3 ReLU.  body (bf16 / fp16 only): 1 the
+// wgmma body, with output tile (bm, bn) = (128, 64 / 128 / 256), which
+// needs k % 8 == 0, n % 8 == 0 and 16-byte aligned a and b; 0 the mma.sync
+// body, tile (128, 64).  fp32 and int8 take body 0 and tile (128, 128).
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for arguments no body takes.
 extern "C" int kf_matmul(const void* a, const void* b, const void* bias,
                          const void* residual, void* out, int in_code,
                          int out_code, int m, int k, int n, int act, int bm,
-                         int bn, void* stream) {
+                         int bn, int body, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || n <= 0 || k <= 0 || act < 0 || act > 3)
     return (int)cudaErrorInvalidValue;
@@ -331,17 +536,30 @@ extern "C" int kf_matmul(const void* a, const void* b, const void* bias,
   e.any = bias != nullptr || residual != nullptr || act != 0;
   const dim3 block(kThreads);
   if (in_code == 6 || in_code == 7) {
+    if (body == 1) {
+      const bool tma = k % 8 == 0 && n % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(b) % 16 == 0;
+      if (!tma) return (int)cudaErrorInvalidValue;
+      if (in_code == 7)
+        return launch_wgmma_tile<true>(a, b, out, out_code, m, n, k, e, bm, bn,
+                                       s);
+      return launch_wgmma_tile<false>(a, b, out, out_code, m, n, k, e, bm, bn,
+                                      s);
+    }
+    if (body != 0 || bm != kMmaBM || bn != kMmaBN)
+      return (int)cudaErrorInvalidValue;
     const bool a_vec = k % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
     const bool b_vec = n % 8 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
     const uint16_t* ap = static_cast<const uint16_t*>(a);
     const uint16_t* bp = static_cast<const uint16_t*>(b);
     if (in_code == 7)
-      return launch_mma_tile<true>(ap, bp, out, out_code, m, n, k, e, a_vec,
-                                   b_vec, bm, bn, s);
-    return launch_mma_tile<false>(ap, bp, out, out_code, m, n, k, e, a_vec,
-                                  b_vec, bm, bn, s);
+      return launch_mma<true, kMmaBM, kMmaBN>(ap, bp, out, out_code, m, n, k,
+                                              e, a_vec, b_vec, s);
+    return launch_mma<false, kMmaBM, kMmaBN>(ap, bp, out, out_code, m, n, k, e,
+                                             a_vec, b_vec, s);
   }
-  if (bm != kSB || bn != kSB) return (int)cudaErrorInvalidValue;
+  if (body != 0 || bm != kSB || bn != kSB) return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kSB - 1) / kSB, (m + kSB - 1) / kSB);
   if (in_code == 8) {
     simt_gemm_kernel<float, float><<<grid, block, 0, s>>>(

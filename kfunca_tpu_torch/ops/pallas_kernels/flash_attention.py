@@ -22,9 +22,14 @@ arguments, `raw_stats`/`stats128` and the (B*H, Sq_padded, 128) exp2-domain
 residual.  The statistic that travels from forward to backward is the
 public (B, H, Sq) natural-log lse.
 
-bf16 inputs: the kernels (and the plain versions) widen them to fp32, keep
-P and dS in fp32 into the second product, and round results to bf16 once.
-fp16 is not taken here: ops/attention.py widens it to fp32 first.
+bf16 inputs: the forward kernel widens them to fp32 and rounds `out` once.
+The backward's bf16 body (wgmma, csrc/flash_attention.cu) runs its five
+products on the tensor cores with fp32 accumulators and rounds P and dS to
+bf16 before the second products, as the TPU kernel does; its launches are
+also counted in `flash_attention_backward.launches_wgmma`.  The plain
+versions stay in fp32 throughout (the reference the kernels are held to).
+fp32 inputs run the fp32 bodies (FFMA, never TF32).  fp16 is not taken
+here: ops/attention.py widens it to fp32 first.
 
 Layout: the kernels read contiguous (B, H, S, D) tensors.  The model hands
 over transposed views of the fused projection, so the wrappers call
@@ -136,6 +141,12 @@ def _prep(t, dp):
     return t.contiguous()
 
 
+def _aligned(t):
+    """t, or a copy of it if its data does not start on 16 bytes (TMA's
+    base alignment; views of the model's tensors always do)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -205,10 +216,13 @@ def flash_attention_backward(q, k, v, g, out, lse, window=None):
                          f"{lse.dtype} {tuple(lse.shape)}")
     if len({t.device for t in (q, g, out, lse)}) != 1:
         raise ValueError("q, g, out, lse are on different devices")
-    qc, kc, vc = _prep(q, dp), _prep(k, dp), _prep(v, dp)
-    gc, oc, lc = _prep(g, dp), _prep(out, dp), lse.contiguous()
+    qc, kc, vc = (_aligned(_prep(t, dp)) for t in (q, k, v))
+    gc, oc, lc = _aligned(_prep(g, dp)), _prep(out, dp), lse.contiguous()
     dq, dk, dv = torch.empty_like(qc), torch.empty_like(kc), torch.empty_like(vc)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # delta (and, for bf16, lse) per q row, padded to whole 64-row tiles
+    sq_pad = -(-sq // 64) * 64
+    delta = torch.empty((2, b * h, sq_pad), dtype=torch.float32,
+                        device=q.device)
     vp, i32 = _kernels.VP, _kernels.I32
     fn = _kernels.function("flash_attention", "kf_flash_attention_bwd",
                            (vp,) * 10 + (i32,) * 7 + (_kernels.F32, i32, vp))
@@ -221,9 +235,12 @@ def flash_attention_backward(q, k, v, g, out, lse, window=None):
         raise RuntimeError(f"flash backward kernel launch failed: CUDA error "
                            f"{err}")
     flash_attention_backward.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_backward.launches_wgmma += 1
     if dp != d:
         dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
+flash_attention_backward.launches_wgmma = 0

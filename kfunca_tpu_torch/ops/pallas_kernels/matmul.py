@@ -13,9 +13,19 @@ of tanh-GELU / SiLU / ReLU, + residual (m, n); then the store in
 its parts as the TPU kernel does ("bias", "bias_gelu", "silu", "bias_res",
 ...).  The TPU kernel's block sizes (`bm`, `bn`, `bk`, `vmem_limit`) are
 VMEM choices; of them the card's kernel takes the output tile (`bm`, `bn`)
-of its bf16 / fp16 body, one of TILES (default 128 x 128), which
-runtime/autotune.py sweeps; the fp32 and int8 body has a fixed 128 x 128
-tile.  `bk` and `vmem_limit` are not taken.
+of its wgmma body, one of TILES (default 128 x 128), which
+runtime/autotune.py sweeps.  `bk` and `vmem_limit` are not taken.
+
+Bodies (csrc/matmul.cu), chosen by `route` from the dtype, the shape and
+the operands' alignment before the launch (not a fallback after a failure:
+a failed launch raises):
+  * "wgmma": bf16 / fp16 with k % 8 == 0 and n % 8 == 0 (any m) and a, b
+    starting on 16 bytes, as TMA needs for its row strides; the tile
+    (`bm`, `bn`) is the launch's.  Counted in `matmul.launches_wgmma`;
+  * "mma": bf16 / fp16 otherwise, mma.sync at the fixed MMA_TILE.
+    Counted in `matmul.launches_mma`;
+  * "simt": fp32 and int8, CUDA-core FMA at the fixed 128 x 128 tile.
+`matmul.launches` counts every launch.
 
 Layout: the kernel reads row-major a and b.  A transposed view (the gemm
 backward's a^T and b^T) is copied to row-major first, and bias / residual
@@ -32,9 +42,10 @@ from ...runtime import _kernels
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 _OUT = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 _ACTS = {"gelu": 1, "silu": 2, "relu": 3}
-# the output tiles (bm, bn) csrc/matmul.cu builds for bf16 / fp16 inputs
-TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
-DEFAULT_TILE = (128, 128)
+# the output tiles (bm, bn) csrc/matmul.cu builds for its wgmma body
+TILES = ((128, 128), (128, 256), (128, 64))
+DEFAULT_TILE = (128, 128)  # also the fp32 / int8 body's fixed tile
+MMA_TILE = (128, 64)  # the mma.sync body's fixed tile
 # |acc| <= k * 128 * 128 must fit an int32
 MAX_K_INT8 = (2 ** 31 - 1) // (128 * 128)
 
@@ -123,14 +134,57 @@ def _check_tile(dtype, bm, bn):
                          f"{DEFAULT_TILE} tile, got ({bm}, {bn})")
 
 
+def route(m, k, n, dtype, a_ptr=0, b_ptr=0) -> str:
+    """The body that (m, k) @ (k, n) of `dtype` takes, with a and b at
+    addresses a_ptr and b_ptr: "wgmma", "mma" or "simt" (see the module
+    note)."""
+    if dtype not in (torch.bfloat16, torch.float16):
+        return "simt"
+    if k % 8 == 0 and n % 8 == 0 and a_ptr % 16 == 0 and b_ptr % 16 == 0:
+        return "wgmma"
+    return "mma"
+
+
+_BODY = {"wgmma": 1, "mma": 0, "simt": 0}
+
+
+def _launch(a, b, bias, residual, out_dtype, epilogue, body, bm, bn):
+    """One launch of `body` on contiguous CUDA operands; returns out.
+    Counted in matmul.launches (and its body's count)."""
+    m, k = a.shape
+    n = b.shape[1]
+    if body == "mma":
+        bm, bn = MMA_TILE
+    bias = None if bias is None else bias.float().contiguous()
+    residual = None if residual is None else residual.float().contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    vp, i32 = _kernels.VP, _kernels.I32
+    fn = _kernels.function("matmul", "kf_matmul", (vp,) * 5 + (i32,) * 9 + (vp,))
+    err = fn(a.data_ptr(), b.data_ptr(),
+             None if bias is None else bias.data_ptr(),
+             None if residual is None else residual.data_ptr(), out.data_ptr(),
+             int(from_torch(a.dtype)), int(from_torch(out_dtype)), m, k, n,
+             _act(epilogue), bm, bn, _BODY[body],
+             torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"matmul kernel launch failed ({body} body): CUDA "
+                           f"error {err}")
+    matmul.launches += 1
+    if body == "wgmma":
+        matmul.launches_wgmma += 1
+    elif body == "mma":
+        matmul.launches_mma += 1
+    return out
+
+
 def matmul(a, b, bias=None, residual=None, out_dtype=None, epilogue="",
            bm=DEFAULT_TILE[0], bn=DEFAULT_TILE[1]):
     """(m, k) @ (k, n) -> (m, n) with the fused epilogue.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel
-    (counted in `matmul.launches`) or raise.  Any m, k, n: the kernel masks
-    ragged edges itself.  (bm, bn) is the kernel's output tile (TILES);
-    the plain version takes none."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel body
+    that `route` names (counted in `matmul.launches`) or raise.  Any m, k,
+    n: the kernel masks ragged edges itself.  (bm, bn) is the wgmma body's
+    output tile (TILES); the plain version takes none."""
     out_dtype = out_dtype or _default_out(a)
     _check(a, b, bias, residual, out_dtype, epilogue)
     _check_tile(a.dtype, bm, bn)
@@ -143,21 +197,10 @@ def matmul(a, b, bias=None, residual=None, out_dtype=None, epilogue="",
     if m == 0 or n == 0 or k == 0:
         raise ValueError(f"the kernel needs m, k, n > 0, got ({m}, {k}, {n})")
     a, b = a.contiguous(), b.contiguous()
-    bias = None if bias is None else bias.float().contiguous()
-    residual = None if residual is None else residual.float().contiguous()
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    vp, i32 = _kernels.VP, _kernels.I32
-    fn = _kernels.function("matmul", "kf_matmul", (vp,) * 5 + (i32,) * 8 + (vp,))
-    err = fn(a.data_ptr(), b.data_ptr(),
-             None if bias is None else bias.data_ptr(),
-             None if residual is None else residual.data_ptr(), out.data_ptr(),
-             int(from_torch(a.dtype)), int(from_torch(out_dtype)), m, k, n,
-             _act(epilogue), bm, bn,
-             torch.cuda.current_stream(a.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
-    matmul.launches += 1
-    return out
+    body = route(m, k, n, a.dtype, a.data_ptr(), b.data_ptr())
+    return _launch(a, b, bias, residual, out_dtype, epilogue, body, bm, bn)
 
 
 matmul.launches = 0
+matmul.launches_wgmma = 0
+matmul.launches_mma = 0

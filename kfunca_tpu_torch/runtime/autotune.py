@@ -14,7 +14,7 @@ without one.  The cache is KFUNCA_AUTOTUNE_CACHE, or else
 
 `autotune(op, *shape)` sweeps only launch parameters the port's kernels
 take:
-  * "gemm" (m, k, n): K3's output tile (bm, bn) of its bf16 / fp16 body
+  * "gemm" (m, k, n): K3's output tile (bm, bn) of its wgmma body
     (csrc/matmul.cu, ops/pallas_kernels/matmul.TILES); ops/gemm.matmul_2d
     under KFUNCA_GEMM_ENGINE=pallas reads the winner;
   * "decode_page" (slots, Hkv * hd, context): the KV page size of K4, the
@@ -39,13 +39,14 @@ import time
 import numpy as np
 import torch
 
+from ..ops.pallas_kernels.matmul import TILES as K3_TILES
+
 _LOCK = threading.Lock()
 _CACHE: dict | None = None
 _DEFAULTS: dict | None = None
 
 SWEEPS = {
-    "gemm": [{"bm": 128, "bn": 128}, {"bm": 128, "bn": 64},
-             {"bm": 64, "bn": 128}, {"bm": 64, "bn": 64}],
+    "gemm": [{"bm": bm, "bn": bn} for bm, bn in K3_TILES],
     "decode_page": [{"page_size": 8}, {"page_size": 16}, {"page_size": 32}],
 }
 # the JAX package's other sweeps, and the port kernel whose tile is fixed

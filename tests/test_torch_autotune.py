@@ -70,6 +70,19 @@ def test_shipped_defaults_are_the_cards_own(fresh):
     assert not set(autotune._DEFAULTS) & set(json.loads(jax_defaults.read_text()))
 
 
+def test_shipped_gemm_tiles_are_built_tiles(fresh):
+    """Every shipped K3 entry names a tile the wgmma body is built for, in
+    a 16-bit dtype the sweep takes."""
+    from kfunca_tpu_torch.ops.pallas_kernels import matmul
+
+    autotune._load()
+    gemm = {k: v for k, v in autotune._DEFAULTS.items() if "|gemm|" in k}
+    assert gemm
+    for key, tile in gemm.items():
+        assert key.rsplit("|", 1)[1] in ("bfloat16", "float16"), key
+        assert (tile["bm"], tile["bn"]) in matmul.TILES, (key, tile)
+
+
 def test_default_cache_path_is_not_the_jax_packages(monkeypatch):
     monkeypatch.delenv("KFUNCA_AUTOTUNE_CACHE", raising=False)
     path = autotune.cache_path()
@@ -84,7 +97,7 @@ def test_chip_keying_isolates_entries(fresh, monkeypatch):
 
 
 def test_autotune_gemm_records_the_winner_and_gemm_reads_it(fresh, monkeypatch):
-    cands = [{"bm": 128, "bn": 128}, {"bm": 64, "bn": 64}]
+    cands = [{"bm": 128, "bn": 128}, {"bm": 128, "bn": 256}]
     res = kfunca.autotune("gemm", 64, 48, 80, dtype=torch.bfloat16,
                           candidates=cands, reps=1, iters=1, device="cpu",
                           verbose=False)
@@ -93,7 +106,7 @@ def test_autotune_gemm_records_the_winner_and_gemm_reads_it(fresh, monkeypatch):
                            torch.bfloat16) == res["params"]
     # the pallas engine hands the recorded tile to K3
     autotune.record("gemm", autotune.shape_bucket(64, 48, 80), torch.bfloat16,
-                    {"bm": 64, "bn": 128})
+                    {"bm": 128, "bn": 64})
     seen = []
 
     def k3(a, b, out_dtype=None, **tile):
@@ -106,7 +119,7 @@ def test_autotune_gemm_records_the_winner_and_gemm_reads_it(fresh, monkeypatch):
     b = np.ones((48, 80), np.float32)
     out = kfunca.gemm(kfunca.from_numpy(a, "cpu").bfloat16(),
                       kfunca.from_numpy(b, "cpu").bfloat16())
-    assert seen == [{"bm": 64, "bn": 128}]
+    assert seen == [{"bm": 128, "bn": 64}]
     assert list(out.sizes()) == [64, 80]
     kfunca.gemm(kfunca.from_numpy(a[:5], "cpu"), kfunca.from_numpy(b, "cpu"))
     assert seen[-1] == {}  # no entry for this shape class and dtype
@@ -120,8 +133,12 @@ def test_k3_wrapper_takes_only_the_built_tiles():
     for bm, bn in matmul.TILES:
         assert torch.equal(matmul.matmul(a, b, bm=bm, bn=bn),
                            matmul.matmul_plain(a, b))
+    assert autotune.SWEEPS["gemm"] == [{"bm": bm, "bn": bn}
+                                       for bm, bn in matmul.TILES]
     with pytest.raises(ValueError, match="tiles"):
         matmul.matmul(a, b, bm=32, bn=32)
+    with pytest.raises(ValueError, match="tiles"):
+        matmul.matmul(a, b, bm=64, bn=64)  # a tile of the earlier body
     with pytest.raises(ValueError, match="fixed"):
         matmul.matmul(a.float(), b.float(), bm=64, bn=64)
     with pytest.raises(ValueError, match="bfloat16 and float16"):

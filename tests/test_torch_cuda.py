@@ -437,12 +437,16 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     q, k, v, g = _flash_inputs(cuda, dtype, case)
     n1, n2 = (fa.flash_attention_fwd_stats.launches,
               fa.flash_attention_backward.launches)
+    n2w = fa.flash_attention_backward.launches_wgmma
     out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
     dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
                                              window=window)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd_stats.launches == n1 + 1
     assert fa.flash_attention_backward.launches == n2 + 1
+    # bf16 takes the wgmma body, fp32 the fp32 one
+    assert fa.flash_attention_backward.launches_wgmma == (
+        n2w + (dtype == torch.bfloat16))
     want_out, want_lse = fa.flash_attention_plain(q, k, v, window)
     want = fa.flash_attention_backward_plain(q, k, v, g, window)
     assert out.dtype == dtype and lse.dtype == torch.float32
@@ -456,27 +460,33 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     assert none is None and torch.equal(no_stats, out)
 
 
-def test_flash_rows_without_a_column_and_unread_kv_rows(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_rows_without_a_column_and_unread_kv_rows(cuda, dtype):
     """Window 64 with Sq 300 over Skv 64: rows >= 127 see no column and get
     out = 0, lse = 0 and dq = 0.  Skv 160 over Sq 100: kv rows >= 100 are
     read by no q row and get exact-zero dk/dv."""
-    q, k, v, g = _flash_inputs(cuda, torch.float32, (1, 2, 1, 300, 64, 64, 64))
+    q, k, v, g = _flash_inputs(cuda, dtype, (1, 2, 1, 300, 64, 64, 64))
     out, lse = fa.flash_attention_fwd_stats(q, k, v, window=64)
     dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse, window=64)
     assert not out[:, :, 127:].any() and not lse[:, :, 127:].any()
     assert not dq[:, :, 127:].any() and out[:, :, :127].abs().min() > 0
-    q, k, v, g = _flash_inputs(cuda, torch.float32, (1, 2, 2, 100, 160, 64, 0))
+    q, k, v, g = _flash_inputs(cuda, dtype, (1, 2, 2, 100, 160, 64, 0))
     out, lse = fa.flash_attention_fwd_stats(q, k, v)
     dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse)
     assert not dk[:, :, 100:].any() and not dv[:, :, 100:].any()
     assert dk[:, :, :100].abs().min() > 0
 
 
-def test_flash_backward_is_bitwise_repeatable(cuda):
-    q, k, v, g = _flash_inputs(cuda, torch.bfloat16, (1, 8, 2, 512, 512, 128, 200))
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_backward_is_bitwise_repeatable(cuda, hd):
+    """Two runs of the bf16 (wgmma) body give equal bits: each output
+    element is summed by one block in a fixed order, no atomics."""
+    q, k, v, g = _flash_inputs(cuda, torch.bfloat16, (1, 8, 2, 512, 512, hd, 200))
     out, lse = fa.flash_attention_fwd_stats(q, k, v, window=200)
+    n = fa.flash_attention_backward.launches_wgmma
     a = fa.flash_attention_backward(q, k, v, g, out, lse, window=200)
     b = fa.flash_attention_backward(q, k, v, g, out, lse, window=200)
+    assert fa.flash_attention_backward.launches_wgmma == n + 2
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -674,25 +684,74 @@ def test_matmul_kernel_matches_plain(cuda, mkn, dtype):
     assert torch.equal(mm.matmul(a8, b8), mm.matmul_plain(a8, b8))
 
 
-@pytest.mark.parametrize("tile", [(128, 128), (128, 64), (64, 128), (64, 64)],
-                         ids=str)
+# K3's bodies by shape (the route rule, ops/pallas_kernels/matmul.route):
+# ragged m, n and k that still give 16-byte row strides take wgmma (k and n
+# multiples of 8, any m, m = 1 among them); k or n not a multiple of 8 take
+# mma.sync
+K3_WGMMA_SHAPES = [(1, 64, 8), (130, 72, 136), (300, 200, 520), (257, 1000, 264)]
+K3_MMA_SHAPES = [(130, 45, 137), (64, 100, 64), (33, 64, 72)]
+
+
+def _held_16bit(got, want):
+    top = want.double().abs().max().item()
+    assert (got.double() - want.double()).abs().max().item() <= 2.0 ** -7 * top
+
+
+@pytest.mark.parametrize("tile", _eager_kernels()[1].TILES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_matmul_kernel_every_tile_matches_plain(cuda, tile, dtype):
-    """K3's 16-bit body at each built tile, ragged and m = 1 shapes, with an
-    epilogue: within 2^-7 of max |ref| (one rounding of an fp32 sum)."""
+    """K3's wgmma body at each built tile, ragged m / n / k that meet the
+    route rule and m = 1, every epilogue and every output dtype: within
+    2^-7 of max |ref| (one rounding of an fp32 sum); each launch counted
+    on the wgmma body."""
     mm = _eager_kernels()[1]
     gen = torch.Generator(device=cuda).manual_seed(31)
-    for m, k, n in ((1, 64, 8), (130, 45, 137), (256, 512, 384)):
+    for m, k, n in K3_WGMMA_SHAPES:
         a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
         b = (torch.randn((k, n), generator=gen, device=cuda) / 8).to(dtype)
         bias = torch.randn(n, generator=gen, device=cuda)
-        for epi in ("", "bias_gelu"):
-            kw = dict(bias=bias if epi else None, epilogue=epi)
-            got = mm.matmul(a, b, bm=tile[0], bn=tile[1], **kw)
-            want = mm.matmul_plain(a, b, **kw)
-            torch.cuda.synchronize()
-            top = want.double().abs().max().item()
-            assert (got.double() - want.double()).abs().max().item() <= 2.0 ** -7 * top
+        res = torch.randn((m, n), generator=gen, device=cuda)
+        for epi in ("", "bias", "relu", "bias_gelu", "silu", "bias_silu_res",
+                    "res"):
+            for out_dtype in (dtype, torch.float32, torch.int32):
+                kw = dict(bias=bias if "bias" in epi else None,
+                          residual=res if "res" in epi else None, epilogue=epi,
+                          out_dtype=out_dtype)
+                before = (mm.matmul.launches_wgmma, mm.matmul.launches_mma)
+                got = mm.matmul(a, b, bm=tile[0], bn=tile[1], **kw)
+                want = mm.matmul_plain(a, b, **kw)
+                torch.cuda.synchronize()
+                assert (mm.matmul.launches_wgmma - before[0],
+                        mm.matmul.launches_mma - before[1]) == (1, 0)
+                assert got.dtype == out_dtype
+                if out_dtype == torch.int32:  # the saturating store
+                    assert (got.double() - want.double()).abs().max() <= 1
+                else:
+                    _held_16bit(got, want)
+
+
+@pytest.mark.parametrize("mkn", K3_MMA_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_matmul_mma_body_takes_the_other_strides(cuda, mkn, dtype):
+    """Shapes TMA cannot take (k or n not a multiple of 8, or an operand
+    off 16 bytes) run the mma.sync body, whatever tile is asked for."""
+    mm = _eager_kernels()[1]
+    m, k, n = mkn
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=cuda) / 8).to(dtype)
+    if k % 8 == 0 and n % 8 == 0:  # aligned shape: offset a by 8 bytes
+        a = torch.randn((m * k + 4,), generator=gen, device=cuda).to(dtype)
+        a = a[4:].view(m, k)
+    assert mm.route(m, k, n, dtype, a.data_ptr(), b.data_ptr()) == "mma"
+    for tile in mm.TILES:
+        before = (mm.matmul.launches_wgmma, mm.matmul.launches_mma)
+        got = mm.matmul(a, b, bm=tile[0], bn=tile[1], epilogue="relu")
+        want = mm.matmul_plain(a, b, epilogue="relu")
+        torch.cuda.synchronize()
+        assert (mm.matmul.launches_wgmma - before[0],
+                mm.matmul.launches_mma - before[1]) == (0, 1)
+        _held_16bit(got, want)
 
 
 def _eager_mlp_step(kfunca, dev, x, w1, w2):

@@ -115,9 +115,10 @@ def test_k3_wrapper_checks():
         k3.matmul(a.to("meta"), torch.ones((5, 3), device="meta"))
 
 
-# the CUDA kernel's tensor-core body: 128 x 128 output tiles, k steps of 32,
-# 8 warps as 2 x 4, a warp 64 x 32 = 4 x 4 mma tiles of m16n8k16
-BM, BN, BK = 128, 128, 32
+# the CUDA kernel's mma.sync body: one 128 x 64 output tile, k steps of 32,
+# 8 warps as 2 x 4, a warp 64 x 16 = 4 x 2 mma tiles of m16n8k16
+BM, BN = k3.MMA_TILE
+BK = 32
 
 
 def _mma_m16n8k16(a_tile, b_tile):
@@ -157,8 +158,8 @@ def _mma_m16n8k16(a_tile, b_tile):
 
 
 def _emulate_mma_gemm(a, b):
-    """The tensor-core body's loops: tiles zero-filled past the edges (the
-    load8 masking), per-warp 64 x 32 sub-tiles of 4 x 4 mma tiles over k
+    """The mma.sync body's loops: tiles zero-filled past the edges (the
+    load8 masking), per-warp 64 x 16 sub-tiles of 4 x 2 mma tiles over k
     steps of 16, then the masked store."""
     m, k = a.shape
     n = b.shape[1]
@@ -176,10 +177,10 @@ def _emulate_mma_gemm(a, b):
                 for kk in range(0, BK, 16):
                     for warp in range(8):
                         wm, wn = warp >> 2, warp & 3
-                        for mi in range(4):
-                            for ni in range(4):
-                                r0 = wm * 64 + mi * 16
-                                c0 = wn * 32 + ni * 8
+                        for mi in range(BM // 32):
+                            for ni in range(BN // 32):
+                                r0 = wm * (BM // 2) + mi * 16
+                                c0 = wn * (BN // 4) + ni * 8
                                 acc[r0:r0 + 16, c0:c0 + 8] += _mma_m16n8k16(
                                     at[r0:r0 + 16, kk:kk + 16],
                                     bt[kk:kk + 16, c0:c0 + 8])
@@ -196,6 +197,108 @@ def test_k3_tensor_core_tiling_emulation():
     a = torch.from_numpy(rng.integers(-8, 8, (m, k)).astype(np.float64))
     b = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.float64))
     assert torch.equal(_emulate_mma_gemm(a, b), a @ b)
+
+
+def _wgmma_fragment(acc_tile):
+    """The (row, column) of a 64 x n accumulator that thread tid's
+    register r holds in wgmma's m64nN layout (warp w = tid // 32 holds rows
+    16w + g and 16w + g + 8, g = lane // 4; register 4j + 2i + e is column
+    8j + 2t + e, t = lane % 4, of row 16w + g + 8i), read back into a tile
+    the way the epilogue stores it: every element exactly once."""
+    rows, n = acc_tile.shape
+    out = torch.full_like(acc_tile, float("nan"))
+    for tid in range(128):
+        w, lane = tid // 32, tid % 32
+        g, t = lane >> 2, lane & 3
+        for r in range(n // 2):
+            j, i, e = r // 4, (r >> 1) & 1, r & 1
+            row, col = 16 * w + g + 8 * i, 8 * j + 2 * t + e
+            assert torch.isnan(out[row, col])
+            out[row, col] = acc_tile[row, col]
+    return out
+
+
+def _emulate_wgmma_gemm(a, b, bn, epilogue="", bias=None, residual=None):
+    """The wgmma body's loops: 128 x bn output tiles; per stage a 128 x 64
+    box of a and bn / 64 boxes of 64 x 64 of b, zero-filled past the edges
+    as TMA fills them; two consumers of 64 rows each summing the stages in
+    order (four k16 steps a stage); the epilogue in the kernel's order on
+    the accumulator fragments; the masked store."""
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.zeros((m, n), dtype=a.dtype)
+
+    def box(x, r0, c0, rows, cols):
+        t = torch.zeros((rows, cols), dtype=x.dtype)
+        part = x[r0:r0 + rows, c0:c0 + cols]
+        t[:part.shape[0], :part.shape[1]] = part
+        return t
+
+    for m0 in range(0, m, 128):
+        for n0 in range(0, n, bn):
+            acc = torch.zeros((128, bn), dtype=a.dtype)
+            for k0 in range(0, k, 64):
+                ab = box(a, m0, k0, 128, 64)
+                bb = torch.cat([box(b, k0, n0 + 64 * j, 64, 64)
+                                for j in range(bn // 64)], dim=1)
+                for c in range(2):
+                    for kk in range(0, 64, 16):
+                        acc[64 * c:64 * c + 64] += (
+                            ab[64 * c:64 * c + 64, kk:kk + 16] @ bb[kk:kk + 16])
+            tile = torch.cat([_wgmma_fragment(acc[64 * c:64 * c + 64])
+                              for c in range(2)])
+            if epilogue:
+                rows = slice(m0, min(m0 + 128, m))
+                cols = slice(n0, min(n0 + bn, n))
+                full = torch.zeros((128, bn), dtype=a.dtype)
+                full[:rows.stop - m0, :cols.stop - n0] = (
+                    k3.apply_epilogue_plain(
+                        tile[:rows.stop - m0, :cols.stop - n0].float(),
+                        epilogue,
+                        None if bias is None else bias[cols],
+                        None if residual is None else residual[rows, cols]))
+                tile = full.to(a.dtype)
+            r, c = min(128, m - m0), min(bn, n - n0)
+            out[m0:m0 + r, n0:n0 + c] = tile[:r, :c]
+    return out
+
+
+@pytest.mark.parametrize("bm,bn", k3.TILES, ids=str)
+def test_k3_wgmma_tiling_emulation(bm, bn):
+    """Ragged m, n and a k that is not a whole number of 64-wide stages,
+    for each built tile: the emulated blocking gives the plain product
+    exactly (float64 sums of small integers), and with an epilogue the
+    plain version's result within fp32 rounding."""
+    rng = np.random.default_rng(bn)
+    m, k, n = 130, 200, 8 * 37
+    assert k3.route(m, k, n, torch.bfloat16) == "wgmma"
+    a = torch.from_numpy(rng.integers(-8, 8, (m, k)).astype(np.float64))
+    b = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.float64))
+    assert torch.equal(_emulate_wgmma_gemm(a, b, bn), a @ b)
+    bias = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+    res = torch.from_numpy(rng.uniform(-1, 1, (m, n)).astype(np.float32))
+    af, bf = (a / 8).float(), (b / 8).float()
+    got = _emulate_wgmma_gemm(af, bf, bn, "bias_gelu_res", bias, res)
+    want = k3.matmul_plain(af, bf, bias, res, epilogue="bias_gelu_res")
+    _close(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("m,k,n,dtype,offset,body", [
+    (4096, 4096, 4096, torch.bfloat16, 0, "wgmma"),
+    (4096, 4096, 14336, torch.bfloat16, 0, "wgmma"),
+    (14336, 4096, 4096, torch.float16, 0, "wgmma"),
+    (1, 64, 8, torch.bfloat16, 0, "wgmma"),       # any m
+    (1000, 333, 1000, torch.bfloat16, 0, "mma"),  # k % 8: row stride
+    (37, 100, 53, torch.float16, 0, "mma"),       # n % 8
+    (64, 64, 64, torch.bfloat16, 8, "mma"),       # a base off 16 bytes
+    (64, 64, 64, torch.float32, 0, "simt"),
+    (64, 64, 64, torch.int8, 0, "simt"),
+], ids=str)
+def test_k3_route_rule(m, k, n, dtype, offset, body):
+    """Which body (m, k, n, dtype, alignment) takes, before the launch."""
+    assert k3.route(m, k, n, dtype, 1024 + offset, 2048) == body
+    if offset:
+        assert k3.route(m, k, n, dtype, 1024, 2048 + offset) == body
 
 
 def test_k3_simt_tiling_emulation():

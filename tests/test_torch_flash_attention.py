@@ -207,3 +207,174 @@ def test_wrappers_check_their_arguments():
     # on the CPU nothing is launched
     assert tfa.flash_attention_fwd_stats.launches == 0
     assert tfa.flash_attention_backward.launches == 0
+
+
+# -- K2's bf16 body on the card (csrc/flash_attention.cu, wgmma): its tiling -
+#
+# dq kernel: a block owns 128 q rows (two consumers of 64) and streams the
+# live 64-row k / v tiles; dk/dv kernel: a block owns 64 kv rows and streams
+# the live 64-row q / dO tiles over the GQA group's heads (one consumer
+# computes P^T and dV, the other dS^T, from that P^T, and dK).  P and dS are
+# rounded to bf16 before the second products (the TPU kernel's _mxu_in);
+# each block sums its tiles in order, so no two blocks write one element.
+
+DQ_ROWS, DKV_ROWS = 128, 64  # resident rows of a block
+KV_STREAM, Q_STREAM = 64, 64  # rows of a streamed tile: dq, dk/dv
+
+
+def _attends(row, col, sq, skv, window):
+    ok = (col <= row) & (col < skv) & (row < sq)
+    if window is not None:
+        ok = ok & (col > row - window)
+    return ok
+
+
+def _dq_kv_tiles(row0, sq, skv, window):
+    """The 64-row kv tiles the dq block at q row row0 streams."""
+    col_hi = min(row0 + DQ_ROWS - 1, sq - 1, skv - 1)
+    col_lo = max(row0 - window + 1, 0) if window is not None else 0
+    if col_lo > col_hi:
+        return range(0)
+    return range(col_lo // KV_STREAM, col_hi // KV_STREAM + 1)
+
+
+def _dkv_q_tiles(col0, sq, skv, window):
+    """The 64-row q tiles the dk/dv block at kv row col0 streams."""
+    first = col0 // Q_STREAM
+    last = (sq - 1) // Q_STREAM
+    if window is not None:
+        col_last = min(col0 + DKV_ROWS - 1, skv - 1)
+        last = min(last, (col_last + window - 1) // Q_STREAM)
+    return range(first, last + 1)
+
+
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def _k2_emulation(q, k, v, g, out, lse, window):
+    """The bf16 body's blocking in plain torch: (dq, dk, dv) in bf16."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group, scale = h // hkv, 1.0 / np.sqrt(d)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    delta = (gf * out.float()).sum(-1)  # from the SAVED bf16 out
+    log2e = 1.4426950408889634
+
+    def p_ds(bi, hi, rows, cols):
+        kvh = hi // group
+        s = qf[bi, hi, rows] @ kf[bi, kvh, cols].T
+        dp = gf[bi, hi, rows] @ vf[bi, kvh, cols].T
+        ok = _attends(rows[:, None], cols[None, :], sq, skv, window)
+        p = torch.where(ok, torch.exp2(s * (scale * log2e)
+                                       - lse[bi, hi, rows, None] * log2e), 0.0)
+        ds = p * (dp - delta[bi, hi, rows, None])
+        return _bf16(p), _bf16(ds)
+
+    dq = torch.zeros(q.shape)
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for bi in range(b):
+        for hi in range(h):
+            for row0 in range(0, sq, DQ_ROWS):
+                rows = torch.arange(row0, min(row0 + DQ_ROWS, sq))
+                acc = torch.zeros((len(rows), d))
+                for kt in _dq_kv_tiles(row0, sq, skv, window):
+                    cols = torch.arange(kt * KV_STREAM,
+                                        min(kt * KV_STREAM + KV_STREAM, skv))
+                    _, ds = p_ds(bi, hi, rows, cols)
+                    acc += ds @ kf[bi, hi // group, cols]
+                dq[bi, hi, rows] = acc * scale
+        for kvh in range(hkv):
+            for col0 in range(0, skv, DKV_ROWS):
+                cols = torch.arange(col0, min(col0 + DKV_ROWS, skv))
+                dk_acc = torch.zeros((len(cols), d))
+                dv_acc = torch.zeros((len(cols), d))
+                for hi in range(kvh * group, (kvh + 1) * group):
+                    for qt in _dkv_q_tiles(col0, sq, skv, window):
+                        rows = torch.arange(qt * Q_STREAM,
+                                            min(qt * Q_STREAM + Q_STREAM, sq))
+                        p, ds = p_ds(bi, hi, rows, cols)
+                        dv_acc += p.T @ gf[bi, hi, rows]
+                        dk_acc += ds.T @ qf[bi, hi, rows]
+                dk[bi, kvh, cols] = dk_acc * scale
+                dv[bi, kvh, cols] = dv_acc
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+# causal + window + Sq != Skv both ways + ragged tiles + rows with no
+# column, at head dims 64 and 128
+EMULATED = {
+    "gqa_window_ragged": (1, 4, 2, 200, 200, 64, 37),
+    "sq_below_skv": (1, 2, 2, 100, 160, 64, None),
+    "sq_above_skv": (2, 4, 2, 160, 100, 64, None),
+    "rows_without_a_column": (1, 2, 1, 300, 64, 64, 64),
+    "hd128_window_across_blocks": (1, 2, 1, 330, 330, 128, 130),
+}
+
+
+@pytest.mark.parametrize("sq,skv,window", [
+    (200, 200, 37), (100, 160, None), (160, 100, None), (300, 64, 64),
+    (330, 330, 130), (1000, 1000, 1), (64, 500, None), (513, 257, 200)])
+def test_k2_live_tile_ranges_are_exactly_the_tiles_with_a_pair(sq, skv, window):
+    """Both kernels visit a tile if and only if it holds an attended
+    (row, column) pair: tiles wholly above the diagonal or behind the
+    window are never loaded, and none that holds a pair is skipped."""
+    row = torch.arange(sq)[:, None]
+    col = torch.arange(skv)[None, :]
+    ok = _attends(row, col, sq, skv, window)
+    for row0 in range(0, sq, DQ_ROWS):
+        live = {kt for kt in range(-(-skv // KV_STREAM))
+                if ok[row0:row0 + DQ_ROWS,
+                      kt * KV_STREAM:(kt + 1) * KV_STREAM].any()}
+        assert set(_dq_kv_tiles(row0, sq, skv, window)) == live
+    for col0 in range(0, skv, DKV_ROWS):
+        live = {qt for qt in range(-(-sq // Q_STREAM))
+                if ok[qt * Q_STREAM:(qt + 1) * Q_STREAM,
+                      col0:col0 + DKV_ROWS].any()}
+        assert set(_dkv_q_tiles(col0, sq, skv, window)) == live
+
+
+def _bf16_inputs(case, seed):
+    q, k, v, g = _inputs(case, seed)
+    return [torch.from_numpy(x).bfloat16() for x in (q, k, v, g)]
+
+
+def _held_bf16(got, ref):
+    """Phase 8's bf16 limit: 2^-7 |ref| + 2^-7 max |ref|."""
+    got, ref = got.float(), ref.float()
+    top = float(ref.abs().max())
+    assert bool(((got - ref).abs() <= ref.abs() * 2.0 ** -7
+                 + 2.0 ** -7 * top).all()), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("name", list(EMULATED))
+def test_k2_bf16_tiling_emulation_matches_plain_and_jax(name):
+    """The emulated bf16 body against the plain version (fp32 P and dS)
+    and against the JAX K2 on the same bf16 inputs, in interpret mode,
+    within phase 8's bf16 limit; rows with no column and kv rows no q row
+    reads get exact zeros."""
+    case = EMULATED[name]
+    window = case[-1]
+    q, k, v, g = _bf16_inputs(case, seed=7)
+    out, lse = tfa.flash_attention_fwd_stats(q, k, v, window=window)
+    got = _k2_emulation(q, k, v, g, out, lse, window)
+    plain = tfa.flash_attention_backward(q, k, v, g, out, lse, window=window)
+    for x, ref in zip(got, plain):
+        assert x.dtype == torch.bfloat16
+        _held_bf16(x, ref)
+    # the JAX kernel is the reference on the rows that attend a column (it
+    # leaves the others to its block layout): it is given those rows alone
+    sq, skv = case[3], case[4]
+    live = min(sq, skv + (window or sq) - 1)
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                      for t in (q[:, :, :live], k, v, g[:, :, :live]))
+    jout, jlse = jfa.flash_attention_fwd_stats(jq, jk, jv, bq=128, bk=128,
+                                               window=window, interpret=True)
+    want = jfa.flash_attention_backward(jq, jk, jv, jg, out=jout, lse=jlse,
+                                        bq=128, bk=128, window=window,
+                                        interpret=True)
+    for x, w in zip((got[0][:, :, :live], got[1], got[2]), want):
+        _held_bf16(x, torch.from_numpy(np.asarray(w, np.float32)))
+    assert not got[0][:, :, live:].any()
+    if skv > sq:
+        assert not got[1][:, :, sq:].any() and not got[2][:, :, sq:].any()
