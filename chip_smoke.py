@@ -7,12 +7,14 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
-  2. build every CUDA kernel from kfunca_tpu_torch/csrc with nvcc;
-  3. hold the paged decode kernel against its plain PyTorch version at
+  2. build every CUDA kernel from kfunca_tpu_torch/csrc with nvcc, and
+     print each device function's registers and spill bytes;
+  3. hold the paged decode kernel (a split pass and a combine pass) against
+     its plain PyTorch version at
      Mistral-7B-v0.1 attention widths (B=8, H=32, Hkv=8, hd=128, page 16),
      bf16 and fp32, no window / window 4096 / window 37, a layer-stacked
      page_base, NaN in pages no live slot reads, and an idle slot whose
-     position is past the table width;
+     position is past the table width; two calls bitwise equal;
   4. time the kernel, its plain version and a library yardstick (page
      gather + scaled_dot_product_attention) at those shapes;
   5. serve requests through InferenceServer at Mistral-7B-v0.1 widths (all
@@ -22,25 +24,25 @@ Phases (any failure raises and the script exits non-zero):
   6. hold the served log-probs against a plain full forward pass
      (forward_with_cache from a fresh cache; no paged kernel);
   7. profile a few decode steps of a full batch (device busy share, device
-     time by kernel);
-  8. hold the flash attention forward (K1) and backward (K2; bf16 on its
-     wgmma body, fp32 on its fp32 body, asserted by the launch counts)
+     time by kernel, K4's ms a step);
+  8. hold the flash attention forward (K1) and backward (K2; bf16 on their
+     wgmma bodies, fp32 on the fp32 ones, asserted by the launch counts)
      kernels against their plain PyTorch versions at Mistral-7B-v0.1
      attention widths (B=1, H=32, Hkv=8, hd=128, S=8192, window 4096; bf16
      and fp32)
      and at small shapes that hit the edges (no window, window 37,
      Sq != Skv both ways, ragged tiles, head dims 64 and 40, a row with no
-     valid column); two bf16 K2 runs bitwise equal;
+     valid column); two bf16 K1 runs and two bf16 K2 runs bitwise equal;
   9. time K1 and K2 (each alone), their plain versions and the library
      yardstick (scaled_dot_product_attention, forward and backward) at the
      full attention shape, beside the bound;
  10. take 6 AdamW training steps through make_train_step at Mistral-7B-v0.1
      widths (depth cut to 4 layers, 1 x 8192 tokens, bf16 activations, fp32
      master params), then 2 steps with loss_chunk and grad_accum; K1 and K2
-     launches must each equal layers x steps (x microbatches), every K2
-     launch on its wgmma body;
+     launches must each equal layers x steps (x microbatches), every K1
+     and K2 launch on its wgmma body;
  11. profile 2 training steps (device busy share, device time by kernel,
-     K2's share);
+     K1's and K2's ms a step and share);
  12. hold the kernel path against the plain attention path end to end in
      fp32 (loss and every gradient of loss_fn, 2 layers at full width), and
      check that two kernel runs give bitwise-equal gradients;
@@ -51,8 +53,8 @@ Phases (any failure raises and the script exits non-zero):
      the int8 matmul `matmul_q8` (K5) against their plain PyTorch versions
      at serving widths and at edge shapes (every pool and scale layout,
      windows, page_base, NaN in dead pages and dead scale rows, a position
-     past the table; the six decode matmul shapes, ragged m/k/n, m = 1 and
-     m = 300);
+     past the table, two paged calls bitwise equal; the six decode matmul
+     shapes, ragged m/k/n, m = 1 and m = 300);
  15. time each beside its bound, its plain version and a library yardstick
      (page gather + dequantize + scaled_dot_product_attention;
      torch._int_mm with m padded to 32 and the two scale multiplies);
@@ -70,7 +72,7 @@ Phases (any failure raises and the script exits non-zero):
      share a 256-token prefix reuse pages and give the tokens of a server
      without the cache;
  19. generate and beam_search on the card against the server's tokens;
- 20. profile a few w8kv8 decode steps;
+ 20. profile a few w8kv8 decode steps (K4-int8's and K5's ms a step);
  21. hold the eager API's kernels against their plain versions: K9
      elementwise (the eight ops at 4096^2 in fp32/bf16/fp16, integer
      division by 0 and INT_MIN / -1, float -> int saturation), K8 reduce_2d
@@ -117,7 +119,7 @@ Phases (any failure raises and the script exits non-zero):
      log-prob stands within 1e-4 nat (fp32) or 0.25 nat (bf16) of the
      parallel forward through K11;
  31. the hybrid stack at AI21-Jamba2-3B widths: 4 training steps at 8
-     layers (K1 and K2 once a step, K2 on its wgmma body, K11 seven
+     layers (K1 and K2 once a step, on their wgmma bodies, K11 seven
      times), then generate at all
      28 layers, fp32 and bf16, with the recurrent decode held to the
      parallel forward (K1 + K11) on every generated position;
@@ -175,6 +177,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -199,6 +202,36 @@ SEED = 0
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def ptxas_summary(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill bytes stored and loaded) per entry function
+    of an `nvcc -Xptxas=-v` log, names demangled by c++filt where it runs
+    (the kernels' plain names with their template arguments)."""
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = [r[0] for r in rows]
+    if len(plain) != len(rows):
+        plain = [r[0] for r in rows]
+    short = [re.sub(r"^.*?::(\w+(?:<[^()]*>)?)\(.*$", r"\1", n) for n in plain]
+    return [(n, regs, spill) for n, (_, regs, spill) in zip(short, rows)]
 
 
 def card_line() -> str:
@@ -267,11 +300,14 @@ def kernel_checks(attn, plain) -> float:
         q, pool, tables, pos, base = kernel_case(dtype, gen, positions)
         for window in (None, 4096, 37):
             out = attn(q, pool, tables, pos, window=window)
+            again = attn(q, pool, tables, pos, window=window)
             torch.cuda.synchronize()
+            check(torch.equal(out, again),
+                  "two K4 calls give bitwise-equal outputs")
             err = max_err(out, plain(q, pool, tables, pos, window=window),
                           dtype)
             print(f"  kernel vs plain {str(dtype)[6:]} window={window}: "
-                  f"max err {err:.3g}")
+                  f"max err {err:.3g}, bitwise repeatable")
             worst = max(worst, err)
         # layer-stacked pool read through page_base
         q, pool, tables, pos, base = kernel_case(dtype, gen, positions,
@@ -494,10 +530,13 @@ def profile_summary(prof, wall_us, steps, n_top=8):
                 steps=steps, by_name=by_name)
 
 
-# K2's device functions: the stats / delta pre-pass, dq and dk/dv (the bf16
-# wgmma bodies and the fp32 ones)
+# K1's device functions (the bf16 wgmma body and the fp32 one); K2's: the
+# stats / delta pre-pass, dq and dk/dv (the bf16 wgmma bodies and the fp32
+# ones); the paged decode body's split and combine passes (K4, K4-int8, K6)
+K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel")
 K2_KERNELS = ("flash_stats_kernel", "flash_delta_kernel", "flash_bwd_dq",
               "flash_bwd_dkv")
+PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel")
 
 
 def kernel_share(prof, names) -> tuple[float, float]:
@@ -595,7 +634,12 @@ def flash_checks(fa) -> tuple[float, float]:
         window = case["window"]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, g = flash_case(dtype, gen, **case)
+            n_fwd = fa.flash_attention_fwd_stats.launches_wgmma
             out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
+            check(fa.flash_attention_fwd_stats.launches_wgmma - n_fwd
+                  == (dtype == torch.bfloat16),
+                  f"K1 {dtype} took the "
+                  f"{'wgmma' if dtype == torch.bfloat16 else 'fp32'} body")
             n_wg = fa.flash_attention_backward.launches_wgmma
             dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
                                                      window=window)
@@ -610,6 +654,9 @@ def flash_checks(fa) -> tuple[float, float]:
                 check(all(torch.equal(x, y)
                           for x, y in zip((dq, dk, dv), again)),
                       "two bf16 K2 runs give bitwise-equal dq, dk, dv")
+                again = fa.flash_attention_fwd_stats(q, k, v, window=window)
+                check(torch.equal(again[0], out) and torch.equal(again[1], lse),
+                      "two bf16 K1 runs give bitwise-equal out and lse")
                 del again
             r_out, r_lse, r_dq, r_dk, r_dv = flash_plain(fa, q, k, v, g,
                                                          window)
@@ -783,11 +830,15 @@ def training_phases(fa, card):
     torch.cuda.reset_peak_memory_stats()
     # the main path: launch counts start at 0 here and are read after it
     fa.flash_attention_fwd_stats.launches = 0
+    fa.flash_attention_fwd_stats.launches_wgmma = 0
     fa.flash_attention_backward.launches = 0
     fa.flash_attention_backward.launches_wgmma = 0
     params, opt, metrics, seconds = run_steps(step, ds, params, opt, 0, steps)
     launches = (fa.flash_attention_fwd_stats.launches,
                 fa.flash_attention_backward.launches)
+    check(fa.flash_attention_fwd_stats.launches_wgmma == launches[0],
+          f"every K1 launch took the bf16 wgmma body "
+          f"({fa.flash_attention_fwd_stats.launches_wgmma} of {launches[0]})")
     check(fa.flash_attention_backward.launches_wgmma == launches[1],
           f"every K2 launch took the bf16 wgmma body "
           f"({fa.flash_attention_backward.launches_wgmma} of {launches[1]})")
@@ -819,13 +870,16 @@ def training_phases(fa, card):
                             with_metrics=True)
     ds2 = TokenDataset(corpus, TRAIN_SEQ // 2, 2, seed=SEED + 2)
     fa.flash_attention_fwd_stats.launches = 0
+    fa.flash_attention_fwd_stats.launches_wgmma = 0
     fa.flash_attention_backward.launches = 0
     fa.flash_attention_backward.launches_wgmma = 0
     params, opt, metrics2, seconds2 = run_steps(accum, ds2, params, opt, 0, 2)
     launches2 = (fa.flash_attention_fwd_stats.launches,
                  fa.flash_attention_backward.launches)
-    check(fa.flash_attention_backward.launches_wgmma == launches2[1],
-          "every K2 launch of the accumulating steps took the wgmma body")
+    check(fa.flash_attention_fwd_stats.launches_wgmma == launches2[0]
+          and fa.flash_attention_backward.launches_wgmma == launches2[1],
+          "every K1 and K2 launch of the accumulating steps took the wgmma "
+          "bodies")
     check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
               for m in metrics2), "loss_chunk/grad_accum losses are finite")
     want2 = cfg.n_layers * 2 * 2
@@ -847,9 +901,11 @@ def training_phases(fa, card):
     prof = profile_summary(prof, wall_us, 2, n_top=12)
     print_profile(f"[11] training step profile (bf16, {cfg.n_layers} layers, "
                   f"1 x {TRAIN_SEQ}, 2 steps, profiler on)", prof, card)
+    k1_ms, k1_share = kernel_share(prof, K1_KERNELS)
     k2_ms, k2_share = kernel_share(prof, K2_KERNELS)
-    print(f"[11] K2 (stats pre-pass, dq, dk/dv): {k2_ms:.2f} ms/step, "
-          f"{100 * k2_share:.1f}% of the device's busy time", flush=True)
+    print(f"[11] K1 (forward): {k1_ms:.2f} ms/step, {100 * k1_share:.1f}% of "
+          f"the device's busy time; K2 (stats pre-pass, dq, dk/dv): "
+          f"{k2_ms:.2f} ms/step, {100 * k2_share:.1f}%", flush=True)
     return dict(launches=launches, ms_step=ms_step, peak_gb=peak_gb,
                 k2_ms=k2_ms, k2_share=k2_share)
 
@@ -1014,6 +1070,9 @@ def serving_phases(card):
         prof = decode_profile(params, cfg, prompts)
     print_profile(f"[7] decode step profile (bf16 L32, 8 slots, "
                   f"{prof['steps']} steps, profiler on)", prof, card)
+    k4_ms, k4_share = kernel_share(prof, PAGED_KERNELS)
+    print(f"[7] K4 (split and combine passes): {k4_ms:.3f} ms/step, "
+          f"{100 * k4_share:.1f}% of the device's busy time", flush=True)
 
     reference = [(b1["srv"].requests[r].tokens, b1["srv"].requests[r].logprobs)
                  for r in b1["rids"]]
@@ -1156,7 +1215,10 @@ def paged_form_checks(pa) -> dict:
                               quantized=quantized)
             for window in (None, 4096, 37):
                 out = run_form(pa, entry, form, q, kw, window)
+                again = run_form(pa, entry, form, q, kw, window)
                 torch.cuda.synchronize()
+                check(torch.equal(out, again),
+                      f"{tag}: two calls give bitwise-equal outputs")
                 errs.append(max_err(out, run_form(pa, entry, form, q, kw,
                                                   window, plain=True), dtype))
             q, kw = pool_case(dtype, gen, positions, form=form,
@@ -1176,8 +1238,8 @@ def paged_form_checks(pa) -> dict:
                 errs.append(max_err(out, run_form(pa, entry, form, q, kw,
                                                   window, plain=True), dtype))
             print(f"  {tag} {str(dtype)[6:]}: windows None/4096/37, "
-                  f"page_base, position {far}: max err {max(errs):.3g}",
-                  flush=True)
+                  f"page_base, position {far}: max err {max(errs):.3g}, "
+                  f"bitwise repeatable", flush=True)
             worst[key] = max(worst[key], max(errs))
     # edge shapes: MHA (Hkv = H), head_dim 64, page 8, a short table
     edge = dict(h=8, hkv=8, hd=64, page=8, max_pages=40)
@@ -1808,6 +1870,12 @@ def quant_phases(card, reference):
                               quantize_kv=True)
     print_profile(f"[20] w8kv8 decode step profile (bf16 L32, 8 slots, "
                   f"{prof['steps']} steps, profiler on)", prof, card)
+    k4_ms, k4_share = kernel_share(prof, PAGED_KERNELS)
+    k5_ms, k5_share = kernel_share(prof, ("matmul_q8_kernel",
+                                          "reduce_q8_kernel"))
+    print(f"[20] K4-int8 (split and combine passes): {k4_ms:.3f} ms/step, "
+          f"{100 * k4_share:.1f}% of the device's busy time; K5 (and its "
+          f"reduce): {k5_ms:.3f} ms/step, {100 * k5_share:.1f}%", flush=True)
 
     def entry(name, line, key, n, err, source):
         t = timing[key]
@@ -1889,6 +1957,7 @@ def eager_launches(counts=None):
     now["matmul_wgmma"] = eager_wrappers()["matmul"].launches_wgmma
     now["matmul_mma"] = eager_wrappers()["matmul"].launches_mma
     now["flash_attention_fwd_stats"] = fa.flash_attention_fwd_stats.launches
+    now["flash_forward_wgmma"] = fa.flash_attention_fwd_stats.launches_wgmma
     now["flash_attention_backward"] = fa.flash_attention_backward.launches
     now["flash_backward_wgmma"] = fa.flash_attention_backward.launches_wgmma
     return now if counts is None else {k: now[k] - counts[k] for k in now}
@@ -1902,6 +1971,7 @@ def reset_eager_launches():
         f.launches = 0
     eager_wrappers()["matmul"].launches_wgmma = 0
     eager_wrappers()["matmul"].launches_mma = 0
+    fa.flash_attention_fwd_stats.launches_wgmma = 0
     fa.flash_attention_backward.launches_wgmma = 0
 
 
@@ -2405,11 +2475,12 @@ def eager_phases(card):
           and launches["flash_attention_fwd_stats"] >= 1
           and launches["flash_attention_backward"] >= 1,
           "phase 23 launched K7, K1 and K2")
-    check(launches["flash_backward_wgmma"] == launches[
-        "flash_attention_backward"] and launches["matmul_mma"] == 0
-          and launches["matmul_wgmma"] >= 6,
-          "phase 23's K2 launches took the bf16 wgmma body, its 16-bit K3 "
-          "launches the wgmma body")
+    check(launches["flash_forward_wgmma"] == launches[
+        "flash_attention_fwd_stats"] and launches["flash_backward_wgmma"]
+          == launches["flash_attention_backward"]
+          and launches["matmul_mma"] == 0 and launches["matmul_wgmma"] >= 6,
+          "phase 23's K1 and K2 launches took the bf16 wgmma bodies, its "
+          "16-bit K3 launches the wgmma body")
     free_device_memory()
 
     prof = eager_profile(kfunca)
@@ -2613,6 +2684,7 @@ def ssm_train(make_step, cfg, params, steps, ss, fa=None):
     ss.ssm_scan_fwd.launches = ss.ssm_scan_bwd.launches = 0
     if fa is not None:
         fa.flash_attention_fwd_stats.launches = 0
+        fa.flash_attention_fwd_stats.launches_wgmma = 0
         fa.flash_attention_backward.launches = 0
         fa.flash_attention_backward.launches_wgmma = 0
     losses, seconds = [], []
@@ -2627,6 +2699,9 @@ def ssm_train(make_step, cfg, params, steps, ss, fa=None):
                 fa.flash_attention_fwd_stats.launches if fa else 0,
                 fa.flash_attention_backward.launches if fa else 0)
     if fa is not None:
+        check(fa.flash_attention_fwd_stats.launches_wgmma == launches[2],
+              f"every K1 launch ({launches[2]}) took the bf16 wgmma body "
+              f"({fa.flash_attention_fwd_stats.launches_wgmma})")
         check(fa.flash_attention_backward.launches_wgmma == launches[3],
               f"every K2 launch ({launches[3]}) took the bf16 wgmma body "
               f"({fa.flash_attention_backward.launches_wgmma})")
@@ -3762,9 +3837,9 @@ def main() -> int:
           f"(nvcc, sm_90a) and the native core "
           f"{_native.library_path().name} (g++)", flush=True)
     for name in sorted(built):
-        for line in _kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_summary(_kernels.build_log(name)):
+            print(f"    {name}: {kernel}: {regs} registers, {spill} spill "
+                  f"bytes")
 
     k4, reference = serving_phases(card)
     kernels = [k4]

@@ -21,12 +21,12 @@
 //   backward recomputes P = exp(scale * q.k - lse) with the same explicit 0
 //   on masked pairs, so such rows, and kv rows that no q row reads, get
 //   exact-zero gradients.  lse = m + log(l) is the natural logarithm.
-//   fp32 inputs run in plain fp32 FFMA (never TF32).  bf16 inputs: the
-//   forward widens them to fp32 when a tile is staged and rounds out once;
-//   the backward runs its products on the tensor cores from the bf16
-//   tiles with fp32 accumulators, and rounds P and dS to bf16 before the
-//   second products, as the TPU kernel does (_mxu_in); dq, dk, dv are
-//   rounded once on the way out.
+//   fp32 inputs run in plain fp32 FFMA (never TF32).  bf16 inputs run
+//   every product on the tensor cores from the bf16 tiles with fp32
+//   accumulators, and round P (and, backward, dS) to bf16 before the
+//   second products, as the TPU kernel does (_mxu_in); the forward's l sums
+//   the fp32 P before that rounding, as the TPU kernel's does.  out, dq,
+//   dk, dv are rounded once on the way out.
 //
 // What bounds it: operations.  At the training shape (B=1, H=32, Hkv=8,
 // S=8192, hd=128, window 4096) the forward does 4*hd flops per unmasked
@@ -45,17 +45,22 @@
 //     there are no atomics, no per-head partials in memory, and the
 //     gradients are bitwise repeatable; a small pre-pass computes
 //     delta = rowsum(dO * O);
-//   * K1, and K2 on fp32 inputs: 64 x 64 fp32 tiles (attention_tile.cuh,
+//   * fp32 inputs (K1 and K2): 64 x 64 fp32 tiles (attention_tile.cuh,
 //     shared with K12): q, k, v (and dO) tiles in shared memory as fp32
 //     with rows padded by 4 floats; each of the 256 threads keeps a 4 x 4
 //     block of the score tile and a 4 x (hd/16) block of the output tile in
 //     registers; the ceiling is the 67 TFLOP/s fp32 pipe;
-//   * K2 on bf16 inputs: wgmma, one thread of a producer issuing TMA loads
-//     of 128-byte swizzled boxes (hopper.cuh) into a 2-stage ring, fp32
-//     accumulators in the consumers' registers; blocks of a producer
-//     warpgroup (setmaxnreg leaves it 24 registers) and two consumer
-//     warpgroups (240).  The dk/dv kernel keeps 64 kv rows of k and v
-//     resident and streams 64-row q and dO tiles (with their lse and
+//   * bf16 inputs (K1 and K2): wgmma, one thread of a producer issuing TMA
+//     loads of 128-byte swizzled boxes (hopper.cuh) into a ring of 2 (K2)
+//     or 3 (K1) stages, fp32 accumulators in the consumers' registers;
+//     blocks of a producer warpgroup (setmaxnreg leaves it 24 registers)
+//     and two consumer warpgroups (240).  The K1 kernel keeps 128 q rows
+//     resident and streams 64-row k and v tiles over the live range; each
+//     consumer runs S = Q.K^T for its 64 rows, the online softmax in
+//     registers in the exp2 domain (a row's max and sum over the four
+//     lanes of a quad) and O += P.V with P as the register A operand and v
+//     read MN-major (transpose-B).  The dk/dv kernel keeps 64 kv rows of k
+//     and v resident and streams 64-row q and dO tiles (with their lse and
 //     delta) over the group's heads; one consumer computes the transposed
 //     tile S^T = K.Q^T, P^T and dV += P^T.dO, the other dP^T = V.dO^T,
 //     dS^T (with the first's P^T, passed through shared memory) and
@@ -65,9 +70,12 @@
 //     kernel keeps 128 q rows of q and dO resident, streams 64-row k and v
 //     tiles, and computes dQ += dS.K the same way.
 // Left for later: overlapping one tile's softmax with the next tile's
-// products (two accumulator sets a consumer), a persistent grid, fusing the
-// dq pass into the dk/dv pass, and wgmma for K1 (its forward can reuse this
-// tile code) and K12.
+// products (two score buffers or accumulator sets a consumer, FA3's
+// intra-warpgroup pipelining), a persistent grid, fusing the dq pass into
+// the dk/dv pass, and moving K12 (ring_hop.cu, still on the fp32 tile) onto
+// the K1 / K2 wgmma bodies.
+
+#include <math_constants.h>
 
 #include "attention_tile.cuh"
 #include "hopper.cuh"
@@ -77,16 +85,6 @@ namespace {
 __device__ __forceinline__ void store4(float* dst, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b,
-                                       float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned int*>(&lo);
-  raw.y = *reinterpret_cast<const unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -549,16 +547,18 @@ __device__ __forceinline__ void to_frags(const float (&x)[8 * K],
 }
 
 // rows `row` and row + 8 of an (n_rows, HD) bf16 output from an m64nHD
-// accumulator (chunk j holds columns 8j + 2t, 8j + 2t + 1), times mul
+// accumulator (chunk j holds columns 8j + 2t, 8j + 2t + 1), row `row`
+// times mul0 and row + 8 times mul1
 template <int HD>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
                                           int row, int n_rows, int t,
                                           const float (&acc)[HD / 2],
-                                          float mul) {
+                                          float mul0, float mul1) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row + 8 * i;
     if (r >= n_rows) continue;
+    const float mul = i == 0 ? mul0 : mul1;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * HD + 8 * j +
@@ -776,8 +776,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
     }
 
     const long long kvoff = ((long long)b * Hkv + kvh) * Skv;
-    store_acc<HD>((is_a ? dv : dk) + kvoff * HD, kr, Skv, t, acc,
-                  is_a ? 1.f : scale);
+    const float mul = is_a ? 1.f : scale;
+    store_acc<HD>((is_a ? dv : dk) + kvoff * HD, kr, Skv, t, acc, mul, mul);
   }
 }
 
@@ -936,7 +936,222 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
       if (tid == 0) hopper::mbar_arrive(&empty[s]);
     }
 
-    store_acc<HD>(dq + bh * Sq * HD, qr, Sq, t, dq_acc, scale);
+    store_acc<HD>(dq + bh * Sq * HD, qr, Sq, t, dq_acc, scale, scale);
+  }
+}
+
+// K1, bf16: the wgmma forward.  Shared memory: Q (128 rows) | the ring of
+// kFwdStages stages of a k tile and a v tile (64 rows each) | barriers.
+constexpr int kFwdStages = 3;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int HD>
+struct WgFwdSmem {
+  static constexpr int kQTile = kBlockRows * HD * 2;  // bytes
+  static constexpr int kKvTile = kStreamRows * HD * 2;
+  static constexpr size_t kBytes = kQTile + kFwdStages * 2 * kKvTile +
+                                   (1 + 2 * kFwdStages) * 8 + 1024;
+};
+
+// K1, bf16.  grid (q tiles of 128 rows, H, B), the heaviest (last) q tiles
+// first.  Q stays resident; k and v tiles of 64 rows stream through the
+// ring over the live kv tiles (the dq kernel's range).  Consumer c owns q
+// rows 64c..; its thread holds rows qr and qr + 8 of the 64 and, per tile:
+//   S = Q.K^T (K-major, hd/16 steps); masked pairs (edge tiles only) set
+//   to -inf, so that they raise no running max and their p is exactly 0;
+//   the row max over the quad (lanes 4g..4g+3), m' = max(m, scale log2e
+//   max S), p = exp2(scale log2e S - m'), O *= exp2(m - m'); l sums the
+//   thread's fp32 p (the quad's partial sums are added at the end, since
+//   their rescaling factors agree); P rounded to bf16 as A fragments, and
+//   O += P.V (MN-major v, transpose-B).
+// A tile that holds no pair of a consumer's rows (above its diagonal,
+// behind its window, or past Sq) is released without a product.  m starts
+// at the finite -1e30, so exp2(m - m') never meets inf - inf.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
+    const __grid_constant__ CUtensorMap map_q,
+    const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int Hkv,
+    int Sq, int Skv, int window, float scale) {
+  using L = WgFwdSmem<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  uint8_t* Q_s = smem;
+  uint8_t* ring = Q_s + L::kQTile;  // stage s: k tile, v tile
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(ring + kFwdStages * 2 * L::kKvTile);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kFwdStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int row0 = qt * kBlockRows;
+  const int wg = threadIdx.x / 128;
+  const int col_hi = min(min(row0 + kBlockRows - 1, Sq - 1), Skv - 1);
+  const int col_lo = window > 0 ? max(row0 - window + 1, 0) : 0;
+  const int kt_first = col_lo / kStreamRows;
+  const int n_iter = col_lo <= col_hi ? col_hi / kStreamRows - kt_first + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    hopper::regs_dec<24>();
+    if (threadIdx.x == 0) {
+      const int bh = b * H + h, bkv = b * Hkv + kvh;
+      hopper::mbar_expect_tx(q_full, L::kQTile);
+      for (int j = 0; j < HD / 64; ++j)
+        hopper::tma_load_3d(Q_s + j * kBlockRows * 128, &map_q, q_full,
+                            64 * j, row0, bh);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kFwdStages;
+        const int c0 = (kt_first + it) * kStreamRows;
+        hopper::mbar_wait(&empty[s], ((it / kFwdStages) & 1) ^ 1);
+        uint8_t* K_t = ring + s * 2 * L::kKvTile;
+        uint8_t* V_t = K_t + L::kKvTile;
+        hopper::mbar_expect_tx(&full[s], 2 * L::kKvTile);
+        for (int j = 0; j < HD / 64; ++j) {
+          hopper::tma_load_3d(K_t + j * kStreamRows * 128, &map_k, &full[s],
+                              64 * j, c0, bkv);
+          hopper::tma_load_3d(V_t + j * kStreamRows * 128, &map_v, &full[s],
+                              64 * j, c0, bkv);
+        }
+      }
+    }
+  } else {  // consumers
+    hopper::regs_inc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127, lane = tid & 31, w = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int q_lo = row0 + 64 * c;
+    const int qr = q_lo + 16 * w + g;  // q rows qr and qr + 8
+    const long long bh = (long long)b * H + h;
+    const float sl2 = scale * kLog2e;
+    const uint64_t q_desc = kmajor_desc(Q_s, 64 * c);
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    hopper::mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kFwdStages;
+      const int c0 = (kt_first + it) * kStreamRows;
+      const uint8_t* K_t = ring + s * 2 * L::kKvTile;
+      const uint8_t* V_t = K_t + L::kKvTile;
+      hopper::mbar_wait(&full[s], (it / kFwdStages) & 1);
+      const bool dead = q_lo >= Sq || c0 > q_lo + 63 ||
+                        (window > 0 && c0 + kStreamRows - 1 <= q_lo - window);
+      if (!dead) {
+        float sc[32];
+        hopper::fence_regs(sc);
+        hopper::wgmma_fence();
+        const uint64_t k_desc = kmajor_desc(K_t, 0);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          hopper::wgmma_ss<true, 0>(sc, kmajor(q_desc, kBlockRows, kk),
+                                    kmajor(k_desc, kStreamRows, kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+
+        const bool edge = !(c0 + kStreamRows - 1 <= q_lo &&
+                            c0 + kStreamRows - 1 < Skv && q_lo + 63 < Sq &&
+                            (window <= 0 || c0 > q_lo + 63 - window));
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            // the row's attended columns are [lo, hi] (none for a row past
+            // Sq); col < Skv is in hi
+            const int row = qr + 8 * i;
+            const int hi = row < Sq ? min(row, Skv - 1) : -1;
+            const int lo = window > 0 ? row - window + 1 : 0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = c0 + 8 * j + 2 * t + e;
+                if (col > hi || col < lo) sc[4 * j + 2 * i + e] = -CUDART_INF_F;
+              }
+          }
+        }
+        float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              mx[i] = fmaxf(mx[i], sc[4 * j + 2 * i + e]);
+        float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float m_new = fmaxf(m[i], mx[i] * sl2);
+          alpha[i] = exp2f(m[i] - m_new);
+          m[i] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int x = 4 * j + 2 * i + e;
+              sc[x] = exp2f(fmaf(sc[x], sl2, -m[i]));
+              rs[i] += sc[x];
+            }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[i] = fmaf(l[i], alpha[i], rs[i]);
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            o[4 * j + e] *= alpha[0];
+            o[4 * j + 2 + e] *= alpha[1];
+          }
+        uint32_t pf[4][4];
+        to_frags<4>(sc, pf);
+
+        hopper::fence_regs(o);
+        hopper::wgmma_fence();
+        const uint64_t v_mn = mnmajor_desc(V_t, kStreamRows);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs<1>(o, pf[kk], mnmajor(v_mn, kk), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+      }
+      if (tid == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+    store_acc<HD>(out + bh * Sq * HD, qr, Sq, t, o,
+                  1.f / (l[0] == 0.f ? 1.f : l[0]),
+                  1.f / (l[1] == 0.f ? 1.f : l[1]));
+    if (lse != nullptr && t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (qr + 8 * i < Sq)
+          lse[bh * Sq + qr + 8 * i] =
+              l[i] == 0.f ? 0.f : fmaf(m[i], kLn2, logf(l[i]));
+    }
   }
 }
 
@@ -1004,6 +1219,25 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int B, int H, int Hkv, int Sq, int Skv,
+                     int window, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!attn_map<HD>(&mq, q, B * H, Sq, kBlockRows) ||
+      !attn_map<HD>(&mk, k, B * Hkv, Skv, kStreamRows) ||
+      !attn_map<HD>(&mv, v, B * Hkv, Skv, kStreamRows))
+    return (int)cudaErrorInvalidValue;
+  using L = WgFwdSmem<HD>;
+  const cudaError_t e = hopper::allow_smem(flash_fwd_wgmma<HD>, L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + kBlockRows - 1) / kBlockRows, H, B);
+  flash_fwd_wgmma<HD><<<grid, kWgThreads, L::kBytes, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, H, Hkv, Sq, Skv,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  dtype: 0 = float32,
@@ -1013,7 +1247,8 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
 // shapes, dtypes and contiguity and allocates every output and the (B, H,
 // Sq) float32 delta scratch.
 
-// out (B, H, Sq, hd); lse (B, H, Sq) float32, or NULL to skip the statistic
+// out (B, H, Sq, hd); lse (B, H, Sq) float32, or NULL to skip the statistic;
+// q, k, v 16-byte aligned for bf16 (TMA)
 extern "C" int kf_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int H, int Hkv, int Sq, int Skv,
@@ -1024,11 +1259,11 @@ extern "C" int kf_flash_attention_fwd(const void* q, const void* k,
   if (B <= 0 || H <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || H % Hkv)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && hd == 128)
-    return launch_fwd<__nv_bfloat16, 128>(q, k, v, out, l, B, H, Hkv, Sq, Skv,
-                                          window, scale, s);
+    return launch_fwd_wgmma<128>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
+                                 scale, s);
   if (dtype == 1 && hd == 64)
-    return launch_fwd<__nv_bfloat16, 64>(q, k, v, out, l, B, H, Hkv, Sq, Skv,
-                                         window, scale, s);
+    return launch_fwd_wgmma<64>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
+                                scale, s);
   if (dtype == 0 && hd == 128)
     return launch_fwd<float, 128>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
                                   scale, s);

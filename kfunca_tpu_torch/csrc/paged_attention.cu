@@ -34,9 +34,10 @@
 //            run past the table inside a decode burst; the plain gather
 //            version then admits every table slot, as this does)
 //   first_live = max(0, (pos - window + 1) / page)  (window > 0 only)
-// and masks slots > pos and slots <= pos - window with the finite -1e30.
-// Query head h reads kv head h / (H / Hkv).  fp32 online softmax; a row
-// whose every slot was masked (l == 0) divides by 1, as the TPU kernel does.
+// and masks slots > pos and slots <= pos - window: a masked slot's p is an
+// exact 0.  Query head h reads kv head h / (H / Hkv).  fp32 softmax state:
+// each split's (m, l, acc), merged in split order; a row whose every slot
+// was masked (l == 0) divides by 1, as the TPU kernel does.
 // int8: s = (q . k_q8) * sk[slot] and acc += (p * sv[slot]) * v_q8, the
 // scales folded into the scores and the probabilities as on the TPU, while
 // l sums the unscaled p.
@@ -48,55 +49,73 @@
 // once (B * live_slots * 2*Hkv*hd elements, plus 2*Hkv scales a slot for
 // int8) and does only ~2 flops per byte read, far under the ~295 flop/byte
 // a Hopper card needs before compute matters.  The design therefore aims at
-// reading exactly the live bytes, each once, with wide loads:
-//   * one thread block per (kv head, sequence); the block keeps its GQA
-//     group's H/Hkv query rows in shared memory, so every k/v row is read
-//     from HBM once and used by all the query heads that share it;
-//   * the block walks the live pages in chunks of ~64 slots; each chunk's
-//     k and v rows of this kv head are fetched with coalesced 16-byte
-//     loads (4 fp32, 8 bf16 or 16 int8 values; all the block's loads for a
-//     chunk are in flight together), widened to fp32 in shared memory, then
-//     scored, softmaxed (one warp per query row) and accumulated;
-//   * the page table is read by the block itself, so only live pages move.
-// Left for later: splitting long sequences over several blocks (flash-
-// decoding) to fill all 132 SMs at small batch, and cp.async/TMA double
-// buffering so the next chunk's loads overlap this chunk's math.
+// reading exactly the live bytes, each once, with enough of them in flight
+// to keep HBM busy (flash-decoding):
+//   * a split pass: grid (splits, Hkv x head blocks, B); a block owns a
+//     fixed span of span_pages pages of one (sequence, kv head) and up to
+//     four query heads of the kv head's group, so every k/v row is read
+//     from HBM once for a group of up to four heads.  The number of splits
+//     comes from max_pages (the table's width), never from the positions,
+//     so the launch needs no host sync; a block whose span holds no live
+//     page returns at once;
+//   * a live block streams its span's k rows, then its v rows, through a
+//     3-stage shared-memory ring of 64-slot chunks: cp.async 16-byte copies
+//     in the pool's type (a zero source size for masked slots zero-fills
+//     them, so dead data never enters), the next chunks in flight while one
+//     is computed; values are widened to fp32 in registers.  The scores of
+//     the whole span (already in the exp2 domain: q is scaled by log2 e)
+//     sit in shared memory, so one softmax over the span replaces any
+//     rescaling; the block writes its (m, l, acc) partials, fp32;
+//   * a combine pass: grid (H, B); it recomputes each sequence's live
+//     splits from its position and merges their partials in split order
+//     (bitwise repeatable: no atomics anywhere), writing out in q's type;
+//   * the page table is read by the blocks themselves, so only live pages
+//     move.
+// Left for later: a CUDA graph of the decode step (it is host-bound), and
+// TMA multicast of a page across the blocks of a group.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;    // 4 warps
+constexpr int kChunk = 64;       // slots of a ring stage (two threads a slot)
+constexpr int kStages = 3;
+constexpr int kHeads = 4;        // query heads of a block (one warp each in
+                                 // the softmax)
 constexpr float kNegInf = -1e30f;
-constexpr int kChunkSlots = 64;
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kLoadBatch = 8;  // 16-byte loads per thread per tensor in flight
-
-// 16 bytes of T (4 fp32, 8 bf16 or 16 int8) widened to fp32 in shared memory
-__device__ __forceinline__ void store16(uint4 raw, float* dst, float) {
-  const float4 v = *reinterpret_cast<const float4*>(&raw);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
+// 16 bytes of T (4 fp32, 8 bf16 or 16 int8 values) widened to fp32, from
+// the four 32-bit words (no address is taken, so the vector stays in
+// registers)
+__device__ __forceinline__ void widen(uint4 raw, float (&x)[4], float) {
+  x[0] = __uint_as_float(raw.x);
+  x[1] = __uint_as_float(raw.y);
+  x[2] = __uint_as_float(raw.z);
+  x[3] = __uint_as_float(raw.w);
 }
 
-__device__ __forceinline__ void store16(uint4 raw, float* dst, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+__device__ __forceinline__ void widen(uint4 raw, float (&x)[8],
+                                      __nv_bfloat16) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
-__device__ __forceinline__ void store16(uint4 raw, float* dst, int8_t) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+__device__ __forceinline__ void widen(uint4 raw, float (&x)[16], int8_t) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dst[i] = (float)b[i];
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[4 * i + j] = (float)(int8_t)(w[i] >> (8 * j));
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -124,6 +143,29 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0
+// writes 16 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Where the pools' vectors and scales sit; see the contract above.
 struct Layout {
   const void* k;
@@ -134,227 +176,356 @@ struct Layout {
   long long s_page, s_slot, s_head;  // floats between pages, slots, heads
 };
 
-// grid (Hkv, B), block kThreads.  TQ: q's and out's type; TP: the pools'.
-// Shared memory (fp32):
-//   q_s (G, hd) | acc_s (G, hd) | k_s (C, hd+1) | v_s (C, hd) | p_s (G, C)
-//   | sk_s, sv_s (C each) | m_s, l_s, alpha_s (G each)
-// with G = H/Hkv, C = chunk slots.  k_s rows are padded by one float so the
-// score loop, where neighbouring threads read neighbouring rows at the same
-// column, is free of bank conflicts.
-template <typename TQ, typename TP>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const TQ* __restrict__ q, Layout lay, const int* __restrict__ tables,
-    const int* __restrict__ positions, TQ* __restrict__ out, int H, int Hkv,
-    int hd, int page, int max_pages, long long n_pool_pages,
-    long long page_base, int window, int chunk_pages) {
-  const TP* __restrict__ kpool = static_cast<const TP*>(lay.k);
-  const TP* __restrict__ vpool = static_cast<const TP*>(lay.v);
-  const bool quantized = lay.sk != nullptr;
-  extern __shared__ float smem[];
-  const int group = H / Hkv;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int C = chunk_pages * page;
-  const int ks = hd + 1;
-  float* q_s = smem;
-  float* acc_s = q_s + group * hd;
-  float* k_s = acc_s + group * hd;
-  float* v_s = k_s + C * ks;
-  float* p_s = v_s + C * hd;
-  float* sk_s = p_s + group * C;
-  float* sv_s = sk_s + C;
-  float* m_s = sv_s + C;
-  float* l_s = m_s + group;
-  float* alpha_s = l_s + group;
+// Bytes between two slots' rows in a ring stage: the row rounded up to 128
+// bytes plus 32, so that the 16-byte reads of eight threads (four slots,
+// two neighbouring chunks each) fall on eight different bank groups.
+__host__ __device__ __forceinline__ int ring_stride(int row_bytes) {
+  return (row_bytes + 127) / 128 * 128 + 32;
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-
-  const TQ* qg = q + ((long long)b * H + (long long)kvh * group) * hd;
-  for (int i = tid; i < group * hd; i += blockDim.x) {
-    q_s[i] = to_float(qg[i]);
-    acc_s[i] = 0.f;
+// Shared memory of a split block (bytes): the ring (or, after it, the
+// reduction of the P.V partial sums) | q (kHeads x hd fp32) | scores / p
+// (kHeads x span fp32) | sk, sv (span each) | page ids (span_pages) |
+// m, l (kHeads each).
+struct SplitSmem {
+  int ring, q, s, scales, pids, total;
+  __host__ __device__ SplitSmem(int hd, int elem, int span, int span_pages) {
+    const int vecs = hd * elem / 16, e = 16 / elem;
+    const int red = (kThreads / vecs) * kHeads * vecs * e * 4;
+    ring = kStages * kChunk * ring_stride(hd * elem);
+    if (red > ring) ring = red;
+    q = ring;
+    s = q + kHeads * hd * 4;
+    scales = s + kHeads * span * 4;
+    pids = scales + 2 * span * 4;
+    total = pids + span_pages * 8 + 2 * kHeads * 4;
   }
-  if (tid < group) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
+};
 
-  const int pos = positions[b];
-  const int n_live = min(pos / page + 1, max_pages);
-  int first_live = 0;
+// The live pages [first, end) of a sequence at position pos; see the
+// contract above (end clamped to the table).
+__device__ __forceinline__ void live_pages(int pos, int page, int max_pages,
+                                           int window, int& first, int& end) {
+  end = min(pos / page + 1, max_pages);
+  first = 0;
   if (window > 0) {
     const int f = pos - window + 1;
-    first_live = f > 0 ? f / page : 0;
+    first = f > 0 ? f / page : 0;
   }
-  constexpr int E = 16 / sizeof(TP);  // elements per 16-byte load
-  const int vec_per_row = hd / E;
+}
+
+// A split block's live slots, [slot_lo, slot_lo + n_slots) of its
+// sequence, and where their rows sit in the pools and the ring.
+struct Span {
+  int slot_lo, n_slots, pos, window, page, pg_lo;
+  int stride, vpr;     // ring bytes a slot; 16-byte vectors a row
+  long long head_off;  // pool elements to the kv head's vector
+  // slot (relative to slot_lo) is attended: inside the span's live pages,
+  // at or before pos and, with a window, after pos - window
+  __device__ __forceinline__ bool valid(int slot) const {
+    const int a = slot_lo + slot;
+    return slot < n_slots && a <= pos && (window <= 0 || a > pos - window);
+  }
+};
+
+// The cp.async copies of ring iteration `it` (k chunks, then v chunks)
+// into its stage, masked slots zero-filled (a zero source size), then one
+// commit group, empty or not, so that the groups count the iterations.
+template <typename TP>
+__device__ __forceinline__ void load_chunk(int it, int n_chunks,
+                                            const Span& sp, const Layout& lay,
+                                            const long long* pid_s,
+                                            uint8_t* ring) {
+  constexpr int E = 16 / sizeof(TP);
+  if (it < 2 * n_chunks) {
+    const TP* base = static_cast<const TP*>(it < n_chunks ? lay.k : lay.v);
+    const int c = it < n_chunks ? it : it - n_chunks;
+    uint8_t* st = ring + (it % kStages) * kChunk * sp.stride;
+    for (int i = threadIdx.x; i < kChunk * sp.vpr; i += kThreads) {
+      const int r = i / sp.vpr, cv = i - r * sp.vpr;
+      const int slot = c * kChunk + r;
+      const TP* src = base;
+      int bytes = 0;
+      if (sp.valid(slot)) {
+        const int a = sp.slot_lo + slot;
+        src = base +
+              (pid_s[a / sp.page - sp.pg_lo] * sp.page + a % sp.page) *
+                  lay.row_stride +
+              sp.head_off + cv * E;
+        bytes = 16;
+      }
+      cp_async16(st + r * sp.stride + cv * 16, src, bytes);
+    }
+  }
+  cp_async_commit();
+}
+
+// Split pass.  grid (splits, Hkv * head blocks, B), block kThreads.  TQ: q's
+// type; TP: the pools'.  part[((b * H + h) * n_splits + split) * (hd + 2)
+// + d]: acc (d < hd, unnormalized), then m (log2 domain) and l.
+template <typename TQ, typename TP>
+__global__ void __launch_bounds__(kThreads) paged_split_kernel(
+    const TQ* __restrict__ q, Layout lay, const int* __restrict__ tables,
+    const int* __restrict__ positions, float* __restrict__ part, int H,
+    int Hkv, int hd, int page, int max_pages, long long n_pool_pages,
+    long long page_base, int window, int span_pages) {
+  constexpr int E = 16 / sizeof(TP);  // values a 16-byte vector holds
+  const int split = blockIdx.x;
+  const int group = H / Hkv;
+  const int n_hb = (group + kHeads - 1) / kHeads;
+  const int kvh = blockIdx.y / n_hb;
+  const int g0 = (blockIdx.y % n_hb) * kHeads;  // first head of the group
+  const int ng = min(kHeads, group - g0);
+  const int b = blockIdx.z;
+
+  const int pos = positions[b];
+  int first_live, n_live;
+  live_pages(pos, page, max_pages, window, first_live, n_live);
+  const int pg_lo = max(split * span_pages, first_live);
+  const int pg_hi = min((split + 1) * span_pages, n_live);
+  if (pg_lo >= pg_hi) return;  // no live page in this span
+
+  const int span = span_pages * page;
+  const SplitSmem L(hd, (int)sizeof(TP), span, span_pages);
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ring = smem;
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  float* s_s = reinterpret_cast<float*>(smem + L.s);
+  float* sk_s = reinterpret_cast<float*>(smem + L.scales);
+  float* sv_s = sk_s + span;
+  long long* pid_s = reinterpret_cast<long long*>(smem + L.pids);
+  float* m_s = reinterpret_cast<float*>(pid_s + span_pages);
+  float* l_s = m_s + kHeads;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int vpr = hd / E;  // 16-byte vectors a row
+  const int stride = ring_stride(hd * (int)sizeof(TP));
+  const int slot_lo = pg_lo * page;
+  const int n_slots = (pg_hi - pg_lo) * page;
+  const int n_chunks = (n_slots + kChunk - 1) / kChunk;
+  const int n_it = 2 * n_chunks;  // k chunks, then v chunks
+  const bool quantized = lay.sk != nullptr;
   const int* table = tables + (long long)b * max_pages;
+
+  for (int i = tid; i < pg_hi - pg_lo; i += kThreads) {
+    // out-of-range page ids are clamped, as XLA clamps gathers
+    long long pid = (long long)table[pg_lo + i] + page_base;
+    pid_s[i] = pid < 0 ? 0 : (pid >= n_pool_pages ? n_pool_pages - 1 : pid);
+  }
+  const TQ* qg = q + ((long long)b * H + (long long)kvh * group + g0) * hd;
+  for (int i = tid; i < kHeads * hd; i += kThreads)
+    q_s[i] = i < ng * hd ? to_float(qg[i]) * kLog2e : 0.f;
   __syncthreads();
 
-  for (int c0 = first_live; c0 < n_live; c0 += chunk_pages) {
-    const int slot0 = c0 * page;
-    // k/v rows of this kv head for the chunk's live slots; masked slots
-    // (past pos, behind the window, or past the live pages) are zeroed.
-    // Each thread issues kLoadBatch loads per tensor before it stores any,
-    // so their HBM latencies overlap.
-    const int n_vec = C * vec_per_row;
-    for (int base = tid; base < n_vec; base += kLoadBatch * blockDim.x) {
-      uint4 kr[kLoadBatch], vr[kLoadBatch];
-#pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int i = base + u * blockDim.x;
-        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-        const int r = i / vec_per_row;
-        const int jj = c0 + r / page;
-        const int slot = slot0 + r;
-        if (i < n_vec && jj < n_live && slot <= pos &&
-            (window <= 0 || slot > pos - window)) {
-          long long pid = (long long)table[jj] + page_base;
-          // out-of-range page ids are clamped, as XLA clamps gathers
-          pid = pid < 0 ? 0 : (pid >= n_pool_pages ? n_pool_pages - 1 : pid);
-          const long long off = (pid * page + (r % page)) * lay.row_stride +
-                                (long long)kvh * hd + (i - r * vec_per_row) * E;
-          kr[u] = __ldg(reinterpret_cast<const uint4*>(kpool + off));
-          vr[u] = __ldg(reinterpret_cast<const uint4*>(vpool + off));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int i = base + u * blockDim.x;
-        if (i < n_vec) {
-          const int r = i / vec_per_row;
-          const int c = (i - r * vec_per_row) * E;
-          store16(kr[u], k_s + r * ks + c, TP());
-          store16(vr[u], v_s + r * hd + c, TP());
-        }
-      }
-    }
-    // this kv head's scales of the chunk's unmasked slots; 0 where masked,
-    // so that a dead scale row is never read and p * sv is an exact 0 there
-    if (quantized) {
-      for (int r = tid; r < C; r += blockDim.x) {
-        const int jj = c0 + r / page;
-        const int slot = slot0 + r;
-        float a = 0.f, c = 0.f;
-        if (jj < n_live && slot <= pos &&
-            (window <= 0 || slot > pos - window)) {
-          long long pid = (long long)table[jj] + page_base;
-          pid = pid < 0 ? 0 : (pid >= n_pool_pages ? n_pool_pages - 1 : pid);
-          const long long off =
-              pid * lay.s_page + (r % page) * lay.s_slot + kvh * lay.s_head;
-          a = __ldg(lay.sk + off);
-          c = __ldg(lay.sv + off);
-        }
-        sk_s[r] = a;
-        sv_s[r] = c;
-      }
-    }
-    __syncthreads();
+  const Span sp{slot_lo, n_slots, pos, window, page, pg_lo, stride, vpr,
+                (long long)kvh * hd};
+  for (int it = 0; it < kStages - 1; ++it)
+    load_chunk<TP>(it, n_chunks, sp, lay, pid_s, ring);
 
-    // scores s[g, r] = q_g . k_r over the chunk, -1e30 where masked
-    for (int i = tid; i < group * C; i += blockDim.x) {
-      const int g = i / C;
-      const int r = i - g * C;
-      const int jj = c0 + r / page;
-      const int slot = slot0 + r;
-      float s = kNegInf;
-      if (jj < n_live && slot <= pos && (window <= 0 || slot > pos - window)) {
-        const float* qr = q_s + g * hd;
-        const float* kr = k_s + r * ks;
-        float a = 0.f;
-        for (int d = 0; d < hd; ++d) a = fmaf(qr[d], kr[d], a);
-        s = quantized ? a * sk_s[r] : a;
+  // this kv head's scales of the span's live slots; 0 where masked, so
+  // that a dead scale row is never read and p * sv is an exact 0 there
+  if (quantized) {
+    for (int slot = tid; slot < n_slots; slot += kThreads) {
+      float a = 0.f, c = 0.f;
+      if (sp.valid(slot)) {
+        const int sa = slot_lo + slot;
+        const long long off = pid_s[sa / page - pg_lo] * lay.s_page +
+                              (sa % page) * lay.s_slot + kvh * lay.s_head;
+        a = __ldg(lay.sk + off);
+        c = __ldg(lay.sv + off);
       }
-      p_s[i] = s;
+      sk_s[slot] = a;
+      sv_s[slot] = c;
     }
-    __syncthreads();
-
-    // online softmax, one warp per query row
-    for (int g = warp; g < group; g += n_warps) {
-      float* pr = p_s + g * C;
-      float mx = kNegInf;
-      for (int r = lane; r < C; r += 32) mx = fmaxf(mx, pr[r]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int r = lane; r < C; r += 32) {
-        const float p = expf(pr[r] - m_new);
-        pr[r] = quantized ? p * sv_s[r] : p;  // l sums the unscaled p
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc[g, d] = acc[g, d] * alpha[g] + sum_r p[g, r] * v[r, d]
-    for (int i = tid; i < group * hd; i += blockDim.x) {
-      const int g = i / hd;
-      const int d = i - g * hd;
-      const float* pr = p_s + g * C;
-      float a = acc_s[i] * alpha_s[g];
-      for (int r = 0; r < C; ++r) a = fmaf(pr[r], v_s[r * hd + d], a);
-      acc_s[i] = a;
-    }
-    __syncthreads();
   }
 
-  TQ* og = out + ((long long)b * H + (long long)kvh * group) * hd;
-  for (int i = tid; i < group * hd; i += blockDim.x) {
-    float l = l_s[i / hd];
-    if (l == 0.f) l = 1.f;
-    og[i] = from_float<TQ>(acc_s[i] / l);
+  // P.V: thread (ss, cv) sums slots ss, ss + n_ss, ... of each chunk for
+  // columns [cv E, cv E + E) of the block's heads
+  const int n_ss = kThreads / vpr;
+  const int cv_pv = tid % vpr, ss = tid / vpr;
+  float o[kHeads][E];
+#pragma unroll
+  for (int gi = 0; gi < kHeads; ++gi)
+#pragma unroll
+    for (int e = 0; e < E; ++e) o[gi][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<kStages - 2>();  // this iteration's chunk has landed
+    __syncthreads();  // ... for every thread, and the stage to refill is free
+    load_chunk<TP>(it + kStages - 1, n_chunks, sp, lay, pid_s, ring);
+    const uint8_t* st = ring + (it % kStages) * kChunk * stride;
+    if (it < n_chunks) {
+      // scores of the chunk's slots: two threads a slot, alternate vectors
+      const int r = tid >> 1, half = tid & 1;
+      float a[kHeads] = {};
+      for (int cv = half; cv < vpr; cv += 2) {
+        float x[E];
+        widen(*reinterpret_cast<const uint4*>(st + r * stride + cv * 16), x,
+              TP());
+#pragma unroll
+        for (int gi = 0; gi < kHeads; ++gi) {
+          const float4* qv =
+              reinterpret_cast<const float4*>(q_s + gi * hd + cv * E);
+#pragma unroll
+          for (int e4 = 0; e4 < E / 4; ++e4) {
+            const float4 qq = qv[e4];
+            a[gi] = fmaf(qq.x, x[4 * e4], a[gi]);
+            a[gi] = fmaf(qq.y, x[4 * e4 + 1], a[gi]);
+            a[gi] = fmaf(qq.z, x[4 * e4 + 2], a[gi]);
+            a[gi] = fmaf(qq.w, x[4 * e4 + 3], a[gi]);
+          }
+        }
+      }
+      const int slot = it * kChunk + r;
+#pragma unroll
+      for (int gi = 0; gi < kHeads; ++gi) {
+        a[gi] += __shfl_xor_sync(0xffffffffu, a[gi], 1);
+        if (half == 0 && slot < n_slots)
+          s_s[gi * span + slot] =
+              sp.valid(slot) ? (quantized ? a[gi] * sk_s[slot] : a[gi])
+                          : -CUDART_INF_F;
+      }
+      continue;
+    }
+    if (it == n_chunks) {
+      // one softmax over the span's scores, one warp a head: p = exp2(s -
+      // m), l sums the unscaled p, and p * sv goes on to P.V for int8
+      if (warp < ng) {
+        float* sr = s_s + warp * span;
+        float mx = -CUDART_INF_F;
+        for (int i = lane; i < n_slots; i += 32) mx = fmaxf(mx, sr[i]);
+        mx = fmaxf(warp_max(mx), kNegInf);
+        float sum = 0.f;
+        for (int i = lane; i < n_slots; i += 32) {
+          const float p = exp2f(sr[i] - mx);
+          sum += p;
+          sr[i] = quantized ? p * sv_s[i] : p;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          m_s[warp] = mx;
+          l_s[warp] = sum;
+        }
+      }
+      __syncthreads();
+    }
+    if (ss < n_ss) {
+      const int c0 = (it - n_chunks) * kChunk;
+      for (int r = ss; r < kChunk && c0 + r < n_slots; r += n_ss) {
+        float x[E];
+        widen(*reinterpret_cast<const uint4*>(st + r * stride + cv_pv * 16), x,
+              TP());
+#pragma unroll
+        for (int gi = 0; gi < kHeads; ++gi) {
+          const float p = s_s[gi * span + c0 + r];
+#pragma unroll
+          for (int e = 0; e < E; ++e) o[gi][e] = fmaf(p, x[e], o[gi][e]);
+        }
+      }
+    }
+  }
+
+  // the P.V partial sums of the n_ss slot classes, added in class order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);
+  if (ss < n_ss) {
+#pragma unroll
+    for (int gi = 0; gi < kHeads; ++gi)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        red[(ss * kHeads + gi) * hd + cv_pv * E + e] = o[gi][e];
+  }
+  __syncthreads();
+  const int n_splits = gridDim.x;
+  for (int i = tid; i < ng * hd; i += kThreads) {
+    const int gi = i / hd, d = i - gi * hd;
+    float acc = 0.f;
+    for (int c = 0; c < n_ss; ++c) acc += red[(c * kHeads + gi) * hd + d];
+    const long long h = (long long)kvh * group + g0 + gi;
+    float* dst = part + (((long long)b * H + h) * n_splits + split) * (hd + 2);
+    dst[d] = acc;
+    if (d == 0) {
+      dst[hd] = m_s[gi];
+      dst[hd + 1] = l_s[gi];
+    }
+  }
+}
+
+// Combine pass.  grid (H, B).  Merges the partials of sequence b's live
+// splits for query head h in split order: with M the largest m, out =
+// sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s (divided by 1 where the
+// sum is 0: a sequence with no live page gets out = 0).
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads) paged_combine_kernel(
+    const float* __restrict__ part, const int* __restrict__ positions,
+    TQ* __restrict__ out, int H, int hd, int page, int max_pages, int window,
+    int span_pages, int n_splits) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  int first_live, n_live;
+  live_pages(positions[b], page, max_pages, window, first_live, n_live);
+  const int s_lo = first_live / span_pages;
+  const int s_hi = first_live < n_live ? (n_live - 1) / span_pages : s_lo - 1;
+  const float* pp = part + ((long long)b * H + h) * n_splits * (hd + 2);
+  float mx = kNegInf;
+  for (int s = s_lo; s <= s_hi; ++s) mx = fmaxf(mx, pp[s * (hd + 2) + hd]);
+  TQ* og = out + ((long long)b * H + h) * hd;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float acc = 0.f, l = 0.f;
+    for (int s = s_lo; s <= s_hi; ++s) {
+      const float* ps = pp + s * (hd + 2);
+      const float w = exp2f(ps[hd] - mx);
+      acc = fmaf(w, ps[d], acc);
+      l = fmaf(w, ps[hd + 1], l);
+    }
+    og[d] = from_float<TQ>(acc / (l == 0.f ? 1.f : l));
   }
 }
 
 template <typename TQ, typename TP>
 int launch(const void* q, const Layout& lay, const int* tables,
-           const int* positions, void* out, int B, int H, int Hkv, int hd,
-           int page, int max_pages, long long n_pool_pages,
-           long long page_base, int window, cudaStream_t stream) {
-  const int chunk_pages = page >= kChunkSlots ? 1 : kChunkSlots / page;
-  const int C = chunk_pages * page;
-  const int group = H / Hkv;
-  const size_t smem = sizeof(float) * ((size_t)2 * group * hd +
-                                       (size_t)C * (hd + 1) + (size_t)C * hd +
-                                       (size_t)group * C + 2 * (size_t)C +
-                                       3 * (size_t)group);
-  if (smem > 48 * 1024) {
+           const int* positions, float* part, void* out, int B, int H,
+           int Hkv, int hd, int page, int max_pages, long long n_pool_pages,
+           long long page_base, int window, int span_pages,
+           cudaStream_t stream) {
+  const int n_splits = (max_pages + span_pages - 1) / span_pages;
+  const int n_hb = (H / Hkv + kHeads - 1) / kHeads;
+  const SplitSmem L(hd, (int)sizeof(TP), span_pages * page, span_pages);
+  if (L.total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<TQ, TP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        paged_split_kernel<TQ, TP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid(Hkv, B);
-  paged_decode_kernel<TQ, TP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), lay, tables, positions,
-      static_cast<TQ*>(out), H, Hkv, hd, page, max_pages, n_pool_pages,
-      page_base, window, chunk_pages);
+  paged_split_kernel<TQ, TP>
+      <<<dim3(n_splits, Hkv * n_hb, B), kThreads, L.total, stream>>>(
+          static_cast<const TQ*>(q), lay, tables, positions, part, H, Hkv, hd,
+          page, max_pages, n_pool_pages, page_base, window, span_pages);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paged_combine_kernel<TQ><<<dim3(H, B), kThreads, 0, stream>>>(
+      part, positions, static_cast<TQ*>(out), H, hd, page, max_pages, window,
+      span_pages, n_splits);
   return (int)cudaGetLastError();
 }
 
 // q_dtype: 0 = float32, 1 = bfloat16 (q and out).  pool_dtype: 0 and 1 the
 // same (and then equal to q_dtype), 2 = int8 (and then sk, sv are given).
 int dispatch(const void* q, const Layout& lay, const int* tables,
-             const int* positions, void* out, int B, int H, int Hkv, int hd,
-             int page, int max_pages, long long n_pool_pages,
-             long long page_base, int window, int q_dtype, int pool_dtype,
-             void* stream) {
+             const int* positions, void* part, void* out, int B, int H,
+             int Hkv, int hd, int page, int max_pages, long long n_pool_pages,
+             long long page_base, int window, int span_pages, int q_dtype,
+             int pool_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool scaled = lay.sk != nullptr && lay.sv != nullptr;
   if ((pool_dtype == 2) != scaled) return (int)cudaErrorInvalidValue;
-#define KF_LAUNCH(TQ, TP)                                                   \
-  return launch<TQ, TP>(q, lay, tables, positions, out, B, H, Hkv, hd, page, \
-                        max_pages, n_pool_pages, page_base, window, s)
+  if (span_pages <= 0 || page <= 0 || max_pages <= 0 || Hkv <= 0 || H % Hkv)
+    return (int)cudaErrorInvalidValue;
+  float* p = static_cast<float*>(part);
+#define KF_LAUNCH(TQ, TP)                                                      \
+  return launch<TQ, TP>(q, lay, tables, positions, p, out, B, H, Hkv, hd,      \
+                        page, max_pages, n_pool_pages, page_base, window,      \
+                        span_pages, s)
   if (q_dtype == 0 && pool_dtype == 0) KF_LAUNCH(float, float);
   if (q_dtype == 1 && pool_dtype == 1) KF_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == 0 && pool_dtype == 2) KF_LAUNCH(float, int8_t);
@@ -367,25 +538,26 @@ int dispatch(const void* q, const Layout& lay, const int* tables,
 
 // Plain C entry points (bound with ctypes), one per TPU entry point; both
 // take the layout as pointers and strides (see struct Layout; sk = sv = null
-// for fp pools) and run the same device body.  window <= 0 means no window.
-// They return cudaGetLastError() after the launch (0 on success).  The
-// caller checks shapes, dtypes, contiguity and the 16-byte alignment of
-// every k/v vector.
+// for fp pools) and run the same two device functions.  window <= 0 means
+// no window.  part: fp32 scratch of B x H x n_splits x (hd + 2) values,
+// n_splits = ceil(max_pages / span_pages).  They return cudaGetLastError()
+// after the launches (0 on success).  The caller checks shapes, dtypes,
+// contiguity and the 16-byte alignment of every k/v vector.
 #define KF_PAGED_ENTRY(NAME)                                                  \
   extern "C" int NAME(                                                        \
       const void* q, const void* k, const void* v, long long row_stride,      \
       const void* sk, const void* sv, long long s_page, long long s_slot,     \
-      long long s_head, const int* tables, const int* positions, void* out,   \
-      int B, int H, int Hkv, int hd, int page, int max_pages,                 \
-      long long n_pool_pages, long long page_base, int window, int q_dtype,   \
-      int pool_dtype, void* stream) {                                         \
+      long long s_head, const int* tables, const int* positions, void* part,  \
+      void* out, int B, int H, int Hkv, int hd, int page, int max_pages,      \
+      long long n_pool_pages, long long page_base, int window,                \
+      int span_pages, int q_dtype, int pool_dtype, void* stream) {            \
     const Layout lay{k,      v,      row_stride,                              \
                      static_cast<const float*>(sk),                           \
                      static_cast<const float*>(sv),                           \
                      s_page, s_slot, s_head};                                 \
-    return dispatch(q, lay, tables, positions, out, B, H, Hkv, hd, page,      \
-                    max_pages, n_pool_pages, page_base, window, q_dtype,      \
-                    pool_dtype, stream);                                      \
+    return dispatch(q, lay, tables, positions, part, out, B, H, Hkv, hd,      \
+                    page, max_pages, n_pool_pages, page_base, window,         \
+                    span_pages, q_dtype, pool_dtype, stream);                 \
   }
 
 // fused or split pools, every scale layout (the TPU's manual-DMA kernel)

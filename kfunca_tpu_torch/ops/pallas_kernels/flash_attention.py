@@ -22,14 +22,17 @@ arguments, `raw_stats`/`stats128` and the (B*H, Sq_padded, 128) exp2-domain
 residual.  The statistic that travels from forward to backward is the
 public (B, H, Sq) natural-log lse.
 
-bf16 inputs: the forward kernel widens them to fp32 and rounds `out` once.
-The backward's bf16 body (wgmma, csrc/flash_attention.cu) runs its five
-products on the tensor cores with fp32 accumulators and rounds P and dS to
-bf16 before the second products, as the TPU kernel does; its launches are
-also counted in `flash_attention_backward.launches_wgmma`.  The plain
-versions stay in fp32 throughout (the reference the kernels are held to).
-fp32 inputs run the fp32 bodies (FFMA, never TF32).  fp16 is not taken
-here: ops/attention.py widens it to fp32 first.
+bf16 inputs run the wgmma bodies (csrc/flash_attention.cu, TMA-fed): every
+product on the tensor cores with fp32 accumulators, P (and, backward, dS)
+rounded to bf16 before the second products, as the TPU kernel does; the
+forward's l sums the fp32 P before that rounding, and `out` is rounded
+once.  Their launches are also counted in `.launches_wgmma` of each
+wrapper.  The forward is bound by operations (4·hd flops per unmasked
+pair); what it leaves for later: overlapping one tile's softmax with the
+next tile's S product, a persistent grid, and K12 on this body.  The
+plain versions stay in fp32 throughout (the reference the kernels are held
+to).  fp32 inputs run the fp32 bodies (FFMA, never TF32).  fp16 is not
+taken here: ops/attention.py widens it to fp32 first.
 
 Layout: the kernels read contiguous (B, H, S, D) tensors.  The model hands
 over transposed views of the fused projection, so the wrappers call
@@ -156,7 +159,8 @@ def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None):
     log, or None when save_stats is False (the kernel then skips the write).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (counted in `flash_attention_fwd_stats.launches`) or raise."""
+    (counted in `flash_attention_fwd_stats.launches`, and bf16 calls, which
+    take the wgmma body, also in `.launches_wgmma`) or raise."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         out, lse = flash_attention_plain(q, k, v, window)
@@ -164,7 +168,7 @@ def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None):
     dp = _check_cuda(q)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    qc, kc, vc = _prep(q, dp), _prep(k, dp), _prep(v, dp)
+    qc, kc, vc = (_aligned(_prep(t, dp)) for t in (q, k, v))
     out = torch.empty_like(qc)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if save_stats else None)
@@ -179,10 +183,13 @@ def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None):
         raise RuntimeError(f"flash forward kernel launch failed: CUDA error "
                            f"{err}")
     flash_attention_fwd_stats.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_fwd_stats.launches_wgmma += 1
     return (out if dp == d else out[..., :d]), lse
 
 
 flash_attention_fwd_stats.launches = 0
+flash_attention_fwd_stats.launches_wgmma = 0
 
 
 def flash_attention_forward(q, k, v, window=None):

@@ -17,6 +17,16 @@ k, v as (n_pages, page, Hkv, hd) and, for int8 pools, sk, sv as
 kernel gets their data pointers and strides.  So the layout arithmetic
 that the CPU tests exercise is the one the kernel is handed.
 
+The kernel (flash-decoding; bound by HBM bytes) splits each sequence's
+table into spans of `split_pages(page)` pages (SPLIT_SLOTS slots): a split
+pass computes every live span's softmax partials (m, l, acc) for up to four
+query heads of a kv head, streaming the span's k and v rows through a
+shared-memory ring of cp.async copies in the pool's type, and a combine
+pass merges a sequence's live spans in span order (bitwise repeatable).
+The grid is sized from the table's width, never from the positions, so a
+call needs no host sync.  Left for later: a CUDA graph of the decode step
+(it is host-bound) and TMA multicast of a page across a group's blocks.
+
 `plain_paged_attention()` is a context that routes both entry points
 through the plain version whatever the device: the yardstick an end-to-end
 check holds the kernel path against.  No entry point of the package enters
@@ -33,6 +43,13 @@ from ...runtime import _kernels
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+SPLIT_SLOTS = 256  # slots of a split of the kernel's first pass
+MAX_HEAD_DIM = 256  # the split block's ring of 64 rows x 3 stages in 227 KB
+
+
+def split_pages(page: int) -> int:
+    """Pages a split of the kernel covers (at least one)."""
+    return max(1, SPLIT_SLOTS // page)
 
 _plain = False  # set only inside plain_paged_attention()
 
@@ -222,19 +239,28 @@ def _run(entry, q, pool, pool_v, page_tables, positions, window, scales,
                          "== 0 and 16-byte aligned pools")
     if sk is not None and sv.stride() != sk.stride():
         raise ValueError("the two scale pools must share one layout")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} exceeds the kernel's limit of "
+                         f"{MAX_HEAD_DIM}")
     vp, i32, i64 = _kernels.VP, _kernels.I32, _kernels.I64
     fn = _kernels.function(
         "paged_attention", f"kf_{entry.__name__}",
-        (vp, vp, vp, i64, vp, vp, i64, i64, i64, vp, vp, vp, i32,
-         i32, i32, i32, i32, i32, i64, i64, i32, i32, i32, vp))
+        (vp, vp, vp, i64, vp, vp, i64, i64, i64, vp, vp, vp, vp, i32,
+         i32, i32, i32, i32, i32, i64, i64, i32, i32, i32, i32, vp))
     out = torch.empty_like(q)
+    max_pages, span = page_tables.shape[1], split_pages(page)
+    # the split pass's (acc, m, l) partials, fp32, per (sequence, query
+    # head, split); only live splits are written and read
+    part = torch.empty(bsz * h * -(-max_pages // span) * (hd + 2),
+                       dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     s_ptrs = (None, None) if sk is None else (sk.data_ptr(), sv.data_ptr())
     s_strides = (0, 0, 0) if sk is None else sk.stride()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), row, *s_ptrs,
              *s_strides, page_tables.data_ptr(), positions.data_ptr(),
-             out.data_ptr(), bsz, h, hkv, hd, page, page_tables.shape[1],
-             n_pages, page_base, 0 if window is None else int(window),
+             part.data_ptr(), out.data_ptr(), bsz, h, hkv, hd, page,
+             max_pages, n_pages, page_base,
+             0 if window is None else int(window), span,
              _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool.dtype], stream)
     if err:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
@@ -261,7 +287,8 @@ def paged_decode_attention_dma(q, pool, page_tables, positions, window=None,
     with head_major_scales, (n_pages, Hkv, page).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (counted in `paged_decode_attention_dma.launches`) or raise."""
+    (one count in `paged_decode_attention_dma.launches` a call, for its
+    split and combine passes) or raise."""
     return _run(paged_decode_attention_dma, q, pool, pool_v, page_tables,
                 positions, window, scales, page_base, head_major_scales)
 

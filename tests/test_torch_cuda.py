@@ -113,6 +113,9 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
                                    .transpose(0, 1), pool, tables, pos)
     with pytest.raises(ValueError, match="different devices"):
         paged_decode_attention_dma(q, pool, tables.cpu(), pos)
+    q, pool, tables, pos, _ = _case(cuda, torch.bfloat16, [3, 20], hd=264)
+    with pytest.raises(ValueError, match="limit of 256"):
+        paged_decode_attention_dma(q, pool, tables, pos)
 
 
 def _to(params, dev):
@@ -257,6 +260,68 @@ def test_split_pool_kernel_matches_plain(cuda, dtype, window, form, quantized):
                                        page_base=base)
     assert torch.equal(again, want)
     assert paged_decode_attention.launches == before[0] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("entry,form,quantized", [
+    ("dma", "fused", False), ("dma", "fused", True), ("dma", "split", True),
+    ("dma", "split_head_major", True), ("dma", "split_flat", False),
+    ("k6", "split", False), ("k6", "split_flat", True)])
+def test_paged_kernel_splits_long_sequences_bitwise_repeatably(
+        cuda, dtype, entry, form, quantized):
+    """Tables of 40 pages of 16 slots: the kernel splits a sequence over
+    up to three blocks of 16 pages and merges them in order.  Every pool
+    form and dtype against the plain version, with windows inside a split
+    and across splits, and two calls give equal bits."""
+    q, pool, pool_v, scales, tables, pos, base = _forms_case(
+        cuda, dtype, [0, 255, 256, 300, 639, 17], form, quantized,
+        max_pages=40)
+    fn = (paged_decode_attention_dma if entry == "dma"
+          else paged_decode_attention)
+    for window in (None, 37, 300):
+        if entry == "dma":
+            kw = dict(window=window, page_base=base, pool_v=pool_v,
+                      scales=scales,
+                      head_major_scales=form == "split_head_major")
+            a = fn(q, pool, tables, pos, **kw)
+            b = fn(q, pool, tables, pos, **kw)
+        else:
+            kw = dict(window=window, page_base=base, scales=scales)
+            a = fn(q, pool, pool_v, tables, pos, **kw)
+            b = fn(q, pool, pool_v, tables, pos, **kw)
+            kw["pool_v"] = pool_v
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        _close(a, paged_decode_attention_plain(q, pool, tables, pos, **kw),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(16, 2), (10, 2), (3, 1)])
+def test_paged_kernel_serves_groups_of_any_width(cuda, dtype, h, hkv):
+    """A split block serves up to four query heads of its kv head: groups
+    of 8 and 5 take two head blocks (the second one full or with one head),
+    a group of 3 one block with a head slot to spare."""
+    q, pool, tables, pos, base = _case(cuda, dtype, [0, 300, 17, 639],
+                                       h=h, hkv=hkv, max_pages=40, layers=2)
+    for window in (None, 37):
+        got = paged_decode_attention_dma(q, pool, tables, pos, window=window,
+                                         page_base=base)
+        want = paged_decode_attention_plain(q, pool, tables, pos,
+                                            window=window, page_base=base)
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_paged_kernel_past_a_wide_table(cuda, window):
+    """An idle slot past a 40-page table, beside sequences of one and
+    three splits: every table slot admitted, as in the gather path."""
+    q, pool, tables, pos, _ = _case(cuda, torch.bfloat16,
+                                    [40 * 16 + 9, 5, 600], max_pages=40)
+    pool = torch.nan_to_num(pool)
+    got = paged_decode_attention_dma(q, pool, tables, pos, window=window)
+    want = paged_decode_attention_plain(q, pool, tables, pos, window=window)
+    _close(got, want, torch.bfloat16)
 
 
 def test_int8_kernel_raises_on_what_it_does_not_take(cuda):
@@ -437,6 +502,7 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     q, k, v, g = _flash_inputs(cuda, dtype, case)
     n1, n2 = (fa.flash_attention_fwd_stats.launches,
               fa.flash_attention_backward.launches)
+    n1w = fa.flash_attention_fwd_stats.launches_wgmma
     n2w = fa.flash_attention_backward.launches_wgmma
     out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
     dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
@@ -444,7 +510,9 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd_stats.launches == n1 + 1
     assert fa.flash_attention_backward.launches == n2 + 1
-    # bf16 takes the wgmma body, fp32 the fp32 one
+    # bf16 takes the wgmma bodies, fp32 the fp32 ones
+    assert fa.flash_attention_fwd_stats.launches_wgmma == (
+        n1w + (dtype == torch.bfloat16))
     assert fa.flash_attention_backward.launches_wgmma == (
         n2w + (dtype == torch.bfloat16))
     want_out, want_lse = fa.flash_attention_plain(q, k, v, window)
@@ -488,6 +556,22 @@ def test_flash_backward_is_bitwise_repeatable(cuda, hd):
     b = fa.flash_attention_backward(q, k, v, g, out, lse, window=200)
     assert fa.flash_attention_backward.launches_wgmma == n + 2
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_forward_is_bitwise_repeatable(cuda, hd):
+    """Two runs of the bf16 (wgmma) forward give equal bits, out and lse:
+    each row is computed by one consumer over its tiles in order."""
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16,
+                               (2, 8, 2, 700, 700, hd, 200))
+    n = fa.flash_attention_fwd_stats.launches_wgmma
+    a = fa.flash_attention_fwd_stats(q, k, v, window=200)
+    b = fa.flash_attention_fwd_stats(q, k, v, window=200)
+    assert fa.flash_attention_fwd_stats.launches_wgmma == n + 2
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, 200)
+    _flash_close(a[0], want_out, torch.bfloat16)
+    torch.testing.assert_close(a[1], want_lse, atol=1e-4, rtol=1e-5)
 
 
 def test_flash_autograd_takes_transposed_views_and_fp16(cuda):

@@ -378,3 +378,118 @@ def test_k2_bf16_tiling_emulation_matches_plain_and_jax(name):
     assert not got[0][:, :, live:].any()
     if skv > sq:
         assert not got[1][:, :, sq:].any() and not got[2][:, :, sq:].any()
+
+
+# -- K1's bf16 body on the card (csrc/flash_attention.cu, wgmma): its tiling -
+#
+# A block owns 128 q rows (two consumers of 64) and streams the 64-row k / v
+# tiles of the dq kernel's live range; a consumer skips a tile that holds no
+# pair of its own rows.  Per tile: S = Q.K^T, masked pairs set to -inf, the
+# running max m in the exp2 domain (scale log2 e), p = exp2(scale log2e S -
+# m), l over the fp32 p, O rescaled and O += bf16(P).V; out = O / l (l == 0:
+# / 1) rounded once, lse = m ln 2 + ln l (0 where l == 0).
+
+FWD_ROWS = 64  # q rows of a consumer
+
+
+def _k1_kv_tiles(row0, sq, skv, window):
+    """The 64-row kv tiles the K1 block at q row row0 streams (the dq
+    kernel's range: both blocks own 128 q rows)."""
+    return _dq_kv_tiles(row0, sq, skv, window)
+
+
+def _k1_dead(q_lo, c0, sq, window):
+    """The consumer at q row q_lo skips the kv tile at column c0."""
+    return (q_lo >= sq or c0 > q_lo + FWD_ROWS - 1
+            or (window is not None and c0 + KV_STREAM - 1 <= q_lo - window))
+
+
+def _k1_emulation(q, k, v, window):
+    """The bf16 body's blocking in plain torch: (out in bf16, lse)."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = h // hkv
+    sl2 = 1.0 / np.sqrt(d) * 1.4426950408889634
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    out, lse = torch.zeros(q.shape), torch.zeros((b, h, sq))
+    for bi in range(b):
+        for hi in range(h):
+            kvh = hi // group
+            for row0 in range(0, sq, DQ_ROWS):
+                for q_lo in range(row0, min(row0 + DQ_ROWS, sq), FWD_ROWS):
+                    rows = torch.arange(q_lo, min(q_lo + FWD_ROWS, sq))
+                    m = torch.full((len(rows),), -1e30)
+                    l = torch.zeros(len(rows))
+                    o = torch.zeros((len(rows), d))
+                    for kt in _k1_kv_tiles(row0, sq, skv, window):
+                        c0 = kt * KV_STREAM
+                        if _k1_dead(q_lo, c0, sq, window):
+                            continue
+                        cols = torch.arange(c0, min(c0 + KV_STREAM, skv))
+                        s = qf[bi, hi, rows] @ kf[bi, kvh, cols].T
+                        ok = _attends(rows[:, None], cols[None, :], sq, skv,
+                                      window)
+                        s = torch.where(ok, s, -torch.inf)
+                        m_new = torch.maximum(m, s.max(1).values * sl2)
+                        alpha = torch.exp2(m - m_new)
+                        p = torch.exp2(s * sl2 - m_new[:, None])
+                        l = l * alpha + p.sum(1)
+                        o = o * alpha[:, None] + _bf16(p) @ vf[bi, kvh, cols]
+                        m = m_new
+                    empty = l == 0
+                    out[bi, hi, rows] = o / torch.where(empty, 1.0, l)[:, None]
+                    lse[bi, hi, rows] = torch.where(
+                        empty, 0.0,
+                        m * np.log(2.0) + torch.log(torch.where(empty, 1.0, l)))
+    return out.bfloat16(), lse
+
+
+@pytest.mark.parametrize("sq,skv,window", [
+    (200, 200, 37), (100, 160, None), (160, 100, None), (300, 64, 64),
+    (330, 330, 130), (1000, 1000, 1), (64, 500, None), (513, 257, 200)])
+def test_k1_live_tile_ranges_are_exactly_the_tiles_with_a_pair(sq, skv, window):
+    """A K1 block visits a tile if and only if it holds an attended pair of
+    the block's rows, and a consumer multiplies a visited tile if and only
+    if the tile holds a pair of the consumer's own 64 rows."""
+    row = torch.arange(sq)[:, None]
+    col = torch.arange(skv)[None, :]
+    ok = _attends(row, col, sq, skv, window)
+    for row0 in range(0, sq, DQ_ROWS):
+        tiles = list(_k1_kv_tiles(row0, sq, skv, window))
+        live = {kt for kt in range(-(-skv // KV_STREAM))
+                if ok[row0:row0 + DQ_ROWS,
+                      kt * KV_STREAM:(kt + 1) * KV_STREAM].any()}
+        assert set(tiles) == live
+        for q_lo in (row0, row0 + FWD_ROWS):
+            for kt in tiles:
+                pair = bool(ok[q_lo:q_lo + FWD_ROWS,
+                               kt * KV_STREAM:(kt + 1) * KV_STREAM].any())
+                assert _k1_dead(q_lo, kt * KV_STREAM, sq, window) == (not pair)
+
+
+@pytest.mark.parametrize("name", list(EMULATED))
+def test_k1_bf16_tiling_emulation_matches_plain_and_jax(name):
+    """The emulated bf16 forward (P rounded to bf16 before P.V, l over the
+    fp32 P) against the plain version (fp32 throughout) and against the JAX
+    K1 on the same bf16 inputs in interpret mode, within phase 8's bf16
+    limit; lse within 1e-4 of the plain version's (the JAX kernel folds
+    scale log2 e into q in bf16, so its lse is held to the bf16 limit);
+    rows with no column get out = 0 and lse = 0 exactly."""
+    case = EMULATED[name]
+    window = case[-1]
+    q, k, v, _ = _bf16_inputs(case, seed=11)
+    got, got_lse = _k1_emulation(q, k, v, window)
+    ref, ref_lse = tfa.flash_attention_fwd_stats(q, k, v, window=window)
+    assert got.dtype == torch.bfloat16
+    _held_bf16(got, ref)
+    torch.testing.assert_close(got_lse, ref_lse, atol=1e-4, rtol=1e-5)
+    sq, skv = case[3], case[4]
+    live = min(sq, skv + (window or sq) - 1)
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (q[:, :, :live], k, v))
+    jout, jlse = jfa.flash_attention_fwd_stats(jq, jk, jv, bq=128, bk=128,
+                                               window=window, interpret=True)
+    _held_bf16(got[:, :, :live], torch.from_numpy(np.array(jout, np.float32)))
+    _held_bf16(got_lse[:, :, :live],
+               torch.from_numpy(np.array(jlse, np.float32)))
+    assert not got[:, :, live:].any() and not got_lse[:, :, live:].any()

@@ -445,3 +445,191 @@ def test_wrappers_check_pool_forms():
     with pytest.raises(TypeError, match="float32"):
         paged_decode_attention(q, qk, qv, tables, pos,
                                scales=(sk.double(), sv.double()))
+
+
+# -- the kernel's split-sequence design (csrc/paged_attention.cu) -------------
+#
+# A split pass: a block owns split_pages(page) pages of one (sequence, kv
+# head) and up to four query heads; it scores the span's live slots (q
+# scaled by log2 e, int8 scores times sk), takes one softmax over the span
+# (m, l over the unscaled p; p times sv for int8) and writes (m, l, acc).
+# A combine pass merges a sequence's live splits in split order.
+
+LOG2E = 1.4426950408889634
+
+
+def _live_pages(pos, page, max_pages, window):
+    """The kernel's [first_live, n_live) pages of a sequence at pos."""
+    end = min(pos // page + 1, max_pages)
+    first = max(0, pos - window + 1) // page if window else 0
+    return first, end
+
+
+def _split_span(split, span, pos, page, max_pages, window):
+    """Pages [lo, hi) the split block reads (hi <= lo: it returns at once)."""
+    first, end = _live_pages(pos, page, max_pages, window)
+    return max(split * span, first), min((split + 1) * span, end)
+
+
+def _live_splits(pos, page, max_pages, window, span):
+    """The splits the combine pass merges for a sequence at pos."""
+    first, end = _live_pages(pos, page, max_pages, window)
+    if first >= end:
+        return range(0)
+    return range(first // span, (end - 1) // span + 1)
+
+
+def _k4_emulation(q, pool, tables, positions, window=None, page_base=0,
+                  pool_v=None, scales=None, head_major_scales=False,
+                  span=None):
+    """The two passes in plain torch over the kernel's canonical views."""
+    k, v, sk, sv = tpa._canonical(q, pool, pool_v, scales, head_major_scales)
+    bsz, h, hd = q.shape
+    n_pages, page, hkv, _ = k.shape
+    group, max_pages = h // hkv, tables.shape[1]
+    span = span or tpa.split_pages(page)
+    n_splits = -(-max_pages // span)
+    part = {}
+    for b in range(bsz):
+        pos = int(positions[b])
+        for split in range(n_splits):
+            lo, hi = _split_span(split, span, pos, page, max_pages, window)
+            if lo >= hi:
+                continue
+            slots = torch.arange(lo * page, hi * page)
+            ok = slots <= pos
+            if window:
+                ok &= slots > pos - window
+            pid = (tables[b, slots // page].long() + page_base).clamp(
+                0, n_pages - 1)
+            within = slots % page
+            for kvh in range(hkv):
+                # masked slots are zero-filled on load, scales too
+                kr = torch.where(ok[:, None], k[pid, within, kvh].float(), 0.0)
+                vr = torch.where(ok[:, None], v[pid, within, kvh].float(), 0.0)
+                for g in range(group):
+                    hh = kvh * group + g
+                    s = kr @ (q[b, hh].float() * LOG2E)
+                    if sk is not None:
+                        s = s * torch.where(ok, sk[pid, within, kvh], 0.0)
+                    s = torch.where(ok, s, -torch.inf)
+                    m = max(float(s.max()), -1e30)
+                    p = torch.exp2(s - m)
+                    l = p.sum()
+                    if sv is not None:
+                        p = p * torch.where(ok, sv[pid, within, kvh], 0.0)
+                    part[b, hh, split] = (p @ vr, m, l)
+    out = torch.zeros((bsz, h, hd))
+    for b in range(bsz):
+        live = _live_splits(int(positions[b]), page, max_pages, window, span)
+        for hh in range(h):
+            mx = max([part[b, hh, s][1] for s in live], default=-1e30)
+            acc, l = torch.zeros(hd), torch.zeros(())
+            for s in live:  # split order
+                a, m, ls = part[b, hh, s]
+                w = 2.0 ** (m - mx)
+                acc, l = acc + w * a, l + w * ls
+            out[b, hh] = acc / (l if l != 0 else 1.0)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("page", [4, 16])
+def test_k4_splits_visit_exactly_the_live_pages(page):
+    """Over every position (one past the table too), window and split
+    width: the pages the split blocks read are exactly those holding an
+    attended slot, each in one block, and the combine merges exactly the
+    splits that read a page."""
+    for max_pages in (1, 5, 17, 40):
+        for span in {tpa.split_pages(page), 1, 3}:
+            n_splits = -(-max_pages // span)
+            for window in (None, 1, 7, 37, 300):
+                for pos in range(0, (max_pages + 2) * page, 3):
+                    slot = torch.arange(max_pages * page)
+                    att = slot <= pos
+                    if window:
+                        att &= slot > pos - window
+                    want = set((slot[att] // page).tolist())
+                    got, merged = [], set()
+                    for split in range(n_splits):
+                        lo, hi = _split_span(split, span, pos, page,
+                                             max_pages, window)
+                        got += range(lo, hi)
+                        if lo < hi:
+                            merged.add(split)
+                    assert sorted(got) == sorted(want), (pos, window, span)
+                    assert set(_live_splits(pos, page, max_pages, window,
+                                            span)) == merged
+
+
+def _long_case(page, max_pages, positions, layers=1, h=4, hkv=2, hd=64,
+               seed=13):
+    """_split_case's arrays over a wider table: each sequence owns
+    max_pages distinct pages of a layers-deep stacked pool."""
+    rng = np.random.default_rng(seed)
+    b = len(positions)
+    n = layers * (b * max_pages + 1)
+    pk = rng.standard_normal((n, page, hkv, hd)).astype(np.float32)
+    pv = rng.standard_normal((n, page, hkv, hd)).astype(np.float32)
+    qk, sk = (t.numpy() for t in quantize_vecs(torch.from_numpy(pk)))
+    qv, sv = (t.numpy() for t in quantize_vecs(torch.from_numpy(pv)))
+    tables = rng.permutation(b * max_pages).reshape(b, max_pages).astype(
+        np.int32)
+    q = (rng.standard_normal((b, h, hd)) / hd ** 0.5).astype(np.float32)
+    return dict(pk=pk, pv=pv, qk=qk, qv=qv, sk=sk, sv=sv, tables=tables,
+                positions=np.asarray(positions, np.int32), q=q,
+                base=(layers - 1) * (b * max_pages + 1))
+
+
+@pytest.mark.parametrize("form", ["fused fp", "fused int8", "split fp 4-D",
+                                  "split fp flat", "split int8 slot-major",
+                                  "split int8 flat", "split int8 head-major"])
+@pytest.mark.parametrize("page,window", [(4, None), (4, 7), (16, 37)])
+def test_k4_split_emulation_matches_plain_and_jax(form, page, window):
+    """The emulated two passes, at the kernel's split width and at 2 pages
+    (several splits a sequence), against the plain version (phase 3's fp32
+    limit, 2e-5) and the JAX DMA kernel in interpret mode, on ragged
+    positions over a layer-stacked pool read through page_base."""
+    max_pages = 24 if page == 4 else 6
+    c = _long_case(page, max_pages, [max_pages * page - 1, 50, 7, 0],
+                   layers=2)
+    pool, pool_v, scales, head_major = _forms(c)[form]
+    args = (_tt(c["q"]), _tt(pool), _tt(c["tables"]), _tt(c["positions"]))
+    kw = dict(window=window, page_base=c["base"], pool_v=_tt(pool_v),
+              scales=_tt(scales), head_major_scales=head_major)
+    ref = paged_decode_attention_plain(*args, **kw)
+    want = np.asarray(jax_dma(
+        _jj(c["q"]), _jj(pool), _jj(pool_v), _jj(c["tables"]),
+        _jj(c["positions"]), window=window, scales=_jj(scales),
+        head_major_scales=head_major, page_base=c["base"], depth=2,
+        interpret=True))
+    for span in (None, 2):
+        got = _k4_emulation(*args, span=span, **kw)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL,
+                                   rtol=0)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+def test_k4_split_emulation_past_the_table_and_in_bf16(window, quantized):
+    """A position past the table admits every table slot (as the plain
+    version does; the JAX kernel would read past the table), and bf16 q and
+    pools hold phase 3's bf16 limit, 2^-7 |ref| + 1e-6."""
+    page, max_pages = 4, 24
+    c = _long_case(page, max_pages, [max_pages * page + 5, 70, 3])
+    form = "fused int8" if quantized else "split fp 4-D"
+    pool, pool_v, scales, _ = _forms(c)[form]
+    args = (_tt(c["q"]), _tt(pool), _tt(c["tables"]), _tt(c["positions"]))
+    kw = dict(window=window, pool_v=_tt(pool_v), scales=_tt(scales))
+    for span in (None, 5):
+        np.testing.assert_allclose(
+            _k4_emulation(*args, span=span, **kw).numpy(),
+            paged_decode_attention_plain(*args, **kw).numpy(), atol=ATOL,
+            rtol=0)
+    if not quantized:
+        qb, pb, pvb = (t.bfloat16() for t in (args[0], args[1], kw["pool_v"]))
+        got = _k4_emulation(qb, pb, *args[2:], window=window, pool_v=pvb,
+                            span=5).float()
+        ref = paged_decode_attention_plain(qb, pb, *args[2:], window=window,
+                                           pool_v=pvb).float()
+        assert bool(((got - ref).abs() <= ref.abs() * 2.0 ** -7 + 1e-6).all())

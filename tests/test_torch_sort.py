@@ -9,7 +9,12 @@
   `sort` / `topk` on shared numpy inputs, for every dtype the engine
   takes, both directions, a non-last dim and k in {257, n}; and against
   the JAX package's own K10 engine (`_pallas_sort_jit` with its kernel in
-  interpret mode) on a few of them.  Bitwise: values and indices.
+  interpret mode) on a few of them.  Bitwise: values and indices.  The
+  JAX side runs the jitted functions its eager `sort` / `topk` dispatch to
+  off the TPU (`_sort_jit`, `_topk_jit`) on jnp arrays, not its eager
+  Tensors: those would leave freed blocks in the JAX package's caching
+  allocator, which tests/test_runtime.py expects to find as it left them
+  when the two files share a process.
 * NaN rows: the port's K10 orders NaN after every number, ties by index,
   which is the default engine's order (the TPU network leaves NaN rows in
   no defined order; ROADMAP.md section 3).
@@ -27,8 +32,8 @@ import torch
 
 import jax.numpy as jnp
 
-import kfunca_tpu as jk
 import kfunca_tpu_torch as tk
+from kfunca_tpu.core.dtype import from_numpy_dtype
 from kfunca_tpu.ops import sort as jsort
 from kfunca_tpu.ops.pallas_kernels import bitonic_sort as jbs
 from kfunca_tpu_torch.ops.pallas_kernels import bitonic_sort as tbs
@@ -91,11 +96,23 @@ def k10(monkeypatch):
 
 
 def _both(x, dtype):
+    """The same values as a jnp array (the JAX side) and a port tensor."""
     if dtype == "bfloat16":
-        j = jk.from_numpy(x.astype(np.float32), 0).bfloat16()
-        return j, tk.from_numpy(j.numpy(), DEV)
+        j = jnp.asarray(x.astype(np.float32)).astype(jnp.bfloat16)
+        return j, tk.from_numpy(np.asarray(j), DEV)
     x = np.ascontiguousarray(x.astype(dtype))
-    return jk.from_numpy(x, 0), tk.from_numpy(x, DEV)
+    return jnp.asarray(x), tk.from_numpy(x, DEV)
+
+
+def _jsort(j, dim, desc):
+    """The JAX package's `sort` off the TPU (its dispatch takes `_sort_jit`
+    there, the knob or not)."""
+    return jsort._sort_jit(j, dim, desc)
+
+
+def _jtopk(j, k, dim, largest):
+    """The JAX package's `topk` off the TPU (`_topk_jit`)."""
+    return jsort._topk_jit(j, k, dim, largest)
 
 
 def _bits(a):
@@ -108,9 +125,14 @@ def _bits(a):
 
 
 def _same(j, t):
-    assert j.dtype() == t.dtype() and j.sizes() == t.sizes()
-    np.testing.assert_array_equal(_bits(j.contiguous().numpy()),
-                                  _bits(t.contiguous().numpy()))
+    """A jnp result and a port tensor: same dtype, shape and bits."""
+    if not isinstance(j, jnp.ndarray):  # two port tensors
+        assert j.dtype() == t.dtype() and j.sizes() == t.sizes()
+        j = j.contiguous().numpy()
+    else:
+        assert from_numpy_dtype(j.dtype) == t.dtype()
+        assert list(j.shape) == list(t.sizes())
+    np.testing.assert_array_equal(_bits(j), _bits(t.contiguous().numpy()))
 
 
 def _engine_input(dtype, shape, seed):
@@ -130,13 +152,13 @@ def test_sort_engine_matches_the_jax_package(k10, dtype):
     x = _engine_input(dtype, (4, 300), 1)
     j, t = _both(x, dtype)
     for desc in (False, True):
-        (jv, ji), (tv, ti) = j.sort(1, desc), t.sort(1, desc)
+        (jv, ji), (tv, ti) = _jsort(j, 1, desc), t.sort(1, desc)
         _same(jv, tv)
         _same(ji, ti)
     # along a non-last dim: dim 0 of a (300, 3) view-shaped tensor
     j0, t0 = _both(np.ascontiguousarray(x.T), dtype)
     for desc in (False, True):
-        (jv, ji), (tv, ti) = j0.sort(0, desc), t0.sort(0, desc)
+        (jv, ji), (tv, ti) = _jsort(j0, 0, desc), t0.sort(0, desc)
         _same(jv, tv)
         _same(ji, ti)
     assert k10 == [(4, 300)] * 2 + [(4, 300)] * 2
@@ -149,10 +171,11 @@ def test_topk_engine_matches_the_jax_package(k10, dtype):
     j, t = _both(x, dtype)
     for k in (257, 300):
         for largest in (True, False):
-            (jv, ji), (tv, ti) = j.topk(k, 1, largest), t.topk(k, 1, largest)
+            (jv, ji), (tv, ti) = (_jtopk(j, k, 1, largest),
+                                  t.topk(k, 1, largest))
             _same(jv, tv)
             _same(ji, ti)
-    (jv, ji), (tv, ti) = j.topk(256, 1, True), t.topk(256, 1, True)
+    (jv, ji), (tv, ti) = _jtopk(j, 256, 1, True), t.topk(256, 1, True)
     _same(jv, tv)
     _same(ji, ti)
     assert len(k10) == 4  # k <= 256 keeps the present topk
@@ -169,7 +192,7 @@ def test_sort_engine_matches_the_jax_k10_engine(monkeypatch, k10, dtype, dim,
         jbs.bitonic_sort_pairs, interpret=True))
     x = _engine_input(dtype, (3, 130) if dim == 1 else (130, 3), 3)
     j, t = _both(x, dtype)
-    jv, ji = jsort._pallas_sort_jit(j._array(), dim, desc)
+    jv, ji = jsort._pallas_sort_jit(j, dim, desc)
     tv, ti = t.sort(dim, desc)
     np.testing.assert_array_equal(_bits(jv), _bits(tv.numpy()))
     np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
@@ -213,7 +236,7 @@ def test_nan_rows_take_the_default_engines_order(monkeypatch, dtype):
         tv, ti = t.sort(1, desc)
         _same(want[desc][0], tv)
         _same(want[desc][1], ti)
-        _same(j.sort(1, desc)[1], ti)
+        _same(_jsort(j, 1, desc)[1], ti)
 
 
 # -- the CUDA network, emulated ------------------------------------------------
