@@ -76,7 +76,10 @@ Phases (any failure raises and the script exits non-zero):
  21. hold the eager API's kernels against their plain versions: K9
      elementwise (the eight ops at 4096^2 in fp32/bf16/fp16, integer
      division by 0 and INT_MIN / -1, float -> int saturation), K8 reduce_2d
-     and K7 welford_norm_stat at 16387^2 (and a ragged 1000 x 333), K3
+     and K7 welford_norm_stat at 16387^2 (and a ragged 1000 x 333; K7 also
+     at 1 x 4096, 5 x 1, 31 x 16387, 1041 x 16387 (splits with no row)
+     and 17 x 4096 (splits shorter than a chunk), two calls bitwise
+     equal), K3
      matmul at 4096^3 in bf16/fp16/fp32, ragged and m = 1 with every
      epilogue, and int8 (each 16-bit case on the body the route rule
      names: wgmma for k, n multiples of 8, else mma.sync);
@@ -125,12 +128,13 @@ Phases (any failure raises and the script exits non-zero):
      parallel forward (K1 + K11) on every generated position;
  32. hold the bitonic sort K10 against its plain version (a stable
      torch.sort), keys and indices bitwise, fp32 and int32, at (8192, 512),
-     (8192, 1024), (64, 8192 = MAX_N), (3, 1), (5, 129) and (1000, 1000),
-     with duplicates, +-inf, INT32_MIN / INT32_MAX, NaN of both signs and
-     -0.0 beside 0.0;
+     (8192, 1024), (64, 8192 = MAX_N), (3, 1), (5, 129), (1000, 1000),
+     (8192, 128), (8192, 256) and (4096, 2048), with duplicates, +-inf,
+     INT32_MIN / INT32_MAX, NaN of both signs and -0.0 beside 0.0;
  33. time K10, its plain version and torch.sort(stable=True) at (8192,
-     512) and (8192, 1024) fp32 beside the bound (12 B an element) and this
-     design's shared-memory bound;
+     512) and (8192, 1024) fp32 beside the bound (12 B an element), with
+     the network's passes counted by where their pairs live (registers,
+     warp shuffles, shared memory);
  34. drive sort / topk through `import kfunca_tpu_torch as kfunca` with
      KFUNCA_PALLAS_SORT=1 (fp32, bf16, int32, uint8; both directions;
      dim 0 too; topk 512 of 1024): bitwise the default engine's results,
@@ -2062,21 +2066,32 @@ def k8_checks(rd) -> float:
 
 
 def k7_checks(wf) -> float:
-    """K7 against its plain (two-pass) version at 16387^2 and a ragged
-    1000 x 333: mean within 1e-5 of mean |x|, invstd within 1e-4
-    relative (fp32 in other orders; Welford against two passes)."""
+    """K7 against its plain (two-pass) version at 16387^2, a ragged
+    1000 x 333 and the edge shapes (one row, one column, 31 rows over
+    16387 columns; 1041 x 16387, whose 65 splits of 17 rows leave the last
+    three empty; 17 x 4096, two splits of 9 rows, shorter than a chunk):
+    mean within 1e-5 of mean |x|, invstd within 1e-4 relative (fp32 in
+    other orders; Welford against two passes); two calls bitwise equal."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
     worst = 0.0
-    for shape in (RED_SHAPE, (1000, 333)):
+    shapes = (RED_SHAPE, (1000, 333), (1, 4096), (5, 1), (31, 16387),
+              (1041, 16387), (17, 4096))
+    for shape in shapes:
         x = torch.randn(shape, generator=gen, device="cuda") * 3.0 + 1.0
         m, s = wf.welford_norm_stat(x)
+        m2, s2 = wf.welford_norm_stat(x)
         pm, ps = wf.welford_norm_stat_plain(x)
         torch.cuda.synchronize()
         em = (m - pm).abs().max().item()
         es = ((s - ps).abs() / ps.abs()).max().item()
         check(em <= 1e-5 * x.abs().mean().item() and es <= 1e-4,
               f"K7 {shape} mean err {em:.3g}, invstd rel err {es:.3g}")
+        check(torch.equal(m, m2) and torch.equal(s, s2),
+              f"K7 {shape}: two calls bitwise equal")
         worst = max(worst, em, (s - ps).abs().max().item())
+        del x, m, s, m2, s2, pm, ps
+    print(f"  K7 at {', '.join('x'.join(map(str, sh)) for sh in shapes)}: "
+          f"within limits, two calls bitwise equal", flush=True)
     return worst
 
 
@@ -2177,7 +2192,8 @@ def eager_timing():
                      bound_ms=bms, bound_by=by, what="sum, 16387^2 fp32")
     out["k8"]["max_ms"] = time_ms(lambda: rd.reduce_2d(x, "max"), reps=10)
     out["k8"]["max_library_ms"] = time_ms(lambda: torch.amax(x, 0), reps=10)
-    # Welford: 4 flops an element (sub, divide, two fused multiply-adds)
+    # Welford: 4 flops an element (the shift by the running mean, the chunk
+    # sum, the deviation from the chunk mean, its square's multiply-add)
     bms, by = bound((r * c + 2 * c) * 4, 4 * r * c, f32)
 
     def library_norm_stat():
@@ -3058,10 +3074,7 @@ def ssm_phases(fa, card):
 # docs/SORT_ENGINE.md's shape, and the dispatcher's longest rows
 SORT_SHAPES = [(8192, 512), (8192, 1024)]
 K10_CHECKS = [(8192, 512), (8192, 1024), (64, 8192), (3, 1), (5, 129),
-              (1000, 1000)]
-# the card's shared-memory bandwidth: 128 B a clock an SM x 132 SMs x
-# 1.98 GHz (the H100 SXM's boost clock)
-SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
+              (1000, 1000), (8192, 128), (8192, 256), (4096, 2048)]
 
 
 def k10_keys(gen, rows, n, dtype):
@@ -3111,19 +3124,27 @@ def k10_checks(bs) -> float:
     return 0.0
 
 
-def k10_bounds(rows, n):
+def k10_bounds(bs, rows, n):
     """(bound ms, what bounds it) of the contract (12 B an element: the
     key read, the key and the index written; the compare-exchanges at the
-    fp32 rate), and this design's shared-memory bound."""
+    fp32 rate), and this design's passes by where their pairs live: in a
+    thread's registers (d < kE), by warp shuffles (kE <= d < 32 kE) or
+    through shared memory (d >= 32 kE), kE = bs.WORDS_PER_THREAD."""
     p = 1 << max(7, (n - 1).bit_length())
     log2p = p.bit_length() - 1
     exchanges = rows * (p // 2) * log2p * (log2p + 1) // 2
     t_bytes = 12 * rows * n / HBM_BYTES_PER_S
     t_ops = exchanges / PEAK_FLOPS[torch.float32]
+    passes = {"register": 0, "shuffle": 0, "shared": 0}
+    for size_bit in range(1, log2p + 1):
+        for d_bit in range(size_bit):
+            d = 1 << d_bit
+            where = ("register" if d < bs.WORDS_PER_THREAD else
+                     "shuffle" if d < 32 * bs.WORDS_PER_THREAD else "shared")
+            passes[where] += 1
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=12 * rows * n, exchanges=exchanges,
-                smem_ms=exchanges * 32 / SMEM_BYTES_PER_S * 1e3)
+                bytes=12 * rows * n, exchanges=exchanges, passes=passes)
 
 
 def k10_timing(bs) -> dict:
@@ -3133,7 +3154,7 @@ def k10_timing(bs) -> dict:
     out = {}
     for rows, n in SORT_SHAPES:
         keys = torch.randn((rows, n), generator=gen, device="cuda")
-        t = k10_bounds(rows, n)
+        t = k10_bounds(bs, rows, n)
         t.update(ms=time_ms(lambda: bs.bitonic_sort_pairs(keys)),
                  plain_ms=time_ms(lambda: bs.bitonic_sort_pairs_plain(keys)),
                  library_ms=time_ms(lambda: torch.sort(keys, dim=-1,
@@ -3407,9 +3428,12 @@ def runtime_phases(card):
         print(f"[33] K10 at ({rows}, {n}) fp32: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, torch.sort(stable=True) "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}; {t['bytes']} B); this design's "
-              f"shared-memory bound {t['smem_ms']:.4f} ms ({t['exchanges']} "
-              f"compare-exchanges x 32 B); {card}", flush=True)
+              f"({t['bound_by']}; {t['bytes']} B); {t['exchanges']} "
+              f"compare-exchanges in {sum(t['passes'].values())} passes: "
+              f"{t['passes']['register']} in registers, "
+              f"{t['passes']['shuffle']} by warp shuffles, "
+              f"{t['passes']['shared']} through shared memory; {card}",
+              flush=True)
     free_device_memory()
     print("[34] the sort engine through `import kfunca_tpu_torch as kfunca`, "
           "KFUNCA_PALLAS_SORT=1", flush=True)

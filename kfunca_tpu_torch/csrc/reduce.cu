@@ -18,21 +18,43 @@
 // What bounds them: HBM bytes.  At the 16387 x 16387 fp32 shape that
 // norm_stat users run, the input is 1.07 GB and both kernels' floor is its
 // read, 0.32 ms.  The TPU grid walks row tiles in order and carries the
-// accumulator between them; on the card the blocks run at once, so the
-// row walk moves inside the block:
-//   * a block owns a strip of 32 columns: lane c of each warp reads column
-//     c, so a warp's loads are one 128-byte line of a row;
-//   * the block's 8 warps take rows w, w + 8, w + 16, ..., each thread
-//     keeping its own accumulator (a running sum or max, or a Welford
-//     triple n, mean, m2 updated one element at a time) and issuing
-//     kUnroll independent loads before it uses them;
-//   * the 8 partial results of a column meet in shared memory and are
-//     merged in a fixed order (the Welford ones by Chan's formula), so the
-//     result repeats bit for bit with no atomics.
+// accumulator between them; on the card the blocks run at once.
+//
+// K8: a block owns a strip of 32 columns (lane c of each warp reads column
+// c, one 128-byte line of a row); its 8 warps take rows w, w + 8, ..., each
+// thread keeping its own running sum or max and issuing kUnroll independent
+// loads before it uses them; the 8 partials of a column meet in shared
+// memory and are merged in warp order.
+//
+// K7, a split-row reduction in two launches:
+//   * welford_split_kernel: a block of 256 threads owns 256 contiguous
+//     columns (thread t reads column c0 + t, so each row the block reads is
+//     one contiguous 1 KB run), and blockIdx.y picks one of S row splits of
+//     rps = ceil(R / S) rows.  S comes from the shape alone (the wrapper's
+//     `split_count`: enough blocks for about four waves of 8 blocks an SM,
+//     at most one split a kChunk rows), so the result repeats bit for bit.
+//     The row pitch of the measured 16387-column shape (65,548 bytes) is not
+//     a multiple of 16, so neither 16-byte loads nor TMA apply: the loads
+//     are 4-byte and coalesced, and bandwidth comes from having many of
+//     them in flight.  Each thread loads kChunk = 16 rows of its column
+//     before it uses any, takes them relative to its running mean
+//     (d = v - mean), forms the chunk's mean of d (times 1 / 16) and the
+//     chunk's M2 as the sum of (d - chunk mean)^2 in registers, then folds
+//     the chunk into its running (n, mean, M2) by Chan's formula: one divide
+//     a chunk, not one an element.  Counts are integers, made float only
+//     inside a merge.  The split writes its (mean, M2) to a workspace of
+//     2 x S x C fp32 that the wrapper allocates; its count is
+//     clamp(R - s * rps, 0, rps), known from the shape, so it is not
+//     stored.  A split with no rows writes nothing.
+//   * welford_merge_kernel: a block of 32 columns x 8 warps; warp w merges
+//     the splits [w * per, (w + 1) * per) of its lane's column in split
+//     order (per = ceil(S / 8), loads issued 8 at a time), then warp 0
+//     merges the 8 results in warp order and writes mean and invstd.  No
+//     atomics: a fixed order, bitwise repeatable.  An empty split (n = 0)
+//     is the merge's identity.
 // Raw sums of squares are never formed over a column: cancellation there
 // is what Welford avoids.
-// Left for later: splitting the rows of a narrow matrix across blocks (a
-// matrix of few columns gets few blocks), and 16-byte loads.
+// Left for later (K8): the same split-row layout for sum / mean / max.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -92,60 +114,124 @@ __global__ void __launch_bounds__(kCols * kWarps) reduce_2d_kernel(
   }
 }
 
-// Chan et al.'s merge of two Welford partials (a <- a + b)
-__device__ __forceinline__ void merge(float& n, float& mean, float& m2,
-                                      float nb, float meanb, float m2b) {
-  if (nb == 0.0f) return;
-  if (n == 0.0f) {
-    n = nb;
-    mean = meanb;
-    m2 = m2b;
-    return;
-  }
-  const float tot = n + nb;
-  const float delta = meanb - mean;
-  mean = mean + delta * (nb / tot);
-  m2 = m2 + m2b + delta * delta * (n * nb / tot);
+// Chan et al.'s update of a (count, mean, M2) partial by nb more values
+// whose mean lies `delta` above the partial's and whose M2 is m2b.  The
+// counts stay integers, made float only here.  From n = 0 and mean = 0 it
+// gives (nb, delta, m2b) exactly.
+__device__ __forceinline__ void chan_fold(int& n, float& mean, float& m2,
+                                          int nb, float delta, float m2b) {
+  const int tot = n + nb;
+  const float f = (float)nb / (float)tot;
+  mean = fmaf(delta, f, mean);
+  m2 = m2 + m2b + delta * delta * ((float)n * f);
   n = tot;
 }
 
-__global__ void __launch_bounds__(kCols * kWarps) welford_kernel(
-    const float* __restrict__ x, float* __restrict__ mean_out,
-    float* __restrict__ invstd_out, int rows, int cols) {
-  __shared__ float part[3][kWarps][kCols];
+// Chan's merge of two partials (a <- a + b); nb == 0 is the identity.
+__device__ __forceinline__ void chan_merge(int& n, float& mean, float& m2,
+                                           int nb, float meanb, float m2b) {
+  if (nb != 0) chan_fold(n, mean, m2, nb, meanb - mean, m2b);
+}
+
+constexpr int kWelfordThreads = 256;  // columns per split block
+constexpr int kChunk = 16;            // rows a thread loads before using them
+
+__global__ void __launch_bounds__(kWelfordThreads) welford_split_kernel(
+    const float* __restrict__ x, float* __restrict__ ws, int rows, int cols,
+    int rps) {
+  const int col = blockIdx.x * kWelfordThreads + threadIdx.x;
+  const long long first = (long long)blockIdx.y * rps;
+  if (col >= cols || first >= rows) return;  // past the matrix, or an empty split
+  const int r0 = (int)first;
+  const int r1 = (int)min((long long)rows, first + rps);
+  const size_t pitch = (size_t)cols;
+  const float* p = x + (size_t)r0 * pitch + col;
+  int n = 0;
+  float mean = 0.0f, m2 = 0.0f;
+  int r = r0;
+  for (; r + kChunk <= r1; r += kChunk, p += kChunk * pitch) {
+    float d[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) d[u] = __ldg(p + u * pitch);
+    float s = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      d[u] -= mean;
+      s += d[u];
+    }
+    const float md = s * (1.0f / kChunk);
+    float m2c = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const float e = d[u] - md;
+      m2c = fmaf(e, e, m2c);
+    }
+    // the chunk was taken relative to the running mean, so md is Chan's
+    // delta, free of the cancellation of (chunk mean - running mean)
+    chan_fold(n, mean, m2, kChunk, md, m2c);
+  }
+  if (r < r1) {  // the split's last rows, fewer than kChunk
+    const int u_n = r1 - r;
+    float d[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) d[u] = u < u_n ? __ldg(p + u * pitch) : 0.0f;
+    float s = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      d[u] = u < u_n ? d[u] - mean : 0.0f;
+      s += d[u];
+    }
+    const float md = s / (float)u_n;
+    float m2c = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const float e = u < u_n ? d[u] - md : 0.0f;
+      m2c = fmaf(e, e, m2c);
+    }
+    chan_fold(n, mean, m2, u_n, md, m2c);
+  }
+  const size_t plane = (size_t)gridDim.y * pitch;
+  ws[blockIdx.y * pitch + col] = mean;
+  ws[plane + blockIdx.y * pitch + col] = m2;
+}
+
+constexpr int kMergeLoads = 8;  // partials a thread loads before merging
+
+__global__ void __launch_bounds__(kCols * kWarps) welford_merge_kernel(
+    const float* __restrict__ ws, float* __restrict__ mean_out,
+    float* __restrict__ invstd_out, int rows, int cols, int splits, int rps) {
+  __shared__ float part_mean[kWarps][kCols], part_m2[kWarps][kCols];
+  __shared__ int part_n[kWarps][kCols];
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int col = blockIdx.x * kCols + lane;
-  float n = 0.0f, mean = 0.0f, m2 = 0.0f;
+  const int per = (splits + kWarps - 1) / kWarps;
+  const int s_end = min(splits, (warp + 1) * per);
+  const size_t pitch = (size_t)cols;
+  const size_t plane = (size_t)splits * pitch;
+  int n = 0;
+  float mean = 0.0f, m2 = 0.0f;
   if (col < cols) {
-    const float* p = x + col;
-    long long r = warp;
-    for (; r + (kUnroll - 1) * kWarps < rows; r += kUnroll * kWarps) {
-      float v[kUnroll];
+    for (int s0 = warp * per; s0 < s_end; s0 += kMergeLoads) {
+      float mb[kMergeLoads], m2b[kMergeLoads];
+      int nb[kMergeLoads];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) v[u] = p[(r + (long long)u * kWarps) * cols];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        n += 1.0f;
-        const float d = v[u] - mean;
-        mean += d / n;
-        m2 += d * (v[u] - mean);
+      for (int i = 0; i < kMergeLoads; ++i) {
+        const int s = s0 + i;
+        nb[i] = s < s_end ? (int)max(0LL, min((long long)rps, rows - (long long)s * rps)) : 0;
+        mb[i] = nb[i] ? ws[s * pitch + col] : 0.0f;
+        m2b[i] = nb[i] ? ws[plane + s * pitch + col] : 0.0f;
       }
-    }
-    for (; r < rows; r += kWarps) {
-      const float v = p[r * cols];
-      n += 1.0f;
-      const float d = v - mean;
-      mean += d / n;
-      m2 += d * (v - mean);
+#pragma unroll
+      for (int i = 0; i < kMergeLoads; ++i) chan_merge(n, mean, m2, nb[i], mb[i], m2b[i]);
     }
   }
-  part[0][warp][lane] = n;
-  part[1][warp][lane] = mean;
-  part[2][warp][lane] = m2;
+  part_n[warp][lane] = n;
+  part_mean[warp][lane] = mean;
+  part_m2[warp][lane] = m2;
   __syncthreads();
   if (warp == 0 && col < cols) {
     for (int w = 1; w < kWarps; ++w)
-      merge(n, mean, m2, part[0][w][lane], part[1][w][lane], part[2][w][lane]);
+      chan_merge(n, mean, m2, part_n[w][lane], part_mean[w][lane], part_m2[w][lane]);
     mean_out[col] = mean;
     invstd_out[col] = 1.0f / sqrtf(m2 / (float)rows + 1e-12f);
   }
@@ -192,14 +278,23 @@ extern "C" int kf_reduce_2d(const void* x, int in_code, void* out, int out_code,
   }
 }
 
+// x: (rows, cols) fp32; mean, invstd: cols fp32 each; ws: a workspace of
+// 2 x splits x cols fp32 (the split partials' means, then their M2), which
+// the caller allocates.  Two launches, split then merge.
 extern "C" int kf_welford_norm_stat(const void* x, void* mean, void* invstd,
-                                    int rows, int cols, void* stream) {
+                                    void* ws, int rows, int cols, int splits,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 block(kCols, kWarps);
-  const dim3 grid((cols + kCols - 1) / kCols);
-  welford_kernel<<<grid, block, 0, s>>>(static_cast<const float*>(x),
-                                        static_cast<float*>(mean),
-                                        static_cast<float*>(invstd), rows, cols);
+  if (rows <= 0 || cols <= 0 || splits <= 0 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int rps = (int)(((long long)rows + splits - 1) / splits);
+  const dim3 grid((cols + kWelfordThreads - 1) / kWelfordThreads, splits);
+  welford_split_kernel<<<grid, kWelfordThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<float*>(ws), rows, cols, rps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  welford_merge_kernel<<<(cols + kCols - 1) / kCols, dim3(kCols, kWarps), 0, s>>>(
+      static_cast<const float*>(ws), static_cast<float*>(mean),
+      static_cast<float*>(invstd), rows, cols, splits, rps);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,12 @@ row), ordered by (key, index): the stable order.  Rows of any length are
 taken; the kernel pads each to a power of two >= 128 with cells that sort
 after every real cell, whatever its key, and drops them.
 
+The kernel runs a bitonic network over 64-bit (ordered key, index) words,
+8 consecutive words of a row in each thread's registers: pairs closer
+than 8 are exchanged within a thread, pairs up to 255 apart by warp
+shuffles, farther ones through shared memory (3 of the 55 passes of a row
+of 1024).  It needs no workspace.
+
 One departure from the TPU kernel, by design: the TPU network compares
 with `>` and `<`, so a row that holds NaN comes back in no defined order.
 Here every NaN sorts after every number, ties by index, which is the port's
@@ -25,7 +31,8 @@ import torch
 
 from ...runtime import _kernels
 
-MAX_N = 8192  # the kernel's row limit (one block's shared memory, 64 KB)
+MAX_N = 8192  # the kernel's row limit (one block of 1024 threads, 8 words each)
+WORDS_PER_THREAD = 8  # csrc/bitonic_sort.cu kE: words a thread holds in registers
 DISPATCH_MAX_N = 1024  # the largest padded row ops/sort.py sends it
 MIN_PAD = 128  # rows pad to a power of two at least this
 _DTYPES = (torch.float32, torch.int32)

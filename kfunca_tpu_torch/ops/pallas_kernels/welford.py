@@ -8,9 +8,17 @@ Counterpart of kfunca_tpu/ops/pallas_kernels/welford.py.  On CUDA tensors
 Contract (both routes, the TPU kernel's): per-column mean and
 invstd = 1 / sqrt(m2 / R + 1e-12) with the biased variance m2 / R, in fp32.
 The TPU kernel reduces the floor-aligned rows and merges the ragged tail
-in XLA; the card's kernel reduces every row itself (per-thread Welford
-updates merged by Chan's formula), so the two agree to fp32 rounding, not
-bit for bit.  The plain version is the two-pass formula.
+in XLA; the card's kernel reduces every row itself, so the two agree to
+fp32 rounding, not bit for bit.  The plain version is the two-pass formula.
+
+The card's kernel is a split-row reduction in two launches (counted as one
+call): the rows are cut into `split_count(R, C)` splits of ceil(R / S) rows
+(from the shape alone, so the result repeats bit for bit); a block of 256
+threads takes 256 columns of one split, each thread folding chunks of 16
+rows (the chunk's mean and M2 taken in registers, relative to its running
+mean) into its (count, mean, M2) by Chan's formula; the splits' partials go
+to a workspace of 2 x S x C fp32 that this wrapper allocates, and a second
+kernel merges each column's partials in a fixed order.
 """
 
 from __future__ import annotations
@@ -20,6 +28,9 @@ import torch
 from ...runtime import _kernels
 
 EPS = 1e-12
+SPLIT_COLS = 256  # columns a block of the split kernel owns (reduce.cu kWelfordThreads)
+CHUNK = 16  # rows a thread loads before it folds them in (reduce.cu kChunk)
+TARGET_BLOCKS = 4 * 132 * 8  # about four waves of 8 blocks on each of 132 SMs
 
 
 def _check(x):
@@ -36,6 +47,13 @@ def welford_norm_stat_plain(x):
     return mean, 1.0 / torch.sqrt(var + EPS)
 
 
+def split_count(rows: int, cols: int) -> int:
+    """S, the kernel's row splits, from the shape alone: enough blocks for
+    TARGET_BLOCKS, and no more splits than chunks of CHUNK rows."""
+    strips = -(-cols // SPLIT_COLS)
+    return max(1, min(-(-TARGET_BLOCKS // strips), -(-rows // CHUNK)))
+
+
 def welford_norm_stat(x):
     """(mean, invstd) of each column of x over its rows.
 
@@ -49,14 +67,16 @@ def welford_norm_stat(x):
     rows, cols = x.shape
     if rows == 0 or cols == 0:
         raise ValueError(f"the kernel needs R > 0 and C > 0, got {tuple(x.shape)}")
+    splits = split_count(rows, cols)
     x = x.contiguous()
     mean = torch.empty((1, cols), dtype=torch.float32, device=x.device)
     invstd = torch.empty_like(mean)
+    ws = torch.empty((2, splits, cols), dtype=torch.float32, device=x.device)
     vp, i32 = _kernels.VP, _kernels.I32
     fn = _kernels.function("reduce", "kf_welford_norm_stat",
-                           (vp, vp, vp, i32, i32, vp))
-    err = fn(x.data_ptr(), mean.data_ptr(), invstd.data_ptr(), rows, cols,
-             torch.cuda.current_stream(x.device).cuda_stream)
+                           (vp, vp, vp, vp, i32, i32, i32, vp))
+    err = fn(x.data_ptr(), mean.data_ptr(), invstd.data_ptr(), ws.data_ptr(),
+             rows, cols, splits, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"welford kernel launch failed: CUDA error {err}")
     welford_norm_stat.launches += 1

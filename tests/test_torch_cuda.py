@@ -741,6 +741,30 @@ def test_reduce_kernels_match_plain(cuda, shape, dtype):
         assert ((s - ps).abs() / ps).max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 4096), (5, 1), (31, 16387), (1000, 333), (16387, 16387),
+    (1041, 16387),  # S = 65 splits of 17 rows: 62-64 hold none, 61 four
+    (17, 4096),     # S = 2 splits of 9 rows, each shorter than a chunk
+], ids=str)
+def test_welford_kernel_matches_plain_and_repeats(cuda, shape):
+    """K7's split-row kernel against its plain (two-pass) version: mean
+    within 1e-5 of mean |x|, invstd within 1e-4 relative (Welford against
+    two passes, fp32 in other orders); two calls bitwise equal (the splits
+    come from the shape and merge in a fixed order)."""
+    _, _, _, wf = _eager_kernels()
+    gen = torch.Generator(device=cuda).manual_seed(shape[0] + shape[1])
+    x = torch.randn(shape, generator=gen, device=cuda) * 3.0 + 1.0
+    before = wf.welford_norm_stat.launches
+    m, s = wf.welford_norm_stat(x)
+    m2, s2 = wf.welford_norm_stat(x)
+    pm, ps = wf.welford_norm_stat_plain(x)
+    torch.cuda.synchronize()
+    assert wf.welford_norm_stat.launches == before + 2
+    assert (m - pm).abs().max().item() <= 1e-5 * x.abs().mean().item()
+    assert ((s - ps).abs() / ps).max().item() <= 1e-4
+    assert torch.equal(m, m2) and torch.equal(s, s2)
+
+
 @pytest.mark.parametrize("mkn", [(1, 64, 8), (37, 100, 53), (130, 45, 137),
                                  (256, 512, 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
@@ -1176,7 +1200,8 @@ def _k10_keys(cuda, rows, n, dtype, gen):
 
 
 @pytest.mark.parametrize("rows,n", [(3, 1), (5, 129), (40, 512), (7, 1000),
-                                    (2, 4096), (2, 8192)], ids=str)
+                                    (2, 4096), (2, 8192), (8192, 128),
+                                    (8192, 256), (4096, 2048)], ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32], ids=str)
 def test_bitonic_sort_kernel_matches_plain(cuda, rows, n, dtype):
     """K10 against its plain version (a stable torch.sort of the keys):

@@ -16,6 +16,8 @@ of the largest magnitude, integers and the elementwise contract exact.
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from kfunca_tpu.ops.pallas_kernels.elementwise import elementwise as jax_ew
 from kfunca_tpu.ops.pallas_kernels.matmul import matmul as jax_matmul
 from kfunca_tpu.ops.pallas_kernels.reduce import reduce_2d as jax_reduce
 from kfunca_tpu.ops.pallas_kernels.welford import welford_norm_stat as jax_welford
+from kfunca_tpu_torch.ops.pallas_kernels import bitonic_sort as k10
 from kfunca_tpu_torch.ops.pallas_kernels import elementwise as k9
 from kfunca_tpu_torch.ops.pallas_kernels import matmul as k3
 from kfunca_tpu_torch.ops.pallas_kernels import reduce as k8
@@ -415,48 +418,120 @@ def test_k7_plain_matches_pallas(r, c):
     _close(ts.numpy(), js, rtol=1e-5)
 
 
-def _welford_step(state, v):
+def _chan_fold(state, nb, delta, m2b):
+    """csrc/reduce.cu `chan_fold`: nb more values whose mean lies `delta`
+    above the partial's, integer counts made float only here (the kernel
+    fuses the mean's multiply-add; here it rounds twice)."""
     n, mean, m2 = state
-    n = n + 1.0
-    d = v - mean
-    mean = mean + d / n
-    return n, mean, m2 + d * (v - mean)
+    tot = n + nb
+    f = torch.tensor(nb, dtype=torch.float32) / torch.tensor(tot, dtype=torch.float32)
+    return tot, mean + delta * f, m2 + m2b + delta * delta * (torch.tensor(
+        n, dtype=torch.float32) * f)
 
 
 def _chan_merge(a, b):
-    n, mean, m2 = a
-    nb, meanb, m2b = b
-    if nb == 0:
-        return a
-    if n == 0:
-        return b
-    tot = n + nb
-    delta = meanb - mean
-    return tot, mean + delta * (nb / tot), m2 + m2b + delta * delta * (n * nb / tot)
+    return a if b[0] == 0 else _chan_fold(a, b[0], b[1] - a[1], b[2])
 
 
-def test_k7_tiling_emulation():
-    """Per-thread Welford updates over rows w, w + 8, ... and Chan's merge
-    in warp order (csrc/reduce.cu) give the two-pass statistics, with a
-    large common offset that raw sums of squares would cancel away."""
+def _emulate_split_rows(x, splits, chunk=16, warps=8):
+    """csrc/reduce.cu's K7 on the CPU, in fp32, for all columns of x at once:
+    S row splits of ceil(R / S) rows; in each, chunks of `chunk` rows (the
+    last may be shorter) taken relative to the running mean, the chunk's
+    mean of d and its M2 formed in registers, folded in by Chan's formula;
+    then the merge kernel's order: warp w merges splits [w * per, (w + 1)
+    * per) in split order, and the warps' results are merged in warp
+    order.  Returns (n, mean, m2) with mean and m2 of shape (C,)."""
+    rows, cols = x.shape
+    rps = -(-rows // splits)
+    zero = torch.zeros(cols, dtype=torch.float32)
+    parts = []
+    for s in range(splits):
+        r0, r1 = s * rps, min(rows, (s + 1) * rps)
+        state = (0, zero, zero)
+        for r in range(r0, r1, chunk):
+            u = min(chunk, r1 - r)
+            d = x[r:r + u] - state[1]
+            total = zero
+            for v in d:
+                total = total + v
+            md = total * (1.0 / chunk) if u == chunk else total / u
+            m2c = zero
+            for v in d:
+                m2c = m2c + (v - md) * (v - md)
+            state = _chan_fold(state, u, md, m2c)
+        parts.append(state)
+    per = -(-splits // warps)
+    merged = []
+    for w in range(warps):
+        state = (0, zero, zero)
+        for part in parts[w * per:min(splits, (w + 1) * per)]:
+            state = _chan_merge(state, part)
+        merged.append(state)
+    state = merged[0]
+    for part in merged[1:]:
+        state = _chan_merge(state, part)
+    return state
+
+
+@pytest.mark.parametrize("r,c,splits", [
+    (1003, 3, None),  # the shape's own S = 63: 62 splits of 16 rows, one of 11
+    (5, 2, 8),        # R < S: three splits hold no row
+    (100, 4, 3),      # 34 rows a split: R not a multiple of the chunk
+    (40, 3, 4),       # 10 rows a split: every split shorter than a chunk
+    (77, 1, None),    # C = 1
+    # the S the kernel takes for wider matrices of these rows (a column's
+    # schedule depends on R and S only):
+    (1041, 3, (1041, 16387)),  # S = 65 of 17 rows: 62-64 empty, 61 four rows
+    (17, 3, (17, 4096)),       # S = 2 of 9 rows, each shorter than a chunk
+], ids=["1003x3", "r_below_s", "ragged_chunks", "short_splits", "one_column",
+        "empty_splits_1041x16387", "short_splits_17x4096"])
+def test_k7_tiling_emulation(r, c, splits):
+    """The split-row schedule of csrc/reduce.cu gives the two-pass
+    statistics, with a large common offset that raw sums of squares would
+    cancel away.  `splits`: forced, from the given shape, or (None) from
+    the matrix's own."""
     rng = np.random.default_rng(14)
-    x = torch.from_numpy((rng.standard_normal((1003, 3)) + 1e4).astype(np.float32))
-    for c in range(3):
-        zero = (torch.tensor(0.0), torch.tensor(0.0), torch.tensor(0.0))
-        parts = _emulate_column_strip(x[:, c], zero, _welford_step)
-        state = parts[0]
-        for p in parts[1:]:
-            state = _chan_merge(state, p)
-        n, mean, m2 = (float(v) for v in state)
-        ref = x[:, c].double()
-        var = ref.var(correction=0).item()
-        assert n == 1003
-        assert abs(mean - ref.mean().item()) < 2e-6 * 1e4  # fp32 steps of the mean
-        assert abs(m2 / n - var) < 1e-2 * var
+    x = torch.from_numpy((rng.standard_normal((r, c)) + 1e4).astype(np.float32))
+    if splits is None:
+        splits = k7.split_count(r, c)
+    elif isinstance(splits, tuple):
+        splits = k7.split_count(*splits)
+    n, mean, m2 = _emulate_split_rows(x, splits)
+    ref = x.double()
+    var = ref.var(0, correction=0)
+    assert n == r
+    assert (mean.double() - ref.mean(0)).abs().max() < 2e-6 * 1e4  # fp32 steps of the mean
+    assert ((m2.double() / n - var).abs() < 1e-2 * var).all()
+    if r == 1003:
         # the raw sums of squares the kernel avoids lose the variance here
-        xc = x[:, c]
-        raw = ((xc * xc).sum() / n - (xc.sum() / n) ** 2).item()
-        assert abs(raw - var) > 0.5 * var
+        raw = (x * x).sum(0) / n - (x.sum(0) / n) ** 2
+        assert ((raw.double() - var).abs() > 0.5 * var).all()
+
+
+def test_k7_split_count_fills_the_card():
+    """S from the shape alone: at 16387^2, 65 column strips x 65 splits of
+    253 rows, four waves of 8 blocks on 132 SMs; never more splits than
+    chunks of rows, never fewer than one."""
+    assert k7.split_count(16387, 16387) == 65
+    assert -(-16387 // 256) * k7.split_count(16387, 16387) >= k7.TARGET_BLOCKS
+    assert k7.split_count(1000, 333) == 63 and k7.split_count(5, 1) == 1
+    assert k7.split_count(1, 4096) == 1 and k7.split_count(10 ** 6, 1) == 4224
+    assert k7.split_count(1041, 16387) == 65 and k7.split_count(17, 4096) == 2
+
+
+@pytest.mark.parametrize("module,name,source,constant", [
+    (k7, "CHUNK", "reduce.cu", "kChunk"),
+    (k7, "SPLIT_COLS", "reduce.cu", "kWelfordThreads"),
+    (k10, "WORDS_PER_THREAD", "bitonic_sort.cu", "kE"),
+    (k10, "MAX_N", "bitonic_sort.cu", "kMaxN"),
+])
+def test_wrapper_constants_match_the_kernel_source(module, name, source, constant):
+    """The wrappers' copies of the kernels' tile constants, which
+    `split_count`, the emulations and chip_smoke.py's pass counts read,
+    equal the constexpr values csrc/ compiles."""
+    text = (Path(k7.__file__).resolve().parents[2] / "csrc" / source).read_text()
+    found = re.findall(rf"constexpr int {constant} = (\d+);", text)
+    assert found == [str(getattr(module, name))]
 
 
 # -- K9: elementwise ---------------------------------------------------------------

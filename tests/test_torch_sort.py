@@ -20,8 +20,11 @@
   no defined order; ROADMAP.md section 3).
 * A pure-torch emulation of the CUDA network (csrc/bitonic_sort.cu: the
   ordered 32-bit key and the index per word, pads after every real cell,
-  several rows a block, the pass schedule) at tiny shapes against the plain
-  version, bitwise.
+  several rows a block, 8 words a thread in registers, each pass in
+  registers, by a warp shuffle or through shared memory by its pair
+  distance, the padded shared-memory layout free of bank conflicts) at
+  tiny shapes and at P = 128, 1024 and 8192 against the plain version,
+  bitwise.
 """
 
 import functools
@@ -253,36 +256,86 @@ def _ordered(keys):
     return torch.where(torch.isnan(keys), torch.full_like(u, 0xFFFFFFFF), u)
 
 
+def _banks_apart(index):
+    """Whether each 16 consecutive threads' 8-byte shared-memory words lie
+    on distinct bank pairs (a warp's 64-bit access is served 16 lanes at a
+    time)."""
+    groups = (index % 16).reshape(-1, 16)
+    return all(len(set(g.tolist())) == 16 for g in groups)
+
+
+def _keep(mine, other, keep_min):
+    """csrc/bitonic_sort.cu `keep`: the min of the two if keep_min, else the
+    max."""
+    return torch.where((other < mine) == keep_min, other, mine)
+
+
 def emulate_k10(keys):
-    """The kernel's blocks, words and pass schedule on the CPU."""
+    """csrc/bitonic_sort.cu on the CPU: its blocks, the kE words each thread
+    holds in registers, the padded shared-memory layout of the load and
+    store phases, and each pass by where its pair lives (registers, a
+    shuffle within the warp, or shared memory), with the lane-distance and
+    direction rules.  A word (ordered key << 32 | index) is kept as the
+    int64 (ordered key - 2^31) << 32 | index, whose signed order is the
+    kernel's unsigned one."""
     rows, n = keys.shape
+    e_ = tbs.WORDS_PER_THREAD
     p = tbs.padded_length(n)
-    e = max(p, 1024)
-    rpb = e // p
+    log2p = p.bit_length() - 1
+    threads = max(128, p // e_)
+    rpb = threads * e_ // p
+    stride = threads + 16 // e_
+    tid = torch.arange(threads)
+    row_threads = p // e_
+    t_row = tid & (row_threads - 1)
+    base = t_row * e_
+    e = torch.arange(threads * e_).reshape(e_, threads)  # e = k * threads + tid
+    slot = (e % e_) * stride + e // e_  # where linear position e lives
+    regs = torch.arange(e_)[:, None] * stride + tid  # word j of thread tid
+    assert _banks_apart(slot) and _banks_apart(regs)
     out_k, out_i = torch.empty_like(keys), torch.empty((rows, n), dtype=torch.int32)
     for row0 in range(0, rows, rpb):
-        pos = torch.arange(e) % p
-        row = row0 + torch.arange(e) // p
+        pos = e & (p - 1)
+        row = row0 + (e >> log2p)
         real = (pos < n) & (row < rows)
-        key = torch.full((e,), 0xFFFFFFFF, dtype=torch.int64)
+        key = torch.full(e.shape, 0xFFFFFFFF, dtype=torch.int64)
         src = keys[row.clamp(max=rows - 1), pos.clamp(max=n - 1)]
         key[real] = _ordered(src)[real]
-        idx = pos.clone()  # a pad's index is its position >= n
-        q = torch.arange(e // 2)
+        smem = torch.zeros(e_ * stride, dtype=torch.int64)
+        smem[slot] = ((key - 2 ** 31) << 32) | pos
+        w = smem[regs].T.clone()  # (threads, kE)
         size = 2
         while size <= p:
             d = size // 2
-            while d >= 1:
-                lo = ((q & ~(d - 1)) << 1) | (q & (d - 1))
-                hi = lo + d
-                asc = ((lo & (p - 1)) & size) == 0
-                ka, kb, ia, ib = key[lo], key[hi], idx[lo], idx[hi]
-                gt = (ka > kb) | ((ka == kb) & (ia > ib))
-                swap = gt == asc
-                key[lo], key[hi] = torch.where(swap, kb, ka), torch.where(swap, ka, kb)
-                idx[lo], idx[hi] = torch.where(swap, ib, ia), torch.where(swap, ia, ib)
+            ascending = (base & size) == 0
+            while d >= 32 * e_:  # through shared memory
+                m = d // e_
+                assert ((tid ^ m) // row_threads == tid // row_threads).all()
+                keep_min = (((t_row & m) == 0) == ascending)[:, None]
+                smem[regs] = w.T
+                w = _keep(w, smem[regs[:, tid ^ m]].T, keep_min)
                 d //= 2
+            while d >= e_:  # a shuffle at lane distance d / kE
+                m = d // e_
+                partner = tid ^ m
+                assert (partner // 32 == tid // 32).all(), "a shuffle leaves its warp"
+                assert (partner // row_threads == tid // row_threads).all()
+                keep_min = (((t_row & m) == 0) == ascending)[:, None]
+                w = _keep(w, w[partner], keep_min)
+                d //= 2
+            for dd in (e_ // 2 ** i for i in range(1, e_.bit_length())):  # registers
+                if size < 2 * dd:
+                    continue
+                for j in range(e_):
+                    if j & dd:
+                        continue
+                    asc = ((base + j) & size) == 0
+                    a, b = w[:, j].clone(), w[:, j + dd].clone()
+                    swap = (a > b) == asc
+                    w[:, j], w[:, j + dd] = torch.where(swap, b, a), torch.where(swap, a, b)
             size *= 2
+        smem[regs] = w.T
+        idx = (smem[slot] & 0xFFFFFFFF).reshape(-1)  # linear position order
         for r in range(rpb):
             if row0 + r < rows:
                 got = idx[r * p:r * p + n]
@@ -318,6 +371,10 @@ def _int_rows(rows, n, seed):
     ("multi_row_blocks", lambda: _nan_rows(11, 100, 2)),  # 8 rows a block
     ("int_max_pads", lambda: _int_rows(9, 200, 3)),       # 4 rows a block
     ("one_row_a_block", lambda: _nan_rows(2, 1500, 4)),   # P = 2048
+    ("p1024_one_row_a_group", lambda: _nan_rows(3, 1000, 5)),  # 128 threads
+    ("p128_two_rows_a_warp", lambda: _int_rows(19, 128, 6)),   # 16 lanes a row
+    ("p512_smem_pass", lambda: _nan_rows(5, 300, 7)),  # two rows a block
+    ("p8192", lambda: _nan_rows(2, 8192, 8)),          # 15 of 91 in shared memory
 ], ids=lambda c: c[0])
 def test_network_emulation_matches_plain(case):
     keys = torch.from_numpy(case[1]())
