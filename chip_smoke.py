@@ -5,6 +5,11 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
 
     python3 chip_smoke.py
 
+`python3 chip_smoke.py --k8-k9-timing` runs phase 22's K8 and K9 readings
+alone, against whatever kfunca_tpu_torch sits beside the script (a copy of
+the script in an archive of another commit times that commit's kernels
+through the same calls).
+
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
   2. build every CUDA kernel from kfunca_tpu_torch/csrc with nvcc, and
@@ -75,21 +80,31 @@ Phases (any failure raises and the script exits non-zero):
  20. profile a few w8kv8 decode steps (K4-int8's and K5's ms a step);
  21. hold the eager API's kernels against their plain versions: K9
      elementwise (the eight ops at 4096^2 in fp32/bf16/fp16, integer
-     division by 0 and INT_MIN / -1, float -> int saturation), K8 reduce_2d
-     and K7 welford_norm_stat at 16387^2 (and a ragged 1000 x 333; K7 also
+     division by 0 and INT_MIN / -1, float -> int saturation; the vector
+     body with a scalar tail and out=a, the generic body at an odd element
+     offset, the byte copy of ten dtypes at five offset pairs, bitwise with
+     NaN payloads, each launch on the body its route names), K8 reduce_2d
+     at 16387^2 fp32 and bf16, (4096, 4096) bf16, 1000 x 333 and 1041 x
+     16387 (splits with no row), two calls bitwise equal, K7
+     welford_norm_stat at 16387^2 (and a ragged 1000 x 333; also
      at 1 x 4096, 5 x 1, 31 x 16387, 1041 x 16387 (splits with no row)
      and 17 x 4096 (splits shorter than a chunk), two calls bitwise
-     equal), K3
+     equal; 0 x 4 and 4 x 0 answered without a launch), K3
      matmul at 4096^3 in bf16/fp16/fp32, ragged and m = 1 with every
      epilogue, and int8 (each 16-bit case on the body the route rule
      names: wgmma for k, n multiples of 8, else mma.sync);
  22. time each, its plain version and a library yardstick (torch.add,
      torch.sum / torch.amax, torch.var_mean + rsqrt, torch.matmul) beside
-     its bound; K3 also at each wgmma tile and on its mma.sync body;
+     its bound; K3 also at each wgmma tile and on its mma.sync body; K9
+     also as add in bf16, the bf16 copy at (4096, 14336) (clone) and the
+     fp32 -> bf16 convert (.to), and its fp32 add's kernel time by
+     torch.profiler beside the events; K8 sum and max in turns, and mean
+     at (4096, 4096) bf16 (torch.mean);
  23. drive `import kfunca_tpu_torch as kfunca` at bench.py's sizes: an eager
      MLP step (gemm, relu, gemm, + x, mean, backward) at Mistral-7B-v0.1
      widths in bf16 with the engine knobs at `pallas` (K3 = 6 on the wgmma
-     body, K8 = 1, K9 = 9 launches asserted) and at their defaults (none),
+     body, K8 = 1, K9 = 9 launches asserted: 2 on the vector body, 7 on
+     the byte copy) and at their defaults (none),
      held against
      each other, and in fp32 at d 1024; norm_stat / sum / mean at 16387^2;
      the elementwise ops at 4096^2 with an out= write through a permuted
@@ -1920,8 +1935,11 @@ MLP_FP32 = dict(tokens=4096, d=1024, ff=3584, dtype=torch.float32)
 # m.backward(ones) with the three knobs at `pallas`: K3 2 forward + 4
 # backward; K8 the mean; K9 the forward add, the tape's 7 gradient clones
 # (interior nodes z, gemm(a, W2), relu's a and gemm(x, W1); leaves W2, W1
-# and x's first gradient) and x's second gradient added into x.grad
+# and x's first gradient) and x's second gradient added into x.grad; of
+# K9's, the two adds on the vector body and the seven same-dtype clones on
+# the byte copy
 MLP_LAUNCHES = {"matmul": 6, "reduce_2d": 1, "elementwise": 9,
+                "elementwise_vector": 2, "elementwise_copy": 7,
                 "welford_norm_stat": 0}
 
 
@@ -1960,6 +1978,8 @@ def eager_launches(counts=None):
     now = {k: f.launches for k, f in eager_wrappers().items()}
     now["matmul_wgmma"] = eager_wrappers()["matmul"].launches_wgmma
     now["matmul_mma"] = eager_wrappers()["matmul"].launches_mma
+    now["elementwise_vector"] = eager_wrappers()["elementwise"].launches_vector
+    now["elementwise_copy"] = eager_wrappers()["elementwise"].launches_copy
     now["flash_attention_fwd_stats"] = fa.flash_attention_fwd_stats.launches
     now["flash_forward_wgmma"] = fa.flash_attention_fwd_stats.launches_wgmma
     now["flash_attention_backward"] = fa.flash_attention_backward.launches
@@ -1975,6 +1995,8 @@ def reset_eager_launches():
         f.launches = 0
     eager_wrappers()["matmul"].launches_wgmma = 0
     eager_wrappers()["matmul"].launches_mma = 0
+    eager_wrappers()["elementwise"].launches_vector = 0
+    eager_wrappers()["elementwise"].launches_copy = 0
     fa.flash_attention_fwd_stats.launches_wgmma = 0
     fa.flash_attention_backward.launches_wgmma = 0
 
@@ -2033,35 +2055,119 @@ def k9_checks(ew) -> float:
         want = ew.elementwise_plain("copy", f, acc_dt=dt, out_dt=dt)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"K9 float -> {dt} saturates as plain")
+    k9_body_checks(ew, a, b)
     return worst
 
 
+def k9_body_checks(ew, a, b):
+    """K9's bodies: the vector body with a scalar tail and, at an odd
+    element offset, the generic body it gives way to (fp32, bf16, fp16;
+    exact, exp 1 ulp); out=a on the vector body; the byte copy of every
+    dtype at five offset pairs, bitwise, NaN payloads included.  Each
+    launch on the body `route` names, counted in its body's count."""
+    n = a.numel() - 3  # n mod 8 = 5: a scalar tail in every dtype
+
+    def ran(fn, body):
+        before = (ew.elementwise.launches, ew.elementwise.launches_vector,
+                  ew.elementwise.launches_copy)
+        r = fn()
+        torch.cuda.synchronize()
+        took = tuple(x - y for x, y in zip(
+            (ew.elementwise.launches, ew.elementwise.launches_vector,
+             ew.elementwise.launches_copy), before))
+        check(took == (1, int(body == "vector"), int(body == "copy")),
+              f"K9 took the {body} body {took}")
+        return r
+
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for off, body in ((0, "vector"), (1, "generic")):
+            x = a.flatten().to(dt)[off:off + n]
+            y = b.flatten().to(dt)[off:off + n]
+            for op in ("add", "div", "exp"):
+                args = (x, y) if op != "exp" else (x,)
+                got = ran(lambda: ew.elementwise(op, *args, acc_dt=torch.float32,
+                                                 out_dt=dt), body)
+                want = ew.elementwise_plain(op, *args, acc_dt=torch.float32,
+                                            out_dt=dt)
+                err = (got.double() - want.double()).abs()
+                tol = (torch.finfo(dt).eps * want.double().abs() if op == "exp"
+                       else torch.zeros_like(err))
+                check(bool((err <= tol).all()), f"K9 {op} {dt} offset {off} "
+                      f"numel {n} on the {body} body as plain")
+        x = a.flatten().to(dt)[:n].clone()
+        y = b.flatten().to(dt)[:n]
+        want = ew.elementwise_plain("add", x, y, acc_dt=torch.float32, out_dt=dt)
+        got = ran(lambda: ew.elementwise("add", x, y, acc_dt=torch.float32,
+                                         out_dt=dt, out=x), "vector")
+        check(got is x and torch.equal(x, want), f"K9 out=a {dt} vector body")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    m = 1 << 20
+    for dt in (torch.float32, torch.float64, torch.bfloat16, torch.float16,
+               torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
+               torch.bool):
+        size = torch.empty((), dtype=dt).element_size()
+        raw = torch.randint(0, 256, ((m + 16) * size,), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+        src_all = raw.view(dt) if dt != torch.bool else raw % 2 == 1
+        as_bytes = ((lambda t: t.view(torch.uint8)) if dt != torch.bool
+                    else (lambda t: t.to(torch.uint8)))
+        for s_off, d_off in ((0, 0), (1, 0), (0, 3), (2, 6), (5, 1)):
+            src = src_all[s_off:s_off + m]
+            dst = torch.zeros(m + 16, dtype=dt, device="cuda")[d_off:d_off + m]
+            ran(lambda: ew.elementwise("copy", src, acc_dt=dt, out_dt=dt,
+                                       out=dst), "copy")
+            want = ew.elementwise_plain("copy", src, acc_dt=dt, out_dt=dt)
+            check(torch.equal(as_bytes(dst), as_bytes(want)),
+                  f"K9 byte copy {dt} offsets {s_off}, {d_off} bitwise")
+        if dt.is_floating_point:
+            check(bool((src_all != src_all).any()), f"{dt} bytes held NaNs")
+    print("  K9 bodies: vector (tail, out=a), generic at an odd offset, byte "
+          "copy of 10 dtypes at 5 offset pairs (bitwise, NaN payloads): "
+          "as plain", flush=True)
+
+
+# K8's phase-21 shapes beyond 16387^2: the MLP step's bf16 mean, a ragged
+# matrix, and splits with no rows (S = 65 of 17 rows: the last three empty)
+K8_SHAPES = (((4096, 4096), torch.bfloat16), ((1000, 333), torch.float32),
+             ((1041, 16387), torch.float32))
+
+
 def k8_checks(rd) -> float:
-    """K8 against its plain version at 16387^2: sum / mean / max of fp32,
-    and of bf16 into bf16.  Both sum in fp32 in other orders: within
-    1e-5 of the column's sum of |x| (bf16 output: plus one bf16 step,
-    2^-8 of the value); max exact."""
+    """K8's split-row kernel against its plain version at 16387^2 (sum /
+    mean / max of fp32, and of bf16 into bf16), (4096, 4096) bf16 (pairs),
+    1000 x 333 and 1041 x 16387 (empty splits).  Both sum in fp32 in other
+    orders: within 1e-5 of the column's sum of |x| (bf16 output: plus one
+    bf16 step, 2^-8 of the value); max exact; two calls bitwise equal."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
     x = torch.randn(RED_SHAPE, generator=gen, device="cuda") * 2.0 + 0.5
+    cases = [(x, torch.float32), (x, torch.bfloat16)] + [
+        (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5, dt)
+        for shape, dt in K8_SHAPES]
     worst = 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        xd = x.to(dt)
+    for base, dt in cases:
+        xd = base.to(dt)
         mass = xd.float().abs().sum(0, keepdim=True)
         for op in ("sum", "mean", "max"):
-            got = rd.reduce_2d(xd, op)
+            got, again = rd.reduce_2d(xd, op), rd.reduce_2d(xd, op)
             want = rd.reduce_2d_plain(xd, op)
             torch.cuda.synchronize()
             err = (got.double() - want.double()).abs()
             if op == "max":
                 tol = torch.zeros_like(err)
             else:
-                scale = 1.0 if op == "sum" else 1.0 / RED_SHAPE[0]
+                scale = 1.0 if op == "sum" else 1.0 / xd.shape[0]
                 tol = 1e-5 * mass.double() * scale
                 if dt != torch.float32:
                     tol = tol + want.double().abs() * 2.0 ** -8
-            check(bool((err <= tol).all()), f"K8 {op} {dt} within tolerance "
+            what = f"K8 {op} {tuple(xd.shape)} {dt}"
+            check(bool((err <= tol).all()), f"{what} within tolerance "
                   f"(max err {err.max().item():.3g})")
+            check(torch.equal(got, again), f"{what}: two calls bitwise equal")
             worst = max(worst, err.max().item())
+        del xd, mass
+    print(f"  K8 at 16387^2 (fp32, bf16), "
+          f"{', '.join(f'{s[0]}x{s[1]} {str(d)[6:]}' for s, d in K8_SHAPES)}: "
+          f"within limits, two calls bitwise equal", flush=True)
     return worst
 
 
@@ -2090,8 +2196,17 @@ def k7_checks(wf) -> float:
               f"K7 {shape}: two calls bitwise equal")
         worst = max(worst, em, (s - ps).abs().max().item())
         del x, m, s, m2, s2, pm, ps
+    for shape in ((0, 4), (4, 0)):  # the reference's answers, no launch
+        before = wf.welford_norm_stat.launches
+        m, s = wf.welford_norm_stat(torch.empty(shape, device="cuda"))
+        torch.cuda.synchronize()
+        check(wf.welford_norm_stat.launches == before
+              and all(t.shape == (1, shape[1]) and t.is_cuda
+                      and bool(t.isnan().all()) for t in (m, s)),
+              f"K7 {shape}: NaN (1, {shape[1]}) outputs, no launch counted")
     print(f"  K7 at {', '.join('x'.join(map(str, sh)) for sh in shapes)}: "
-          f"within limits, two calls bitwise equal", flush=True)
+          f"within limits, two calls bitwise equal; at 0x4 and 4x0 the "
+          f"reference's answers without a launch", flush=True)
     return worst
 
 
@@ -2156,42 +2271,153 @@ def k3_checks(mm) -> float:
     return worst
 
 
-def eager_timing():
-    """Phase 22: each kernel, its plain version and a library yardstick at
-    the phase-21 shapes, with the bound from this run's inputs."""
-    from kfunca_tpu_torch.ops.pallas_kernels import (
-        elementwise as ew, matmul as mm, reduce as rd, welford as wf)
-    from kfunca_tpu_torch.runtime import autotune
+def device_ms(fn, reps=20) -> dict:
+    """Mean device time of the kernels one call of `fn` launches, from
+    torch.profiler, with the L2 flushed before each call (the flush's fill
+    kernel not counted): {kernel name: ms}.  Beside time_ms, it separates
+    the kernels from the host work between the events."""
+    from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and "Fill" not in e.name and "emset" not in e.name):
+            name = e.name.replace("void ", "", 1).replace("(anonymous namespace)::", "")
+            name = name.split("(")[0][:60]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return by_name
+
+
+def rate_bound(nbytes, flops, dt):
+    """(ms, "bytes" or "operations"): the larger of the bytes over HBM's
+    rate and the operations over the card's peak for `dt`."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = flops / PEAK_FLOPS[dt]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def k8_k9_timing(gen) -> dict:
+    """Phase 22's K9 and K8 readings, each with its plain version, library
+    call and bound: K9 add at 4096^2 fp32 (also by torch.profiler) and
+    bf16, the bf16 same-dtype copy at (4096, 14336) and the fp32 -> bf16
+    convert at 4096^2; K8 sum and max at 16387^2 fp32, timed in turns (sum,
+    max, sum, max), and mean at (4096, 4096) bf16.  Only the wrappers'
+    public calls, so the parent tree's package can be timed by this
+    function too (`--k8-k9-timing`)."""
+    from kfunca_tpu_torch.ops.pallas_kernels import elementwise as ew
+    from kfunca_tpu_torch.ops.pallas_kernels import reduce as rd
+
+    f32, bf16 = torch.float32, torch.bfloat16
     out = {}
 
-    def bound(nbytes, flops, dt):
-        t_b = nbytes / HBM_BYTES_PER_S
-        t_f = flops / PEAK_FLOPS[dt]
-        return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+    def reading(what, kernel, plain, library, nbytes, flops, dt, reps=30):
+        bms, by = rate_bound(nbytes, flops, dt)
+        return dict(what=what, ms=time_ms(kernel, reps=reps),
+                    plain_ms=time_ms(plain, reps=reps),
+                    library_ms=time_ms(library, reps=reps), bound_ms=bms,
+                    bound_by=by)
 
     a = torch.randn(EW_SHAPE, generator=gen, device="cuda")
     b = torch.randn(EW_SHAPE, generator=gen, device="cuda")
-    f32 = torch.float32
-    bms, by = bound(3 * a.numel() * 4, a.numel(), f32)
-    out["k9"] = dict(
-        ms=time_ms(lambda: ew.elementwise("add", a, b, acc_dt=f32, out_dt=f32)),
-        plain_ms=time_ms(lambda: ew.elementwise_plain("add", a, b, acc_dt=f32,
-                                                      out_dt=f32)),
-        library_ms=time_ms(lambda: torch.add(a, b)), bound_ms=bms, bound_by=by,
-        what="add, 4096^2 fp32")
-    del a, b
+    n = a.numel()
+    for dt, key in ((f32, "k9"), (bf16, "k9_add_bf16")):
+        x, y = a.to(dt), b.to(dt)
+        out[key] = reading(
+            f"add, 4096^2 {str(dt)[6:]}",
+            lambda: ew.elementwise("add", x, y, acc_dt=f32, out_dt=dt),
+            lambda: ew.elementwise_plain("add", x, y, acc_dt=f32, out_dt=dt),
+            lambda: torch.add(x, y), 3 * n * x.element_size(), n, f32)
+        out[key]["device_ms"] = device_ms(
+            lambda: ew.elementwise("add", x, y, acc_dt=f32, out_dt=dt))
+        out[key]["library_device_ms"] = device_ms(lambda: torch.add(x, y))
+    out["k9_convert"] = reading(
+        "convert fp32 -> bf16, 4096^2",
+        lambda: ew.elementwise("copy", a, acc_dt=bf16, out_dt=bf16),
+        lambda: ew.elementwise_plain("copy", a, acc_dt=bf16, out_dt=bf16),
+        lambda: a.to(bf16), n * (4 + 2), 0, f32)
+    del a, b, x, y
+    g = torch.randn((4096, 14336), generator=gen, device="cuda").to(bf16)
+    out["k9_copy_bf16"] = reading(
+        "copy (clone) bf16, 4096 x 14336",
+        lambda: ew.elementwise("copy", g, acc_dt=bf16, out_dt=bf16),
+        lambda: ew.elementwise_plain("copy", g, acc_dt=bf16, out_dt=bf16),
+        lambda: g.clone(), 2 * g.numel() * 2, 0, f32)
+    del g
     x = torch.randn(RED_SHAPE, generator=gen, device="cuda")
     r, c = RED_SHAPE
-    bms, by = bound((r * c + c) * 4, r * c, f32)
-    out["k8"] = dict(ms=time_ms(lambda: rd.reduce_2d(x, "sum"), reps=10),
+    bms, by = rate_bound((r * c + c) * 4, r * c, f32)
+    turns = {"sum": [], "max": []}
+    for _ in range(2):  # in turns: the first reading of a call can run slow
+        for op in ("sum", "max"):
+            turns[op].append(time_ms(lambda: rd.reduce_2d(x, op), reps=10))
+    out["k8"] = dict(ms=turns["sum"][1], turns_ms=turns,
                      plain_ms=time_ms(lambda: rd.reduce_2d_plain(x, "sum"),
                                       reps=10),
                      library_ms=time_ms(lambda: torch.sum(x, 0), reps=10),
                      bound_ms=bms, bound_by=by, what="sum, 16387^2 fp32")
-    out["k8"]["max_ms"] = time_ms(lambda: rd.reduce_2d(x, "max"), reps=10)
+    out["k8"]["max_ms"] = turns["max"][1]
     out["k8"]["max_library_ms"] = time_ms(lambda: torch.amax(x, 0), reps=10)
+    out["k8"]["device_ms"] = device_ms(lambda: rd.reduce_2d(x, "sum"), reps=10)
+    out["k8"]["library_device_ms"] = device_ms(lambda: torch.sum(x, 0), reps=10)
+    del x
+    z = torch.randn((4096, 4096), generator=gen, device="cuda").to(bf16)
+    out["k8_mean_bf16"] = reading(
+        "mean, (4096, 4096) bf16",
+        lambda: rd.reduce_2d(z, "mean"), lambda: rd.reduce_2d_plain(z, "mean"),
+        lambda: torch.mean(z, 0), z.numel() * 2 + 4096 * 2, z.numel(), f32)
+    out["k8_mean_bf16"]["device_ms"] = device_ms(lambda: rd.reduce_2d(z, "mean"))
+    out["k8_mean_bf16"]["library_device_ms"] = device_ms(lambda: torch.mean(z, 0))
+    return out
+
+
+def print_readings(timing, card):
+    """Phase 22's lines: each reading beside its plain version, library
+    call and bound, with its turns and profiler readings where taken."""
+    for key, t in timing.items():
+        extra = ""
+        if "max_ms" in t:
+            extra = (f"; max {t['max_ms']:.4f} ms, torch.amax "
+                     f"{t['max_library_ms']:.4f} ms")
+        if "turns_ms" in t:
+            extra += "; in turns " + ", ".join(
+                f"{op} {' / '.join(f'{v:.4f}' for v in ms)}"
+                for op, ms in t["turns_ms"].items())
+        for k, label in (("device_ms", "profiler: kernel"),
+                         ("library_device_ms", "library")):
+            if k in t:
+                extra += (f"; {label} {sum(t[k].values()):.4f} ms (" + ", ".join(
+                    f"{n} {v:.4f}" for n, v in t[k].items()) + ")")
+        if "mma_ms" in t:
+            extra = (f"; at tile {t['tile'] or 'default'}; wgmma tiles "
+                     f"{ {k: round(v, 4) for k, v in t['tiles_ms'].items()} }, "
+                     f"the mma.sync body {t['mma_ms']:.4f} ms")
+        print(f"[22] {key} ({t['what']}): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){extra}; {card}",
+              flush=True)
+
+
+def eager_timing():
+    """Phase 22: each kernel, its plain version and a library yardstick at
+    the phase-21 shapes, with the bound from this run's inputs."""
+    from kfunca_tpu_torch.ops.pallas_kernels import matmul as mm
+    from kfunca_tpu_torch.ops.pallas_kernels import welford as wf
+    from kfunca_tpu_torch.runtime import autotune
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    out = k8_k9_timing(gen)
+    bound = rate_bound
+    x = torch.randn(RED_SHAPE, generator=gen, device="cuda")
+    r, c = RED_SHAPE
+    f32 = torch.float32
     # Welford: 4 flops an element (the shift by the running mean, the chunk
     # sum, the deviation from the chunk mean, its square's multiply-add)
     bms, by = bound((r * c + 2 * c) * 4, 4 * r * c, f32)
@@ -2450,17 +2676,7 @@ def eager_phases(card):
         print(f"  {key}: max abs err {err:.3g}", flush=True)
     free_device_memory()
     timing = eager_timing()
-    for key, t in timing.items():
-        extra = (f"; max {t['max_ms']:.4f} ms, torch.amax "
-                 f"{t['max_library_ms']:.4f} ms" if "max_ms" in t else "")
-        if "mma_ms" in t:
-            extra = (f"; at tile {t['tile'] or 'default'}; wgmma tiles "
-                     f"{ {k: round(v, 4) for k, v in t['tiles_ms'].items()} }, "
-                     f"the mma.sync body {t['mma_ms']:.4f} ms")
-        print(f"[22] {key} ({t['what']}): kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){extra}; {card}",
-              flush=True)
+    print_readings(timing, card)
     free_device_memory()
 
     print("[23] the eager Tensor API through `import kfunca_tpu_torch as "
@@ -2522,6 +2738,13 @@ def eager_phases(card):
              "library_ms": t["library_ms"]}
         if "mma_ms" in t:  # K3: the kept mma.sync body, same operands
             e["mma_body_ms"] = t["mma_ms"]
+        # the kernel's other phase-22 readings (K3 fp32; K8's and K9's
+        # other shapes and dtypes), each with its own numbers
+        others = [k for k in timing if k.startswith(key + "_")]
+        if others:
+            e["readings"] = [{k: v for k, v in timing[o].items()
+                              if k not in ("turns_ms", "tiles_ms")}
+                             for o in others]
         return e
 
     return [entry("matmul", "k3", "matmul.py:85", launches["matmul"],
@@ -3853,6 +4076,19 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    if sys.argv[1:] == ["--k8-k9-timing"]:  # phase 22's K8 and K9 readings alone
+        _kernels.build(["elementwise", "reduce"])
+        for name in ("elementwise", "reduce"):
+            for kernel, regs, spill in ptxas_summary(_kernels.build_log(name)):
+                print(f"    {name}: {kernel}: {regs} registers, {spill} spill "
+                      f"bytes")
+        timing = k8_k9_timing(torch.Generator(device="cuda").manual_seed(SEED + 25))
+        print_readings(timing, card)
+        print(json.dumps({"k8_k9_timing": timing}))
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
 
     t0 = time.perf_counter()
     built = _kernels.build()

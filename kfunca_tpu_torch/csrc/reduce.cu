@@ -20,41 +20,47 @@
 // read, 0.32 ms.  The TPU grid walks row tiles in order and carries the
 // accumulator between them; on the card the blocks run at once.
 //
-// K8: a block owns a strip of 32 columns (lane c of each warp reads column
-// c, one 128-byte line of a row); its 8 warps take rows w, w + 8, ..., each
-// thread keeping its own running sum or max and issuing kUnroll independent
-// loads before it uses them; the 8 partials of a column meet in shared
-// memory and are merged in warp order.
+// Both are split-row reductions in two launches, on one layout:
+//   * a split kernel: a block of kSplitThreads = 256 threads owns 256
+//     contiguous columns (K8 with 16-bit input in pairs: 512) of one of S
+//     row splits of rps = ceil(R / S) rows (blockIdx.y), so each row the
+//     block reads is one contiguous 1 KB run.  S comes from the shape alone
+//     (the wrappers' `welford.split_count`: enough blocks for about four
+//     waves of 8 blocks an SM, at most one split a kChunk rows), so the
+//     result repeats bit for bit.  The row pitch of the measured
+//     16387-column shape (65,548 bytes) is not a multiple of 16, so neither
+//     16-byte loads nor TMA apply: the loads are 4-byte and coalesced, and
+//     bandwidth comes from having many of them in flight: each thread loads
+//     kChunk = 16 rows of its column(s) before it uses any.  A split writes
+//     its partials to an fp32 workspace that the wrapper allocates; its row
+//     count is clamp(R - s * rps, 0, rps), known from the shape, so it is
+//     not stored, and a split with no rows writes nothing.
+//   * a merge kernel: a block of 32 columns x 8 warps; warp w folds the
+//     splits [w * per, (w + 1) * per) of its lane's column in split order
+//     (per = ceil(S / 8), loads issued 8 at a time), then warp 0 folds the
+//     8 results in warp order and stores.  No atomics: a fixed order,
+//     bitwise repeatable.  An empty split is the fold's identity.
 //
-// K7, a split-row reduction in two launches:
-//   * welford_split_kernel: a block of 256 threads owns 256 contiguous
-//     columns (thread t reads column c0 + t, so each row the block reads is
-//     one contiguous 1 KB run), and blockIdx.y picks one of S row splits of
-//     rps = ceil(R / S) rows.  S comes from the shape alone (the wrapper's
-//     `split_count`: enough blocks for about four waves of 8 blocks an SM,
-//     at most one split a kChunk rows), so the result repeats bit for bit.
-//     The row pitch of the measured 16387-column shape (65,548 bytes) is not
-//     a multiple of 16, so neither 16-byte loads nor TMA apply: the loads
-//     are 4-byte and coalesced, and bandwidth comes from having many of
-//     them in flight.  Each thread loads kChunk = 16 rows of its column
-//     before it uses any, takes them relative to its running mean
-//     (d = v - mean), forms the chunk's mean of d (times 1 / 16) and the
-//     chunk's M2 as the sum of (d - chunk mean)^2 in registers, then folds
-//     the chunk into its running (n, mean, M2) by Chan's formula: one divide
-//     a chunk, not one an element.  Counts are integers, made float only
-//     inside a merge.  The split writes its (mean, M2) to a workspace of
-//     2 x S x C fp32 that the wrapper allocates; its count is
-//     clamp(R - s * rps, 0, rps), known from the shape, so it is not
-//     stored.  A split with no rows writes nothing.
-//   * welford_merge_kernel: a block of 32 columns x 8 warps; warp w merges
-//     the splits [w * per, (w + 1) * per) of its lane's column in split
-//     order (per = ceil(S / 8), loads issued 8 at a time), then warp 0
-//     merges the 8 results in warp order and writes mean and invstd.  No
-//     atomics: a fixed order, bitwise repeatable.  An empty split (n = 0)
-//     is the merge's identity.
+// K8 (reduce_split_kernel, reduce_merge_kernel): each thread keeps a running
+// sum (sum, mean) or max of its column over its split's rows, adding the
+// chunk's 16 values in row order; max starts from -3.4e38 and NaN sticks
+// through both passes.  With 16-bit input, C even and a 4-byte aligned
+// base, a thread reads its two adjacent columns as one 4-byte load
+// (bf16x2 / half2, each half widened to fp32 exactly), so a block covers 512
+// columns and a row's read is again 1 KB; otherwise one column a thread.
+// The merge multiplies mean's sum by float32(1 / R) and stores in out_dt.
+// The workspace is S x C fp32.
+//
+// K7 (welford_split_kernel, welford_merge_kernel): each thread takes its
+// chunk relative to its running mean (d = v - mean), forms the chunk's
+// mean of d (times 1 / 16) and the chunk's M2 as the sum of (d - chunk
+// mean)^2 in registers, then folds the chunk into its running (n, mean, M2)
+// by Chan's formula: one divide a chunk, not one an element.  Counts are
+// integers, made float only inside a merge.  The workspace is 2 x S x C
+// fp32 (the splits' means, then their M2); the merge folds by Chan's
+// formula and writes mean and invstd.
 // Raw sums of squares are never formed over a column: cancellation there
 // is what Welford avoids.
-// Left for later (K8): the same split-row layout for sum / mean / max.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -63,11 +69,21 @@
 
 namespace {
 
-constexpr int kCols = 32;  // columns per block (one per lane)
-constexpr int kWarps = 8;  // row groups per block
-constexpr int kUnroll = 8;
+constexpr int kCols = 32;  // columns per merge block (one per lane)
+constexpr int kWarps = 8;  // split groups per merge block
+constexpr int kSplitThreads = 256;  // threads of a split block, one per column (or pair)
+constexpr int kChunk = 16;          // rows a thread loads before using them
+constexpr int kPair = 2;            // 16-bit columns a thread reads as one 4-byte load
+constexpr int kMergeLoads = 8;      // partials a thread loads before merging
 
 enum ReduceOp { kSum = 0, kMean = 1, kMax = 2 };
+
+// The row count of split s: clamp(rows - s * rps, 0, rps).
+__device__ __forceinline__ int split_rows(int rows, int rps, int s) {
+  return (int)max(0LL, min((long long)rps, rows - (long long)s * rps));
+}
+
+// -- K8: sum / mean / max ----------------------------------------------------
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -77,32 +93,110 @@ __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ void put(__half* p, float v) { *p = __float2half_rn(v); }
 
-__device__ __forceinline__ float combine(int op, float acc, float x) {
-  if (op == kMax) return (x != x || x > acc) ? x : acc;  // NaN sticks
+// P = 1: one value of T; P = 2: a 4-byte pair of 16-bit values, each widened.
+template <typename T, int P>
+struct Cols;
+
+template <typename T>
+struct Cols<T, 1> {
+  __device__ static void load(const T* p, float* v) { v[0] = to_f(*p); }
+};
+
+template <>
+struct Cols<__nv_bfloat16, 2> {
+  __device__ static void load(const __nv_bfloat16* p, float* v) {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
+    v[0] = __uint_as_float(w << 16);
+    v[1] = __uint_as_float(w & 0xffff0000u);
+  }
+};
+
+template <>
+struct Cols<__half, 2> {
+  __device__ static void load(const __half* p, float* v) {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
+    v[0] = __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+    v[1] = __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+  }
+};
+
+template <int OP>
+__device__ __forceinline__ float combine(float acc, float x) {
+  if (OP == kMax) return (x != x || x > acc) ? x : acc;  // NaN sticks
   return acc + x;
 }
 
-template <typename T, typename TOut>
-__global__ void __launch_bounds__(kCols * kWarps) reduce_2d_kernel(
-    const T* __restrict__ x, TOut* __restrict__ out, int rows, int cols,
-    int op, float scale) {
+__device__ __forceinline__ float combine(int op, float acc, float x) {
+  return op == kMax ? combine<kMax>(acc, x) : combine<kSum>(acc, x);
+}
+
+// OP: kSum (for sum and mean) or kMax.  Thread t of block (bx, s) owns
+// columns (bx * kSplitThreads + t) * P + [0, P) over split s's rows and
+// writes their partials to ws[s, :].
+template <typename T, int P, int OP>
+__global__ void __launch_bounds__(kSplitThreads) reduce_split_kernel(
+    const T* __restrict__ x, float* __restrict__ ws, int rows, int cols, int rps) {
+  const int col = (blockIdx.x * kSplitThreads + threadIdx.x) * P;
+  const int n = split_rows(rows, rps, blockIdx.y);
+  if (col >= cols || n == 0) return;  // past the matrix, or an empty split
+  const size_t pitch = (size_t)cols;
+  const T* p = x + (size_t)blockIdx.y * rps * pitch + col;
+  float acc[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) acc[j] = OP == kMax ? -3.4e38f : 0.0f;
+  int r = 0;
+  for (; r + kChunk <= n; r += kChunk, p += kChunk * pitch) {
+    float v[kChunk][P];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) Cols<T, P>::load(p + u * pitch, v[u]);
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+#pragma unroll
+      for (int j = 0; j < P; ++j) acc[j] = combine<OP>(acc[j], v[u][j]);
+  }
+  if (r < n) {  // the split's last rows, fewer than kChunk
+    const int u_n = n - r;
+    float v[kChunk][P];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+      if (u < u_n) Cols<T, P>::load(p + u * pitch, v[u]);
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+      if (u < u_n)
+#pragma unroll
+        for (int j = 0; j < P; ++j) acc[j] = combine<OP>(acc[j], v[u][j]);
+  }
+  float* w = ws + (size_t)blockIdx.y * pitch + col;
+#pragma unroll
+  for (int j = 0; j < P; ++j) w[j] = acc[j];
+}
+
+template <typename TOut>
+__global__ void __launch_bounds__(kCols * kWarps) reduce_merge_kernel(
+    const float* __restrict__ ws, TOut* __restrict__ out, int rows, int cols,
+    int splits, int rps, int op, float scale) {
   __shared__ float part[kWarps][kCols];
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int col = blockIdx.x * kCols + lane;
+  const int per = (splits + kWarps - 1) / kWarps;
+  const int s_end = min(splits, (warp + 1) * per);
+  const size_t pitch = (size_t)cols;
   const float init = op == kMax ? -3.4e38f : 0.0f;
   float acc = init;
   if (col < cols) {
-    const T* p = x + col;
-    long long r = warp;
-    for (; r + (kUnroll - 1) * kWarps < rows; r += kUnroll * kWarps) {
-      float v[kUnroll];
+    for (int s0 = warp * per; s0 < s_end; s0 += kMergeLoads) {
+      float v[kMergeLoads];
+      bool live[kMergeLoads];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        v[u] = to_f(p[(r + (long long)u * kWarps) * cols]);
+      for (int i = 0; i < kMergeLoads; ++i) {
+        const int s = s0 + i;
+        live[i] = s < s_end && split_rows(rows, rps, s) > 0;
+        v[i] = live[i] ? ws[s * pitch + col] : init;
+      }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) acc = combine(op, acc, v[u]);
+      for (int i = 0; i < kMergeLoads; ++i)
+        if (live[i]) acc = combine(op, acc, v[i]);
     }
-    for (; r < rows; r += kWarps) acc = combine(op, acc, to_f(p[r * cols]));
   }
   part[warp][lane] = acc;
   __syncthreads();
@@ -113,6 +207,8 @@ __global__ void __launch_bounds__(kCols * kWarps) reduce_2d_kernel(
     put(out + col, r);
   }
 }
+
+// -- K7: Welford mean and invstd -----------------------------------------------
 
 // Chan et al.'s update of a (count, mean, M2) partial by nb more values
 // whose mean lies `delta` above the partial's and whose M2 is m2b.  The
@@ -133,13 +229,10 @@ __device__ __forceinline__ void chan_merge(int& n, float& mean, float& m2,
   if (nb != 0) chan_fold(n, mean, m2, nb, meanb - mean, m2b);
 }
 
-constexpr int kWelfordThreads = 256;  // columns per split block
-constexpr int kChunk = 16;            // rows a thread loads before using them
-
-__global__ void __launch_bounds__(kWelfordThreads) welford_split_kernel(
+__global__ void __launch_bounds__(kSplitThreads) welford_split_kernel(
     const float* __restrict__ x, float* __restrict__ ws, int rows, int cols,
     int rps) {
-  const int col = blockIdx.x * kWelfordThreads + threadIdx.x;
+  const int col = blockIdx.x * kSplitThreads + threadIdx.x;
   const long long first = (long long)blockIdx.y * rps;
   if (col >= cols || first >= rows) return;  // past the matrix, or an empty split
   const int r0 = (int)first;
@@ -195,8 +288,6 @@ __global__ void __launch_bounds__(kWelfordThreads) welford_split_kernel(
   ws[plane + blockIdx.y * pitch + col] = m2;
 }
 
-constexpr int kMergeLoads = 8;  // partials a thread loads before merging
-
 __global__ void __launch_bounds__(kCols * kWarps) welford_merge_kernel(
     const float* __restrict__ ws, float* __restrict__ mean_out,
     float* __restrict__ invstd_out, int rows, int cols, int splits, int rps) {
@@ -217,7 +308,7 @@ __global__ void __launch_bounds__(kCols * kWarps) welford_merge_kernel(
 #pragma unroll
       for (int i = 0; i < kMergeLoads; ++i) {
         const int s = s0 + i;
-        nb[i] = s < s_end ? (int)max(0LL, min((long long)rps, rows - (long long)s * rps)) : 0;
+        nb[i] = s < s_end ? split_rows(rows, rps, s) : 0;
         mb[i] = nb[i] ? ws[s * pitch + col] : 0.0f;
         m2b[i] = nb[i] ? ws[plane + s * pitch + col] : 0.0f;
       }
@@ -237,25 +328,32 @@ __global__ void __launch_bounds__(kCols * kWarps) welford_merge_kernel(
   }
 }
 
-template <typename T, typename TOut>
-int launch_reduce(const void* x, void* out, int rows, int cols, int op,
-                  float scale, cudaStream_t stream) {
-  const dim3 block(kCols, kWarps);
-  const dim3 grid((cols + kCols - 1) / kCols);
-  reduce_2d_kernel<T, TOut><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<TOut*>(out), rows, cols, op, scale);
+template <typename T, int P>
+int launch_split(const void* x, float* ws, int rows, int cols, int op, int rps,
+                 int splits, cudaStream_t stream) {
+  const int per_block = kSplitThreads * P;
+  const dim3 grid((cols + per_block - 1) / per_block, splits);
+  const T* px = static_cast<const T*>(x);
+  if (op == kMax)
+    reduce_split_kernel<T, P, kMax><<<grid, kSplitThreads, 0, stream>>>(px, ws, rows, cols, rps);
+  else
+    reduce_split_kernel<T, P, kSum><<<grid, kSplitThreads, 0, stream>>>(px, ws, rows, cols, rps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int reduce_to(const void* x, void* out, int out_code, int rows, int cols,
-              int op, float scale, cudaStream_t s) {
-  switch (out_code) {
-    case 6: return launch_reduce<T, __half>(x, out, rows, cols, op, scale, s);
-    case 7: return launch_reduce<T, __nv_bfloat16>(x, out, rows, cols, op, scale, s);
-    case 8: return launch_reduce<T, float>(x, out, rows, cols, op, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int split_of(const void* x, float* ws, int rows, int cols, int op, int rps,
+             int splits, int pair, cudaStream_t s) {
+  if (pair) return launch_split<T, kPair>(x, ws, rows, cols, op, rps, splits, s);
+  return launch_split<T, 1>(x, ws, rows, cols, op, rps, splits, s);
+}
+
+template <typename TOut>
+int launch_merge(const float* ws, void* out, int rows, int cols, int splits,
+                 int rps, int op, float scale, cudaStream_t stream) {
+  reduce_merge_kernel<TOut><<<(cols + kCols - 1) / kCols, dim3(kCols, kWarps), 0, stream>>>(
+      ws, static_cast<TOut*>(out), rows, cols, splits, rps, op, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -263,24 +361,40 @@ int reduce_to(const void* x, void* out, int out_code, int rows, int cols,
 // Plain C entry points (bound with ctypes); dtype codes as in
 // kfunca_tpu_torch/core/dtype.py (6 fp16, 7 bf16, 8 fp32).  x is a
 // row-major (rows, cols) matrix, out / mean / invstd hold cols values.
-// op: 0 sum, 1 mean (times `scale`), 2 max.  Return cudaGetLastError()
-// after the launch (0 on success).
+// Each runs two launches, split then merge, and returns cudaGetLastError()
+// after them (0 on success).
+
+// K8.  op: 0 sum, 1 mean (times `scale`), 2 max.  ws: a workspace of
+// splits x cols fp32, which the caller allocates.  pair: read 16-bit
+// columns two at a time (the caller checks cols is even and x 4-byte
+// aligned; fp32 takes one column a thread).
 extern "C" int kf_reduce_2d(const void* x, int in_code, void* out, int out_code,
-                            int rows, int cols, int op, float scale,
-                            void* stream) {
+                            void* ws, int rows, int cols, int splits, int pair,
+                            int op, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || cols <= 0 || op < 0 || op > 2) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || cols <= 0 || op < 0 || op > 2 || splits <= 0 || splits > 65535 ||
+      (pair && (in_code == 8 || cols % kPair != 0 || (uintptr_t)x % 4 != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (out_code < 6 || out_code > 8) return (int)cudaErrorInvalidValue;
+  const int rps = (int)(((long long)rows + splits - 1) / splits);
+  float* w = static_cast<float*>(ws);
+  int e;
   switch (in_code) {
-    case 6: return reduce_to<__half>(x, out, out_code, rows, cols, op, scale, s);
-    case 7: return reduce_to<__nv_bfloat16>(x, out, out_code, rows, cols, op, scale, s);
-    case 8: return reduce_to<float>(x, out, out_code, rows, cols, op, scale, s);
+    case 6: e = split_of<__half>(x, w, rows, cols, op, rps, splits, pair, s); break;
+    case 7: e = split_of<__nv_bfloat16>(x, w, rows, cols, op, rps, splits, pair, s); break;
+    case 8: e = launch_split<float, 1>(x, w, rows, cols, op, rps, splits, s); break;
     default: return (int)cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  switch (out_code) {
+    case 6: return launch_merge<__half>(w, out, rows, cols, splits, rps, op, scale, s);
+    case 7: return launch_merge<__nv_bfloat16>(w, out, rows, cols, splits, rps, op, scale, s);
+    default: return launch_merge<float>(w, out, rows, cols, splits, rps, op, scale, s);
   }
 }
 
-// x: (rows, cols) fp32; mean, invstd: cols fp32 each; ws: a workspace of
-// 2 x splits x cols fp32 (the split partials' means, then their M2), which
-// the caller allocates.  Two launches, split then merge.
+// K7.  ws: a workspace of 2 x splits x cols fp32 (the split partials'
+// means, then their M2), which the caller allocates.
 extern "C" int kf_welford_norm_stat(const void* x, void* mean, void* invstd,
                                     void* ws, int rows, int cols, int splits,
                                     void* stream) {
@@ -288,8 +402,8 @@ extern "C" int kf_welford_norm_stat(const void* x, void* mean, void* invstd,
   if (rows <= 0 || cols <= 0 || splits <= 0 || splits > 65535)
     return (int)cudaErrorInvalidValue;
   const int rps = (int)(((long long)rows + splits - 1) / splits);
-  const dim3 grid((cols + kWelfordThreads - 1) / kWelfordThreads, splits);
-  welford_split_kernel<<<grid, kWelfordThreads, 0, s>>>(
+  const dim3 grid((cols + kSplitThreads - 1) / kSplitThreads, splits);
+  welford_split_kernel<<<grid, kSplitThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<float*>(ws), rows, cols, rps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -5,6 +5,16 @@ tensors `elementwise` launches the hand-written kernel in
 csrc/elementwise.cu (counted in `elementwise.launches`); on CPU tensors it
 runs `elementwise_plain`.  There is no fallback between the two.
 
+The card's kernel has three bodies, which `route` picks from the dtypes
+and the operands' addresses alone: "copy", a byte copy for `copy` whose
+input and output dtypes are equal (bitwise the plain version, NaN payloads
+included); "vector", 16-byte accesses for operands and output that share
+one dtype of fp32, bf16 or fp16 with float math and 16-byte aligned
+addresses (each 16-bit result rounds once from fp32, as on the generic
+body); "generic", the dtype-switching body, for the rest.  Each launch is
+counted in `elementwise.launches` and the first two also in
+`elementwise.launches_copy` / `launches_vector`.
+
 Contract (both routes, the TPU kernel's): the eight ops add, sub, mul, div,
 copy, neg, abs, exp over same-shape operands; each operand is widened to
 `acc_dt`, the math runs there, the result is stored in `out_dt`.  Integer
@@ -19,9 +29,10 @@ them before its kernel.
 
 Accumulation on the card: float for fp32/fp16/bf16 acc_dt, double for fp64
 and int64 for integer and bool acc_dt.  Two cases take double instead,
-where a narrower type would round twice or lose XLA's answer: `copy` (its
-acc_dt is the target type: it converts in one step from the input), unless
-both sides are integers (int64 then keeps every value), and `exp` of an
+where a narrower type would round twice or lose XLA's answer: a `copy`
+between two dtypes (its acc_dt is the target type: it converts in one step
+from the input), unless both sides are integers (int64 then keeps every
+value), and `exp` of an
 integer type (computed in float64 and saturated into the integer type, as
 jnp.exp of an int64 array is).  The plain version computes the same
 through torch.
@@ -85,6 +96,21 @@ def _acc_kind(name, arrays, acc_dt, out_dt) -> int:
 
 
 _TORCH_ACC = {0: torch.float32, 1: torch.float64, 2: torch.int64}
+_VECTOR_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+VEC_BYTES = 16  # bytes of one operand a vector access moves (elementwise.cu kVecBytes)
+VEC_UNROLL = 4  # vector accesses a thread issues before it uses any (kVecUnroll)
+
+
+def route(name, dtypes, out_dt, kind, ptrs) -> str:
+    """The body that op `name` over operands of `dtypes` into `out_dt`,
+    with accumulation kind `kind` (see `_acc_kind`) and the operands' and
+    output's addresses `ptrs`, takes: "copy", "vector" or "generic"."""
+    if name == "copy" and dtypes[0] == out_dt:
+        return "copy"
+    if (kind == 0 and out_dt in _VECTOR_DTYPES and all(d == out_dt for d in dtypes)
+            and all(p % VEC_BYTES == 0 for p in ptrs)):
+        return "vector"
+    return "generic"
 
 
 def _check(name, arrays, acc_dt, out_dt, out):
@@ -123,8 +149,9 @@ def elementwise(name, *arrays, acc_dt, out_dt, out=None):
     or writes `out` (a contiguous tensor of out_dt with the operands'
     numel, which may be an operand itself) and returns it.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel
-    (counted in `elementwise.launches`) or raise."""
+    CPU tensors run the plain version; CUDA tensors launch the body
+    `route` names (counted in `elementwise.launches` and, for the copy and
+    vector bodies, in `launches_copy` / `launches_vector`) or raise."""
     _check(name, arrays, acc_dt, out_dt, out)
     dev = arrays[0].device
     if dev.type == "cpu":
@@ -140,22 +167,40 @@ def elementwise(name, *arrays, acc_dt, out_dt, out=None):
         out = torch.empty(arrays[0].shape, dtype=out_dt, device=dev)
     elif not out.is_contiguous():
         raise ValueError("out must be contiguous")
-    if out.numel() == 0:  # nothing to launch, and so nothing to count
+    n = out.numel()
+    if n == 0:  # nothing to launch, and so nothing to count
         return out
-    ops = [a.contiguous() for a in arrays]
-    a = ops[0]
-    b = ops[1] if len(ops) > 1 else ops[0]
-    vp, i32 = _kernels.VP, _kernels.I32
-    fn = _kernels.function("elementwise", "kf_elementwise",
-                           (i32, i32, vp, i32, vp, i32, vp, i32, _kernels.I64, vp))
-    err = fn(_CODES[name], kind, a.data_ptr(), int(from_torch(a.dtype)),
-             b.data_ptr(), int(from_torch(b.dtype)), out.data_ptr(),
-             int(from_torch(out_dt)), a.numel(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    a = arrays[0].contiguous()
+    b = arrays[1].contiguous() if len(arrays) > 1 else a
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    body = route(name, (a.dtype, b.dtype), out_dt, kind,
+                 (a.data_ptr(), b.data_ptr(), out.data_ptr()))
+    vp, i32, i64 = _kernels.VP, _kernels.I32, _kernels.I64
+    if body == "copy":
+        fn = _kernels.function("elementwise", "kf_copy_bytes", (vp, vp, i64, vp))
+        err = fn(a.data_ptr(), out.data_ptr(), n * a.element_size(), stream)
+    elif body == "vector":
+        fn = _kernels.function("elementwise", "kf_elementwise_vector",
+                               (i32, vp, vp, vp, i32, i64, vp))
+        err = fn(_CODES[name], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 int(from_torch(out_dt)), n, stream)
+    else:
+        fn = _kernels.function("elementwise", "kf_elementwise",
+                               (i32, i32, vp, i32, vp, i32, vp, i32, i64, vp))
+        err = fn(_CODES[name], kind, a.data_ptr(), int(from_torch(a.dtype)),
+                 b.data_ptr(), int(from_torch(b.dtype)), out.data_ptr(),
+                 int(from_torch(out_dt)), n, stream)
     if err:
-        raise RuntimeError(f"elementwise kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"elementwise kernel launch failed ({body} body): "
+                           f"CUDA error {err}")
     elementwise.launches += 1
+    if body == "copy":
+        elementwise.launches_copy += 1
+    elif body == "vector":
+        elementwise.launches_vector += 1
     return out
 
 
 elementwise.launches = 0
+elementwise.launches_copy = 0
+elementwise.launches_vector = 0

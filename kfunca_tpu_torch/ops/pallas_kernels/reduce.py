@@ -12,6 +12,18 @@ stored in `out_dt` (fp32, bf16 or fp16; default the input's).  The caller
 moves the reduced axis to the front and flattens the rest.  Sums are taken
 in another order than the plain version's, so they agree to fp32 rounding,
 not bit for bit; the kernel repeats bit for bit from run to run.
+
+The card's kernel is a split-row reduction in two launches (counted as one
+call), on K7's layout: a block of 256 threads takes 256 columns of one of
+`welford.split_count(R, C, block_cols)` row splits (from the shape alone),
+each thread summing (or taking the max of) its column over the split's
+rows, 16 loads in flight; 16-bit input with C even and a 4-byte aligned
+base is read two columns a thread (`pairs`), so a block takes 512.  The
+splits' partials go to an S x C fp32 workspace that this wrapper
+allocates, and a second kernel folds each column's partials in a fixed
+order, scales the mean and stores in `out_dt`.  Empty matrices are
+refused, as the TPU kernel's blocking cannot take them either (R = 0 or
+C = 0 fails there, and mean's 1 / R divides by zero).
 """
 
 from __future__ import annotations
@@ -22,10 +34,12 @@ import torch
 
 from ...core.dtype import from_torch
 from ...runtime import _kernels
+from .welford import SPLIT_COLS, split_count
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _OPS = {"sum": 0, "mean": 1, "max": 2}
 MAX_INIT = -3.4e38
+PAIR = 2  # 16-bit columns a thread reads as one 4-byte load (reduce.cu kPair)
 
 
 def _check(x, op, out_dt):
@@ -57,6 +71,13 @@ def reduce_2d_plain(x, op="sum", out_dt=None):
     return r.to(out_dt)
 
 
+def pairs(x) -> bool:
+    """Whether the split kernel reads x's columns two at a time: 16-bit x
+    with an even column count and a 4-byte aligned base."""
+    return (x.dtype != torch.float32 and x.shape[1] % PAIR == 0
+            and x.data_ptr() % 4 == 0)
+
+
 def reduce_2d(x, op="sum", out_dt=None):
     """(R, C) -> (1, C) over dim 0 with fp32 accumulation.
 
@@ -72,13 +93,17 @@ def reduce_2d(x, op="sum", out_dt=None):
     if rows == 0 or cols == 0:
         raise ValueError(f"the kernel needs R > 0 and C > 0, got {tuple(x.shape)}")
     x = x.contiguous()
+    pair = pairs(x)
+    splits = split_count(rows, cols, SPLIT_COLS * (PAIR if pair else 1))
     out = torch.empty((1, cols), dtype=out_dt, device=x.device)
+    ws = torch.empty((splits, cols), dtype=torch.float32, device=x.device)
     vp, i32 = _kernels.VP, _kernels.I32
     fn = _kernels.function("reduce", "kf_reduce_2d",
-                           (vp, i32, vp, i32, i32, i32, i32, _kernels.F32, vp))
+                           (vp, i32, vp, i32, vp) + (i32,) * 5 + (_kernels.F32, vp))
     err = fn(x.data_ptr(), int(from_torch(x.dtype)), out.data_ptr(),
-             int(from_torch(out_dt)), rows, cols, _OPS[op],
-             _mean_scale(rows), torch.cuda.current_stream(x.device).cuda_stream)
+             int(from_torch(out_dt)), ws.data_ptr(), rows, cols, splits,
+             int(pair), _OPS[op], _mean_scale(rows),
+             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"reduce kernel launch failed: CUDA error {err}")
     reduce_2d.launches += 1

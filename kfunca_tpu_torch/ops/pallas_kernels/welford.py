@@ -28,8 +28,8 @@ import torch
 from ...runtime import _kernels
 
 EPS = 1e-12
-SPLIT_COLS = 256  # columns a block of the split kernel owns (reduce.cu kWelfordThreads)
-CHUNK = 16  # rows a thread loads before it folds them in (reduce.cu kChunk)
+SPLIT_COLS = 256  # threads of a split block, one a column (reduce.cu kSplitThreads)
+CHUNK = 16  # rows a thread loads before it uses them (reduce.cu kChunk)
 TARGET_BLOCKS = 4 * 132 * 8  # about four waves of 8 blocks on each of 132 SMs
 
 
@@ -47,10 +47,11 @@ def welford_norm_stat_plain(x):
     return mean, 1.0 / torch.sqrt(var + EPS)
 
 
-def split_count(rows: int, cols: int) -> int:
-    """S, the kernel's row splits, from the shape alone: enough blocks for
+def split_count(rows: int, cols: int, block_cols: int = SPLIT_COLS) -> int:
+    """S, the row splits of a split-row kernel (K7's, and K8's whose blocks
+    own `block_cols` columns each), from the shape alone: enough blocks for
     TARGET_BLOCKS, and no more splits than chunks of CHUNK rows."""
-    strips = -(-cols // SPLIT_COLS)
+    strips = -(-cols // block_cols)
     return max(1, min(-(-TARGET_BLOCKS // strips), -(-rows // CHUNK)))
 
 
@@ -58,7 +59,8 @@ def welford_norm_stat(x):
     """(mean, invstd) of each column of x over its rows.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (counted in `welford_norm_stat.launches`) or raise."""
+    (counted in `welford_norm_stat.launches`) or raise.  An empty matrix
+    launches nothing and counts nothing."""
     _check(x)
     if x.device.type == "cpu":
         return welford_norm_stat_plain(x)
@@ -66,7 +68,10 @@ def welford_norm_stat(x):
         raise ValueError(f"unsupported device {x.device}")
     rows, cols = x.shape
     if rows == 0 or cols == 0:
-        raise ValueError(f"the kernel needs R > 0 and C > 0, got {tuple(x.shape)}")
+        # the reference's answers (its XLA path, no kernel): NaN mean and
+        # invstd of (1, C) for no rows, (1, 0) outputs for no columns
+        mean = torch.full((1, cols), float("nan"), device=x.device)
+        return mean, mean.clone()
     splits = split_count(rows, cols)
     x = x.contiguous()
     mean = torch.empty((1, cols), dtype=torch.float32, device=x.device)

@@ -765,6 +765,140 @@ def test_welford_kernel_matches_plain_and_repeats(cuda, shape):
     assert torch.equal(m, m2) and torch.equal(s, s2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("offset,n", [(0, 4096 * 33 + 5), (1, 4096 * 33 + 5),
+                                      (0, 3), (8, 1000)], ids=str)
+def test_elementwise_vector_body_matches_plain(cuda, dtype, offset, n):
+    """K9's vector body (same dtype, 16-byte aligned) and the generic body
+    it gives way to at an odd element offset: exact against the plain
+    version, exp within 1 ulp; numels that leave a scalar tail and fall
+    short of one vector; each launch counted in its body's count."""
+    ew = _eager_kernels()[0]
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    a = torch.randn(n + offset, generator=gen, device=cuda).to(dtype)[offset:]
+    b = (torch.rand(n + offset, generator=gen, device=cuda) + 0.5).to(dtype)[offset:]
+    for op in ("add", "sub", "mul", "div", "neg", "abs", "exp"):
+        args = (a, b) if op in ("add", "sub", "mul", "div") else (a,)
+        body = ew.route(op, tuple(x.dtype for x in args), dtype, 0,
+                        (a.data_ptr(), b.data_ptr(), 0))
+        assert body == ("vector" if a.data_ptr() % 16 == 0 else "generic")
+        before = (ew.elementwise.launches, ew.elementwise.launches_vector)
+        got = ew.elementwise(op, *args, acc_dt=torch.float32, out_dt=dtype)
+        torch.cuda.synchronize()
+        assert (ew.elementwise.launches - before[0],
+                ew.elementwise.launches_vector - before[1]) == (1, int(body == "vector"))
+        want = ew.elementwise_plain(op, *args, acc_dt=torch.float32, out_dt=dtype)
+        if op == "exp":
+            tol = torch.finfo(dtype).eps * want.double().abs()
+            assert bool(((got.double() - want.double()).abs() <= tol).all())
+        else:
+            assert torch.equal(got, want), (op, body)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_elementwise_vector_body_writes_an_operand_in_place(cuda, dtype):
+    """out=a on the vector body (the `+=` of the eager API): each element is
+    read before it is written, by one thread, so the result is the plain
+    version's; the same for out=b."""
+    ew = _eager_kernels()[0]
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    n = 1 << 20
+    a = torch.randn(n + 3, generator=gen, device=cuda).to(dtype)
+    b = torch.randn(n + 3, generator=gen, device=cuda).to(dtype)
+    want_a = ew.elementwise_plain("add", a, b, acc_dt=torch.float32, out_dt=dtype)
+    want_b = ew.elementwise_plain("div", a, b, acc_dt=torch.float32, out_dt=dtype)
+    before = ew.elementwise.launches_vector
+    b_copy = b.clone()
+    got = ew.elementwise("div", a, b, acc_dt=torch.float32, out_dt=dtype, out=b)
+    assert got is b
+    ew.elementwise("add", a, b_copy, acc_dt=torch.float32, out_dt=dtype, out=a)
+    torch.cuda.synchronize()
+    assert ew.elementwise.launches_vector == before + 2
+    assert torch.equal(b, want_b) and torch.equal(a, want_a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16,
+                                   torch.float16, torch.int64, torch.int32,
+                                   torch.int16, torch.int8, torch.uint8, torch.bool],
+                         ids=str)
+def test_elementwise_byte_copy_is_bitwise(cuda, dtype):
+    """K9's same-dtype copy is a byte copy: bitwise the plain version, NaN
+    payloads included, at every offset pair of the source and the target
+    (16, 8, 4, 2 and 1 byte widths), counted in launches_copy."""
+    ew = _eager_kernels()[0]
+    n = 4099
+    size = torch.empty((), dtype=dtype).element_size()
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    raw = torch.randint(0, 256, ((n + 16) * size,), generator=gen, device=cuda,
+                        dtype=torch.uint8)
+    src_all = raw.view(dtype) if dtype != torch.bool else raw % 2 == 1
+    for src_off, dst_off in ((0, 0), (1, 0), (0, 3), (2, 6), (5, 1)):
+        src = src_all[src_off:src_off + n]
+        dst_all = torch.zeros(n + 16, dtype=dtype, device=cuda)
+        dst = dst_all[dst_off:dst_off + n]
+        before = (ew.elementwise.launches, ew.elementwise.launches_copy)
+        got = ew.elementwise("copy", src, acc_dt=dtype, out_dt=dtype, out=dst)
+        fresh = ew.elementwise("copy", src, acc_dt=dtype, out_dt=dtype)
+        torch.cuda.synchronize()
+        assert (ew.elementwise.launches - before[0],
+                ew.elementwise.launches_copy - before[1]) == (2, 2)
+        want = ew.elementwise_plain("copy", src, acc_dt=dtype, out_dt=dtype)
+        as_bytes = (lambda t: t.view(torch.uint8)) if dtype != torch.bool else \
+            (lambda t: t.to(torch.uint8))
+        assert got is dst and torch.equal(as_bytes(got), as_bytes(want))
+        assert torch.equal(as_bytes(fresh), as_bytes(want))
+        assert not dst_all[:dst_off].any() and not dst_all[dst_off + n:].any()
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((16387, 16387), torch.float32), ((4096, 4096), torch.bfloat16),
+    ((1000, 333), torch.float32), ((1000, 333), torch.float16),
+    ((1041, 16387), torch.float32),  # S = 65 splits of 17 rows: 62-64 empty
+    ((17, 4096), torch.bfloat16), ((3, 70000), torch.float16),
+], ids=str)
+def test_reduce_split_kernel_matches_plain_and_repeats(cuda, shape, dtype):
+    """K8's split-row kernel at the phase-21 shapes, 16-bit pairs and single
+    columns, empty splits: within 1e-5 of the column's sum of |x| (16-bit
+    out: plus one step), max exact, two calls bitwise equal, one launch
+    counted per call."""
+    _, _, rd, _ = _eager_kernels()
+    gen = torch.Generator(device=cuda).manual_seed(shape[0] + shape[1])
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2.0 + 0.5).to(dtype)
+    mass = x.float().abs().sum(0, keepdim=True).double()
+    for op in ("sum", "mean", "max"):
+        before = rd.reduce_2d.launches
+        got, again = rd.reduce_2d(x, op), rd.reduce_2d(x, op)
+        want = rd.reduce_2d_plain(x, op)
+        torch.cuda.synchronize()
+        assert rd.reduce_2d.launches == before + 2
+        assert torch.equal(got, again)
+        if op == "max":
+            assert torch.equal(got, want)
+            continue
+        err = (got.double() - want.double()).abs()
+        tol = 1e-5 * mass * (1.0 if op == "sum" else 1.0 / shape[0])
+        if dtype != torch.float32:
+            tol = tol + want.double().abs() * 2.0 ** -8
+        assert bool((err <= tol).all()), (op, err.max().item())
+    del x
+
+
+def test_reduce_split_kernel_max_keeps_nan_and_its_floor(cuda):
+    """max through both passes: a NaN in any split sticks, a column of -inf
+    ends at -3.4e38, an odd-offset 16-bit view reads one column a thread."""
+    _, _, rd, _ = _eager_kernels()
+    x = torch.full((5000, 4098), -float("inf"), device=cuda)
+    x[4321, 7] = float("nan")
+    x[:, 8:] = torch.randn((5000, 4090), device=cuda)
+    odd = x.half().flatten()[1:1 + 4999 * 4098].reshape(4999, 4098)  # 2-byte offset
+    assert not rd.pairs(odd) and rd.pairs(x.bfloat16())
+    for t in (x, x.bfloat16(), odd):
+        got = rd.reduce_2d(t, "max", out_dt=torch.float32)
+        want = rd.reduce_2d_plain(t, "max", out_dt=torch.float32)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.parametrize("mkn", [(1, 64, 8), (37, 100, 53), (130, 45, 137),
                                  (256, 512, 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
@@ -884,11 +1018,15 @@ def test_eager_api_on_the_card_matches_the_cpu(cuda, monkeypatch):
     x = rng.standard_normal((256, 256)).astype(np.float32)
     w1 = (rng.standard_normal((256, 512)) / 16).astype(np.float32)
     w2 = (rng.standard_normal((512, 256)) / 23).astype(np.float32)
-    before = (mm.matmul.launches, rd.reduce_2d.launches, ew.elementwise.launches)
+    counts = lambda: (mm.matmul.launches, rd.reduce_2d.launches,  # noqa: E731
+                      ew.elementwise.launches, ew.elementwise.launches_vector,
+                      ew.elementwise.launches_copy)
+    before = counts()
     card = _eager_mlp_step(kfunca, 0, x, w1, w2)
     torch.cuda.synchronize()
-    after = (mm.matmul.launches, rd.reduce_2d.launches, ew.elementwise.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (6, 1, 9)
+    # K9: the forward add and x's second gradient on the vector body, the
+    # tape's 7 gradient clones on the byte copy
+    assert tuple(a - b for a, b in zip(counts(), before)) == (6, 1, 9, 2, 7)
     cpu = _eager_mlp_step(kfunca, "cpu", x, w1, w2)
     for got, want in zip(card, cpu):
         assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
@@ -1024,6 +1162,25 @@ def test_elementwise_kernel_counts_no_launch_for_an_empty_operand(cuda):
     e = torch.empty((0, 5), device=cuda)
     got = ew.elementwise("add", e, e, acc_dt=torch.float32, out_dt=torch.float32)
     assert got.shape == (0, 5) and ew.elementwise.launches == before
+
+
+@pytest.mark.parametrize("shape", [(0, 4), (4, 0)], ids=str)
+def test_welford_kernel_answers_empty_matrices_without_a_launch(cuda, shape):
+    """K7 of an empty matrix answers as the reference does -- NaN mean and
+    invstd of (1, C) for no rows, (1, 0) outputs for no columns -- on the
+    card, launching and counting nothing; so does norm_stat through the
+    eager API, whose default engine is K7."""
+    import kfunca_tpu_torch as kfunca
+
+    wf = _eager_kernels()[3]
+    before = wf.welford_norm_stat.launches
+    m, s = wf.welford_norm_stat(torch.empty(shape, device=cuda))
+    tm, ts = kfunca.from_numpy(np.zeros(shape, np.float32), 0).norm_stat(0)
+    torch.cuda.synchronize()
+    assert wf.welford_norm_stat.launches == before
+    for got in (m, s, tm.to_torch(), ts.to_torch()):
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        assert tuple(got.shape) == (1, shape[1]) and bool(got.isnan().all())
 
 
 # -- K11: the selective scan --------------------------------------------------

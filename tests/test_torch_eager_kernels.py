@@ -371,38 +371,138 @@ def test_k8_max_initial_value_and_nan():
     assert got[0, 0].item() == pytest.approx(-3.4e38) and math.isnan(got[0, 1].item())
 
 
-def _emulate_column_strip(x, init, combine, unroll=8, warps=8):
-    """csrc/reduce.cu's blocking for one column: warp w keeps its own
-    accumulator over rows w, w + 8, ...; whole groups of `unroll` rows are
-    loaded before they are combined in row order; the 8 partials are then
-    merged in warp order."""
-    rows = x.shape[0]
-    parts = []
-    for w in range(warps):
-        acc, r = init, w
-        while r + (unroll - 1) * warps < rows:
-            for u in range(unroll):
-                acc = combine(acc, x[r + u * warps])
-            r += unroll * warps
-        while r < rows:
-            acc = combine(acc, x[r])
-            r += warps
+def _widen_pairs(x16):
+    """csrc/reduce.cu `Cols<T, 2>::load` (and the vector body's `Lane`):
+    each 4-byte word of two adjacent 16-bit values, widened from its bits
+    -- bf16 by shifting into the high half of an fp32, fp16 by converting
+    each half -- as an (R, C) fp32 matrix."""
+    r, c = x16.shape
+    h = x16.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+    words = (h[:, 0::2] | (h[:, 1::2] << 16)).reshape(r, c // 2)
+    if x16.dtype == torch.bfloat16:
+        lo = ((words << 16) & 0xFFFFFFFF).to(torch.int64)
+        hi = words & 0xFFFF0000
+        as_f = [(v - ((v >> 31) << 32)).to(torch.int32).view(torch.float32)
+                for v in (lo, hi)]
+    else:
+        as_f = [((v - ((v >> 15) << 16)).to(torch.int16).view(torch.float16).float())
+                for v in (words & 0xFFFF, words >> 16)]
+    return torch.stack(as_f, dim=2).reshape(r, c)
+
+
+def _emulate_k8_split_rows(x, op, splits, pair, chunk=16, warps=8):
+    """csrc/reduce.cu's K8 on the CPU, in fp32, for all columns at once:
+    S row splits of ceil(R / S) rows; each thread runs its column(s) over
+    its split's rows in row order, chunk by chunk (16-bit pairs read as one
+    word and widened); then the merge: warp w folds the live splits [w *
+    per, (w + 1) * per) in split order from the identity, and the warps'
+    results are folded in warp order; mean times float32(1 / R).  Returns
+    the (1, C) fp32 result and the number of empty splits."""
+    rows, cols = x.shape
+    xf = _widen_pairs(x) if pair else x.float()
+    rps = -(-rows // splits)
+    init = torch.full((cols,), k8.MAX_INIT if op == "max" else 0.0)
+
+    def combine(acc, v):
+        if op == "max":
+            return torch.where((v != v) | (v > acc), v, acc)  # NaN sticks
+        return acc + v
+
+    parts, empty = [], 0
+    for s in range(splits):
+        n = max(0, min(rps, rows - s * rps))
+        if n == 0:
+            parts.append(None)  # never written, never read
+            empty += 1
+            continue
+        acc = init.clone()
+        for r in range(s * rps, s * rps + n, chunk):
+            for v in xf[r:min(r + chunk, s * rps + n)]:
+                acc = combine(acc, v)
         parts.append(acc)
-    return parts
+    per = -(-splits // warps)
+    warp_acc = []
+    for w in range(warps):
+        acc = init.clone()
+        for part in parts[w * per:min(splits, (w + 1) * per)]:
+            if part is not None:
+                acc = combine(acc, part)
+        warp_acc.append(acc)
+    r = warp_acc[0]
+    for acc in warp_acc[1:]:
+        r = combine(r, acc)
+    if op == "mean":
+        r = r * torch.tensor(k8._mean_scale(rows), dtype=torch.float32)
+    return r.reshape(1, cols), empty
 
 
-def test_k8_tiling_emulation():
+@pytest.mark.parametrize("r,c,dtype,shape_for_s", [
+    (203, 5, torch.float32, None),          # one split of 203 rows: ragged chunk
+    (1000, 333, torch.float32, None),       # S = 63 of 16 rows, the last 8
+    (1041, 5, torch.float32, (1041, 16387)),  # S = 65 of 17 rows: 62-64 empty
+    (300, 130, torch.bfloat16, None),       # pairs: 512 columns a block
+    (77, 9, torch.float16, None),           # C odd: one 16-bit column a thread
+    (40, 6, torch.float16, (40, 4096)),     # fp16 pairs, S = 3 of 14 rows
+], ids=["one_split", "ragged_1000x333", "empty_splits_1041x16387", "bf16_pairs",
+        "fp16_odd_columns", "fp16_pairs"])
+@pytest.mark.parametrize("op", ["sum", "mean", "max"])
+def test_k8_tiling_emulation(r, c, dtype, shape_for_s, op):
+    """K8's split-row schedule (splits from the shape, empty splits skipped,
+    the merge's fixed order) against the plain version -- fp32 sums within
+    1e-5 of the column's sum of |x|, max exact, NaN and -inf columns as the
+    plain version -- and against the JAX package's reduce_2d."""
     rng = np.random.default_rng(13)
-    x = torch.from_numpy(rng.uniform(-5, 5, (203, 5)).astype(np.float32))
-    for c in range(5):
-        parts = _emulate_column_strip(x[:, c], torch.tensor(0.0), lambda a, v: a + v)
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p
-        assert abs(total.item() - x[:, c].double().sum().item()) < 1e-4
-        mx = _emulate_column_strip(x[:, c], torch.tensor(-3.4e38),
-                                   lambda a, v: v if (v != v or v > a) else a)
-        assert max(mx).item() == x[:, c].max().item()
+    x = torch.from_numpy(rng.uniform(-5, 5, (r, c)).astype(np.float32)).to(dtype)
+    x[r // 2, 0] = float("nan")
+    x[:, -1] = -float("inf")
+    pair = dtype != torch.float32 and c % k8.PAIR == 0
+    block_cols = k7.SPLIT_COLS * (k8.PAIR if pair else 1)
+    splits = k7.split_count(*(shape_for_s or (r, c)), block_cols)
+    got, empty = _emulate_k8_split_rows(x, op, splits, pair)
+    assert empty == (3 if shape_for_s == (1041, 16387) else 0)
+    want = k8.reduce_2d_plain(x, op, torch.float32)
+    assert torch.equal(got.isnan(), want.isnan())
+    if op == "max":
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    else:
+        finite = torch.isfinite(want)
+        mass = x.float().abs()[:, finite[0]].sum(0).double()
+        scale = 1.0 if op == "sum" else 1.0 / r
+        err = (got[finite] - want[finite]).abs().double()
+        assert bool((err <= 1e-5 * mass * scale).all())
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.dtype(str(dtype)[6:]))
+    ref = np.asarray(jax_reduce(jx, op=op, out_dt=jnp.float32, br=128, bc=128,
+                                interpret=True))
+    _close(np.nan_to_num(got.numpy(), neginf=0.0), np.nan_to_num(ref, neginf=0.0),
+           rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k8_pairs_widen_exactly(dtype):
+    """A word of two 16-bit columns widens to the same fp32 values as
+    .float(): bit for bit for infinities, subnormals and -0.0; NaN stays
+    NaN (its fp32 payload is the hardware's, not torch's)."""
+    v = torch.tensor([1.5, -0.0, float("nan"), float("inf"), -float("inf"),
+                      1e-40 if dtype == torch.bfloat16 else 6e-8, -3.25, 65504.0])
+    x = v.to(dtype).reshape(2, 4)
+    got, want = _widen_pairs(x), x.float()
+    assert torch.equal(got.isnan(), want.isnan())
+    keep = ~want.isnan()
+    assert torch.equal(got[keep].view(torch.int32), want[keep].view(torch.int32))
+
+
+def test_k8_split_layout():
+    """K8's splits come from K7's rule with the block's columns: 65 x 65
+    blocks at 16387^2 fp32 (one column a thread); (4096, 4096) bf16 reads
+    pairs, 8 strips of 512 columns x 256 splits of 16 rows; odd C, fp32
+    and an odd-element offset read one column a thread."""
+    assert k7.split_count(16387, 16387, k7.SPLIT_COLS) == 65
+    assert k7.split_count(4096, 4096, k7.SPLIT_COLS * k8.PAIR) == 256
+    assert k8.pairs(torch.zeros((4, 4096), dtype=torch.bfloat16))
+    assert not k8.pairs(torch.zeros((4, 4097), dtype=torch.bfloat16))
+    assert not k8.pairs(torch.zeros((4, 4096), dtype=torch.float32))
+    assert not k8.pairs(torch.zeros(4 * 4096 + 1, dtype=torch.float16)[1:]
+                        .reshape(4, 4096))
 
 
 # -- K7: welford_norm_stat --------------------------------------------------------
@@ -416,6 +516,28 @@ def test_k7_plain_matches_pallas(r, c):
     tm, ts = k7.welford_norm_stat(_t(x))
     _close(tm.numpy(), jm, rtol=1e-5)
     _close(ts.numpy(), js, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(0, 4), (4, 0)], ids=str)
+def test_k7_empty_matrices_answer_as_the_reference(shape):
+    """norm_stat of an empty 2-D fp32 tensor (K7's engine): NaN mean and
+    invstd of (1, 4) for no rows, (1, 0) outputs for no columns -- the JAX
+    package's eager norm_stat and its welford_norm_stat (whose r_main == 0
+    path answers in XLA) give the same."""
+    import kfunca_tpu as jk
+    import kfunca_tpu_torch as tk
+
+    x = np.zeros(shape, np.float32)
+    tm, ts = tk.from_numpy(x, "cpu").norm_stat(0)
+    jm, js = jk.from_numpy(x, 0).norm_stat(0)
+    km, ks = jax_welford(jnp.asarray(x), interpret=True)
+    for got in (tm, ts):
+        assert got.sizes() == jm.sizes() == [1, shape[1]]
+        np.testing.assert_array_equal(got.numpy(), jm.numpy())
+        np.testing.assert_array_equal(got.numpy(), np.asarray(km))
+    np.testing.assert_array_equal(ts.numpy(), js.numpy())
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(ks))
+    assert np.isnan(tm.numpy()).all() and np.isnan(ts.numpy()).all()
 
 
 def _chan_fold(state, nb, delta, m2b):
@@ -521,7 +643,10 @@ def test_k7_split_count_fills_the_card():
 
 @pytest.mark.parametrize("module,name,source,constant", [
     (k7, "CHUNK", "reduce.cu", "kChunk"),
-    (k7, "SPLIT_COLS", "reduce.cu", "kWelfordThreads"),
+    (k7, "SPLIT_COLS", "reduce.cu", "kSplitThreads"),
+    (k8, "PAIR", "reduce.cu", "kPair"),
+    (k9, "VEC_BYTES", "elementwise.cu", "kVecBytes"),
+    (k9, "VEC_UNROLL", "elementwise.cu", "kVecUnroll"),
     (k10, "WORDS_PER_THREAD", "bitonic_sort.cu", "kE"),
     (k10, "MAX_N", "bitonic_sort.cu", "kMaxN"),
 ])
@@ -580,6 +705,137 @@ def test_k9_any_numel_and_out():
         k9.elementwise("add", a, a[:3], acc_dt=torch.float32, out_dt=torch.float32)
     with pytest.raises(ValueError, match="unknown elementwise op"):
         k9.elementwise("log", a, acc_dt=torch.float32, out_dt=torch.float32)
+
+
+def _emulate_k9_vector(name, a, b, threads=256):
+    """csrc/elementwise.cu's vector body on the CPU: block x thread x
+    access -> vector index (each vector exactly once), each vector's four
+    32-bit words widened lane by lane from their bits (`Lane::get`), the
+    math in fp32, each result rounded once into the dtype (`Lane::put`),
+    and block 0's scalar tail past the last whole vector."""
+    n, dt = a.numel(), a.dtype
+    per = k9.VEC_BYTES // a.element_size()
+    nvec = n // per
+    per_block = threads * k9.VEC_UNROLL
+    blocks = max(1, -(-nvec // per_block))
+    idx = (torch.arange(blocks)[:, None, None] * per_block
+           + torch.arange(k9.VEC_UNROLL)[None, :, None] * threads
+           + torch.arange(threads)[None, None, :]).flatten()
+    idx = idx[idx < nvec]
+    assert torch.equal(idx.sort().values, torch.arange(nvec))  # once each
+    tail = nvec * per + torch.arange(threads)
+    tail = tail[tail < n]
+    assert len(tail) == n % per
+
+    def widen(v):
+        if dt == torch.float32:
+            return v.clone()
+        return _widen_pairs(v.reshape(1, -1)).reshape(-1)
+
+    func = k9.FUNCS[name]
+    out = torch.empty(n, dtype=dt)
+    body = slice(0, nvec * per)
+    args = [widen(v.reshape(-1)[body]) for v in ((a, b) if b is not None else (a,))]
+    out[body] = func(*args).to(dt)
+    if len(tail):
+        targs = [v.reshape(-1)[tail].float() for v in ((a, b) if b is not None else (a,))]
+        out[tail] = func(*targs).to(dt)
+    return out.reshape(a.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", [op for op in k9.OPS if op != "copy"])
+def test_k9_vector_body_emulation(name, dtype):
+    """The vector body's schedule and lanes give bitwise the plain version,
+    at a numel that spans several blocks and leaves a scalar tail."""
+    rng = np.random.default_rng(15)
+    n = 9001  # fp32: 2250 vectors (3 blocks) and a tail of 1; 16-bit: 1125 and 1
+    a = torch.from_numpy(rng.uniform(-3, 3, n).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.uniform(0.5, 2, n).astype(np.float32)).to(dtype)
+    b = b if name in ("add", "sub", "mul", "div") else None
+    args = (a, b) if b is not None else (a,)
+    want = k9.elementwise_plain(name, *args, acc_dt=torch.float32, out_dt=dtype)
+    got = _emulate_k9_vector(name, a, b)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("name,dtypes,out_dt,acc,offsets,body", [
+    ("add", ("float32", "float32"), "float32", "float32", (0, 0, 0), "vector"),
+    ("exp", ("bfloat16",), "bfloat16", "float32", (0, 0, 0), "vector"),
+    ("div", ("float16", "float16"), "float16", "float32", (0, 0, 0), "vector"),
+    ("add", ("float32", "float32"), "float32", "float32", (4, 0, 0), "generic"),
+    ("mul", ("bfloat16", "bfloat16"), "bfloat16", "float32", (0, 0, 2), "generic"),
+    ("add", ("bfloat16", "float32"), "float32", "float32", (0, 0, 0), "generic"),
+    ("add", ("float32", "float32"), "float32", "float64", (0, 0, 0), "generic"),
+    ("add", ("int32", "int32"), "int32", "int64", (0, 0, 0), "generic"),
+    ("copy", ("bfloat16",), "bfloat16", "bfloat16", (2, 0, 6), "copy"),
+    ("copy", ("int64",), "int64", "int64", (0, 0, 0), "copy"),
+    ("copy", ("bool",), "bool", "bool", (1, 0, 0), "copy"),
+    ("copy", ("float32",), "bfloat16", "bfloat16", (0, 0, 0), "generic"),
+    ("copy", ("int32",), "int8", "int8", (0, 0, 0), "generic"),
+])
+def test_k9_route_rule(name, dtypes, out_dt, acc, offsets, body):
+    """The body comes from the dtypes and the byte offsets of a, b and out
+    alone: the vector body needs one float dtype throughout, float math and
+    16-byte alignment; any copy that keeps its dtype is the byte copy."""
+    dt = [getattr(torch, d) for d in dtypes]
+    ops = [torch.zeros(4, dtype=d) for d in dt]
+    kind = k9._acc_kind(name, ops, getattr(torch, acc), getattr(torch, out_dt))
+    ptrs = [4096 + o for o in offsets]
+    assert k9.route(name, tuple(dt), getattr(torch, out_dt), kind, ptrs) == body
+
+
+def _emulate_copy_bytes(src, dst, nbytes, threads=256):
+    """csrc/elementwise.cu `kf_copy_bytes`'s pieces for a copy from address
+    src to dst: the widest width the two share mod 16, the head bytes up to
+    src's next boundary of it, whole vectors, then tail bytes; returns
+    (width, [(offset, length), ...]) covering [0, nbytes) once."""
+    skew = (src ^ dst) % k9.VEC_BYTES
+    width = next(w for w in (16, 8, 4, 2, 1) if skew % w == 0)
+    head = min((width - src % width) % width, nbytes)
+    nvec = (nbytes - head) // width
+    assert head < threads and (nbytes - head - nvec * width) < threads
+    pieces = [(i, 1) for i in range(head)]
+    pieces += [(head + i * width, width) for i in range(nvec)]
+    pieces += [(i, 1) for i in range(head + nvec * width, nbytes)]
+    assert all((src + o) % width == 0 and (dst + o) % width == 0
+               for o, w in pieces if w == width and w > 1)
+    return width, pieces
+
+
+@pytest.mark.parametrize("dtype,src_off,dst_off,width", [
+    (torch.float32, 0, 0, 16), (torch.float32, 4, 12, 8), (torch.float32, 4, 0, 4),
+    (torch.bfloat16, 2, 0, 2), (torch.float64, 8, 8, 16), (torch.int8, 1, 0, 1),
+    (torch.bool, 3, 7, 4), (torch.int64, 0, 8, 8),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_k9_byte_copy_emulation(dtype, src_off, dst_off, width):
+    """The byte copy's pieces cover every byte once, aligned at both ends,
+    and the copy is bitwise the plain version's, NaN payloads included."""
+    rng = np.random.default_rng(16)
+    n = 1003
+    raw = torch.from_numpy(rng.integers(0, 256, n * torch.empty((), dtype=dtype)
+                                        .element_size(), dtype=np.uint8))
+    a = raw.view(dtype) if dtype != torch.bool else raw % 2 == 1
+    if dtype.is_floating_point:  # quiet and signalling NaNs with payloads
+        bits = {4: [0x7FC00001, 0xFF800123, 0x7F8000FF], 2: [0x7FC1, 0xFF81, 0x7F81],
+                8: [0x7FF8000000000001, 0x7FF0000000000ABC]}[a.element_size()]
+        ints = {4: torch.int32, 2: torch.int16, 8: torch.int64}[a.element_size()]
+        a.view(ints)[:len(bits)] = torch.tensor(
+            [b - (1 << (8 * a.element_size())) if b >= 1 << (8 * a.element_size() - 1)
+             else b for b in bits], dtype=ints)
+    nbytes = a.numel() * a.element_size()
+    w, pieces = _emulate_copy_bytes(4096 + src_off, 8192 + dst_off, nbytes)
+    assert w == width
+    src = a.view(torch.uint8) if dtype != torch.bool else a.to(torch.uint8)
+    out = torch.zeros(nbytes, dtype=torch.uint8)
+    cover = torch.zeros(nbytes, dtype=torch.int64)
+    for o, length in pieces:
+        out[o:o + length] = src[o:o + length]
+        cover[o:o + length] += 1
+    assert bool((cover == 1).all())
+    want = k9.elementwise_plain("copy", a, acc_dt=dtype, out_dt=dtype)
+    want = want.view(torch.uint8) if dtype != torch.bool else want.to(torch.uint8)
+    assert torch.equal(out, want)
 
 
 def _int_div_scalar(x: int, y: int) -> int:
