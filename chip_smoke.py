@@ -166,9 +166,12 @@ Phases (any failure raises and the script exits non-zero):
  37. hold the ring-attention hop kernels K12 (forward and backward)
      against their plain versions at the ring's shard shape (B=1, H=32,
      s_local=8192, D=128; a past, a diagonal and a wholly-future hop, the
-     last leaving carry and accumulators bit for bit) in bf16 and fp32, and
-     at edge shapes (a ragged s_local of 200, head dims 64 and 40,
-     unaligned offsets, a padding row that hop_lse sends to 0); two
+     last leaving carry and accumulators bit for bit) in bf16 (the wgmma
+     bodies: acc, dq, dk, dv within 2^-7 of max |ref|, m and l within
+     1e-4 x max(1, max |ref|)) and fp32 (the fp32 tile: all within 1e-4 x
+     max(1, max |ref|)), and at edge shapes (a ragged s_local of 200, head
+     dims 64 and 40, unaligned offsets, a padding row that keeps the fresh
+     carry bit for bit and that hop_lse sends to 0, in both dtypes); two
      backward runs bitwise equal;
  38. time each hop kind, forward and backward, its plain version (in
      chunks of 8 heads) beside its bound (unmasked pairs x 4 / 10 x hd
@@ -176,7 +179,9 @@ Phases (any failure raises and the script exits non-zero):
  39. the ring at Mistral-7B-v0.1's attention width (32 heads of 128, the
      kv heads repeated) over its 32,768-token context, B=1, cp=4 shards on
      one card through LocalRing, bf16, forward and backward through K12:
-     launches = 16 + 16 asserted, forward / backward ms, peak memory, held
+     launches = 16 + 16 asserted, all on the wgmma bodies, forward /
+     backward ms, peak memory, one pass profiled (device busy share, K12's
+     share), held
      against K1/K2 over the gathered sequence and, at S=8192 in fp32,
      against the einsum oracle (`_ring_einsum` under autograd) at 1e-4 x
      max(1, max |ref|); scaled_dot_product_attention(is_causal=True) over the
@@ -3741,15 +3746,20 @@ def bwd_hop_plain(rh, q, k, v, g, stats, accs, q_off, kv_off):
             *(t[hs] for t in accs), q_off, kv_off)
 
 
-def hop_err(got, ref, what) -> float:
-    """Max |got - ref| of two fp32 results after checking it against
-    1e-4 x max(1, max |ref|): both routes widen the same inputs (fp32 or
-    bf16) to fp32 and keep p and ds in fp32, so they differ only by the
-    order of fp32 sums (the kernel merges the carry a 64-column tile at a
-    time, the plain version the hop at once)."""
+def hop_err(got, ref, what, rounded=False) -> float:
+    """Max |got - ref| of two fp32 results after checking it against its
+    limit.  1e-4 x max(1, max |ref|) where both routes keep p and ds in
+    fp32 (fp32 inputs; m and l, which sum the fp32 p, on bf16 inputs too):
+    they differ only by the order of fp32 sums (the kernel merges the carry
+    a 64-column tile at a time, the plain version the hop at once).
+    `rounded` (acc, dq, dk, dv on bf16 inputs): the wgmma body rounds p and
+    ds to bf16 before the second products, as K1's and K2's do and the
+    plain version does not, so they are held to the 16-bit kernel-vs-plain
+    limit, 2^-7 of max |ref|."""
     check(bool(torch.isfinite(got).all()), f"{what} is finite")
     err = float((got - ref).abs().max())
-    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    top = float(ref.abs().max())
+    tol = 2.0 ** -7 * top if rounded else 1e-4 * max(1.0, top)
     check(err <= tol, f"{what}: kernel vs plain {err:.3g} > {tol:.3g}")
     return err
 
@@ -3759,18 +3769,25 @@ def hop_case_check(rh, dtype, gen, b, h, sq, skv, d, q_off, kv_off, tag):
     hop must leave carry and accumulators bit for bit.  Returns the worst
     (forward, backward) errors."""
     q, k, v, g, carry, stats, accs = hop_inputs(gen, dtype, b, h, sq, skv, d)
+    wgmma = (rh.flash_attention_hop.launches_wgmma,
+             rh.flash_attention_bwd_hop.launches_wgmma)
     got = [t.clone() for t in carry]
     rh.flash_attention_hop(q, k, v, *got, q_off, kv_off)
     gacc = [t.clone() for t in accs]
     rh.flash_attention_bwd_hop(q, k, v, g, *stats, *gacc, q_off, kv_off)
     torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    check((rh.flash_attention_hop.launches_wgmma - wgmma[0],
+           rh.flash_attention_bwd_hop.launches_wgmma - wgmma[1])
+          == (bf16, bf16), f"K12 {tag} took the "
+          f"{'wgmma' if bf16 else 'fp32-tile'} bodies")
     want = [t.clone() for t in carry]
     hop_plain(rh, q, k, v, want, q_off, kv_off)
     wacc = [t.clone() for t in accs]
     bwd_hop_plain(rh, q, k, v, g, stats, wacc, q_off, kv_off)
-    e1 = max(hop_err(a, w, f"{n} {tag}")
+    e1 = max(hop_err(a, w, f"{n} {tag}", bf16 and n == "acc")
              for a, w, n in zip(got, want, ("m", "l", "acc")))
-    e2 = max(hop_err(a, w, f"{n} {tag}")
+    e2 = max(hop_err(a, w, f"{n} {tag}", bf16)
              for a, w, n in zip(gacc, wacc, ("dq", "dk", "dv")))
     if kv_off > q_off + sq - 1:
         check(all(torch.equal(a, t) for a, t in zip(got + gacc,
@@ -3780,25 +3797,30 @@ def hop_case_check(rh, dtype, gen, b, h, sq, skv, d, q_off, kv_off, tag):
     return e1, e2
 
 
-def padding_row_check(rh):
+def padding_row_check(rh, dtype):
     """From a fresh carry, a hop whose kv shard starts at column 64 of the
-    q shard leaves rows 0..63 with no column: hop_lse gives them 0 and
-    hop_finalize 0, and the backward leaves their dq as it was."""
+    q shard leaves rows 0..63 with no column (on the bf16 body, all the
+    rows of the first consumer): they keep the fresh carry bit for bit,
+    hop_lse gives them 0 and hop_finalize 0, and the backward leaves their
+    dq as it was."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
-    q, k, v, g, _, _, accs = hop_inputs(gen, torch.float32, 1, 2, 128, 128,
-                                        128)
+    q, k, v, g, _, _, accs = hop_inputs(gen, dtype, 1, 2, 128, 128, 128)
     m, l, acc = rh.hop_carry_init(1, 2, 128, 128, device="cuda")
+    fresh = [t.clone() for t in (m, l, acc)]
     rh.flash_attention_hop(q, k, v, m, l, acc, 0, 64)
+    check(all(torch.equal(a[:, :64], t[:, :64])
+              for a, t in zip((m, l, acc), fresh)),
+          f"rows with no column keep the fresh carry bit for bit ({dtype})")
     lse = rh.hop_lse(m, l)
     out = rh.hop_finalize(l, acc, 1, 2, 128, 128, torch.float32)
     check(not lse[:, :64].any() and not out[:, :, :64].any()
           and bool((l[:, 64:] > 0).all()),
           "rows with no column over the ring get lse = 0 and out = 0")
-    delta = rh.flat_rows((g * out).sum(-1))
+    delta = rh.flat_rows((g.float() * out).sum(-1))
     dq = [t.clone() for t in accs]
     rh.flash_attention_bwd_hop(q, k, v, g, lse, delta, *dq, 0, 64)
     check(torch.equal(dq[0][:, :64], accs[0][:, :64]),
-          "a padding row's dq is left as it was")
+          f"a padding row's dq is left as it was ({dtype})")
 
 
 def ring_hop_checks(rh) -> tuple[float, float]:
@@ -3821,7 +3843,8 @@ def ring_hop_checks(rh) -> tuple[float, float]:
                   flush=True)
             worst = [max(worst[0], e1), max(worst[1], e2)]
             free_device_memory()
-    padding_row_check(rh)
+    for dtype in (torch.bfloat16, torch.float32):
+        padding_row_check(rh, dtype)
     q, k, v, g, _, stats, accs = hop_inputs(gen, torch.bfloat16, b, h, s, s,
                                             d)
     runs = []
@@ -3922,6 +3945,33 @@ def sdpa_ring_yardstick(q, k, v, g) -> tuple[float, float]:
     return fwd, bwd
 
 
+# K12's device functions: the bf16 wgmma bodies (K1's and K2's kernels with
+# kHop = true) and the fp32 tile's
+K12_KERNELS = ("wgmma<128, true>", "wgmma<64, true>", "hop_fwd_kernel",
+               "hop_bwd_")
+
+
+def ring_profile(ring, q, k, v, g, card):
+    """Where one ring pass (forward and backward) spends the card's time,
+    by torch.profiler (after the timed passes: not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        torch.autograd.grad(ring(*leaves), leaves, g)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof = profile_summary(prof, wall_us, 1, n_top=8)
+    print_profile("[39] ring pass profile (forward + backward, bf16, "
+                  "profiler on)", prof, card)
+    k12_ms, k12_share = kernel_share(prof, K12_KERNELS)
+    print(f"[39] K12 (forward and backward hops): {k12_ms:.2f} ms a pass, "
+          f"{100 * k12_share:.1f}% of the device's busy time", flush=True)
+
+
 def full_ring_phase(rh, ra, fa, card) -> tuple[int, int]:
     """Phase 39: the ring at Mistral-7B-v0.1's attention width over its
     32,768-token context through LocalRing(4) with K12, held against K1/K2
@@ -3938,14 +3988,20 @@ def full_ring_phase(rh, ra, fa, card) -> tuple[int, int]:
     base = torch.cuda.memory_allocated()
     rh.flash_attention_hop.launches = 0
     rh.flash_attention_bwd_hop.launches = 0
+    rh.flash_attention_hop.launches_wgmma = 0
+    rh.flash_attention_bwd_hop.launches_wgmma = 0
     out, grads = ring_pass(ring, q, k, v, g)
     torch.cuda.synchronize()
     launches = (rh.flash_attention_hop.launches,
                 rh.flash_attention_bwd_hop.launches)
+    wgmma = (rh.flash_attention_hop.launches_wgmma,
+             rh.flash_attention_bwd_hop.launches_wgmma)
     peak = torch.cuda.max_memory_allocated() - base
     check(launches == (cp * cp, cp * cp),
           f"the ring launches each hop cp^2 = {cp * cp} times a pass (got "
           f"{launches})")
+    check(wgmma == launches, f"every bf16 hop of the ring took the wgmma "
+          f"bodies ({wgmma} of {launches})")
     # against the port's own K1 / K2 over the gathered sequence
     ref_out, lse = fa.flash_attention_fwd_stats(q, k, v)
     ref_grads = fa.flash_attention_backward(q, k, v, g, ref_out, lse)
@@ -3974,10 +4030,12 @@ def full_ring_phase(rh, ra, fa, card) -> tuple[int, int]:
           f"backward {bwd_ms:.2f} ms (bounds {4 * d * pairs / 989e9:.2f} / "
           f"{10 * d * pairs / 989e9:.2f} ms by operations), peak "
           f"{peak / 2**30:.2f} GiB above the inputs; launches {launches[0]} "
-          f"+ {launches[1]}; vs K1/K2 on the gathered sequence: out "
+          f"+ {launches[1]} ({wgmma[0]} + {wgmma[1]} on the wgmma bodies); "
+          f"vs K1/K2 on the gathered sequence: out "
           f"{errs[0]:.3g}, dq/dk/dv {max(errs[1:]):.3g}; SDPA is_causal on "
           f"the gathered sequence {lib_fwd:.2f} / {lib_bwd:.2f} ms; {card}",
           flush=True)
+    ring_profile(ring, q, k, v, g, card)
     del q, k, v, g
     free_device_memory()
     # the kernels' ring in fp32 against the einsum oracle, which shares no

@@ -24,16 +24,6 @@ __device__ __forceinline__ void store16(uint4 raw, float* dst, float) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
 }
 
-__device__ __forceinline__ void store16(uint4 raw, float* dst, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]);
-  const float2 d = __bfloat1622float2(h[3]);
-  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
-}
-
 // max / sum over the 16 lanes that share a row group (same ty)
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll

@@ -15,19 +15,22 @@
 //   kv_off + j <= q_off + i, j < Skv and i < Sq (global causal positions).
 //   Forward: m, l (BH, Sq) and acc (BH, Sq, hd) fp32 are the online-softmax
 //   carry, read and written in place; acc stays unnormalized.  Masked
-//   scores count as the finite -1e30 for the running max and add an exact
-//   0 to the sums, so a row that sees no column of a tile keeps m and l bit
-//   for bit (alpha = exp(0) = 1) and adds exact zeros to acc.  A q tile
-//   whose rows all lie before the shard's first column (a wholly-future
-//   hop) returns before it reads anything: its carry is untouched.
-//   Backward: lse, delta (BH, Sq) fp32 are the ring's global natural-log
-//   lse and rowsum(g * out); P = exp(q.k - lse) on attended pairs (exact 0
+//   scores raise no running max and add an exact 0 to the sums, so a row
+//   that sees no column of the hop keeps m, l and acc bit for bit.  A q
+//   tile whose rows all lie before the shard's first column (a
+//   wholly-future hop) returns before it reads anything: its carry is
+//   untouched.
+//   Backward: lse, delta (BH, pitch) fp32 are the ring's global natural-log
+//   lse and rowsum(g * out) (pitch = Sq, or for bf16 a multiple of 64 with
+//   zeros past Sq); P = exp(q.k - lse) on attended pairs (exact 0
 //   elsewhere), dS = P * (g.v - delta); dq += dS k (unscaled), dk += dS^T q
 //   (q is scaled), dv += P^T g, the fp32 accumulators (BH, S, hd) updated
 //   in place: each block adds its hop's sum to the stored value once.
-//   fp32 inputs run in plain fp32 FFMA (never TF32).  bf16 inputs are
-//   widened to fp32 when a tile is staged, and P and dS stay fp32 into the
-//   second product (the TPU kernel rounds them to bf16 there).
+//   fp32 inputs run in plain fp32 FFMA (never TF32).  bf16 inputs run every
+//   product on the tensor cores from the bf16 tiles with fp32 accumulators,
+//   and round P (and, backward, dS) to bf16 before the second products, as
+//   the TPU kernel does (_mxu_in); the forward's l sums the fp32 P before
+//   that rounding, as the TPU kernel's does.
 //
 // What bounds it: operations.  At the ring's shape (B=1, H=32, s_local =
 // 8192, hd=128) a past hop has 67.1 M unmasked pairs a head at 4*hd flops
@@ -35,24 +38,55 @@
 // flops per byte, far above the ~295 flop/byte where a Hopper card's
 // tensor cores, not its memory, become the limit.
 //
-// What the design does about that, staying simple (the tile code is
-// K1/K2's, shared with csrc/flash_attention.cu through attention_tile.cuh):
+// What the designs do about that:
 //   * only live tiles are visited: kv tiles wholly in the future of a q
 //     tile (and q tiles wholly before a kv tile in the dk/dv pass) are
 //     never loaded, so a future hop costs a launch and a diagonal hop half
 //     a past one;
-//   * 64 x 64 tiles staged in shared memory as fp32 with rows padded by 4
-//     floats (16-byte loads free of bank conflicts); each of the 256
-//     threads keeps a 4 x 4 block of the score tile and a 4 x (hd/16) block
-//     of the output tile in registers;
 //   * the backward is two kernels that each own what they write (dq per q
 //     tile; dk and dv per kv tile), so there are no atomics and the
-//     gradients are bitwise repeatable.
-// Left for later: the tensor cores (wgmma on bf16 tiles; this version's
-// ceiling is the 67 TFLOP/s fp32 pipe), TMA / cp.async double buffering,
-// and overlapping a hop with the transfer of the next shard.
+//     gradients are bitwise repeatable;
+//   * bf16 inputs: the wgmma bodies of K1 and K2 (attention_wgmma.cuh with
+//     kHop = true; TMA rings on hopper.cuh): the forward keeps 128 q rows
+//     resident in a block of a producer and two 64-row consumer warpgroups
+//     and streams 64-row k and v tiles through 3 stages; the dq kernel
+//     keeps 128 rows of q and dO and streams k and v; the dk/dv kernel
+//     keeps 64 kv rows and streams 64-row q and dO tiles with their lse and
+//     delta, one consumer making P^T and dV, the other dS^T and dK.  What
+//     differs from K1 / K2:
+//       - the mask is the hop's: shift = q_off - kv_off moves the diagonal
+//         (row i attends columns j <= i + shift) and there is no window; a
+//         block whose rows all precede the shard (the forward and dq), or
+//         whose kv rows no q row reads (dk/dv, which starts at the first q
+//         tile that reads its kv tile, row max(kv_off + col0 - q_off, 0)),
+//         returns before it initializes a barrier; a consumer's tile is
+//         dead when its first column lies past the shifted diagonal of its
+//         last row, and an edge (each pair tested) only when it crosses
+//         that diagonal or a length's end: a past hop at the ring's shape
+//         (q_off = 8192, kv_off = 0) tests no pair;
+//       - the carry comes in and goes out: each consumer loads its rows'
+//         m, l and acc into K1's accumulator layout and stores acc, m, l
+//         back in fp32 (no division, no bf16 output); m is kept in K1's
+//         exp2 domain (m log2 e), and a row whose max did not move writes
+//         the carry's own m back; lane 0 of a quad starts its partial l
+//         from the carry's l, the other three from 0;
+//       - scale 1 (q is pre-scaled), in both backward epilogues too;
+//       - one head a kv head (the ring repeats grouped kv heads first);
+//       - the accumulators are fp32, read, added to and stored once;
+//       - lse and delta are the caller's: read in place when Sq is a
+//         multiple of 64, else from the wrapper's zero-padded copy (the
+//         dk/dv producer bulk-copies 64 floats of each a tile);
+//   * fp32 inputs: 64 x 64 tiles staged in shared memory as fp32 with rows
+//     padded by 4 floats (attention_tile.cuh, shared with K1/K2's fp32
+//     bodies); each of the 256 threads keeps a 4 x 4 block of the score
+//     tile and a 4 x (hd/16) block of the output tile in registers; the
+//     ceiling is the 67 TFLOP/s fp32 pipe.
+// Left for later: what K1 and K2 leave for later (attention_wgmma.cuh's
+// bodies: a tile's softmax overlapped with the next tile's products, a
+// persistent grid, one backward kernel), and overlapping a hop with the
+// transfer of the next shard.
 
-#include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -64,7 +98,7 @@ __device__ __forceinline__ bool attends(int row, int col, int Sq, int Skv,
 // The per-thread fragment of rows [row0, row0 + 64) of an fp32 (n_rows, HD)
 // accumulator in memory, in tile_accum's layout (rows past n_rows read 0).
 template <int HD>
-__device__ __forceinline__ void load_acc(const float* __restrict__ src,
+__device__ __forceinline__ void load_tile_acc(const float* __restrict__ src,
                                          int row0, int n_rows, int ty, int tx,
                                          float (&acc)[4][HD / 16]) {
   constexpr int NV = HD / 64;
@@ -88,7 +122,7 @@ __device__ __forceinline__ void load_acc(const float* __restrict__ src,
 // dst[rows] = base[rows] + acc (base may alias dst; rows past n_rows are
 // not written).  With base == nullptr, dst = acc.
 template <int HD>
-__device__ __forceinline__ void store_acc(float* dst,
+__device__ __forceinline__ void store_tile_acc(float* dst,
                                           const float* base, int row0,
                                           int n_rows, int ty, int tx,
                                           const float (&acc)[4][HD / 16]) {
@@ -122,11 +156,12 @@ __device__ __forceinline__ int last_col(int row0, int Sq, int Skv, int q_off,
 // Forward.  grid (q tiles, BH); the heaviest (last) q tiles start first.
 // Shared memory (fp32): Q | K | V (64 x (HD+4) each) | P (64 x 68).
 // ---------------------------------------------------------------------------
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) hop_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    float* __restrict__ m, float* __restrict__ l, float* __restrict__ acc_g,
-    int Sq, int Skv, int q_off, int kv_off) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ m,
+    float* __restrict__ l, float* __restrict__ acc_g, int Sq, int Skv,
+    int q_off, int kv_off) {
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int row0 = qt * kTile;
@@ -143,9 +178,9 @@ __global__ void __launch_bounds__(kThreads) hop_fwd_kernel(
   const int ty = threadIdx.x >> 4;
 
   const long long qbase = (long long)bh * Sq;
-  const T* kh = k + (long long)bh * Skv * HD;
-  const T* vh = v + (long long)bh * Skv * HD;
-  load_tile<T, HD>(Q_s, q + qbase * HD, row0, Sq);
+  const float* kh = k + (long long)bh * Skv * HD;
+  const float* vh = v + (long long)bh * Skv * HD;
+  load_tile<float, HD>(Q_s, q + qbase * HD, row0, Sq);
 
   float m_r[4], l_r[4], acc[4][HD / 16];
 #pragma unroll
@@ -154,14 +189,14 @@ __global__ void __launch_bounds__(kThreads) hop_fwd_kernel(
     m_r[i] = row < Sq ? m[qbase + row] : kNegInf;
     l_r[i] = row < Sq ? l[qbase + row] : 0.f;
   }
-  load_acc<HD>(acc_g + qbase * HD, row0, Sq, ty, tx, acc);
+  load_tile_acc<HD>(acc_g + qbase * HD, row0, Sq, ty, tx, acc);
 
   const int kt_last = col_last / kTile;
   for (int kt = 0; kt <= kt_last; ++kt) {
     const int col0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, HD>(K_s, kh, col0, Skv);
-    load_tile<T, HD>(V_s, vh, col0, Skv);
+    load_tile<float, HD>(K_s, kh, col0, Skv);
+    load_tile<float, HD>(V_s, vh, col0, Skv);
     __syncthreads();
 
     float s[4][4];
@@ -197,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) hop_fwd_kernel(
     tile_accum<HD>(P_s, V_s, ty, tx, acc);
   }
 
-  store_acc<HD>(acc_g + qbase * HD, nullptr, row0, Sq, ty, tx, acc);
+  store_tile_acc<HD>(acc_g + qbase * HD, nullptr, row0, Sq, ty, tx, acc);
   if (tx == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -213,11 +248,12 @@ __global__ void __launch_bounds__(kThreads) hop_fwd_kernel(
 // ---------------------------------------------------------------------------
 // Backward, dq.  grid (q tiles, BH).  Shared: Q | dO | K | V | dS.
 // ---------------------------------------------------------------------------
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) hop_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Skv,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int Sq, int Skv,
     int q_off, int kv_off) {
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
@@ -236,10 +272,10 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dq_kernel(
   const int ty = threadIdx.x >> 4;
 
   const long long qbase = (long long)bh * Sq;
-  const T* kh = k + (long long)bh * Skv * HD;
-  const T* vh = v + (long long)bh * Skv * HD;
-  load_tile<T, HD>(Q_s, q + qbase * HD, row0, Sq);
-  load_tile<T, HD>(G_s, g + qbase * HD, row0, Sq);
+  const float* kh = k + (long long)bh * Skv * HD;
+  const float* vh = v + (long long)bh * Skv * HD;
+  load_tile<float, HD>(Q_s, q + qbase * HD, row0, Sq);
+  load_tile<float, HD>(G_s, g + qbase * HD, row0, Sq);
 
   float lse_r[4], delta_r[4], acc[4][HD / 16];
 #pragma unroll
@@ -255,8 +291,8 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dq_kernel(
   for (int kt = 0; kt <= kt_last; ++kt) {
     const int col0 = kt * kTile;
     __syncthreads();
-    load_tile<T, HD>(K_s, kh, col0, Skv);
-    load_tile<T, HD>(V_s, vh, col0, Skv);
+    load_tile<float, HD>(K_s, kh, col0, Skv);
+    load_tile<float, HD>(V_s, vh, col0, Skv);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -277,7 +313,8 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dq_kernel(
     tile_accum<HD>(P_s, K_s, ty, tx, acc);
   }
 
-  store_acc<HD>(dq + qbase * HD, dq + qbase * HD, row0, Sq, ty, tx, acc);
+  store_tile_acc<HD>(dq + qbase * HD, dq + qbase * HD, row0, Sq, ty, tx,
+                     acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -288,11 +325,12 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dq_kernel(
 // are the forward's second product.  A kv tile that no q row reads (a
 // wholly-future hop) returns without touching its accumulators.
 // ---------------------------------------------------------------------------
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) hop_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk,
     float* __restrict__ dv, int Sq, int Skv, int q_off, int kv_off) {
   const int kt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -313,8 +351,8 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dkv_kernel(
 
   const long long kvbase = (long long)bh * Skv;
   const long long qbase = (long long)bh * Sq;
-  load_tile<T, HD>(K_s, k + kvbase * HD, col0, Skv);
-  load_tile<T, HD>(V_s, v + kvbase * HD, col0, Skv);
+  load_tile<float, HD>(K_s, k + kvbase * HD, col0, Skv);
+  load_tile<float, HD>(V_s, v + kvbase * HD, col0, Skv);
 
   float dk_acc[4][HD / 16], dv_acc[4][HD / 16];
 #pragma unroll
@@ -326,8 +364,8 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dkv_kernel(
   for (int qt = row_first / kTile; qt <= qt_last; ++qt) {
     const int row0 = qt * kTile;
     __syncthreads();
-    load_tile<T, HD>(Q_s, q + qbase * HD, row0, Sq);
-    load_tile<T, HD>(G_s, g + qbase * HD, row0, Sq);
+    load_tile<float, HD>(Q_s, q + qbase * HD, row0, Sq);
+    load_tile<float, HD>(G_s, g + qbase * HD, row0, Sq);
     float lse_c[4], delta_c[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -364,59 +402,115 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dkv_kernel(
     tile_accum<HD>(P_s, Q_s, ty, tx, dk_acc);
   }
 
-  store_acc<HD>(dv + kvbase * HD, dv + kvbase * HD, col0, Skv, ty, tx,
+  store_tile_acc<HD>(dv + kvbase * HD, dv + kvbase * HD, col0, Skv, ty, tx,
                 dv_acc);
-  store_acc<HD>(dk + kvbase * HD, dk + kvbase * HD, col0, Skv, ty, tx,
+  store_tile_acc<HD>(dk + kvbase * HD, dk + kvbase * HD, col0, Skv, ty, tx,
                 dk_acc);
 }
 
-template <typename T, int HD>
-int launch_fwd(const void* q, const void* k, const void* v, float* m,
+template <int HD>
+int launch_fwd(const float* q, const float* k, const float* v, float* m,
                float* l, float* acc, int BH, int Sq, int Skv, int q_off,
                int kv_off, cudaStream_t stream) {
   const size_t smem = fwd_smem<HD>();
-  const cudaError_t e = allow_smem(hop_fwd_kernel<T, HD>, smem);
+  const cudaError_t e = allow_smem(hop_fwd_kernel<HD>, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kTile - 1) / kTile, BH);
-  hop_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), m, l, acc, Sq, Skv, q_off, kv_off);
+  hop_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(q, k, v, m, l, acc, Sq,
+                                                         Skv, q_off, kv_off);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* g,
-               const float* lse, const float* delta, float* dq, float* dk,
-               float* dv, int BH, int Sq, int Skv, int q_off, int kv_off,
-               cudaStream_t stream) {
+template <int HD>
+int launch_bwd(const float* q, const float* k, const float* v,
+               const float* g, const float* lse, const float* delta,
+               float* dq, float* dk, float* dv, int BH, int Sq, int Skv,
+               int q_off, int kv_off, cudaStream_t stream) {
   const size_t smem = bwd_smem<HD>();
-  cudaError_t e = allow_smem(hop_bwd_dq_kernel<T, HD>, smem);
+  cudaError_t e = allow_smem(hop_bwd_dq_kernel<HD>, smem);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(hop_bwd_dkv_kernel<T, HD>, smem);
+  e = allow_smem(hop_bwd_dkv_kernel<HD>, smem);
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid_q((Sq + kTile - 1) / kTile, BH);
-  hop_bwd_dq_kernel<T, HD><<<grid_q, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta, dq, Sq,
-      Skv, q_off, kv_off);
+  hop_bwd_dq_kernel<HD><<<grid_q, kThreads, smem, stream>>>(
+      q, k, v, g, lse, delta, dq, Sq, Skv, q_off, kv_off);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid_kv((Skv + kTile - 1) / kTile, BH);
-  hop_bwd_dkv_kernel<T, HD><<<grid_kv, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta, dk, dv,
-      Sq, Skv, q_off, kv_off);
+  hop_bwd_dkv_kernel<HD><<<grid_kv, kThreads, smem, stream>>>(
+      q, k, v, g, lse, delta, dk, dv, Sq, Skv, q_off, kv_off);
+  return (int)cudaGetLastError();
+}
+
+// bf16: the wgmma bodies of K1 and K2 with kHop = true (attention_wgmma.cuh);
+// B = 1 and H = Hkv = BH (one head a kv head), window 0, scale 1
+template <int HD>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, float* m,
+                     float* l, float* acc, int BH, int Sq, int Skv, int q_off,
+                     int kv_off, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!attn_map<HD>(&mq, q, BH, Sq, kBlockRows) ||
+      !attn_map<HD>(&mk, k, BH, Skv, kStreamRows) ||
+      !attn_map<HD>(&mv, v, BH, Skv, kStreamRows))
+    return (int)cudaErrorInvalidValue;
+  using L = WgFwdSmem<HD>;
+  const cudaError_t e =
+      hopper::allow_smem(flash_fwd_wgmma<HD, true>, L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + kBlockRows - 1) / kBlockRows, BH);
+  flash_fwd_wgmma<HD, true><<<grid, kWgThreads, L::kBytes, stream>>>(
+      mq, mk, mv, nullptr, nullptr, m, l, acc, BH, BH, Sq, Skv, 0,
+      q_off - kv_off, 1.f);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* g, const float* lse, const float* delta,
+                     int pitch, float* dq, float* dk, float* dv, int BH,
+                     int Sq, int Skv, int q_off, int kv_off,
+                     cudaStream_t stream) {
+  // dq kernel: q, dO resident (128 rows), k, v streamed (64 rows);
+  // dk/dv kernel: k, v resident, q, dO streamed (64 rows)
+  CUtensorMap q128, g128, q64, g64, k64, v64;
+  if (!attn_map<HD>(&q128, q, BH, Sq, kBlockRows) ||
+      !attn_map<HD>(&g128, g, BH, Sq, kBlockRows) ||
+      !attn_map<HD>(&q64, q, BH, Sq, kQRows) ||
+      !attn_map<HD>(&g64, g, BH, Sq, kQRows) ||
+      !attn_map<HD>(&k64, k, BH, Skv, kStreamRows) ||
+      !attn_map<HD>(&v64, v, BH, Skv, kStreamRows))
+    return (int)cudaErrorInvalidValue;
+  using L = WgBwdSmem<HD>;
+  cudaError_t e =
+      hopper::allow_smem(flash_bwd_dq_wgmma<HD, true>, L::kDqBytes);
+  if (e != cudaSuccess) return (int)e;
+  e = hopper::allow_smem(flash_bwd_dkv_wgmma<HD, true>, L::kDkvBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int shift = q_off - kv_off;
+
+  const dim3 grid_q((Sq + kBlockRows - 1) / kBlockRows, BH);
+  flash_bwd_dq_wgmma<HD, true><<<grid_q, kWgThreads, L::kDqBytes, stream>>>(
+      q128, k64, v64, g128, lse, delta, dq, BH, BH, Sq, Skv, pitch, 0, shift,
+      1.f);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const dim3 grid_kv((Skv + kKvRows - 1) / kKvRows, BH);
+  flash_bwd_dkv_wgmma<HD, true><<<grid_kv, kWgThreads, L::kDkvBytes, stream>>>(
+      q64, k64, v64, g64, lse, delta, dk, dv, BH, BH, Sq, Skv, pitch, 0,
+      shift, 1.f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes).  dtype: 0 = float32,
-// 1 = bfloat16 for q, k, v and g; every statistic and accumulator is
-// float32.  hd must be 64 or 128.  Each returns cudaGetLastError() after its
-// launches (0 on success).  The caller checks shapes, dtypes and contiguity.
+// Plain C entry points (bound with ctypes).  dtype: 0 = float32 (the fp32
+// tile), 1 = bfloat16 (the wgmma bodies; q, k, v and g 16-byte aligned for
+// TMA) for q, k, v and g; every statistic and accumulator is float32.  hd
+// must be 64 or 128.  Each returns cudaGetLastError() after its launches
+// (0 on success).  The caller checks shapes, dtypes and contiguity.
 
 // m, l (BH, Sq), acc (BH, Sq, hd): the carry, updated in place
 extern "C" int kf_ring_hop_fwd(const void* q, const void* k, const void* v,
@@ -429,27 +523,32 @@ extern "C" int kf_ring_hop_fwd(const void* q, const void* k, const void* v,
   float* af = static_cast<float*>(acc);
   if (BH <= 0 || Sq <= 0 || Skv <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && hd == 128)
-    return launch_fwd<__nv_bfloat16, 128>(q, k, v, mf, lf, af, BH, Sq, Skv,
-                                          q_off, kv_off, s);
-  if (dtype == 1 && hd == 64)
-    return launch_fwd<__nv_bfloat16, 64>(q, k, v, mf, lf, af, BH, Sq, Skv,
-                                         q_off, kv_off, s);
-  if (dtype == 0 && hd == 128)
-    return launch_fwd<float, 128>(q, k, v, mf, lf, af, BH, Sq, Skv, q_off,
-                                  kv_off, s);
-  if (dtype == 0 && hd == 64)
-    return launch_fwd<float, 64>(q, k, v, mf, lf, af, BH, Sq, Skv, q_off,
+    return launch_fwd_wgmma<128>(q, k, v, mf, lf, af, BH, Sq, Skv, q_off,
                                  kv_off, s);
+  if (dtype == 1 && hd == 64)
+    return launch_fwd_wgmma<64>(q, k, v, mf, lf, af, BH, Sq, Skv, q_off,
+                                kv_off, s);
+  const float* q32 = static_cast<const float*>(q);
+  const float* k32 = static_cast<const float*>(k);
+  const float* v32 = static_cast<const float*>(v);
+  if (dtype == 0 && hd == 128)
+    return launch_fwd<128>(q32, k32, v32, mf, lf, af, BH, Sq, Skv, q_off,
+                           kv_off, s);
+  if (dtype == 0 && hd == 64)
+    return launch_fwd<64>(q32, k32, v32, mf, lf, af, BH, Sq, Skv, q_off,
+                          kv_off, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// lse, delta (BH, Sq); dq (BH, Sq, hd), dk, dv (BH, Skv, hd) updated in
-// place; two launches: dq, then dk/dv
+// lse, delta (BH, pitch): pitch = Sq for float32; for bfloat16 a multiple
+// of 64 >= Sq, the entries past Sq zero, both arrays 16-byte aligned (the
+// dk/dv kernel bulk-copies whole 64-row tiles of them).  dq (BH, Sq, hd),
+// dk, dv (BH, Skv, hd) updated in place; two launches: dq, then dk/dv
 extern "C" int kf_ring_hop_bwd(const void* q, const void* k, const void* v,
                                const void* g, const void* lse,
-                               const void* delta, void* dq, void* dk,
-                               void* dv, int BH, int Sq, int Skv, int hd,
-                               int q_off, int kv_off, int dtype,
+                               const void* delta, int pitch, void* dq,
+                               void* dk, void* dv, int BH, int Sq, int Skv,
+                               int hd, int q_off, int kv_off, int dtype,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lf = static_cast<const float*>(lse);
@@ -458,17 +557,24 @@ extern "C" int kf_ring_hop_bwd(const void* q, const void* k, const void* v,
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
   if (BH <= 0 || Sq <= 0 || Skv <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (pitch < Sq || pitch % kQRows))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && pitch != Sq) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && hd == 128)
-    return launch_bwd<__nv_bfloat16, 128>(q, k, v, g, lf, df, dqf, dkf, dvf,
-                                          BH, Sq, Skv, q_off, kv_off, s);
+    return launch_bwd_wgmma<128>(q, k, v, g, lf, df, pitch, dqf, dkf, dvf,
+                                 BH, Sq, Skv, q_off, kv_off, s);
   if (dtype == 1 && hd == 64)
-    return launch_bwd<__nv_bfloat16, 64>(q, k, v, g, lf, df, dqf, dkf, dvf,
-                                         BH, Sq, Skv, q_off, kv_off, s);
+    return launch_bwd_wgmma<64>(q, k, v, g, lf, df, pitch, dqf, dkf, dvf, BH,
+                                Sq, Skv, q_off, kv_off, s);
+  const float* q32 = static_cast<const float*>(q);
+  const float* k32 = static_cast<const float*>(k);
+  const float* v32 = static_cast<const float*>(v);
+  const float* g32 = static_cast<const float*>(g);
   if (dtype == 0 && hd == 128)
-    return launch_bwd<float, 128>(q, k, v, g, lf, df, dqf, dkf, dvf, BH, Sq,
-                                  Skv, q_off, kv_off, s);
+    return launch_bwd<128>(q32, k32, v32, g32, lf, df, dqf, dkf, dvf, BH, Sq,
+                           Skv, q_off, kv_off, s);
   if (dtype == 0 && hd == 64)
-    return launch_bwd<float, 64>(q, k, v, g, lf, df, dqf, dkf, dvf, BH, Sq,
-                                 Skv, q_off, kv_off, s);
+    return launch_bwd<64>(q32, k32, v32, g32, lf, df, dqf, dkf, dvf, BH, Sq,
+                          Skv, q_off, kv_off, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,10 +31,15 @@ TPU kernels' lane-replicated (B*H, Sq_padded, 128) statistics and the
 padding of every length to 128 are TPU layout choices and are not ported;
 `flat_rows` stands where `lane_replicate_rows` did.
 
-bf16: the kernels (and the plain versions) widen q, k, v and g to fp32 and
-keep p and ds in fp32 into the second products, as the port's K1/K2 do.
-The TPU kernel rounds p and ds to bf16 there (`_mxu_in`); the port does
-not, so its bf16 hop is the fp32 hop of the bf16 inputs.
+The route is chosen by dtype alone, as in flash_attention.py.  bf16 runs
+the wgmma bodies that K1 and K2 share with the hop (csrc/attention_wgmma.cuh,
+TMA-fed): every product on the tensor cores with fp32 accumulators, p (and,
+backward, ds) rounded to bf16 before the second products, as the TPU kernel
+does (`_mxu_in`); the forward's l sums the fp32 p before that rounding.
+Their launches are also counted in `.launches_wgmma` of each wrapper.  fp32
+runs the fp32 tile (FFMA, never TF32).  There is no fallback between the
+two.  The plain versions widen every input to fp32 and keep p and ds in
+fp32 (the reference the kernels are held to).
 
 Head dims 64 and 128 run as they are; any other head dim up to 128 is
 zero-padded here to the next of the two (zeros change neither q.k nor the
@@ -50,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ...runtime import _kernels
+from .flash_attention import _aligned
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # 4 fp32 tiles of 64 x (D + 4) must fit 227 KB of shared memory
@@ -190,6 +196,15 @@ def _prep(t, dp):
     return t.contiguous()
 
 
+def _stats(t, pitch):
+    """A (B*H, Sq) statistic as (B*H, pitch) rows, zero past Sq and
+    16-byte aligned, for the bf16 backward: its dk/dv kernel bulk-copies
+    whole 64-row tiles."""
+    if t.shape[1] != pitch:
+        t = F.pad(t, (0, pitch - t.shape[1]))
+    return _aligned(t)
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -198,7 +213,8 @@ def flash_attention_hop(q, k, v, m, l, acc, q_off, kv_off):
     """Merge one hop into the carry (m, l, acc) in place; returns it.
 
     CPU tensors run the plain version; CUDA tensors launch the K12 forward
-    (counted in `flash_attention_hop.launches`) or raise."""
+    (counted in `flash_attention_hop.launches`, and bf16 calls, which take
+    the wgmma body, also in `.launches_wgmma`) or raise."""
     _check_qkv(q, k, v)
     b, h, sq, d = q.shape
     _check_state("carry", (b * h, sq), {"m": m, "l": l}, q.device)
@@ -209,7 +225,7 @@ def flash_attention_hop(q, k, v, m, l, acc, q_off, kv_off):
         return flash_attention_hop_plain(q, k, v, m, l, acc, q_off, kv_off)
     dp = _check_cuda(q)
     skv = k.shape[2]
-    qc, kc, vc = _prep(q, dp), _prep(k, dp), _prep(v, dp)
+    qc, kc, vc = (_aligned(_prep(t, dp)) for t in (q, k, v))
     acc_k = _prep(acc, dp)
     vp, i32 = _kernels.VP, _kernels.I32
     fn = _kernels.function("ring_hop", "kf_ring_hop_fwd",
@@ -221,12 +237,15 @@ def flash_attention_hop(q, k, v, m, l, acc, q_off, kv_off):
         raise RuntimeError(f"ring hop forward kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_hop.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_hop.launches_wgmma += 1
     if acc_k is not acc:
         acc.copy_(acc_k[..., :d])
     return m, l, acc
 
 
 flash_attention_hop.launches = 0
+flash_attention_hop.launches_wgmma = 0
 
 
 def flash_attention_bwd_hop(q, k, v, g, lse, delta, dq, dk, dv, q_off,
@@ -235,7 +254,8 @@ def flash_attention_bwd_hop(q, k, v, g, lse, delta, dq, dk, dv, q_off,
 
     CPU tensors run the plain version; CUDA tensors launch the K12 backward
     (its dq and dk/dv kernels; one count in
-    `flash_attention_bwd_hop.launches` a call) or raise."""
+    `flash_attention_bwd_hop.launches` a call, and for bf16, which takes the
+    wgmma bodies, one in `.launches_wgmma`) or raise."""
     _check_qkv(q, k, v)
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -253,19 +273,25 @@ def flash_attention_bwd_hop(q, k, v, g, lse, delta, dq, dk, dv, q_off,
         return flash_attention_bwd_hop_plain(q, k, v, g, lse, delta, dq, dk,
                                              dv, q_off, kv_off)
     dp = _check_cuda(q)
-    qc, kc, vc, gc = (_prep(t, dp) for t in (q, k, v, g))
+    qc, kc, vc, gc = (_aligned(_prep(t, dp)) for t in (q, k, v, g))
     accs = [_prep(t, dp) for t in (dq, dk, dv)]
+    pitch = sq
+    if q.dtype == torch.bfloat16:
+        pitch = -(-sq // 64) * 64
+        lse, delta = _stats(lse, pitch), _stats(delta, pitch)
     vp, i32 = _kernels.VP, _kernels.I32
     fn = _kernels.function("ring_hop", "kf_ring_hop_bwd",
-                           (vp,) * 9 + (i32,) * 7 + (vp,))
+                           (vp,) * 6 + (i32,) + (vp,) * 3 + (i32,) * 7 + (vp,))
     err = fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in accs),
-             b * h, sq, skv, dp, int(q_off), int(kv_off),
-             _DTYPE_CODES[q.dtype], _stream(q))
+             lse.data_ptr(), delta.data_ptr(), pitch,
+             *(t.data_ptr() for t in accs), b * h, sq, skv, dp, int(q_off),
+             int(kv_off), _DTYPE_CODES[q.dtype], _stream(q))
     if err:
         raise RuntimeError(f"ring hop backward kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd_hop.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_bwd_hop.launches_wgmma += 1
     for t, t_k in zip((dq, dk, dv), accs):
         if t_k is not t:
             t.copy_(t_k[..., :d])
@@ -273,3 +299,4 @@ def flash_attention_bwd_hop(q, k, v, g, lse, delta, dq, dk, dv, q_off,
 
 
 flash_attention_bwd_hop.launches = 0
+flash_attention_bwd_hop.launches_wgmma = 0

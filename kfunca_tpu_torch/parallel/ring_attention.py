@@ -200,7 +200,9 @@ def ring_attention_spmd(q, k, v, *, ring, use_kernel=None):
     tensors (the JAX package's auto-select, :173-176); True takes the K12
     wrappers (which run their plain versions on CPU tensors and raise on
     what the kernel does not take, fp64 among it); False the plain hops.
-    Both go through the same autograd Function.  K12 takes fp32 and bf16:
+    Both go through the same autograd Function.  K12 takes fp32 and bf16
+    (bf16 on the wgmma bodies, which round p and ds to bf16 before the
+    second products, as the JAX hop does; the plain hops keep them fp32):
     fp16 runs widened to fp32 and comes back in fp16, as
     ops/attention.py's flash path does."""
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:

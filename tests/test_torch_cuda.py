@@ -1426,7 +1426,8 @@ def test_native_core_is_loaded_on_the_card(cuda):
 # -- K12: the ring-attention hop, and the ring on one card ---------------------
 
 # (B, H, Sq, Skv, D, q_off, kv_off): diagonal, past, wholly future, ragged
-# shards with unaligned offsets, head dim 40 (padded to 64)
+# shards with unaligned offsets, head dim 40 (padded to 64), and a hop that
+# leaves q rows 0..63 with no column (a whole consumer of the bf16 body)
 HOP_CASES = [
     (1, 4, 256, 256, 128, 256, 256),
     (2, 3, 128, 128, 64, 128, 0),
@@ -1434,6 +1435,7 @@ HOP_CASES = [
     (1, 2, 200, 200, 64, 200, 0),
     (1, 3, 130, 100, 128, 37, 50),
     (1, 2, 96, 96, 40, 96, 96),
+    (1, 2, 128, 128, 128, 0, 64),
 ]
 
 
@@ -1451,15 +1453,20 @@ def _hop_case(dev, dtype, case, seed=0):
     return q, k, v, g, carry, stats, accs
 
 
-# A hop's outputs are fp32 whatever its inputs: both routes widen the same
-# inputs to fp32 and keep p and ds in fp32, and differ by the order of fp32
-# sums (the kernel merges the carry a tile at a time, the plain version the
-# hop at once).  The ring's bf16 results are those fp32 values rounded once
-# to bf16, where a hair's difference can land on the neighbouring value,
-# up to 2^-7 of the element away.
-def _hop_close(got, want):
+# A hop's outputs are fp32 whatever its inputs.  On fp32 inputs both routes
+# keep p and ds in fp32 and differ by the order of fp32 sums (the kernel
+# merges the carry a tile at a time, the plain version the hop at once):
+# 1e-4 x max(1, max |ref|).  On bf16 inputs the kernel's wgmma body rounds p
+# and ds to bf16 before the second products, as K1's and K2's do and the
+# plain version does not (`rounded`): acc, dq, dk and dv, and the ring's
+# results, are held to the 16-bit kernel-vs-plain limit, 2^-7 of max |ref|
+# (m and l sum the fp32 p and keep 1e-4).  The ring's bf16 results are
+# rounded to bf16 once more, where a difference can land on the
+# neighbouring value, up to 2^-7 of the element away.
+def _hop_close(got, want, rounded=False):
     got, want = got.detach(), want.detach()
-    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    top = float(want.abs().max())
+    tol = 2.0 ** -7 * top if rounded else 1e-4 * max(1.0, top)
     assert torch.isfinite(got).all()
     rtol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=rtol)
@@ -1471,8 +1478,11 @@ def test_ring_hop_kernels_match_plain(cuda, dtype, case):
     from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
 
     q_off, kv_off = case[-2:]
+    sq, skv = case[2:4]
     q, k, v, g, carry, (lse, delta), accs = _hop_case(cuda, dtype, case)
     n1, n2 = rh.flash_attention_hop.launches, rh.flash_attention_bwd_hop.launches
+    w1, w2 = (rh.flash_attention_hop.launches_wgmma,
+              rh.flash_attention_bwd_hop.launches_wgmma)
     got = [t.clone() for t in carry]
     rh.flash_attention_hop(q, k, v, *got, q_off, kv_off)
     want = [t.clone() for t in carry]
@@ -1485,11 +1495,22 @@ def test_ring_hop_kernels_match_plain(cuda, dtype, case):
     torch.cuda.synchronize()
     assert rh.flash_attention_hop.launches == n1 + 1
     assert rh.flash_attention_bwd_hop.launches == n2 + 1
-    for a, w in zip(got + gacc, want + wacc):
-        _hop_close(a, w)
-    if kv_off > q_off + case[2] - 1:  # a wholly-future hop changes nothing
+    bf16 = dtype == torch.bfloat16
+    assert rh.flash_attention_hop.launches_wgmma == w1 + bf16
+    assert rh.flash_attention_bwd_hop.launches_wgmma == w2 + bf16
+    for i, (a, w) in enumerate(zip(got + gacc, want + wacc)):
+        _hop_close(a, w, rounded=bf16 and i >= 2)  # acc, dq, dk, dv
+    if kv_off > q_off + sq - 1:  # a wholly-future hop changes nothing
         assert all(torch.equal(a, t) for a, t in zip(got + gacc,
                                                      list(carry + accs)))
+    # q rows that see no column keep their carry and dq bit for bit, and kv
+    # rows that no q row reads keep dk and dv
+    idle = torch.arange(sq, device=cuda) + q_off < kv_off
+    for a, t in zip(got + gacc[:1], list(carry + accs)[:4]):
+        assert torch.equal(a[:, idle], t[:, idle])
+    unread = torch.arange(skv, device=cuda) + kv_off > q_off + sq - 1
+    for a, t in zip(gacc[1:], accs[1:]):
+        assert torch.equal(a[:, unread], t[:, unread])
 
 
 def test_ring_hop_backward_is_bitwise_repeatable(cuda):
@@ -1549,7 +1570,7 @@ def test_local_ring_with_the_kernels_matches_the_plain_ring(cuda, dtype, n):
         res[use_kernel] = (out, *grads)
     for a, w in zip(res[True], res[False]):
         assert a.dtype == dtype
-        _hop_close(a, w)
+        _hop_close(a, w, rounded=dtype == torch.bfloat16)
     if dtype == torch.float32:
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = ra._ring_einsum(*leaves, ring)

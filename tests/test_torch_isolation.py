@@ -103,13 +103,17 @@ def test_every_source_the_port_builds_lies_in_the_port():
 
 
 def test_an_edited_header_renames_every_library(monkeypatch, tmp_path):
-    """K1/K2 and K12 include csrc/attention_tile.cuh: a library's name
-    hashes every header under csrc/, so an edited header rebuilds them."""
+    """K1/K2 and K12 include csrc/attention_wgmma.cuh, which includes
+    attention_tile.cuh and hopper.cuh: a library's name hashes every header
+    under csrc/, so an edited header rebuilds them."""
     from kfunca_tpu_torch.runtime import _kernels
 
     for name in ("flash_attention.cu", "ring_hop.cu"):
-        assert '#include "attention_tile.cuh"' in (
+        assert '#include "attention_wgmma.cuh"' in (
             PORT / "csrc" / name).read_text()
+    shared = (PORT / "csrc" / "attention_wgmma.cuh").read_text()
+    for header in ("attention_tile.cuh", "hopper.cuh"):
+        assert f'#include "{header}"' in shared
     (tmp_path / "a.cu").write_text("source")
     (tmp_path / "tile.cuh").write_text("one")
     monkeypatch.setattr(_kernels, "CSRC", tmp_path)

@@ -8,7 +8,11 @@ port:
   directly in interpret mode as tests/test_ring_attention.py calls them;
 - the whole ring through `LocalRing(n)` and through a 4-rank gloo
   `ProcessGroupRing` against JAX's `make_ring_attention` on a `cp` mesh of
-  the conftest's virtual CPU devices (its einsum ring, `jax.grad`).
+  the conftest's virtual CPU devices (its einsum ring, `jax.grad`);
+- plain-torch emulations of the CUDA kernels' tilings at tiny shapes: the
+  fp32 tile's against the plain hops, and the bf16 wgmma body's (which
+  rounds p and ds to bf16, as the JAX kernel does) against the plain hops
+  and the JAX hop kernels in interpret mode, at the bf16 bound below.
 Tolerances: fp32 2e-5 for a hop and 1e-5 for the ring (the same fp32 sums
 in another order).  bf16: both sides take the same bf16 inputs and sum in
 fp32, but the JAX kernel rounds p and ds to bf16 before the second product
@@ -543,6 +547,308 @@ def test_kernel_tiling_emulation_matches_plain(case):
     _emulate_bwd(q, k, v, g, lse, delta, *got, q_off, kv_off)
     for w, t in zip(want, got):
         torch.testing.assert_close(t, w[0], atol=1e-5, rtol=1e-5)
+
+
+# -- an emulation of the bf16 body (csrc/attention_wgmma.cuh, kHop) -----------
+#
+# The forward and dq blocks own 128 q rows (two consumers of 64) and stream
+# the 64-row k / v tiles of the block's live range; a forward consumer skips
+# a tile that holds no pair of its own rows (dead), and every body tests
+# each pair only on a tile that crosses the shifted diagonal or a length's
+# end (edge).  The forward loads the carry into its accumulators, keeps m in
+# the exp2 domain (m log2 e), counts the carry's l once over the quad's
+# four partial sums (lane t holds columns 8j + 2t and 8j + 2t + 1 of a
+# tile), rounds P to bf16 before P.V and writes the carry's own m back where
+# the max did not move.  The dk/dv block owns 64 kv rows and walks the
+# 64-row q tiles from the first that reads it; P, P^T and dS^T are rounded
+# to bf16 before the second products; every block adds its sums to the
+# fp32 accumulators once, and a block with no attended pair touches
+# nothing.
+
+WG_BLOCK, WG_ROWS, WG_TILE = 128, 64, 64  # block, consumer and tile rows
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _wg_kv_tiles(row0, sq, skv, shift):
+    """The 64-row kv tiles a forward or dq block at q row row0 streams
+    (none: the block returns before it initializes a barrier)."""
+    col_hi = min(min(row0 + WG_BLOCK - 1, sq - 1) + shift, skv - 1)
+    return range(col_hi // WG_TILE + 1) if col_hi >= 0 else range(0)
+
+
+def _wg_q_tiles(col0, sq, shift):
+    """The 64-row q tiles the dk/dv block at kv row col0 walks, from the
+    first that reads it."""
+    row_first = max(col0 - shift, 0)
+    if row_first >= sq:
+        return range(0)
+    return range(row_first // WG_TILE, (sq - 1) // WG_TILE + 1)
+
+
+def _wg_dead(q_lo, c0, sq, shift):
+    """A forward consumer at q row q_lo skips the kv tile at column c0."""
+    return q_lo >= sq or c0 > q_lo + WG_ROWS - 1 + shift
+
+
+def _wg_edge(r0, c0, sq, skv, shift):
+    """The 64 x 64 tile of q rows from r0 and kv columns from c0 tests each
+    pair."""
+    return not (c0 + WG_TILE - 1 <= r0 + shift and c0 + WG_TILE - 1 < skv
+                and r0 + WG_ROWS - 1 < sq)
+
+
+def _wg_attends(rows, cols, sq, skv, shift):
+    return ((cols[None, :] <= rows[:, None] + shift) & (cols[None, :] < skv)
+            & (rows[:, None] < sq))
+
+
+def _padded(x):
+    """x with zero rows up to a multiple of 128 (the TMA's fill past an
+    end, and the wrapper's zero-padded lse and delta)."""
+    n = -(-x.shape[0] // WG_BLOCK) * WG_BLOCK
+    return torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])])
+
+
+def _wg_emulate_fwd(q, k, v, m, l, acc, q_off, kv_off):
+    """The bf16 forward for one (b, h), on fp32 copies of bf16 inputs: the
+    carry (m, l, acc) updated in place."""
+    sq, skv = q.shape[0], k.shape[0]
+    shift = q_off - kv_off
+    kp, vp = _padded(k), _padded(v)
+    lane = (torch.arange(WG_TILE) % 8) // 2
+    for row0 in range(0, sq, WG_BLOCK):
+        tiles = _wg_kv_tiles(row0, sq, skv, shift)
+        if not tiles:
+            continue  # the block returns before it reads the carry
+        for q_lo in range(row0, min(row0 + WG_BLOCK, sq), WG_ROWS):
+            rows = torch.arange(q_lo, min(q_lo + WG_ROWS, sq))
+            m_in = m[rows].clone()
+            m2 = m_in * LOG2E
+            part = torch.zeros((len(rows), 4))
+            part[:, 0] = l[rows]
+            o = acc[rows].clone()
+            for kt in tiles:
+                c0 = kt * WG_TILE
+                if _wg_dead(q_lo, c0, sq, shift):
+                    continue
+                cols = torch.arange(c0, c0 + WG_TILE)
+                s = q[rows] @ kp[cols].T
+                if _wg_edge(q_lo, c0, sq, skv, shift):
+                    s = torch.where(_wg_attends(rows, cols, sq, skv, shift),
+                                    s, -torch.inf)
+                m_new = torch.maximum(m2, s.amax(1) * LOG2E)
+                alpha = torch.exp2(m2 - m_new)
+                p = torch.exp2(s * LOG2E - m_new[:, None])
+                part = part * alpha[:, None] + torch.zeros_like(
+                    part).index_add_(1, lane, p)
+                o = o * alpha[:, None] + _bf16_t(p) @ vp[cols]
+                m2 = m_new
+            m[rows] = torch.where(m2 == m_in * LOG2E, m_in, m2 * LN2)
+            l[rows] = (part[:, 0] + part[:, 1]) + (part[:, 2] + part[:, 3])
+            acc[rows] = o
+
+
+def _wg_emulate_bwd(q, k, v, g, lse, delta, dq, dk, dv, q_off, kv_off):
+    """The bf16 dq and dk/dv kernels for one (b, h): the fp32 accumulators
+    updated in place."""
+    sq, skv = q.shape[0], k.shape[0]
+    shift = q_off - kv_off
+    qp, kp, vp, gp = (_padded(t) for t in (q, k, v, g))
+    lse_p, delta_p = _padded(lse), _padded(delta)
+
+    def p_ds(r0, rows, cols):
+        s = qp[rows] @ kp[cols].T
+        p = torch.exp2(s * LOG2E - lse_p[rows, None] * LOG2E)
+        if _wg_edge(r0, cols[0].item(), sq, skv, shift):
+            p = torch.where(_wg_attends(rows, cols, sq, skv, shift), p, 0.0)
+        return p, p * (gp[rows] @ vp[cols].T - delta_p[rows, None])
+
+    for row0 in range(0, sq, WG_BLOCK):
+        tiles = _wg_kv_tiles(row0, sq, skv, shift)
+        if not tiles:
+            continue
+        for q_lo in range(row0, row0 + WG_BLOCK, WG_ROWS):
+            rows = torch.arange(q_lo, q_lo + WG_ROWS)
+            part = torch.zeros((WG_ROWS, q.shape[1]))
+            for kt in tiles:
+                cols = torch.arange(kt * WG_TILE, (kt + 1) * WG_TILE)
+                part += _bf16_t(p_ds(q_lo, rows, cols)[1]) @ kp[cols]
+            n = max(min(WG_ROWS, sq - q_lo), 0)
+            dq[q_lo:q_lo + n] += part[:n]
+    for col0 in range(0, skv, WG_TILE):
+        cols = torch.arange(col0, col0 + WG_TILE)
+        pk, pv = (torch.zeros((WG_TILE, q.shape[1])) for _ in range(2))
+        tiles = _wg_q_tiles(col0, sq, shift)
+        for qt in tiles:
+            rows = torch.arange(qt * WG_TILE, (qt + 1) * WG_TILE)
+            p, ds = p_ds(qt * WG_TILE, rows, cols)
+            pv += _bf16_t(p.T) @ gp[rows]
+            pk += _bf16_t(ds.T) @ qp[rows]
+        if tiles:
+            n = min(WG_TILE, skv - col0)
+            dk[col0:col0 + n] += pk[:n]
+            dv[col0:col0 + n] += pv[:n]
+
+
+def _bf16_t(x):
+    return x.bfloat16().float()
+
+
+def _pairs(sq, skv, shift):
+    row = torch.arange(-(-sq // WG_BLOCK) * WG_BLOCK)
+    col = torch.arange(-(-skv // WG_TILE) * WG_TILE)
+    return _wg_attends(row, col, sq, skv, shift)
+
+
+@pytest.mark.parametrize("sq,skv,q_off,kv_off", [
+    (128, 128, 128, 128), (130, 100, 37, 50), (200, 200, 400, 200),
+    (200, 200, 400, 400), (96, 96, 96, 96), (128, 128, 0, 64),
+    (256, 256, 0, 256), (70, 150, 90, 20), (300, 130, 5, 260)])
+def test_wgmma_hop_tiles_are_exactly_the_live_ones(sq, skv, q_off, kv_off):
+    """The bf16 body's blocks visit a tile if and only if it holds an
+    attended pair of the block's rows; a forward consumer skips a tile if
+    and only if it holds no pair of its own rows; a tile tests each pair if
+    and only if not all its pairs are attended; the dk/dv block walks
+    exactly the q tiles that read its kv tile."""
+    shift = q_off - kv_off
+    ok = _pairs(sq, skv, shift)
+    for row0 in range(0, sq, WG_BLOCK):
+        tiles = list(_wg_kv_tiles(row0, sq, skv, shift))
+        live = {kt for kt in range(ok.shape[1] // WG_TILE)
+                if ok[row0:row0 + WG_BLOCK,
+                      kt * WG_TILE:(kt + 1) * WG_TILE].any()}
+        assert set(tiles) == live
+        for q_lo in (row0, row0 + WG_ROWS):
+            for kt in tiles:
+                tile = ok[q_lo:q_lo + WG_ROWS, kt * WG_TILE:(kt + 1) * WG_TILE]
+                assert _wg_dead(q_lo, kt * WG_TILE, sq, shift) == (
+                    not tile.any())
+                assert _wg_edge(q_lo, kt * WG_TILE, sq, skv, shift) == (
+                    not tile.all())
+    for col0 in range(0, skv, WG_TILE):
+        live = {qt for qt in range(ok.shape[0] // WG_TILE)
+                if ok[qt * WG_TILE:(qt + 1) * WG_TILE,
+                      col0:col0 + WG_TILE].any()}
+        assert set(_wg_q_tiles(col0, sq, shift)) == live
+
+
+def test_wgmma_hop_tests_no_pair_on_a_past_hop_at_the_ring_shape():
+    """At the ring's shard (s_local = 8192), a past hop (q_off 8192, kv_off
+    0) has no edge tile in any body; a diagonal hop has them only on the
+    diagonal, as K1's and K2's do."""
+    s = 8192
+    for shift, edges in ((s, 0), (0, s // WG_TILE)):
+        seen = 0
+        for row0 in range(0, s, WG_BLOCK):
+            for q_lo in (row0, row0 + WG_ROWS):
+                for kt in _wg_kv_tiles(row0, s, s, shift):
+                    c0 = kt * WG_TILE
+                    if not _wg_dead(q_lo, c0, s, shift):
+                        seen += _wg_edge(q_lo, c0, s, s, shift)
+        assert seen == edges
+        assert sum(_wg_edge(qt * WG_TILE, col0, s, s, shift)
+                   for col0 in range(0, s, WG_TILE)
+                   for qt in _wg_q_tiles(col0, s, shift)) == edges
+
+
+# name: (sq, skv, d, hops); each hop (q_off, kv_off) in turn on one carry,
+# the last the case's kind: a diagonal at hd 128 over a q shard of 1.5
+# blocks, a past hop over ragged shards at hd 64, unaligned offsets with q
+# rows 0..12 left without a column inside a live tile, a fresh carry whose
+# first consumer sees no column, and a wholly-future hop
+WG_CASES = {
+    "diagonal_hd128": (192, 192, 128, [(192, 0), (192, 192)]),
+    "past_ragged_hd64": (200, 200, 64, [(200, 200), (200, 0)]),
+    "unaligned_hd128": (130, 100, 128, [(37, 0), (37, 50)]),
+    "fresh_padding_hd64": (128, 128, 64, [(0, 64)]),
+    "future_hd64": (128, 128, 64, [(0, 0), (0, 128)]),
+}
+
+
+def _idle_rows(sq, q_off, kv_off):
+    return np.arange(sq) + q_off < kv_off
+
+
+@pytest.fixture(scope="module")
+def wg_hops():
+    """{case: (JAX, plain, emulated) carries after each hop, the kv shards,
+    and (JAX, plain, emulated) accumulators after each backward hop with
+    their sums of absolute terms}, all from the same bf16 inputs."""
+    res = {}
+    for name, (sq, skv, d, hops) in WG_CASES.items():
+        seed = 40 + len(res)
+        q, kvs, _ = _hop_inputs(sq, skv, d, seed)
+        jfwd = _jax_fwd(q, kvs, hops, d, jnp.bfloat16)
+        pfwd = _torch_fwd(q, kvs, hops, d, torch.bfloat16)
+        carry = thop.hop_carry_init(B, H, sq, d, device="cpu")
+        efwd = []
+        qf = torch.from_numpy(_bf16(q)).reshape(B * H, sq, d)
+        for (qo, ko), (k, v) in zip(hops, kvs):
+            kf, vf = (torch.from_numpy(_bf16(x)).reshape(B * H, skv, d)
+                      for x in (k, v))
+            for bh in range(B * H):
+                _wg_emulate_fwd(qf[bh], kf[bh], vf[bh],
+                                *(t[bh] for t in carry), qo, ko)
+            efwd.append(tuple(t.clone().numpy() for t in carry))
+        args = _bwd_setup(sq, skv, d, hops, seed)
+        jbwd = _jax_bwd(*args, hops, d, jnp.bfloat16)
+        pbwd = _torch_bwd(*args, hops, d, torch.bfloat16)
+        q, kvs, g, lse, delta = args
+        accs = thop.bwd_carry_init(B, H, sq, skv, d, device="cpu")
+        ebwd = []
+        qf, gf = (torch.from_numpy(_bf16(x)).reshape(B * H, sq, d)
+                  for x in (q, g))
+        for (qo, ko), (k, v) in zip(hops, kvs):
+            kf, vf = (torch.from_numpy(_bf16(x)).reshape(B * H, skv, d)
+                      for x in (k, v))
+            for bh in range(B * H):
+                _wg_emulate_bwd(qf[bh], kf[bh], vf[bh], gf[bh],
+                                torch.from_numpy(lse[bh]),
+                                torch.from_numpy(delta[bh]),
+                                *(t[bh] for t in accs), qo, ko)
+            ebwd.append(tuple(t.clone().numpy() for t in accs))
+        res[name] = ((jfwd, pfwd, efwd), kvs,
+                     (jbwd, pbwd, ebwd, _bwd_abs_terms(*args, hops)))
+    return res
+
+
+@pytest.mark.parametrize("case", list(WG_CASES))
+def test_wgmma_hop_emulation_matches_plain_and_jax(wg_hops, case):
+    """The emulated bf16 body against the plain hops (fp32 p and ds) and
+    against the JAX hop kernels in interpret mode on the same bf16 inputs,
+    after every hop, at the bounds stated at the top of this file; q rows
+    that see no column of a hop keep their carry and dq bit for bit, and kv
+    rows that no q row reads keep dk and dv."""
+    sq, skv, _, hops = WG_CASES[case]
+    (jfwd, pfwd, efwd), kvs, (jbwd, pbwd, ebwd, terms) = wg_hops[case]
+    vmax = max(np.abs(_bf16(v)).max() for _, v in kvs)
+    for want_side in (jfwd, pfwd):
+        for (wm, wl, wacc), (gm, gl, gacc) in zip(want_side, efwd):
+            np.testing.assert_allclose(gm, wm, atol=2e-5, rtol=2e-5)
+            np.testing.assert_allclose(gl, wl, atol=2e-5, rtol=2e-5)
+            bound = 2.0 ** -8 * gl[..., None] * vmax + 2e-5
+            assert (np.abs(gacc - wacc) <= bound).all(), np.abs(
+                gacc - wacc).max()
+    for want_side in (jbwd, pbwd):
+        for w_hop, g_hop, a_hop in zip(want_side, ebwd, terms):
+            for w, g, a in zip(w_hop, g_hop, a_hop):
+                bound = 2.0 ** -8 * a + 2e-5 * (1 + np.abs(w))
+                assert (np.abs(g - w) <= bound).all(), np.abs(g - w).max()
+    d = WG_CASES[case][2]
+    before = [tuple(t.numpy() for t in thop.hop_carry_init(
+        B, H, sq, d, device="cpu"))] + efwd[:-1]
+    zeros = tuple(t.numpy() for t in thop.bwd_carry_init(
+        B, H, sq, skv, d, device="cpu"))
+    before_b = [zeros] + ebwd[:-1]
+    for (qo, ko), b_f, a_f, b_b, a_b in zip(hops, before, efwd, before_b,
+                                            ebwd):
+        idle = _idle_rows(sq, qo, ko)
+        for x, y in zip(b_f, a_f):
+            assert np.array_equal(x[:, idle], y[:, idle])
+        assert np.array_equal(b_b[0][:, idle], a_b[0][:, idle])
+        unread = np.arange(skv) + ko > qo + sq - 1
+        for x, y in zip(b_b[1:], a_b[1:]):
+            assert np.array_equal(x[:, unread], y[:, unread])
 
 
 # -- helpers and checks ---------------------------------------------------------
