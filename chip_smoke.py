@@ -62,7 +62,10 @@ Phases (any failure raises and the script exits non-zero):
      shapes, ragged m/k/n, m = 1 and m = 300);
  15. time each beside its bound, its plain version and a library yardstick
      (page gather + dequantize + scaled_dot_product_attention;
-     torch._int_mm with m padded to 32 and the two scale multiplies);
+     torch._int_mm with m padded to 32 and the two scale multiplies); K5
+     at each decode shape with its split plan, GB/s and share of its
+     bound, its mean over a decode step, and its wrapper's host cost a
+     call with torch.profiler off and on;
  16. serve the phase-5 traffic at Mistral-7B-v0.1 widths, 32 layers, with
      quantize_weights (K5 + K4), quantize_weights + quantize_kv (K5 +
      K4-int8), and fused_pool=False with and without quantize_kv (K6); the
@@ -77,7 +80,8 @@ Phases (any failure raises and the script exits non-zero):
      share a 256-token prefix reuse pages and give the tokens of a server
      without the cache;
  19. generate and beam_search on the card against the server's tokens;
- 20. profile a few w8kv8 decode steps (K4-int8's and K5's ms a step);
+ 20. profile a few w8kv8 decode steps (K4-int8's and K5's ms a step; K5's
+     one kernel counted once a product, no other int8-matmul kernel);
  21. hold the eager API's kernels against their plain versions: K9
      elementwise (the eight ops at 4096^2 in fp32/bf16/fp16, integer
      division by 0 and INT_MIN / -1, float -> int saturation; the vector
@@ -127,7 +131,7 @@ Phases (any failure raises and the script exits non-zero):
  28. take 6 AdamW steps through make_mamba_train_step at
      state-spaces/mamba-2.8b-hf widths, depth cut to 8 layers, 4 x 2048
      tokens (K11 forward and backward launches = layers x steps each), and
-     profile one step;
+     profile one step (K11's forward and backward ms in it);
  29. hold the K11 path against the chunked plain scan end to end in fp32
      (loss and every gradient, 2 layers at full width, 2 x 512 tokens), and
      two kernel runs bitwise;
@@ -512,10 +516,13 @@ def logprob_check(srv, rids, prompts, tol, label) -> float:
     return worst
 
 
-def decode_profile(params, cfg, prompts, steps=4, **options):
+def decode_profile(params, cfg, prompts, steps=4, timed=None, **options):
     """torch.profiler over `steps` single decode steps of a full batch of 8:
     the device's busy share of the host-clock time, and device time by
-    kernel.  Runs after the main path, so its launches are not counted."""
+    kernel.  `timed`, a (module, function name) pair: the host time spent
+    in that function during the profiled steps is returned too (`timed_ms`
+    a step, `timed_calls` in all).  Runs after the main path, so its
+    launches are not counted."""
     from torch.profiler import ProfilerActivity, profile
 
     from kfunca_tpu_torch.models.serve import InferenceServer
@@ -527,31 +534,53 @@ def decode_profile(params, cfg, prompts, steps=4, **options):
     srv._admit()
     srv._step()  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            srv._step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    return profile_summary(prof, wall_us, steps)
+    spent = [0.0, 0]
+    if timed is not None:
+        module, name = timed
+        inner = getattr(module, name)
+
+        def clocked(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                spent[0] += time.perf_counter() - t
+                spent[1] += 1
+
+        setattr(module, name, clocked)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                srv._step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        if timed is not None:
+            setattr(module, name, inner)
+    out = profile_summary(prof, wall_us, steps)
+    out.update(timed_ms=spent[0] * 1e3 / steps, timed_calls=spent[1])
+    return out
 
 
 def profile_summary(prof, wall_us, steps, n_top=8):
     """Per step: host-clock time, the union of the device intervals (busy
-    time) and device time by kernel name, from a torch.profiler run."""
-    spans, by_name = [], {}
+    time) and device time by kernel name; and the launches by kernel name
+    over the whole run, from a torch.profiler run."""
+    spans, by_name, counts = [], {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            counts[e.name] = counts.get(e.name, 0) + 1
     busy, end = 0.0, float("-inf")  # union of the device intervals
     for s, t in sorted(spans):
         busy += max(0.0, t - max(s, end))
         end = max(end, t)
     return dict(wall_ms=wall_us / steps / 1e3, busy_ms=busy / steps / 1e3,
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top],
-                steps=steps, by_name=by_name)
+                steps=steps, by_name=by_name, counts=counts)
 
 
 # K1's device functions (the bf16 wgmma body and the fp32 one); K2's: the
@@ -561,6 +590,10 @@ K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel")
 K2_KERNELS = ("flash_stats_kernel", "flash_delta_kernel", "flash_bwd_dq",
               "flash_bwd_dkv")
 PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel")
+# K5's one kernel (its split slices meet in the same launch); K11b's
+# backward kernel and the sums of its partials
+Q8_KERNELS = ("q8_stream_kernel",)
+SSM_BWD_KERNELS = ("ssm_bwd_kernel", "sum_parts_kernel")
 
 
 def kernel_share(prof, names) -> tuple[float, float]:
@@ -1411,7 +1444,7 @@ def q8_checks(tq) -> float:
             f"matmul_q8 {m}x{k}x{n} bf16 within one bf16 step")
         worst = max(worst, float((got - want).abs().max()), float(err.max()))
         print(f"  matmul_q8 m={m} k={k} n={n} (split "
-              f"{tq.q8_split_k(m, k, n)}): fp32 bit-equal, bf16 max err "
+              f"{tq.q8_plan(m, k, n)[0]}): fp32 bit-equal, bf16 max err "
               f"{float(err.max()):.3g}", flush=True)
     # extreme values fill the accumulator: |acc| = 127 * 127 * k
     a = torch.full((8, 14336), 127, dtype=torch.int8, device="cuda")
@@ -1453,8 +1486,11 @@ def q8_timing(tq, card):
                           tq.matmul_q8(a, b, sa, sb, torch.float32)),
               "torch._int_mm with the scale multiplies equals matmul_q8")
         check(t_bytes >= t_ops, "the decode shapes are bound by bytes")
-        print(f"[15] matmul_q8 m={m} k={k} n={n} (x{per_step} a step): kernel "
-              f"{t['ms']:.4f} ms ({nbytes / t['ms'] / 1e6:.0f} GB/s), plain "
+        split, per = tq.q8_plan(m, k, n)
+        print(f"[15] matmul_q8 m={m} k={k} n={n} (x{per_step} a step; split "
+              f"{split} x {per} k rows): kernel {t['ms']:.4f} ms "
+              f"({nbytes / t['ms'] / 1e6:.0f} GB/s, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound), plain "
               f"{t['plain_ms']:.4f} ms, torch._int_mm + scales "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes, "
               f"{nbytes} B); {card}", flush=True)
@@ -1465,6 +1501,37 @@ def q8_timing(tq, card):
     out.update(bound_by="bytes", step_ms=total["ms"],
                step_bound_ms=total["bound_ms"], per_step=count)
     return out
+
+
+def q8_host_cost(tq) -> tuple[float, float]:
+    """Host microseconds of one `matmul_q8` call, without and with
+    torch.profiler on (as phase 20 runs the decode step): two products of a
+    few device microseconds each (k = 4096 in 16 slices, k = 256 in one),
+    200 calls without a synchronize so that the host sets the pace, the
+    median of 5 such runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    cases = [q8_case(gen, 8, k, 128) for k in (4096, 256)]
+
+    def median_us():
+        for c in cases:
+            tq.matmul_q8(*c, torch.float32)
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                for c in cases:
+                    tq.matmul_q8(*c, torch.float32)
+            runs.append((time.perf_counter() - t0) / (100 * len(cases)) * 1e6)
+            torch.cuda.synchronize()
+        return sorted(runs)[2]
+
+    off = median_us()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = median_us()
+    return off, on
 
 
 def reset_launches(pa, tq):
@@ -1692,7 +1759,12 @@ def quant_phases(card, reference):
     t = timing["q8"]
     print(f"[15] matmul_q8 over one decode step's {t['per_step']} launches: "
           f"{t['step_ms']:.3f} ms against a bound of {t['step_bound_ms']:.3f} "
-          f"ms; {card}", flush=True)
+          f"ms, a mean of {t['ms']:.4f} ms a launch; {card}", flush=True)
+    off, on = q8_host_cost(tq)
+    print(f"[15] matmul_q8's host cost a call (m=8, n=128, k=4096 and 256, "
+          f"where the host sets the pace; median of 5 x 200 calls without a "
+          f"synchronize): {off:.1f} us, {on:.1f} us with torch.profiler on",
+          flush=True)
 
     cfg = TransformerConfig(**MISTRAL)
     params = mistral_params(cfg, SEED, torch.bfloat16)
@@ -1890,16 +1962,38 @@ def quant_phases(card, reference):
           flush=True)
 
     with torch.no_grad():
+        # gemm_w8 reaches K5's wrapper through matmul_q8_auto: its host
+        # time, the ctypes launch included, is K5's share of the host clock
         prof = decode_profile(params, cfg, prompts, quantize_weights=True,
-                              quantize_kv=True)
+                              quantize_kv=True,
+                              timed=(tq, "matmul_q8_auto"))
     print_profile(f"[20] w8kv8 decode step profile (bf16 L32, 8 slots, "
                   f"{prof['steps']} steps, profiler on)", prof, card)
     k4_ms, k4_share = kernel_share(prof, PAGED_KERNELS)
-    k5_ms, k5_share = kernel_share(prof, ("matmul_q8_kernel",
-                                          "reduce_q8_kernel"))
+    k5_ms, k5_share = kernel_share(prof, Q8_KERNELS)
+    k5_runs = sum(c for name, c in prof["counts"].items()
+                  if any(k in name for k in Q8_KERNELS))
+    products = (5 * cfg.n_layers + 1) * prof["steps"]
+    # a renamed kernel would read 0 here, and a second kernel a product
+    # (a separate reduction of the slices) would show in the counts
+    check(k5_ms > 0 and k5_runs == products,
+          f"K5's kernel ran once a product in the profile ({k5_runs} of "
+          f"{products}, {k5_ms:.3f} ms/step)")
+    check(not any("q8" in name and not any(k in name for k in Q8_KERNELS)
+                  for name in prof["counts"]),
+          "no other int8-matmul kernel in the profile")
+    check(prof["timed_calls"] == products,
+          f"every product went through matmul_q8_auto "
+          f"({prof['timed_calls']} of {products})")
+    print(f"[20] host time in K5's wrapper (matmul_q8_auto, the launch "
+          f"included): {prof['timed_ms']:.2f} ms/step of the "
+          f"{prof['wall_ms']:.2f} ms host clock, "
+          f"{1e3 * prof['timed_ms'] * prof['steps'] / products:.1f} us a "
+          f"call", flush=True)
     print(f"[20] K4-int8 (split and combine passes): {k4_ms:.3f} ms/step, "
-          f"{100 * k4_share:.1f}% of the device's busy time; K5 (and its "
-          f"reduce): {k5_ms:.3f} ms/step, {100 * k5_share:.1f}%", flush=True)
+          f"{100 * k4_share:.1f}% of the device's busy time; K5 (one kernel "
+          f"a product, {k5_runs} over {prof['steps']} steps): {k5_ms:.3f} "
+          f"ms/step, {100 * k5_share:.1f}%", flush=True)
 
     def entry(name, line, key, n, err, source):
         t = timing[key]
@@ -2999,7 +3093,19 @@ def mamba_train_phase(ss, card):
           flush=True)
     print_profile("[28] Mamba training step profile (8 layers, 4 x 2048, "
                   "profiler on)", r["profile"], card)
+    print_ssm_share("[28]", r["profile"])
     return r["launches"][:2]
+
+
+def print_ssm_share(tag, prof):
+    """K11's forward and backward device time in one profiled step."""
+    fwd_ms, fwd_share = kernel_share(prof, ("ssm_fwd_kernel",))
+    bwd_ms, bwd_share = kernel_share(prof, SSM_BWD_KERNELS)
+    check(fwd_ms > 0 and bwd_ms > 0, f"{tag} K11's kernels are in the "
+          f"profile")
+    print(f"{tag} K11 backward (and its partial sums) {bwd_ms:.2f} ms/step "
+          f"({100 * bwd_share:.1f}% of busy), forward {fwd_ms:.2f} ms/step "
+          f"({100 * fwd_share:.1f}%)", flush=True)
 
 
 def mamba_end_to_end_fp32(d_state=MAMBA["d_state"], phase=29):
@@ -3241,6 +3347,7 @@ def hybrid_phase(ss, fa, card):
           f"{r['launches'][3]}; {card}", flush=True)
     print_profile("[31] hybrid training step profile (profiler on)",
                   r["profile"], card)
+    print_ssm_share("[31]", r["profile"])
     del params
     free_device_memory()
 

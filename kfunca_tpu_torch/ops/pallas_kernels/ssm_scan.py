@@ -19,10 +19,10 @@ over the batch.  `ssm_scan` is the differentiable form.
 Differences from the TPU kernels, by design: any L and di (the TPU kernel
 asserts L % lb == 0 and di % dib == 0; the card's kernels mask the ragged
 edges), so there is no `dib` argument; `lb` is 8, 16 or 32 on the card (the
-backward keeps a block's lb states a channel in shared memory), any
-positive value in the plain version.  Any N: the card's kernels walk the
-states in groups of 16 (`STATE_GROUP`), adding each group's share of y,
-ddt and du to the earlier groups' in a fixed order.  Only
+backward's segments of L start at h_bound entries: 16 steps, or 32 at lb
+32), any positive value in the plain version.  Any N: the card's kernels
+walk the states in groups of 16 (`STATE_GROUP`), adding each group's share
+of y, ddt and du to the earlier groups' in a fixed order.  Only
 fp32 is taken, as the TPU kernels compute in fp32: the recurrence
 compounds rounding multiplicatively.
 
@@ -42,8 +42,8 @@ from ...runtime import _kernels
 
 LB = 16  # the state is written out every LB steps
 KERNEL_LBS = (8, 16, 32)
-STATE_GROUP = 16  # states the kernels hold in registers in one walk over L
-CHANNELS_PER_BLOCK = 32  # one warp of adjacent channels a block
+STATE_GROUP = 16  # states the kernels stage together in one walk over L
+CHANNELS_PER_BLOCK = 32  # adjacent channels a block: a warp's lanes
 
 
 def _ks_scan(a, b, dim):

@@ -13,9 +13,9 @@ package does (a multiply by the reciprocal lands on the other side of .5
 for some inputs and the int8 values would differ).
 
 `matmul_q8` is the K5 wrapper: on CUDA tensors it launches the hand-written
-Hopper kernel in csrc/quant.cu (counted in `matmul_q8.launches`) or
-raises; on CPU tensors it runs `matmul_q8_plain`.  There is no fallback
-between the two.
+Hopper kernel in csrc/quant.cu, one launch a product whatever its split of
+k (counted in `matmul_q8.launches`), or raises; on CPU tensors it runs
+`matmul_q8_plain`.  There is no fallback between the two.
 
 Engine.  The JAX package's default engine for the int8 product is XLA's
 dot, with its Pallas kernel behind an environment knob.  PyTorch has no
@@ -146,20 +146,46 @@ def matmul_q8_plain(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
 
 
 _SMS = 132  # streaming multiprocessors of an H100
+Q8_TILE = (8, 128)  # rows x columns of an output tile of the K5 kernel
+Q8_STAGE_ROWS = 64  # k rows of one stage of its ring
+Q8_WAVE = 2 * _SMS  # the blocks a split plan aims at: two an SM
+Q8_MIN_STAGES = 4  # the fewest stages a k slice is cut to
 
 
-def q8_split_k(m: int, k: int, n: int) -> int:
-    """How many blocks share one output tile's k range in the K5 kernel.
+def q8_plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(split, k_per_split): how the K5 kernel cuts k among the blocks of
+    one output tile.
 
-    The kernel's grid is (n / 128 column tiles, m / 8 row tiles, split); a
-    skinny decode product has too few tiles to fill the card's SMs, so k
-    is split until about two blocks per SM exist, each keeping at least
-    512 k-rows.  The partial int32 sums go through a scratch buffer and a
-    second small kernel; integer sums are exact in any order, so the
-    result does not depend on the split."""
-    tiles = -(-n // 128) * -(-m // 8)
-    want = -(-2 * _SMS // tiles)
-    return max(1, min(want, k // 512, 32))
+    The grid is (n / 128 column tiles, m / 8 row tiles, split).  A skinny
+    decode product has too few tiles for the card, so k is cut into slices
+    of whole 64-row stages until there are about two blocks an SM or a
+    slice would drop under 4 stages; the slices are then evened out (on
+    the card, two blocks an SM with their 8 stages of b in flight read
+    the decode shapes as fast as four, and fewer slices leave less to
+    add).  Shape only, so the plan (and the bits) never depend on timing.
+    The last block to finish a tile adds the slices' int32 tiles in slice
+    order; integer sums are exact in any order, so the result does not
+    depend on the plan."""
+    tiles = -(-n // Q8_TILE[1]) * -(-m // Q8_TILE[0])
+    stages = max(1, -(-k // Q8_STAGE_ROWS))  # k = 0: one slice, no stage
+    want = max(1, min(Q8_WAVE // tiles, stages // Q8_MIN_STAGES))
+    per = -(-stages // want)
+    return -(-stages // per), per * Q8_STAGE_ROWS
+
+
+_tickets: dict = {}
+
+
+def _q8_tickets(device, stream: int, count: int):
+    """The K5 kernel's tile tickets for (device, stream): int32 zeros,
+    allocated once and grown when a product has more tiles; every launch
+    leaves them at zero, and launches on one stream are ordered, so no
+    call zeroes them again."""
+    t = _tickets.get((device, stream))
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _tickets[(device, stream)] = t
+    return t
 
 
 def matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
@@ -167,9 +193,9 @@ def matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
     per-row x per-column dequantization:
     out[i, j] = (acc[i, j] * a_scale[i]) * b_scale[j], in fp32 or bf16.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel
-    (counted in `matmul_q8.launches`) or raise.  Any m, k, n: the kernel
-    masks ragged edges itself."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    launch a call (counted in `matmul_q8.launches`), or raise.  Any m, k,
+    n: the kernel masks ragged edges itself."""
     _check_q8(a_q8, b_q8, a_scale, b_scale, out_dtype)
     if a_q8.device.type == "cpu" or _plain:
         return matmul_q8_plain(a_q8, b_q8, a_scale, b_scale, out_dtype)
@@ -185,16 +211,22 @@ def matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
     out = torch.empty((m, n), dtype=out_dtype, device=a_q8.device)
     if m == 0 or n == 0:
         return out
-    split = q8_split_k(m, k, n)
-    scratch = (torch.empty((split, m, n), dtype=torch.int32,
-                           device=a_q8.device) if split > 1 else None)
+    split, per = q8_plan(m, k, n)
+    tiles = -(-n // Q8_TILE[1]) * -(-m // Q8_TILE[0])
+    stream = torch.cuda.current_stream(a_q8.device).cuda_stream
+    scratch = tickets = None
+    if split > 1:
+        scratch = torch.empty(split * tiles * Q8_TILE[0] * Q8_TILE[1],
+                              dtype=torch.int32, device=a_q8.device)
+        tickets = _q8_tickets(a_q8.device, stream, tiles)
     vp, i32 = _kernels.VP, _kernels.I32
     fn = _kernels.function("quant", "kf_matmul_q8",
-                           (vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp))
-    stream = torch.cuda.current_stream(a_q8.device).cuda_stream
+                           (vp,) * 7 + (i32,) * 7 + (vp,))
     err = fn(a_q8.data_ptr(), b_q8.data_ptr(), sa.data_ptr(), sb.data_ptr(),
              out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-             m, k, n, split, _OUT_CODES[out_dtype], stream)
+             None if tickets is None else tickets.data_ptr(),
+             0 if tickets is None else tickets.numel(), m, k, n, split, per,
+             _OUT_CODES[out_dtype], stream)
     if err:
         raise RuntimeError(f"int8 matmul kernel launch failed: CUDA error "
                            f"{err}")

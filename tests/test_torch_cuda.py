@@ -339,13 +339,17 @@ def test_int8_kernel_raises_on_what_it_does_not_take(cuda):
                                scales=(scales[0].cpu(), scales[1]))
 
 
-@pytest.mark.parametrize("m,k,n", [(8, 512, 384), (1, 96, 40), (5, 130, 67),
-                                   (37, 300, 129), (300, 2048, 256),
-                                   (8, 4096, 4096)])
+@pytest.mark.parametrize("m,k,n", [
+    (8, 512, 384), (1, 96, 40), (5, 130, 67), (37, 300, 129), (8, 0, 128),
+    (300, 2048, 256), (8, 515, 67), (17, 1023, 130), (1, 77, 3),
+    # the decode step's five products at Mistral-7B-v0.1 widths
+    (8, 4096, 6144), (8, 4096, 4096), (8, 4096, 14336), (8, 14336, 4096),
+    (8, 4096, 32000)])
 def test_matmul_q8_kernel_is_bit_equal_to_plain(cuda, m, k, n):
     """fp32 output: the exact integer sum times the same two scales in the
-    same order, so the kernel and the plain version agree bit for bit;
-    bf16 output rounds that value once more (at most one bf16 step)."""
+    same order, so the kernel and the plain version agree bit for bit, and
+    two launches give the same bits; bf16 output rounds that value once
+    more (at most one bf16 step)."""
     gen = torch.Generator(device=cuda).manual_seed(m * k + n)
     a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda).to(torch.int8)
     b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda).to(torch.int8)
@@ -360,12 +364,40 @@ def test_matmul_q8_kernel_is_bit_equal_to_plain(cuda, m, k, n):
     oracle = ((a.cpu().long() @ b.cpu().long()).float() * sa.cpu()[:, None]) \
         * sb.cpu()[None, :]
     assert torch.equal(got.cpu(), oracle)
+    assert torch.equal(tq.matmul_q8(a, b, sa, sb, out_dtype=torch.float32),
+                       got)
     got16, want16 = tq.matmul_q8(a, b, sa, sb), tq.matmul_q8_plain(a, b, sa, sb)
     torch.testing.assert_close(got16.float(), want16.float(), atol=0,
                                rtol=2.0 ** -7)
     with tq.plain_matmul_q8():
         assert torch.equal(tq.matmul_q8(a, b, sa, sb, torch.float32), want)
-    assert tq.matmul_q8.launches == before + 2
+    assert tq.matmul_q8.launches == before + 3
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 4096), (8, 14336, 4096),
+                                   (5, 130, 67)])
+def test_matmul_q8_is_one_kernel_a_product(cuda, m, k, n):
+    """Split or not, a product is one launch of one kernel (the last block
+    of a tile adds the slices), and every launch leaves the tile tickets
+    at zero for the next."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda).to(torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda).to(torch.int8)
+    sa, sb = torch.ones(m, device=cuda), torch.ones(n, device=cuda)
+    want = tq.matmul_q8(a, b, sa, sb, torch.float32)  # allocates the tickets
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = tq.matmul_q8(a, b, sa, sb, torch.float32)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "q8_stream_kernel" in kernels[0], kernels
+    assert torch.equal(got, want)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not tq._tickets[(a.device, stream)].any()
 
 
 def test_matmul_q8_has_one_engine_and_wrapper_checks(cuda, monkeypatch):
@@ -1193,6 +1225,11 @@ SSM_SHAPES = [  # (B, L, di, N, lb)
     (3, 19, 5152, 16, 16),
     (2, 40, 64, 32, 16),  # two groups of 16 states
     (1, 37, 45, 20, 8),  # a ragged second group
+    # several chunks of the backward's segments (8 x 16 steps, 8 x 32 at
+    # lb 32), the last one ragged, with ragged di and N = 16 and 32
+    (1, 300, 45, 16, 16),
+    (2, 257, 70, 32, 8),
+    (1, 600, 33, 16, 32),
 ]
 
 

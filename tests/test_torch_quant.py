@@ -189,15 +189,123 @@ def test_cpu_tensors_run_the_plain_version_uncounted(monkeypatch):
 
 
 def test_split_k_plan_fills_the_card_and_keeps_long_slices():
-    """The decode shapes get enough blocks for 132 SMs, every block keeps
-    at least 512 k-rows, and a large m needs no split."""
+    """The decode shapes get about two blocks an SM (at least 200 and at
+    most Q8_WAVE = 264 for 132 SMs), every slice is whole 64-row stages
+    and keeps at least 4 of them, the slices cover k exactly once, and a
+    large m needs no split."""
     for m, k, n in [(8, 4096, 6144), (8, 4096, 4096), (8, 4096, 14336),
                     (8, 14336, 4096), (8, 4096, 32000)]:
-        split = tq.q8_split_k(m, k, n)
-        assert 1 <= split <= 32 and k // split >= 512
-        assert split * -(-n // 128) * -(-m // 8) >= 200
-    assert tq.q8_split_k(300, 4096, 4096) == 1
-    assert tq.q8_split_k(8, 100, 64) == 1
+        split, per = tq.q8_plan(m, k, n)
+        assert per % tq.Q8_STAGE_ROWS == 0
+        assert per >= tq.Q8_MIN_STAGES * tq.Q8_STAGE_ROWS
+        assert (split - 1) * per < k <= split * per
+        assert 200 <= split * -(-n // 128) * -(-m // 8) <= tq.Q8_WAVE
+    assert tq.q8_plan(300, 4096, 4096)[0] == 1
+    assert tq.q8_plan(8, 100, 64)[0] == 1
+
+
+# -- the CUDA kernel's tiling, emulated ----------------------------------------
+
+def emulate_k5(a, b, sa, sb, plan=None, seed=0):
+    """q8_stream_kernel on numpy int8 operands, fp32 output: a grid of
+    (n / 128, m / 8, split) blocks; block (x, y, z) streams k rows [z *
+    per, min(k, z * per + per)) in stages of 64 rows (zeros past k, m and
+    n, as the TMA boxes bring them), each stage's rows 16 w .. 16 w + 15 to
+    consumer w of 4; the consumers' tiles added in order; with split > 1
+    the block stores its int32 tile in the (split, tiles, 8, 128) scratch
+    and takes a ticket, and the block that takes the last one adds the
+    slices in slice order, dequantizes and resets the ticket.  Blocks run
+    in a shuffled order (the card's is unknown)."""
+    m, k = a.shape
+    n = b.shape[1]
+    split, per = plan or tq.q8_plan(m, k, n)
+    assert per % 64 == 0 and (split == 1 if k == 0
+                              else (split - 1) * per < k <= split * per)
+    gx, gy = -(-n // 128), -(-m // 8)
+    ap = np.zeros((gy * 8, split * per), np.int64)
+    ap[:m, :k] = a
+    bp = np.zeros((split * per, gx * 128), np.int64)
+    bp[:k, :n] = b
+    scratch = np.zeros((split, gx * gy, 8, 128), np.int64)
+    tickets = np.zeros(gx * gy, np.int64)
+    out = np.full((m, n), np.nan, np.float32)
+
+    def store(tile, x, y):
+        rows, cols = min(8, m - 8 * y), min(128, n - 128 * x)
+        acc = tile[:rows, :cols]
+        assert np.abs(acc).max(initial=0) < 2 ** 31  # an int32 holds it
+        out[8 * y:8 * y + rows, 128 * x:128 * x + cols] = (
+            acc.astype(np.float32) * sa[8 * y:8 * y + rows, None]) \
+            * sb[None, 128 * x:128 * x + cols]
+
+    blocks = [(x, y, z) for z in range(split) for y in range(gy)
+              for x in range(gx)]
+    for i in np.random.default_rng(seed).permutation(len(blocks)):
+        x, y, z = blocks[i]
+        k0, k1 = z * per, min(k, z * per + per)
+        warps = np.zeros((4, 8, 128), np.int64)
+        for st in range(-(-(k1 - k0) // 64)):
+            kk = k0 + 64 * st
+            sb_ = bp[kk:kk + 64, 128 * x:128 * x + 128]
+            sa_ = ap[8 * y:8 * y + 8, kk:kk + 64]
+            for w in range(4):
+                warps[w] += sa_[:, 16 * w:16 * w + 16] @ sb_[16 * w:16 * w + 16]
+        tile = ((warps[0] + warps[1]) + warps[2]) + warps[3]
+        t = y * gx + x
+        if split == 1:
+            store(tile, x, y)
+            continue
+        scratch[z, t] = tile
+        tickets[t] += 1
+        if tickets[t] == split:
+            total = np.zeros((8, 128), np.int64)
+            for zz in range(split):
+                total = total + scratch[zz, t]
+            store(total, x, y)
+            tickets[t] = 0
+    assert not tickets.any()
+    return out
+
+
+@pytest.mark.parametrize("m,k,n,plan", [
+    (8, 256, 384, None),       # decode rows, whole stages, split 1
+    (1, 96, 40, None),         # m = 1, n % 16 != 0
+    (5, 130, 67, (3, 64)),     # k tail of 2, n % 4 == 3, three slices
+    (37, 515, 129, None),      # k tail of 3, n % 4 == 1, split 2 by the plan
+    (8, 1025, 260, None),      # a last slice of 65 rows (a 1-row stage)
+    (300, 200, 33, None),      # many row tiles, one slice
+    (17, 1023, 130, (8, 128)),  # eight slices, ragged m and n
+])
+def test_kernel_tiling_emulation_is_exact(m, k, n, plan):
+    """The emulated tiling, split plan and last-block sum give the int64
+    oracle's fp32 output bit for bit, and the JAX kernel's in interpret
+    mode."""
+    a, b, sa, sb = _q8_case(11, m, k, n)
+    got = emulate_k5(a, b, sa, sb, plan)
+    acc = a.astype(np.int64) @ b.astype(np.int64)
+    np.testing.assert_array_equal(got, (acc.astype(np.float32) * sa[:, None])
+                                  * sb[None, :])
+    if plan is None:
+        assert tq.q8_plan(m, k, n)[0] == {(37, 515, 129): 2,
+                                          (8, 1025, 260): 4}.get((m, k, n), 1)
+    pallas = jq.matmul_q8(jnp.asarray(a), jnp.asarray(b), jnp.asarray(sa),
+                          jnp.asarray(sb), out_dtype=jnp.float32,
+                          interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+
+
+def test_kernel_tiling_emulation_of_an_empty_sum():
+    """k = 0: the plan is one slice of one (empty) stage, the C entry takes
+    it, and the kernel dequantizes sums of 0 (the JAX kernel's grid takes
+    no k = 0, so the oracle alone holds it)."""
+    assert tq.q8_plan(8, 0, 128) == (1, tq.Q8_STAGE_ROWS)
+    a, b, sa, sb = _q8_case(12, 5, 0, 131)
+    got = emulate_k5(a, b, sa, sb)
+    want = (np.zeros((5, 131), np.float32) * sa[:, None]) * sb[None, :]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tq.matmul_q8(*(torch.from_numpy(x) for x in (a, b, sa, sb)),
+                     torch.float32).numpy(), want)
 
 
 def _byte_perm(x, y, sel):

@@ -45,11 +45,12 @@ def _t(*arrs):
 
 @pytest.fixture(scope="module")
 def jax_case():
-    """The interpret-mode JAX kernels' outputs on two shapes (one and two
-    di tiles)."""
+    """The interpret-mode JAX kernels' outputs on three shapes (one and two
+    di tiles; 160 steps, two chunks of the CUDA backward)."""
     out = {}
     for key, shape in (("one_tile", dict(b=2, L=16, di=128, n=8, seed=0)),
-                       ("two_tiles", dict(b=1, L=8, di=256, n=8, seed=3))):
+                       ("two_tiles", dict(b=1, L=8, di=256, n=8, seed=3)),
+                       ("chunks", dict(b=1, L=160, di=128, n=8, seed=5))):
         dt, u, bm, c, a_t, dy = _inputs(**shape)
         j = [jnp.asarray(x) for x in (dt, u, bm, c, a_t)]
         y, hb = jscan.ssm_scan_fwd(*j, lb=4, dib=128, interpret=True)
@@ -157,61 +158,116 @@ def _ordered_sum(x, dim):
     return acc
 
 
+W = 8  # segments of L a backward block, one a warp (kBwdWarps)
+
+
+def _fold(v, seg):
+    """fold_lanes: the sum over a warp's 32 channels (v[..., channel]) as
+    the kernel takes it: with 16-step segments each half of 16 channels as
+    four sums (channels j % 4 == 0..3 of the half, each in order) added
+    (0 + 1) + (2 + 3), then the halves added; with 32-step ones all 32
+    channels the same way."""
+    def fours(x):
+        acc = [torch.zeros_like(x[..., 0]) for _ in range(4)]
+        for j in range(x.shape[-1]):
+            acc[j % 4] = acc[j % 4] + x[..., j]
+        return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+    if seg == 32:
+        return fours(v)
+    return fours(v[..., :16]) + fours(v[..., 16:])
+
+
 def emulate_bwd(dt, u, bm, c, a_t, hb, dy, lb):
-    """ssm_bwd_kernel + sum_parts_kernel: blocks in reverse; each block's
-    states recomputed from h_bound into a history, the reverse recurrence
-    with the carry g = dA_{t+1} * delta_{t+1} crossing block boundaries,
-    per-(channel block) partials of dbm and dc summed over the block's
-    channels in order, per-batch partials of da_t; then the partials summed
-    in order."""
+    """ssm_bwd_kernel + sum_parts_kernel: a block is CH channels (lanes) by
+    W segments of seg = max(16, lb) steps (warps), each segment starting
+    from its h_bound entry; per state the segments' reverse maps (P, Q)
+    compose right to left onto the chunk's carry, chunks run from the last
+    to the first; sums over the block's channels in fold_lanes' order,
+    per-(channel block) partials of dbm and dc, per-batch partials of da_t
+    summed over the segments in order; then the partials summed in order.
+    Steps past L are the identity (zeros, dA = 1)."""
     b, L, di = dt.shape
     n = bm.shape[2]
-    nblk = -(-L // lb)
+    seg = max(16, lb)
+    R = W * seg
+    nchunk = -(-L // R)
     ncb = -(-di // CH)
-    ddt, du = torch.zeros_like(dt), torch.zeros_like(dt)
+    Lp, dip = nchunk * R, ncb * CH
+
+    def pad(x, steps, chans):
+        out = torch.zeros((x.shape[0], steps, chans))
+        out[:, :x.shape[1], :x.shape[2]] = x
+        return out
+
+    dtp, up, dyp = (pad(x, Lp, dip) for x in (dt, u, dy))
+    bmp, cp = pad(bm, Lp, n), pad(c, Lp, n)
+    ap = torch.zeros((n, dip))
+    ap[:, :di] = a_t
+    ddt, du = torch.zeros((b, Lp, dip)), torch.zeros((b, Lp, dip))
     dbp = torch.zeros((b, ncb, L, n))
     dcp = torch.zeros((b, ncb, L, n))
-    datp = torch.zeros((b, n, di))
+    datp = torch.zeros((b, n, dip))
     for ib in range(b):
         for cb in range(ncb):
-            ch = slice(cb * CH, min(cb * CH + CH, di))
-            a = a_t[:, ch]
-            w = a.shape[1]
-            g = [torch.zeros(w) for _ in range(n)]
-            da = [torch.zeros(w) for _ in range(n)]
-            for k in range(nblk - 1, -1, -1):
-                t0, ln = k * lb, min(lb, L - k * lb)
-                hist = torch.zeros((ln + 1, n, w))  # slot i: h entering step i
-                cbuf = torch.zeros((ln, n, w))
-                h = [hb[ib, k, s, ch].clone() for s in range(n)]
-                hist[0] = torch.stack(h)
-                for i in range(ln):
-                    t = t0 + i
-                    for s in range(n):
-                        dA = torch.exp(dt[ib, t, ch] * a[s])
-                        h[s] = dA * h[s] + u[ib, t, ch] * bm[ib, t, s]
-                        hist[i + 1, s] = h[s]
-                        cbuf[i, s] = h[s] * dy[ib, t, ch]
-                for i in range(ln - 1, -1, -1):
-                    t = t0 + i
-                    tdt, tdu = [], []
-                    for s in range(n):
-                        dA = torch.exp(dt[ib, t, ch] * a[s])
-                        delta = g[s] + c[ib, t, s] * dy[ib, t, ch]
-                        dda = delta * hist[i, s] * dA
-                        tdt.append(dda * a[s])
-                        da[s] = da[s] + dda * dt[ib, t, ch]
-                        tdu.append(delta * bm[ib, t, s])
-                        hist[i + 1, s] = delta * u[ib, t, ch]
-                        g[s] = dA * delta
-                    ddt[ib, t, ch] = _lane_sum(tdt)
-                    du[ib, t, ch] = _lane_sum(tdu)
-                dbp[ib, cb, t0:t0 + ln] = _ordered_sum(hist[1:], 2)
-                dcp[ib, cb, t0:t0 + ln] = _ordered_sum(cbuf, 2)
-            for s in range(n):
-                datp[ib, s, ch] = da[s]
-    return (ddt, du, _ordered_sum(dbp, 1), _ordered_sum(dcp, 1),
-            _ordered_sum(datp, 0))
+            ch = slice(cb * CH, cb * CH + CH)
+            for n0 in range(0, n, NG):
+                ng = min(NG, n - n0)
+                carry = torch.zeros((ng, CH))
+                sda = torch.zeros((ng, W, CH))
+                for q in range(nchunk):
+                    c0 = (nchunk - 1 - q) * R
+                    rows = slice(c0, c0 + R)
+                    xdt, xu, xdy = (x[ib, rows, ch].reshape(W, seg, CH)
+                                    for x in (dtp, up, dyp))
+                    gdt = torch.zeros((W, seg, CH))
+                    gdu = torch.zeros((W, seg, CH))
+                    tb, tc = torch.zeros((R, ng)), torch.zeros((R, ng))
+                    for s in range(ng):
+                        a = ap[n0 + s, ch]
+                        h = torch.zeros((W, CH))
+                        for w in range(W):
+                            t0 = c0 + w * seg
+                            if t0 < L:
+                                h[w, :min(CH, di - cb * CH)] = \
+                                    hb[ib, t0 // lb, n0 + s, ch]
+                        B = bmp[ib, rows, n0 + s].reshape(W, seg, 1)
+                        C = cp[ib, rows, n0 + s].reshape(W, seg, 1)
+                        dA = torch.exp(xdt * a)
+                        hp, v = torch.zeros_like(dA), torch.zeros_like(dA)
+                        for i in range(seg):
+                            hp[:, i] = h
+                            h = dA[:, i] * h + xu[:, i] * B[:, i]
+                            v[:, i] = h * xdy[:, i]
+                        P, Q = torch.ones((W, CH)), torch.zeros((W, CH))
+                        for i in range(seg - 1, -1, -1):
+                            Q = dA[:, i] * (Q + C[:, i] * xdy[:, i])
+                            P = P * dA[:, i]
+                        tc[:, s] = _fold(v, seg).reshape(R)
+                        g_in, g = torch.zeros((W, CH)), carry[s]
+                        for w in range(W - 1, -1, -1):
+                            g_in[w] = g
+                            g = P[w] * g + Q[w]
+                        carry[s] = g
+                        g, da = g_in, torch.zeros((W, CH))
+                        for i in range(seg - 1, -1, -1):
+                            delta = g + C[:, i] * xdy[:, i]
+                            dda = delta * hp[:, i] * dA[:, i]
+                            gdt[:, i] += dda * a
+                            da = da + dda * xdt[:, i]
+                            gdu[:, i] += delta * B[:, i]
+                            v[:, i] = delta * xu[:, i]
+                            g = dA[:, i] * delta
+                        sda[s] += da
+                        tb[:, s] = _fold(v, seg).reshape(R)
+                    ddt[ib, rows, ch] += gdt.reshape(R, CH)
+                    du[ib, rows, ch] += gdu.reshape(R, CH)
+                    live = min(R, L - c0)
+                    dbp[ib, cb, c0:c0 + live, n0:n0 + ng] = tb[:live]
+                    dcp[ib, cb, c0:c0 + live, n0:n0 + ng] = tc[:live]
+                datp[ib, n0:n0 + ng, ch] = _ordered_sum(sda, 1)
+    return (ddt[:, :L, :di], du[:, :L, :di], _ordered_sum(dbp, 1),
+            _ordered_sum(dcp, 1), _ordered_sum(datp, 0)[:, :di])
 
 
 EDGES = {
@@ -224,7 +280,28 @@ EDGES = {
     # two full groups of states, and a ragged second group
     "two_groups": dict(b=1, L=11, di=36, n=32, lb=8),
     "ragged_groups": dict(b=2, L=9, di=33, n=20, lb=8),
+    # several chunks of the backward (W segments of 16 steps: 128), the
+    # last one ragged; 32-step segments (lb 32: chunks of 256); two groups
+    # of states over several chunks
+    "chunks": dict(b=1, L=300, di=40, n=4, lb=16),
+    "chunks_lb32": dict(b=1, L=300, di=33, n=3, lb=32),
+    "chunks_two_groups": dict(b=1, L=150, di=33, n=32, lb=8),
 }
+
+
+@pytest.mark.parametrize("key", ["one_tile", "two_tiles", "chunks"])
+def test_backward_emulation_matches_the_jax_kernel(jax_case, key):
+    """The CUDA backward's decomposition, emulated, against the JAX kernel
+    in interpret mode, from the JAX forward's own h_bound (lb 4: the
+    16-step segments start at every fourth entry); 1e-4 x max(1, max |ref|)
+    (other summation orders)."""
+    (dt, u, bm, c, a_t, dy), _, hb, grads = jax_case[key]
+    got = emulate_bwd(*_t(dt, u, bm, c, a_t, np.array(hb), dy), lb=4)
+    for g, want, name in zip(got, grads, NAMES):
+        assert g.shape == want.shape, name
+        tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-4, atol=tol,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("case", sorted(EDGES))
