@@ -122,12 +122,16 @@ Phases (any failure raises and the script exits non-zero):
      their plain PyTorch version (the chunked scan) at the Mamba training
      shape (B=4, L=2048, di=5120, N=16, fp32, S4D A, softplus dt) and at
      edge shapes (L = 1, L not a multiple of the block, di = 64 and
-     5120 + 32, B = 1, an underflowing decay, N = 32 and N = 20); two
-     backward runs bitwise equal; then loss and gradients of a 2-layer
+     5120 + 32, B = 1, an underflowing decay, N = 32 and N = 20, di = 45
+     with N = 5, whose rows the forward's ring takes by ordinary loads);
+     two forward and two backward runs bitwise equal; then loss and
+     gradients of a 2-layer
      MambaConfig(d_state=32) at mamba-2.8b width through K11 against the
      chunked scan, as phase 29 does at N = 16;
  27. time each pass, its plain version (no library call computes the
-     selective scan) beside its bound;
+     selective scan) beside its bound, and the forward with its ring
+     filled by ordinary loads (bases off 16 bytes) in place of TMA, which
+     must give the same bits;
  28. take 6 AdamW steps through make_mamba_train_step at
      state-spaces/mamba-2.8b-hf widths, depth cut to 8 layers, 4 x 2048
      tokens (K11 forward and backward launches = layers x steps each), and
@@ -590,9 +594,11 @@ K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel")
 K2_KERNELS = ("flash_stats_kernel", "flash_delta_kernel", "flash_bwd_dq",
               "flash_bwd_dkv")
 PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel")
-# K5's one kernel (its split slices meet in the same launch); K11b's
-# backward kernel and the sums of its partials
+# K5's one kernel (its split slices meet in the same launch); K11's
+# forward (the ring-fed walk); K11b's backward kernel and the sums of its
+# partials
 Q8_KERNELS = ("q8_stream_kernel",)
+SSM_FWD_KERNELS = ("ssm_fwd_ring_kernel",)
 SSM_BWD_KERNELS = ("ssm_bwd_kernel", "sum_parts_kernel")
 
 
@@ -2892,6 +2898,9 @@ SSM_EDGES = [  # (B, L, di, N, lb, dt scale), each held fwd and bwd
     # state widths past one group of 16: two full groups, a ragged second
     (2, 257, 5120, 32, 16, 1.0),
     (1, 100, 1000, 20, 8, 1.0),
+    # rows TMA cannot take (di and N not multiples of 4): the forward's
+    # producer fills its ring with ordinary loads
+    (2, 75, 45, 5, 8, 1.0),
 ]
 
 
@@ -2936,6 +2945,9 @@ def ssm_hold(ss, x, lb, label, repeat=False) -> float:
         worst = max(worst, ssm_err(g, w, f"{label} {name}"))
     del want
     if repeat:
+        y2, hb2 = ss.ssm_scan_fwd(*args, lb)
+        check(torch.equal(y, y2) and torch.equal(hb, hb2),
+              f"{label}: two forward runs are bitwise equal")
         again = ss.ssm_scan_bwd(*args, hb, x["dy"], lb)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"{label}: two backward runs are bitwise equal")
@@ -2949,7 +2961,8 @@ def ssm_checks(ss) -> float:
                      ss.LB, "training shape", repeat=True)
     print(f"  training shape B={s['b']} L={s['L']} di={s['di']} N={s['n']} "
           f"fp32: y, h_bound and the five gradients within 1e-4 of max |ref| "
-          f"(worst {worst:.3g} of it); two backward runs bitwise equal",
+          f"(worst {worst:.3g} of it); two forward and two backward runs "
+          f"bitwise equal",
           flush=True)
     free_device_memory()
     for b, L, di, n, lb, scale in SSM_EDGES:
@@ -2983,12 +2996,29 @@ def ssm_bounds(b, L, di, n, lb):
     return out
 
 
+def off_16_bytes(t):
+    """t's values at a base 4 bytes past a 16-byte boundary (rows TMA
+    refuses: K11's forward fills its ring by ordinary loads)."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
 def ssm_timing(ss) -> dict:
+    """Each pass, its plain version and its bound at the training shape;
+    the forward also with its ring filled by ordinary loads, which must
+    give the TMA fill's bits."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
     s = SSM_SHAPE
     x = ssm_case(gen, s["b"], s["L"], s["di"], s["n"])
     args = (x["dt"], x["u"], x["bm"], x["c"], x["a_t"])
-    _, hb = ss.ssm_scan_fwd(*args)
+    y, hb = ss.ssm_scan_fwd(*args)
+    plain_fill = [off_16_bytes(t) for t in args[:4]] + [args[4]]
+    y2, hb2 = ss.ssm_scan_fwd(*plain_fill)
+    check(torch.equal(y, y2) and torch.equal(hb, hb2),
+          "K11 forward: the ordinary fill gives the TMA fill's bits")
+    del y, y2, hb2
+    ordinary_ms = time_ms(lambda: ss.ssm_scan_fwd(*plain_fill))
+    del plain_fill
     fwd, bwd = ssm_bounds(s["b"], s["L"], s["di"], s["n"], ss.LB)
     fwd.update(ms=time_ms(lambda: ss.ssm_scan_fwd(*args)),
                plain_ms=time_ms(lambda: ss.ssm_scan_plain(*args), reps=5),
@@ -2997,7 +3027,7 @@ def ssm_timing(ss) -> dict:
                plain_ms=time_ms(lambda: ss.ssm_scan_bwd_plain(
                    *args, x["dy"]), reps=5),
                library_ms=None)
-    return {"fwd": fwd, "bwd": bwd}
+    return {"fwd": fwd, "bwd": bwd, "fwd_ordinary_fill_ms": ordinary_ms}
 
 
 def mamba_params(cfg, seed, dtype):
@@ -3099,7 +3129,7 @@ def mamba_train_phase(ss, card):
 
 def print_ssm_share(tag, prof):
     """K11's forward and backward device time in one profiled step."""
-    fwd_ms, fwd_share = kernel_share(prof, ("ssm_fwd_kernel",))
+    fwd_ms, fwd_share = kernel_share(prof, SSM_FWD_KERNELS)
     bwd_ms, bwd_share = kernel_share(prof, SSM_BWD_KERNELS)
     check(fwd_ms > 0 and bwd_ms > 0, f"{tag} K11's kernels are in the "
           f"profile")
@@ -3382,6 +3412,9 @@ def ssm_phases(fa, card):
               f"{t['plain_ms']:.4f} ms, library none, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes']} B, "
               f"{t['exps']} exponentials); {card}", flush=True)
+    print(f"[27] K11 forward, its ring filled by ordinary loads (bases 4 "
+          f"bytes off 16; the TMA fill's bits): "
+          f"{timing['fwd_ordinary_fill_ms']:.4f} ms; {card}", flush=True)
     launches = mamba_train_phase(ss, card)
     free_device_memory()
     mamba_end_to_end_fp32()

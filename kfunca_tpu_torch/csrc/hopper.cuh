@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the wgmma bodies of K3 (matmul.cu) and
-// K2 (flash_attention.cu): mbarriers, TMA loads, shared-memory matrix
-// descriptors for 128-byte swizzled tiles, and the warpgroup matrix
-// multiply (wgmma) in the shapes those bodies issue.  sm_90a only
-// (wgmma and setmaxnreg do not exist on plain sm_90).
+// K1 / K2 / K12 (attention_wgmma.cuh) and by the TMA rings of K5
+// (quant.cu) and K11's forward (ssm_scan.cu): mbarriers, TMA loads,
+// shared-memory matrix descriptors for 128-byte swizzled tiles, and the
+// warpgroup matrix multiply (wgmma) in the shapes those bodies issue.
+// sm_90a only (wgmma and setmaxnreg do not exist on plain sm_90).
 // runtime/_kernels.py hashes this header into the name of every library.
 //
 // Tiles.  Every operand tile is brought in by TMA with 128-byte swizzle,
@@ -76,6 +77,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     // with an error (after ~2^35 cycles, some 20 s) rather than hang the card
     if (!done && clock64() - t0 > (1ll << 35)) __trap();
   } while (!done);
+}
+
+// order this thread's earlier generic accesses of shared memory before its
+// later async-proxy (TMA) accesses of it (a buffer read by loads, then
+// refilled by TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -- TMA ----------------------------------------------------------------------

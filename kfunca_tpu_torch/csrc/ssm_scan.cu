@@ -30,16 +30,46 @@
 // The TPU kernels walk the grid's L axis in order and carry the state
 // between grid steps in VMEM scratch; on the card the blocks run at once.
 //
-// The forward walks L inside the thread:
-//   * four adjacent lanes own one (batch, channel) pair, each holding four
-//     of a group's 16 states and the matching values of A in registers;
-//     the sum over the states (y) meets by two shuffles.  A block is 32
-//     adjacent channels (128 threads): 2,560 warps at the training shape;
-//   * bm and c of an L-block are staged in shared memory once for the
-//     block's channels (a broadcast read), and the block's dt and u are
-//     loaded into registers before its steps start, so that the loads of
-//     a block are in flight together; the state entering each L-block
-//     goes to h_bound.
+// The forward (ssm_fwd_ring_kernel) walks L inside the thread, fed by a
+// ring: a walk that loads its next steps only when it reaches them waits
+// on a device round trip each time, with nothing else in flight.
+//   * a block is 32 adjacent channels of one batch row: two consumer
+//     warps and a producer warp.  The producer keeps a ring of kStages
+//     stages of kT = 32 steps in shared memory, each holding dt and u
+//     (kT rows of the block's 32 channels, 128 bytes a row) and B and C
+//     (kT rows of a group's 16 states), with full / empty mbarriers.  Where
+//     TMA takes the operands (di and N multiples of 4, 16-byte bases) one
+//     lane issues four 3-D TMA loads a stage, zeros past L, di and N;
+//     elsewhere the warp fills the same stage with ordinary loads.  The
+//     consumers only wait on a stage's barrier and release it: no
+//     __syncthreads in the walk.  Three stages: a fourth would cost the
+//     fifth block an SM (36 KB a block), and one 640-block wave at the
+//     training shape needs five;
+//   * two adjacent lanes own a channel, each holding eight of a group's
+//     16 states and their a * log2 e in registers (1,280 warps at the
+//     training shape, 2.5 a scheduler).  Four lanes a channel (2,560
+//     warps, five a scheduler) read slower on an H100, with twice the
+//     loads and shuffles a state, and one lane (640 warps) far slower.  A
+//     step reads dt and u once for the channel's lanes (a broadcast) and
+//     each lane's B and C as two 16-byte broadcasts.  The lanes' sums of
+//     two steps meet by one shuffle (step_sums), where one step's took
+//     one, with no branch around it: the stores beside it are predicated;
+//   * y leaves through shared memory: lane g of a channel writes step
+//     i0 + g's y over u in the stage (every lane has read u by then), and
+//     the producer, once the consumers release the stage, stores its rows
+//     of 32 channels (128 bytes) before it refills the slot.  The state
+//     entering every lb-th step (kT % lb == 0, so every h_bound point falls
+//     inside a stage) goes to h_bound from registers: each store writes
+//     four whole 32-byte sectors, and staging it would cost a barrier
+//     among the consumers every lb steps;
+//   * the decay is 2^(dt * a log2 e) by ex2.approx (2 ulp; 0 below 2^-126,
+//     where dA * h is far below the tolerance), one SFU operation and one
+//     multiply, where expf costs several fp32 operations around it.
+// On an H100 at the training shape the walk is bound by the consumers'
+// instruction issue, not by bytes or the SFU: the feed alone (the TMA loads
+// and y's stores) runs in about the bytes' time, and an FMA in the
+// exponential's place barely moves it (probe builds of this source with
+// one choice changed, timed against the forward before its ring: PERF.md).
 // The backward is a scan parallel over L (ssm_bwd_kernel below): a block
 // is 32 channels (one a lane) by kBwdWarps segments of L (one a warp), and
 // h_bound gives every segment its entering state, so the forward side of
@@ -50,99 +80,254 @@
 // per-block partials, as the TPU kernel writes partials per di-tile, and
 // a second small kernel sums them, and da_t's per-batch partials, in a
 // fixed order: no atomics, so two runs give the same bits.
-// expf, not __expf, and no fast-math flags: the recurrence compounds
-// per-step rounding multiplicatively.
+// The backward keeps expf, and no fast-math flags: the recurrence
+// compounds per-step rounding multiplicatively.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kCh = 32;      // channels per block
 constexpr int kMaxN = 16;    // states in one group (one walk over L)
-constexpr int kG = 4;        // lanes per channel, splitting its states
-constexpr int kS = kMaxN / kG;  // states per thread, in registers
-constexpr int kThreads = kCh * kG;
 constexpr unsigned kFull = 0xffffffffu;
 
-// sum over the kG lanes of a channel (adjacent lanes), the same bits in each
-__device__ __forceinline__ float group_sum(float v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  v += __shfl_xor_sync(kFull, v, 2);
-  return v;
+// -- the forward: a walk over L fed by a ring --------------------------------
+
+constexpr int kG = 2;                  // lanes per channel, splitting its states
+constexpr int kS = kMaxN / kG;         // states per lane, in registers
+constexpr int kFwdWarps = kCh * kG / 32;            // consumer warps
+constexpr int kFwdThreads = 32 * (kFwdWarps + 1);   // + the producer warp
+constexpr int kT = 32;                 // steps a stage
+constexpr int kStages = 3;             // depth of the ring
+constexpr int kTile = kT * kCh;        // floats of a stage's dt (or u) tile
+constexpr int kBTile = kT * kMaxN;     // floats of its B (or C) tile
+constexpr int kStageFloats = 2 * kTile + 2 * kBTile;
+constexpr uint32_t kStageBytes = kStageFloats * sizeof(float);  // 12 KB
+constexpr size_t kFwdSmem =
+    128 + (size_t)kStages * kStageBytes + 2 * kStages * sizeof(uint64_t);
+constexpr float kLog2e = 1.4426950408889634f;
+
+static_assert(kStageBytes % 128 == 0, "stages stay 128-byte aligned");
+static_assert(kS % 4 == 0, "a lane's B and C are whole float4s");
+static_assert(kG == 2 && kT % kG == 0, "step_sums pairs two lanes' steps");
+
+// The sums over a channel's two lanes of two steps' partials p (this lane's
+// sums over its states): lane grp keeps step grp's partial, sends the other
+// step's and returns step grp's sum p0 + p1 (p_l = lane l's; the same bits
+// whichever lane adds), one shuffle for two steps.
+__device__ __forceinline__ float step_sums(const float (&p)[kG], int grp) {
+  const float keep = grp ? p[1] : p[0], send = grp ? p[0] : p[1];
+  return keep + __shfl_xor_sync(kFull, send, 1);
 }
 
-template <int LB>
-__global__ void __launch_bounds__(kThreads) ssm_fwd_kernel(
-    const float* __restrict__ dt, const float* __restrict__ u,
+// exp(x) for x2 = x log2 e: 2^x2 by the SFU (2 ulp, 0 below 2^-126)
+__device__ __forceinline__ float decay(float x2) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x2));
+  return r;
+}
+
+// a shared-memory store the compiler may move loads across (no memory
+// clobber): the stage's later loads never read the word stored
+__device__ __forceinline__ void put_y(float* p, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(hopper::smem_addr(p)),
+               "f"(v));
+}
+
+// a global store under a predicate, with no branch around it, so the
+// walk's shuffles stay on converged code (nothing in the kernel reads it)
+__device__ __forceinline__ void put_if(float* p, float v, bool ok) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
+      "@q st.global.f32 [%0], %1;\n}\n" ::"l"(p),
+      "f"(v), "r"((int)ok));
+}
+
+// The producer warp's fill of one stage with ordinary loads (operands TMA
+// cannot take): dt and u rows t0 .. t0 + kT - 1 of channel d (lane =
+// channel), B and C rows of states n0 .. n0 + 15; zeros past L, di and N.
+__device__ __forceinline__ void fill_stage(
+    float* st, const float* __restrict__ dt, const float* __restrict__ u,
     const float* __restrict__ bm, const float* __restrict__ c,
-    const float* __restrict__ a_t, float* __restrict__ y,
-    float* __restrict__ hb, int L, int di, int n) {
-  __shared__ float sB[LB][kMaxN], sC[LB][kMaxN];
-  const int tid = threadIdx.x, ch = tid / kG, grp = tid % kG;
-  const int d = blockIdx.x * kCh + ch;
-  const int b = blockIdx.y;
-  const bool live = d < di;
-  const int nblk = (L + LB - 1) / LB;
-  const long long row0 = (long long)b * L;
-  // states n0 .. n0 + ng - 1 of this group; s below counts within it
-  for (int n0 = 0; n0 < n; n0 += kMaxN) {
-  const int ng = min(kMaxN, n - n0);
-  float a[kS], h[kS];
-#pragma unroll
-  for (int j = 0; j < kS; ++j) {
-    const int s = grp * kS + j;
-    a[j] = (live && s < ng) ? a_t[(long long)(n0 + s) * di + d] : 0.0f;
-    h[j] = 0.0f;
+    long long row0, int t0, int n0, int L, int di, int n, int d, int lane) {
+  float* sdt = st;
+  float* su = sdt + kTile;
+  float* sb = su + kTile;
+  float* sc = sb + kBTile;
+#pragma unroll 8
+  for (int i = 0; i < kT; ++i) {
+    const bool ok = t0 + i < L && d < di;
+    const long long off = (row0 + t0 + i) * di + d;
+    sdt[i * kCh + lane] = ok ? dt[off] : 0.0f;
+    su[i * kCh + lane] = ok ? u[off] : 0.0f;
   }
-  for (int k = 0; k < nblk; ++k) {
-    const int t0 = k * LB;
-    const int len = min(LB, L - t0);
-    __syncthreads();  // the previous block's reads of sB / sC are done
-    for (int i = tid; i < LB * kMaxN; i += kThreads) {
-      const int tt = i / kMaxN, s = i % kMaxN;
-      const bool ok = tt < len && s < ng;
-      sB[tt][s] = ok ? bm[(row0 + t0 + tt) * n + n0 + s] : 0.0f;
-      sC[tt][s] = ok ? c[(row0 + t0 + tt) * n + n0 + s] : 0.0f;
+#pragma unroll 4
+  for (int q = lane; q < kBTile; q += 32) {
+    const int i = q / kMaxN, s = q % kMaxN;
+    const bool ok = t0 + i < L && n0 + s < n;
+    const long long off = (row0 + t0 + i) * n + n0 + s;
+    sb[q] = ok ? bm[off] : 0.0f;
+    sc[q] = ok ? c[off] : 0.0f;
+  }
+}
+
+// The producer warp's store of a released stage's y (left by the consumers
+// over u): rows t0 .. of channel d (lane), 128 bytes a row; from the second
+// group of states on, added to what the earlier groups left.
+__device__ __forceinline__ void store_y(const float* sy, float* __restrict__ y,
+                                        bool first, long long row0, int t0,
+                                        int L, int di, int d, int lane) {
+  if (d >= di) return;
+  float* yp = y + (row0 + t0) * di + d;
+  const int len = min(kT, L - t0);
+#pragma unroll
+  for (int i = 0; i < kT; ++i) {
+    if (i < len) {
+      const float v = sy[i * kCh + lane];
+      yp[(long long)i * di] = first ? v : yp[(long long)i * di] + v;
     }
-    __syncthreads();
-    if (live) {
-      float* hbp = hb + (((long long)b * nblk + k) * n + n0) * (long long)di + d;
-#pragma unroll
-      for (int j = 0; j < kS; ++j)
-        if (grp * kS + j < ng) hbp[(long long)(grp * kS + j) * di] = h[j];
+  }
+}
+
+// grid (ceil(di / 32), B), block kFwdThreads: warps 0 .. kFwdWarps - 1
+// consume, the last warp produces.  Stages are numbered across the groups
+// of states (group g's stage k is g * nst + k), so the ring runs on from
+// one group's walk into the next.
+template <int LB, bool kTma>
+__global__ void __launch_bounds__(kFwdThreads, 5) ssm_fwd_ring_kernel(
+    const __grid_constant__ CUtensorMap map_dt,
+    const __grid_constant__ CUtensorMap map_u,
+    const __grid_constant__ CUtensorMap map_b,
+    const __grid_constant__ CUtensorMap map_c, const float* __restrict__ dt,
+    const float* __restrict__ u, const float* __restrict__ bm,
+    const float* __restrict__ c, const float* __restrict__ a_t,
+    float* __restrict__ y, float* __restrict__ hb, int L, int di, int n) {
+  static_assert(kT % LB == 0, "every h_bound point falls inside a stage");
+  extern __shared__ uint8_t smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      smem_raw + ((128 - (hopper::smem_addr(smem_raw) & 127)) & 127));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageFloats);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int d0 = blockIdx.x * kCh, b = blockIdx.y;
+  const int nst = (L + kT - 1) / kT;  // stages a group
+  const int total = (n + kMaxN - 1) / kMaxN * nst;
+  const long long row0 = (long long)b * L;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], kTma ? 1 : 32);  // expect_tx, or each lane
+      hopper::mbar_init(&empty[s], kFwdWarps);     // one arrival a consumer
     }
-    // a channel's lanes load the same values (one sector a warp); a lane
-    // of a channel past di computes on zeros, as the shuffles need it
-    float dtv[LB], uv[LB];
-#pragma unroll
-    for (int i = 0; i < LB; ++i) {
-      const long long off = (row0 + t0 + i) * di + d;
-      dtv[i] = (live && i < len) ? dt[off] : 0.0f;
-      uv[i] = (live && i < len) ? u[off] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < LB; ++i) {
-      if (i < len) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kS; ++j) {
-          const int s = grp * kS + j;
-          if (s < ng) {
-            const float dA = expf(dtv[i] * a[j]);
-            h[j] = dA * h[j] + uv[i] * sB[i][s];
-            acc += sC[i][s] * h[j];
-          }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kFwdWarps) {  // the producer
+    const int d = d0 + lane;
+    for (int st = 0; st < total + kStages; ++st) {
+      if (st >= kStages) {  // retire stage st - kStages: its y leaves
+        const int done = st - kStages, slot = done % kStages;
+        hopper::mbar_wait(&empty[slot], (done / kStages) & 1);
+        store_y(ring + slot * kStageFloats + kTile, y, done < nst, row0,
+                (done % nst) * kT, L, di, d, lane);
+      }
+      if (st >= total) continue;
+      const int slot = st % kStages, t0 = (st % nst) * kT;
+      const int n0 = st / nst * kMaxN;
+      float* stage = ring + slot * kStageFloats;
+      if (kTma) {
+        hopper::fence_proxy_async();  // the slot's y was read by loads
+        __syncwarp();
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&full[slot], kStageBytes);
+          hopper::tma_load_3d(stage, &map_dt, &full[slot], d0, t0, b);
+          hopper::tma_load_3d(stage + kTile, &map_u, &full[slot], d0, t0, b);
+          hopper::tma_load_3d(stage + 2 * kTile, &map_b, &full[slot], n0, t0,
+                              b);
+          hopper::tma_load_3d(stage + 2 * kTile + kBTile, &map_c, &full[slot],
+                              n0, t0, b);
         }
-        acc = group_sum(acc);
-        if (live && grp == 0) {
-          float* yp = y + (row0 + t0 + i) * di + d;
-          *yp = n0 == 0 ? acc : *yp + acc;
-        }
+      } else {
+        fill_stage(stage, dt, u, bm, c, row0, t0, n0, L, di, n, d, lane);
+        hopper::mbar_arrive(&full[slot]);
       }
     }
+    return;
   }
-  }  // state groups
+
+  // consumer lane (ch, grp): states grp * kS .. grp * kS + kS - 1 of each
+  // group for channel d; a channel past di computes on zeros (dA = 1)
+  const int ch = tid / kG, grp = tid % kG;
+  const int d = d0 + ch;
+  const bool live = d < di;
+  const int nblk = (L + LB - 1) / LB;
+  int st = 0;
+  for (int n0 = 0; n0 < n; n0 += kMaxN) {
+    const int ng = min(kMaxN, n - n0);
+    float a2[kS], h[kS];
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      const int s = grp * kS + j;
+      a2[j] = (live && s < ng) ? a_t[(long long)(n0 + s) * di + d] * kLog2e
+                               : 0.0f;
+      h[j] = 0.0f;
+    }
+    for (int t0 = 0; t0 < L; t0 += kT, ++st) {
+      const int slot = st % kStages;
+      hopper::mbar_wait(&full[slot], (st / kStages) & 1);
+      const float* sdt = ring + slot * kStageFloats;
+      float* su = ring + slot * kStageFloats + kTile;  // u, then y
+      const float* sb = su + kTile;
+      const float* sc = sb + kBTile;
+#pragma unroll
+      for (int i0 = 0; i0 < kT; i0 += kG) {
+        float part[kG];  // this lane's share of steps i0 .. i0 + kG - 1
+#pragma unroll
+        for (int r = 0; r < kG; ++r) {
+          const int i = i0 + r;
+          if (i % LB == 0) {  // the state entering t0 + i
+            const bool ok = live && t0 + i < L;
+            float* hbp = hb + (((long long)b * nblk + (t0 + i) / LB) * n + n0) *
+                                  (long long)di + d;
+#pragma unroll
+            for (int j = 0; j < kS; ++j)
+              put_if(hbp + (long long)(grp * kS + j) * di, h[j],
+                     ok && grp * kS + j < ng);
+          }
+          const float dtv = sdt[i * kCh + ch], uv = su[i * kCh + ch];
+          float bv[kS], cv[kS];
+#pragma unroll
+          for (int q = 0; q < kS / 4; ++q) {
+            const float4 b4 = *reinterpret_cast<const float4*>(
+                sb + i * kMaxN + grp * kS + 4 * q);
+            const float4 c4 = *reinterpret_cast<const float4*>(
+                sc + i * kMaxN + grp * kS + 4 * q);
+            bv[4 * q] = b4.x, bv[4 * q + 1] = b4.y;
+            bv[4 * q + 2] = b4.z, bv[4 * q + 3] = b4.w;
+            cv[4 * q] = c4.x, cv[4 * q + 1] = c4.y;
+            cv[4 * q + 2] = c4.z, cv[4 * q + 3] = c4.w;
+          }
+          float acc = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kS; ++j) {
+            const float dA = decay(dtv * a2[j]);
+            h[j] = dA * h[j] + uv * bv[j];
+            acc += cv[j] * h[j];
+          }
+          part[r] = acc;
+        }
+        // lane grp leaves step i0 + grp's y over its u, which every lane of
+        // the channel has read (the shuffles need what they computed from it)
+        put_y(su + (i0 + grp) * kCh + ch, step_sums(part, grp));
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[slot]);
+    }
+  }
 }
 
 // -- the backward: a scan parallel over L ------------------------------------
@@ -422,13 +607,58 @@ int sum_parts(const float* in, float* out, long long outer, int parts,
   return (int)cudaGetLastError();
 }
 
-template <int LB>
+// a row-major fp32 tensor (batch, rows, inner) as a TMA map read in boxes
+// of box_inner x kT x 1, no swizzle, zeros past the edges
+bool make_map_f32(CUtensorMap* map, const float* base, int batch, int rows,
+                  int inner, int box_inner) {
+  hopper::EncodeTiled enc = hopper::encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * sizeof(float),
+                                 (cuuint64_t)inner * rows * sizeof(float)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)kT, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+             const_cast<float*>(base), dims, strides, box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int LB, bool kTma>
 int launch_fwd(const float* dt, const float* u, const float* bm,
                const float* c, const float* a_t, float* y, float* hb, int b,
                int L, int di, int n, cudaStream_t s) {
+  CUtensorMap map_dt{}, map_u{}, map_b{}, map_c{};
+  if (kTma && (!make_map_f32(&map_dt, dt, b, L, di, kCh) ||
+               !make_map_f32(&map_u, u, b, L, di, kCh) ||
+               !make_map_f32(&map_b, bm, b, L, n, kMaxN) ||
+               !make_map_f32(&map_c, c, b, L, n, kMaxN)))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = ssm_fwd_ring_kernel<LB, kTma>;
+  // the attribute belongs to the current device's context: set on every
+  // launch (a no-op while the ring fits the default 48 KB)
+  const cudaError_t e = hopper::allow_smem(kernel, kFwdSmem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((di + kCh - 1) / kCh, b);
-  ssm_fwd_kernel<LB><<<grid, kThreads, 0, s>>>(dt, u, bm, c, a_t, y, hb, L, di, n);
+  kernel<<<grid, kFwdThreads, kFwdSmem, s>>>(map_dt, map_u, map_b, map_c, dt,
+                                             u, bm, c, a_t, y, hb, L, di, n);
   return (int)cudaGetLastError();
+}
+
+// TMA takes rows whose pitch is a multiple of 16 bytes from 16-byte bases
+template <int LB>
+int dispatch_fwd(const float* dt, const float* u, const float* bm,
+                 const float* c, const float* a_t, float* y, float* hb, int b,
+                 int L, int di, int n, cudaStream_t s) {
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (di % 4 == 0 && n % 4 == 0 && aligned(dt) && aligned(u) &&
+      aligned(bm) && aligned(c))
+    return launch_fwd<LB, true>(dt, u, bm, c, a_t, y, hb, b, L, di, n, s);
+  return launch_fwd<LB, false>(dt, u, bm, c, a_t, y, hb, b, L, di, n, s);
 }
 
 template <int LB>
@@ -469,9 +699,9 @@ extern "C" int kf_ssm_scan_fwd(const void* dt, const void* u, const void* bm,
               *pa = static_cast<const float*>(a_t);
   float *py = static_cast<float*>(y), *ph = static_cast<float*>(h_bound);
   switch (lb) {
-    case 8: return launch_fwd<8>(pdt, pu, pb, pc, pa, py, ph, b, L, di, n, s);
-    case 16: return launch_fwd<16>(pdt, pu, pb, pc, pa, py, ph, b, L, di, n, s);
-    case 32: return launch_fwd<32>(pdt, pu, pb, pc, pa, py, ph, b, L, di, n, s);
+    case 8: return dispatch_fwd<8>(pdt, pu, pb, pc, pa, py, ph, b, L, di, n, s);
+    case 16: return dispatch_fwd<16>(pdt, pu, pb, pc, pa, py, ph, b, L, di, n, s);
+    case 32: return dispatch_fwd<32>(pdt, pu, pb, pc, pa, py, ph, b, L, di, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

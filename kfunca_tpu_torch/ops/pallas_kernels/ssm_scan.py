@@ -19,11 +19,17 @@ over the batch.  `ssm_scan` is the differentiable form.
 Differences from the TPU kernels, by design: any L and di (the TPU kernel
 asserts L % lb == 0 and di % dib == 0; the card's kernels mask the ragged
 edges), so there is no `dib` argument; `lb` is 8, 16 or 32 on the card (the
-backward's segments of L start at h_bound entries: 16 steps, or 32 at lb
-32), any positive value in the plain version.  Any N: the card's kernels
-walk the states in groups of 16 (`STATE_GROUP`), adding each group's share
-of y, ddt and du to the earlier groups' in a fixed order.  Only
-fp32 is taken, as the TPU kernels compute in fp32: the recurrence
+forward's ring holds stages of `STAGE_STEPS` = 32 steps, so every h_bound
+point falls inside a stage; the backward's segments of L start at h_bound
+entries: 16 steps, or 32 at lb 32), any positive value in the plain
+version.  Any N: the card's kernels walk the states in groups of 16
+(`STATE_GROUP`), adding each group's share of y, ddt and du to the earlier
+groups' in a fixed order.  A block of the card's kernels owns
+`CHANNELS_PER_BLOCK` = 32 adjacent channels of one batch row: in the
+forward `LANES_PER_CHANNEL` = 2 lanes a channel (two consumer warps) fed by
+a producer warp, one 128-byte row of dt or u a step; in the backward one
+lane a channel.
+Only fp32 is taken, as the TPU kernels compute in fp32: the recurrence
 compounds rounding multiplicatively.
 
 The plain version is the chunked scan of the JAX package's XLA engine
@@ -43,7 +49,9 @@ from ...runtime import _kernels
 LB = 16  # the state is written out every LB steps
 KERNEL_LBS = (8, 16, 32)
 STATE_GROUP = 16  # states the kernels stage together in one walk over L
-CHANNELS_PER_BLOCK = 32  # adjacent channels a block: a warp's lanes
+CHANNELS_PER_BLOCK = 32  # adjacent channels a block (128 bytes of a row)
+STAGE_STEPS = 32  # steps a stage of the forward's ring (a multiple of lb)
+LANES_PER_CHANNEL = 2  # the forward's lanes a channel, splitting its states
 
 
 def _ks_scan(a, b, dim):

@@ -1230,6 +1230,13 @@ SSM_SHAPES = [  # (B, L, di, N, lb)
     (1, 300, 45, 16, 16),
     (2, 257, 70, 32, 8),
     (1, 600, 33, 16, 32),
+    # the forward's ring of 32-step stages: L over several stages at di
+    # 5152, ending inside one; the TMA fill with N = 8 (a box wider than
+    # N) and with a ragged second group of states; B 1 with L 1 on TMA
+    (2, 129, 5152, 16, 32),
+    (1, 70, 64, 8, 8),
+    (2, 45, 96, 20, 16),
+    (1, 1, 64, 16, 8),
 ]
 
 
@@ -1271,6 +1278,24 @@ def test_ssm_scan_kernels_match_plain(cuda, shape):
         _ssm_close(g, w, name)
     again = ss.ssm_scan_bwd(dt, u, bm, c, a_t, hb, dy, lb)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 5152, 16, 16),  # TMA fill
+                                   (2, 37, 45, 5, 8),  # ordinary loads
+                                   (1, 75, 96, 32, 32)], ids=str)
+def test_ssm_scan_forward_is_bitwise_repeatable(cuda, shape):
+    """Two forward calls give the same bits, on both fills of the ring."""
+    from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as ss
+
+    b, L, di, n, lb = shape
+    dt, u, bm, c, a_t, _ = _ssm_case(cuda, b, L, di, n, seed=3)
+    y, hb = ss.ssm_scan_fwd(dt, u, bm, c, a_t, lb)
+    y2, hb2 = ss.ssm_scan_fwd(dt, u, bm, c, a_t, lb)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(hb, hb2)
+    ref_y, ref_hb = ss.ssm_scan_plain(dt, u, bm, c, a_t, lb)
+    _ssm_close(y, ref_y, "y")
+    _ssm_close(hb, ref_hb, "h_bound")
 
 
 def test_ssm_scan_kernels_with_an_underflowing_decay(cuda):

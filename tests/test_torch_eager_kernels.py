@@ -33,6 +33,7 @@ from kfunca_tpu_torch.ops.pallas_kernels import bitonic_sort as k10
 from kfunca_tpu_torch.ops.pallas_kernels import elementwise as k9
 from kfunca_tpu_torch.ops.pallas_kernels import matmul as k3
 from kfunca_tpu_torch.ops.pallas_kernels import reduce as k8
+from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as k11
 from kfunca_tpu_torch.ops.pallas_kernels import welford as k7
 
 
@@ -649,6 +650,10 @@ def test_k7_split_count_fills_the_card():
     (k9, "VEC_UNROLL", "elementwise.cu", "kVecUnroll"),
     (k10, "WORDS_PER_THREAD", "bitonic_sort.cu", "kE"),
     (k10, "MAX_N", "bitonic_sort.cu", "kMaxN"),
+    (k11, "CHANNELS_PER_BLOCK", "ssm_scan.cu", "kCh"),
+    (k11, "STATE_GROUP", "ssm_scan.cu", "kMaxN"),
+    (k11, "STAGE_STEPS", "ssm_scan.cu", "kT"),
+    (k11, "LANES_PER_CHANNEL", "ssm_scan.cu", "kG"),
 ])
 def test_wrapper_constants_match_the_kernel_source(module, name, source, constant):
     """The wrappers' copies of the kernels' tile constants, which

@@ -4,14 +4,16 @@ The plain PyTorch version is held against the JAX package's Pallas kernels
 in interpret mode (lb=4, dib=128, as tests/test_pallas_kernels.py runs
 them) on shared numpy inputs: y, h_bound and the five gradients, with a
 di spanning two tiles.  A pure-torch emulation of the CUDA kernels' tiling
-(csrc/ssm_scan.cu: blocks of 32 channels with four lanes a channel,
-L-blocks of lb with a ragged last one, the state carried in registers
-across blocks, the backward's shared-memory history, per-block partial sums
-over channels in a fixed order, then the sums of the partials) is held
-against the plain version at
-ragged shapes, L = 1, an underflowing dA and state widths past one group
-of 16 (N = 32 and a ragged N = 20).  fp32 throughout: the forward
-to 1e-5 and the gradients to 1e-4 (other summation orders).
+(csrc/ssm_scan.cu: the forward's blocks of 32 channels with two lanes a
+channel walking L in 32-step stages of its ring, h_bound written inside
+the stages, the lanes' sums and the groups' shares of y in a fixed order;
+the backward's segments of L from their h_bound entries, per-block partial
+sums over channels in a fixed order, then the sums of the partials) is
+held against the JAX kernels and against the plain version at ragged
+shapes, L = 1, L ending inside a stage, lb 8 / 16 / 32 below the stage,
+an underflowing dA and state widths past one group of 16 (N = 32 and a
+ragged N = 20).  fp32 throughout: the forward to 1e-5 and the gradients
+to 1e-4 (other summation orders).
 """
 
 import math
@@ -98,56 +100,70 @@ def test_differentiable_scan_matches_the_jax_kernel_vjp(jax_case):
 # -- the CUDA kernels' tiling, emulated -----------------------------------------
 
 CH = tscan.CHANNELS_PER_BLOCK
-G = 4  # lanes a channel; lane g holds states g * S .. g * S + S - 1 of a group
+G = tscan.LANES_PER_CHANNEL  # lane g holds states g * S .. g * S + S - 1
 NG = tscan.STATE_GROUP  # states a walk over L
 S = NG // G
+T = tscan.STAGE_STEPS  # steps a stage of the forward's ring
+LOG2E = np.float32(1.4426950408889634)
 
 
-def _lane_sum(terms):
-    """A sum over a channel's states as the kernels take it: per group of
-    NG states, each lane adds its S states in order, then two shuffles add
-    lanes (0+1) + (2+3); the groups' sums add in group order."""
-    zero = torch.zeros_like(terms[0])
-    total = None
-    for n0 in range(0, len(terms), NG):
-        group = terms[n0:n0 + NG]
-        lanes = []
-        for g in range(G):
-            acc = zero
-            for s in range(g * S, min(g * S + S, len(group))):
-                acc = acc + group[s]
-            lanes.append(acc)
-        part = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
-        total = part if total is None else total + part
-    return total
+def _lane_sums(terms):
+    """y's share of one group of states as the forward takes it: terms
+    (NG, channels) in state order (zeros past N); lane g adds its S states
+    in order, then step_sums adds the channel's two lanes (0 + 1)."""
+    assert G == 2, G
+    lanes = []
+    for g in range(G):
+        acc = torch.zeros_like(terms[0])
+        for s in range(g * S, g * S + S):
+            acc = acc + terms[s]
+        lanes.append(acc)
+    return lanes[0] + lanes[1]
 
 
 def emulate_fwd(dt, u, bm, c, a_t, lb):
-    """ssm_fwd_kernel: a block of CH channels walks L in blocks of lb,
-    writing the state entering each block, then per step each state's
-    exponential and multiply-add, y summed over the states lane-wise."""
+    """ssm_fwd_ring_kernel: a block of CH channels of one batch row walks
+    L once per group of NG states, in stages of T steps read from the ring
+    (zeros past L, di and N: dA = 1 and nothing added); at every lb-th step
+    (T % lb == 0, so inside a stage) the state entering it goes to h_bound;
+    per step each state's decay 2^(dt * a log2 e), its multiply-adds and
+    the lanes' sums; from the second group on y adds to the earlier
+    groups' share, in group order."""
+    assert T % lb == 0, lb
     b, L, di = dt.shape
     n = bm.shape[2]
+    nst = -(-L // T)
+    ngrp = -(-n // NG)
+    Lp, dip, npad = nst * T, -(-di // CH) * CH, ngrp * NG
+
+    def pad(x, steps, width):
+        out = torch.zeros((x.shape[0], steps, width))
+        out[:, :x.shape[1], :x.shape[2]] = x
+        return out
+
+    dtp, up = pad(dt, Lp, dip), pad(u, Lp, dip)
+    bmp, cp = pad(bm, Lp, npad), pad(c, Lp, npad)
+    a2 = torch.zeros((npad, dip))
+    a2[:n, :di] = a_t * torch.tensor(LOG2E)
     nblk = -(-L // lb)
-    y = torch.zeros_like(dt)
-    hb = torch.zeros((b, nblk, n, di))
+    y = torch.zeros((b, Lp, dip))
+    hb = torch.zeros((b, nblk, npad, dip))
     for ib in range(b):
-        for c0 in range(0, di, CH):
-            ch = slice(c0, min(c0 + CH, di))
-            a = a_t[:, ch]
-            h = [torch.zeros(a.shape[1]) for _ in range(n)]
-            for k in range(nblk):
-                t0, ln = k * lb, min(lb, L - k * lb)
-                for s in range(n):
-                    hb[ib, k, s, ch] = h[s]
-                for t in range(t0, t0 + ln):
-                    terms = []
-                    for s in range(n):
-                        da = torch.exp(dt[ib, t, ch] * a[s])
-                        h[s] = da * h[s] + u[ib, t, ch] * bm[ib, t, s]
-                        terms.append(c[ib, t, s] * h[s])
-                    y[ib, t, ch] = _lane_sum(terms)
-    return y, hb
+        for c0 in range(0, dip, CH):
+            ch = slice(c0, c0 + CH)
+            for n0 in range(0, npad, NG):
+                st = slice(n0, n0 + NG)
+                h = torch.zeros((NG, CH))
+                for k in range(nst):
+                    for i in range(T):
+                        t = k * T + i
+                        if i % lb == 0 and t < L:
+                            hb[ib, t // lb, st, ch] = h
+                        dA = torch.exp2(dtp[ib, t, ch] * a2[st, ch])
+                        h = dA * h + up[ib, t, ch] * bmp[ib, t, st, None]
+                        part = _lane_sums(cp[ib, t, st, None] * h)
+                        y[ib, t, ch] = part if n0 == 0 else y[ib, t, ch] + part
+    return y[:, :L, :di], hb[:, :, :n, :di]
 
 
 def _ordered_sum(x, dim):
@@ -302,6 +318,48 @@ def test_backward_emulation_matches_the_jax_kernel(jax_case, key):
         tol = 1e-4 * max(1.0, float(np.abs(want).max()))
         np.testing.assert_allclose(g.numpy(), want, rtol=1e-4, atol=tol,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("key", ["one_tile", "two_tiles", "chunks"])
+def test_forward_emulation_matches_the_jax_kernel(jax_case, key):
+    """The CUDA forward's ring of stages, emulated, against the JAX kernel
+    in interpret mode (lb 4: eight h_bound points a 32-step stage; the
+    160-step case ends inside its fifth stage)."""
+    (dt, u, bm, c, a_t, _), y, hb, _ = jax_case[key]
+    got_y, got_hb = emulate_fwd(*_t(dt, u, bm, c, a_t), lb=4)
+    np.testing.assert_allclose(got_y.numpy(), y, rtol=1e-5, atol=1e-5)
+    assert got_hb.shape == hb.shape
+    np.testing.assert_allclose(got_hb.numpy(), hb, rtol=1e-5, atol=1e-5)
+
+
+STAGES = {
+    # L ending inside a stage, at each lb below the stage's 32 steps
+    "inside_lb8": dict(b=2, L=45, di=40, n=4, lb=8),
+    "inside_lb16": dict(b=1, L=50, di=33, n=16, lb=16),
+    "inside_lb32": dict(b=1, L=100, di=32, n=3, lb=32),
+    # L a whole number of stages; one step; h_bound at every 8th step
+    "whole_stages": dict(b=1, L=64, di=36, n=5, lb=32),
+    "one_step": dict(b=1, L=1, di=8, n=16, lb=8),
+    "lb8_many": dict(b=1, L=97, di=16, n=4, lb=8),
+    # two full groups and a ragged second group across several stages
+    "two_groups": dict(b=1, L=70, di=33, n=32, lb=16),
+    "ragged_groups": dict(b=2, L=75, di=20, n=20, lb=8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGES))
+def test_forward_stage_emulation_matches_plain(case):
+    """The forward's stages against the plain chunked scan: y, and h_bound
+    at every lb-th step (inside the stages)."""
+    kw = dict(STAGES[case])
+    lb = kw.pop("lb")
+    dt, u, bm, c, a_t, _ = _t(*_inputs(seed=11, **kw))
+    y, hb = emulate_fwd(dt, u, bm, c, a_t, lb)
+    ref_y, ref_hb = tscan.ssm_scan_plain(dt, u, bm, c, a_t, lb)
+    assert hb.shape == ref_hb.shape == (kw["b"], -(-kw["L"] // lb), kw["n"],
+                                        kw["di"])
+    torch.testing.assert_close(y, ref_y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hb, ref_hb, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("case", sorted(EDGES))
