@@ -116,7 +116,7 @@ Phases (any failure raises and the script exits non-zero):
      forward and backward (K1, K2) at B=1, H=32, S=2048, hd=128;
  24. profile one eager MLP step, and time an eager 256-element add's host
      cost per op;
- 25. (at the end, after phase 40) print the kernels line (fifteen
+ 25. (at the end, after phase 46) print the kernels line (seventeen
      entries), the card line and, last, the result line;
  26. hold the selective-scan kernels K11 (forward and backward) against
      their plain PyTorch version (the chunked scan) at the Mamba training
@@ -196,7 +196,38 @@ Phases (any failure raises and the script exits non-zero):
      gathered sequence as the yardstick;
  40. __graft_entry__.dryrun_multichip's ring phase (cp=4, B=1, H=2,
      S=128, D=64, fp32): forward within 2e-5 of the causal oracle, finite
-     gradients of sum(sin(ring(q, k, v))).
+     gradients of sum(sin(ring(q, k, v)));
+ 41. the committed golden checkpoints (tests/fixtures/golden_{llama,gpt2})
+     through the port's from_hf onto the card, with neither transformers
+     nor safetensors loaded: generate and InferenceServer give
+     golden_tokens.json's tokens; K6 launches = layers x decode steps;
+ 42. a checkpoint at Mistral-7B-v0.1 widths cut to 8 layers, random bf16
+     weights, written with to_hf and the script's own safetensors writer as
+     the published layout (two bf16 shards, model.safetensors.index.json,
+     config.json) and read back by from_hf: params bit for bit the
+     originals, 4 greedy requests equal to a server fed the originals, the
+     load's GB/s;
+ 43. K4's and K6's fp16 bodies (fp16 q with fp16 or int8 pools) against the
+     plain version at Mistral-7B-v0.1 attention widths within 2^-9 of max
+     |ref|, every call twice bitwise; their timings beside the bound (the
+     bf16 bytes), the plain version and page gather + SDPA in fp16; the
+     13-request mix served in fp16 at 32 layers (fused, split, int8 KV;
+     launches = layers x decode steps), its greedy tokens equal on the
+     kernel and the plain path;
+ 44. the server's options at Mistral-7B-v0.1 width, bf16, 32 layers:
+     prefill_chunk=512 against unchunked over the 13-request mix (TTFT,
+     decode ms/step; tokens compared, equality held in fp32 activations
+     over the same weights), penalties and bias with decode_burst 1 and 4
+     (equal tokens), an allowed_fn constraint (every token allowed), and
+     the kernel path against the plain path (equal tokens);
+ 45. a BPETokenizer (vocab 512) trained on README.md with the native core
+     (round trip), then the HTTP front end on 127.0.0.1:0 over the same
+     weights with embedding and head cut to the tokenizer's ids: text
+     completions, a streamed one, a chat request, a cancel and /v1/stats,
+     tokens equal to direct submits; HTTP TTFT and tok/s;
+ 46. greedy speculative decoding, the 32-layer Mistral-width target with a
+     2-layer draft cut from it (fp32 activations over the bf16 weights):
+     the target's generate token for token; the acceptance rate.
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -206,6 +237,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -226,7 +258,8 @@ MISTRAL = dict(vocab_size=32000, d_model=4096, n_heads=32, n_kv_heads=8,
                n_layers=32, d_ff=14336, max_seq_len=32768, norm_eps=1e-5,
                rope_theta=10000.0, attention_window=4096, dtype="bfloat16")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate, same data sheet
 SEED = 0
 
@@ -311,12 +344,14 @@ def max_err(out, ref, dtype) -> float:
     bf16: 2^-7 |ref| + 1e-6.  Both compute in fp32 from the same bf16
     inputs and round once to bf16 at the end; two fp32 values a hair apart
     can round to neighbouring bf16 values, one bf16 step (at most 2^-7 of
-    the value's magnitude) apart."""
+    the value's magnitude) apart.  fp16 the same at its step: 2^-9 |ref| +
+    1e-6, twice the step."""
     out, ref = out.float(), ref.float()
     check(bool(torch.isfinite(out).all()), "kernel output is finite")
     err = (out - ref).abs()
+    step = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -9}
     tol = (torch.full_like(ref, 2e-5) if dtype == torch.float32
-           else ref.abs() * 2.0 ** -7 + 1e-6)
+           else ref.abs() * step[dtype] + 1e-6)
     check(bool((err <= tol).all()),
           f"kernel vs plain within tolerance ({dtype}, max err "
           f"{err.max().item():.3g})")
@@ -1356,13 +1391,14 @@ def library_attention_forms(q, kw, window, form):
         attn_mask=ok[:, None, None, :], scale=1.0, enable_gqa=True)[:, :, 0]
 
 
-def paged_form_timing(pa, entry, form, quantized):
-    """Times at the serving widths (bf16 q, window 4096) and the bound: the
-    unmasked slots' k and v rows (int8: one byte an element plus 2*Hkv fp32
-    scales a slot), q in, out out, the live table entries, the positions."""
+def paged_form_timing(pa, entry, form, quantized, dtype=torch.bfloat16):
+    """Times at the serving widths (`dtype` q, bf16 or fp16, window 4096)
+    and the bound: the unmasked slots' k and v rows (int8: one byte an
+    element plus 2*Hkv fp32 scales a slot), q in, out out, the live table
+    entries, the positions."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     positions = [96, 300, 511, 700, 1023, 1056, 2047, 4231]
-    q, kw = pool_case(torch.bfloat16, gen, positions, form=form,
+    q, kw = pool_case(dtype, gen, positions, form=form,
                       quantized=quantized, nan_dead=False)
     window, page = 4096, 16
     b, h, hd = q.shape
@@ -4261,6 +4297,555 @@ def ring_phases(card):
     return out
 
 
+# -- phase 41-46: Hugging Face checkpoints, the server's options, text -------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+
+
+def golden_phase(pa, card):
+    """Phase 41: the committed golden checkpoints through the port's
+    from_hf (no transformers, no safetensors) on the card: generate and
+    InferenceServer reproduce golden_tokens.json; both models' kv widths
+    (2 x 16 and 4 x 16) take split pools, so K6 serves them."""
+    from kfunca_tpu_torch.models.generate import generate
+    from kfunca_tpu_torch.models.hf import from_hf
+    from kfunca_tpu_torch.models.serve import InferenceServer
+
+    t0 = time.perf_counter()
+    with open(os.path.join(FIXTURES, "golden_tokens.json")) as f:
+        golden = json.load(f)
+    k6 = pa.paged_decode_attention
+    for name in ("llama", "gpt2"):
+        params, cfg = from_hf(os.path.join(FIXTURES, f"golden_{name}"),
+                              dtype="float32")
+        g = golden[name]
+        check(params["embed"].is_cuda, f"golden_{name} loads onto the card")
+        with torch.no_grad():
+            out = generate(params, torch.tensor([g["prompt"]], device="cuda"),
+                           cfg, max_new=len(g["golden"]))
+        check(out[0].tolist() == g["golden"],
+              f"golden_{name}: generate reproduces golden_tokens.json")
+        srv = InferenceServer(params, cfg, batch_slots=2, page_size=8,
+                              n_pages=16, max_pages_per_seq=4)
+        check(not srv.fused_pool, f"golden_{name} takes split pools")
+        k6.launches = 0  # this path's count starts here
+        with torch.no_grad():
+            rid = srv.submit(g["prompt"], max_new=len(g["golden"]))
+            got = srv.run()[rid]
+        launches = k6.launches
+        check(got == g["golden"],
+              f"golden_{name}: InferenceServer reproduces golden_tokens.json")
+        check(launches > 0 and launches == cfg.n_layers * srv.decode_steps,
+              f"golden_{name}: K6 launches {launches} == layers x decode "
+              f"steps")
+        print(f"  golden_{name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.kv_heads} kv heads of {cfg.head_dim}: "
+              f"generate and the server give the {len(g['golden'])} golden "
+              f"tokens; K6 launches {launches}", flush=True)
+    check(not {"transformers", "safetensors"} & set(sys.modules),
+          "from_hf loads neither transformers nor safetensors")
+    print(f"[41] golden checkpoints on the card: {time.perf_counter() - t0:.1f}"
+          f" s; transformers importable here: "
+          f"{importlib.util.find_spec('transformers') is not None}; {card}",
+          flush=True)
+
+
+def write_safetensors(path, tensors: dict) -> int:
+    """The script's own safetensors writer (bf16 / fp32 tensors): an 8-byte
+    little-endian header length, the JSON header, the raw bytes.  Returns
+    the bytes written."""
+    names = {torch.bfloat16: "BF16", torch.float32: "F32",
+             torch.float16: "F16"}
+    header, off, blobs = {}, 0, []
+    for name, t in tensors.items():
+        t = t.contiguous()
+        raw = t.view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    return 8 + len(head) + off
+
+
+def mistral_hf_config(cfg) -> dict:
+    """config.json of the published Mistral-7B-v0.1 at `cfg`'s depth."""
+    return {"architectures": ["MistralForCausalLM"], "model_type": "mistral",
+            "hidden_size": cfg.d_model, "intermediate_size": cfg.d_ff,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads,
+            "num_hidden_layers": cfg.n_layers, "vocab_size": cfg.vocab_size,
+            "max_position_embeddings": cfg.max_seq_len,
+            "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+            "sliding_window": cfg.attention_window, "hidden_act": "silu",
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+
+
+def checkpoint_phase(card, prompts):
+    """Phase 42: a checkpoint at Mistral-7B-v0.1 widths, 8 layers, random
+    bf16 weights, written by to_hf as the published layout (two bf16
+    .safetensors shards, model.safetensors.index.json, config.json) and
+    read back by from_hf: params bit for bit the originals, greedy tokens
+    those of a server fed the originals."""
+    from kfunca_tpu_torch.models.hf import from_hf, to_hf
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": 8})
+    params = mistral_params(cfg, SEED + 42, torch.bfloat16)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        sd = {k: v.to(torch.bfloat16) for k, v in to_hf(params, cfg).items()}
+        names = list(sd)
+        half = len(names) // 2
+        shards = {"model-00001-of-00002.safetensors": names[:half],
+                  "model-00002-of-00002.safetensors": names[half:]}
+        nbytes = sum(write_safetensors(os.path.join(d, shard),
+                                       {k: sd[k] for k in keys})
+                     for shard, keys in shards.items())
+        with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {"total_size": sum(
+                t.numel() * 2 for t in sd.values())},
+                "weight_map": {k: s for s, keys in shards.items()
+                               for k in keys}}, f)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(mistral_hf_config(cfg), f)
+        del sd
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded, lcfg = from_hf(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    check(lcfg == cfg, "from_hf's config is the one the checkpoint was "
+          "written from")
+    a, b = tree_leaves(loaded), tree_leaves(params)
+    check(len(a) == len(b) and all(
+        x.dtype == torch.float32 and x.shape == y.shape
+        and torch.equal(x, y.float()) for x, y in zip(a, b)),
+        "from_hf's params equal the bf16 originals bit for bit")
+    prompts = [prompts[0], prompts[3], prompts[7], prompts[-1]]
+    got = serve(loaded, cfg, prompts, 1)
+    want = serve(params, cfg, prompts, 1)
+    toks = [got["srv"].requests[r].tokens for r in got["rids"]]
+    check(toks == [want["srv"].requests[r].tokens for r in want["rids"]],
+          "the loaded checkpoint serves the originals' greedy tokens")
+    print(f"[42] Mistral-7B-v0.1 widths, 8 layers: wrote {nbytes / 1e9:.3f} "
+          f"GB (2 bf16 shards + index + config.json) in {write_s:.1f} s; "
+          f"from_hf read and loaded them onto the card as fp32 in "
+          f"{load_s:.2f} s, {nbytes / load_s / 1e9:.2f} GB/s of checkpoint; "
+          f"params bit for bit the originals; {len(prompts)} greedy requests "
+          f"x 32 tokens equal the originals' server's; {card}", flush=True)
+
+
+def fp16_kernel_checks(pa) -> dict:
+    """Phase 43's kernel half: K4's and K6's fp16 bodies against the plain
+    version at Mistral-7B-v0.1 attention widths, the fused, split and int8
+    pools, windows, a layer-stacked page_base, NaN in dead pages, a
+    position past the table; the split body twice, bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    dma, k6 = pa.paged_decode_attention_dma, pa.paged_decode_attention
+    positions = [0, 15, 16, 1000, 2047, 4095, 4200, 4300]
+    far = 272 * 16 + 5
+    worst = {"dma": 0.0, "k6": 0.0}
+    for entry, form, quantized, key in (
+            (dma, "fused", False, "dma"), (dma, "fused", True, "dma"),
+            (k6, "split", False, "k6"), (k6, "split", True, "k6")):
+        tag = (f"fp16 {entry.__name__} {form} "
+               f"{'int8' if quantized else 'fp16'} pools")
+        errs = []
+        for layers, pos, nan_dead, windows in (
+                (1, positions, True, (None, 4096, 37)),
+                (3, positions, True, (4096,)),
+                (1, positions[:-1] + [far], False, (None, 37))):
+            q, kw = pool_case(torch.float16, gen, pos, form=form,
+                              quantized=quantized, layers=layers,
+                              nan_dead=nan_dead)
+            for window in windows:
+                out = run_form(pa, entry, form, q, kw, window)
+                again = run_form(pa, entry, form, q, kw, window)
+                torch.cuda.synchronize()
+                check(out.dtype == torch.float16 and torch.equal(out, again),
+                      f"{tag}: two calls give bitwise-equal fp16 outputs")
+                errs.append(max_err(out, run_form(pa, entry, form, q, kw,
+                                                  window, plain=True),
+                                    torch.float16))
+        print(f"  {tag}: windows None/4096/37, page_base, position {far}: "
+              f"max err {max(errs):.3g} (limit 2^-9 |ref| + 1e-6), bitwise "
+              f"repeatable", flush=True)
+        worst[key] = max(worst[key], max(errs))
+    return worst
+
+
+def fp16_phase(pa, card, prompts) -> list:
+    """Phase 43: fp16 pools at Mistral-7B-v0.1 width, 32 layers.  Returns
+    the kernels-line entries of K4-fp16 and K6-fp16."""
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+
+    t0 = time.perf_counter()
+    errs = fp16_kernel_checks(pa)
+    timing = {key: paged_form_timing(pa, entry, form, False, torch.float16)
+              for key, entry, form in (
+                  ("dma", pa.paged_decode_attention_dma, "fused"),
+                  ("k6", pa.paged_decode_attention, "split"))}
+    for key, label in (("dma", "K4-fp16 paged_decode_attention_dma, fused"),
+                       ("k6", "K6-fp16 paged_decode_attention, split")):
+        t = timing[key]
+        print(f"[43] {label} fp16 pools at serving widths (B=8, H=32, Hkv=8, "
+              f"hd=128, page 16, fp16 q, window 4096): kernel {t['ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, gather+sdpa "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['bytes']} B); {card}", flush=True)
+    free_device_memory()
+    cfg = TransformerConfig(**{**MISTRAL, "dtype": "float16"})
+    params = mistral_params(cfg, SEED, torch.float16)
+    launches = {}
+    for label, options, key in (("fused", {}, "dma"),
+                                ("split", {"fused_pool": False}, "k6"),
+                                ("int8 KV", {"quantize_kv": True}, "dma")):
+        entry = getattr(pa, {"dma": "paged_decode_attention_dma",
+                             "k6": "paged_decode_attention"}[key])
+        pa.paged_decode_attention_dma.launches = 0
+        pa.paged_decode_attention.launches = 0
+        with torch.no_grad():
+            run = serve(params, cfg, prompts, 1, **options)
+        n = entry.launches
+        steps = run["stats"]["decode_steps"]
+        check(n > 0 and n == cfg.n_layers * steps,
+              f"fp16 {label}: launches {n} == layers x decode steps")
+        if label != "int8 KV":
+            launches[key] = n
+        print(f"  fp16 L32 {label} ({len(prompts)} requests): {steps} decode "
+              f"steps, decode {run['decode_ms_per_step']:.2f} ms/step, "
+              f"{run['gen_tok_per_s']:.1f} generated tok/s (prefill "
+              f"included), mean TTFT {run['stats']['mean_ttft_s'] * 1e3:.1f} "
+              f"ms; {entry.__name__} launches {n}; {card}", flush=True)
+        if label == "fused":
+            toks = [run["srv"].requests[r].tokens for r in run["rids"]]
+        del run
+    with torch.no_grad():
+        plain = serve_greedy(
+            lambda: InferenceServer(params, cfg, batch_slots=8, page_size=16,
+                                    n_pages=800, max_pages_per_seq=272),
+            prompts, 32, plain=("attention",))[0]
+    same = sum(a == b for a, b in zip(toks, plain))
+    check(toks == plain, f"fp16 L32: the kernel path's greedy tokens equal "
+          f"the plain path's ({same} of {len(prompts)} requests alike)")
+    print(f"[43] fp16 pools, 32 layers: {len(prompts)} greedy requests x 32 "
+          f"tokens equal on the kernel and the plain path; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del params
+    paged = "kfunca_tpu_torch/csrc/paged_attention.cu"
+    out = []
+    for name, line, key in (
+            ("paged_decode_attention_dma_fp16", 459, "dma"),
+            ("paged_decode_attention_fp16", 583, "k6")):
+        t = timing[key]
+        out.append({"name": name, "route": "cuda", "source": paged,
+                    "replaces": "kfunca_tpu/ops/pallas_kernels/"
+                                f"paged_attention.py:{line}",
+                    "launches": launches[key], "max_abs_err": errs[key],
+                    "max_err": errs[key], "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return out
+
+
+def options_phase(pa, card, prompts):
+    """Phase 44: the server's options at Mistral-7B-v0.1 width, bf16, 32
+    layers.  Returns the params and config for phases 45 and 46."""
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(**MISTRAL)
+    params = mistral_params(cfg, SEED, torch.bfloat16)
+
+    def make(**options):
+        return InferenceServer(params, cfg, batch_slots=8, page_size=16,
+                               n_pages=800, max_pages_per_seq=272, **options)
+
+    def chunked_vs_whole(c):
+        """The mix served with and without prefill_chunk=512 in config c;
+        K4 launches == layers x decode steps in each run."""
+        runs = {}
+        for label, chunk in (("unchunked", None), ("prefill_chunk=512", 512)):
+            pa.paged_decode_attention_dma.launches = 0
+            with torch.no_grad():
+                runs[label] = serve(params, c, prompts, 1,
+                                    prefill_chunk=chunk)
+            n = pa.paged_decode_attention_dma.launches
+            check(n > 0 and n == c.n_layers
+                  * runs[label]["stats"]["decode_steps"],
+                  f"{c.dtype} {label}: K4 launches == layers x decode steps")
+        toks = {label: [r["srv"].requests[i].tokens for i in r["rids"]]
+                for label, r in runs.items()}
+        return runs, toks["prefill_chunk=512"], toks["unchunked"]
+
+    # bf16: a chunk's matmuls have other shapes than the whole prompt's, so
+    # cuBLAS may sum them in another order and a bf16 rounding of the
+    # prompt's KV can land on the other neighbour; a near tie a few dozen
+    # steps on can then decode another token.  The readings come from bf16;
+    # the tokens are held equal in fp32, where such a rounding is 2^16
+    # times smaller, over the same weights.
+    runs, chunked, reference = chunked_vs_whole(cfg)
+    alike = [i for i, (a, b) in enumerate(zip(chunked, reference)) if a == b]
+    ttft = {label: r["stats"]["mean_ttft_s"] * 1e3 for label, r in runs.items()}
+    longest = {label: (r["srv"].requests[r["rids"][-1]].first_token_at
+                       - r["srv"].requests[r["rids"][-1]].submitted_at) * 1e3
+               for label, r in runs.items()}
+    print(f"[44] bf16 prefill_chunk=512 vs unchunked, {len(prompts)} requests "
+          f"(one of {len(prompts[-1])} tokens): mean TTFT "
+          f"{ttft['prefill_chunk=512']:.1f} vs {ttft['unchunked']:.1f} ms, the "
+          f"longest prompt's {longest['prefill_chunk=512']:.1f} vs "
+          f"{longest['unchunked']:.1f} ms; decode "
+          f"{runs['prefill_chunk=512']['decode_ms_per_step']:.2f} vs "
+          f"{runs['unchunked']['decode_ms_per_step']:.2f} ms/step; "
+          f"{len(alike)} of {len(prompts)} requests' 32 tokens alike, first "
+          f"differences at {[first_difference(a, b) for a, b in zip(chunked, reference) if a != b]} "
+          f"(not checked in bf16); {card}", flush=True)
+    del runs
+    free_device_memory()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    runs, chunked32, whole32 = chunked_vs_whole(cfg32)
+    check(chunked32 == whole32, "fp32: prefill_chunk=512 gives the unchunked "
+          "run's greedy tokens")
+    print(f"[44] fp32 activations over the same weights: prefill_chunk=512 and "
+          f"unchunked give equal greedy tokens, {len(prompts)} requests x 32; "
+          f"mean TTFT {runs['prefill_chunk=512']['stats']['mean_ttft_s'] * 1e3:.1f}"
+          f" vs {runs['unchunked']['stats']['mean_ttft_s'] * 1e3:.1f} ms; {card}",
+          flush=True)
+    del runs
+    free_device_memory()
+
+    few = prompts[:4]
+    penalized = dict(repetition_penalty=1.3, presence_penalty=0.4,
+                     frequency_penalty=0.2, logit_bias={11: 2.0, 13: -50.0})
+    got = {}
+    for burst in (1, 4):
+        with torch.no_grad():
+            srv = make(decode_burst=burst)
+            rids = [srv.submit(p, max_new=32, **penalized) for p in few]
+            out = srv.run()
+        got[burst] = [out[r] for r in rids]
+        check(burst == 1 or srv.decode_steps > 0, "bursts ran")
+    check(got[1] == got[4], "penalties and bias: decode_burst 4 gives the "
+          "single steps' tokens")
+    check(got[1] != reference[:4], "penalties and bias change the output")
+    check(all(13 not in t for t in got[1]), "a -50 bias keeps its token out")
+    print(f"[44] repetition 1.3, presence 0.4, frequency 0.2, bias "
+          f"{{11: +2, 13: -50}} on {len(few)} requests x 32 tokens: "
+          f"decode_burst 1 and 4 give equal tokens, unlike the unpenalized "
+          f"run's; {card}", flush=True)
+
+    allowed = np.zeros(cfg.vocab_size, bool)
+    allowed[0:1000:2] = True  # even ids below 1000
+
+    def allowed_fn(tokens, prompt):
+        return allowed
+
+    with torch.no_grad():
+        srv = make(decode_burst=4)
+        rids = [srv.submit(p, max_new=16, allowed_fn=allowed_fn)
+                for p in few]
+        out = srv.run()
+    check(all(allowed[t] for r in rids for t in out[r]),
+          "allowed_fn: every output token satisfies the constraint")
+    print(f"[44] allowed_fn (even ids below 1000) on {len(few)} requests x 16 "
+          f"tokens: every token allowed", flush=True)
+    # bf16 over 32 layers: one bf16 step in an attention output can move a
+    # log-prob by a few hundredths of a nat (phase 6); a wrong page or mask
+    # moves it by whole nats
+    compare_servers("bf16 L32 fused (K4)", make, few[:3], 0.05)
+    print(f"[44] server options: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return params, cfg
+
+
+def http_phase(card, params, cfg):
+    """Phase 45: a BPE tokenizer trained on README.md with the native core,
+    then the HTTP front end over phase 44's server: text prompts, streamed
+    and not, a chat request, a cancel and /v1/stats, the tokens those of
+    direct submits.  The server's embedding and head are cut to the
+    tokenizer's 514 ids (a model decodes only what its tokenizer can
+    render)."""
+    import urllib.request
+
+    from kfunca_tpu_torch.models.serve import InferenceServer
+
+    from kfunca_tpu_torch.models.api_server import (
+        CHAT_SPECIALS, ApiServer, chatml_prompt)
+    from kfunca_tpu_torch.models.tokenizer import BPETokenizer
+    from kfunca_tpu_torch.runtime import _native
+
+    t0 = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "README.md"), encoding="utf-8") as f:
+        text = f.read()
+    base = BPETokenizer.train(text, 512)
+    tok = base.with_special_tokens(CHAT_SPECIALS)
+    check(tok._handle is not None and _native.get_lib() is not None,
+          "the tokenizer runs on the native core")
+    ids = tok.encode(text)
+    check(tok.decode(ids) == text, "README.md round-trips through the BPE")
+    train_s = time.perf_counter() - t0
+    vocab = tok.vocab_size
+    cut = {**params, "embed": params["embed"][:vocab],
+           "lm_head": params["lm_head"][:, :vocab]}
+    ccfg = dataclasses.replace(cfg, vocab_size=vocab)
+
+    def make():
+        return InferenceServer(cut, ccfg, batch_slots=8, page_size=16,
+                               n_pages=800, max_pages_per_seq=272)
+
+    texts = ["The port serves a checkpoint", "ring attention over four shards",
+             "héllo wörld ✓"]
+    messages = [{"role": "user", "content": "What does the port run?"}]
+    chat_ids = chatml_prompt(tok, messages)
+    end = tok.special_id("<|im_end|>")
+    with torch.no_grad():  # direct submits: the reference tokens
+        srv = make()
+        rids = [srv.submit(tok.encode(t), max_new=16) for t in texts]
+        rid_chat = srv.submit(chat_ids, max_new=16, stop=[[end]])
+        srv.run()
+        want = [srv.requests[r].tokens for r in rids]
+        want_chat = srv.requests[rid_chat].tokens
+
+    api = ApiServer(make(), tokenizer=tok, port=0).start()
+    url = f"http://{api.host}:{api.port}"
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type":
+                                              "application/json"})
+        return urllib.request.urlopen(req, timeout=300)
+
+    try:
+        t1 = time.perf_counter()
+        done = [json.loads(post("/v1/completions", {
+            "prompt": t, "max_tokens": 16}).read()) for t in texts[:2]]
+        plain_s = time.perf_counter() - t1
+        check([d["choices"][0]["tokens"] for d in done] == want[:2],
+              "HTTP completions give the direct submits' tokens")
+        check(all(d["choices"][0]["text"] == tok.decode(w)
+                  for d, w in zip(done, want)), "HTTP text decodes the tokens")
+        t1 = time.perf_counter()
+        resp = post("/v1/completions", {"prompt": texts[2], "max_tokens": 16,
+                                        "stream": True})
+        events, first_s, streamed = [], None, ""
+        for line in resp:
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            if line == b"data: [DONE]":
+                break
+            if first_s is None:
+                first_s = time.perf_counter() - t1
+            ev = json.loads(line[6:])
+            events.append(ev["token"])
+            streamed += ev["text"]
+        stream_s = time.perf_counter() - t1
+        check(events == want[2], "SSE streams the direct submit's tokens")
+        # the carry holds back a trailing partial UTF-8 sequence, which
+        # decode renders as one replacement character
+        check(tok.decode(want[2]) in (streamed, streamed + "\ufffd"),
+              "streamed text, carried across UTF-8 splits, is the decode")
+        chat = json.loads(post("/v1/chat/completions",
+                               {"messages": messages, "max_tokens": 16}).read())
+        check(chat["choices"][0]["tokens"] == want_chat,
+              "the chat request gives the direct ChatML submit's tokens")
+        resp = post("/v1/completions", {"prompt": texts[0], "max_tokens": 200,
+                                        "stream": True})
+        first = json.loads(next(l for l in resp if l.startswith(b"data: "))[6:])
+        cancelled = json.loads(post("/v1/cancel", {"id": first["id"]}).read())
+        rest = [l for l in resp if l.startswith(b"data: {")]
+        check(cancelled == {"cancelled": True} and 1 + len(rest) < 200,
+              "/v1/cancel ends a streaming request early")
+        stats = json.loads(urllib.request.urlopen(url + "/v1/stats",
+                                                  timeout=60).read())
+        check(stats["completed"] >= 5 and stats["queued"] == 0,
+              "/v1/stats counts the finished requests")
+    finally:
+        api.shutdown()
+    n_plain = sum(len(d["choices"][0]["tokens"]) for d in done)
+    print(f"[45] BPE (vocab 512 + 2 ChatML specials) trained on README.md "
+          f"({len(text)} chars -> {len(ids)} tokens) in {train_s:.1f} s, "
+          f"native core; HTTP over the bf16 L32 server (embed and head cut "
+          f"to the {vocab} ids): 2 text completions "
+          f"x 16 tokens in {plain_s:.2f} s ({n_plain / plain_s:.1f} tok/s), a "
+          f"streamed one with TTFT {first_s * 1e3:.1f} ms and "
+          f"{len(events) / stream_s:.1f} tok/s, a chat request, a cancel "
+          f"after {1 + len(rest)} tokens, /v1/stats: every token equal to "
+          f"direct submits; {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
+
+
+def speculative_phase(card, params, cfg, prompts):
+    """Phase 46: greedy speculative decoding, a 32-layer Mistral-width
+    target and a 2-layer draft (the target's first two layers, its embed
+    and head), fp32 activations over the bf16 weights: the tokens of the
+    target's generate."""
+    from kfunca_tpu_torch.models.generate import generate
+    from kfunca_tpu_torch.models.speculative import speculative_generate
+
+    t0 = time.perf_counter()
+    tcfg = dataclasses.replace(cfg, dtype="float32")
+    dcfg = dataclasses.replace(tcfg, n_layers=2)
+    draft = {**params, "blocks": params["blocks"][:2]}
+    new, gamma, rounds, spec_s, gen_s = 24, 4, 0, 0.0, 0.0
+    for p in (prompts[1], prompts[2]):
+        prompt = torch.tensor([p], device="cuda")
+        with torch.no_grad():
+            t1 = time.perf_counter()
+            want = generate(params, prompt, tcfg, new)
+            torch.cuda.synchronize()
+            gen_s += time.perf_counter() - t1
+            t1 = time.perf_counter()
+            got, r = speculative_generate(params, tcfg, draft, dcfg, prompt,
+                                          new, gamma)
+            torch.cuda.synchronize()
+            spec_s += time.perf_counter() - t1
+        check(torch.equal(got, want), "speculative_generate gives the "
+              "target's greedy tokens")
+        rounds += r
+    accepted = 2 * new - rounds  # each round commits its accepted drafts + 1
+    print(f"[46] speculative decoding, 32-layer target, 2-layer draft, gamma "
+          f"{gamma}, fp32 activations: 2 prompts x {new} tokens equal "
+          f"generate's; {rounds} target forwards, acceptance "
+          f"{accepted / (rounds * gamma):.3f} of proposed drafts; "
+          f"{spec_s:.2f} s against generate's {gen_s:.2f} s; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+
+
+def hf_phases(card) -> list:
+    """Phases 41-46; returns the kernels-line entries of K4-fp16, K6-fp16."""
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.ops.pallas_kernels import paged_attention as pa
+
+    prompts = traffic(TransformerConfig(**MISTRAL))
+    print("[41] Hugging Face checkpoints, the server's options, text",
+          flush=True)
+    golden_phase(pa, card)
+    free_device_memory()
+    checkpoint_phase(card, prompts)
+    free_device_memory()
+    entries = fp16_phase(pa, card, prompts)
+    free_device_memory()
+    params, cfg = options_phase(pa, card, prompts)
+    http_phase(card, params, cfg)
+    speculative_phase(card, params, cfg, prompts)
+    del params
+    free_device_memory()
+    return entries
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4350,6 +4935,8 @@ def main() -> int:
     kernels += runtime_phases(card)
     free_device_memory()
     kernels += ring_phases(card)
+    free_device_memory()
+    kernels += hf_phases(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

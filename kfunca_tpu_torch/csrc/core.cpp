@@ -5,19 +5,23 @@
 // The port's own copy of the parts of kfunca_tpu/csrc/kfunca_core.cpp that
 // the port calls (kf_promote, kf_accumulate_type, kf_broadcast_shapes,
 // kf_plan_loop_nest, kf_tape_schedule, kf_page_pool_*, kf_queue_*,
-// kf_pcache_*), with the same C interface and the same answers; built by g++
-// into kfunca_tpu_torch/build/ (runtime/_native.py) and bound with ctypes.
-// Left out: the caching allocator (the port reads torch.cuda.memory_stats),
-// the flash-attention live-grid tables (they serve the TPU grid only) and
-// the BPE tokenizer (it comes with models/tokenizer.py).  Every entry point
+// kf_pcache_*, kf_bpe_*), with the same C interface and the same answers;
+// built by g++ into kfunca_tpu_torch/build/ (runtime/_native.py) and bound
+// with ctypes.  Left out: the caching allocator (the port reads
+// torch.cuda.memory_stats) and the flash-attention live-grid tables (they
+// serve the TPU grid only).  Every entry point
 // has a Python form that gives the same answers (KFUNCA_NO_NATIVE=1 selects
 // them); tests/test_torch_native_core.py holds the two together.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
+#include <cstring>
 #include <mutex>
 #include <queue>
+#include <string>
 #include <unordered_map>
+#include <utility>
 #include <vector>
 
 #define KF_EXPORT extern "C" __attribute__((visibility("default")))
@@ -554,3 +558,147 @@ KF_EXPORT int64_t kf_pcache_lru(int64_t id, uint64_t *out_ab,
     return n;
 }
 
+// ---------------------------------------------------------------------------
+// Byte-level BPE apply side (models/tokenizer.py).  Token ids 0..255 are the
+// raw bytes; every merge (left, right -> result) concatenates two existing
+// tokens, so the decoder table is built from the merges alone.  The Python
+// trainer makes the merges; this side applies them.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct BpeModel {
+    // (left, right) -> (rank, result); rank = application priority
+    std::unordered_map<uint64_t, std::pair<int32_t, int32_t>> merges;
+    std::vector<std::string> token_bytes;  // id -> bytes (0..255 seeded)
+    BpeModel() {
+        token_bytes.resize(256);
+        for (int i = 0; i < 256; i++) token_bytes[i] = std::string(1, (char)i);
+    }
+};
+
+struct BpeState {
+    std::mutex mu;
+    int64_t next_id = 1;
+    std::unordered_map<int64_t, BpeModel> models;
+};
+
+BpeState &bpe_state() {
+    static BpeState s;
+    return s;
+}
+
+inline uint64_t bpe_key(int32_t l, int32_t r) {
+    return ((uint64_t)(uint32_t)l << 32) | (uint64_t)(uint32_t)r;
+}
+
+} // namespace
+
+KF_EXPORT int64_t kf_bpe_create() {
+    BpeState &s = bpe_state();
+    std::lock_guard<std::mutex> lock(s.mu);
+    int64_t id = s.next_id++;
+    s.models[id];
+    return id;
+}
+
+KF_EXPORT void kf_bpe_destroy(int64_t id) {
+    BpeState &s = bpe_state();
+    std::lock_guard<std::mutex> lock(s.mu);
+    s.models.erase(id);
+}
+
+// Register the next merge (ranks are assigned in call order).  `result`
+// must be >= 256; left and right must already exist.  Returns the rank, or
+// -1 on an invalid argument or a pair already registered.
+KF_EXPORT int64_t kf_bpe_add_merge(int64_t id, int32_t left, int32_t right,
+                                   int32_t result) {
+    BpeState &s = bpe_state();
+    std::lock_guard<std::mutex> lock(s.mu);
+    auto it = s.models.find(id);
+    if (it == s.models.end()) return -1;
+    BpeModel &m = it->second;
+    if (left < 0 || right < 0 || (size_t)left >= m.token_bytes.size() ||
+        (size_t)right >= m.token_bytes.size() || result < 256)
+        return -1;
+    int32_t rank = (int32_t)m.merges.size();
+    if (!m.merges.emplace(bpe_key(left, right),
+                          std::make_pair(rank, result)).second)
+        return -1;
+    if ((size_t)result >= m.token_bytes.size())
+        m.token_bytes.resize((size_t)result + 1);
+    m.token_bytes[result] = m.token_bytes[left] + m.token_bytes[right];
+    return rank;
+}
+
+// Encode bytes -> token ids: repeatedly merge every occurrence of the
+// lowest-rank adjacent pair, left to right.  out must hold n ids (encoding
+// never grows).  Returns the token count, or -1 on an unknown model.
+KF_EXPORT int64_t kf_bpe_encode(int64_t id, const uint8_t *text, int64_t n,
+                                int32_t *out) {
+    BpeState &s = bpe_state();
+    std::lock_guard<std::mutex> lock(s.mu);
+    auto it = s.models.find(id);
+    if (it == s.models.end()) return -1;
+    BpeModel &m = it->second;
+    std::vector<int32_t> ids(n);
+    for (int64_t i = 0; i < n; i++) ids[i] = (int32_t)text[i];
+    while (ids.size() >= 2) {
+        int32_t best_rank = INT32_MAX;
+        for (size_t i = 0; i + 1 < ids.size(); i++) {
+            auto f = m.merges.find(bpe_key(ids[i], ids[i + 1]));
+            if (f != m.merges.end() && f->second.first < best_rank)
+                best_rank = f->second.first;
+        }
+        if (best_rank == INT32_MAX) break;
+        std::vector<int32_t> next;
+        next.reserve(ids.size());
+        for (size_t i = 0; i < ids.size();) {
+            if (i + 1 < ids.size()) {
+                auto f = m.merges.find(bpe_key(ids[i], ids[i + 1]));
+                if (f != m.merges.end() && f->second.first == best_rank) {
+                    next.push_back(f->second.second);
+                    i += 2;
+                    continue;
+                }
+            }
+            next.push_back(ids[i]);
+            i += 1;
+        }
+        ids.swap(next);
+    }
+    for (size_t i = 0; i < ids.size(); i++) out[i] = ids[i];
+    return (int64_t)ids.size();
+}
+
+// Decode token ids -> bytes.  With out == null returns the byte count;
+// otherwise writes up to `cap` bytes and returns the byte count.  Returns
+// -1 on an unknown model, an id out of range or an id no merge made.
+KF_EXPORT int64_t kf_bpe_decode(int64_t id, const int32_t *ids, int64_t n,
+                                uint8_t *out, int64_t cap) {
+    BpeState &s = bpe_state();
+    std::lock_guard<std::mutex> lock(s.mu);
+    auto it = s.models.find(id);
+    if (it == s.models.end()) return -1;
+    BpeModel &m = it->second;
+    int64_t total = 0;
+    for (int64_t i = 0; i < n; i++) {
+        if (ids[i] < 0 || (size_t)ids[i] >= m.token_bytes.size()) return -1;
+        const std::string &b = m.token_bytes[ids[i]];
+        if (b.empty() && ids[i] >= 256) return -1;
+        if (out) {
+            if (total + (int64_t)b.size() > cap) return -1;
+            memcpy(out + total, b.data(), b.size());
+        }
+        total += (int64_t)b.size();
+    }
+    return total;
+}
+
+KF_EXPORT int64_t kf_bpe_vocab_size(int64_t id) {
+    BpeState &s = bpe_state();
+    std::lock_guard<std::mutex> lock(s.mu);
+    auto it = s.models.find(id);
+    if (it == s.models.end()) return -1;
+    return (int64_t)it->second.token_bytes.size();
+}

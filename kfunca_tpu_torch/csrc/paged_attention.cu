@@ -4,17 +4,17 @@
 // Replaces the TPU kernels
 //   kfunca_tpu/ops/pallas_kernels/paged_attention.py:
 //     paged_decode_attention_dma (body _decode_kernel_dma): fused [k|v] pool
-//       or split pools, fp32/bf16 or int8 with fp32 scales, slot-major or
+//       or split pools, fp32/bf16/fp16 or int8 with fp32 scales, slot-major or
 //       head-major scale pools;
 //     paged_decode_attention (bodies _decode_kernel, _decode_kernel_mxu):
-//       split pools, 4-D or flat 3-D, fp32/bf16 or int8 with a slot-major
+//       split pools, 4-D or flat 3-D, fp32/bf16/fp16 or int8 with a slot-major
 //       scale pair.
 // One device body serves both entry points: the pool forms differ only in
 // where a (page, slot, kv head) vector and its scale sit, which the caller
 // states as base pointers and strides (struct Layout).
 //
 // Contract (the same as the TPU kernels'):
-//   q        (B, H, hd), already scaled by 1/sqrt(hd), fp32 or bf16
+//   q        (B, H, hd), already scaled by 1/sqrt(hd), fp32, bf16 or fp16
 //   k, v     rows of hd elements: element d of (page p, slot s, kv head j) is
 //            base[(p * page + s) * row_stride + j * hd + d].  The fused pool
 //            (n_pool_pages, page, 2*Hkv*hd) has row_stride 2*Hkv*hd and
@@ -75,6 +75,7 @@
 // TMA multicast of a page across the blocks of a group.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -89,7 +90,7 @@ constexpr int kHeads = 4;        // query heads of a block (one warp each in
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 16 bytes of T (4 fp32, 8 bf16 or 16 int8 values) widened to fp32, from
+// 16 bytes of T (4 fp32, 8 bf16 or fp16, or 16 int8 values) widened to fp32, from
 // the four 32-bit words (no address is taken, so the vector stays in
 // registers)
 __device__ __forceinline__ void widen(uint4 raw, float (&x)[4], float) {
@@ -109,6 +110,20 @@ __device__ __forceinline__ void widen(uint4 raw, float (&x)[8],
   }
 }
 
+// fp16 has no shift to fp32 (its exponent is narrower): two values a word
+// through __half22float2
+__device__ __forceinline__ void widen(uint4 raw, float (&x)[8], __half) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(
+        __halves2half2(__ushort_as_half((unsigned short)(w[i] & 0xffffu)),
+                       __ushort_as_half((unsigned short)(w[i] >> 16))));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void widen(uint4 raw, float (&x)[16], int8_t) {
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
@@ -122,6 +137,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
@@ -129,6 +145,10 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -509,8 +529,9 @@ int launch(const void* q, const Layout& lay, const int* tables,
   return (int)cudaGetLastError();
 }
 
-// q_dtype: 0 = float32, 1 = bfloat16 (q and out).  pool_dtype: 0 and 1 the
-// same (and then equal to q_dtype), 2 = int8 (and then sk, sv are given).
+// q_dtype: 0 = float32, 1 = bfloat16, 3 = float16 (q and out).  pool_dtype:
+// 0, 1 and 3 the same (and then equal to q_dtype), 2 = int8 (and then sk, sv
+// are given).
 int dispatch(const void* q, const Layout& lay, const int* tables,
              const int* positions, void* part, void* out, int B, int H,
              int Hkv, int hd, int page, int max_pages, long long n_pool_pages,
@@ -530,6 +551,8 @@ int dispatch(const void* q, const Layout& lay, const int* tables,
   if (q_dtype == 1 && pool_dtype == 1) KF_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == 0 && pool_dtype == 2) KF_LAUNCH(float, int8_t);
   if (q_dtype == 1 && pool_dtype == 2) KF_LAUNCH(__nv_bfloat16, int8_t);
+  if (q_dtype == 3 && pool_dtype == 3) KF_LAUNCH(__half, __half);
+  if (q_dtype == 3 && pool_dtype == 2) KF_LAUNCH(__half, int8_t);
 #undef KF_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

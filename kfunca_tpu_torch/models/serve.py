@@ -35,15 +35,24 @@ Counterpart of kfunca_tpu/models/serve.py, single-device path:
     request; log-probs under the raw distribution.  torch.Generator and
     jax.random draw different numbers, so sampled output matches the JAX
     engine in distribution only; greedy output matches token for token.
+  * Logit processors, per request: the HF repetition penalty, the OpenAI
+    presence and frequency penalties and an additive logit bias over each
+    slot's token counts (prompt + generated), kept on the device and
+    advanced between the steps of a decode burst; constrained decoding
+    through a host callback (allowed_fn) that masks the vocabulary before
+    every sample.  Log-probs stay those of the raw distribution.
   * Continuous batching over fixed decode slots with a FIFO queue; sliding
-    window models free the pages that fall behind the window.
+    window models free the pages that fall behind the window.  Chunked
+    prefill (prefill_chunk) ingests a long prompt a chunk per scheduler
+    iteration while the other slots keep decoding.
+  * fp32, bf16 and fp16 activations and pools; on the card each runs the
+    paged kernels' body of its dtype.
 
 Prefill is models/generate.forward_with_cache (plain attention) over the
 prompt suffix padded to a page multiple, scattered into the slot's pages.
 
 Later slices of the port (each raises NotImplementedError here):
-multi-LoRA, mesh (tensor-parallel) serving, chunked prefill, logit
-penalties and constrained decoding.
+multi-LoRA and mesh (tensor-parallel) serving.
 """
 
 from __future__ import annotations
@@ -460,15 +469,33 @@ def _paged_block(x, p, pools_k, pools_v, li, page_tables, positions,
     return x + mlp(y, p, cfg, mm=_mm).to(x.dtype)
 
 
+def apply_logit_penalties(logits, penalties):
+    """Logit processors over each slot's token counts (prompt +
+    generated): the HF repetition penalty (a seen token's positive logit
+    divides, a negative one multiplies), the OpenAI presence (per seen
+    token) and frequency (per occurrence) penalties, and an additive bias.
+    penalties: dict of counts (B, V), rep (B,), presence (B,), freq (B,),
+    bias (B, V)."""
+    counts = penalties["counts"].float()
+    seen = counts > 0
+    rep = penalties["rep"][:, None]
+    logits = torch.where(
+        seen, torch.where(logits > 0, logits / rep, logits * rep), logits)
+    return (logits - penalties["freq"][:, None] * counts
+            - penalties["presence"][:, None] * seen + penalties["bias"])
+
+
 def paged_decode_step(params, pools_k, pools_v, page_tables, positions,
                       last_tokens, generator, cfg: TransformerConfig,
                       page_size: int, temperature=0.0, top_p=1.0,
-                      sampling=None):
+                      sampling=None, penalties=None):
     """One batched decode step over the paged KV (the JAX package's
     _decode_step_impl and its jitted paged_decode_step).
 
     `sampling`, when given, is a dict of (B,) tensors {temperature, top_p,
     top_k, min_p} for per-slot sampling; it overrides temperature/top_p.
+    `penalties`, when given, is apply_logit_penalties' dict; it shapes the
+    distribution sampled from, while the log-probs stay the raw ones.
     pools_k/pools_v: the pools in any of _paged_block's four forms
     (pools_v None = fused), each slot's new K/V written in place.  `params`
     may hold quantized (intN, scale) pairs (quantize_decode_params).  Returns
@@ -476,41 +503,58 @@ def paged_decode_step(params, pools_k, pools_v, page_tables, positions,
     that callers ignore."""
     x = embed_tokens(params, last_tokens.long()[:, None], cfg)
     if cfg.pos == "learned":
-        x = x + params["pos_embed"][positions.long()][:, None].to(cfg.act_dtype)
+        # an idle slot's position runs on inside a burst and can pass the
+        # table; XLA's gather fills such a row where torch would fault, so
+        # the index is clamped (the row is garbage either way, and unread)
+        last = params["pos_embed"].shape[0] - 1
+        pos = torch.clamp(positions.long(), max=last)
+        x = x + params["pos_embed"][pos][:, None].to(cfg.act_dtype)
     for li, p in enumerate(params["blocks"]):
         x = _paged_block(x, p, pools_k, pools_v, li, page_tables, positions,
                          cfg, page_size)
     x = apply_norm(x, params, "final_norm", cfg)
     # the untied head, the quantized (intN, scale) head, or the tied
     # embedding's transpose: _mm dispatches on the structure
-    logits = _mm(x[:, 0], params["lm_head"] if "lm_head" in params
-                 else params["embed"].T)
+    raw = _mm(x[:, 0], params["lm_head"] if "lm_head" in params
+              else params["embed"].T)
+    logits = raw if penalties is None else apply_logit_penalties(
+        raw, penalties)
     if sampling is not None:
         tokens = sample_tokens_per_slot(
             logits, generator, sampling["temperature"], sampling["top_p"],
             sampling["top_k"], sampling["min_p"])
     else:
         tokens = sample_tokens(logits, generator, temperature, top_p)
-    return tokens, token_logprobs(logits, tokens)
+    return tokens, token_logprobs(raw, tokens)
 
 
 def paged_decode_burst(params, pools_k, pools_v, page_tables, positions,
                        last_tokens, generator, cfg: TransformerConfig,
                        page_size: int, steps: int, temperature=0.0, top_p=1.0,
-                       sampling=None):
+                       sampling=None, penalties=None):
     """`steps` decode steps in one call (the scheduler does its
     bookkeeping after the burst and discards each slot's tail past its
     finish; pages for max_new are reserved at admission, so decoding past
-    a finish writes only into pages the slot owns).  Returns
-    (tokens (steps, B), logprobs (steps, B))."""
+    a finish writes only into pages the slot owns).  The penalty counts
+    advance on the device between the steps (a copy: the caller's counts
+    stay as they were); the coefficients, bias and sampling parameters
+    hold for the whole burst.  Returns (tokens (steps, B), logprobs
+    (steps, B))."""
     toks, lps = [], []
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    if penalties is not None:
+        penalties = {**penalties, "counts": penalties["counts"].float()
+                     .clone()}
     for _ in range(steps):
         last_tokens, lp = paged_decode_step(
             params, pools_k, pools_v, page_tables, positions, last_tokens,
-            generator, cfg, page_size, temperature, top_p, sampling)
+            generator, cfg, page_size, temperature, top_p, sampling,
+            penalties)
         toks.append(last_tokens)
         lps.append(lp)
         positions = positions + 1
+        if penalties is not None:
+            penalties["counts"][rows, last_tokens.long()] += 1.0
     return torch.stack(toks), torch.stack(lps)
 
 
@@ -537,11 +581,26 @@ class Request:
     stop: tuple = ()
     # log-prob of each generated token under the raw distribution
     logprobs: list = field(default_factory=list)
+    # logit processors (HF/OpenAI conventions) over prompt + generated
+    repetition_penalty: float = 1.0
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    logit_bias: dict | None = None
+    # constrained decoding: (generated tokens, prompt) -> (V,) bool allowed
+    # mask, or None for no constraint this step; called before every sample
+    allowed_fn: object = None
     # wall-clock marks (perf_counter) for TTFT/TPOT
     submitted_at: float = 0.0
     first_token_at: float = 0.0
     finished_at: float = 0.0
     cancelled: bool = False
+
+
+def _penalized(req: Request) -> bool:
+    """Whether the request asks for a logit processor."""
+    return bool(req.repetition_penalty != 1.0 or req.presence_penalty
+                or req.frequency_penalty or req.logit_bias
+                or req.allowed_fn is not None)
 
 
 def _later(what: str) -> NotImplementedError:
@@ -562,7 +621,11 @@ class InferenceServer:
     picks the fused [k|v] pool where kv_heads*head_dim is a multiple of 128
     (and 2*kv_heads <= 128), else split pools; False forces split pools.
     prefix_cache shares full prompt pages between sequences (not with a
-    sliding window)."""
+    sliding window).  prefill_chunk (a multiple of page_size) prefills a
+    longer prompt suffix that many tokens a scheduler iteration, so the
+    other slots keep decoding meanwhile.  decode_burst runs that many
+    decode steps a scheduler call when no prefill is in flight and no
+    request is constrained."""
 
     def __init__(
         self,
@@ -595,8 +658,7 @@ class InferenceServer:
                 "this engine's page pools hold per-head K/V; MLA serving is a "
                 "later slice of the port")
         for on, what in ((max_loras, "multi-LoRA serving"),
-                         (mesh is not None, "mesh (tensor-parallel) serving"),
-                         (prefill_chunk is not None, "chunked prefill")):
+                         (mesh is not None, "mesh (tensor-parallel) serving")):
             if on:
                 raise _later(what)
         hkv, hd = cfg.kv_heads, cfg.head_dim
@@ -611,10 +673,6 @@ class InferenceServer:
         if decode_burst < 1:
             raise ValueError(f"decode_burst must be >= 1, got {decode_burst}")
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and cfg.act_dtype not in (
-                torch.float32, torch.bfloat16):
-            raise _later(f"serving {cfg.dtype} pools on the card (the paged "
-                         "decode kernels take float32 and bfloat16)")
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"server on {self.device}")
@@ -639,6 +697,12 @@ class InferenceServer:
                 torch.bfloat16)
             page_size = int(hit["page_size"]) if hit else 16
         self.page_size = page_size
+        if prefill_chunk is not None and (prefill_chunk <= 0
+                                          or prefill_chunk % page_size):
+            raise ValueError(f"prefill_chunk must be a positive multiple of "
+                             f"page_size={page_size}, got {prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
+        self._prefill_state: dict[int, dict] = {}  # slot -> chunked prefill
         self.max_pages = max_pages_per_seq
         self.temperature = float(temperature)
         self.top_p = float(top_p)
@@ -691,6 +755,17 @@ class InferenceServer:
         self.slot_top_p = np.full((self.B,), self.top_p, np.float32)
         self.slot_top_k = np.zeros((self.B,), np.int32)
         self.slot_min_p = np.zeros((self.B,), np.float32)
+        # logit processors (used once any request asks for one): per-slot
+        # coefficients on the host, each slot's token counts (prompt +
+        # generated) and bias row on the device
+        self._per_slot_penalties = False
+        self.slot_rep = np.ones((self.B,), np.float32)
+        self.slot_presence = np.zeros((self.B,), np.float32)
+        self.slot_freq = np.zeros((self.B,), np.float32)
+        self.token_counts = torch.zeros((self.B, cfg.vocab_size),
+                                        dtype=torch.float32, device=dev)
+        self.logit_bias = torch.zeros((self.B, cfg.vocab_size),
+                                      dtype=torch.float32, device=dev)
 
     # -- API ---------------------------------------------------------------
 
@@ -703,23 +778,32 @@ class InferenceServer:
         """Queue a request; returns its id.  Sampling kwargs override the
         server defaults for this request only.  `stop` is an iterable of
         token sequences; matching the output tail ends the request (the
-        stop tokens stay in the output)."""
+        stop tokens stay in the output).  `repetition_penalty` (HF),
+        `presence_penalty` / `frequency_penalty` (OpenAI) and `logit_bias`
+        ({token: additive bias}) shape every sample over the request's
+        prompt + generated tokens.  `allowed_fn(generated, prompt) -> (V,)
+        bool | None` constrains decoding: called on the host before every
+        sample, its mask suppresses disallowed tokens (a -1e30 bias) for
+        this request; it must leave at least one token allowed.  Reported
+        log-probs stay those of the raw distribution."""
         if lora_id:
             raise ValueError(f"unknown lora_id {lora_id}")
-        if (repetition_penalty != 1.0 or presence_penalty or frequency_penalty
-                or logit_bias):
-            raise _later("logit penalties and bias")
-        if allowed_fn is not None:
-            raise _later("constrained decoding (allowed_fn)")
         rid = self._next_id
         self._next_id += 1
         stop = tuple(tuple(int(t) for t in s) for s in stop)
         req = Request(rid, np.asarray(prompt, np.int32), max_new,
                       temperature=temperature, top_p=top_p, top_k=int(top_k),
                       min_p=float(min_p), eos=eos, stop=stop,
+                      repetition_penalty=float(repetition_penalty),
+                      presence_penalty=float(presence_penalty),
+                      frequency_penalty=float(frequency_penalty),
+                      logit_bias=dict(logit_bias) if logit_bias else None,
+                      allowed_fn=allowed_fn,
                       submitted_at=time.perf_counter())
         if temperature is not None or top_p is not None or top_k or min_p:
             self._per_slot_sampling = True
+        if _penalized(req):
+            self._per_slot_penalties = True
         self.requests[rid] = req
         self.queue.push(rid)
         return rid
@@ -734,6 +818,7 @@ class InferenceServer:
         req.cancelled = True
         for slot in range(self.B):
             if self.slot_req[slot] == req_id:
+                self._prefill_state.pop(slot, None)
                 self._release(slot)
                 return True
         # still queued: _admit skips done requests when they surface
@@ -754,14 +839,17 @@ class InferenceServer:
         for _ in range(max_steps):
             before = {rid: len(r.tokens) for rid, r in self.requests.items()}
             self._admit()
-            active = any(s is not None for s in self.slot_req)
+            self._advance_prefills()
+            active = any(self.slot_req[s] is not None
+                         and s not in self._prefill_state
+                         for s in range(self.B))
             if active:
                 self._step()
             for rid, r in list(self.requests.items()):
                 for i in range(before.get(rid, 0), len(r.tokens)):
                     last = r.done and i == len(r.tokens) - 1
                     yield rid, r.tokens[i], r.logprobs[i], last
-            if not active and len(self.queue) == 0:
+            if not active and not self._prefill_state and len(self.queue) == 0:
                 break
 
     def throughput_stats(self) -> dict:
@@ -892,12 +980,70 @@ class InferenceServer:
             self.slot_top_p[slot] = self.top_p if req.top_p is None else req.top_p
             self.slot_top_k[slot] = req.top_k
             self.slot_min_p[slot] = req.min_p
+            if self._per_slot_penalties:
+                self._set_penalties(slot, req)
             self.page_tables[slot] = self.trash_page
+            prefix_len = len(reused) * self.page_size
+            skip_len = first_page * self.page_size
+            st = t - prefix_len
+            if self.prefill_chunk is not None and st > self.prefill_chunk:
+                # resumable chunked prefill: the table stays on the trash
+                # page (decode writes cannot reach the slot's real pages)
+                # until the last chunk scatters; _advance_prefills runs a
+                # chunk a scheduler iteration while the others decode
+                stp = -(-st // self.page_size) * self.page_size
+                tokens, cache = self._prefill_cache_init(slot, req,
+                                                         prefix_len, stp)
+                self._prefill_state[slot] = dict(
+                    req=req, tokens=tokens, cache=cache,
+                    prefix_len=prefix_len, skip_len=skip_len, next=0, st=st,
+                    stp=stp, hashes=hashes, reused_n=len(reused),
+                    pages=pages, first_page=first_page)
+                continue
             self.page_tables[slot, first_page : first_page + len(pages)] = pages
-            first = self._prefill(slot, req, len(reused) * self.page_size,
-                                  first_page * self.page_size)
+            first = self._prefill(slot, req, prefix_len, skip_len)
             self._finish_admission(slot, req, first, hashes, len(reused),
                                    pages)
+
+    def _set_penalties(self, slot: int, req: Request):
+        """The slot's penalty coefficients, its token counts starting at
+        the prompt's, and its dense bias row."""
+        self.slot_rep[slot] = req.repetition_penalty
+        self.slot_presence[slot] = req.presence_penalty
+        self.slot_freq[slot] = req.frequency_penalty
+        counts = np.bincount(req.prompt, minlength=self.cfg.vocab_size)
+        bias = np.zeros((self.cfg.vocab_size,), np.float32)
+        for tok, b in (req.logit_bias or {}).items():
+            bias[int(tok)] = float(b)
+        self.token_counts[slot] = torch.from_numpy(
+            counts[: self.cfg.vocab_size].astype(np.float32)).to(self.device)
+        self.logit_bias[slot] = torch.from_numpy(bias).to(self.device)
+
+    def _advance_prefills(self):
+        """One prefill chunk for every mid-prefill slot.  A slot whose last
+        chunk completes scatters its KV, installs its page table and
+        decodes from this same iteration on."""
+        for slot in list(self._prefill_state):
+            stt = self._prefill_state[slot]
+            req, c0 = stt["req"], stt["next"]
+            cl = min(self.prefill_chunk, stt["stp"] - c0)
+            logits, stt["cache"] = forward_with_cache(
+                self.params, stt["tokens"][:, c0 : c0 + cl], stt["cache"],
+                stt["prefix_len"] + c0, self.cfg)
+            stt["next"] = c0 + cl
+            if stt["next"] < stt["stp"]:
+                continue
+            # the last chunk holds the last prompt token (the suffix is
+            # padded by < page_size <= prefill_chunk)
+            self._prefill_scatter(slot, len(req.prompt), stt["cache"],
+                                  max(stt["prefix_len"], stt["skip_len"]))
+            fp = stt["first_page"]
+            self.page_tables[slot, fp : fp + len(stt["pages"])] = stt["pages"]
+            first = self._sample_first(slot, req,
+                                       logits[:, stt["st"] - 1 - c0])
+            del self._prefill_state[slot]
+            self._finish_admission(slot, req, first, stt["hashes"],
+                                   stt["reused_n"], stt["pages"])
 
     def _finish_admission(self, slot: int, req: Request, first: int,
                           hashes: list, reused_n: int, pages: list):
@@ -914,6 +1060,8 @@ class InferenceServer:
         self.last_tokens[slot] = first
         req.tokens.append(int(first))
         req.first_token_at = time.perf_counter()
+        if self._per_slot_penalties:
+            self.token_counts[slot, int(first)] += 1.0
         if self._finished(req, first):
             self._release(slot)
 
@@ -935,7 +1083,7 @@ class InferenceServer:
         logits, cache = forward_with_cache(self.params, tokens, cache,
                                            prefix_len, self.cfg)
         self._prefill_scatter(slot, t, cache, max(prefix_len, skip_len))
-        return self._sample_first(req, logits[:, st - 1])
+        return self._sample_first(slot, req, logits[:, st - 1])
 
     def _prefill_cache_init(self, slot: int, req: Request, prefix_len: int,
                             stp: int):
@@ -1012,19 +1160,66 @@ class InferenceServer:
                   torch.cat([k.reshape(t - lo, -1), v.reshape(t - lo, -1)],
                             dim=-1), sc)
 
-    def _sample_first(self, req: Request, raw) -> int:
-        """Sample the request's first token from its last-prompt logits."""
+    def _constraint_row(self, req: Request):
+        """(V,) fp32 suppression bias from the request's allowed_fn on the
+        device, or None when it is unconstrained this step."""
+        if req.allowed_fn is None:
+            return None
+        allow = req.allowed_fn(req.tokens, req.prompt)
+        if allow is None:
+            return None
+        allow = np.asarray(allow, bool)
+        if allow.shape != (self.cfg.vocab_size,):
+            raise ValueError(f"allowed_fn must return (vocab_size,) bool, "
+                             f"got {allow.shape}")
+        row = np.where(allow, np.float32(0.0), np.float32(NEG_INF))
+        return torch.from_numpy(row).to(self.device)
+
+    def _bias_with_constraints(self):
+        """This step's (B, V) bias: each slot's logit_bias row plus, for a
+        constrained slot, its allowed_fn suppression."""
+        bias = self.logit_bias
+        for slot in range(self.B):
+            rid = self.slot_req[slot]
+            if rid is None or slot in self._prefill_state:
+                continue
+            row = self._constraint_row(self.requests[rid])
+            if row is not None:
+                if bias is self.logit_bias:
+                    bias = bias.clone()
+                bias[slot] += row
+        return bias
+
+    def _sample_first(self, slot: int, req: Request, raw) -> int:
+        """Sample the request's first token from its last-prompt logits
+        (penalized over the prompt's counts when the request asks)."""
+        last = raw
+        if _penalized(req):
+            bias = self.logit_bias[slot]
+            row = self._constraint_row(req)
+            if row is not None:
+                bias = bias + row
+
+            def vec(v):
+                return torch.tensor([v], dtype=torch.float32,
+                                    device=self.device)
+            last = apply_logit_penalties(raw, {
+                "counts": self.token_counts[slot][None],
+                "rep": vec(req.repetition_penalty),
+                "presence": vec(req.presence_penalty),
+                "freq": vec(req.frequency_penalty), "bias": bias[None]})
         if (req.temperature is not None or req.top_p is not None
                 or req.top_k or req.min_p):
             def one(v, d, dt=torch.float32):
                 return torch.tensor([d if v is None else v], dtype=dt,
                                     device=self.device)
             first = sample_tokens_per_slot(
-                raw, self._gen, one(req.temperature, self.temperature),
+                last, self._gen, one(req.temperature, self.temperature),
                 one(req.top_p, self.top_p), one(req.top_k, 0, torch.int32),
                 one(req.min_p, 0.0))
         else:
-            first = sample_tokens(raw, self._gen, self.temperature, self.top_p)
+            first = sample_tokens(last, self._gen, self.temperature,
+                                  self.top_p)
         req.logprobs.append(float(token_logprobs(raw, first)[0]))
         return int(first[0])
 
@@ -1038,6 +1233,15 @@ class InferenceServer:
                 "top_k": torch.from_numpy(self.slot_top_k).to(dev),
                 "min_p": torch.from_numpy(self.slot_min_p).to(dev),
             }
+        penalties = None
+        if self._per_slot_penalties:
+            penalties = {
+                "counts": self.token_counts,
+                "rep": torch.from_numpy(self.slot_rep).to(dev),
+                "presence": torch.from_numpy(self.slot_presence).to(dev),
+                "freq": torch.from_numpy(self.slot_freq).to(dev),
+                "bias": self._bias_with_constraints(),
+            }
         burst = self._burst_steps()
         args = (self._decode_params, self.pools_k, self.pools_v,
                 torch.from_numpy(self.page_tables).to(dev),
@@ -1046,23 +1250,26 @@ class InferenceServer:
                 self.cfg, self.page_size)
         if burst > 1:
             tokens, lps = paged_decode_burst(
-                *args, burst, self.temperature, self.top_p, sampling)
+                *args, burst, self.temperature, self.top_p, sampling,
+                penalties)
         else:
             tokens, lps = paged_decode_step(
-                *args, self.temperature, self.top_p, sampling)
+                *args, self.temperature, self.top_p, sampling, penalties)
             tokens, lps = tokens[None], lps[None]  # (1, B)
         self.decode_steps += burst
         tokens = tokens.cpu().numpy()  # (steps, B)
         lps = lps.cpu().numpy()
+        counted = []  # (slot, token) of every accepted token
         for slot in range(self.B):
             rid = self.slot_req[slot]
-            if rid is None:
-                continue
+            if rid is None or slot in self._prefill_state:
+                continue  # a mid-prefill slot decoded against the trash page
             req = self.requests[rid]
             for i in range(tokens.shape[0]):
                 tok = int(tokens[i, slot])
                 req.tokens.append(tok)
                 req.logprobs.append(float(lps[i, slot]))
+                counted.append((slot, tok))
                 self.positions[slot] += 1
                 self.last_tokens[slot] = tok
                 if self.cfg.attention_window is not None:
@@ -1071,18 +1278,26 @@ class InferenceServer:
                     # the burst's tail past the finish is discarded
                     self._release(slot)
                     break
+        if self._per_slot_penalties and counted:
+            idx = torch.tensor(counted, device=dev).T
+            self.token_counts.index_put_(
+                (idx[0], idx[1]), torch.ones(len(counted), device=dev),
+                accumulate=True)
 
     def _burst_steps(self) -> int:
-        """`decode_burst` when every active slot has at least that many
-        tokens left (no wasted tail work), else 1."""
+        """`decode_burst` when no prefill is in flight (chunks advance a
+        scheduler iteration each), no active slot is constrained (allowed_fn
+        needs a host callback a token) and every active slot has at least
+        that many tokens left (no wasted tail work); else 1."""
         k = self.decode_burst
-        if k <= 1:
+        if k <= 1 or self._prefill_state:
             return 1
         for slot in range(self.B):
             rid = self.slot_req[slot]
             if rid is not None:
                 req = self.requests[rid]
-                if req.max_new - len(req.tokens) < k:
+                if (req.allowed_fn is not None
+                        or req.max_new - len(req.tokens) < k):
                     return 1
         return k
 

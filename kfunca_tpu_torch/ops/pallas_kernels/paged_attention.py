@@ -2,7 +2,7 @@
 
 Counterpart of kfunca_tpu/ops/pallas_kernels/paged_attention.py: the two
 entry points `paged_decode_attention_dma` (fused [k|v] pool or split pools;
-fp32/bf16, or int8 with fp32 scales per (slot, kv head), slot-major or
+fp32/bf16/fp16, or int8 with fp32 scales per (slot, kv head), slot-major or
 head-major) and `paged_decode_attention` (split pools, 4-D or flat 3-D,
 slot-major scale pair).  On CUDA tensors each launches the hand-written
 Hopper kernel in csrc/paged_attention.cu (one device body; the pool forms
@@ -42,7 +42,8 @@ import torch
 from ...runtime import _kernels
 
 NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.float16: 3}
 SPLIT_SLOTS = 256  # slots of a split of the kernel's first pass
 MAX_HEAD_DIM = 256  # the split block's ring of 64 rows x 3 stages in 227 KB
 
@@ -220,11 +221,11 @@ def _run(entry, q, pool, pool_v, page_tables, positions, window, scales,
                        page_base)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or pool.dtype not in (
-            q.dtype, torch.int8):
-        raise TypeError(f"kernel takes float32 or bfloat16 q and pools of "
-                        f"one dtype with it, or int8 pools; got {q.dtype} "
-                        f"and {pool.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16) or (
+            pool.dtype not in (q.dtype, torch.int8)):
+        raise TypeError(f"kernel takes float32, bfloat16 or float16 q and "
+                        f"pools of one dtype with it, or int8 pools; got "
+                        f"{q.dtype} and {pool.dtype}")
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

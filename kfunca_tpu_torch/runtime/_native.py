@@ -10,9 +10,10 @@ so processes that build at once (test workers) do not race.
 `KFUNCA_NO_NATIVE=1` selects the Python forms, as in the JAX package; so
 does a machine without g++.  Where g++ is present a failed build raises:
 it does not quietly give way to Python.  The callers (core/iterator,
-core/materialize, core/tensor, models/serve) read `get_lib()` and run
-their Python form when it is None; tests/test_torch_native_core.py holds
-the two forms together.
+core/materialize, core/tensor, models/serve, models/tokenizer) read
+`get_lib()` and run their Python form when it is None;
+tests/test_torch_native_core.py and tests/test_torch_tokenizer.py hold the
+two forms together.
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     u64 = ctypes.c_uint64
     i64p, u64p = ctypes.POINTER(i64), ctypes.POINTER(u64)
     i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
     sigs = {
         "kf_promote": (i8, [i8, i8]),
         "kf_accumulate_type": (i8, [i8]),
@@ -92,6 +94,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "kf_pcache_erase": (i64, [i64, u64, u64]),
         "kf_pcache_size": (i64, [i64]),
         "kf_pcache_lru": (i64, [i64, u64p, i64p, i64]),
+        "kf_bpe_create": (i64, []),
+        "kf_bpe_destroy": (None, [i64]),
+        "kf_bpe_add_merge": (i64, [i64, ctypes.c_int32, ctypes.c_int32,
+                                   ctypes.c_int32]),
+        "kf_bpe_encode": (i64, [i64, u8p, i64, i32p]),
+        "kf_bpe_decode": (i64, [i64, i32p, i64, u8p, i64]),
+        "kf_bpe_vocab_size": (i64, [i64]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)

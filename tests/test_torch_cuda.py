@@ -33,8 +33,11 @@ SMALL = dict(vocab_size=256, d_model=256, n_heads=4, n_kv_heads=2,
              n_layers=2, d_ff=512, max_seq_len=256, dtype="float32")
 # fp32: the same fp32 softmax-weighted mean in another summation order.
 # bf16: both round one fp32 result to bf16; a hair's difference can land
-# on the neighbouring bf16 value, 2^-8 of the magnitude away.
-TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-6, 2.0 ** -7)}
+# on the neighbouring bf16 value, 2^-8 of the magnitude away.  fp16 the
+# same at its step, 2^-10 of the magnitude (2^-9 allowed).
+TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-6, 2.0 ** -7),
+       torch.float16: (1e-6, 2.0 ** -9)}
+PAGED_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -74,7 +77,7 @@ def _close(got, want, dtype):
                                rtol=rtol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
 @pytest.mark.parametrize("window", [None, 37, 7])
 @pytest.mark.parametrize("layers", [1, 3])
 def test_kernel_matches_plain(cuda, dtype, window, layers):
@@ -104,10 +107,12 @@ def test_position_past_the_table(cuda, window):
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q, pool, tables, pos, _ = _case(cuda, torch.float32, [3, 20])
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        paged_decode_attention_dma(q.half(), pool.half(), tables, pos)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        paged_decode_attention_dma(q.double(), pool.double(), tables, pos)
     with pytest.raises(TypeError, match="one dtype"):
         paged_decode_attention_dma(q, pool.bfloat16(), tables, pos)
+    with pytest.raises(TypeError, match="one dtype"):
+        paged_decode_attention_dma(q.half(), pool.bfloat16(), tables, pos)
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode_attention_dma(q.transpose(0, 1).contiguous()
                                    .transpose(0, 1), pool, tables, pos)
@@ -151,6 +156,41 @@ def test_server_on_the_card_matches_the_cpu(cuda):
     assert out["cuda"][0] == out["cpu"][0]
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert max(abs(x - y) for x, y in zip(a, b)) <= 1e-4
+
+
+@pytest.mark.parametrize("options", [{}, {"fused_pool": False},
+                                     {"quantize_kv": True}],
+                         ids=["fused", "split", "kv8"])
+def test_fp16_server_runs_the_fp16_bodies(cuda, options):
+    """fp16 activations and pools on the card: every decode step of every
+    layer launches the fp16 body of its entry point, and the tokens are the
+    plain path's on the card."""
+    cfg = transformer.TransformerConfig(**{**SMALL, "dtype": "float16"})
+    params = _to(transformer.init_params(0, cfg, device="cpu"), cuda)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in (5, 17, 30)]
+    kw = dict(batch_slots=2, page_size=8, n_pages=40, max_pages_per_seq=10,
+              **options)
+    entry = (paged_decode_attention if options.get("fused_pool") is False
+             else paged_decode_attention_dma)
+    out = []
+    for plain in (False, True):
+        srv = serve.InferenceServer(params, cfg, **kw)
+        data = srv.pools_k[0] if options.get("quantize_kv") else srv.pools_k
+        assert data.dtype == (torch.int8 if options.get("quantize_kv")
+                              else torch.float16)
+        rids = [srv.submit(pr, max_new=8) for pr in prompts]
+        before = entry.launches
+        if plain:
+            with pa.plain_paged_attention():
+                res = srv.run()
+            assert entry.launches == before
+        else:
+            res = srv.run()
+            assert entry.launches - before == cfg.n_layers * srv.decode_steps
+        out.append([res[r] for r in rids])
+    assert out[0] == out[1]
 
 
 # -- int8 KV (K4-int8), split pools (K6) and the int8 matmul (K5) --------------
@@ -217,7 +257,7 @@ def _forms_case(dev, dtype, positions, form, quantized, h=8, hkv=2, hd=128,
     return q, pool, pool_v, scales, tables, pos, base
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
 @pytest.mark.parametrize("window", [None, 37])
 @pytest.mark.parametrize("form,quantized", [
     ("fused", True), ("split", True), ("split_head_major", True),
@@ -236,7 +276,7 @@ def test_dma_kernel_pool_forms_match_plain(cuda, dtype, window, form,
            dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
 @pytest.mark.parametrize("window", [None, 7])
 @pytest.mark.parametrize("form", ["split", "split_flat"])
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
@@ -262,7 +302,7 @@ def test_split_pool_kernel_matches_plain(cuda, dtype, window, form, quantized):
     assert paged_decode_attention.launches == before[0] + 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
 @pytest.mark.parametrize("entry,form,quantized", [
     ("dma", "fused", False), ("dma", "fused", True), ("dma", "split", True),
     ("dma", "split_head_major", True), ("dma", "split_flat", False),
@@ -460,6 +500,99 @@ def test_server_options_on_the_card_match_the_cpu(cuda, options):
                    or options.get("quantize_kv")) else 1e-4
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert max(abs(x - y) for x, y in zip(a, b)) <= tol
+
+
+def test_server_features_on_the_card_match_the_cpu(cuda):
+    """Chunked prefill, logit penalties and bias in bursts of 4, and an
+    allowed_fn constraint on the card against the same server on the CPU:
+    the same greedy tokens, log-probs within 1e-4 (fp32)."""
+    cfg = transformer.TransformerConfig(**SMALL, attention_window=24)
+    params = transformer.init_params(0, cfg, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in (5, 41, 30, 9)]
+    allowed = np.zeros(256, bool)
+    allowed[::3] = True
+    kw = dict(batch_slots=2, page_size=8, n_pages=40, max_pages_per_seq=10,
+              prefill_chunk=16, decode_burst=4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        srv = serve.InferenceServer(_to(params, dev), cfg, device=dev, **kw)
+        rids = [srv.submit(prompts[0], max_new=12),
+                srv.submit(prompts[1], max_new=12, repetition_penalty=1.5,
+                           presence_penalty=0.5, frequency_penalty=0.25,
+                           logit_bias={7: 3.0}),
+                srv.submit(prompts[2], max_new=12,
+                           allowed_fn=lambda toks, prompt: allowed),
+                srv.submit(prompts[3], max_new=12, logit_bias={3: -40.0})]
+        res = srv.run()
+        out[dev] = ([res[r] for r in rids],
+                    [srv.requests[r].logprobs for r in rids])
+        assert all(allowed[t] for t in res[rids[2]])
+        assert 3 not in res[rids[3]]
+    assert out["cuda"][0] == out["cpu"][0]
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert max(abs(x - y) for x, y in zip(a, b)) <= 1e-4
+
+
+def test_golden_checkpoints_on_the_card(cuda):
+    """from_hf reads the committed golden checkpoints onto the card, and
+    generate and the server (split pools: K6) give the golden tokens."""
+    import json
+
+    from kfunca_tpu_torch.models.hf import from_hf
+
+    fixtures = Path(__file__).parent / "fixtures"
+    golden = json.loads((fixtures / "golden_tokens.json").read_text())
+    for name, g in golden.items():
+        params, cfg = from_hf(fixtures / f"golden_{name}", dtype="float32")
+        assert params["embed"].is_cuda
+        out = generate.generate(params, torch.tensor([g["prompt"]],
+                                                     device=cuda),
+                                cfg, max_new=len(g["golden"]))
+        assert out[0].tolist() == g["golden"]
+        srv = serve.InferenceServer(params, cfg, batch_slots=2, page_size=8,
+                                    n_pages=16, max_pages_per_seq=4)
+        before = paged_decode_attention.launches
+        rid = srv.submit(g["prompt"], max_new=len(g["golden"]))
+        assert srv.run()[rid] == g["golden"]
+        assert (paged_decode_attention.launches - before
+                == cfg.n_layers * srv.decode_steps)
+
+
+def test_api_server_and_speculative_decoding_on_the_card(cuda):
+    """The HTTP front end's engine thread serves a server on the card (its
+    current device entered), and greedy speculative decoding on the card
+    gives generate's tokens."""
+    import json
+    import urllib.request
+
+    from kfunca_tpu_torch.models.api_server import ApiServer
+    from kfunca_tpu_torch.models.speculative import speculative_generate
+
+    cfg = transformer.TransformerConfig(**SMALL)
+    params = transformer.init_params(0, cfg, device=cuda)
+    kw = dict(batch_slots=2, page_size=8, n_pages=40, max_pages_per_seq=10)
+    prompt = list(range(3, 20))
+    srv = serve.InferenceServer(params, cfg, **kw)
+    rid = srv.submit(prompt, max_new=10)
+    want = srv.run()[rid]
+    api = ApiServer(serve.InferenceServer(params, cfg, **kw)).start()
+    try:
+        req = urllib.request.Request(
+            f"http://{api.host}:{api.port}/v1/completions",
+            data=json.dumps({"prompt": prompt, "max_tokens": 10}).encode(),
+            headers={"Content-Type": "application/json"})
+        body = json.loads(urllib.request.urlopen(req, timeout=120).read())
+    finally:
+        api.shutdown()
+    assert body["choices"][0]["tokens"] == want
+    dcfg = transformer.TransformerConfig(**{**SMALL, "n_layers": 1})
+    draft = {**params, "blocks": params["blocks"][:1]}
+    p = torch.tensor([prompt], device=cuda)
+    got, rounds = speculative_generate(params, cfg, draft, dcfg, p, 12, 3)
+    assert torch.equal(got, generate.generate(params, p, cfg, 12))
+    assert 3 <= rounds <= 12
 
 
 def test_prefix_cache_and_generate_on_the_card(cuda):

@@ -57,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
         "             'ops.pallas_kernels.ssm_scan',",
         "             'ops.pallas_kernels.bitonic_sort', 'runtime._native',",
         "             'runtime.autotune', 'ops.pallas_kernels.ring_hop',",
-        "             'parallel', 'parallel.ring_attention'):",
+        "             'parallel', 'parallel.ring_attention', 'models.hf',",
+        "             'models.tokenizer', 'models.api_server',",
+        "             'models.speculative'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -149,6 +151,49 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     backend.sync(srv.device)  # nothing to wait for on the CPU
     with pytest.raises(ValueError, match="unsupported device"):
         backend.resolve_device("meta")
+
+
+def test_checkpoint_loader_imports_neither_transformers_nor_safetensors():
+    """from_hf reads a checkpoint directory with the port's own readers:
+    loading the golden checkpoints in a fresh interpreter leaves no
+    transformers or safetensors module behind, and no module of the slice
+    names them (or JAX) in its source."""
+    code = "\n".join([
+        "import sys",
+        "from kfunca_tpu_torch.models import (api_server, hf, speculative,",
+        "                                     tokenizer)",
+        "for name in ('llama', 'gpt2'):",
+        "    params, cfg = hf.from_hf(f'tests/fixtures/golden_{name}',",
+        "                             dtype='float32', device='cpu')",
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in",
+        "             ('transformers', 'safetensors', 'jax', 'kfunca_tpu')))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    for name in ("hf", "tokenizer", "api_server", "speculative"):
+        mods = set(_imports(PORT / "models" / f"{name}.py"))
+        assert not {m for m in mods if m.split(".")[0] in (
+            "transformers", "safetensors", "jax", "kfunca_tpu")}, name
+
+
+def test_slice_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    """from_hf and params_from_hf load onto the card by default and raise
+    without one; the HF reader itself needs no device."""
+    from kfunca_tpu_torch.models import hf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    golden = ROOT / "tests" / "fixtures" / "golden_llama"
+    sd = hf.read_checkpoint(golden)
+    cfg = hf.config_from_hf(hf.with_config_defaults(
+        __import__("json").loads((golden / "config.json").read_text())))
+    for call in (lambda: hf.from_hf(golden),
+                 lambda: hf.params_from_hf(sd, cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params, _ = hf.from_hf(golden, dtype="float32", device="cpu")
+    assert params["embed"].device.type == "cpu"
 
 
 def test_server_checks_params_device():
