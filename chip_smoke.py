@@ -8,7 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
 `python3 chip_smoke.py --k8-k9-timing` runs phase 22's K8 and K9 readings
 alone, against whatever kfunca_tpu_torch sits beside the script (a copy of
 the script in an archive of another commit times that commit's kernels
-through the same calls).
+through the same calls).  `python3 chip_smoke.py --mesh` runs phases
+47-50 (parallel/ over a mesh) alone.
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
@@ -227,7 +228,28 @@ Phases (any failure raises and the script exits non-zero):
      tokens equal to direct submits; HTTP TTFT and tok/s;
  46. greedy speculative decoding, the 32-layer Mistral-width target with a
      2-layer draft cut from it (fp32 activations over the bf16 weights):
-     the target's generate token for token; the acceptance rate.
+     the target's generate token for token; the acceptance rate;
+ 47. parallel/ over a (dp, tp) mesh, every mesh a LocalMesh on the one
+     card (its ranks run one after another with no communication: the
+     cost of the sharded code path, not a scaling figure): K1 and K2 at a
+     tp = 2 rank's shape (16 heads over 4, S 4096), K5 at a rank's decode
+     products and K6 int8 over a rank's heads against their plain versions,
+     and their timings; the sharded step (dense dp 2 x tp 2, and fsdp with
+     grad_accum 2) against the unsharded step at 2 layers (fp32: loss 1e-5,
+     params 1e-4 of each leaf's largest entry, sgd; bf16 loss 2^-7), then
+     both forms at 4 layers, bf16, AdamW: ms/step, tokens/s, peak memory,
+     K1/K2 launches = layers x dp x tp x microbatches x steps, all wgmma;
+ 48. tp = 2 serving at 32 layers with int8 weights and KV over split pools,
+     the 13-request mix: the single-device server's tokens in fp32
+     activations, bf16 log-probs of the forced tokens within 0.05 nat;
+     decode ms/step and busy share beside the single device's; K5 161 and
+     K6 32 launches a rank a decode step;
+ 49. the prefix cache (2 pages reused, a cache-less server's tokens) and
+     speculative decoding (generate's tokens) under tp = 2;
+ 50. make_multihost_mesh(dp=2, tp=2) in one process (stripes of arange(16)
+     sum to 120); save_sharded / load_sharded of the fsdp state bit for bit
+     with their GB/s; save_async returns before its write ends and a change
+     after it leaves the file as it was.
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -782,15 +804,16 @@ def flash_checks(fa) -> tuple[float, float]:
     return worst1, worst2
 
 
-def flash_timing(fa):
+def flash_timing(fa, shape=ATTN, fp32=True):
     """K1 and K2 (each alone), their plain versions and the library call
-    at the training step's attention shape, bf16, with the bound."""
+    at an attention shape (default: the training step's), bf16, with the
+    bound; with `fp32`, the fp32 bodies' times too."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     dtype = torch.bfloat16
-    q, k, v, g = flash_case(dtype, gen, **ATTN)
-    b, h, s, hd, w = (ATTN[n] for n in ("b", "h", "sq", "hd", "window"))
+    q, k, v, g = flash_case(dtype, gen, **shape)
+    b, h, s, hd, w = (shape[n] for n in ("b", "h", "sq", "hd", "window"))
     out, lse = fa.flash_attention_fwd_stats(q, k, v, window=w)
     item = q.element_size()
     # what these inputs need: per q head, the unmasked (row, column) pairs
@@ -817,15 +840,16 @@ def flash_timing(fa):
     res["bwd"]["ms"] = time_ms(
         lambda: fa.flash_attention_backward(q, k, v, g, out, lse, window=w),
         reps=10)
-    # the same kernels on fp32 inputs, for the record
-    q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
-    o32, l32 = fa.flash_attention_fwd_stats(q32, k32, v32, window=w)
-    res["fwd"]["ms_fp32"] = time_ms(
-        lambda: fa.flash_attention_fwd_stats(q32, k32, v32, window=w), reps=5)
-    res["bwd"]["ms_fp32"] = time_ms(
-        lambda: fa.flash_attention_backward(q32, k32, v32, g32, o32, l32,
-                                            window=w), reps=5, warm=1)
-    del q32, k32, v32, g32, o32, l32
+    if fp32:  # the same kernels on fp32 inputs, for the record
+        q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+        o32, l32 = fa.flash_attention_fwd_stats(q32, k32, v32, window=w)
+        res["fwd"]["ms_fp32"] = time_ms(
+            lambda: fa.flash_attention_fwd_stats(q32, k32, v32, window=w),
+            reps=5)
+        res["bwd"]["ms_fp32"] = time_ms(
+            lambda: fa.flash_attention_backward(q32, k32, v32, g32, o32, l32,
+                                                window=w), reps=5, warm=1)
+        del q32, k32, v32, g32, o32, l32
 
     def plain_fwd():
         for qs, ks, vs, _ in kv_head_groups(q, k, v, g):
@@ -1391,18 +1415,19 @@ def library_attention_forms(q, kw, window, form):
         attn_mask=ok[:, None, None, :], scale=1.0, enable_gqa=True)[:, :, 0]
 
 
-def paged_form_timing(pa, entry, form, quantized, dtype=torch.bfloat16):
-    """Times at the serving widths (`dtype` q, bf16 or fp16, window 4096)
-    and the bound: the unmasked slots' k and v rows (int8: one byte an
-    element plus 2*Hkv fp32 scales a slot), q in, out out, the live table
-    entries, the positions."""
+def paged_form_timing(pa, entry, form, quantized, dtype=torch.bfloat16,
+                      h=32, hkv=8):
+    """Times at the serving widths (`dtype` q, bf16 or fp16, window 4096;
+    h q heads over hkv kv heads, a tensor-parallel rank's share when
+    smaller) and the bound: the unmasked slots' k and v rows (int8: one
+    byte an element plus 2*Hkv fp32 scales a slot), q in, out out, the live
+    table entries, the positions."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     positions = [96, 300, 511, 700, 1023, 1056, 2047, 4231]
     q, kw = pool_case(dtype, gen, positions, form=form,
-                      quantized=quantized, nan_dead=False)
+                      quantized=quantized, nan_dead=False, h=h, hkv=hkv)
     window, page = 4096, 16
     b, h, hd = q.shape
-    hkv = 8
     live_pages = valid = 0
     for p in positions:
         first = max(0, (p - window + 1) // page)
@@ -1502,14 +1527,15 @@ def q8_checks(tq) -> float:
     return worst
 
 
-def q8_timing(tq, card):
-    """K5, its plain version and the library call at each decode shape; the
-    kernels line gets the mean over one decode step's 161 launches."""
+def q8_timing(tq, card, shapes=Q8_DECODE_SHAPES, tag="[15]"):
+    """K5, its plain version and the library call at each decode shape
+    (default: one device's); the kernels line gets the mean over one decode
+    step's 161 launches."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     m = 8
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     count = 0
-    for k, n, per_step in Q8_DECODE_SHAPES:
+    for k, n, per_step in shapes:
         a, b, sa, sb = q8_case(gen, m, k, n)
         # a, b, both scale vectors in; the fp32 output out (the decode
         # step asks for fp32)
@@ -1529,7 +1555,7 @@ def q8_timing(tq, card):
               "torch._int_mm with the scale multiplies equals matmul_q8")
         check(t_bytes >= t_ops, "the decode shapes are bound by bytes")
         split, per = tq.q8_plan(m, k, n)
-        print(f"[15] matmul_q8 m={m} k={k} n={n} (x{per_step} a step; split "
+        print(f"{tag} matmul_q8 m={m} k={k} n={n} (x{per_step} a step; split "
               f"{split} x {per} k rows): kernel {t['ms']:.4f} ms "
               f"({nbytes / t['ms'] / 1e6:.0f} GB/s, "
               f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound), plain "
@@ -1663,8 +1689,8 @@ def recorded_run(replay=None):
         return tokens
 
     def keeping(quantizer):
-        def quantize(x):
-            q, scale = quantizer(x)
+        def quantize(x, *rest):
+            q, scale = quantizer(x, *rest)
             if rounded is not None:
                 rounded.append(q)
             return q, scale
@@ -4846,6 +4872,488 @@ def hf_phases(card) -> list:
     free_device_memory()
     return entries
 
+# -- phases 47-50: parallel/ over a (dp, tp) mesh on one card -----------------
+
+# LocalMesh runs the ranks one after another on the one card, with no
+# communication: its times are the cost of the sharded code path, not a
+# scaling figure.
+# one tp = 2 rank's attention in the sharded step: half of Mistral's heads
+# over 4096 tokens (window 4096 covers them all)
+RANK_ATTN = dict(b=1, h=16, hkv=4, sq=4096, skv=4096, hd=128, window=4096)
+# one tp = 2 rank's decode products (k, n, per step): wqkv's 16 + 2 x 4
+# heads, wo's 2048 rows, gate / up's 7168 columns, down's 7168 rows, the
+# LM head's 16000 columns
+Q8_RANK_SHAPES = [(4096, 3072, 32), (2048, 4096, 32), (4096, 7168, 64),
+                  (7168, 4096, 32), (4096, 16000, 1)]
+MESH_LAYERS = 4
+MESH_SEQ = 4096
+PARITY_LAYERS = 2
+
+
+def reset_flash(fa):
+    for fn in (fa.flash_attention_fwd_stats, fa.flash_attention_backward):
+        fn.launches = fn.launches_wgmma = 0
+
+
+def read_flash(fa):
+    """(K1, K2) launches and (K1, K2) on the wgmma bodies."""
+    f, b = fa.flash_attention_fwd_stats, fa.flash_attention_backward
+    return (f.launches, b.launches), (f.launches_wgmma, b.launches_wgmma)
+
+
+def rank_flash_checks(fa) -> tuple[float, float]:
+    """K1 and K2 against their plain versions at one rank's shape, bf16
+    (the wgmma bodies) and fp32, flash_err's tolerances."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    w = RANK_ATTN["window"]
+    worst = [0.0, 0.0]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, g = flash_case(dtype, gen, **RANK_ATTN)
+        out, lse = fa.flash_attention_fwd_stats(q, k, v, window=w)
+        dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
+                                                 window=w)
+        ref = flash_plain(fa, q, k, v, g, w)
+        tag = f"rank shape {str(dtype)[6:]}"
+        worst[0] = max(worst[0], flash_err(out, ref[0], dtype, f"out {tag}"),
+                       flash_err(lse, ref[1], torch.float32, f"lse {tag}"))
+        worst[1] = max(worst[1], *(flash_err(x, r, dtype, f"{n} {tag}")
+                                   for n, x, r in zip(("dq", "dk", "dv"),
+                                                      (dq, dk, dv), ref[2:])))
+        del q, k, v, g, out, lse, dq, dk, dv, ref
+    return worst[0], worst[1]
+
+
+def rank_q8_checks(tq) -> float:
+    """K5 at one rank's decode shapes: fp32 output bit-equal to the plain
+    version (exact integer sums, the same two scale multiplies)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    worst = 0.0
+    for k, n, _ in Q8_RANK_SHAPES:
+        a, b, sa, sb = q8_case(gen, 8, k, n)
+        got = tq.matmul_q8(a, b, sa, sb, out_dtype=torch.float32)
+        want = tq.matmul_q8_plain(a, b, sa, sb, out_dtype=torch.float32)
+        check(torch.equal(got, want), f"matmul_q8 8x{k}x{n} (a tp rank's) "
+              f"fp32 bit-equal to its plain version")
+        worst = max(worst, float((got - want).abs().max()))
+    return worst
+
+
+def rank_k6_checks(pa) -> float:
+    """K6 with int8 split pools over one rank's 16 q heads and 4 kv heads,
+    bf16 q: within one bf16 step of its plain version (paged_form_checks'
+    tolerance)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    positions = [0, 15, 16, 1000, 2047, 4095, 4200, 4300]
+    q, kw = pool_case(torch.bfloat16, gen, positions, form="split",
+                      quantized=True, h=16, hkv=4)
+    with torch.no_grad():
+        got = run_form(pa, pa.paged_decode_attention, "split", q, kw, 4096)
+        want = run_form(pa, None, "split", q, kw, 4096, plain=True)
+    err = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got).all()) and bool(
+        (err <= 2.0 ** -8 * want.float().abs().max() + 1e-6).all()),
+        f"K6 int8 at a tp rank's heads (16 over 4) within one bf16 step of "
+        f"its plain version (max err {float(err.max()):.3g})")
+    return float(err.max())
+
+
+def sharded_parity_phase(fa):
+    """Phase 47a: each form's loss and updated params after one step
+    against make_train_step on the same weights and batch, unsharded on the
+    same card, 2 layers: in fp32 activations 1e-5 on the loss and 1e-4 of
+    each leaf's largest entry on the params; in bf16 2^-7 relative on the
+    loss.  SGD, whose update is linear in the gradient, so the params hold
+    the gradients to lr x their rounding (a rule that divides an entry's
+    gradient by its own size turns the rounding of a near-zero entry into a
+    step of either sign).  Returns the fsdp run's (params, state) for the
+    checkpoint phase."""
+    from kfunca_tpu_torch.models.train import (
+        OptConfig, init_opt_state, make_sharded_train_step, make_train_step)
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.parallel.mesh import (
+        LocalMesh, gather_params, shard_params)
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    oc = OptConfig(algo="sgd", lr=1e-2)
+    base_cfg = TransformerConfig(**{**MISTRAL, "n_layers": PARITY_LAYERS,
+                                    "max_seq_len": MESH_SEQ})
+    base = mistral_params(base_cfg, SEED + 43, torch.float32)
+    corpus = learnable_corpus(base_cfg.vocab_size)
+    rng = np.random.default_rng(SEED + 44)
+    kept = None
+    for label, fsdp, accum, batch in (("dense dp 2 x tp 2", False, 1, 2),
+                                      ("fsdp, grad_accum 2", True, 2, 4)):
+        starts = rng.integers(0, len(corpus) - MESH_SEQ - 1, batch)
+        win = np.stack([corpus[s:s + MESH_SEQ + 1] for s in starts])
+        tok, tgt = win[:, :-1], win[:, 1:]
+        losses = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base_cfg, dtype=dtype)
+            ref = {k: v for k, v in base.items() if k != "blocks"}
+            ref = {**{k: v.clone() for k, v in ref.items()},
+                   "blocks": [{k: v.clone() for k, v in b.items()}
+                              for b in base["blocks"]]}
+            rstep = make_train_step(cfg, oc, grad_accum=accum)
+            ref, _, rloss = rstep(ref, init_opt_state(ref, oc), tok, tgt)
+            mesh = LocalMesh(2, 2)
+            sp = shard_params(base, mesh, fsdp, cfg=cfg)
+            st = init_opt_state(sp, oc)
+            step = make_sharded_train_step(cfg, mesh, oc, fsdp=fsdp,
+                                           grad_accum=accum)
+            sp, st, loss = step(sp, st, tok, tgt)
+            torch.cuda.synchronize()
+            losses[dtype] = (float(loss), float(rloss))
+            if dtype == "float32":
+                check(abs(float(loss) - float(rloss)) <= 1e-5,
+                      f"{label}: fp32 loss {float(loss):.7f} within 1e-5 of "
+                      f"the unsharded step's {float(rloss):.7f}")
+                worst = 0.0
+                for a, b in zip(tree_leaves(gather_params(sp)),
+                                tree_leaves(ref)):
+                    rel = float((a - b).abs().max() / b.abs().max())
+                    worst = max(worst, rel)
+                check(worst <= 1e-4, f"{label}: every updated param within "
+                      f"1e-4 of its leaf's largest entry (worst {worst:.3g})")
+                if fsdp:
+                    kept = (sp, st)
+                else:
+                    del sp, st
+            else:
+                rel = abs(losses[dtype][0] - losses[dtype][1]) / abs(
+                    losses[dtype][1])
+                check(rel <= 2.0 ** -7, f"{label}: bf16 loss within 2^-7 "
+                      f"of the unsharded step's ({rel:.3g})")
+                del sp, st
+            del ref
+            free_device_memory()
+        print(f"[47] {label}, {PARITY_LAYERS} layers, {batch} x {MESH_SEQ} "
+              f"tokens, sgd: loss fp32 {losses['float32'][0]:.6f} vs "
+              f"unsharded {losses['float32'][1]:.6f}, bf16 "
+              f"{losses['bfloat16'][0]:.5f} vs {losses['bfloat16'][1]:.5f}; "
+              f"params within 1e-4 of each leaf's largest entry",
+              flush=True)
+    del base
+    return kept
+
+
+def sharded_training_phase(fa, card) -> dict:
+    """Phase 47b: the two forms' readings at MESH_LAYERS layers, bf16
+    activations, AdamW: ms/step over steps 2-6, tokens/s, peak memory, K1
+    and K2 launches (layers x dp x tp x microbatches x steps, all on the
+    wgmma bodies)."""
+    from kfunca_tpu_torch.models.data import TokenDataset
+    from kfunca_tpu_torch.models.train import (
+        OptConfig, init_opt_state, make_sharded_train_step)
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh, shard_params
+
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": MESH_LAYERS,
+                               "max_seq_len": MESH_SEQ})
+    oc = OptConfig(lr=3e-4, warmup_steps=2, clip_norm=1.0)
+    corpus = learnable_corpus(cfg.vocab_size)
+    steps = 6
+    out = {}
+    for label, fsdp, accum, batch in (("dense dp 2 x tp 2", False, 1, 2),
+                                      ("fsdp, grad_accum 2", True, 2, 4)):
+        base = mistral_params(cfg, SEED + 45, torch.float32)
+        mesh = LocalMesh(2, 2)
+        sp = shard_params(base, mesh, fsdp, cfg=cfg)
+        del base
+        free_device_memory()
+        st = init_opt_state(sp, oc)
+        step = make_sharded_train_step(cfg, mesh, oc, fsdp=fsdp,
+                                       grad_accum=accum, with_metrics=True)
+        ds = TokenDataset(corpus, MESH_SEQ, batch, seed=SEED + 46)
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash(fa)  # the main path: counts start at 0 here
+        sp, st, metrics, seconds = run_steps(step, ds, sp, st, 0, steps)
+        launches, wgmma = read_flash(fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        micro = math.gcd(accum, batch // 2)
+        want = MESH_LAYERS * 4 * micro * steps
+        check(launches == (want, want) and wgmma == launches,
+              f"{label}: K1, K2 launches {launches} == layers x dp x tp x "
+              f"microbatches x steps {want}, all on the wgmma bodies "
+              f"({wgmma})")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in metrics), f"{label}: every loss is finite")
+        check(abs(metrics[0]["loss"] - math.log(cfg.vocab_size)) < 0.5,
+              f"{label}: first loss {metrics[0]['loss']:.3f} near ln(vocab)")
+        check(metrics[-1]["loss"] < metrics[0]["loss"],
+              f"{label}: the last loss is below the first")
+        ms_step = 1e3 * float(np.mean(seconds[1:]))
+        tokens = batch * MESH_SEQ
+        print(f"[47] sharded step, {label}, LocalMesh(2, 2) on one card, "
+              f"{MESH_LAYERS} layers at Mistral-7B-v0.1 widths, {batch} x "
+              f"{MESH_SEQ} tokens, bf16 activations, AdamW: losses "
+              f"{[round(m['loss'], 4) for m in metrics]}; {ms_step:.1f} "
+              f"ms/step (host clock, steps 2-{steps}), {tokens / ms_step * 1e3:.0f} "
+              f"tokens/s, peak memory {peak_gb:.2f} GB; K1 / K2 launches "
+              f"{launches[0]} / {launches[1]}, all wgmma; the ranks run one "
+              f"after another with no communication, so this is the cost of "
+              f"the sharded path, not a scaling figure; {card}", flush=True)
+        out[label] = dict(ms_step=ms_step, tokens_s=tokens / ms_step * 1e3,
+                          peak_gb=peak_gb, launches=launches)
+        del sp, st, step
+        free_device_memory()
+    return out
+
+
+def tp_serving_phase(pa, tq, card, prompts) -> dict:
+    """Phases 48-49: tp = 2 serving at all 32 layers with int8 weights and
+    KV over split pools (the 13-request mix), the prefix cache and
+    speculative decoding under tp."""
+    from kfunca_tpu_torch.models.generate import generate
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.models.speculative import speculative_generate
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh, shard_params
+
+    cfg = TransformerConfig(**MISTRAL)
+    params = mistral_params(cfg, SEED + 47, torch.bfloat16)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    mesh = LocalMesh(1, 2)
+    kw = dict(quantize_weights=True, quantize_kv=True, fused_pool=False)
+    opts = dict(batch_slots=8, page_size=16, n_pages=800,
+                max_pages_per_seq=272)
+
+    def make(c, m=None):
+        return lambda: InferenceServer(params, c, mesh=m, **opts, **kw)
+
+    t0 = time.perf_counter()
+    want, _ = serve_greedy(make(f32), prompts, 16)
+    free_device_memory()
+    got, _ = serve_greedy(make(f32, mesh), prompts, 16)
+    free_device_memory()
+    check(got == want, "tp = 2 w8 + kv8 serving in fp32 activations gives "
+          "the single-device server's tokens (first difference at "
+          f"{[first_difference(a, b) for a, b in zip(got, want)]})")
+    print(f"[48] tp = 2 w8 + kv8 serving, 32 layers, fp32 activations over "
+          f"the bf16 weights: {len(prompts)} requests x 16 tokens equal the "
+          f"single-device server's; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # bf16 readings, the same call: single device, then tp = 2 forced down
+    # the single-device run's tokens (recorded_run), its log-probs held to
+    # 0.05 nat; launch counts from 0 just before the tp run (the main path)
+    with recorded_run() as single:
+        single_run = serve(params, cfg, prompts, 1, max_new=16, **kw)
+    s_ms = single_run["decode_ms_per_step"]
+    slps = [single_run["srv"].requests[r].logprobs
+            for r in single_run["rids"]]
+    del single_run
+    free_device_memory()
+    reset_launches(pa, tq)
+    with recorded_run(replay=single):
+        tp_run = serve(params, cfg, prompts, 1, max_new=16, mesh=mesh, **kw)
+    k6, k5 = (pa.paged_decode_attention.launches, tq.matmul_q8.launches)
+    n_dec = tp_run["stats"]["decode_steps"]
+    t_ms = tp_run["decode_ms_per_step"]
+    tlps = [tp_run["srv"].requests[r].logprobs for r in tp_run["rids"]]
+    del tp_run, single
+    free_device_memory()
+    gap = max(abs(a - b) for x, y in zip(slps, tlps) for a, b in zip(x, y))
+    check(gap <= 0.05, f"bf16 tp = 2 log-probs of the forced tokens within "
+          f"0.05 nat of the single device's (max {gap:.3g})")
+    print(f"[48] bf16: the tp = 2 server forced down the single-device "
+          f"run's tokens: max |dlogprob| {gap:.3g} over "
+          f"{sum(map(len, slps))} tokens", flush=True)
+    check(k6 == 2 * cfg.n_layers * n_dec,
+          f"K6 launches {k6} == ranks x layers x decode steps "
+          f"{2 * cfg.n_layers * n_dec}")
+    check(k5 == 2 * (5 * cfg.n_layers + 1) * n_dec,
+          f"K5 launches {k5} == ranks x 161 x decode steps "
+          f"{2 * 161 * n_dec}")
+    prof_s = decode_profile(params, cfg, prompts, **kw)
+    prof_t = decode_profile(params, cfg, prompts, mesh=mesh, **kw)
+    busy_s = prof_s["busy_ms"] / prof_s["wall_ms"]
+    busy_t = prof_t["busy_ms"] / prof_t["wall_ms"]
+    print(f"[48] decode, bf16 w8 + kv8, 8 slots, 32 layers: single device "
+          f"{s_ms:.2f} ms/step, tp = 2 on one card {t_ms:.2f} ms/step; "
+          f"device busy {100 * busy_s:.1f}% / {100 * busy_t:.1f}% of the "
+          f"profiled steps ({prof_s['wall_ms']:.2f} / {prof_t['wall_ms']:.2f} "
+          f"ms/step with the profiler); per rank and decode step: K5 "
+          f"{k5 / 2 / n_dec:.0f} launches, K6 {k6 / 2 / n_dec:.0f}; the "
+          f"ranks run one after another, so this is the cost of the sharded "
+          f"path, not a scaling figure; {card}", flush=True)
+
+    # [49] prefix cache and speculative decoding under tp = 2, fp32
+    # activations over the same weights
+    t0 = time.perf_counter()
+    prompt = prompts[0][:40]
+    pc = dict(batch_slots=1, page_size=16, n_pages=64, max_pages_per_seq=8)
+    pcfg = dataclasses.replace(f32, attention_window=None)  # 40 tokens
+    with torch.no_grad():
+        srv = InferenceServer(params, pcfg, mesh=mesh, prefix_cache=True,
+                              **pc)
+        rid = srv.submit(prompt, max_new=8)
+        first = srv.run()[rid]
+        rid = srv.submit(prompt, max_new=8)
+        second = srv.run()[rid]
+        hits = srv.prefix_hit_pages
+        del srv
+        plain = InferenceServer(params, pcfg, mesh=mesh, **pc)
+        rid = plain.submit(prompt, max_new=8)
+        cacheless = plain.run()[rid]
+        del plain
+    check(hits >= 2, f"the second request reused {hits} >= 2 pages")
+    check(first == second == cacheless, "prefix-cache runs under tp match a "
+          "cache-less server token for token")
+    dcfg = dataclasses.replace(f32, n_layers=2)
+    target = shard_params(params, mesh, cfg=f32)
+    draft = shard_params({**params, "blocks": params["blocks"][:2]}, mesh,
+                         cfg=dcfg)
+    rounds, new = 0, 16
+    for p in (prompts[1][:64], prompts[2][:64]):
+        x = torch.tensor([p], device="cuda")
+        with torch.no_grad():
+            want = generate(params, x, f32, new)
+            got, r = speculative_generate(target, f32, draft, dcfg, x, new, 4)
+        check(torch.equal(got, want), "speculative_generate under tp = 2 "
+              "gives the target's greedy tokens")
+        rounds += r
+    del target, draft, params
+    free_device_memory()
+    print(f"[49] under tp = 2, fp32 activations: the prefix cache reused "
+          f"{hits} pages and matched a cache-less server; speculative "
+          f"decoding (2-layer draft, gamma 4) gave generate's tokens in "
+          f"{rounds} target forwards for 2 x {new}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(k5=k5, k6=k6, n_dec=n_dec, single_ms=s_ms, tp_ms=t_ms,
+                busy_single=busy_s, busy_tp=busy_t)
+
+
+def multihost_checkpoint_phase(card, state):
+    """Phase 50: the single-process multihost mesh, the sharded checkpoint
+    of the fsdp state and the asynchronous save."""
+    from kfunca_tpu_torch.models.train import sharded_opt_state
+    from kfunca_tpu_torch.parallel import multihost
+    from kfunca_tpu_torch.parallel.mesh import gather_params
+    from kfunca_tpu_torch.utils import checkpoint as ck
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    mmesh = multihost.make_multihost_mesh(dp=2, tp=2)
+    start, size = multihost.process_batch_info(16, mmesh)
+    stripes = multihost.global_batch_from_local(
+        np.arange(start, start + size, dtype=np.float32)[:, None], mmesh)
+    total = float(sum(s.sum() for s in stripes))
+    check(total == sum(range(16)) and len(stripes) == 2,
+          f"multihost: 2 dp stripes of arange(16) sum to {total}")
+    sp, st = state
+    tree = {"opt": sharded_opt_state(sp, st), "params": sp}
+    nbytes = sum(x.numel() * x.element_size() for t in sp.local + list(st)
+                 for x in tree_leaves(t))
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        t0 = time.perf_counter()
+        ck.save_sharded(os.path.join(tmp, "ckpt"), tree)
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(tmp, "ckpt", f))
+                   for f in os.listdir(os.path.join(tmp, "ckpt")))
+        t0 = time.perf_counter()
+        back = ck.load_sharded(os.path.join(tmp, "ckpt"), tree)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = all(torch.equal(x, y)
+                   for a, b in zip(sp.local + list(st),
+                                   back["params"].local + back["opt"].local)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+        check(same, "save_sharded / load_sharded of the fsdp state round-"
+              "trips bit for bit")
+        del back
+        full = gather_params(sp)
+        snap = [x.cpu() for x in tree_leaves(full)]
+        t0 = time.perf_counter()
+        handle = ck.save_async(os.path.join(tmp, "async.npz"), sp)
+        ret_s = time.perf_counter() - t0
+        pending = not handle.done()
+        for x in tree_leaves(sp.local[0]):
+            x.add_(1.0)
+        handle.wait()
+        write_s = time.perf_counter() - t0
+        got = ck.load(os.path.join(tmp, "async.npz"), full)
+        check(all(torch.equal(a.cpu(), b)
+                  for a, b in zip(tree_leaves(got), snap)),
+              "a write of the params changed after save_async returned holds "
+              "the values of the call")
+    check(pending, "save_async returned before its write ended")
+    print(f"[50] multihost: make_multihost_mesh(dp=2, tp=2) in one process "
+          f"(a LocalMesh), stripes of arange(16) sum to {total:.0f}; "
+          f"save_sharded of the fsdp state ({PARITY_LAYERS} layers, params "
+          f"and sgd momentum, {nbytes / 1e9:.2f} GB held, {disk / 1e9:.2f} GB "
+          f"written) {save_s:.1f} s ({disk / save_s / 1e9:.2f} GB/s), "
+          f"load_sharded {load_s:.1f} s ({disk / load_s / 1e9:.2f} GB/s), bit "
+          f"for bit (the page cache warm); save_async returned in "
+          f"{ret_s:.2f} s (the copy to the host) and wrote in {write_s:.1f} s; "
+          f"{card}", flush=True)
+
+
+def mesh_phases(card) -> list:
+    """Phases 47-50; returns the kernels-line entries of K1, K2, K5 and K6
+    at a tp = 2 rank's shapes."""
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.ops import quant as tq
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+    from kfunca_tpu_torch.ops.pallas_kernels import paged_attention as pa
+
+    print("[47] parallel/ over a (dp, tp) mesh: the kernels at a tp = 2 "
+          "rank's shapes", flush=True)
+    e1, e2 = rank_flash_checks(fa)
+    e5 = rank_q8_checks(tq)
+    e6 = rank_k6_checks(pa)
+    free_device_memory()
+    ft = flash_timing(fa, RANK_ATTN, fp32=False)
+    free_device_memory()
+    q8 = q8_timing(tq, card, Q8_RANK_SHAPES, tag="[47]")
+    k6t = paged_form_timing(pa, pa.paged_decode_attention, "split", True,
+                            h=16, hkv=4)
+    free_device_memory()
+    print(f"[47] at a tp = 2 rank's shapes: K1 {ft['fwd']['ms']:.3f} ms, K2 "
+          f"{ft['bwd']['ms']:.3f} ms (B=1, H=16, Hkv=4, S=4096, bf16); K5 "
+          f"{q8['ms']:.4f} ms a product (mean of a rank's 161 a step); K6 "
+          f"int8 {k6t['ms']:.4f} ms (8 slots, 16 over 4 heads); max errors "
+          f"{e1:.3g}, {e2:.3g}, {e5:.3g}, {e6:.3g}; {card}", flush=True)
+    state = sharded_parity_phase(fa)
+    free_device_memory()
+    train = sharded_training_phase(fa, card)
+    multihost_checkpoint_phase(card, state)
+    del state
+    free_device_memory()
+    prompts = traffic(TransformerConfig(**MISTRAL))
+    srv = tp_serving_phase(pa, tq, card, prompts)
+    free_device_memory()
+    dense = train["dense dp 2 x tp 2"]["launches"]
+    path = "sharded step, a tp = 2 rank (H 16, Hkv 4, S 4096), dense dp x tp"
+    entries = []
+    for name, key, line, n, err in (
+            ("flash_attention_fwd_stats", "fwd", 247, dense[0], e1),
+            ("flash_attention_backward", "bwd", 547, dense[1], e2)):
+        t = ft[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "kfunca_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"kfunca_tpu/ops/pallas_kernels/flash_attention.py:"
+                        f"{line}", "launches": n, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "path": path})
+    entries.append({
+        "name": "matmul_q8", "route": "cuda",
+        "source": "kfunca_tpu_torch/csrc/quant.cu",
+        "replaces": "kfunca_tpu/ops/quant.py:77", "launches": srv["k5"],
+        "max_abs_err": e5, "ms": q8["ms"], "plain_ms": q8["plain_ms"],
+        "bound_ms": q8["bound_ms"], "bound_by": q8["bound_by"],
+        "library_ms": q8["library_ms"],
+        "path": "tp = 2 w8 serving, a rank's 161 products (mean)"})
+    entries.append({
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "kfunca_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "kfunca_tpu/ops/pallas_kernels/paged_attention.py:583",
+        "launches": srv["k6"], "max_abs_err": e6, "ms": k6t["ms"],
+        "plain_ms": k6t["plain_ms"], "bound_ms": k6t["bound_ms"],
+        "bound_by": k6t["bound_by"], "library_ms": k6t["library_ms"],
+        "path": "tp = 2 kv8 serving, a rank's 16 over 4 heads"})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4868,6 +5376,10 @@ def main() -> int:
         timing = k8_k9_timing(torch.Generator(device="cuda").manual_seed(SEED + 25))
         print_readings(timing, card)
         print(json.dumps({"k8_k9_timing": timing}))
+        return 0
+    if sys.argv[1:] == ["--mesh"]:  # phases 47-50 alone
+        _kernels.build(["flash_attention", "paged_attention", "quant"])
+        print(json.dumps({"kernels": mesh_phases(card)}))
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -4937,6 +5449,8 @@ def main() -> int:
     kernels += ring_phases(card)
     free_device_memory()
     kernels += hf_phases(card)
+    free_device_memory()
+    kernels += mesh_phases(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

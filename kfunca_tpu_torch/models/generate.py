@@ -10,6 +10,10 @@ dynamic_update_slice; the port writes the new K/V into the cache tensors
 in place and returns the same list.  The JAX generate and beam_search
 compile prefill and a lax.scan of decode steps into one program; here the
 decode loop is a Python loop.
+
+Under a mesh: forward_with_cache, generate and beam_search also take a
+parallel.mesh.ShardedParams, whose ranks each keep the cache of their own
+kv heads (new_cache); the logits come back gathered over tp.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ import math
 
 import torch
 
+from ..parallel.mesh import ShardedParams
 from ..runtime.backend import resolve_device
 from .transformer import (
-    TransformerConfig, _plain_mm, apply_norm, apply_qk_norm, embed_tokens,
-    lm_head_weight, mlp, split_qkv,
+    TransformerConfig, _plain_mm, _top_level, apply_norm, apply_qk_norm,
+    embed_tokens, gathered, lm_head_weight, local_config, mlp, split_qkv,
+    tp_block, tp_embed, tp_logits,
 )
 
 NEG_INF = -1e30
@@ -37,6 +43,24 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
     return [{"k": torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
              "v": torch.zeros(shape, dtype=cfg.act_dtype, device=dev)}
             for _ in range(cfg.n_layers)]
+
+
+def new_cache(params, cfg: TransformerConfig, batch: int, max_len: int,
+              device=None):
+    """init_kv_cache for `params`: under a ShardedParams one cache a held
+    rank, of the kv heads that rank attends with."""
+    if isinstance(params, ShardedParams):
+        lcfg = local_config(cfg, params)
+        return [init_kv_cache(lcfg, batch, max_len, params.mesh.device)
+                for _ in params.mesh.ranks]
+    return init_kv_cache(cfg, batch, max_len, device)
+
+
+def _cache_map(fn, cache, params):
+    """fn over every K/V tensor of a cache (a cache a rank when sharded)."""
+    if isinstance(params, ShardedParams):
+        return [_cache_map(fn, c, None) for c in cache]
+    return [{k: fn(v) for k, v in lc.items()} for lc in cache]
 
 
 def _rope_at(x, positions, theta: float, pos_scale: float = 1.0,
@@ -68,7 +92,18 @@ def cached_attention_mixer(y, p, layer_cache, start_pos: int,
     """Causal attention over T new tokens at absolute start_pos, writing
     their K/V into the cache: y (B, T, d) normed input -> (o (B, T, d)
     fp32, layer_cache)."""
-    b, t, dm = y.shape
+    o = _plain_mm(cached_attention_heads(y, p, layer_cache, start_pos, cfg),
+                  p["wo"])
+    if "bo" in p:
+        o = o + p["bo"].float()
+    return o, layer_cache
+
+
+def cached_attention_heads(y, p, layer_cache, start_pos: int,
+                           cfg: TransformerConfig):
+    """cached_attention_mixer up to the output projection: (B, T,
+    n_heads * head_dim) in y's dtype."""
+    b, t, _ = y.shape
     h, hd, hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     max_len = layer_cache["k"].shape[2]
     if start_pos + t > max_len:
@@ -103,11 +138,7 @@ def cached_attention_mixer(y, p, layer_cache, start_pos: int,
     s = torch.where(mask, s, NEG_INF)
     prob = torch.softmax(s, dim=-1)
     attn = torch.einsum("bkgtl,bkld->bkgtd", prob, vc.float()).to(y.dtype)
-    attn = attn.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, dm)
-    o = _plain_mm(attn, p["wo"])
-    if "bo" in p:
-        o = o + p["bo"].float()
-    return o, layer_cache
+    return attn.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
 
 
 def _block_with_cache(x, p, layer_cache, start_pos: int,
@@ -126,7 +157,10 @@ def _block_with_cache(x, p, layer_cache, start_pos: int,
 def forward_with_cache(params, tokens, cache, start_pos: int,
                        cfg: TransformerConfig):
     """tokens (B, T) at absolute start_pos -> (logits (B, T, V) fp32,
-    cache)."""
+    cache).  With a ShardedParams, `cache` is new_cache's (one a held
+    rank) and every rank takes the same tokens."""
+    if isinstance(params, ShardedParams):
+        return _tp_forward_with_cache(params, tokens, cache, start_pos, cfg)
     x = embed_tokens(params, tokens, cfg)
     if cfg.pos == "learned":
         pos = start_pos + torch.arange(tokens.shape[1], device=tokens.device)
@@ -135,6 +169,27 @@ def forward_with_cache(params, tokens, cache, start_pos: int,
         x, _ = _block_with_cache(x, p, lc, start_pos, cfg)
     x = apply_norm(x, params, "final_norm", cfg)
     return _plain_mm(x, lm_head_weight(params, x.dtype)), cache
+
+
+def _tp_forward_with_cache(sp: ShardedParams, tokens, caches,
+                           start_pos: int, cfg: TransformerConfig):
+    n = len(sp.mesh.ranks)
+    top = _top_level(sp)
+    positions = start_pos + torch.arange(tokens.shape[1],
+                                         device=tokens.device)
+    xs = tp_embed(sp, top, [tokens] * n, cfg, positions=positions)
+    lcfg = local_config(cfg, sp)
+    for li in range(len(sp.local[0]["blocks"])):
+        ps = gathered(sp, [t["blocks"][li] for t in sp.local],
+                      sp.shards["blocks"][li])
+
+        def heads(i, y, p, li=li):
+            return cached_attention_heads(y, p, caches[i][li], start_pos,
+                                          lcfg)
+
+        xs = tp_block(xs, ps, cfg, sp, heads)
+    xs = [apply_norm(x, p, "final_norm", cfg) for x, p in zip(xs, top)]
+    return tp_logits(sp, top, xs)[0], caches
 
 
 @torch.no_grad()
@@ -149,7 +204,7 @@ def generate(params, prompt, cfg: TransformerConfig, max_new: int,
     JAX package's token for token."""
     b, t_prompt = prompt.shape
     dev = prompt.device
-    cache = init_kv_cache(cfg, b, t_prompt + max_new, dev)
+    cache = new_cache(params, cfg, b, t_prompt + max_new, dev)
     if generator is None and temperature != 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)
     logits, cache = forward_with_cache(params, prompt, cache, 0, cfg)
@@ -185,10 +240,9 @@ def beam_search(params, prompt, cfg: TransformerConfig, max_new: int,
     dev = prompt.device
     w, v_size = beam, cfg.vocab_size
 
-    cache = init_kv_cache(cfg, b, t_prompt + max_new, dev)
+    cache = new_cache(params, cfg, b, t_prompt + max_new, dev)
     logits, cache = forward_with_cache(params, prompt, cache, 0, cfg)
-    cache = [{k: v.repeat_interleave(w, dim=0) for k, v in lc.items()}
-             for lc in cache]
+    cache = _cache_map(lambda v: v.repeat_interleave(w, dim=0), cache, params)
     lp = torch.log_softmax(logits[:, -1].float(), dim=-1)
     lp = lp.repeat_interleave(w, dim=0)  # (B*w, V)
 
@@ -222,7 +276,7 @@ def beam_search(params, prompt, cfg: TransformerConfig, max_new: int,
             done = done | (tok == eos)
         # reorder the KV cache: lane index = batch index * w + parent
         lane = (torch.arange(b, device=dev)[:, None] * w + parent).reshape(-1)
-        cache = [{k: v[lane] for k, v in lc.items()} for lc in cache]
+        cache = _cache_map(lambda v: v[lane], cache, params)
 
         lg, cache = forward_with_cache(params, tok.reshape(b * w, 1), cache,
                                        t_prompt + i, cfg)

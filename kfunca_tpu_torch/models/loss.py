@@ -98,3 +98,41 @@ def chunked_softmax_xent(x, w, targets, chunk: int = 4096):
 
     Returns nll (N,) fp32 == -log_softmax(x @ w)[targets]."""
     return _ChunkedXent.apply(x, w, targets, int(chunk))
+
+
+def vocab_parallel_nll(xs, heads, targets, mesh, chunk: int | None = None):
+    """Per-token NLL over a head whose vocabulary is split over tp, one list
+    entry a held rank: xs (N, D) the replicated activations (entered
+    through parallel/collectives.copy), heads the (D, V / tp) column
+    shards, rank t holding vocabulary [t V/tp, (t+1) V/tp), targets (N,)
+    global ids.  Each rank takes the logsumexp of its slice (streamed in
+    vocab chunks of `chunk` when given, as chunked_softmax_xent) and the
+    target's logit where its slice holds it; a max and a sum all-reduce
+    over tp combine them:
+
+        lse = M + log(sum_t exp(lse_t - M)),   nll = lse - sum_t logit_t.
+
+    Differentiable: the sums are Megatron's g (identity backward), so each
+    rank's slice gets softmax - onehot."""
+    from ..parallel import collectives as cc
+
+    lses, tls = [], []
+    for r, x, w, t in zip(mesh.ranks, xs, heads, targets):
+        vl = w.shape[1]
+        loc = t - mesh.coord(r)[1] * vl
+        hit = (loc >= 0) & (loc < vl)
+        safe = loc.clamp(0, vl - 1)
+        if chunk is None:
+            logits = _mm_f32(x, w.to(x.dtype))
+            lses.append(torch.logsumexp(logits, dim=-1))
+            val = logits.gather(1, safe[:, None])[:, 0]
+        else:
+            lses.append(chunked_softmax_xent(x, w, torch.full_like(t, -1),
+                                             chunk))
+            cols = w[:, safe].to(x.dtype).t()  # (N, D): each row's target
+            val = (x.float() * cols.float()).sum(dim=-1)
+        tls.append(torch.where(hit, val, 0.0))
+    m = cc.all_reduce([l.detach() for l in lses], mesh, "tp", "max")
+    s = cc.reduce([torch.exp(l - mi) for l, mi in zip(lses, m)], mesh)
+    tl = cc.reduce(tls, mesh)
+    return [mi + torch.log(si) - ti for mi, si, ti in zip(m, s, tl)]

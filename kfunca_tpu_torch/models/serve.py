@@ -51,8 +51,21 @@ Counterpart of kfunca_tpu/models/serve.py, single-device path:
 Prefill is models/generate.forward_with_cache (plain attention) over the
 prompt suffix padded to a page multiple, scattered into the slot's pages.
 
-Later slices of the port (each raises NotImplementedError here):
-multi-LoRA and mesh (tensor-parallel) serving.
+Tensor-parallel serving (mesh=): a LocalMesh or a (dp, tp) DeviceMesh.
+The decode weights are Megatron-sharded by decode_param_specs (the
+embedding replicated, an untied lm_head column-parallel over the
+vocabulary); each rank keeps split pools of its own kv heads (all of them
+where tp does not divide the kv heads: attention is then replicated), runs
+its paged attention on them (K6, int8 under quantize_kv) and a
+row-parallel wo / down with one all-reduce each (int8 pairs add their
+exact integer sums, so a tp decode step makes one device's int8 products
+bit for bit); the logits are gathered over tp before sampling, penalties
+and allowed_fn.  The prefill keeps the fp params unsharded, as the JAX
+server keeps self.params, and each rank takes its kv heads of the prefill's
+cache.  (The JAX server pins the XLA gather engine under a mesh; the port
+runs its own kernels on every rank.)
+
+Later slice of the port (raises NotImplementedError here): multi-LoRA.
 """
 
 from __future__ import annotations
@@ -73,12 +86,14 @@ from ..ops.pallas_kernels.paged_attention import (
 from ..ops.quant import (
     gemm_w4, gemm_w8, quantize_cols, quantize_cols_int4, quantize_vecs,
 )
+from ..parallel.mesh import P, ShardedParams, as_mesh, shard_tree
 from ..runtime import _native
 from ..runtime.backend import resolve_device
+from ..utils.tree import tree_leaves
 from .generate import _rope_at, forward_with_cache, init_kv_cache
 from .transformer import (
-    TransformerConfig, _plain_mm, apply_norm, apply_qk_norm, embed_tokens,
-    mlp, split_qkv,
+    TransformerConfig, _plain_mm, _top_level, apply_norm, apply_qk_norm,
+    embed_tokens, local_config, mlp, split_qkv, tp_block, tp_embed, tp_logits,
 )
 
 NEG_INF = -1e30
@@ -320,15 +335,17 @@ def sample_tokens_per_slot(logits, generator, temperature, top_p, top_k,
 # ---------------------------------------------------------------------------
 
 
-def _mm(y, w):
+def _mm(y, w, row_absmax=None):
     """Decode-path matmul: fp weight, or a quantized pair from
     quantize_decode_params: (int8, (n,) column scales) runs w8a8 (gemm_w8),
     (packed int4 uint8, (g, n) group scales) runs w4a8 (gemm_w4).  Both
-    quantize the activations per row from fp32 and return fp32."""
+    quantize the activations per row from fp32 (by `row_absmax`, y's shape
+    less its last axis, when given) and return fp32."""
     if isinstance(w, tuple):
         y2 = y.reshape(-1, y.shape[-1]).float()
+        amax = None if row_absmax is None else row_absmax.reshape(-1)
         gemm = gemm_w4 if w[0].dtype == torch.uint8 else gemm_w8
-        out = gemm(y2, w[0], w[1], out_dtype=torch.float32)
+        out = gemm(y2, w[0], w[1], out_dtype=torch.float32, row_absmax=amax)
         return out.reshape(*y.shape[:-1], w[1].shape[-1])
     return _plain_mm(y, w)
 
@@ -372,29 +389,84 @@ def quantize_decode_params(params, bits: int = 8):
     return out
 
 
+def decode_param_specs(params):
+    """Megatron-style TP specs for the decode params tree (the JAX
+    function, kfunca_tpu/models/serve.py:717-780): qkv/gate/up
+    column-parallel, wo/down row-parallel, norms and the embedding
+    replicated, an lm_head column-parallel.  A quantized (intN, scale) pair
+    shards its scale with the matrix's output dim: column-parallel int8
+    scales over tp, row-parallel ones replicated; int4 group scales
+    (k/g, n) follow the matrix on both axes."""
+
+    def col(v):
+        if isinstance(v, tuple):
+            return (P(None, "tp"), P("tp") if v[1].ndim == 1 else P(None, "tp"))
+        return P(None, "tp")
+
+    def row(v):
+        if isinstance(v, tuple):
+            return (P("tp", None), P() if v[1].ndim == 1 else P("tp", None))
+        return P("tp", None)
+
+    def blk_spec(blk):
+        s = {"attn_norm": P(), "mlp_norm": P(),
+             "wqkv": col(blk["wqkv"]), "wo": row(blk["wo"])}
+        if "experts" in blk:
+            s["router"] = P()
+            s["experts"] = [
+                {"w_gate": col(ex["w_gate"]), "w_up": col(ex["w_up"]),
+                 "w_down": row(ex["w_down"])} for ex in blk["experts"]]
+        elif "w_fc" in blk:
+            s["w_fc"] = col(blk["w_fc"])
+            s["w_proj"] = row(blk["w_proj"])
+        else:
+            s["w_gate"] = col(blk["w_gate"])
+            s["w_up"] = col(blk["w_up"])
+            s["w_down"] = row(blk["w_down"])
+        if "bqkv" in blk:
+            s["bqkv"] = P("tp")
+        if "b_fc" in blk:
+            s["b_fc"] = P("tp")
+        for name in ("bo", "b_proj", "attn_norm_b", "mlp_norm_b"):
+            if name in blk:
+                s[name] = P()
+        return s
+
+    specs = {"embed": P(), "final_norm": P(),
+             "blocks": [blk_spec(b) for b in params["blocks"]]}
+    if "pos_embed" in params:
+        specs["pos_embed"] = P()
+    if "final_norm_b" in params:
+        specs["final_norm_b"] = P()
+    if "lm_head" in params:
+        specs["lm_head"] = col(params["lm_head"])
+    return specs
+
+
 def _flat(pool):
     """(L, n_pages, ...) layer-stacked pool -> the (L*n_pages, ...) view
     that the kernels index with page_base = layer * n_pages."""
     return pool.view(pool.shape[0] * pool.shape[1], *pool.shape[2:])
 
 
-def _paged_block(x, p, pools_k, pools_v, li, page_tables, positions,
+def _paged_heads(y, p, pools_k, pools_v, li, page_tables, positions,
                  cfg: TransformerConfig, page_size: int):
-    """One transformer block over B single tokens against the paged KV.
+    """The attention of one block over B single tokens against the paged
+    KV, up to the output projection: y (B, 1, dm) the normed input ->
+    (B, 1, n_heads * head_dim) in y's dtype.
 
-    x: (B, 1, dm).  pools_k/pools_v: the layer-stacked pools, written in
-    place at [li, page, offset].  Fused layout (pools_v is None): pools_k
+    pools_k/pools_v: the layer-stacked pools, written in place at
+    [li, page, offset].  Fused layout (pools_v is None): pools_k
     is ONE (L, n_pages, page, 2*Hkv*hd) stack of [k | v] page rows, or with
     int8 KV the pair (int8 stack, fp32 (L, n_pages, page, 128) scale rows
     [sk heads | sv heads | 0]).  Split layout: pools_k and pools_v are
     (L, n_pages, page, Hkv, hd) stacks, or with int8 KV pairs (int8 stack,
     fp32 (L, n_pages, page, Hkv) scales).  page_tables: (B, max_pages)
-    int32; positions: (B,) int32 (index of the new token).  Returns x."""
-    b = x.shape[0]
+    int32; positions: (B,) int32 (index of the new token)."""
+    b = y.shape[0]
     h, hd, hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     max_pages = page_tables.shape[1]
 
-    y = apply_norm(x, p, "attn_norm", cfg)
     qkv = _mm(y, p["wqkv"])
     if "bqkv" in p:
         qkv = qkv + p["bqkv"].float()
@@ -413,7 +485,7 @@ def _paged_block(x, p, pools_k, pools_v, li, page_tables, positions,
     # writes that may pick different winners); which write wins is
     # irrelevant, as nothing reads that page.
     page_idx = torch.clamp(positions // page_size, max=max_pages - 1)
-    page_slot = page_tables[torch.arange(b, device=x.device), page_idx].long()
+    page_slot = page_tables[torch.arange(b, device=y.device), page_idx].long()
     offset = (positions % page_size).long()
     kv_quant = isinstance(pools_k, tuple)  # int8 KV: (pool_q8, scales) pairs
     fused = pools_v is None
@@ -457,7 +529,16 @@ def _paged_block(x, p, pools_k, pools_v, li, page_tables, positions,
     else:
         attn = paged_decode_attention(
             qs, _flat(pools_k), _flat(pools_v), page_tables, positions, **kw)
-    attn = attn.to(x.dtype).reshape(b, 1, h * hd)
+    return attn.to(y.dtype).reshape(b, 1, h * hd)
+
+
+def _paged_block(x, p, pools_k, pools_v, li, page_tables, positions,
+                 cfg: TransformerConfig, page_size: int):
+    """One transformer block over B single tokens against the paged KV:
+    x (B, 1, dm) -> x.  _paged_heads says what the pools hold."""
+    y = apply_norm(x, p, "attn_norm", cfg)
+    attn = _paged_heads(y, p, pools_k, pools_v, li, page_tables, positions,
+                        cfg, page_size)
     o = _mm(attn, p["wo"])
     if "bo" in p:
         o = o + p["bo"].float()
@@ -500,7 +581,16 @@ def paged_decode_step(params, pools_k, pools_v, page_tables, positions,
     (pools_v None = fused), each slot's new K/V written in place.  `params`
     may hold quantized (intN, scale) pairs (quantize_decode_params).  Returns
     (tokens (B,) int32, logprobs (B,) fp32); idle slots decode garbage
-    that callers ignore."""
+    that callers ignore.
+
+    With a ShardedParams (decode_param_specs' layout) pools_k and pools_v
+    are lists, one split pool a held rank, and every rank samples from
+    the same gathered logits (held rank 0's copy)."""
+    if isinstance(params, ShardedParams):
+        raw = _tp_decode_logits(params, pools_k, pools_v, page_tables,
+                                positions, last_tokens, cfg, page_size)
+        return _sample(raw, generator, temperature, top_p, sampling,
+                       penalties)
     x = embed_tokens(params, last_tokens.long()[:, None], cfg)
     if cfg.pos == "learned":
         # an idle slot's position runs on inside a burst and can pass the
@@ -517,6 +607,37 @@ def paged_decode_step(params, pools_k, pools_v, page_tables, positions,
     # embedding's transpose: _mm dispatches on the structure
     raw = _mm(x[:, 0], params["lm_head"] if "lm_head" in params
               else params["embed"].T)
+    return _sample(raw, generator, temperature, top_p, sampling, penalties)
+
+
+def _tp_decode_logits(sp: ShardedParams, pools_k, pools_v, page_tables,
+                      positions, last_tokens, cfg: TransformerConfig,
+                      page_size: int):
+    """The decode step's raw logits (B, V) over a mesh: each rank's heads
+    against its own pools, the row-parallel products summed over tp, the
+    logits gathered over tp."""
+    n = len(sp.mesh.ranks)
+    top = _top_level(sp)
+    pos = None
+    if cfg.pos == "learned":  # clamped as in paged_decode_step
+        pos = torch.clamp(positions.long(),
+                          max=top[0]["pos_embed"].shape[0] - 1)[:, None]
+    xs = tp_embed(sp, top, [last_tokens.long()[:, None]] * n, cfg,
+                  positions=pos)
+    lcfg = local_config(cfg, sp)
+    for li in range(len(sp.local[0]["blocks"])):
+        def heads(i, y, p, li=li):
+            return _paged_heads(y, p, pools_k[i], pools_v[i], li, page_tables,
+                                positions, lcfg, page_size)
+
+        xs = tp_block(xs, [t["blocks"][li] for t in sp.local], cfg, sp,
+                      heads, mm=_mm)
+    xs = [apply_norm(x, p, "final_norm", cfg)[:, 0] for x, p in zip(xs, top)]
+    return tp_logits(sp, top, xs, mm=_mm)[0]
+
+
+def _sample(raw, generator, temperature, top_p, sampling, penalties):
+    """(tokens, raw log-probs) of a decode step's raw logits."""
     logits = raw if penalties is None else apply_logit_penalties(
         raw, penalties)
     if sampling is not None:
@@ -657,12 +778,24 @@ class InferenceServer:
             raise NotImplementedError(
                 "this engine's page pools hold per-head K/V; MLA serving is a "
                 "later slice of the port")
-        for on, what in ((max_loras, "multi-LoRA serving"),
-                         (mesh is not None, "mesh (tensor-parallel) serving")):
-            if on:
-                raise _later(what)
+        if max_loras:
+            raise _later("multi-LoRA serving")
         hkv, hd = cfg.kv_heads, cfg.head_dim
         aligned = (hkv * hd) % 128 == 0 and 2 * hkv <= 128
+        self.mesh = None if mesh is None else as_mesh(mesh)
+        if self.mesh is not None:
+            # split pools, sharded over kv heads (the JAX server's layout:
+            # a contiguous split of a fused [k | v] row would put k heads
+            # and v heads on different ranks)
+            if fused_pool:
+                raise ValueError("mesh serving keeps split pools; pass "
+                                 "fused_pool=False or None")
+            fused_pool = False
+            if device is not None and resolve_device(device) != \
+                    self.mesh.device:
+                raise ValueError(f"the mesh is on {self.mesh.device}, not "
+                                 f"{device}")
+            device = self.mesh.device
         if fused_pool is None:  # auto; an explicit False is for layout tests
             fused_pool = aligned
         elif fused_pool and not aligned:
@@ -685,6 +818,10 @@ class InferenceServer:
             self._decode_params = quantize_decode_params(params, bits=bits)
         else:
             self._decode_params = params
+        if self.mesh is not None:
+            self._decode_params = shard_tree(
+                self._decode_params, decode_param_specs(self._decode_params),
+                self.mesh, cfg)
         self.cfg = cfg
         self.B = batch_slots
         if page_size is None:
@@ -734,7 +871,12 @@ class InferenceServer:
             return (torch.zeros(lead + tail, dtype=torch.int8, device=dev),
                     torch.ones(lead + lanes, dtype=torch.float32, device=dev))
 
-        if self.fused_pool:
+        if self.mesh is not None:  # one split pool a held rank
+            lhkv = local_config(cfg, self._decode_params).kv_heads
+            hkv = lhkv
+            self.pools_k = [pool_of(lhkv, hd) for _ in self.mesh.ranks]
+            self.pools_v = [pool_of(lhkv, hd) for _ in self.mesh.ranks]
+        elif self.fused_pool:
             self.pools_k, self.pools_v = pool_of(2 * hkv * hd), None
         else:
             self.pools_k, self.pools_v = pool_of(hkv, hd), pool_of(hkv, hd)
@@ -875,12 +1017,8 @@ class InferenceServer:
 
     def pool_bytes(self) -> int:
         """Bytes of device memory the KV pools hold (data and scales)."""
-        total = 0
-        for pool in (self.pools_k, self.pools_v):
-            for t in (pool if isinstance(pool, tuple) else (pool,)):
-                if t is not None:
-                    total += t.numel() * t.element_size()
-        return total
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves([self.pools_k, self.pools_v]))
 
     def _incref(self, page: int) -> None:
         self._page_refs[page] = self._page_refs.get(page, 0) + 1
@@ -1085,10 +1223,23 @@ class InferenceServer:
         self._prefill_scatter(slot, t, cache, max(prefix_len, skip_len))
         return self._sample_first(slot, req, logits[:, st - 1])
 
+    def _rank_pools(self):
+        """[(pools_k, pools_v, the kv heads of the dense cache they hold)]
+        a held rank (one entry, every head, without a mesh)."""
+        if self.mesh is None:
+            return [(self.pools_k, self.pools_v, slice(None))]
+        sp = self._decode_params
+        n = local_config(self.cfg, sp).kv_heads
+        heads = [slice(self.mesh.coord(r)[1] * n, (self.mesh.coord(r)[1] + 1)
+                       * n) if sp.attn_split else slice(None)
+                 for r in self.mesh.ranks]
+        return list(zip(self.pools_k, self.pools_v, heads))
+
     def _prefill_cache_init(self, slot: int, req: Request, prefix_len: int,
                             stp: int):
         """Padded suffix tokens and a dense KV cache seeded with the reused
-        prefix pages' KV, gathered from the pool (dequantized if int8)."""
+        prefix pages' KV, gathered from the pool (dequantized if int8);
+        under a mesh each rank's pools give their kv heads."""
         cfg = self.cfg
         st = len(req.prompt) - prefix_len
         padded = np.zeros((1, stp), np.int64)
@@ -1097,7 +1248,7 @@ class InferenceServer:
         cache = init_kv_cache(cfg, 1, prefix_len + stp, self.device)
         if not prefix_len:
             return tokens, cache
-        hkv, hd = cfg.kv_heads, cfg.head_dim
+        hd = cfg.head_dim
         pre = torch.as_tensor(
             self.slot_pages[slot][:prefix_len // self.page_size],
             device=self.device)
@@ -1110,26 +1261,28 @@ class InferenceServer:
             sc = pool[1][li, pre].reshape(prefix_len, -1)[:, lanes]
             return (x * sc[..., None]).to(cfg.act_dtype)
 
-        for li, lc in enumerate(cache):
-            if self.fused_pool:
-                kv = read(self.pools_k, li, slice(0, 2 * hkv))
-                k, v = kv[:, :hkv], kv[:, hkv:]
-            else:
-                k, v = read(self.pools_k, li), read(self.pools_v, li)
-            lc["k"][0, :, :prefix_len] = k.transpose(0, 1)
-            lc["v"][0, :, :prefix_len] = v.transpose(0, 1)
+        hkv = cfg.kv_heads
+        for pools_k, pools_v, heads in self._rank_pools():
+            for li, lc in enumerate(cache):
+                if self.fused_pool:
+                    kv = read(pools_k, li, slice(0, 2 * hkv))
+                    k, v = kv[:, :hkv], kv[:, hkv:]
+                else:
+                    k, v = read(pools_k, li), read(pools_v, li)
+                lc["k"][0, heads, :prefix_len] = k.transpose(0, 1)
+                lc["v"][0, heads, :prefix_len] = v.transpose(0, 1)
         return tokens, cache
 
     def _prefill_scatter(self, slot: int, t: int, cache, start: int):
         """Write prompt positions [start rounded down to a page, t) of the
         dense cache (indexed by absolute position) into the slot's pages,
-        one indexed write per layer and pool.  The padded tail past t is
-        not written."""
+        one indexed write per layer and pool (under a mesh, each rank's
+        kv heads into its pools).  The padded tail past t is not
+        written."""
         ps = self.page_size
         lo = (start // ps) * ps
         if lo >= t:
             return
-        hkv = self.cfg.kv_heads
         table = torch.as_tensor(self.slot_pages[slot], device=self.device)
         slots = torch.arange(lo, t, device=self.device)
         page_ids, offs = table[slots // ps], slots % ps
@@ -1141,24 +1294,26 @@ class InferenceServer:
             else:
                 pool[li, page_ids, offs] = x.to(pool.dtype)
 
-        for li, lc in enumerate(cache):
-            k = lc["k"][0, :, lo:t].transpose(0, 1)  # (n, Hkv, hd)
-            v = lc["v"][0, :, lo:t].transpose(0, 1)
-            sk = sv = None
-            if self.quantize_kv:
-                k, sk = quantize_vecs(k)  # (n, Hkv, hd) int8, (n, Hkv)
-                v, sv = quantize_vecs(v)
-            if not self.fused_pool:
-                write(self.pools_k, li, k, sk)
-                write(self.pools_v, li, v, sv)
-                continue
-            sc = None
-            if self.quantize_kv:
-                sc = torch.nn.functional.pad(torch.cat([sk, sv], dim=-1),
-                                             (0, 128 - 2 * hkv))
-            write(self.pools_k, li,
-                  torch.cat([k.reshape(t - lo, -1), v.reshape(t - lo, -1)],
-                            dim=-1), sc)
+        for pools_k, pools_v, heads in self._rank_pools():
+            for li, lc in enumerate(cache):
+                k = lc["k"][0, heads, lo:t].transpose(0, 1)  # (n, Hkv, hd)
+                v = lc["v"][0, heads, lo:t].transpose(0, 1)
+                sk = sv = None
+                if self.quantize_kv:
+                    k, sk = quantize_vecs(k)  # (n, Hkv, hd) int8, (n, Hkv)
+                    v, sv = quantize_vecs(v)
+                if not self.fused_pool:
+                    write(pools_k, li, k, sk)
+                    write(pools_v, li, v, sv)
+                    continue
+                sc = None
+                if self.quantize_kv:
+                    hkv = k.shape[1]
+                    sc = torch.nn.functional.pad(torch.cat([sk, sv], dim=-1),
+                                                 (0, 128 - 2 * hkv))
+                write(pools_k, li,
+                      torch.cat([k.reshape(t - lo, -1), v.reshape(t - lo, -1)],
+                                dim=-1), sc)
 
     def _constraint_row(self, req: Request):
         """(V,) fp32 suppression bias from the request's allowed_fn on the

@@ -21,13 +21,16 @@ The JAX package runs the whole generation as one lax.while_loop; here the
 rounds are a Python loop over the port's forward_with_cache (one host
 sync a round, for the accepted count), and the sampled form draws from a
 torch.Generator, so it matches the JAX function in distribution only.
+Target and draft may be parallel.mesh.ShardedParams (tensor-parallel, as
+the JAX function takes sharded trees): forward_with_cache runs them over
+their mesh.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .generate import forward_with_cache, init_kv_cache
+from .generate import forward_with_cache, new_cache
 from .transformer import TransformerConfig
 
 
@@ -41,7 +44,7 @@ def _prefill(params_t, cfg_t, params_d, cfg_d, prompt, max_new, gamma):
     max_len = t_prompt + max_new + gamma + 1
     caches = []
     for params, cfg in ((params_t, cfg_t), (params_d, cfg_d)):
-        cache = init_kv_cache(cfg, 1, max_len, prompt.device)
+        cache = new_cache(params, cfg, 1, max_len, prompt.device)
         forward_with_cache(params, prompt[:, :-1], cache, 0, cfg)
         caches.append(cache)
     return caches

@@ -16,7 +16,10 @@ update runs under torch.no_grad() and WRITES params and moments in place,
 returning the same tensors in new containers: a caller who needs the old
 values clones them first.
 
-make_sharded_train_step belongs to the parallel/ slice of the port.
+make_sharded_train_step runs the same step over a (dp, tp) mesh
+(parallel/mesh.py): params a ShardedParams, the optimizer state a list of
+per-rank states shaped like each rank's params, gradients all-reduced over
+dp (fsdp leaves reduce-scattered by the backward of their all-gather).
 """
 
 from __future__ import annotations
@@ -27,9 +30,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel import collectives as cc
+from ..parallel.mesh import Shard, ShardedParams, gather_leaf
 from ..runtime.backend import resolve_device
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
-from .transformer import TransformerConfig, loss_fn, loss_fn_chunked
+from .transformer import (
+    TransformerConfig, loss_fn, loss_fn_chunked, rank_batches, tp_token_nll,
+)
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -107,7 +114,14 @@ def init_opt_state(params, oc: OptConfig | None = None, device=None):
     leaves, row means `vr` (shape[:-1]) and column means `vc`
     (shape[:-2] + (n,)) replace the full v; ndim < 2 leaves keep a full
     `v1`.  Unused slots hold 0-dim zeros so every field stays a
-    params-shaped tree."""
+    params-shaped tree.
+
+    With a ShardedParams: the list of each held rank's state, from its
+    own params on the mesh's device (the state shards like its params;
+    adafactor's factored moments like the param less the dropped axis)."""
+    if isinstance(params, ShardedParams):
+        return [init_opt_state(t, oc, params.mesh.device)
+                for t in params.local]
     dev = check_params_device(params, resolve_device(device))
     algo = oc.algo if oc is not None else "adamw"
     sd = _STATE_DTYPES[oc.state_dtype] if oc is not None else torch.float32
@@ -163,8 +177,7 @@ def _leafwise(upd, params, grads, *states):
         upd(*leaves)
 
 
-def adamw_update(params, grads, opt_state, oc: OptConfig):
-    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
+def _adamw_rule(oc: OptConfig, step, lr, gscale):
     t = step.float()
     bc1 = 1.0 - oc.beta1 ** t
     bc2 = 1.0 - oc.beta2 ** t
@@ -178,13 +191,11 @@ def adamw_update(params, grads, opt_state, oc: OptConfig):
         m.copy_(m32)  # rounds to the storage dtype
         v.copy_(v32)
 
-    _leafwise(upd, params, grads, opt_state["m"], opt_state["v"])
-    return params, {"step": step, "m": opt_state["m"], "v": opt_state["v"]}
+    return upd
 
 
-def sgd_update(params, grads, opt_state, oc: OptConfig):
+def _sgd_rule(oc: OptConfig, step, lr, gscale):
     """SGD with momentum (optionally Nesterov) + decoupled weight decay."""
-    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
     mu = _f32(oc.momentum)
 
     def upd(p, g, m):
@@ -194,14 +205,12 @@ def sgd_update(params, grads, opt_state, oc: OptConfig):
         p.sub_(lr * (u + _wd(p, oc) * p))
         m.copy_(m32)
 
-    _leafwise(upd, params, grads, opt_state["m"])
-    return params, {"step": step, "m": opt_state["m"]}
+    return upd
 
 
-def lion_update(params, grads, opt_state, oc: OptConfig):
+def _lion_rule(oc: OptConfig, step, lr, gscale):
     """Lion: sign of a beta1-interpolated momentum; one moment, update
     magnitude == lr exactly."""
-    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
 
     def upd(p, g, m):
         g = g.float() * gscale
@@ -210,15 +219,13 @@ def lion_update(params, grads, opt_state, oc: OptConfig):
         p.sub_(lr * (u + _wd(p, oc) * p))
         m.copy_(oc.beta2 * m32 + (1 - oc.beta2) * g)
 
-    _leafwise(upd, params, grads, opt_state["m"])
-    return params, {"step": step, "m": opt_state["m"]}
+    return upd
 
 
-def adafactor_update(params, grads, opt_state, oc: OptConfig):
+def _adafactor_rule(oc: OptConfig, step, lr, gscale):
     """Adafactor, momentum-free: factored second moments for matrices
     (row/col mean-square EMAs), full v for 1-D leaves; decay 1 - t^-0.8;
     update RMS-clipped at 1.0."""
-    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
     b2 = 1.0 - step.float() ** -0.8
     eps = 1e-30
 
@@ -240,10 +247,7 @@ def adafactor_update(params, grads, opt_state, oc: OptConfig):
         u = u / torch.clamp(rms_u, min=1.0)
         p.sub_(lr * (u + _wd(p, oc) * p))
 
-    _leafwise(upd, params, grads, opt_state["vr"], opt_state["vc"],
-              opt_state["v1"])
-    return params, {"step": step, "vr": opt_state["vr"],
-                    "vc": opt_state["vc"], "v1": opt_state["v1"]}
+    return upd
 
 
 def _newton_schulz5(g, steps: int = 5):
@@ -263,11 +267,10 @@ def _newton_schulz5(g, steps: int = 5):
     return x.transpose(-2, -1) if transposed else x
 
 
-def muon_update(params, grads, opt_state, oc: OptConfig):
+def _muon_rule(oc: OptConfig, step, lr, gscale):
     """Muon: nesterov momentum orthogonalized by Newton-Schulz for every
     >= 2-D param, scaled by sqrt(max(1, r/c)); ndim < 2 leaves run the
     adamw rule."""
-    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
     mu = _f32(oc.muon_beta)
     t = step.float()
     bc1 = 1.0 - oc.beta1 ** t
@@ -289,17 +292,59 @@ def muon_update(params, grads, opt_state, oc: OptConfig):
         m.copy_(m32)
         v1.copy_(v32)
 
-    _leafwise(upd, params, grads, opt_state["m"], opt_state["v1"])
-    return params, {"step": step, "m": opt_state["m"], "v1": opt_state["v1"]}
+    return upd
 
 
-_UPDATES = {
-    "adamw": adamw_update,
-    "sgd": sgd_update,
-    "lion": lion_update,
-    "adafactor": adafactor_update,
-    "muon": muon_update,
+# algo -> (the per-leaf rule's factory, the state fields it updates)
+_RULES = {
+    "adamw": (_adamw_rule, ("m", "v")),
+    "sgd": (_sgd_rule, ("m",)),
+    "lion": (_lion_rule, ("m",)),
+    "adafactor": (_adafactor_rule, ("vr", "vc", "v1")),
+    "muon": (_muon_rule, ("m", "v1")),
 }
+
+
+def _update(algo, params, grads, opt_state, oc: OptConfig):
+    step, lr, gscale = _clip_and_lr(grads, opt_state, oc)
+    rule, keys = _RULES[algo]
+    _leafwise(rule(oc, step, lr, gscale), params, grads,
+              *(opt_state[k] for k in keys))
+    return params, {"step": step, **{k: opt_state[k] for k in keys}}
+
+
+def adamw_update(params, grads, opt_state, oc: OptConfig):
+    return _update("adamw", params, grads, opt_state, oc)
+
+
+def sgd_update(params, grads, opt_state, oc: OptConfig):
+    return _update("sgd", params, grads, opt_state, oc)
+
+
+def lion_update(params, grads, opt_state, oc: OptConfig):
+    return _update("lion", params, grads, opt_state, oc)
+
+
+def adafactor_update(params, grads, opt_state, oc: OptConfig):
+    return _update("adafactor", params, grads, opt_state, oc)
+
+
+def muon_update(params, grads, opt_state, oc: OptConfig):
+    return _update("muon", params, grads, opt_state, oc)
+
+
+def _check_algo(oc: OptConfig) -> None:
+    if oc.algo not in _RULES:
+        raise ValueError(f"unknown optimizer algo {oc.algo!r}; one of "
+                         f"{sorted(_RULES)}")
+
+
+def _update_ema(ema, params, oc: OptConfig) -> None:
+    """ema <- decay * ema + (1 - decay) * params, in place."""
+    d = np.float32(oc.ema_decay)
+    keep, take = float(d), float(np.float32(1.0) - d)
+    for e, p in zip(tree_leaves(ema), tree_leaves(params)):
+        e.copy_(keep * e + take * p.float())
 
 
 @torch.no_grad()
@@ -307,19 +352,10 @@ def apply_update(params, grads, opt_state, oc: OptConfig):
     """Dispatch to oc.algo's update rule (state from init_opt_state(p, oc));
     maintains the params EMA afterwards when oc.ema_decay is set.  Params
     and state leaves are updated in place."""
-    try:
-        fn = _UPDATES[oc.algo]
-    except KeyError:
-        raise ValueError(
-            f"unknown optimizer algo {oc.algo!r}; one of {sorted(_UPDATES)}"
-        ) from None
-    new_params, new_state = fn(params, grads, opt_state, oc)
+    _check_algo(oc)
+    new_params, new_state = _update(oc.algo, params, grads, opt_state, oc)
     if oc.ema_decay is not None:
-        d = np.float32(oc.ema_decay)
-        keep, take = float(d), float(np.float32(1.0) - d)
-        for e, p in zip(tree_leaves(opt_state["ema"]),
-                        tree_leaves(new_params)):
-            e.copy_(keep * e + take * p.float())
+        _update_ema(opt_state["ema"], new_params, oc)
         new_state["ema"] = opt_state["ema"]
     return new_params, new_state
 
@@ -433,7 +469,211 @@ def make_loss_train_step(loss, oc: OptConfig, device=None):
     return train_step
 
 
-def make_sharded_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded train step over a (dp, tp) mesh belongs to the "
-        "parallel/ slice of the port")
+# -- the step over a (dp, tp) mesh ----------------------------------------------
+
+
+def _state_shard(key: str, shard: Shard) -> Shard:
+    """How an optimizer-state leaf lies, from its param's Shard: m, v and
+    ema as the param; adafactor's vr drops the last axis, vc the one
+    before it, for matrices; 0-dim placeholders are replicated."""
+    nd = len(shard.shape)
+    if key in ("vr", "vc") and nd >= 2:
+        drop = nd - 1 if key == "vr" else nd - 2
+
+        def keep(d):
+            return None if d is None or d == drop else d - (d > drop)
+
+        tp_dim = keep(shard.tp_dim)
+        return Shard(shard.shape[:drop] + shard.shape[drop + 1:],
+                     keep(shard.dp_dim), tp_dim,
+                     shard.qkv if tp_dim is not None else None)
+    if (key in ("vr", "vc") or (key == "v1" and nd >= 2)):
+        return Shard(())
+    return shard
+
+
+def sharded_opt_state(sp: ShardedParams, states) -> ShardedParams:
+    """The per-rank optimizer states of a step over sp's mesh as one
+    ShardedParams (for gather_params, save_sharded and load_sharded): each
+    field lies as _state_shard says, the step counter replicated."""
+    shards = {k: Shard(()) if k == "step" else
+              tree_map(lambda s, k=k: _state_shard(k, s), sp.shards)
+              for k in states[0]}
+    return ShardedParams(sp.mesh, list(states), shards, None, sp.cfg,
+                         sp.fsdp)
+
+
+def sharded_global_norm(sp: ShardedParams, grads) -> list:
+    """Each held rank's global gradient norm: every shard of a split leaf
+    counted once, a replicated leaf once (not once a rank)."""
+    mesh = sp.mesh
+    parts = {}
+    for shard, gs in zip(tree_leaves(sp.shards),
+                         zip(*(tree_leaves(g) for g in grads))):
+        acc = parts.setdefault(shard.axes, [0.0] * len(gs))
+        for i, g in enumerate(gs):
+            acc[i] = acc[i] + torch.sum(g.float() ** 2)
+    total = [torch.zeros((), device=mesh.device) for _ in mesh.ranks]
+    for axes, acc in sorted(parts.items()):
+        acc = [torch.as_tensor(a, device=mesh.device) for a in acc]
+        for axis in axes:
+            acc = cc.all_reduce(acc, mesh, axis)
+        total = [t + a for t, a in zip(total, acc)]
+    return [torch.sqrt(t) for t in total]
+
+
+@torch.no_grad()
+def sharded_apply_update(sp: ShardedParams, grads, states, oc: OptConfig,
+                         norms=None):
+    """apply_update over a mesh, in place on each held rank's leaves.  The
+    elementwise rules (adamw, sgd, lion, muon's 1-D leaves) run on each
+    rank's piece; adafactor's means and muon's Newton-Schulz need the
+    whole matrix, so a split leaf is gathered, updated whole and each
+    rank takes its piece back.  `norms` is sharded_global_norm's result
+    when the caller has it.  Returns the list of new states."""
+    _check_algo(oc)
+    mesh = sp.mesh
+    rule_of, keys = _RULES[oc.algo]
+    steps = [st["step"] + 1 for st in states]
+    lrs = [schedule_lr(oc, s) for s in steps]
+    gscales = [1.0] * len(states)
+    if oc.clip_norm is not None:
+        norms = norms if norms is not None else sharded_global_norm(sp, grads)
+        gscales = [torch.clamp(_f32(oc.clip_norm) / (n + 1e-12), max=1.0)
+                   for n in norms]
+    rules = [rule_of(oc, s, lr, g) for s, lr, g in zip(steps, lrs, gscales)]
+    per_rank = [
+        [tree_leaves(t), tree_leaves(g), *(tree_leaves(st[k]) for k in keys)]
+        for t, g, st in zip(sp.local, grads, states)]
+    for i, shard in enumerate(tree_leaves(sp.shards)):
+        items = [[col[i] for col in leaves] for leaves in per_rank]
+        whole = oc.algo == "adafactor" or (oc.algo == "muon"
+                                           and len(shard.shape) >= 2)
+        if not (whole and shard.axes):
+            for rule, args in zip(rules, items):
+                rule(*args)
+            continue
+        shards = [shard, shard] + [_state_shard(k, shard) for k in keys]
+        fulls = [gather_leaf(mesh, sh, [it[j] for it in items])[0]
+                 for j, sh in enumerate(shards)]
+        rules[0](*fulls)  # every held rank's copy is the same: update once
+        for r, it in zip(mesh.ranks, items):
+            d, t = mesh.coord(r)
+            for j in (0, *range(2, len(shards))):
+                it[j].copy_(shards[j].local(fulls[j], d, t, mesh.dp, mesh.tp))
+    new_states = [{"step": s, **{k: st[k] for k in keys}}
+                  for s, st in zip(steps, states)]
+    if oc.ema_decay is not None:
+        for t, st, new in zip(sp.local, states, new_states):
+            _update_ema(st["ema"], t, oc)
+            new["ema"] = st["ema"]
+    return new_states
+
+
+def make_sharded_train_step(cfg: TransformerConfig, mesh,
+                            oc: OptConfig = OptConfig(), fsdp: bool = False,
+                            grad_accum: int = 1, loss_chunk: int | None = None,
+                            ignore_index: int | None = None,
+                            with_metrics: bool = False, device=None):
+    """make_train_step over a (dp, tp) mesh (a LocalMesh or a DeviceMesh
+    with axes ("dp", "tp")).  Returns step(params, opt_state, tokens,
+    targets) -> (params, opt_state, loss or metrics): params from
+    shard_params(params, mesh, fsdp, cfg=cfg), opt_state from
+    init_opt_state(params, oc), the batch as rank_batches takes it (the
+    global batch or its dp stripes under a LocalMesh, this process's stripe
+    under a DeviceMesh).  The loss is replicated; params and states are
+    updated in place, as make_train_step's.  (The JAX function returns a
+    function of the params that jits the step; this one is the step.)
+
+    The loss is the JAX step's: the token mean over the global batch, or
+    with grad_accum the mean over the global microbatches (rows
+    [a B/A, (a+1) B/A)) of their masked means.  Each rank weights its
+    tokens by 1 / (A * count of its global microbatch) (the counts are
+    all-reduced over dp), back-propagates its share in microbatches of its
+    own stripe, and the gradients are summed over dp: all-reduced, or for
+    fsdp leaves reduce-scattered by the backward of the layer's all-gather.
+    `device` must be the mesh's device when given."""
+    from ..parallel.mesh import as_mesh
+
+    mesh = as_mesh(mesh)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"the mesh is on {mesh.device}, not {device}")
+    _check_algo(oc)
+
+    def weights(tgts):
+        """Each held rank's per-token loss weights (rows of its stripe)."""
+        bl = tgts[0].shape[0]
+        b = bl * mesh.dp
+        if b % grad_accum:
+            raise ValueError(f"batch {b} not divisible by "
+                             f"grad_accum={grad_accum}")
+        mb = b // grad_accum
+        masks, groups, counts = [], [], []
+        for r, t in zip(mesh.ranks, tgts):
+            mask = (torch.ones(t.shape, device=t.device)
+                    if ignore_index is None else (t != ignore_index).float())
+            rows = mesh.coord(r)[0] * bl + torch.arange(bl, device=t.device)
+            group = rows // mb
+            counts.append(torch.zeros(grad_accum, device=t.device)
+                          .index_add_(0, group, mask.sum(dim=1)))
+            masks.append(mask)
+            groups.append(group)
+        counts = cc.all_reduce(counts, mesh, "dp")
+        return [m / (grad_accum * c.clamp_min(1.0))[g][:, None]
+                for m, c, g in zip(masks, counts, groups)]
+
+    def step(params: ShardedParams, opt_state, tokens, targets):
+        if params.mesh is not mesh and params.mesh.shape != mesh.shape:
+            raise ValueError("params were sharded over another mesh")
+        for t in params.local:
+            check_params_device(t, mesh.device)
+        toks, tgts = rank_batches(mesh, tokens), rank_batches(mesh, targets)
+        ws = weights(tgts)
+        bl = toks[0].shape[0]
+        n_local = math.gcd(grad_accum, bl)
+        rows = bl // n_local
+        views = [tree_map(lambda p: p.detach().requires_grad_(True), t)
+                 for t in params.local]
+        vp = ShardedParams(mesh, views, params.shards, params.specs,
+                           params.cfg, params.fsdp)
+        flat = [v for t in views for v in tree_leaves(t)]
+        grads, losses = None, [0.0] * len(toks)
+        for i in range(n_local):
+            sl = slice(i * rows, (i + 1) * rows)
+            with torch.enable_grad():
+                nll = tp_token_nll(vp, [t[sl] for t in toks],
+                                   [t[sl] for t in tgts], cfg, loss_chunk)
+                shares = [(n * w[sl].reshape(-1)).sum()
+                          for n, w in zip(nll, ws)]
+            g = torch.autograd.grad(sum(shares), flat)
+            if n_local > 1:
+                g = [x.float() for x in g]
+            grads = g if grads is None else [a.add_(x)
+                                              for a, x in zip(grads, g)]
+            losses = [l + s.detach() for l, s in zip(losses, shares)]
+        n = len(flat) // len(views)
+        grads = [tree_unflatten(t, grads[j * n:(j + 1) * n])
+                 for j, t in enumerate(params.local)]
+        with torch.no_grad():
+            per_leaf = [list(gs) for gs in zip(*(tree_leaves(g)
+                                                  for g in grads))]
+            for shard, gs in zip(tree_leaves(params.shards), per_leaf):
+                if shard.dp_dim is None:  # fsdp leaves came reduce-scattered
+                    gs[:] = cc.all_reduce(gs, mesh, "dp")
+            grads = [tree_unflatten(t, [gs[j] for gs in per_leaf])
+                     for j, t in enumerate(params.local)]
+            loss = cc.all_reduce(losses, mesh, "dp")[0]
+            norms = None
+            if with_metrics or oc.clip_norm is not None:
+                norms = sharded_global_norm(params, grads)
+            if with_metrics:
+                st = opt_state[0]["step"] + 1
+                out = {"loss": loss, "grad_norm": norms[0],
+                       "lr": schedule_lr(oc, st), "step": st}
+            else:
+                out = loss
+            new_states = sharded_apply_update(params, grads, opt_state, oc,
+                                              norms)
+        return params, new_states, out
+
+    return step

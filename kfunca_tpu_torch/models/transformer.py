@@ -13,10 +13,24 @@ apply_qk_norm, the matmul helper, the dense MLP (swiglu, geglu, gelu), the
 attention mixer over the flash kernels (ops/attention.py), the block, the
 training forward and the two losses.  MoE, MLA and LoRA are later slices
 and raise NotImplementedError.
+
+Tensor and data parallelism: `hidden_states`, `forward` and the losses
+also take a parallel.mesh.ShardedParams.  Each rank then runs its own
+heads (K1 and K2 per rank, through ops/attention) and a row-parallel wo
+with one all-reduce over tp, a column-parallel gate/up (or w_fc) and a
+row-parallel down (or w_proj) with one all-reduce, norms on replicated
+activations, the embedding over d_model (all-gathered) and the head as
+param_specs lays it out: an untied lm_head column-parallel over the
+vocabulary (the loss vocab-parallel, models/loss.py), a tied one
+row-parallel.  fsdp leaves are all-gathered over dp a layer at a time.
+The collectives are parallel/collectives.py's, so one code path serves
+a LocalMesh (all ranks in lockstep on one device) and a DeviceMesh (one
+rank a process).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -25,7 +39,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import causal_attention_fn, make_flash_attention
+from ..parallel import collectives as cc
+from ..parallel.mesh import LocalMesh, ShardedParams
 from ..runtime.backend import resolve_device
+from ..utils.tree import tree_leaves, tree_unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -300,10 +317,9 @@ def _plain_mm(y, w):
     return y.float() @ w.to(y.dtype).float()
 
 
-def mlp(y, p, cfg: TransformerConfig, mm=_plain_mm):
-    """Dense MLP (swiglu, geglu or tanh/erf-GELU); returns fp32.  `mm` is
-    the matmul, so that the paged decode step can pass one that takes
-    quantized (intN, scale) weights (models/serve._mm)."""
+def mlp_hidden(y, p, cfg: TransformerConfig, mm=_plain_mm):
+    """The MLP up to its down projection: the activation (B, S, d_ff) in
+    y's dtype that w_down (or w_proj) takes."""
     if "experts" in p:
         raise NotImplementedError("MoE blocks are a later slice of the port")
     if cfg.mlp_type == "gelu":
@@ -311,27 +327,38 @@ def mlp(y, p, cfg: TransformerConfig, mm=_plain_mm):
         if "b_fc" in p:
             h = h + p["b_fc"].float()
         approx = "none" if cfg.gelu_exact else "tanh"
-        act = F.gelu(h, approximate=approx).to(y.dtype)
-        out = mm(act, p["w_proj"])
-        if "b_proj" in p:
-            out = out + p["b_proj"].float()
-        return out
+        return F.gelu(h, approximate=approx).to(y.dtype)
     gate = mm(y, p["w_gate"])
     up = mm(y, p["w_up"])
     g = (F.gelu(gate, approximate="tanh") if cfg.mlp_type == "geglu"
          else F.silu(gate))
-    return mm((g * up).to(y.dtype), p["w_down"])
+    return (g * up).to(y.dtype)
 
 
-def attention_mixer(y, p, cfg: TransformerConfig):
-    """Causal self-attention over the normed block input y (B, S, d): fused
-    QKV projection -> RoPE -> flash kernel -> output projection.  Returns
-    the post-wo output (B, S, d) fp32."""
+def mlp_out_weight(p):
+    """The MLP's down projection: w_proj (GELU) or w_down."""
+    return p["w_proj"] if "w_proj" in p else p["w_down"]
+
+
+def mlp(y, p, cfg: TransformerConfig, mm=_plain_mm):
+    """Dense MLP (swiglu, geglu or tanh/erf-GELU); returns fp32.  `mm` is
+    the matmul, so that the paged decode step can pass one that takes
+    quantized (intN, scale) weights (models/serve._mm)."""
+    out = mm(mlp_hidden(y, p, cfg, mm), mlp_out_weight(p))
+    if "b_proj" in p:
+        out = out + p["b_proj"].float()
+    return out
+
+
+def attention_heads(y, p, cfg: TransformerConfig):
+    """Causal self-attention over the normed block input y (B, S, d) up to
+    the output projection: fused QKV projection -> RoPE -> flash kernel.
+    Returns (B, S, n_heads * head_dim) in y's dtype."""
     if cfg.attention == "mla":
         raise NotImplementedError("MLA blocks are a later slice of the port")
     if "lora" in p:
         raise NotImplementedError("LoRA adapters are a later slice of the port")
-    b, s, dm = y.shape
+    b, s, _ = y.shape
     qkv = _plain_mm(y, p["wqkv"])
     if "bqkv" in p:
         qkv = qkv + p["bqkv"].float()
@@ -345,8 +372,14 @@ def attention_mixer(y, p, cfg: TransformerConfig):
         attn = causal_attention_fn(q, k, v)
     else:
         attn = make_flash_attention(window=cfg.attention_window)(q, k, v)
-    attn = attn.transpose(1, 2).reshape(b, s, dm)
-    o = _plain_mm(attn, p["wo"])
+    return attn.transpose(1, 2).reshape(b, s, -1)
+
+
+def attention_mixer(y, p, cfg: TransformerConfig):
+    """Causal self-attention over the normed block input y (B, S, d): fused
+    QKV projection -> RoPE -> flash kernel -> output projection.  Returns
+    the post-wo output (B, S, d) fp32."""
+    o = _plain_mm(attention_heads(y, p, cfg), p["wo"])
     if "bo" in p:
         o = o + p["bo"].float()
     return o
@@ -375,8 +408,13 @@ def embed_tokens(params, tokens, cfg: TransformerConfig):
 def hidden_states(params, tokens, cfg: TransformerConfig):
     """tokens: (B, S) integers -> final-norm trunk output (B, S, d_model).
     cfg.remat recomputes each block in the backward pass instead of saving
-    its activations (torch.utils.checkpoint, non-reentrant)."""
+    its activations (torch.utils.checkpoint, non-reentrant).  With a
+    ShardedParams the batch is split over dp (see rank_batches) and the
+    result joined back (join_dp)."""
     _check_supported(cfg)
+    if isinstance(params, ShardedParams):
+        xs, _ = tp_trunk(params, rank_batches(params.mesh, tokens), cfg)
+        return join_dp(params.mesh, xs)
     x = embed_tokens(params, tokens, cfg)
     if cfg.pos == "learned":
         x = x + params["pos_embed"][: tokens.shape[1]].to(cfg.act_dtype)
@@ -396,6 +434,10 @@ def _head(params):
 
 def forward(params, tokens, cfg: TransformerConfig):
     """tokens: (B, S) integers -> logits (B, S, vocab) fp32."""
+    if isinstance(params, ShardedParams):
+        _check_supported(cfg)
+        xs, top = tp_trunk(params, rank_batches(params.mesh, tokens), cfg)
+        return join_dp(params.mesh, tp_logits(params, top, xs))
     return _plain_mm(hidden_states(params, tokens, cfg), _head(params))
 
 
@@ -433,3 +475,225 @@ def loss_fn_chunked(params, tokens, targets, cfg: TransformerConfig,
     nll = chunked_softmax_xent(x.reshape(b * s, d), _head(params),
                                targets.reshape(-1), vocab_chunk)
     return _masked_mean(nll, targets.reshape(-1), ignore_index)
+
+
+# -- tensor and data parallelism over a mesh -----------------------------------
+
+
+def rank_batches(mesh, batch) -> list:
+    """Each held rank's stripe of a batch sharded over dp (batch_spec): under
+    a LocalMesh `batch` is the global batch (split into dp stripes) or the
+    list of dp stripes; under a GroupMesh it is this process's stripe."""
+    if isinstance(mesh, LocalMesh):
+        if isinstance(batch, (list, tuple)):
+            stripes = list(batch)
+        else:
+            batch = torch.as_tensor(batch)
+            if batch.shape[0] % mesh.dp:
+                raise ValueError(f"batch {batch.shape[0]} does not split over "
+                                 f"dp = {mesh.dp}")
+            stripes = list(batch.chunk(mesh.dp))
+        if len(stripes) != mesh.dp:
+            raise ValueError(f"{len(stripes)} stripes for dp = {mesh.dp}")
+        out = [stripes[mesh.coord(r)[0]] for r in mesh.ranks]
+    else:
+        out = list(batch) if isinstance(batch, (list, tuple)) else [batch]
+    return [torch.as_tensor(b).to(mesh.device) for b in out]
+
+
+def join_dp(mesh, xs):
+    """The inverse of rank_batches for a replicated-over-tp result: the dp
+    stripes (tp rank 0's) concatenated under a LocalMesh, this process's
+    stripe under a GroupMesh."""
+    if isinstance(mesh, LocalMesh):
+        return torch.cat([xs[d * mesh.tp] for d in range(mesh.dp)])
+    return xs[0]
+
+
+def local_config(cfg: TransformerConfig, sp: ShardedParams):
+    """The config of one rank's attention: its share of the heads where
+    attention splits over tp, the whole config where it is replicated."""
+    if not sp.attn_split:
+        return cfg
+    tp = sp.mesh.tp
+    return dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.kv_heads // tp,
+        d_model=cfg.head_dim * cfg.n_heads // tp)
+
+
+def gathered(sp: ShardedParams, trees, shards):
+    """Per-rank trees with every fsdp leaf all-gathered over dp (the
+    backward reduce-scatters its gradient): what tp alone would hold."""
+    per_rank = [tree_leaves(t) for t in trees]
+    cols = []
+    for i, shard in enumerate(tree_leaves(shards)):
+        xs = [leaves[i] for leaves in per_rank]
+        if shard.dp_dim is not None:
+            xs = cc.all_gather(xs, sp.mesh, "dp", shard.dp_dim)
+        cols.append(xs)
+    return [tree_unflatten(t, [c[j] for c in cols])
+            for j, t in enumerate(trees)]
+
+
+def _top_level(sp: ShardedParams):
+    """Per-rank dicts of the leaves outside the blocks, fsdp-gathered."""
+    keys = [k for k in sp.shards if k != "blocks"]
+    trees = [{k: t[k] for k in keys} for t in sp.local]
+    return gathered(sp, trees, {k: sp.shards[k] for k in keys})
+
+
+def row_parallel(acts, weights, mesh, mm, split: bool):
+    """sum over tp of acts[r] @ weights[r] (fp32), one all-reduce.
+    Unsplit (replicated) weights take no collective.  A quantized pair's
+    activation rows are scaled by their max over the WHOLE row (a max
+    all-reduce over tp), as one device scales them; int8 pairs then add
+    the ranks' exact integer sums and dequantize once
+    (ops/quant.gemm_w8_integer), which is one device's product bit for
+    bit; int4 pairs add their dequantized partial sums."""
+    if not split:
+        return [mm(a, w) for a, w in zip(acts, weights)]
+    if not isinstance(weights[0], tuple):
+        return cc.reduce([mm(a, w) for a, w in zip(acts, weights)], mesh)
+    amax = cc.all_reduce([a.float().abs().amax(dim=-1) for a in acts],
+                         mesh, "tp", "max")
+    if weights[0][0].dtype != torch.int8:
+        return cc.reduce([mm(a, w, row_absmax=m)
+                          for a, w, m in zip(acts, weights, amax)], mesh)
+    from ..ops.quant import gemm_w8_integer
+
+    parts = [gemm_w8_integer(a.reshape(-1, a.shape[-1]).float(), w[0],
+                             m.reshape(-1))
+             for a, w, m in zip(acts, weights, amax)]
+    accs = cc.reduce([acc for acc, _ in parts], mesh)
+    return [((acc * s[:, None]) * w[1].float()[None, :]).reshape(
+        *a.shape[:-1], -1) for acc, (_, s), w, a in zip(accs, parts, weights,
+                                                       acts)]
+
+
+def _bias(xs, ps, key):
+    return [x + p[key].float() if key in p else x for x, p in zip(xs, ps)]
+
+
+def tp_mlp(ys, ps, cfg: TransformerConfig, mesh, mm=_plain_mm):
+    """The MLP over tp: column-parallel gate/up (or w_fc), row-parallel
+    down (or w_proj), the row-parallel bias added once after the sum."""
+    ys = cc.copy(ys, mesh)
+    acts = [mlp_hidden(y, p, cfg, mm) for y, p in zip(ys, ps)]
+    outs = row_parallel(acts, [mlp_out_weight(p) for p in ps], mesh, mm, True)
+    return _bias(outs, ps, "b_proj")
+
+
+def tp_block(xs, ps, cfg: TransformerConfig, sp: ShardedParams, heads,
+             mm=_plain_mm):
+    """One block over the held ranks' replicated activations xs (fp32
+    results cast back to their dtype).  heads(i, y, p) is held rank i's
+    attention up to wo: its own heads where attention splits over tp,
+    all of them where it is replicated."""
+    mesh, split = sp.mesh, sp.attn_split
+    ys = [apply_norm(x, p, "attn_norm", cfg) for x, p in zip(xs, ps)]
+    if split:
+        ys = cc.copy(ys, mesh)
+    attn = [heads(i, y, p) for i, (y, p) in enumerate(zip(ys, ps))]
+    os = _bias(row_parallel(attn, [p["wo"] for p in ps], mesh, mm, split),
+               ps, "bo")
+    if cfg.parallel_residual:  # GPT-NeoX/GPT-J: branches share the input
+        ys = [apply_norm(x, p, "mlp_norm", cfg) for x, p in zip(xs, ps)]
+        ms = tp_mlp(ys, ps, cfg, mesh, mm)
+        return [x + o.to(x.dtype) + m.to(x.dtype)
+                for x, o, m in zip(xs, os, ms)]
+    xs = [x + o.to(x.dtype) for x, o in zip(xs, os)]
+    ys = [apply_norm(x, p, "mlp_norm", cfg) for x, p in zip(xs, ps)]
+    return [x + m.to(x.dtype)
+            for x, m in zip(xs, tp_mlp(ys, ps, cfg, mesh, mm))]
+
+
+def tp_embed(sp: ShardedParams, top, tokens, cfg: TransformerConfig,
+             positions=None):
+    """Replicated (B, T, d_model) embeddings of each held rank's tokens: an
+    embedding split over d_model is looked up in each piece and gathered.
+    `positions` (T,) index the learned position table (default 0..T-1)."""
+    xs = [p["embed"][t.long()].to(cfg.act_dtype) for p, t in zip(top, tokens)]
+    if sp.shards["embed"].tp_dim is not None:
+        xs = cc.gather(xs, sp.mesh, "tp", -1)
+    if cfg.embed_scale:
+        xs = [x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.act_dtype)
+              for x in xs]
+    if cfg.pos == "learned":
+        xs = [x + (p["pos_embed"][: t.shape[1]] if positions is None
+                   else p["pos_embed"][positions]).to(cfg.act_dtype)
+              for x, p, t in zip(xs, top, tokens)]
+    return xs
+
+
+def tp_trunk(sp: ShardedParams, tokens, cfg: TransformerConfig):
+    """Each held rank's final-norm trunk output (replicated over tp) and
+    its fsdp-gathered top-level params."""
+    mesh = sp.mesh
+    top = _top_level(sp)
+    xs = tp_embed(sp, top, tokens, cfg)
+    lcfg = local_config(cfg, sp)
+
+    def heads(i, y, p):
+        return attention_heads(y, p, lcfg)
+
+    for li in range(len(sp.local[0]["blocks"])):
+        def run(*xs, li=li):
+            ps = gathered(sp, [t["blocks"][li] for t in sp.local],
+                          sp.shards["blocks"][li])
+            return tuple(tp_block(list(xs), ps, cfg, sp, heads))
+
+        if cfg.remat and torch.is_grad_enabled():
+            xs = list(checkpoint(run, *xs, use_reentrant=False))
+        else:
+            xs = list(run(*xs))
+    return [apply_norm(x, p, "final_norm", cfg) for x, p in zip(xs, top)], top
+
+
+def head_is_vocab_parallel(sp: ShardedParams) -> bool:
+    """Whether the LM head splits the vocabulary over tp (an untied
+    column-parallel lm_head)."""
+    shard = sp.shards.get("lm_head")
+    if isinstance(shard, tuple):  # a quantized (intN, scale) pair
+        shard = shard[0]
+    return shard is not None and shard.tp_dim == 1
+
+
+def tp_logits(sp: ShardedParams, top, xs, mm=_plain_mm, gather=True):
+    """Each held rank's fp32 logits.  A vocab-parallel head gives each rank
+    its slice of the vocabulary (gathered over tp unless gather=False); a
+    tied head over a d_model-split embedding is row-parallel (one
+    all-reduce); a replicated head needs no collective."""
+    mesh = sp.mesh
+    if "lm_head" in top[0]:
+        heads = [p["lm_head"] for p in top]
+        if not head_is_vocab_parallel(sp):
+            return [mm(x, h) for x, h in zip(xs, heads)]
+        out = [mm(x, h) for x, h in zip(cc.copy(xs, mesh), heads)]
+        return cc.gather(out, mesh, "tp", -1) if gather else out
+    heads = [p["embed"].T for p in top]
+    if sp.shards["embed"].tp_dim is None:
+        return [mm(x, h) for x, h in zip(xs, heads)]
+    return row_parallel(cc.scatter(xs, mesh, "tp", -1), heads, mesh, mm, True)
+
+
+def tp_token_nll(sp: ShardedParams, tokens, targets, cfg: TransformerConfig,
+                 loss_chunk: int | None = None):
+    """Per-token NLL (N,) fp32 of each held rank's stripe, replicated over
+    tp.  A vocab-parallel head takes the vocab-parallel cross-entropy
+    (loss_chunk streams each rank's slice of the vocabulary); other heads
+    the full logits.  Targets outside [0, vocab) give a finite value that
+    the caller masks."""
+    from .loss import vocab_parallel_nll
+
+    xs, top = tp_trunk(sp, tokens, cfg)
+    xs = [x.reshape(-1, x.shape[-1]) for x in xs]
+    tg = [t.reshape(-1).long() for t in targets]
+    if head_is_vocab_parallel(sp):
+        return vocab_parallel_nll(cc.copy(xs, sp.mesh),
+                                  [p["lm_head"] for p in top], tg, sp.mesh,
+                                  loss_chunk)
+    out = []
+    for logits, t in zip(tp_logits(sp, top, xs), tg):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        out.append(-logp.gather(-1, t.clamp_min(0)[:, None])[:, 0])
+    return out

@@ -84,10 +84,13 @@ def quantize_cols(w):
     return _quantize(wf, scale, 127).to(torch.int8), scale
 
 
-def quantize_rows(a):
-    """(m, k) float -> (int8 (m, k), fp32 scales (m,)): symmetric per-row."""
+def quantize_rows(a, row_absmax=None):
+    """(m, k) float -> (int8 (m, k), fp32 scales (m,)): symmetric per-row.
+    `row_absmax` (m,) replaces the rows' own absmax: a tensor-parallel rank
+    holding a slice of each row scales it by the whole row's max."""
     af = a.float()
-    scale = _scale_of(af.abs().amax(dim=1), 127.0)
+    amax = af.abs().amax(dim=1) if row_absmax is None else row_absmax.float()
+    scale = _scale_of(amax, 127.0)
     return _quantize(af, scale[:, None], 127).to(torch.int8), scale
 
 
@@ -243,16 +246,32 @@ def matmul_q8_auto(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
     return matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=out_dtype)
 
 
-def gemm_w8(a, w_q8, w_scale, out_dtype=None):
+def gemm_w8(a, w_q8, w_scale, out_dtype=None, row_absmax=None):
     """Weight-quantized GEMM: float activations (m, k) @ int8 weights (k, n).
 
     Activations are dynamically quantized per row (absmax), the product
     runs in int8 with exact int32 sums, and dequantization is fused into
     the epilogue.  The error against the float matmul is bounded by the
-    two int8 roundings (~1% relative for well-scaled inputs)."""
+    two int8 roundings (~1% relative for well-scaled inputs).  `row_absmax`
+    as quantize_rows takes it."""
     out_dtype = out_dtype or a.dtype
-    a_q8, a_scale = quantize_rows(a)
+    a_q8, a_scale = quantize_rows(a, row_absmax)
     return matmul_q8_auto(a_q8, w_q8, a_scale, w_scale, out_dtype=out_dtype)
+
+
+def gemm_w8_integer(a, w_q8, row_absmax=None):
+    """gemm_w8 up to its epilogue: (float(acc) (m, n) fp32, the activation
+    row scales (m,)), acc the exact int32 sum of a's int8 rows (quantized
+    by `row_absmax` when given) against w_q8.  K5 with unit scales, so
+    float(acc) is exact below 2^24.  Tensor-parallel ranks holding slices
+    of k add these integer sums and dequantize once,
+    (acc * a_scale[i]) * w_scale[j] as the kernel's epilogue does, which
+    gives one device's product bit for bit."""
+    a_q8, a_scale = quantize_rows(a, row_absmax)
+    m, n = a_q8.shape[0], w_q8.shape[1]
+    ones = torch.ones(max(m, n), dtype=torch.float32, device=a_q8.device)
+    return matmul_q8_auto(a_q8, w_q8, ones[:m], ones[:n],
+                          out_dtype=torch.float32), a_scale
 
 
 # -----------------------------------------------------------------------------
@@ -316,12 +335,13 @@ def matmul_w4(a_q8, w_q4, a_scale, w_scale, out_dtype=torch.bfloat16):
     return (out * a_scale.float()[:, None]).to(out_dtype)
 
 
-def gemm_w4(a, w_q4, w_scale, out_dtype=None):
+def gemm_w4(a, w_q4, w_scale, out_dtype=None, row_absmax=None):
     """Weight-only int4 GEMM: float activations (m, k) @ packed int4 weights.
-    w4a8: activations quantize per row to int8; the weights unpack inside
-    the product (no float weight matrix is kept)."""
+    w4a8: activations quantize per row to int8 (`row_absmax` as
+    quantize_rows takes it); the weights unpack inside the product (no
+    float weight matrix is kept)."""
     out_dtype = out_dtype or a.dtype
-    a_q8, a_scale = quantize_rows(a)
+    a_q8, a_scale = quantize_rows(a, row_absmax)
     return matmul_w4(a_q8, w_q4, a_scale, w_scale, out_dtype=out_dtype)
 
 

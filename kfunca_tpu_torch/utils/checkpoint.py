@@ -8,17 +8,31 @@ keys sorted, list items in order), bf16 leaves stored as their uint16 bits
 leaf's dtype name.  The file is written beside its path and moved into
 place, so a crash never leaves a torn checkpoint.
 
-Sharded, asynchronous and orbax checkpoints are a later slice of the port.
+Sharded checkpoints (save_sharded / load_sharded) are the JAX package's
+directory format: `manifest.json` (each leaf's global shape and dtype) and
+one `shard_<process>.npz` a process holding its ranks' pieces, each
+recorded in `__shard_manifest__` with its slice in GLOBAL coordinates, a
+piece held by several ranks (replicated) written once a process.  A tree
+may hold parallel.mesh.ShardedParams nodes (params, or the optimizer
+state through models/train.sharded_opt_state), whose leaves are written in
+the global layout of param_specs, so a directory written by either package
+loads in the other whatever the meshes.  save_async copies the tree to the
+host before it returns and writes it on a thread; an error surfaces on
+wait().  The orbax interop (save_orbax / load_orbax) needs orbax, which
+the port does not depend on: it stays queued.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+import threading
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import ShardedParams, gather_leaf
 from ..utils.tree import tree_leaves, tree_unflatten
 
 _MANIFEST_KEY = "__kfunca_manifest__"
@@ -40,13 +54,38 @@ def _to_host(leaf):
 
 def save(path: str, tree) -> None:
     """Save a tree (dicts and lists) of tensors, numpy arrays and numpy
-    scalars to `path`."""
-    arrays, dtypes = [], []
-    for leaf in tree_leaves(tree):
-        arr, name = _to_host(leaf)
-        arrays.append(arr)
-        dtypes.append(name)
-    manifest = {"treedef": _treedef(tree), "kinds": ["array"] * len(arrays),
+    scalars to `path`; a ShardedParams node is saved as its global tree."""
+    _write(path, [_to_host(leaf) for leaf in _global_leaves(tree)],
+           _treedef(tree))
+
+
+def _global_leaves(tree) -> list:
+    """The leaves of `tree` in flatten order, a ShardedParams node's as its
+    global tensors (gathered)."""
+    out = []
+
+    def walk(x):
+        if isinstance(x, ShardedParams):
+            out.extend(gather_leaf(x.mesh, s, list(xs))[0]
+                       for s, xs in x.leaves())
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif x is not None:
+            out.append(x)
+
+    walk(tree)
+    return out
+
+
+def _write(path: str, host, treedef: str) -> None:
+    """The .npz of save() from (array, dtype name) pairs."""
+    arrays = [a for a, _ in host]
+    dtypes = [n for _, n in host]
+    manifest = {"treedef": treedef, "kinds": ["array"] * len(arrays),
                 "dtypes": dtypes, "version": 1}
     payload = {f"leaf_{i}": a for i, a in enumerate(arrays)}
     payload[_MANIFEST_KEY] = np.frombuffer(
@@ -60,6 +99,8 @@ def save(path: str, tree) -> None:
 def _treedef(tree) -> str:
     """A readable description of the structure (informational, as the JAX
     package's str(treedef); load() follows `like`, not this)."""
+    if isinstance(tree, ShardedParams):
+        return _treedef(tree.shards)
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {_treedef(tree[k])}"
                                for k in sorted(tree)) + "}"
@@ -100,3 +141,231 @@ def load(path: str, like=None, device=None):
         out.append(t.to(device=proto.device if device is None else device,
                         dtype=proto.dtype))
     return tree_unflatten(like, out)
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints (a shard file a process) and the asynchronous save
+# ---------------------------------------------------------------------------
+
+
+def _process_index() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _pieces(tree) -> list:
+    """[(global shape, dtype name, [(global box, host array)])] a leaf in
+    flatten order: this process's pieces of a ShardedParams leaf (one a
+    distinct region), the whole of any other leaf."""
+    out = []
+
+    def add_sharded(sp: ShardedParams):
+        mesh = sp.mesh
+        for shard, xs in sp.leaves():
+            seen, recs, name = set(), [], None
+            for r, x in zip(mesh.ranks, xs):
+                d, t = mesh.coord(r)
+                for box, sub in shard.slices(d, t, mesh.dp, mesh.tp):
+                    key = tuple(map(tuple, box))
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    piece = x if sub is None else x.narrow(
+                        shard.tp_dim, sub[0], sub[1] - sub[0])
+                    arr, name = _to_host(piece)
+                    recs.append((box, arr))
+            if name is None:
+                name = _to_host(xs[0])[1]
+            out.append((list(shard.shape), name, recs))
+
+    def walk(x):
+        if isinstance(x, ShardedParams):
+            add_sharded(x)
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif x is not None:
+            arr, name = _to_host(x)
+            out.append((list(arr.shape), name,
+                        [([[0, n] for n in arr.shape], arr)]))
+
+    walk(tree)
+    return out
+
+
+def save_sharded(dir_path: str, tree) -> None:
+    """Save a tree of ShardedParams nodes and plain leaves as a sharded
+    checkpoint directory:
+
+        dir_path/manifest.json       treedef + per-leaf shape/dtype
+        dir_path/shard_<proc>.npz    this process's pieces
+
+    Each process writes only its own file; a piece replicated over ranks
+    is written once.  Process 0 writes the manifest."""
+    os.makedirs(dir_path, exist_ok=True)
+    payload, records, leaves = {}, [], []
+    for i, (shape, name, recs) in enumerate(_pieces(tree)):
+        leaves.append({"shape": shape, "dtype": name})
+        for box, arr in recs:
+            key = f"leaf{i}_s{len(records)}"
+            payload[key] = arr
+            records.append({"leaf": i, "name": key, "slice": box})
+    proc = _process_index()
+    tmp = os.path.join(dir_path, f"shard_{proc}.npz.tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **payload, __shard_manifest__=np.frombuffer(
+            json.dumps({"shards": records}).encode(), dtype=np.uint8))
+    os.replace(tmp, os.path.join(dir_path, f"shard_{proc}.npz"))
+    if proc == 0:
+        manifest = {"version": 1, "treedef": _treedef(tree),
+                    "leaves": leaves, "process": proc}
+        mtmp = os.path.join(dir_path, "manifest.json.tmp")
+        with open(mtmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(mtmp, os.path.join(dir_path, "manifest.json"))
+
+
+def _from_host(arr, name, like):
+    """A host array (bf16 as uint16 bits) as `like` takes it."""
+    if name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    if isinstance(like, torch.Tensor):
+        return t.to(device=like.device, dtype=like.dtype)
+    return t
+
+
+def load_sharded(dir_path: str, like):
+    """Restore a sharded checkpoint against `like`: its ShardedParams nodes
+    come back as ShardedParams over the same mesh and layout (each held
+    rank's piece cut from the reassembled global leaf), its tensor leaves
+    as tensors of their dtype and device, other leaves as numpy arrays.
+    Raises where the shard files present leave a region of a leaf
+    uncovered."""
+    with open(os.path.join(dir_path, "manifest.json")) as f:
+        manifest = json.load(f)
+    metas = manifest["leaves"]
+    full = [np.zeros(m["shape"], np.uint16 if m["dtype"] == "bfloat16"
+                     else np.dtype(m["dtype"])) for m in metas]
+    boxes = [set() for _ in metas]
+    for path in sorted(glob.glob(os.path.join(dir_path, "shard_*.npz"))):
+        with np.load(path, allow_pickle=False) as z:
+            sm = json.loads(bytes(z["__shard_manifest__"]).decode())
+            for rec in sm["shards"]:
+                idx = tuple(slice(a, b) for a, b in rec["slice"])
+                full[rec["leaf"]][idx] = z[rec["name"]]
+                boxes[rec["leaf"]].add(tuple(map(tuple, rec["slice"])))
+    for i, (arr, leaf_boxes) in enumerate(zip(full, boxes)):
+        n = _covered(arr.shape, leaf_boxes)
+        if n < arr.size:
+            raise ValueError(f"leaf {i}: only {n}/{arr.size} elements "
+                             f"covered by shards")
+    it = iter(zip(full, metas))
+    count = [0]
+
+    def take(shape):
+        count[0] += 1
+        arr, meta = next(it, (None, None))
+        if arr is None:
+            raise ValueError(f"checkpoint has {len(metas)} leaves, the "
+                             f"target more")
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"checkpoint leaf of shape {arr.shape} for a "
+                             f"target of {tuple(shape)}")
+        return arr, meta["dtype"]
+
+    def walk(x):
+        if isinstance(x, ShardedParams):
+            mesh = x.mesh
+            leaves = []
+            for shard, xs in x.leaves():
+                arr, name = take(shard.shape)
+                g = _from_host(arr, name, xs[0])
+                leaves.append([shard.local(g, *mesh.coord(r), mesh.dp,
+                                           mesh.tp)
+                               for r in mesh.ranks])
+            local = [tree_unflatten(x.shards, [lv[j] for lv in leaves])
+                     for j in range(len(mesh.ranks))]
+            return ShardedParams(mesh, local, x.shards, x.specs, x.cfg,
+                                 x.fsdp)
+        if isinstance(x, dict):
+            return {k: walk(x[k]) for k in sorted(x)}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        if x is None:
+            return None
+        arr, name = take(np.shape(x))
+        if isinstance(x, torch.Tensor):
+            return _from_host(arr, name, x)
+        return np.asarray(arr, dtype=np.asarray(x).dtype)
+
+    out = walk(like)
+    if count[0] != len(metas):
+        raise ValueError(f"checkpoint has {len(metas)} leaves, the target "
+                         f"{count[0]}")
+    return out
+
+
+def _covered(shape, boxes) -> int:
+    """Elements of a leaf covered by the (distinct) boxes: the sum of their
+    volumes when no two overlap, else a per-element mask (a region may be
+    held by some processes whole and by others in pieces)."""
+    boxes = sorted(boxes)
+
+    def volume(b):
+        return int(np.prod([hi - lo for lo, hi in b], dtype=np.int64))
+
+    def overlap(a, b):
+        return all(lo1 < hi2 and lo2 < hi1
+                   for (lo1, hi1), (lo2, hi2) in zip(a, b))
+
+    if not any(overlap(a, b) for i, a in enumerate(boxes)
+               for b in boxes[i + 1:]):
+        return sum(volume(b) for b in boxes)
+    mask = np.zeros(shape, bool)
+    for b in boxes:
+        mask[tuple(slice(lo, hi) for lo, hi in b)] = True
+    return int(mask.sum())
+
+
+class AsyncCheckpoint:
+    """Handle of an in-flight save_async; wait() joins the writer thread
+    and raises the error it met, if any."""
+
+    def __init__(self, thread: threading.Thread):
+        self._thread = thread
+        self.error = None
+
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+    def wait(self) -> None:
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def save_async(path: str, tree) -> AsyncCheckpoint:
+    """save() on a thread.  The device-to-host copy happens NOW (the
+    tensors may change as soon as this returns); the file write runs in
+    the background."""
+    host = [_to_host(leaf) for leaf in _global_leaves(tree)]
+    host = [(np.array(a, copy=True), n) for a, n in host]
+    treedef = _treedef(tree)
+    handle = None
+
+    def write():
+        try:
+            _write(path, host, treedef)
+        except Exception as e:  # surfaced on wait()
+            handle.error = e
+
+    t = threading.Thread(target=write, daemon=True)
+    handle = AsyncCheckpoint(t)
+    t.start()
+    return handle

@@ -1839,3 +1839,195 @@ def test_process_group_ring_over_nccl_matches_the_local_ring(cuda, tmp_path):
     for key, want in zip(("out", "dq", "dk", "dv"), (out, *grads)):
         got = np.concatenate([r[key] for r in ranks], axis=2)
         assert np.array_equal(got, want.detach().float().cpu().numpy()), key
+
+
+# -- parallel/: the kernels at a tensor-parallel rank's shapes, the sharded
+# step and tp serving on the card, and both over NCCL ---------------------------
+
+MESH = dict(vocab_size=256, d_model=128, n_heads=4, n_kv_heads=2,
+            n_layers=2, d_ff=256, max_seq_len=64, dtype="float32")
+
+
+def _mesh_ranks():
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_mesh_ranks
+
+    return torch_mesh_ranks
+
+
+def test_flash_kernels_at_a_tp_rank_shape(cuda):
+    """K1 and K2 on the wgmma bodies at a tp = 2 rank's share of Mistral's
+    heads (16 over 4 kv heads of 128): 2^-7 of max |ref|, as the bf16
+    flash tests."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, g = (torch.randn((1, h, 1024, 128), generator=gen, device=cuda)
+                  .to(torch.bfloat16) for h in (16, 4, 4, 16))
+    f, b = fa.flash_attention_fwd_stats, fa.flash_attention_backward
+    n = (f.launches_wgmma, b.launches_wgmma)
+    out, lse = f(q, k, v, window=512)
+    grads = b(q, k, v, g, out, lse, window=512)
+    assert (f.launches_wgmma, b.launches_wgmma) == (n[0] + 1, n[1] + 1)
+    group = lambda t: t.repeat_interleave(4, dim=1)
+    ref_out = fa.flash_attention_plain(q, group(k), group(v), 512)[0]
+    ref = fa.flash_attention_backward_plain(q, group(k), group(v), g, 512)
+    ref = (ref[0], *(r.reshape(1, 4, 4, 1024, 128).sum(2) for r in ref[1:]))
+    for got, want in ((out, ref_out), *zip(grads, ref)):
+        top = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= (
+            2.0 ** -7 * top * 2)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 3072), (2048, 4096), (4096, 7168),
+                                 (7168, 4096), (4096, 16000)])
+def test_matmul_q8_at_a_tp_rank_shapes(cuda, k, n):
+    """K5 at a tp = 2 rank's decode products: bit-equal in fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    a = torch.randint(-127, 128, (8, k), generator=gen, device=cuda).to(
+        torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda).to(
+        torch.int8)
+    sa = torch.rand(8, generator=gen, device=cuda) + 0.01
+    sb = torch.rand(n, generator=gen, device=cuda) + 0.01
+    assert torch.equal(tq.matmul_q8(a, b, sa, sb, torch.float32),
+                       tq.matmul_q8_plain(a, b, sa, sb, torch.float32))
+
+
+def test_sharded_step_on_the_card_matches_the_cpu(cuda):
+    """LocalMesh(2, 2) on the card (K1/K2 per rank) against the same mesh
+    on the CPU, two fp32 sgd steps: params within 1e-5 of each leaf's
+    largest entry, losses within 1e-5."""
+    from kfunca_tpu_torch.parallel import mesh as meshlib
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = transformer.TransformerConfig(**MESH)
+    oc = train.OptConfig(algo="sgd", lr=1e-2)
+    params = transformer.init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 256, (4, 33)) for _ in range(2)]
+    runs = []
+    for dev in ("cpu", cuda):
+        mesh = meshlib.LocalMesh(2, 2, dev)
+        sp = meshlib.shard_params(tree_map(lambda t: t.to(dev), params),
+                                  mesh, True, cfg=cfg)
+        st = train.init_opt_state(sp, oc)
+        step = train.make_sharded_train_step(cfg, mesh, oc, fsdp=True,
+                                             grad_accum=2)
+        losses = []
+        for w in batches:
+            sp, st, loss = step(sp, st, w[:, :-1], w[:, 1:])
+            losses.append(float(loss))
+        runs.append(([x.cpu() for x in tree_leaves(
+            meshlib.gather_params(sp))], losses))
+    for a, b in zip(*(r[0] for r in runs)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    np.testing.assert_allclose(runs[0][1], runs[1][1], atol=1e-5)
+
+
+def test_tp_server_on_the_card_matches_the_single_device_server(cuda):
+    """tp = 2 w8 + kv8 on the card (K5 and K6 per rank, a rank's heads)
+    against the single-device server on the card: the same tokens, and K5
+    and K6 launched by every rank every decode step."""
+    from kfunca_tpu_torch.parallel import mesh as meshlib
+    from kfunca_tpu_torch.utils.tree import tree_map
+
+    cfg = transformer.TransformerConfig(**MESH)
+    params = tree_map(lambda t: t.to(cuda),
+                      transformer.init_params(0, cfg, device="cpu"))
+    kw = dict(batch_slots=2, page_size=16, n_pages=16, max_pages_per_seq=4,
+              quantize_weights=True, quantize_kv=True, fused_pool=False)
+    prompts = [[3, 5, 7], list(range(1, 30))]
+
+    def run(mesh=None):
+        srv = serve.InferenceServer(params, cfg, mesh=mesh, **kw)
+        rids = [srv.submit(p, max_new=8) for p in prompts]
+        out = srv.run()
+        return [out[r] for r in rids], srv.decode_steps
+
+    want, _ = run()
+    pa.paged_decode_attention.launches = tq.matmul_q8.launches = 0
+    got, steps = run(meshlib.LocalMesh(1, 2, cuda))
+    assert got == want
+    assert pa.paged_decode_attention.launches == 2 * 2 * steps
+    assert tq.matmul_q8.launches == 2 * (5 * 2 + 1) * steps
+
+
+def _spawn_nccl(task, spec, n, dp, tp, tmp_path):
+    ranks = _mesh_ranks()
+    torch.multiprocessing.start_processes(
+        ranks.run_rank, args=(n, str(tmp_path / "store"), task, spec,
+                              str(tmp_path), dp, tp, "nccl"),
+        nprocs=n, join=True, start_method="spawn")
+    return [np.load(tmp_path / f"rank{r}.npz") for r in range(n)]
+
+
+def _cards():
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards (NCCL takes one rank a card)")
+    return 4 if n >= 4 else 2
+
+
+def test_sharded_step_over_nccl_matches_the_local_mesh(cuda, tmp_path):
+    """make_sharded_train_step over a DeviceMesh, one process a card (NCCL;
+    (2, 2) on four cards, (1, 2) on two), against LocalMesh of the same
+    shape on one card: the step tolerance of test_torch_sharded_train.py."""
+    from kfunca_tpu_torch.parallel import mesh as meshlib
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    n = _cards()
+    dp, tp = (2, 2) if n == 4 else (1, 2)
+    rng = np.random.default_rng(0)
+    w = rng.integers(0, 256, (2, 4, 17))
+    np.savez(tmp_path / "batches.npz", tokens=w[:, :, :-1],
+             targets=w[:, :, 1:])
+    spec = dict(cfg=MESH, oc=dict(algo="adamw", clip_norm=0.5), seed=3,
+                batches=str(tmp_path / "batches.npz"), fsdp=True,
+                grad_accum=2)
+    ranks = _spawn_nccl("train", spec, n, dp, tp, tmp_path)
+    cfg = transformer.TransformerConfig(**MESH)
+    oc = train.OptConfig(**spec["oc"])
+    mesh = meshlib.LocalMesh(dp, tp, cuda)
+    sp = meshlib.shard_params(tree_map(
+        lambda t: t.to(cuda), transformer.init_params(3, cfg, device="cpu")),
+        mesh, True, cfg=cfg)
+    st = train.init_opt_state(sp, oc)
+    step = train.make_sharded_train_step(cfg, mesh, oc, fsdp=True,
+                                         grad_accum=2)
+    losses = []
+    for tok, tgt in zip(w[:, :, :-1], w[:, :, 1:]):
+        sp, st, loss = step(sp, st, tok, tgt)
+        losses.append(float(loss))
+    want = [x.cpu().numpy() for x in tree_leaves(meshlib.gather_params(sp))]
+    got = ranks[0]
+    extra = 2 * 1e-2 * oc.lr
+    for i, x in enumerate(want):
+        np.testing.assert_allclose(got[f"p{i}"], x, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(x).max()) + extra)
+    np.testing.assert_allclose(got["losses"], losses, atol=1e-5)
+
+
+def test_tp_serving_over_nccl_matches_the_local_mesh(cuda, tmp_path):
+    """InferenceServer over a tp DeviceMesh, one process a card (NCCL),
+    w8 + kv8: every rank gives the LocalMesh server's tokens."""
+    from kfunca_tpu_torch.parallel import mesh as meshlib
+    from kfunca_tpu_torch.utils.tree import tree_map
+
+    n = _cards()
+    server = dict(batch_slots=2, page_size=16, n_pages=16,
+                  max_pages_per_seq=4, quantize_weights=True,
+                  quantize_kv=True)
+    prompts = [[3, 5, 7], list(range(1, 30))]
+    spec = dict(cfg=MESH, seed=0, server=server, prompts=prompts, max_new=8)
+    ranks = _spawn_nccl("serve", spec, n, 1, n, tmp_path)
+    cfg = transformer.TransformerConfig(**MESH)
+    params = tree_map(lambda t: t.to(cuda),
+                      transformer.init_params(0, cfg, device="cpu"))
+    srv = serve.InferenceServer(params, cfg, mesh=meshlib.LocalMesh(1, n, cuda),
+                                **server)
+    rids = [srv.submit(p, max_new=8) for p in prompts]
+    out = srv.run()
+    for r in ranks:
+        for i, rid in enumerate(rids):
+            assert r[f"t{i}"].tolist() == out[rid]

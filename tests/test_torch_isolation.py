@@ -59,7 +59,8 @@ def test_importing_the_port_loads_no_jax():
         "             'runtime.autotune', 'ops.pallas_kernels.ring_hop',",
         "             'parallel', 'parallel.ring_attention', 'models.hf',",
         "             'models.tokenizer', 'models.api_server',",
-        "             'models.speculative'):",
+        "             'models.speculative', 'parallel.mesh',",
+        "             'parallel.collectives', 'parallel.multihost'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -194,6 +195,49 @@ def test_slice_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
             call()
     params, _ = hf.from_hf(golden, dtype="float32", device="cpu")
     assert params["embed"].device.type == "cpu"
+
+
+def test_the_mesh_rank_helpers_load_no_jax():
+    """tests/torch_mesh_ranks.py and torch_ring_ranks.py run in spawned
+    children that must not need JAX: imported alone they load none."""
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import torch_mesh_ranks, torch_ring_ranks; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_mesh_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    """A LocalMesh lies on the card by default and raises without one; a
+    mesh on the CPU, when asked, serves and trains, and a step refuses
+    params on another device."""
+    from kfunca_tpu_torch.parallel import mesh as meshlib
+    from kfunca_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: meshlib.LocalMesh(1, 2),
+                 lambda: meshlib.make_mesh(dp=1, tp=2),
+                 lambda: multihost.make_multihost_mesh(dp=2, tp=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    cfg = transformer.TransformerConfig(**SMALL)
+    params = transformer.init_params(0, cfg, device="cpu")
+    mesh = meshlib.LocalMesh(1, 2, "cpu")
+    srv = serve.InferenceServer(params, cfg, mesh=mesh)  # the mesh's device
+    assert srv.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.InferenceServer(params, cfg, mesh=mesh, device="cuda")
+    sp = meshlib.shard_params(params, mesh, cfg=cfg)
+    step = train.make_sharded_train_step(cfg, mesh)
+    tokens = np.zeros((1, 8), np.int32)
+    opt = train.init_opt_state(sp)
+    step(sp, opt, tokens, tokens)
+    sp.local[1]["embed"] = sp.local[1]["embed"].to("meta")
+    with pytest.raises(ValueError, match="params are on"):
+        step(sp, opt, tokens, tokens)
 
 
 def test_server_checks_params_device():

@@ -176,9 +176,12 @@ def test_window_frees_pages_behind_it():
 
 
 def test_later_slices_raise(served):
-    for kw in ({"max_loras": 2}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            _port(served, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        _port(served, max_loras=2)
+    # mesh serving is ported (tests/test_torch_tp_serve.py); what is not a
+    # mesh is refused
+    with pytest.raises(TypeError, match="LocalMesh or a DeviceMesh"):
+        _port(served, mesh=object())
     # chunked prefill is ported; its chunk must tile whole pages, as in
     # the JAX server
     for chunk in (12, 0):

@@ -264,7 +264,9 @@ def test_unknown_algo_and_unported_entry_points_raise():
     with pytest.raises(ValueError, match="unknown optimizer algo 'adamax'"):
         step(params, ttr.init_opt_state(params, oc, device="cpu"),
              *_batches(1)[0])
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    # the sharded step is ported (tests/test_torch_sharded_train.py); what
+    # is not a mesh is refused
+    with pytest.raises(TypeError, match="LocalMesh or a DeviceMesh"):
         ttr.make_sharded_train_step(tc, None)
 
 
