@@ -9,7 +9,8 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
 alone, against whatever kfunca_tpu_torch sits beside the script (a copy of
 the script in an archive of another commit times that commit's kernels
 through the same calls).  `python3 chip_smoke.py --mesh` runs phases
-47-50 (parallel/ over a mesh) alone.
+47-50 (parallel/ over a mesh) alone, `python3 chip_smoke.py --pipeline`
+phases 51-55 (pipeline, zero-bubble and expert parallelism).
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
@@ -117,7 +118,7 @@ Phases (any failure raises and the script exits non-zero):
      forward and backward (K1, K2) at B=1, H=32, S=2048, hd=128;
  24. profile one eager MLP step, and time an eager 256-element add's host
      cost per op;
- 25. (at the end, after phase 46) print the kernels line (seventeen
+ 25. (at the end, after phase 55) print the kernels line (seventeen
      entries), the card line and, last, the result line;
  26. hold the selective-scan kernels K11 (forward and backward) against
      their plain PyTorch version (the chunked scan) at the Mamba training
@@ -249,7 +250,46 @@ Phases (any failure raises and the script exits non-zero):
  50. make_multihost_mesh(dp=2, tp=2) in one process (stripes of arange(16)
      sum to 120); save_sharded / load_sharded of the fsdp state bit for bit
      with their GB/s; save_async returns before its write ends and a change
-     after it leaves the file as it was.
+     after it leaves the file as it was;
+ 51. expert parallelism (models/moe.py), every mesh of phases 51-55 a
+     LocalMesh on the one card (its ranks run one after another with no
+     communication: the cost of the code path, not a scaling figure): the
+     dryrun's phase (ep 4, E 8, d 16, ff 32, top-2, capacity 8) within 2e-5
+     of the replicated moe_ffn with finite gradients, then Mixtral-8x7B-v0.1's
+     MoE widths (4096 -> 14336, 8 experts, top-2, fp32 GELU experts) over
+     ep = 4 x 1 x 2048 tokens around a shared mean at capacity 1.25 (expert
+     choices drop), each rank
+     within 1e-4 x max(1, max |ref|) of its moe_ffn over its own tokens;
+     forward and backward ms, 2 + 2 all_to_alls, peak memory;
+ 52. the pipelined MoE LM (models/pipeline_lm.py): the dryrun's phase over
+     (dp 1, pp 2, tp 2); fp32 parity at Mixtral's widths, 2 layers, against
+     the same stack unpipelined (every rank's gradient within 1e-4 of each
+     leaf's largest entry, the router's, zero in exact arithmetic under
+     top-1, rounding noise on both sides; after one step the loss 1e-5,
+     params 1e-4); K1 / K2 against their plain versions at a rank's shape
+     (B 2, 16 heads of 128, S 1024, causal; bf16 and fp32); 4 layers, M =
+     2, 4 x 1024 tokens, bf16, 6 SGD steps: ms/step, tokens/s, peak
+     memory, K1 = K2 = layers x M x tp x steps on the wgmma bodies;
+ 53. zero-bubble (parallel/zero_bubble.py): the dryrun's ZB-H1 and ZB-V
+     phases (pp 4, M 4, mb 2, dim 32, tanh stages) against autograd of the
+     sequential stack; K1 / K2 against their plain versions at a stage's
+     shape (B 1, 32 heads over 8, S 2048, window 4096; bf16 and fp32);
+     Mistral-7B-v0.1 blocks as stages, bf16, M = 4 x 1 x 2048: ZB-H1 over
+     4 blocks (gradients within 2^-7 of GPipe + autograd over the same
+     stack) and ZB-V over 8, K1 = 3 x blocks x M and K2 = 2 x blocks x M
+     on the wgmma bodies; ms a step of ZB-H1, ZB-V and GPipe
+     beside schedule_cost and zbv_schedule_cost;
+ 54. the tp = 2 Mamba at mamba-2.8b widths: fp32 parity at 2 layers
+     against the unsharded model (every rank's gradient within 1e-4 of each
+     leaf's largest entry; after one step the loss 1e-5, params 1e-4); K11
+     / K11b against their plain versions at a rank's scan (B 4, L 2048, di
+     2560, N 16, 1e-4 of max |ref|); 8 layers, 4 x
+     2048 tokens, AdamW, 6 steps: ms/step, tokens/s and peak memory beside
+     the single-device step in the same call, K11 / K11b = layers x tp x
+     steps at di 2560 a rank, one step profiled;
+ 55. the interleaved pipeline (v = 2 over pp 2, 8 Mistral blocks of phase
+     53): output and gradients within 2^-7 of GPipe's over the same
+     blocks, K1 = K2 = blocks x M on the wgmma bodies, ms beside GPipe's.
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -4901,19 +4941,27 @@ def read_flash(fa):
     return (f.launches, b.launches), (f.launches_wgmma, b.launches_wgmma)
 
 
-def rank_flash_checks(fa) -> tuple[float, float]:
+def rank_flash_checks(fa, shape=RANK_ATTN,
+                      label="rank shape") -> tuple[float, float]:
     """K1 and K2 against their plain versions at one rank's shape, bf16
     (the wgmma bodies) and fp32, flash_err's tolerances."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
-    w = RANK_ATTN["window"]
+    w = shape["window"]
     worst = [0.0, 0.0]
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, g = flash_case(dtype, gen, **RANK_ATTN)
+        q, k, v, g = flash_case(dtype, gen, **shape)
+        n_wg = (fa.flash_attention_fwd_stats.launches_wgmma,
+                fa.flash_attention_backward.launches_wgmma)
         out, lse = fa.flash_attention_fwd_stats(q, k, v, window=w)
         dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
                                                  window=w)
+        took = (fa.flash_attention_fwd_stats.launches_wgmma - n_wg[0],
+                fa.flash_attention_backward.launches_wgmma - n_wg[1])
+        bf16 = int(dtype == torch.bfloat16)
+        check(took == (bf16, bf16), f"{label}: K1, K2 {dtype} took the "
+              f"{'wgmma' if bf16 else 'fp32'} bodies")
         ref = flash_plain(fa, q, k, v, g, w)
-        tag = f"rank shape {str(dtype)[6:]}"
+        tag = f"{label} {str(dtype)[6:]}"
         worst[0] = max(worst[0], flash_err(out, ref[0], dtype, f"out {tag}"),
                        flash_err(lse, ref[1], torch.float32, f"lse {tag}"))
         worst[1] = max(worst[1], *(flash_err(x, r, dtype, f"{n} {tag}")
@@ -5354,6 +5402,752 @@ def mesh_phases(card) -> list:
     return entries
 
 
+# -- phases 51-55: pipeline, zero-bubble and expert parallelism ---------------
+
+# Mixtral-8x7B-v0.1 (huggingface.co/mistralai/Mixtral-8x7B-v0.1 config.json):
+# hidden 4096, intermediate 14336, 8 local experts, 2 experts a token, 32
+# heads of 128, vocab 32000.  models/moe.py's experts are GELU w_in / w_out
+# (fp32) and models/pipeline_lm.py's blocks full multi-head attention with
+# top-1 routing: Mixtral's widths in the port's own expert and block forms.
+MIXTRAL = dict(d_model=4096, d_ff=14336, n_experts=8, n_heads=32,
+               vocab_size=32000)
+EP_RANKS, EP_TOKENS = 4, 2048  # ep = 4 ranks x 1 x 2048 tokens
+PLM_LAYERS, PLM_PARITY_LAYERS = 4, 2
+PLM_BATCH, PLM_SEQ, PLM_STEPS = 4, 1024, 6
+ZB_STAGES, ZB_MICRO, ZB_SEQ = 4, 4, 2048  # Mistral blocks, 1 x 2048 a mb
+MAMBA_TP = 2
+
+
+LOCAL_MESH_NOTE = ("the ranks run one after another with no communication, "
+                   "so this is the cost of the code path, not a scaling "
+                   "figure")
+
+
+def sync_ms(fn, reps=3):
+    """Median host-clock ms of fn() ending on a synchronize (the paths
+    below are Python loops over many launches)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(out))
+
+
+def count_collectives(mesh):
+    """Counts of the mesh's collectives by kind, from here on."""
+    counts = {}
+    inner = mesh.collective
+
+    def counting(kind, *args, **kw):
+        counts[kind] = counts.get(kind, 0) + 1
+        return inner(kind, *args, **kw)
+
+    mesh.collective = counting
+    return counts
+
+
+def leaf_rel_err(got, want) -> float:
+    """max |got - want| / max |want| over a leaf."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def sharded_grads(sp, rank_losses) -> list:
+    """Each held rank's gradients, in flatten order rank after rank, of the
+    sum of rank_losses(views) over the ranks (every rank back-propagates
+    its own copy of the loss, as the sharded steps do), views fresh
+    leaves of sp's pieces."""
+    from kfunca_tpu_torch.parallel.mesh import ShardedParams
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    views = [tree_map(lambda p: p.detach().requires_grad_(True), t)
+             for t in sp.local]
+    vp = ShardedParams(sp.mesh, views, sp.shards, sp.specs, sp.cfg, sp.fsdp)
+    flat = [v for t in views for v in tree_leaves(t)]
+    with torch.enable_grad():
+        total = sum(rank_losses(vp))
+    return list(torch.autograd.grad(total, flat))
+
+
+def leaf_paths(tree, prefix="") -> list:
+    """The "/"-joined keys of a tree's leaves, in flatten order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(
+            tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "shape"):
+        return [p for i, t in enumerate(tree) for p in leaf_paths(
+            t, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def sharded_grad_err(sp, grads, ref, zero=()) -> tuple:
+    """The worst max |g - ref| / max |ref| of every held rank's gathered
+    gradient (the global layout) against the reference gradient `ref`,
+    leaf by leaf, and the leaf that gives it.  The leaves named in `zero`
+    have a gradient that is zero in exact arithmetic (pipeline_lm's router
+    under top-1: its one kept gate renormalizes to 1) and hold rounding
+    noise only, which no relative bound can hold: each rank's and the
+    reference's must stay below 2^-16 of the largest gradient entry over
+    all leaves, and their maxima are the third value.  grads as
+    sharded_grads gives them (each rank's pieces are dropped as they are
+    read)."""
+    from kfunca_tpu_torch.parallel.mesh import gather_leaf
+
+    n, worst, noise = len(ref), (0.0, None), []
+    bound = 2.0 ** -16 * max(float(r.abs().max()) for r in ref)
+    for i, ((shard, _), name) in enumerate(zip(sp.leaves(),
+                                               leaf_paths(sp.shards))):
+        parts = [grads[j * n + i] for j in range(len(sp.local))]
+        for j in range(len(sp.local)):
+            grads[j * n + i] = None
+        top = float(ref[i].abs().max())
+        full = gather_leaf(sp.mesh, shard, parts)
+        if name in zero:
+            got = max(float(g.abs().max()) for g in full)
+            check(max(got, top) <= bound, f"{name}: a gradient zero in exact "
+                  f"arithmetic is rounding noise on every rank (max {got:.3g}"
+                  f", the reference's {top:.3g}, bound {bound:.3g})")
+            noise.append(f"{name} max {got:.3g} against {top:.3g}")
+        else:
+            err = max(float((g.float() - ref[i].float()).abs().max())
+                      for g in full) / max(top, 1e-30)
+            if err >= worst[0]:
+                worst = (err, f"{name}, max |ref| {top:.3g}")
+        del parts, full
+    return worst[0], worst[1], noise
+
+
+def ep_phase(card) -> dict:
+    """Phase 51: expert parallelism, the dryrun's sizes, then Mixtral's MoE
+    widths over ep = 4 ranks of 2048 tokens with drops."""
+    from kfunca_tpu_torch.models import moe
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh
+
+    mesh = LocalMesh(axes={"ep": EP_RANKS})
+    # the dryrun's phase (__graft_entry__.py:190-216): E = 8 over ep = 4,
+    # d 16, ff 32, top-2, capacity 8 (nothing drops)
+    ecfg = moe.MoEConfig(n_experts=2 * EP_RANKS, d_model=16, d_ff=32,
+                         capacity_factor=8.0, top_k=2)
+    params = moe.init_moe_params(SEED + 51, ecfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    ex = torch.randn((2 * EP_RANKS, 4, 16), generator=gen, device="cuda")
+    sp = moe.shard_moe_params(params, mesh)
+    trees = [{k: v.clone().requires_grad_(True) for k, v in t.items()}
+             for t in sp.local]
+    outs, aux = moe.make_moe_ffn_ep(mesh, ecfg)(ex, trees)
+    want, _ = moe.moe_ffn(ex, params, ecfg)
+    md = float((torch.cat(outs) - want).detach().abs().max())
+    check(md < 2e-5, f"dryrun EP: forward within 2e-5 of the replicated "
+          f"moe_ffn (max diff {md:.3g})")
+    loss = sum((o ** 2).sum() for o in outs) + torch.stack(aux).mean()
+    grads = torch.autograd.grad(loss, [t[k] for t in trees
+                                       for k in ("router", "w_in", "w_out")])
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "dryrun EP: every gradient finite")
+    check(max(float(g.abs().max()) for g in grads[1::3]) > 0,
+          "dryrun EP: w_in's gradient nonzero")
+    print(f"[51] dryrun a2a-MoE: ep={EP_RANKS} E={ecfg.n_experts}, forward "
+          f"max diff {md:.2e} against moe_ffn, gradients finite", flush=True)
+    del params, sp, trees, outs, grads
+    free_device_memory()
+
+    cfg = moe.MoEConfig(n_experts=MIXTRAL["n_experts"],
+                        d_model=MIXTRAL["d_model"], d_ff=MIXTRAL["d_ff"],
+                        capacity_factor=1.25, top_k=2)
+    params = moe.init_moe_params(SEED + 53, cfg)
+    # tokens around a shared mean (each feature's mean drawn N(0, 1/4)), so
+    # the router prefers some experts and their queues overflow: balanced
+    # N(0, 1) tokens fill none of the 1.25 capacity
+    mu = 0.5 * torch.randn((cfg.d_model,), generator=gen, device="cuda")
+    x = torch.randn((EP_RANKS, EP_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda") + mu
+    sp = moe.shard_moe_params(params, mesh)
+    fn = moe.make_moe_ffn_ep(mesh, cfg)
+    with torch.no_grad():
+        outs, auxes = fn(x, sp)
+        worst, dropped = 0.0, 0
+        for i in range(EP_RANKS):
+            ref, ref_aux = moe.moe_ffn(x[i:i + 1], params, cfg)
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            err = float((outs[i] - ref).abs().max())
+            check(err <= tol and abs(float(auxes[i] - ref_aux)) <= 1e-5,
+                  f"EP rank {i}: within 1e-4 x max(1, max |ref|) of its "
+                  f"moe_ffn over its own tokens (err {err:.3g})")
+            worst = max(worst, err)
+            # (token, choice) pairs that found no seat in their queue
+            seated = moe._route(x[i].float(), params["router"], cfg)[1].sum()
+            dropped += EP_TOKENS * cfg.top_k - int(seated)
+    check(dropped > 0, "EP: the capacity drops expert choices")
+    del outs, auxes
+    free_device_memory()
+    trees = [{k: v.detach().requires_grad_(True) for k, v in t.items()}
+             for t in sp.local]
+    counts = count_collectives(mesh)
+
+    def fwd():
+        with torch.no_grad():
+            fn(x, trees)
+
+    xg = x.detach().requires_grad_(True)  # the activations' gradient too
+
+    def fwd_bwd():
+        outs, _ = fn(xg, trees)
+        torch.autograd.grad(sum((o.float() ** 2).mean() for o in outs),
+                            [xg] + [t["w_in"] for t in trees])
+
+    torch.cuda.reset_peak_memory_stats()
+    counts.clear()
+    fwd_bwd()
+    a2a = counts.get("all_to_all", 0)
+    check(a2a == 4, f"EP: {a2a} all_to_alls a forward and backward (2 + 2)")
+    ms_f = sync_ms(fwd)
+    ms_fb = sync_ms(fwd_bwd)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[51] expert parallelism at Mixtral-8x7B-v0.1's MoE widths (4096 "
+          f"-> 14336, 8 experts, top-2, fp32 GELU experts), LocalMesh(ep="
+          f"{EP_RANKS}) x 1 x {EP_TOKENS} tokens, capacity 1.25 "
+          f"({dropped} of {EP_RANKS * EP_TOKENS * cfg.top_k} expert choices "
+          f"dropped): each rank "
+          f"within 1e-4 of its moe_ffn (max err {worst:.3g}); forward "
+          f"{ms_f:.1f} ms, backward {ms_fb - ms_f:.1f} ms (host clock, "
+          f"median of 3); all_to_alls {a2a} (2 forward, 2 backward); peak "
+          f"memory {peak:.2f} GB; {LOCAL_MESH_NOTE}; {card}",
+          flush=True)
+    del params, sp, trees, x
+    free_device_memory()
+    return dict(fwd_ms=ms_f, bwd_ms=ms_fb - ms_f, peak_gb=peak,
+                max_err=worst, all_to_all=a2a, dropped=dropped)
+
+
+def plm_batch(cfg, seed, rows=PLM_BATCH, seq=PLM_SEQ):
+    corpus = learnable_corpus(cfg.vocab_size)
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, len(corpus) - seq - 1, rows)
+    win = np.stack([corpus[s:s + seq + 1] for s in starts])
+    return win[:, :-1], win[:, 1:]
+
+
+def plm_parity(card):
+    """Phase 52b: pipeline_lm over (1, 2, 2) at Mixtral's widths, 2 layers,
+    fp32, against the same stack unpipelined on one rank: every rank's
+    gathered gradient within 1e-4 of its leaf's largest entry (the
+    router's, zero in exact arithmetic under top-1: sharded_grad_err), then
+    one SGD step, its loss within 1e-5 and every param within 1e-4 of its
+    leaf's largest entry.  The gradients are held themselves: an update of
+    lr x g is small beside the param, so the params alone would pass a
+    wrong gradient of a leaf whose gradients are small."""
+    from kfunca_tpu_torch.models import pipeline_lm as plm
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh, gather_params
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = plm.PipelineMoEConfig(n_layers=PLM_PARITY_LAYERS, n_stages=2,
+                                n_microbatches=2, dtype="float32", **MIXTRAL)
+    lr = 1e-2
+    params = plm.init_params(SEED + 54, cfg)
+    tok, tgt = plm_batch(cfg, SEED + 55)
+    views = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss_ref = plm.sequential_loss_fn(views, tok, tgt, cfg)
+    ref_grads = list(torch.autograd.grad(loss_ref, tree_leaves(views)))
+    loss_ref = float(loss_ref.detach())
+    with torch.no_grad():
+        ref = [p - lr * g for p, g in zip(tree_leaves(params), ref_grads)]
+    del views
+    free_device_memory()
+    mesh = LocalMesh(axes={"dp": 1, "pp": 2, "tp": 2})
+    sp = plm.shard_params(params, mesh, cfg)
+    del params
+    free_device_memory()
+    loss_fn = plm.make_loss_fn(cfg, mesh)
+    # top-1: the router's gradient is zero in exact arithmetic
+    zero = ("/stages/moe/router",) if cfg.moe.top_k == 1 else ()
+    grad_worst, grad_leaf, noise = sharded_grad_err(
+        sp, sharded_grads(sp, lambda vp: loss_fn(vp, tok, tgt)), ref_grads,
+        zero)
+    del ref_grads
+    free_device_memory()
+    check(grad_worst <= 1e-4, f"pipeline_lm: every rank's gradient within "
+          f"1e-4 of its leaf's largest entry (worst {grad_worst:.3g}, "
+          f"{grad_leaf})")
+    sp, loss = plm.make_train_step(cfg, mesh, lr=lr)(sp, tok, tgt)
+    worst = max(leaf_rel_err(a, b) for a, b in
+                zip(tree_leaves(gather_params(sp)), ref))
+    dl = abs(float(loss) - loss_ref)
+    check(dl <= 1e-5, f"pipeline_lm fp32 loss {float(loss):.7f} within 1e-5 "
+          f"of the unpipelined stack's {loss_ref:.7f}")
+    check(worst <= 1e-4, f"pipeline_lm: every updated param within 1e-4 of "
+          f"its leaf's largest entry (worst {worst:.3g})")
+    print(f"[52] pipeline_lm parity, {PLM_PARITY_LAYERS} layers at Mixtral's "
+          f"widths, fp32, (dp 1, pp 2, tp 2), {PLM_BATCH} x {PLM_SEQ} tokens, "
+          f"sgd: loss {float(loss):.6f} against the unpipelined "
+          f"{loss_ref:.6f} (diff {dl:.2e}); gradients worst "
+          f"{grad_worst:.3g} ({grad_leaf}), params after the step worst "
+          f"{worst:.3g}, of each leaf's largest entry; the gradient zero in "
+          f"exact arithmetic under top-1, rounding noise on both sides: "
+          f"{noise}; {card}", flush=True)
+    del sp, ref
+    free_device_memory()
+    return dict(grad_err=grad_worst, param_err=worst, loss_diff=dl)
+
+
+def plm_phase(fa, card) -> dict:
+    """Phase 52: the dryrun's pipelined MoE, the parity at 2 layers, then
+    4 layers at Mixtral's widths, bf16, 6 SGD steps with K1 / K2 counted."""
+    from kfunca_tpu_torch.models import pipeline_lm as plm
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    mesh = LocalMesh(axes={"dp": 1, "pp": 2, "tp": 2})
+    dcfg = plm.PipelineMoEConfig(n_stages=2, n_microbatches=2,
+                                 dtype="float32")
+    dparams = plm.shard_params(plm.init_params(SEED + 56, dcfg), mesh, dcfg)
+    _, dloss = plm.make_train_step(dcfg, mesh)(
+        dparams, np.zeros((4, 32), np.int32), np.ones((4, 32), np.int32))
+    check(math.isfinite(float(dloss)), "dryrun pipelined-MoE: loss finite")
+    print(f"[52] dryrun pipelined-MoE: mesh dp=1 pp=2 tp/ep=2, loss "
+          f"{float(dloss):.4f}", flush=True)
+    del dparams
+    parity = plm_parity(card)
+
+    cfg = plm.PipelineMoEConfig(n_layers=PLM_LAYERS, n_stages=2,
+                                n_microbatches=2, dtype="bfloat16",
+                                **MIXTRAL)
+    # K1 / K2 against their plain versions at the shape a rank's attention
+    # gives them below: one microbatch of the rank's dp rows, its tp share
+    # of the full MHA heads, no window
+    heads = cfg.n_heads // mesh.size("tp")
+    rank = dict(b=PLM_BATCH // mesh.size("dp") // cfg.n_microbatches,
+                h=heads, hkv=heads, sq=PLM_SEQ, skv=PLM_SEQ, hd=cfg.head_dim,
+                window=None)
+    e1, e2 = rank_flash_checks(fa, rank, "pipeline_lm rank shape")
+    print(f"[52] K1 / K2 at a pipeline_lm rank's shape (B {rank['b']}, "
+          f"{rank['h']} heads of {rank['hd']}, S {PLM_SEQ}, causal), bf16 "
+          f"wgmma and fp32 bodies against their plain versions: max err "
+          f"K1 {e1:.3g}, K2 {e2:.3g} (flash_err's tolerances); {card}",
+          flush=True)
+    free_device_memory()
+    params = plm.init_params(SEED + 57, cfg)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    sp = plm.shard_params(params, mesh, cfg)
+    del params
+    free_device_memory()
+    step = plm.make_train_step(cfg, mesh, lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)  # the main path: counts start at 0 here
+    losses, seconds = [], []
+    for i in range(PLM_STEPS):
+        tok, tgt = plm_batch(cfg, SEED + 58 + i)
+        t0 = time.perf_counter()
+        sp, loss = step(sp, tok, tgt)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches, wgmma = read_flash(fa)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = PLM_LAYERS * cfg.n_microbatches * 2 * PLM_STEPS
+    check(launches == (want, want) and wgmma == launches,
+          f"pipeline_lm: K1, K2 launches {launches} == layers x microbatches "
+          f"x tp x steps {want}, all on the wgmma bodies ({wgmma})")
+    check(all(math.isfinite(v) for v in losses), "pipeline_lm: every loss "
+          "is finite")
+    # the tied head at std 0.02 over 4096 widths gives logits of std ~1.3,
+    # so the first loss is about ln(vocab) + 0.8
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.5,
+          f"pipeline_lm: first loss {losses[0]:.3f} near ln(vocab)")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    tokens = PLM_BATCH * PLM_SEQ
+    print(f"[52] pipeline_lm at Mixtral-8x7B-v0.1's widths ({PLM_LAYERS} "
+          f"layers, {n_params / 1e9:.2f} B parameters, MHA 32 x 128, 8 "
+          f"experts of 14336, top-1), LocalMesh(dp 1, pp 2, tp 2), M = 2, "
+          f"{PLM_BATCH} x {PLM_SEQ} tokens, bf16 activations, fp32 params, "
+          f"sgd: losses {[round(v, 4) for v in losses]}; {ms:.1f} ms/step "
+          f"(host clock, steps 2-{PLM_STEPS}), {tokens / ms * 1e3:.0f} "
+          f"tokens/s, peak memory {peak:.2f} GB; K1 / K2 launches "
+          f"{launches[0]} / {launches[1]}, all wgmma; "
+          f"{LOCAL_MESH_NOTE}; {card}", flush=True)
+    del sp, step
+    free_device_memory()
+    return dict(ms_step=ms, tokens_s=tokens / ms * 1e3, peak_gb=peak,
+                launches=launches, flash_err=(e1, e2), **parity)
+
+
+def mistral_blocks(n, seed, dtype=torch.float32):
+    """n Mistral-7B-v0.1 blocks (random weights from a seed) and their
+    config, bf16 activations."""
+    from kfunca_tpu_torch.models.transformer import (
+        TransformerConfig, init_params)
+
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": n,
+                               "max_seq_len": ZB_SEQ})
+    params = init_params(seed, cfg, device="cuda", dtype=dtype)
+    blocks = params["blocks"]
+    del params
+    return blocks, cfg
+
+
+def block_stage(cfg):
+    """A stage whose params carry a leading axis of layers (ZB-H1, GPipe)."""
+    from kfunca_tpu_torch.models.transformer import _block
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    def stage(sp, x):
+        for j in range(tree_leaves(sp)[0].shape[0]):
+            x = _block(x, tree_map(lambda a: a[j], sp), cfg)
+        return x
+
+    return stage
+
+
+def zb_dryrun(card):
+    """The dryrun's zero-bubble and ZB-V phases (__graft_entry__.py:256-319):
+    pp 4, M 4, mb 2, dim 32, tanh stages; gradients held against autograd
+    of the sequential stack."""
+    from kfunca_tpu_torch.parallel import pipeline as pl
+    from kfunca_tpu_torch.parallel import zero_bubble as zb
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh
+
+    mesh = LocalMesh(axes={"pp": 4})
+    g = torch.Generator(device="cuda").manual_seed(SEED + 59)
+    dim, mb, m = 32, 2, 4
+
+    def mk(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * s
+
+    tgt, x = mk(m, mb, dim), mk(m, mb, dim)
+
+    def loss(y, i):
+        return ((y - tgt[i]) ** 2).sum()
+
+    for label, n_stages, make, stack, stage in (
+            ("zero-bubble", 4, zb.make_zb_train_step, pl.stack_stages,
+             lambda sp, h: torch.tanh(h @ sp["w"][0])),
+            ("ZB-V", 8, zb.make_zbv_train_step, zb.stack_stages_v,
+             lambda sp, h: torch.tanh(h @ sp["w"]))):
+        layers = [{"w": mk(dim, dim, s=0.2)} for _ in range(n_stages)]
+        sp = pl.stage_shards(stack(layers, 4), mesh)
+        zl, zg = make(stage, loss, mesh, n_micro=m)(sp, x)
+        leaves = [lay["w"].clone().requires_grad_(True) for lay in layers]
+        h = x
+        for w in leaves:
+            h = torch.tanh(h @ w)
+        want = torch.autograd.grad(((h - tgt) ** 2).sum(), leaves)
+        got = ([gg["w"][0, 0] for gg in zg] if n_stages == 4 else
+               [zg[d]["w"][0, 0] for d in range(4)]
+               + [zg[3 - d]["w"][0, 1] for d in range(4)])
+        worst = max(leaf_rel_err(a, b) for a, b in zip(got, want))
+        check(worst <= 1e-4, f"dryrun {label}: gradients within 1e-4 of "
+              f"autograd of the sequential stack (worst {worst:.3g})")
+        gnorm = float(sum(float((gg["w"].float() ** 2).sum())
+                          for gg in zg) ** 0.5)
+        print(f"[53] dryrun {label}: pp=4 M={m}, loss {float(zl):.4f} "
+              f"gradnorm {gnorm:.4f}, gradients within {worst:.2e} of the "
+              f"sequential stack's; {card}", flush=True)
+
+
+def zb_phase(fa, card) -> dict:
+    """Phase 53: ZB-H1 and ZB-V over Mistral-7B-v0.1 blocks, bf16: the
+    launch counts, ZB-H1's gradients against GPipe + autograd, and the
+    steps' ms beside GPipe's."""
+    from kfunca_tpu_torch.models.transformer import _block
+    from kfunca_tpu_torch.parallel import pipeline as pl
+    from kfunca_tpu_torch.parallel import zero_bubble as zb
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh
+
+    zb_dryrun(card)
+    blocks, cfg = mistral_blocks(2 * ZB_STAGES, SEED + 60)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    mesh = LocalMesh(axes={"pp": ZB_STAGES})
+    g = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    shape = (ZB_MICRO, 1, ZB_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    tgt = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def loss(y, i):
+        return ((y.float() - tgt[i].float()) ** 2).sum()
+
+    shape = dict(b=1, h=cfg.n_heads, hkv=cfg.kv_heads, sq=ZB_SEQ, skv=ZB_SEQ,
+                 hd=cfg.head_dim, window=cfg.attention_window)
+    e1, e2 = rank_flash_checks(fa, shape, "zero-bubble stage shape")
+    print(f"[53] K1 / K2 at a stage's shape (one microbatch of 1 x {ZB_SEQ}, "
+          f"{cfg.n_heads} heads over {cfg.kv_heads}, window "
+          f"{cfg.attention_window}), bf16 wgmma and fp32 bodies against "
+          f"their plain versions: max err K1 {e1:.3g}, K2 {e2:.3g}; {card}",
+          flush=True)
+    free_device_memory()
+    stage = block_stage(cfg)
+    sp = pl.stage_shards(pl.stack_stages(blocks[:ZB_STAGES], ZB_STAGES), mesh)
+    zbh = zb.make_zb_train_step(stage, loss, mesh, n_micro=ZB_MICRO)
+    reset_flash(fa)  # the main path: counts start at 0 here
+    zl, zg = zbh(sp, x)
+    torch.cuda.synchronize()
+    zb_launches, zb_wgmma = read_flash(fa)
+    want = (3 * ZB_STAGES * ZB_MICRO, 2 * ZB_STAGES * ZB_MICRO)
+    check(zb_launches == want and zb_wgmma == zb_launches,
+          f"ZB-H1: K1, K2 launches {zb_launches} == (3, 2) x blocks x M "
+          f"{want}, all on the wgmma bodies ({zb_wgmma})")
+    # GPipe over the same stack, gradients by autograd
+    gp = pl.make_pipelined_forward(lambda p, h: _block(h, p, cfg), mesh)
+    trees = [{k: v.detach().requires_grad_(True) for k, v in t.items()}
+             for t in sp.local]
+
+    def gpipe_step():
+        ys = gp(trees, x)
+        # every pp rank back-propagates its own copy of the loss
+        lsum = sum(sum(loss(y[i], i) for i in range(ZB_MICRO)) for y in ys)
+        return lsum, torch.autograd.grad(
+            lsum, [v for t in trees for k, v in sorted(t.items())])
+
+    reset_flash(fa)
+    gl, gg = gpipe_step()
+    gp_launches, _ = read_flash(fa)
+    keys = sorted(trees[0])
+    worst = 0.0
+    for r in range(ZB_STAGES):
+        for j, k in enumerate(keys):
+            worst = max(worst, leaf_rel_err(zg[r][k], gg[r * len(keys) + j]))
+    gl = float(gl.detach()) / ZB_STAGES  # every pp rank's copy of the loss
+    check(worst <= 2.0 ** -7, f"ZB-H1's bf16 gradients within 2^-7 of each "
+          f"leaf's largest entry of GPipe's (worst {worst:.3g})")
+    check(abs(float(zl) - gl) <= 2.0 ** -7 * abs(gl),
+          f"ZB-H1 loss {float(zl):.6g} within 2^-7 of GPipe's {gl:.6g}")
+    del gg
+    free_device_memory()
+    # ZB-V over 8 blocks
+    spv = pl.stage_shards(zb.stack_stages_v(blocks, ZB_STAGES), mesh)
+    zbv = zb.make_zbv_train_step(lambda p, h: _block(h, p, cfg), loss, mesh,
+                                 n_micro=ZB_MICRO)
+    reset_flash(fa)
+    vl, vg = zbv(spv, x)
+    torch.cuda.synchronize()
+    v_launches, v_wgmma = read_flash(fa)
+    want_v = (3 * 2 * ZB_STAGES * ZB_MICRO, 2 * 2 * ZB_STAGES * ZB_MICRO)
+    check(v_launches == want_v and v_wgmma == v_launches,
+          f"ZB-V: K1, K2 launches {v_launches} == (3, 2) x blocks x M "
+          f"{want_v}, all on the wgmma bodies ({v_wgmma})")
+    check(math.isfinite(float(vl)) and all(
+        bool(torch.isfinite(t).all()) for d in vg for t in d.values()),
+        "ZB-V: loss and gradients finite")
+    del vg
+    free_device_memory()
+    ms = {"ZB-H1": sync_ms(lambda: zbh(sp, x)),
+          "ZB-V": sync_ms(lambda: zbv(spv, x)),
+          "GPipe": sync_ms(gpipe_step)}
+    cost, vcost = zb.schedule_cost(ZB_STAGES, ZB_MICRO), zb.zbv_schedule_cost(
+        ZB_STAGES, ZB_MICRO)
+    print(f"[53] zero-bubble over Mistral-7B-v0.1 blocks (bf16, window "
+          f"4096), LocalMesh(pp={ZB_STAGES}), M = {ZB_MICRO} x 1 x {ZB_SEQ} "
+          f"tokens, loss = sum of squares against a fixed target: ZB-H1 "
+          f"({ZB_STAGES} blocks) {ms['ZB-H1']:.1f} ms/step, ZB-V "
+          f"({2 * ZB_STAGES} blocks) {ms['ZB-V']:.1f}, GPipe over ZB-H1's "
+          f"stack {ms['GPipe']:.1f} (host clock, median of 3); launches K1 / "
+          f"K2: ZB-H1 {zb_launches[0]} / {zb_launches[1]}, ZB-V "
+          f"{v_launches[0]} / {v_launches[1]}, GPipe {gp_launches[0]} / "
+          f"{gp_launches[1]}, all wgmma; ZB-H1's gradients within "
+          f"{worst:.3g} of GPipe's; schedule_cost {cost}, zbv_schedule_cost "
+          f"{vcost} (on one card these measure the recompute, not the "
+          f"bubble); {LOCAL_MESH_NOTE}; {card}", flush=True)
+    del sp, spv, trees
+    free_device_memory()
+    return dict(ms=ms, zb_launches=zb_launches, zbv_launches=v_launches,
+                blocks=blocks, cfg=cfg, x=x, tgt=tgt)
+
+
+def interleaved_phase(fa, card, zbr):
+    """Phase 55: the interleaved pipeline, v = 2 over pp 2 (8 Mistral
+    blocks), forward and backward against GPipe over the same blocks."""
+    from kfunca_tpu_torch.models.transformer import _block
+    from kfunca_tpu_torch.parallel import pipeline as pl
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh
+
+    blocks, cfg, x, tgt = zbr["blocks"], zbr["cfg"], zbr["x"], zbr["tgt"]
+    n, v = 2, 2
+    mesh = LocalMesh(axes={"pp": n})
+
+    def stage(p, h):
+        return _block(h, p, cfg)
+
+    per = len(blocks) // (n * v)
+    runs = {}
+    for label, stacked, make in (
+            ("interleaved", pl.stack_stages_interleaved(blocks, n, v),
+             lambda: pl.make_interleaved_pipeline(stage, mesh, v=v)),
+            ("GPipe", pl.stack_stages(blocks, n),
+             lambda: pl.make_pipelined_forward(stage, mesh))):
+        sp = pl.stage_shards(stacked, mesh)
+        trees = [{k: t.detach().requires_grad_(True) for k, t in tr.items()}
+                 for tr in sp.local]
+        fn = make()
+
+        def run():
+            ys = fn(trees, x)
+            lsum = sum(((y.float() - tgt.float()) ** 2).sum() for y in ys)
+            keys = sorted(trees[0])
+            gs = torch.autograd.grad(lsum, [t[k] for t in trees
+                                            for k in keys])
+            return ys[0].detach(), dict(zip(
+                [(i, k) for i in range(n) for k in keys], gs))
+
+        reset_flash(fa)
+        out, grads = run()
+        launches, wgmma = read_flash(fa)
+        want = len(blocks) * ZB_MICRO
+        check(launches == (want, want) and wgmma == launches,
+              f"{label}: K1, K2 launches {launches} == blocks x M {want}, "
+              f"all wgmma ({wgmma})")
+        runs[label] = (out, grads, sync_ms(lambda: run()), launches)
+        del sp
+    out_i, g_i, ms_i, l_i = runs["interleaved"]
+    out_g, g_g, ms_g, _ = runs["GPipe"]
+    err = float((out_i.float() - out_g.float()).abs().max())
+    top = float(out_g.float().abs().max())
+    check(err <= 2.0 ** -7 * top, f"interleaved output within 2^-7 of "
+          f"GPipe's largest entry (err {err:.3g})")
+    worst = 0.0
+    for blk in range(len(blocks)):
+        j = blk // per  # virtual stage
+        d, c = j % n, j // n
+        gd, gj = blk // (len(blocks) // n), blk % (len(blocks) // n)
+        for k in sorted(blocks[0]):
+            a = g_i[(d, k)][0, c, blk % per]
+            b = g_g[(gd, k)][0, gj]
+            worst = max(worst, leaf_rel_err(a, b))
+    check(worst <= 2.0 ** -7, f"interleaved gradients within 2^-7 of each "
+          f"leaf's largest entry of GPipe's (worst {worst:.3g})")
+    print(f"[55] interleaved pipeline, v = {v} over pp = {n}, "
+          f"{len(blocks)} Mistral-7B-v0.1 blocks, M = {ZB_MICRO} x 1 x "
+          f"{ZB_SEQ}, bf16: forward + backward {ms_i:.1f} ms against GPipe's "
+          f"{ms_g:.1f} over the same blocks (host clock, median of 3); K1 / "
+          f"K2 {l_i[0]} / {l_i[1]}, all wgmma; output within {err:.3g}, "
+          f"gradients within {worst:.3g} of each leaf's largest entry of "
+          f"GPipe's; {LOCAL_MESH_NOTE}; {card}", flush=True)
+    return dict(ms=ms_i, gpipe_ms=ms_g)
+
+
+def mamba_tp_phase(ss, card) -> dict:
+    """Phase 54: the tp = 2 Mamba at mamba-2.8b widths: fp32 parity at 2
+    layers against the unsharded model (every rank's gradient, then one
+    step), K11 / K11b against their plain versions at a rank's shape, then
+    6 AdamW steps at 8 layers with K11 / K11b counted, beside the
+    single-device step in the same call."""
+    from kfunca_tpu_torch.models import mamba
+    from kfunca_tpu_torch.models.train import OptConfig, init_opt_state
+    from kfunca_tpu_torch.models.transformer import rank_batches
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh, gather_params
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    mesh = LocalMesh(1, MAMBA_TP)
+    # parity at 2 layers, fp32, sgd
+    cfg = mamba.MambaConfig(**{**MAMBA, "n_layers": 2, "dtype": "float32"})
+    oc = OptConfig(algo="sgd", lr=1e-2)
+    base = mamba_params(cfg, SEED + 62, torch.float32)
+    tok, tgt = plm_batch(cfg, SEED + 63, rows=2, seq=SSM_TRAIN_SEQ)
+    # the gradients themselves (an update of lr x g is small beside the
+    # param): the corpus has no ignored target, so the loss is each rank's
+    # mean token NLL
+    views = tree_map(lambda p: p.detach().requires_grad_(True), base)
+    ref_grads = list(torch.autograd.grad(mamba.loss_fn(
+        views, torch.as_tensor(tok, device="cuda"),
+        torch.as_tensor(tgt, device="cuda"), cfg), tree_leaves(views)))
+    del views
+    sp = mamba.shard_mamba_params(base, mesh)
+    grads = sharded_grads(sp, lambda vp: [n.mean() for n in mamba.tp_token_nll(
+        vp, rank_batches(mesh, tok), rank_batches(mesh, tgt), cfg)])
+    grad_worst, grad_leaf, _ = sharded_grad_err(sp, grads, ref_grads)
+    del ref_grads, grads
+    check(grad_worst <= 1e-4, f"tp Mamba: every rank's gradient within 1e-4 "
+          f"of its leaf's largest entry (worst {grad_worst:.3g}, "
+          f"{grad_leaf})")
+    ref, _, rloss = mamba.make_mamba_train_step(cfg, oc)(
+        base, init_opt_state(base, oc), tok, tgt)
+    sp, _, loss = mamba.make_sharded_mamba_train_step(cfg, mesh, oc)(
+        sp, init_opt_state(sp, oc), tok, tgt)
+    worst = max(leaf_rel_err(a, b) for a, b in
+                zip(tree_leaves(gather_params(sp)), tree_leaves(ref)))
+    dl = abs(float(loss) - float(rloss))
+    check(dl <= 1e-5, f"tp Mamba fp32 loss {float(loss):.7f} within 1e-5 of "
+          f"the unsharded step's {float(rloss):.7f}")
+    check(worst <= 1e-4, f"tp Mamba: every updated param within 1e-4 of its "
+          f"leaf's largest entry (worst {worst:.3g})")
+    print(f"[54] tp = {MAMBA_TP} Mamba parity, 2 layers at mamba-2.8b widths, "
+          f"fp32, 2 x {SSM_TRAIN_SEQ} tokens, sgd: loss {float(loss):.6f} "
+          f"against {float(rloss):.6f} (diff {dl:.2e}); gradients worst "
+          f"{grad_worst:.3g} ({grad_leaf}), params after the step worst "
+          f"{worst:.3g}, of each leaf's largest entry; {card}", flush=True)
+    del base, sp, ref
+    free_device_memory()
+    # K11 / K11b at the shape a rank's scan takes below: the whole batch,
+    # the rank's d_inner / tp channels
+    di = cfg.d_inner // MAMBA_TP
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    scan_err = ssm_hold(ss, ssm_case(gen, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, di,
+                                     cfg.d_state), ss.LB,
+                        f"tp rank shape B={SSM_TRAIN_BATCH} L={SSM_TRAIN_SEQ}"
+                        f" di={di} N={cfg.d_state}")
+    print(f"[54] K11 / K11b at a tp rank's shape (B {SSM_TRAIN_BATCH}, L "
+          f"{SSM_TRAIN_SEQ}, di {di}, N {cfg.d_state}) against their plain "
+          f"versions: y, h_bound and the five gradients within 1e-4 of max "
+          f"|ref| (worst {scan_err:.3g} of it); {card}", flush=True)
+    free_device_memory()
+    # readings at 8 layers, bf16, AdamW: the single device, then tp = 2
+    cfg = mamba.MambaConfig(**{**MAMBA, "n_layers": SSM_TRAIN_LAYERS})
+    single = ssm_train(mamba.make_mamba_train_step, cfg,
+                       mamba_params(cfg, SEED + 64, torch.float32), 6, ss)
+    free_device_memory()
+    sp = mamba.shard_mamba_params(
+        mamba_params(cfg, SEED + 64, torch.float32), mesh)
+    free_device_memory()
+    r = ssm_train(lambda c, o: mamba.make_sharded_mamba_train_step(
+        c, mesh, o), cfg, sp, 6, ss)
+    want = cfg.n_layers * MAMBA_TP * 6
+    check(r["launches"][:2] == (want, want),
+          f"tp Mamba: K11 forward, backward launches {r['launches'][:2]} == "
+          f"layers x tp x steps {want}")
+    ms = 1e3 * float(np.mean(r["seconds"][1:]))
+    ms1 = 1e3 * float(np.mean(single["seconds"][1:]))
+    tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+    print(f"[54] tp = {MAMBA_TP} Mamba at mamba-2.8b widths, "
+          f"{cfg.n_layers} layers, LocalMesh(1, {MAMBA_TP}), {SSM_TRAIN_BATCH}"
+          f" x {SSM_TRAIN_SEQ} tokens, bf16, AdamW: losses "
+          f"{[round(v, 4) for v in r['losses']]}; {ms:.1f} ms/step (host "
+          f"clock, steps 2-6), {tokens / ms * 1e3:.0f} tokens/s, peak memory "
+          f"{r['peak_gb']:.2f} GB, against the single-device step's {ms1:.1f}"
+          f" ms/step, {single['peak_gb']:.2f} GB in this call; K11 launches "
+          f"{r['launches'][0]} forward, {r['launches'][1]} backward (= layers"
+          f" x tp x steps, di {cfg.d_inner // MAMBA_TP} a rank); "
+          f"{LOCAL_MESH_NOTE}; {card}", flush=True)
+    print_profile("[54] tp Mamba step profile (8 layers, tp 2, profiler on)",
+                  r["profile"], card)
+    print_ssm_share("[54]", r["profile"])
+    del sp
+    free_device_memory()
+    return dict(ms_step=ms, single_ms=ms1, peak_gb=r["peak_gb"],
+                launches=r["launches"][:2], grad_err=grad_worst,
+                param_err=worst, scan_err=scan_err)
+
+
+def pipeline_phases(card) -> dict:
+    """Phases 51-55; returns their readings."""
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+    from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as ss
+
+    out = {"ep": ep_phase(card)}
+    free_device_memory()
+    out["pipeline_lm"] = plm_phase(fa, card)
+    free_device_memory()
+    zbr = zb_phase(fa, card)
+    out["zero_bubble"] = {k: zbr[k] for k in ("ms", "zb_launches",
+                                              "zbv_launches")}
+    free_device_memory()
+    out["mamba_tp"] = mamba_tp_phase(ss, card)
+    free_device_memory()
+    out["interleaved"] = interleaved_phase(fa, card, zbr)
+    del zbr
+    free_device_memory()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5380,6 +6174,10 @@ def main() -> int:
     if sys.argv[1:] == ["--mesh"]:  # phases 47-50 alone
         _kernels.build(["flash_attention", "paged_attention", "quant"])
         print(json.dumps({"kernels": mesh_phases(card)}))
+        return 0
+    if sys.argv[1:] == ["--pipeline"]:  # phases 51-55 alone
+        _kernels.build(["flash_attention", "ssm_scan"])
+        print(json.dumps({"pipeline": pipeline_phases(card)}))
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -5451,6 +6249,8 @@ def main() -> int:
     kernels += hf_phases(card)
     free_device_memory()
     kernels += mesh_phases(card)
+    free_device_memory()
+    pipeline_phases(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

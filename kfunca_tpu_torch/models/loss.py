@@ -119,7 +119,7 @@ def vocab_parallel_nll(xs, heads, targets, mesh, chunk: int | None = None):
     lses, tls = [], []
     for r, x, w, t in zip(mesh.ranks, xs, heads, targets):
         vl = w.shape[1]
-        loc = t - mesh.coord(r)[1] * vl
+        loc = t - mesh.index(r, "tp") * vl
         hit = (loc >= 0) & (loc < vl)
         safe = loc.clamp(0, vl - 1)
         if chunk is None:

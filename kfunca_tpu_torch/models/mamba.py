@@ -1,10 +1,8 @@
 """Mamba-family selective state-space LM: parallel-scan training, O(1) decode.
 
-Counterpart of kfunca_tpu/models/mamba.py (all of it but the mesh sharding,
-`mamba_param_specs` and `shard_mamba_params`, which belong to the parallel/
-slice of the port).  The parameter layout and the names are the JAX
-package's, so models/weights.mamba_params_from_jax carries a JAX pytree
-across leaf for leaf.
+Counterpart of kfunca_tpu/models/mamba.py.  The parameter layout and the
+names are the JAX package's, so models/weights.mamba_params_from_jax
+carries a JAX pytree across leaf for leaf.
 
 Block structure (HF MambaForCausalLM's): RMSNorm -> mixer (in_proj ->
 causal depthwise conv -> silu -> selective SSM with input-dependent dt, B,
@@ -17,6 +15,16 @@ kernels (K11, ops/pallas_kernels/ssm_scan.py) for CUDA tensors, of any
 shape (the port's kernels mask ragged edges), and the chunked scan for CPU
 tensors.  On CPU tensors "pallas" runs the kernels' plain version.  There
 is no KFUNCA_FORCE_XLA: the tensors' device picks the route.
+
+Tensor parallelism (`mamba_param_specs`, `shard_mamba_params`, the
+ShardedParams forms of `forward` and `make_sharded_mamba_train_step`) is
+channel-parallel over d_inner: in_proj (each of its [hidden | gate]
+halves), the conv, dt_proj, dt_bias, A_log and D split their d_inner axis
+over tp, x_proj and out_proj are row-parallel, the embedding splits
+d_model.  Each rank's scan runs on its d_inner / tp channels: on the card
+the K11 kernels per rank.  (The JAX package's docstring has GSPMD users set
+KFUNCA_SSM_ENGINE=xla, since a pallas_call does not partition; the port
+computes each rank's part itself and keeps the kernels.)
 
 Decode is the O(1) recurrent step over a (B, d_inner, d_state) fp32 state
 and a (k - 1)-deep conv tail; `generate` runs it in a Python loop (the JAX
@@ -34,8 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.pallas_kernels.ssm_scan import LB, _ks_scan, chunked_scan, ssm_scan
+from ..parallel import collectives as cc
+from ..parallel.mesh import Halves, P, ShardedParams, shard_tree
 from ..runtime.backend import resolve_device
-from .transformer import _DTYPES, _masked_mean, _plain_mm, rms_norm
+from .transformer import (_DTYPES, _masked_mean, _plain_mm, join_dp,
+                          rank_batches, rms_norm, row_parallel)
 
 IGNORE = -100
 
@@ -149,18 +160,6 @@ def _causal_conv(x, w, b):
     return out + b.to(x.dtype)
 
 
-def _ssm_inputs(hidden, p, cfg: MambaConfig):
-    """From the conv output `hidden` (B, L, d_inner): dt (B, L, di), Bm, C
-    (B, L, N) and A (di, N), all fp32."""
-    r, ds = cfg.rank, cfg.d_state
-    sp = _mm(hidden, p["x_proj"])  # fp32 (B, L, r + 2N)
-    dt = F.softplus(sp[..., :r] @ p["dt_proj"].float() + p["dt_bias"].float())
-    bm = sp[..., r:r + ds]
-    c = sp[..., r + ds:]
-    a = -torch.exp(p["A_log"].float())
-    return dt, bm, c, a
-
-
 def selective_scan(dA, dBu):
     """h_t = dA_t * h_{t-1} + dBu_t over axis 1 (the sequence), h_0 = 0, as
     one log-depth scan; materializes (B, L, di, N)."""
@@ -214,24 +213,47 @@ def _ssm_engine(cfg, L, di, device=None):
     return "xla"
 
 
+def _conv_hidden(x, p):
+    """in_proj, then the causal conv and silu of the hidden half: (hidden,
+    gate), each (B, L, channels) in x's dtype."""
+    proj = _mm(x, p["in_proj"]).to(x.dtype)
+    hidden, gate = proj.chunk(2, dim=-1)
+    return (F.silu(_causal_conv(hidden, p["conv_w"], p["conv_b"]))
+            .to(x.dtype), gate)
+
+
+def _scan_out(hidden, gate, sp, p, cfg: MambaConfig):
+    """From x_proj's output sp (fp32): the scan over hidden's channels,
+    gated, through out_proj (fp32, (B, L, d_model); a partial sum where
+    the channels are one rank's)."""
+    r, ds = cfg.rank, cfg.d_state
+    dt = F.softplus(sp[..., :r] @ p["dt_proj"].float() + p["dt_bias"].float())
+    a = -torch.exp(p["A_log"].float())
+    L = hidden.shape[1]
+    chunk = cfg.scan_chunk if (cfg.scan_chunk and L > cfg.scan_chunk
+                               and L % cfg.scan_chunk == 0) else None
+    y = ssm_apply(hidden, dt, sp[..., r:r + ds], sp[..., r + ds:], a, p["D"],
+                  chunk, engine=_ssm_engine(cfg, L, hidden.shape[-1],
+                                            hidden.device))
+    y = y * F.silu(gate.float())
+    return _mm(y.to(hidden.dtype), p["out_proj"])
+
+
 def mamba_mixer(x, p, cfg: MambaConfig):
     """One mixer over (B, L, d_model) -> (B, L, d_model) fp32, parallel
     form."""
-    proj = _mm(x, p["in_proj"]).to(x.dtype)
-    hidden, gate = proj.chunk(2, dim=-1)
-    hidden = F.silu(_causal_conv(hidden, p["conv_w"], p["conv_b"])).to(x.dtype)
-    dt, bm, c, a = _ssm_inputs(hidden, p, cfg)
-    L = x.shape[1]
-    chunk = cfg.scan_chunk if (cfg.scan_chunk and L > cfg.scan_chunk
-                               and L % cfg.scan_chunk == 0) else None
-    y = ssm_apply(hidden, dt, bm, c, a, p["D"], chunk,
-                  engine=_ssm_engine(cfg, L, hidden.shape[-1], x.device))
-    y = y * F.silu(gate.float())
-    return _mm(y.to(x.dtype), p["out_proj"])
+    hidden, gate = _conv_hidden(x, p)
+    return _scan_out(hidden, gate, _mm(hidden, p["x_proj"]), p, cfg)
 
 
 def forward(params, tokens, cfg: MambaConfig):
-    """tokens (B, L) integers -> fp32 logits (B, L, vocab); tied head."""
+    """tokens (B, L) integers -> fp32 logits (B, L, vocab); tied head.
+    With a ShardedParams (shard_mamba_params) the batch is split over dp
+    and the result joined back, as transformer.forward's."""
+    if isinstance(params, ShardedParams):
+        sp = params
+        xs = tp_hidden(sp, rank_batches(sp.mesh, tokens), cfg)
+        return join_dp(sp.mesh, tp_logits(sp, xs))
     x = params["embed"][tokens.long()].to(cfg.act_dtype)
     for p in params["layers"]:
         y = rms_norm(x, p["norm"], cfg.norm_eps)
@@ -264,6 +286,106 @@ def make_mamba_train_step(cfg: MambaConfig, oc=None, device=None):
     oc = oc or OptConfig(lr=1e-3)
     return make_loss_train_step(
         lambda p, t, y: loss_fn(p, t, y, cfg), oc, device)
+
+
+# -- tensor parallelism over d_inner ------------------------------------------
+
+
+def mamba_param_specs(params) -> dict:
+    """Channel-parallel TP over d_inner (the JAX function's specs):
+    in_proj / conv / dt_proj / dt_bias / A_log / D split d_inner over tp
+    (in_proj each of its [hidden | gate] halves: a Halves spec), x_proj
+    and out_proj row-parallel, the embedding over d_model."""
+    layers = [{
+        "norm": P(),
+        "in_proj": Halves(None, "tp"),
+        "conv_w": P(None, "tp"),
+        "conv_b": P("tp"),
+        "x_proj": P("tp", None),  # row-parallel: dt / B / C summed
+        "dt_proj": P(None, "tp"),
+        "dt_bias": P("tp"),
+        "A_log": P("tp", None),
+        "D": P("tp"),
+        "out_proj": P("tp", None),  # row-parallel: the block output summed
+    } for _ in params["layers"]]
+    return {"embed": P(None, "tp"), "final_norm": P(), "layers": layers}
+
+
+def shard_mamba_params(params, mesh) -> ShardedParams:
+    """What each held rank of a (dp, tp) mesh holds under
+    mamba_param_specs."""
+    return shard_tree(params, mamba_param_specs(params), mesh)
+
+
+def tp_mixer(ys, ps, cfg: MambaConfig, mesh):
+    """mamba_mixer over tp, lists over the held ranks: each rank's
+    channels through in_proj, the conv and the scan, x_proj's partial sums
+    added (then entered again through copy, since every rank's channels
+    read all of dt's rank inputs, B and C), out_proj's added."""
+    ys = cc.copy(ys, mesh)
+    halves = [_conv_hidden(y, p) for y, p in zip(ys, ps)]
+    sps = cc.copy(cc.reduce([_mm(h, p["x_proj"]) for (h, _), p in
+                             zip(halves, ps)], mesh), mesh)
+    return cc.reduce([_scan_out(h, g, sp, p, cfg) for (h, g), sp, p in
+                      zip(halves, sps, ps)], mesh)
+
+
+def tp_hidden(sp: ShardedParams, tokens, cfg: MambaConfig) -> list:
+    """Each held rank's final-norm output (replicated over tp) of its
+    stripe of tokens."""
+    mesh = sp.mesh
+    xs = [t["embed"][tok.long()].to(cfg.act_dtype)
+          for t, tok in zip(sp.local, tokens)]
+    if sp.shards["embed"].tp_dim is not None:
+        xs = cc.gather(xs, mesh, "tp", -1)
+    for li in range(len(sp.local[0]["layers"])):
+        ps = [t["layers"][li] for t in sp.local]
+        ys = [rms_norm(x, p["norm"], cfg.norm_eps) for x, p in zip(xs, ps)]
+        xs = [x + o.to(x.dtype)
+              for x, o in zip(xs, tp_mixer(ys, ps, cfg, mesh))]
+    return [rms_norm(x, t["final_norm"], cfg.norm_eps)
+            for x, t in zip(xs, sp.local)]
+
+
+def tp_logits(sp: ShardedParams, xs) -> list:
+    """Each held rank's fp32 logits of the tied head: row-parallel over a
+    d_model-split embedding (one sum over tp)."""
+    heads = [t["embed"].t() for t in sp.local]
+    if sp.shards["embed"].tp_dim is None:
+        return [_plain_mm(x, h) for x, h in zip(xs, heads)]
+    return row_parallel(cc.scatter(xs, sp.mesh, "tp", -1), heads, sp.mesh,
+                        _plain_mm, True)
+
+
+def tp_token_nll(sp: ShardedParams, tokens, targets, cfg: MambaConfig):
+    """Per-token NLL (N,) of each held rank's stripe, replicated over tp;
+    a target outside [0, vocab) gives a finite value the caller masks."""
+    out = []
+    for logits, t in zip(tp_logits(sp, tp_hidden(sp, tokens, cfg)),
+                         targets):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        t = t.long()
+        out.append(-logp.gather(-1, t.clamp_min(0)[..., None])[..., 0]
+                   .reshape(-1))
+    return out
+
+
+def make_sharded_mamba_train_step(cfg: MambaConfig, mesh, oc=None,
+                                  grad_accum: int = 1,
+                                  ignore_index: int | None = IGNORE,
+                                  with_metrics: bool = False, device=None):
+    """make_mamba_train_step over a (dp, tp) mesh, in
+    train.make_sharded_train_step's form: step(params, opt_state, tokens,
+    targets) -> (params, opt_state, loss), params from
+    shard_mamba_params, opt_state from train.init_opt_state(params, oc),
+    updated in place.  The loss is loss_fn's (the masked token mean over
+    the global batch)."""
+    from .train import OptConfig, make_sharded_loss_step
+
+    return make_sharded_loss_step(
+        lambda sp, toks, tgts: tp_token_nll(sp, toks, tgts, cfg), mesh,
+        oc or OptConfig(lr=1e-3), grad_accum, ignore_index, with_metrics,
+        device)
 
 
 # -- recurrent decode (O(1) per token) ----------------------------------------

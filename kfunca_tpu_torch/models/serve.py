@@ -1230,9 +1230,9 @@ class InferenceServer:
             return [(self.pools_k, self.pools_v, slice(None))]
         sp = self._decode_params
         n = local_config(self.cfg, sp).kv_heads
-        heads = [slice(self.mesh.coord(r)[1] * n, (self.mesh.coord(r)[1] + 1)
-                       * n) if sp.attn_split else slice(None)
-                 for r in self.mesh.ranks]
+        tps = [self.mesh.index(r, "tp") for r in self.mesh.ranks]
+        heads = [slice(t * n, (t + 1) * n) if sp.attn_split else slice(None)
+                 for t in tps]
         return list(zip(self.pools_k, self.pools_v, heads))
 
     def _prefill_cache_init(self, slot: int, req: Request, prefix_len: int,

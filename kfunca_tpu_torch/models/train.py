@@ -486,7 +486,10 @@ def _state_shard(key: str, shard: Shard) -> Shard:
         tp_dim = keep(shard.tp_dim)
         return Shard(shard.shape[:drop] + shard.shape[drop + 1:],
                      keep(shard.dp_dim), tp_dim,
-                     shard.qkv if tp_dim is not None else None)
+                     shard.qkv if tp_dim is not None else None,
+                     shard.halves and tp_dim is not None,
+                     tuple((a, keep(d)) for a, d in shard.more
+                           if keep(d) is not None))
     if (key in ("vr", "vc") or (key == "v1" and nd >= 2)):
         return Shard(())
     return shard
@@ -558,9 +561,8 @@ def sharded_apply_update(sp: ShardedParams, grads, states, oc: OptConfig,
                  for j, sh in enumerate(shards)]
         rules[0](*fulls)  # every held rank's copy is the same: update once
         for r, it in zip(mesh.ranks, items):
-            d, t = mesh.coord(r)
             for j in (0, *range(2, len(shards))):
-                it[j].copy_(shards[j].local(fulls[j], d, t, mesh.dp, mesh.tp))
+                it[j].copy_(shards[j].local(fulls[j], mesh, r))
     new_states = [{"step": s, **{k: st[k] for k in keys}}
                   for s, st in zip(steps, states)]
     if oc.ema_decay is not None:
@@ -593,6 +595,19 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh,
     own stripe, and the gradients are summed over dp: all-reduced, or for
     fsdp leaves reduce-scattered by the backward of the layer's all-gather.
     `device` must be the mesh's device when given."""
+    return make_sharded_loss_step(
+        lambda sp, toks, tgts: tp_token_nll(sp, toks, tgts, cfg, loss_chunk),
+        mesh, oc, grad_accum, ignore_index, with_metrics, device)
+
+
+def make_sharded_loss_step(token_nll, mesh, oc: OptConfig = OptConfig(),
+                           grad_accum: int = 1,
+                           ignore_index: int | None = None,
+                           with_metrics: bool = False, device=None):
+    """The sharded step of any model whose token_nll(sharded_params,
+    tokens, targets) gives each held rank's per-token NLL (N,) of its
+    stripe, replicated over tp (make_sharded_train_step's,
+    mamba.make_sharded_mamba_train_step's)."""
     from ..parallel.mesh import as_mesh
 
     mesh = as_mesh(mesh)
@@ -612,7 +627,8 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh,
         for r, t in zip(mesh.ranks, tgts):
             mask = (torch.ones(t.shape, device=t.device)
                     if ignore_index is None else (t != ignore_index).float())
-            rows = mesh.coord(r)[0] * bl + torch.arange(bl, device=t.device)
+            rows = (mesh.index(r, "dp") * bl
+                    + torch.arange(bl, device=t.device))
             group = rows // mb
             counts.append(torch.zeros(grad_accum, device=t.device)
                           .index_add_(0, group, mask.sum(dim=1)))
@@ -641,8 +657,8 @@ def make_sharded_train_step(cfg: TransformerConfig, mesh,
         for i in range(n_local):
             sl = slice(i * rows, (i + 1) * rows)
             with torch.enable_grad():
-                nll = tp_token_nll(vp, [t[sl] for t in toks],
-                                   [t[sl] for t in tgts], cfg, loss_chunk)
+                nll = token_nll(vp, [t[sl] for t in toks],
+                                [t[sl] for t in tgts])
                 shares = [(n * w[sl].reshape(-1)).sum()
                           for n, w in zip(nll, ws)]
             g = torch.autograd.grad(sum(shares), flat)

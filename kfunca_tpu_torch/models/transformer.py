@@ -398,9 +398,11 @@ def _block(x, p, cfg: TransformerConfig):
 
 def embed_tokens(params, tokens, cfg: TransformerConfig):
     """Token embedding in the activation dtype; cfg.embed_scale applies
-    Gemma's sqrt(d_model) normalizer, cast to the activation dtype."""
+    Gemma's sqrt(d_model) normalizer, cast to the activation dtype.  A
+    config without the field (models/pipeline_lm.PipelineMoEConfig) scales
+    nothing, as the JAX function's getattr allows."""
     x = params["embed"][tokens.long()].to(cfg.act_dtype)
-    if cfg.embed_scale:
+    if getattr(cfg, "embed_scale", False):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.act_dtype)
     return x
 
@@ -495,7 +497,7 @@ def rank_batches(mesh, batch) -> list:
             stripes = list(batch.chunk(mesh.dp))
         if len(stripes) != mesh.dp:
             raise ValueError(f"{len(stripes)} stripes for dp = {mesh.dp}")
-        out = [stripes[mesh.coord(r)[0]] for r in mesh.ranks]
+        out = [stripes[mesh.index(r, "dp")] for r in mesh.ranks]
     else:
         out = list(batch) if isinstance(batch, (list, tuple)) else [batch]
     return [torch.as_tensor(b).to(mesh.device) for b in out]
@@ -506,7 +508,10 @@ def join_dp(mesh, xs):
     stripes (tp rank 0's) concatenated under a LocalMesh, this process's
     stripe under a GroupMesh."""
     if isinstance(mesh, LocalMesh):
-        return torch.cat([xs[d * mesh.tp] for d in range(mesh.dp)])
+        first = {}  # each dp stripe's first held rank (tp index 0)
+        for i, r in enumerate(mesh.ranks):
+            first.setdefault(mesh.index(r, "dp"), i)
+        return torch.cat([xs[first[d]] for d in range(mesh.dp)])
     return xs[0]
 
 

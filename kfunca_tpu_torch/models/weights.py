@@ -107,6 +107,39 @@ def hybrid_params_from_jax(tree, cfg, device=None, dtype=None):
     return tree_map(lambda x: _to_tensor(x, dev, dtype), tree)
 
 
+def moe_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_moe_params tree -> the port's MoE params on `device`
+    (default: the CUDA device), checked against the MoEConfig `cfg`."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    for key, want in (("router", (d, e)), ("w_in", (e, d, f)),
+                      ("w_out", (e, f, d))):
+        _check_shape(tree, key, want)
+    return tree_map(lambda x: _to_tensor(x, resolve_device(device), dtype),
+                    tree)
+
+
+def pipeline_lm_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX pipeline_lm.init_params tree -> the port's params on `device`,
+    the stage-stacked (n_stages, layers a stage, ...) leaves kept as they
+    are; checked against the PipelineMoEConfig `cfg`."""
+    per = cfg.n_layers // cfg.n_stages
+    lead = (cfg.n_stages, per)
+    _check_shape(tree, "embed", (cfg.vocab_size, cfg.d_model))
+    st = tree["stages"]
+    _check_shape(st, "wqkv", lead + (cfg.d_model, 3 * cfg.d_model))
+    _check_shape(st["moe"], "w_in", lead + (cfg.n_experts, cfg.d_model,
+                                            cfg.d_ff))
+    return tree_map(lambda x: _to_tensor(x, resolve_device(device), dtype),
+                    tree)
+
+
+def stacked_params_from_jax(tree, device=None, dtype=None):
+    """Any JAX tree of arrays (stage-stacked pipeline params, say) -> the
+    same tree of tensors on `device`, leaf for leaf."""
+    return tree_map(lambda x: _to_tensor(x, resolve_device(device), dtype),
+                    tree)
+
+
 def decode_params_from_jax(tree, device=None):
     """A JAX `quantize_decode_params` pytree -> the port's decode params on
     `device` (default: the CUDA device): quantized weights are

@@ -1,7 +1,8 @@
 """Parallelism over devices (counterpart of kfunca_tpu/parallel/).
 
-Ported so far: context-parallel ring attention (`ring_attention`), the
-(dp, tp) mesh in its two forms and the sharding rules (`mesh`), the
-differentiable collectives (`collectives`) and the multi-process glue
-(`multihost`).
+Ported: context-parallel ring attention (`ring_attention`), the mesh over
+named axes in its two forms and the sharding rules (`mesh`), the
+differentiable collectives (`collectives`), the multi-process glue
+(`multihost`), GPipe and interleaved pipelines (`pipeline`) and the
+zero-bubble schedules (`zero_bubble`).
 """

@@ -16,6 +16,10 @@ computes the same gradients whether the ranks are steps of one process
   all_gather      all-gather forward, reduce-scatter backward (fsdp weights:
                   each dp rank's gradient is a partial sum)
   reduce_scatter  reduce-scatter forward, all-gather backward
+  shift           JAX's ppermute to the next (or previous) rank of the
+                  axis, cyclic or not; backward the shift the other way
+  all_to_all      the tiled lax.all_to_all; backward the all_to_all with
+                  the split and concatenation dimensions swapped
 
 Under Megatron's convention every rank back-propagates its own copy of a
 replicated loss, and the gradient of a replicated activation is the same
@@ -30,22 +34,24 @@ import torch
 
 class _Collective(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mesh, axis, dim, fwd, bwd, *xs):
-        ctx.args = (mesh, axis, dim, bwd)
-        return tuple(mesh.collective(fwd, list(xs), axis, dim))
+    def forward(ctx, mesh, axis, fwd, bwd, *xs):
+        ctx.args = (mesh, axis, bwd)
+        kind, kw = fwd
+        return tuple(mesh.collective(kind, list(xs), axis, **kw))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, *gs):
-        mesh, axis, dim, bwd = ctx.args
-        return (None,) * 5 + tuple(
-            mesh.collective(bwd, [g.contiguous() for g in gs], axis, dim))
+        mesh, axis, (kind, kw) = ctx.args
+        return (None,) * 4 + tuple(
+            mesh.collective(kind, [g.contiguous() for g in gs], axis, **kw))
 
 
 def _apply(xs, mesh, axis, dim, fwd, bwd) -> list:
     if mesh.size(axis) == 1:
         return list(xs)
-    return list(_Collective.apply(mesh, axis, dim, fwd, bwd, *xs))
+    return list(_Collective.apply(mesh, axis, (fwd, {"dim": dim}),
+                                  (bwd, {"dim": dim}), *xs))
 
 
 def copy(xs, mesh, axis="tp"):
@@ -78,3 +84,26 @@ def all_reduce(xs, mesh, axis="tp", op="sum") -> list:
         return list(xs)
     with torch.no_grad():
         return mesh.collective(op, [x.detach() for x in xs], axis)
+
+
+def shift(xs, mesh, axis="pp", offset=1, cyclic=True):
+    """Rank i of the axis takes rank i - offset's tensor (offset 1: from
+    the previous rank, -1: from the next); without `cyclic` the ranks with
+    no sender take zeros.  The backward shifts the gradients back."""
+    if mesh.size(axis) == 1:
+        return list(xs) if cyclic else [torch.zeros_like(x) for x in xs]
+    fwd = ("shift", {"cyclic": cyclic, "offset": offset})
+    bwd = ("shift", {"cyclic": cyclic, "offset": -offset})
+    return list(_Collective.apply(mesh, axis, fwd, bwd, *xs))
+
+
+def all_to_all(xs, mesh, axis="ep", split_dim=0, concat_dim=1):
+    """The tiled all_to_all: each rank splits its tensor along split_dim
+    into one chunk a rank of the axis and concatenates what it receives
+    along concat_dim, in axis order.  The backward is the all_to_all with
+    the two dimensions swapped."""
+    if mesh.size(axis) == 1:
+        return list(xs)
+    fwd = ("all_to_all", {"split_dim": split_dim, "dim": concat_dim})
+    bwd = ("all_to_all", {"split_dim": concat_dim, "dim": split_dim})
+    return list(_Collective.apply(mesh, axis, fwd, bwd, *xs))

@@ -1,4 +1,4 @@
-"""Device meshes over (dp, tp): the two forms, the spec tables, sharding.
+"""Device meshes over named axes: the two forms, the spec tables, sharding.
 
 Counterpart of kfunca_tpu/parallel/mesh.py.  The JAX package names a
 jax.sharding.Mesh, annotates params and batch with PartitionSpecs and lets
@@ -11,16 +11,21 @@ carries out the collectives between them.  Two forms, one interface:
   lists of per-rank tensors.  It is how one card runs every sharded path
   (NCCL refuses two ranks on one card, and a thread a rank would deadlock
   on autograd's one device thread, as `ring_attention.LocalRing` says).
-- A `torch.distributed.device_mesh.DeviceMesh` with axes ("dp", "tp")
+- A `torch.distributed.device_mesh.DeviceMesh` with named axes
   (`init_device_mesh`) holds one rank a process: gloo on the CPU, NCCL one
   card a rank.  `as_mesh` wraps it in `GroupMesh`, whose collectives are
   torch.distributed calls over the axis's group.
 
-Rank r of a LocalMesh sits at (dp index, tp index) = divmod(r, tp).  Every
+The axes are ("dp", "tp") unless named otherwise: ("pp",) and ("ep",) for
+the pipeline and expert-parallel paths, ("dp", "pp", "tp") for
+models/pipeline_lm.py.  Ranks are numbered row-major over the axes, as
+jax.sharding.Mesh(devices.reshape(sizes), names) numbers them, so rank r of
+LocalMesh(dp, tp) sits at (dp index, tp index) = divmod(r, tp).  Every
 per-rank argument of the port's sharded functions is a list over
 `mesh.ranks`, the ranks held: all of them under a LocalMesh, one under a
 GroupMesh.  The differentiable forms of the collectives (Megatron's f and g,
-the fsdp all-gather / reduce-scatter pair) are in parallel/collectives.py.
+the fsdp all-gather / reduce-scatter pair, shift and all_to_all) are in
+parallel/collectives.py.
 
 Layouts.  `param_specs` gives the JAX package's global layout, spec for
 spec (tuples of axis names); checkpoints and `gather_params` keep it.
@@ -29,7 +34,10 @@ fused wqkv (and bqkv) is [q | k | v] along its columns, and a contiguous
 split would not hand a rank whole heads, so a rank's shard is the
 columns of its q heads, then of their kv heads, then of their v heads.
 Where tp does not divide the kv heads, attention (wqkv, bqkv, wo) is
-replicated over tp and only the MLP and the vocabulary are split.
+replicated over tp and only the MLP and the vocabulary are split.  A leaf
+whose spec is a `Halves` (its tp dimension two halves, as Mamba's in_proj
+is [hidden | gate]) gives a rank its columns of each half.  Any other axis
+(pp, ep) takes contiguous pieces.
 """
 
 from __future__ import annotations
@@ -54,7 +62,14 @@ class P(tuple):
         return super().__new__(cls, names)
 
     def __repr__(self):
-        return f"P{tuple(self)!r}"
+        return f"{type(self).__name__}{tuple(self)!r}"
+
+
+class Halves(P):
+    """A spec whose tp dimension is two halves laid side by side, each split
+    over tp: a rank holds its share of each half.  It compares equal to
+    the P (and the JAX spec) of the same names, which is the global
+    layout."""
 
 
 def factor_mesh(n: int) -> tuple[int, int]:
@@ -75,41 +90,97 @@ def factor_mesh(n: int) -> tuple[int, int]:
 # -- the two forms -------------------------------------------------------------
 
 
-class LocalMesh:
-    """All dp x tp ranks of a mesh, held by this process on one device."""
+class _Axes:
+    """What both forms share: named axes with sizes, ranks numbered
+    row-major over them (Mesh(devices.reshape(sizes), names)'s order)."""
 
-    def __init__(self, dp: int, tp: int, device=None):
-        if dp < 1 or tp < 1:
-            raise ValueError(f"a mesh needs dp, tp >= 1, got ({dp}, {tp})")
-        self.dp, self.tp = int(dp), int(tp)
-        self.device = resolve_device(device)
-        self.ranks = tuple(range(self.dp * self.tp))
+    axis_names: tuple = AXES
+    _sizes: tuple = (1, 1)
 
     @property
     def shape(self) -> dict:
-        return {"dp": self.dp, "tp": self.tp}
+        return dict(zip(self.axis_names, self._sizes))
 
-    def coord(self, rank: int) -> tuple[int, int]:
-        """(dp index, tp index) of a held rank."""
-        return divmod(rank, self.tp)
+    @property
+    def dp(self) -> int:
+        return self.size("dp")
+
+    @property
+    def tp(self) -> int:
+        return self.size("tp")
 
     def size(self, axis: str) -> int:
-        return self.shape[axis]
+        """The axis's size; 1 for an axis the mesh does not have."""
+        return self.shape.get(axis, 1)
+
+    def index(self, rank: int, axis: str) -> int:
+        """A held rank's coordinate along `axis` (0 where the mesh lacks
+        it)."""
+        if axis not in self.axis_names:
+            return 0
+        return self.coord(rank)[self.axis_names.index(axis)]
+
+
+class LocalMesh(_Axes):
+    """All ranks of a mesh, held by this process on one device.
+
+    LocalMesh(dp, tp, device) is the (dp, tp) mesh; `axes` names any other
+    ordered axes with their sizes in its place, e.g. axes={"pp": 4} or
+    {"dp": 1, "pp": 2, "tp": 2}."""
+
+    def __init__(self, dp: int = 1, tp: int = 1, device=None, *, axes=None):
+        if axes is None:
+            axes = {"dp": dp, "tp": tp}
+        elif (dp, tp) != (1, 1):
+            raise ValueError("give the mesh's sizes as dp, tp or as axes, "
+                             "not both")
+        if any(int(n) < 1 for n in axes.values()):
+            raise ValueError(f"a mesh needs axes of size >= 1, got {axes}")
+        self.axis_names = tuple(axes)
+        self._sizes = tuple(int(n) for n in axes.values())
+        self.device = resolve_device(device)
+        self.ranks = tuple(range(math.prod(self._sizes)))
+
+    def coord(self, rank: int) -> tuple:
+        """The held rank's coordinates, one an axis ((dp, tp) index on the
+        (dp, tp) mesh)."""
+        out = []
+        for n in reversed(self._sizes):
+            rank, c = divmod(rank, n)
+            out.append(c)
+        return tuple(reversed(out))
 
     def _groups(self, axis: str):
         """Positions in `ranks` of each group along `axis`, in axis order."""
-        if axis == "tp":
-            return [[d * self.tp + t for t in range(self.tp)]
-                    for d in range(self.dp)]
-        return [[d * self.tp + t for d in range(self.dp)]
-                for t in range(self.tp)]
+        if axis not in self.axis_names:
+            return [[r] for r in self.ranks]
+        k = self.axis_names.index(axis)
+        n, stride = self._sizes[k], math.prod(self._sizes[k + 1:])
+        return [[r + j * stride for j in range(n)] for r in self.ranks
+                if (r // stride) % n == 0]
 
-    def collective(self, kind: str, xs, axis: str, dim: int = 0) -> list:
+    def sub_meshes(self, axis: str) -> list:
+        """[(index along `axis`, positions in `ranks` of the held ranks at
+        that index, the mesh of the other axes over them)]: how a stage of
+        a pipeline reaches its own ranks' collectives."""
+        others = {a: n for a, n in self.shape.items() if a != axis}
+        sub = LocalMesh(axes=others, device=self.device)
+        groups = self._groups(axis)
+        return [(i, [g[i] for g in groups], sub)
+                for i in range(self.size(axis))]
+
+    def collective(self, kind: str, xs, axis: str, dim: int = 0, *,
+                   split_dim: int = 0, offset: int = 1,
+                   cyclic: bool = True) -> list:
         """`kind` over `axis` of the per-rank tensors xs (one a held rank):
         "sum" / "max" all-reduce, "gather" (concatenation along dim in axis
         order), "split" (each rank's chunk along dim), "reduce_scatter"
-        (sum, then the chunk), "identity".  Every result is a tensor of its
-        own."""
+        (sum, then the chunk), "identity", "shift" (JAX's ppermute: rank
+        i takes rank i - offset's tensor; without `cyclic` the ranks with
+        no sender take zeros) and "all_to_all" (the tiled lax.all_to_all:
+        each rank splits its tensor along split_dim into one chunk a rank
+        and concatenates the chunks it receives along dim, in axis order).
+        Every result is a tensor of its own."""
         n = self.size(axis)
         out = [None] * len(xs)
         for group in self._groups(axis):
@@ -131,6 +202,14 @@ class LocalMesh:
                 res = items
             elif kind == "identity":
                 res = [x.clone() for x in items]
+            elif kind == "shift":
+                res = [items[(j - offset) % n].clone()
+                       if cyclic or 0 <= j - offset < n
+                       else torch.zeros_like(items[j]) for j in range(n)]
+            elif kind == "all_to_all":
+                chunks = [x.chunk(n, dim=split_dim) for x in items]
+                res = [torch.cat([c[j] for c in chunks], dim=dim)
+                       for j in range(n)]
             else:
                 raise ValueError(f"unknown collective {kind!r}")
             if kind in ("split", "reduce_scatter"):
@@ -141,41 +220,47 @@ class LocalMesh:
         return out
 
 
-class GroupMesh:
-    """One rank of a (dp, tp) torch.distributed DeviceMesh, this process's."""
+class GroupMesh(_Axes):
+    """One rank of a torch.distributed DeviceMesh with named axes (dp, tp
+    or any others), this process's."""
 
     def __init__(self, device_mesh):
         names = tuple(device_mesh.mesh_dim_names or ())
-        if names != AXES:
-            raise ValueError(f"expected a DeviceMesh with axes {AXES}, got "
-                             f"{names}")
+        if not names:
+            raise ValueError("expected a DeviceMesh with named axes "
+                             "(mesh_dim_names)")
         self.device_mesh = device_mesh
-        self.dp, self.tp = (int(s) for s in device_mesh.mesh.shape)
+        self.axis_names = names
+        self._sizes = tuple(int(s) for s in device_mesh.mesh.shape)
         self._coord = tuple(int(c) for c in device_mesh.get_coordinate())
         self.ranks = (dist.get_rank(),)
-        self._groups = {a: device_mesh.get_group(a) for a in AXES}
+        self._groups = {a: device_mesh.get_group(a) for a in names}
         if device_mesh.device_type == "cuda":
             self.device = resolve_device(
                 torch.device("cuda", torch.cuda.current_device()))
         else:
             self.device = resolve_device(device_mesh.device_type)
 
-    @property
-    def shape(self) -> dict:
-        return {"dp": self.dp, "tp": self.tp}
-
-    def coord(self, rank: int) -> tuple[int, int]:
+    def coord(self, rank: int) -> tuple:
         return self._coord
 
-    def size(self, axis: str) -> int:
-        return self.shape[axis]
+    def sub_meshes(self, axis: str) -> list:
+        """This process's index along `axis` and itself: its collectives
+        over the other axes already stay within that index."""
+        return [(self.index(self.ranks[0], axis), [0], self)]
 
-    def collective(self, kind: str, xs, axis: str, dim: int = 0) -> list:
+    def _peer(self, axis: str, i: int) -> int:
+        return dist.get_global_rank(self._groups[axis], i)
+
+    def collective(self, kind: str, xs, axis: str, dim: int = 0, *,
+                   split_dim: int = 0, offset: int = 1,
+                   cyclic: bool = True) -> list:
         (x,) = xs
-        n, group = self.size(axis), self._groups[axis]
-        me = self._coord[AXES.index(axis)]
+        n = self.size(axis)
         if kind == "identity" or n == 1:
             return [x.clone()]
+        group = self._groups[axis]
+        me = self.index(self.ranks[0], axis)
         if kind in ("sum", "max", "reduce_scatter"):
             t = x.detach().clone().contiguous()
             op = dist.ReduceOp.MAX if kind == "max" else dist.ReduceOp.SUM
@@ -189,6 +274,27 @@ class GroupMesh:
             return [torch.cat(parts, dim=dim)]
         if kind == "split":
             return [x.chunk(n, dim=dim)[me].clone()]
+        if kind == "shift":
+            # one batch of point-to-point calls, as ProcessGroupRing's
+            send = me + offset if cyclic or 0 <= me + offset < n else None
+            recv = me - offset if cyclic or 0 <= me - offset < n else None
+            out = torch.zeros_like(x.detach()).contiguous()
+            ops = []
+            if send is not None:
+                ops.append(dist.P2POp(dist.isend, x.detach().contiguous(),
+                                      self._peer(axis, send % n), group))
+            if recv is not None:
+                ops.append(dist.P2POp(dist.irecv, out,
+                                      self._peer(axis, recv % n), group))
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            return [out]
+        if kind == "all_to_all":
+            ins = [c.contiguous() for c in x.detach().chunk(n, dim=split_dim)]
+            outs = [torch.empty_like(c) for c in ins]
+            dist.all_to_all(outs, ins, group=group)
+            return [torch.cat(outs, dim=dim)]
         raise ValueError(f"unknown collective {kind!r}")
 
 
@@ -199,8 +305,8 @@ def as_mesh(mesh):
     if isinstance(mesh, (LocalMesh, GroupMesh)):
         return mesh
     if not isinstance(mesh, DeviceMesh):
-        raise TypeError(f"expected a LocalMesh or a DeviceMesh with axes "
-                        f"{AXES}, got {type(mesh).__name__}")
+        raise TypeError(f"expected a LocalMesh or a DeviceMesh with named "
+                        f"axes, got {type(mesh).__name__}")
     return GroupMesh(mesh)
 
 
@@ -323,49 +429,61 @@ _QKV_KEYS = ("wqkv", "bqkv")
 @dataclass(frozen=True)
 class Shard:
     """How one leaf of the global tree lies over the mesh: its global shape,
-    the dimension split over dp (None: replicated over dp) and over tp, and
-    for the fused qkv width the head counts of its head-aligned split."""
+    the dimension split over dp (None: replicated over dp) and over tp, for
+    the fused qkv width the head counts of its head-aligned split, `halves`
+    where the tp dimension is two halves each split over tp, and `more`,
+    the (axis, dimension) pairs of any other axis (pp, ep), each split in
+    contiguous pieces."""
 
     shape: tuple
     dp_dim: int | None = None
     tp_dim: int | None = None
     qkv: tuple | None = None  # (n_heads, kv_heads, head_dim)
+    halves: bool = False
+    more: tuple = ()
 
     @property
     def axes(self) -> tuple:
         """The mesh axes over which ranks hold different pieces."""
-        return tuple(a for a, d in (("dp", self.dp_dim), ("tp", self.tp_dim))
-                     if d is not None)
+        return tuple(a for a, d in (("dp", self.dp_dim), ("tp", self.tp_dim),
+                                    *self.more) if d is not None)
+
+    def _contiguous(self):
+        """(axis, dimension) of every contiguous split (all but tp's)."""
+        return ((("dp", self.dp_dim),) if self.dp_dim is not None else ()
+                ) + tuple(self.more)
 
     def _tp_index(self, t: int, tp: int, device):
-        """Global indices along tp_dim of tp rank t's piece, in local order."""
+        """Global indices along tp_dim of tp rank t's piece, in local order:
+        the rank's share of each block of the dimension ([q | k | v] by
+        heads, the two halves, or the whole), block after block."""
         n = self.shape[self.tp_dim]
-        if self.qkv is None:
-            w = n // tp
-            return torch.arange(t * w, (t + 1) * w, device=device)
-        h, hkv, hd = self.qkv
-        per = n // (h + 2 * hkv)  # columns a head (hd, or a scale's 1 ...)
-        q, kv = h // tp * per, hkv // tp * per
-        base_k, base_v = h * per, (h + hkv) * per
-        return torch.cat([torch.arange(t * q, (t + 1) * q),
-                          torch.arange(base_k + t * kv, base_k + (t + 1) * kv),
-                          torch.arange(base_v + t * kv, base_v + (t + 1) * kv)]
-                         ).to(device)
+        if self.qkv is not None:
+            h, hkv, _ = self.qkv
+            blocks = (h, hkv, hkv)
+        else:
+            blocks = (1, 1) if self.halves else (1,)
+        unit, base, idx = n // sum(blocks), 0, []
+        for b in blocks:
+            w = b * unit // tp
+            idx.append(torch.arange(base + t * w, base + (t + 1) * w))
+            base += b * unit
+        return torch.cat(idx).to(device)
 
-    def local(self, full, d: int, t: int, dp: int, tp: int):
-        """Rank (d, t)'s piece of the global tensor: a contiguous tensor of
-        its own (never a view of `full`)."""
+    def local(self, full, mesh, rank: int):
+        """Held rank `rank`'s piece of the global tensor: a contiguous
+        tensor of its own (never a view of `full`)."""
         x = full
         if self.tp_dim is not None:
-            x = x.index_select(self.tp_dim,
-                               self._tp_index(t, tp, full.device))
-        if self.dp_dim is not None:
-            x = x.chunk(dp, dim=self.dp_dim)[d]
+            x = x.index_select(self.tp_dim, self._tp_index(
+                mesh.index(rank, "tp"), mesh.size("tp"), full.device))
+        for axis, dim in self._contiguous():
+            x = x.chunk(mesh.size(axis), dim=dim)[mesh.index(rank, axis)]
         return x.clone(memory_format=torch.contiguous_format)
 
     def unpermute(self, x, tp: int):
         """The tp-gathered tensor (pieces in rank order) in global order."""
-        if self.qkv is None or self.tp_dim is None:
+        if (self.qkv is None and not self.halves) or self.tp_dim is None:
             return x
         order = torch.cat([self._tp_index(t, tp, x.device)
                            for t in range(tp)])
@@ -373,17 +491,19 @@ class Shard:
         inv[order] = torch.arange(order.numel(), device=x.device)
         return x.index_select(self.tp_dim, inv)
 
-    def slices(self, d: int, t: int, dp: int, tp: int) -> list:
+    def slices(self, mesh, rank: int) -> list:
         """[(global [start, stop) a dimension, local [start, stop) along
-        tp_dim)] of rank (d, t)'s piece: one region, or three for a
-        head-aligned qkv split (its q, k and v columns)."""
+        tp_dim)] of held rank `rank`'s piece: one region, or one a block
+        for a blocked tp split (qkv's q, k and v columns, the halves)."""
         box = [[0, n] for n in self.shape]
-        if self.dp_dim is not None:
-            w = self.shape[self.dp_dim] // dp
-            box[self.dp_dim] = [d * w, (d + 1) * w]
+        for axis, dim in self._contiguous():
+            w = self.shape[dim] // mesh.size(axis)
+            i = mesh.index(rank, axis)
+            box[dim] = [i * w, (i + 1) * w]
         if self.tp_dim is None:
             return [(box, None)]
-        idx = self._tp_index(t, tp, "cpu").tolist()
+        idx = self._tp_index(mesh.index(rank, "tp"), mesh.size("tp"),
+                             "cpu").tolist()
         runs, start = [], 0
         for i in range(1, len(idx) + 1):
             if i == len(idx) or idx[i] != idx[i - 1] + 1:
@@ -399,20 +519,23 @@ class Shard:
 
 def _leaf_shard(x, spec, key, cfg, mesh) -> Shard:
     shape = tuple(x.shape)
+    halves = isinstance(spec, Halves)
     spec = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
-    dp_dim = spec.index("dp") if "dp" in spec else None
-    tp_dim = spec.index("tp") if "tp" in spec else None
+    dims = {a: i for i, a in enumerate(spec) if a is not None}
+    dp_dim, tp_dim = dims.pop("dp", None), dims.pop("tp", None)
     qkv = None
     if key in _ATTN_KEYS and tp_dim is not None:
         if not attention_split(cfg, mesh.tp):
             tp_dim = None
         elif key in _QKV_KEYS:
             qkv = (cfg.n_heads, cfg.kv_heads, cfg.head_dim)
-    for dim, n in ((dp_dim, mesh.dp), (tp_dim, mesh.tp)):
+    halves = halves and tp_dim is not None
+    for axis, dim in (("dp", dp_dim), ("tp", tp_dim), *dims.items()):
+        n = mesh.size(axis) * (2 if halves and axis == "tp" else 1)
         if dim is not None and shape[dim] % n:
             raise ValueError(f"{key}: dimension {dim} of {shape} does not "
                              f"split into {n} equal pieces")
-    return Shard(shape, dp_dim, tp_dim, qkv)
+    return Shard(shape, dp_dim, tp_dim, qkv, halves, tuple(dims.items()))
 
 
 def attention_split(cfg, tp: int) -> bool:
@@ -461,12 +584,8 @@ def shard_tree(params, specs, mesh, cfg=None, fsdp=False) -> ShardedParams:
     param_specs or serve.decode_param_specs)."""
     mesh = as_mesh(mesh)
     shards = _shards(params, specs, cfg, mesh)
-    local = []
-    for r in mesh.ranks:
-        d, t = mesh.coord(r)
-        local.append(tree_map(
-            lambda x, s: s.local(x.to(mesh.device), d, t, mesh.dp, mesh.tp),
-            params, shards))
+    local = [tree_map(lambda x, s, r=r: s.local(x.to(mesh.device), mesh, r),
+                      params, shards) for r in mesh.ranks]
     return ShardedParams(mesh, local, shards, specs, cfg, fsdp)
 
 
@@ -484,8 +603,8 @@ def gather_leaf(mesh, shard: Shard, xs) -> list:
     Each is a tensor of its own, never one of the pieces."""
     if not shard.axes:
         return [x.detach().clone() for x in xs]
-    if shard.dp_dim is not None:
-        xs = mesh.collective("gather", xs, "dp", shard.dp_dim)
+    for axis, dim in shard._contiguous():
+        xs = mesh.collective("gather", xs, axis, dim)
     if shard.tp_dim is not None:
         xs = mesh.collective("gather", xs, "tp", shard.tp_dim)
         xs = [shard.unpermute(x, mesh.tp) for x in xs]

@@ -165,8 +165,7 @@ def _pieces(tree) -> list:
         for shard, xs in sp.leaves():
             seen, recs, name = set(), [], None
             for r, x in zip(mesh.ranks, xs):
-                d, t = mesh.coord(r)
-                for box, sub in shard.slices(d, t, mesh.dp, mesh.tp):
+                for box, sub in shard.slices(mesh, r):
                     key = tuple(map(tuple, box))
                     if key in seen:
                         continue
@@ -286,9 +285,7 @@ def load_sharded(dir_path: str, like):
             for shard, xs in x.leaves():
                 arr, name = take(shard.shape)
                 g = _from_host(arr, name, xs[0])
-                leaves.append([shard.local(g, *mesh.coord(r), mesh.dp,
-                                           mesh.tp)
-                               for r in mesh.ranks])
+                leaves.append([shard.local(g, mesh, r) for r in mesh.ranks])
             local = [tree_unflatten(x.shards, [lv[j] for lv in leaves])
                      for j in range(len(mesh.ranks))]
             return ShardedParams(mesh, local, x.shards, x.specs, x.cfg,

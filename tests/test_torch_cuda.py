@@ -2031,3 +2031,203 @@ def test_tp_serving_over_nccl_matches_the_local_mesh(cuda, tmp_path):
     for r in ranks:
         for i, rid in enumerate(rids):
             assert r[f"t{i}"].tolist() == out[rid]
+
+
+# -- pipeline, zero-bubble and expert parallelism; the tp Mamba -------------
+
+PIPE = dict(vocab_size=256, d_model=256, n_heads=4, n_kv_heads=2,
+            n_layers=4, d_ff=512, max_seq_len=128, dtype="bfloat16")
+
+
+def _pipe_blocks(dev):
+    from kfunca_tpu_torch.utils.tree import tree_map
+
+    cfg = transformer.TransformerConfig(**PIPE)
+    params = transformer.init_params(0, cfg, device="cpu")
+    return tree_map(lambda t: t.to(dev), params["blocks"]), cfg
+
+
+def _bf16_close(got, want, scale=2.0 ** -6):
+    """Within `scale` of the reference's largest entry: the kernels and
+    their plain versions round bf16 partial results in other places, and
+    four blocks carry those roundings on."""
+    top = float(want.float().abs().max())
+    assert float((got.float().cpu() - want.float().cpu()).abs().max()) <= (
+        scale * top)
+
+
+def _pipeline_run(dev):
+    from kfunca_tpu_torch.parallel import mesh as meshlib
+    from kfunca_tpu_torch.parallel import pipeline as pl
+
+    blocks, cfg = _pipe_blocks(dev)
+    mesh = meshlib.LocalMesh(axes={"pp": 2}, device=dev)
+    sp = pl.stage_shards(pl.stack_stages(blocks, 2), mesh)
+    trees = [{k: v.detach().requires_grad_(True) for k, v in t.items()}
+             for t in sp.local]
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 1, 128, 256), generator=gen).to(torch.bfloat16).to(dev)
+    fn = pl.make_pipelined_forward(
+        lambda p, h: transformer._block(h, p, cfg), mesh)
+    ys = fn(trees, x)
+    grads = torch.autograd.grad(sum((y.float() ** 2).sum() for y in ys),
+                                [t["wqkv"] for t in trees])
+    return ys[0].detach(), grads
+
+
+def test_flash_kernels_inside_a_pipeline_stage(cuda):
+    """GPipe over LocalMesh(pp = 2) on the card, 4 bf16 blocks, M = 2: K1 a
+    block and a microbatch forward, K2 the same backward, all on the wgmma
+    bodies; output and wqkv gradients against the same pipeline on the
+    CPU (the kernels' plain versions)."""
+    f, b = fa.flash_attention_fwd_stats, fa.flash_attention_backward
+    before = (f.launches, b.launches, f.launches_wgmma, b.launches_wgmma)
+    out, grads = _pipeline_run(cuda)
+    after = (f.launches, b.launches, f.launches_wgmma, b.launches_wgmma)
+    assert [a - c for a, c in zip(after, before)] == [8, 8, 8, 8]
+    want_out, want_grads = _pipeline_run("cpu")
+    _bf16_close(out, want_out)
+    for g, w in zip(grads, want_grads):
+        _bf16_close(g, w)
+
+
+def _zb_run(dev, v):
+    from kfunca_tpu_torch.parallel import mesh as meshlib
+    from kfunca_tpu_torch.parallel import pipeline as pl
+    from kfunca_tpu_torch.parallel import zero_bubble as zb
+
+    blocks, cfg = _pipe_blocks(dev)
+    mesh = meshlib.LocalMesh(axes={"pp": 2}, device=dev)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 1, 128, 256), generator=gen).to(torch.bfloat16).to(dev)
+
+    def loss(y, i):
+        return (y.float() ** 2).sum()
+
+    if v:
+        sp = pl.stage_shards(zb.stack_stages_v(blocks, 2), mesh)
+        step = zb.make_zbv_train_step(
+            lambda p, h: transformer._block(h, p, cfg), loss, mesh, n_micro=2)
+    else:
+        sp = pl.stage_shards(pl.stack_stages(blocks[:2], 2), mesh)
+        step = zb.make_zb_train_step(
+            lambda p, h: transformer._block(
+                h, {k: t[0] for k, t in p.items()}, cfg), loss, mesh,
+            n_micro=2)
+    return step(sp, x)
+
+
+@pytest.mark.parametrize("v", [False, True], ids=["zb_h1", "zb_v"])
+def test_zero_bubble_launch_counts_on_the_card(cuda, v):
+    """F, then B and W each re-running the stage: K1 = 3 x blocks x M and
+    K2 = 2 x blocks x M, all on the wgmma bodies; loss and gradients
+    against the same step on the CPU."""
+    f, b = fa.flash_attention_fwd_stats, fa.flash_attention_backward
+    before = (f.launches, b.launches, f.launches_wgmma, b.launches_wgmma)
+    loss, grads = _zb_run(cuda, v)
+    after = (f.launches, b.launches, f.launches_wgmma, b.launches_wgmma)
+    blocks = 4 if v else 2
+    want = [3 * blocks * 2, 2 * blocks * 2] * 2
+    assert [a - c for a, c in zip(after, before)] == want
+    want_loss, want_grads = _zb_run("cpu", v)
+    assert abs(float(loss) - float(want_loss)) <= 2.0 ** -6 * abs(
+        float(want_loss))
+    for g, w in zip(grads, want_grads):
+        for k in ("wqkv", "w_down"):
+            _bf16_close(g[k], w[k])
+
+
+def test_ssm_kernel_on_a_tp_rank_slice(cuda):
+    """K11 and K11b on a tp = 2 rank's half of d_inner against their plain
+    version; then the tp Mamba forward on the card (K11 once a layer and a
+    rank) against the same forward on the CPU, fp32: 1e-4 x max(1, max
+    |ref|)."""
+    from kfunca_tpu_torch.models import mamba
+    from kfunca_tpu_torch.ops.pallas_kernels import ssm_scan as ss
+    from kfunca_tpu_torch.parallel import mesh as meshlib
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, L, di, n = 2, 96, 256, 16
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(mk(b, L, di)) * 0.1
+    u, bm, c = mk(b, L, di), mk(b, L, n), mk(b, L, n)
+    a_t = -torch.exp(mk(n, di) * 0.5)
+    half = slice(di // 2, di)
+    args = [t[..., half].contiguous() for t in (dt, u)] + [bm, c]
+    at = a_t[:, half].contiguous()
+    leaves = [t.requires_grad_(True) for t in args]
+    y = ss.ssm_scan(*leaves, at, 16)
+    g = mk(b, L, di // 2)
+    got = torch.autograd.grad(y, leaves, g)
+    # the plain version: the same wrapper on CPU copies
+    ref_leaves = [t.detach().cpu().requires_grad_(True) for t in args]
+    ref = ss.ssm_scan(*ref_leaves, at.cpu(), 16)
+    want = torch.autograd.grad(ref, ref_leaves, g.cpu())
+    for x, w in ((y, ref), *zip(got, want)):
+        x, w = x.detach().cpu(), w.detach()
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((x - w).abs().max()) <= tol
+    cfg = mamba.MambaConfig(vocab_size=64, d_model=64, n_layers=2,
+                            d_state=16, dtype="float32")
+    params = mamba.init_mamba_params(0, cfg, device="cpu")
+    tok = torch.randint(0, 64, (2, 48), generator=torch.Generator()
+                        .manual_seed(0))
+    outs = []
+    for dev in (cuda, "cpu"):
+        from kfunca_tpu_torch.utils.tree import tree_map
+
+        mesh = meshlib.LocalMesh(1, 2, dev)
+        sp = mamba.shard_mamba_params(tree_map(lambda t: t.to(dev), params),
+                                      mesh)
+        n0 = ss.ssm_scan_fwd.launches
+        outs.append(mamba.forward(sp, tok, cfg).cpu())
+        if dev == cuda:
+            assert ss.ssm_scan_fwd.launches - n0 == cfg.n_layers * 2
+    tol = 1e-4 * max(1.0, float(outs[1].abs().max()))
+    assert float((outs[0] - outs[1]).abs().max()) <= tol
+
+
+def test_moe_and_pipeline_lm_on_the_card_match_the_cpu(cuda):
+    """make_moe_ffn_ep over LocalMesh(ep = 4) and one fp32 pipeline_lm
+    step over (1, 2, 2) on the card against the same on the CPU: 1e-5 of
+    each result's largest entry (the loss 1e-5)."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_pipeline_ranks as ranks
+
+    for task in ("ep", "plm"):
+        got = ranks.local_results(task, 4, cuda)
+        want = ranks.local_results(task, 4, "cpu")
+        for r in want:
+            for key, w in want[r].items():
+                tol = 1e-5 * max(1.0, float(np.abs(w).max()))
+                np.testing.assert_allclose(got[r][key], w, rtol=0, atol=tol,
+                                           err_msg=f"{task} {r} {key}")
+
+
+def test_pipeline_paths_over_nccl_match_the_local_mesh(cuda, tmp_path):
+    """shift, all_to_all, the ZB-H1 / ZB-V / GPipe steps, the expert-parallel
+    forward and a pipeline_lm step over a DeviceMesh, one process a card
+    (NCCL; 4 ranks on four cards, 2 on two), against a LocalMesh of the
+    same shape on one card: 1e-5 of each array's largest entry (NCCL adds
+    in its own order)."""
+    import sys
+
+    n = _cards()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_pipeline_ranks as ranks
+
+    torch.multiprocessing.start_processes(
+        ranks.run_rank, args=(n, str(tmp_path / "store"), str(tmp_path),
+                              "nccl"),
+        nprocs=n, join=True, start_method="spawn")
+    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(n)]
+    for task in ranks.tasks(n):
+        local = ranks.local_results(task, n, cuda)
+        for r in range(n):
+            for key, w in local[r].items():
+                tol = 1e-5 * max(1.0, float(np.abs(w).max()))
+                np.testing.assert_allclose(got[r][f"{task}.{key}"], w,
+                                           rtol=0, atol=tol,
+                                           err_msg=f"rank {r} {task} {key}")

@@ -432,3 +432,86 @@ def test_eager_surface_is_the_reference_surface_less_autotune():
     from kfunca_tpu_torch.runtime.autotune import autotune
 
     assert kfunca.autotune is autotune
+
+
+def test_the_pipeline_slice_loads_no_jax():
+    """parallel/pipeline.py, parallel/zero_bubble.py, models/moe.py,
+    models/pipeline_lm.py and the spawned rank helper
+    tests/torch_pipeline_ranks.py, imported alone in a fresh interpreter,
+    load no jax, jaxlib or kfunca_tpu module."""
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import kfunca_tpu_torch.parallel.pipeline, "
+            "kfunca_tpu_torch.parallel.zero_bubble, "
+            "kfunca_tpu_torch.models.moe, "
+            "kfunca_tpu_torch.models.pipeline_lm, "
+            "torch_pipeline_ranks; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    for path in ("parallel/pipeline.py", "parallel/zero_bubble.py",
+                 "models/moe.py", "models/pipeline_lm.py"):
+        assert not [m for m in _imports(PORT / path) if m and _foreign(m)]
+
+
+def test_pipeline_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    """The pipeline, zero-bubble, expert-parallel, pipeline_lm and
+    tensor-parallel Mamba entry points run where their mesh lies, and a
+    mesh lies on the card unless the CPU is asked for: without a card the
+    defaults raise; asked for the CPU, each runs."""
+    from kfunca_tpu_torch.models import mamba, moe, pipeline_lm
+    from kfunca_tpu_torch.parallel import mesh as meshlib
+    from kfunca_tpu_torch.parallel import pipeline, zero_bubble
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mc = mamba.MambaConfig(vocab_size=64, d_model=16, n_layers=1, d_state=4,
+                           dtype="float32")
+    pc = pipeline_lm.PipelineMoEConfig(vocab_size=32, d_model=16,
+                                       n_layers=2, d_ff=16, dtype="float32")
+    ec = moe.MoEConfig(n_experts=4, d_model=8, d_ff=8)
+    cpu = {k: meshlib.LocalMesh(axes=v, device="cpu") for k, v in (
+        ("pp", {"pp": 2}), ("ep", {"ep": 2}),
+        ("plm", {"dp": 1, "pp": 2, "tp": 1}))}
+    for call in (lambda: meshlib.LocalMesh(axes={"pp": 2}),
+                 lambda: meshlib.LocalMesh(axes={"ep": 4}),
+                 lambda: moe.init_moe_params(0, ec),
+                 lambda: pipeline_lm.init_params(0, pc),
+                 lambda: pipeline_lm.make_train_step(pc, cpu["plm"],
+                                                     device="cuda"),
+                 lambda: mamba.make_sharded_mamba_train_step(
+                     mc, meshlib.LocalMesh(1, 2, "cpu"), device="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked for the CPU, each entry point runs
+    layers = [{"w": torch.eye(4)} for _ in range(4)]
+    sp = pipeline.stage_shards(pipeline.stack_stages(layers[:2], 2),
+                               cpu["pp"])
+    x = torch.ones((2, 1, 4))
+    ys = pipeline.make_pipelined_forward(lambda p, h: h @ p["w"],
+                                         cpu["pp"])(sp, x)
+    assert torch.equal(ys[0], x)
+    for make, st in ((zero_bubble.make_zb_train_step, sp),
+                     (zero_bubble.make_zbv_train_step, pipeline.stage_shards(
+                         zero_bubble.stack_stages_v(layers, 2), cpu["pp"]))):
+        stage = (lambda p, h: h @ p["w"][0]) if st is sp else (
+            lambda p, h: h @ p["w"])
+        loss, grads = make(stage, lambda y, i: y.sum(), cpu["pp"],
+                           n_micro=2)(st, x)
+        assert float(loss) == 8.0 and grads[0]["w"].device.type == "cpu"
+    ep = moe.shard_moe_params(moe.init_moe_params(0, ec, device="cpu"),
+                              cpu["ep"])
+    outs, _ = moe.make_moe_ffn_ep(cpu["ep"], ec)(torch.ones((2, 3, 8)), ep)
+    assert outs[0].shape == (1, 3, 8)
+    plm = pipeline_lm.shard_params(pipeline_lm.init_params(0, pc,
+                                                           device="cpu"),
+                                   cpu["plm"], pc)
+    tokens = np.zeros((2, 4), np.int32)
+    _, loss = pipeline_lm.make_train_step(pc, cpu["plm"])(plm, tokens, tokens)
+    assert np.isfinite(float(loss))
+    mp = mamba.shard_mamba_params(mamba.init_mamba_params(0, mc,
+                                                          device="cpu"),
+                                  meshlib.LocalMesh(1, 2, "cpu"))
+    step = mamba.make_sharded_mamba_train_step(mc, mp.mesh)
+    step(mp, train.init_opt_state(mp), tokens, tokens)
