@@ -10,7 +10,8 @@ alone, against whatever kfunca_tpu_torch sits beside the script (a copy of
 the script in an archive of another commit times that commit's kernels
 through the same calls).  `python3 chip_smoke.py --mesh` runs phases
 47-50 (parallel/ over a mesh) alone, `python3 chip_smoke.py --pipeline`
-phases 51-55 (pipeline, zero-bubble and expert parallelism).
+phases 51-55 (pipeline, zero-bubble and expert parallelism), `python3
+chip_smoke.py --moe-mla` phases 56-60 (the flagship's MoE and MLA blocks).
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
@@ -118,8 +119,9 @@ Phases (any failure raises and the script exits non-zero):
      forward and backward (K1, K2) at B=1, H=32, S=2048, hd=128;
  24. profile one eager MLP step, and time an eager 256-element add's host
      cost per op;
- 25. (at the end, after phase 55) print the kernels line (seventeen
-     entries), the card line and, last, the result line;
+ 25. (at the end, after phase 60) print the kernels line (the seventeen
+     kernels, with the entries of the paths that run them at other shapes),
+     the card line and, last, the result line;
  26. hold the selective-scan kernels K11 (forward and backward) against
      their plain PyTorch version (the chunked scan) at the Mamba training
      shape (B=4, L=2048, di=5120, N=16, fp32, S4D A, softplus dt) and at
@@ -289,7 +291,43 @@ Phases (any failure raises and the script exits non-zero):
      steps at di 2560 a rank, one step profiled;
  55. the interleaved pipeline (v = 2 over pp 2, 8 Mistral blocks of phase
      53): output and gradients within 2^-7 of GPipe's over the same
-     blocks, K1 = K2 = blocks x M on the wgmma bodies, ms beside GPipe's.
+     blocks, K1 = K2 = blocks x M on the wgmma bodies, ms beside GPipe's;
+ 56. Mixtral-8x7B-v0.1 serving at full width, 8 of 32 layers, bf16, the
+     13-request mix: fused bf16 (K4), quantize_weights (K5 + K4) and w8kv8
+     (K5 + K4-int8), the quantized runs teacher-forced down the bf16 run's
+     tokens (their distance from it printed); K4 = layers x decode steps,
+     K5 = (2 x layers + 1) x steps + 3 for every (step, layer, expert)
+     that got a row, counted from the routing itself; the bf16 served
+     log-probs within 0.5 nat of a fresh forward_with_cache; K5 at a
+     routed expert's products (m = 2) beside its bound; a 2-layer fp32
+     server within 1e-4 nat of the fresh forward, its kernel path and
+     plain path giving equal tokens;
+ 57. Mixtral training, 2 layers, 1 x 4096 tokens, bf16 activations, 6
+     AdamW steps (ms/step, tokens/s, peak memory; K1 = K2 = layers x steps
+     on the wgmma bodies), then loss and every gradient of loss_fn in fp32
+     through K1/K2 against the plain path (phase 12's tolerances); K1 / K2
+     against their plain versions and timed at the step's attention shape;
+ 58. DeepSeek-V3 through MLAServer at full width, 2 layers (a dense one,
+     then the 256-expert MoE), bf16, 8 slots, the 13-request mix cut to
+     max_seq_len 2048 and one sampled request (decode ms/step, tok/s,
+     prefill ms; the latent cache's 1,152 bytes a position a layer against
+     81,920 for per-head K/V); in fp32 activations over the same weights
+     the server's greedy tokens equal generate's, and one request's served
+     log-probs stand within 1e-3 nat of the expanded-form forward (plain
+     attention, qk 192 against v 128);
+ 59. DeepSeek-V3's dense layers (MLA and the 18432 SwiGLU), 2 layers, 1 x
+     2048 tokens, 6 AdamW steps on the plain attention (no K1/K2 launch),
+     then MLA at the JAX default head geometry (qk 64 + 64 = v 128) at
+     DeepSeek-V3's width: loss and every gradient through K1/K2 against
+     the plain path, K1 = K2 = layers;
+ 60. tp = 2 over a LocalMesh on the one card: every rank's gradient of the
+     sharded MoE (Mixtral width) and MLA (phase 59's) models, dense and
+     fsdp, within 1e-4 of its leaf's largest entry of the unsharded
+     gradient, the loss within 1e-5; Mixtral w8kv8 serving at 8 layers over
+     split pools: the single device's tokens in fp32 activations, bf16
+     forced log-probs within 0.05 nat, K6 = ranks x layers x steps and K5 =
+     ranks x (2 x layers + 1) x steps + 3 x the ranks' routed (step,
+     layer, expert).
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -1078,7 +1116,9 @@ def loss_and_grads(params, tokens, targets, cfg):
 
     views = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss = loss_fn(tree_unflatten(params, views), tokens, targets, cfg)
-    grads = torch.autograd.grad(loss, views)
+    # a leaf the loss does not reach (an expert no token chose) gets zeros
+    grads = torch.autograd.grad(loss, views, allow_unused=True,
+                                materialize_grads=True)
     return float(loss.detach()), grads
 
 
@@ -5469,7 +5509,8 @@ def sharded_grads(sp, rank_losses) -> list:
     flat = [v for t in views for v in tree_leaves(t)]
     with torch.enable_grad():
         total = sum(rank_losses(vp))
-    return list(torch.autograd.grad(total, flat))
+    return list(torch.autograd.grad(total, flat, allow_unused=True,
+                                    materialize_grads=True))
 
 
 def leaf_paths(tree, prefix="") -> list:
@@ -6148,6 +6189,627 @@ def pipeline_phases(card) -> dict:
     return out
 
 
+# -- phases 56-60: the flagship's MoE and MLA blocks --------------------------
+
+# Mixtral-8x7B-v0.1 (huggingface.co/mistralai/Mixtral-8x7B-v0.1 config.json)
+# as the flagship's TransformerConfig: hidden 4096, 32 layers, 32 heads over
+# 8 kv heads, intermediate 14336, 8 local experts, 2 a token, vocab 32000,
+# rope_theta 1e6, rms_norm_eps 1e-5, no sliding window, untied head.
+MIXTRAL_LM = dict(vocab_size=32000, d_model=4096, n_heads=32, n_kv_heads=8,
+                  n_layers=32, d_ff=14336, n_experts=8, moe_top_k=2,
+                  max_seq_len=32768, norm_eps=1e-5, rope_theta=1e6,
+                  dtype="bfloat16")
+# DeepSeek-V3 (huggingface.co/deepseek-ai/DeepSeek-V3 config.json): hidden
+# 7168, intermediate 18432, moe_intermediate 2048, 256 routed experts and 1
+# shared, 8 a token, n_group 8, topk_group 4, routed_scaling 2.5, sigmoid
+# scores with the correction bias, norm_topk_prob, 128 heads, q_lora 1536,
+# kv_lora 512, qk_nope 128, qk_rope 64, v 128, vocab 129280,
+# first_k_dense_replace 3, rope_interleave, rope_theta 1e4, rms_norm_eps
+# 1e-6, untied head.  Its yarn rope_scaling is left out (neither package
+# maps it).
+DEEPSEEK_V3 = dict(vocab_size=129280, d_model=7168, n_heads=128,
+                   n_layers=61, d_ff=18432, moe_d_ff=2048, n_experts=256,
+                   n_shared_experts=1, moe_top_k=8, moe_n_group=8,
+                   moe_topk_group=4, moe_routed_scale=2.5,
+                   moe_score="sigmoid", moe_score_bias=True,
+                   moe_norm_topk=True, moe_first_dense=3, attention="mla",
+                   q_lora_rank=1536, kv_lora_rank=512, qk_nope_head_dim=128,
+                   qk_rope_head_dim=64, v_head_dim=128, rope_interleave=True,
+                   max_seq_len=4096, rope_theta=10000.0, norm_eps=1e-6,
+                   dtype="bfloat16")
+MOE_SERVE_LAYERS = 8  # 23.7 GB of bf16 weights; 32 layers would be 93 GB
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = 2, 4096
+MLA_SERVE_LEN = 2048
+MLA_TRAIN_SEQ = 2048  # the plain attention's 128 x S^2 fp32 scores: 2.1 GB
+MOE_ATTN = dict(b=1, h=32, hkv=8, sq=4096, skv=4096, hd=128, window=4096)
+
+
+def moe_params(cfg, seed, dtype):
+    """init_params with an untied head (mistral_params) and, where the
+    config has one, a non-zero router bias drawn from the seed, so that
+    selection and mixing part as they do in the published checkpoint."""
+    params = mistral_params(cfg, seed, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2000)
+    for blk in params["blocks"]:
+        if "router_bias" in blk:
+            blk["router_bias"] = (torch.rand(
+                blk["router_bias"].shape, generator=gen, device="cuda")
+                * 0.2 - 0.1).to(dtype)
+    return params
+
+
+@contextlib.contextmanager
+def routed_in_decode():
+    """Counts, while inside, the (layer, expert) pairs that got a row in
+    every paged decode step (models/serve.paged_decode_step): each is three
+    K5 launches with int8 weights.  `counts["experts"]` sums them over the
+    held ranks' plans (one a rank under tp)."""
+    from kfunca_tpu_torch.models import serve as sv
+    from kfunca_tpu_torch.models import transformer as tf
+
+    counts = {"experts": 0, "steps": 0}
+    real_step, real_plan = sv.paged_decode_step, tf.moe_plan
+    inside = [False]
+
+    def step(*args, **kw):
+        inside[0] = True
+        counts["steps"] += 1
+        try:
+            return real_step(*args, **kw)
+        finally:
+            inside[0] = False
+
+    def plan(*args, **kw):
+        out = real_plan(*args, **kw)
+        if inside[0]:
+            counts["experts"] += len(out)
+        return out
+
+    sv.paged_decode_step, tf.moe_plan = step, plan
+    try:
+        yield counts
+    finally:
+        sv.paged_decode_step, tf.moe_plan = real_step, real_plan
+
+
+def expert_q8_timing(tq, card, m=2):
+    """K5 at a routed Mixtral expert's two products (m rows: 8 slots x top-2
+    over 8 experts is 2 rows an expert on average) and a DeepSeek-V3
+    expert's (8 slots x top-8 over 256: 1 row), beside its bound, its plain
+    version and torch._int_mm; returns the Mixtral gate/up/down mean."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 56)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    err = 0.0
+    for k, n, per in ((4096, 14336, 2), (14336, 4096, 1)):
+        a, b, sa, sb = q8_case(gen, m, k, n)
+        nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * k * n / PEAK_INT8_OPS
+        got = tq.matmul_q8(a, b, sa, sb, torch.float32)
+        want = tq.matmul_q8_plain(a, b, sa, sb, torch.float32)
+        err = max(err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"matmul_q8 {m}x{k}x{n} (a routed "
+              f"expert's) bit-equal to its plain version")
+        t = dict(
+            ms=time_ms(lambda: tq.matmul_q8(a, b, sa, sb, torch.float32)),
+            plain_ms=time_ms(lambda: tq.matmul_q8_plain(
+                a, b, sa, sb, torch.float32), reps=5, warm=1),
+            library_ms=time_ms(lambda: library_matmul_q8(
+                a, b, sa, sb, torch.float32)),
+            bound_ms=max(t_bytes, t_ops) * 1e3)
+        print(f"[56] matmul_q8 m={m} k={k} n={n} (a routed Mixtral expert's "
+              f"x{per}): kernel {t['ms']:.4f} ms ({nbytes / t['ms'] / 1e6:.0f}"
+              f" GB/s, {100 * t['bound_ms'] / t['ms']:.1f}% of the bound), "
+              f"plain {t['plain_ms']:.4f} ms, torch._int_mm + scales "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"(bytes); {card}", flush=True)
+        for key in total:
+            total[key] += per * t[key] / 3
+    a, b, sa, sb = q8_case(gen, 1, 7168, 2048)
+    ds_ms = time_ms(lambda: tq.matmul_q8(a, b, sa, sb, torch.float32))
+    ds_bound = (7168 * 2048 + 7168 + 4 * 2049 + 4 * 2048) / HBM_BYTES_PER_S
+    print(f"[56] matmul_q8 m=1 k=7168 n=2048 (a routed DeepSeek-V3 expert's "
+          f"gate / up): kernel {ds_ms:.4f} ms, bound {ds_bound * 1e3:.4f} ms; "
+          f"{card}", flush=True)
+    return dict(total, bound_by="bytes", max_err=err)
+
+
+def moe_serving_phase(pa, tq, card) -> dict:
+    """Phase 56: Mixtral serving at full width, 8 layers, bf16, three forms."""
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = TransformerConfig(**{**MIXTRAL_LM, "n_layers": MOE_SERVE_LAYERS})
+    params = moe_params(cfg, SEED + 56, torch.bfloat16)
+    prompts = traffic(cfg)
+    gb = sum(p.numel() * p.element_size() for p in
+             tree_leaves(params)) / 1e9
+    print(f"[56] serving Mixtral-8x7B-v0.1 widths, {cfg.n_layers} of 32 "
+          f"layers ({gb:.1f} GB of bf16 weights), {len(prompts)} requests, "
+          f"max_new 32, 8 slots, page 16", flush=True)
+    reset_launches(pa, tq)
+    runs, want_k4, want_k5 = {}, 0, 0
+    with torch.no_grad(), recorded_run() as bf16_rec:
+        runs["bf16"] = serve(params, cfg, prompts, 1)
+    want_k4 += cfg.n_layers * runs["bf16"]["stats"]["decode_steps"]
+    for label, kw in (("w8", dict(quantize_weights=True)),
+                      ("w8kv8", dict(quantize_weights=True,
+                                     quantize_kv=True))):
+        with torch.no_grad(), routed_in_decode() as routed, \
+                recorded_run(replay=bf16_rec):
+            runs[label] = serve(params, cfg, prompts, 1, **kw)
+        steps = runs[label]["stats"]["decode_steps"]
+        check(routed["steps"] == steps, "every decode step counted")
+        want_k4 += cfg.n_layers * steps
+        want_k5 += (2 * cfg.n_layers + 1) * steps + 3 * routed["experts"]
+        runs[label]["experts"] = routed["experts"]
+    got = read_launches(pa, tq)
+    check(got["dma"] == want_k4, f"K4 launches {got['dma']} == layers x "
+          f"decode steps {want_k4}")
+    check(got["q8"] == want_k5, f"K5 launches {got['q8']} == (2 x layers + "
+          f"1) x steps + 3 x routed (step, layer, expert) {want_k5}")
+    for label, run in runs.items():
+        extra = ""
+        if "experts" in run:
+            extra = (f", {run['experts'] / run['stats']['decode_steps'] / cfg.n_layers:.2f}"
+                     f" experts with a row a layer and step")
+        print(f"  {label}: {run['stats']['decode_steps']} decode steps, "
+              f"decode {run['decode_ms_per_step']:.2f} ms/step (per-call "
+              f"median {run['median_call_ms_per_step']:.2f}), "
+              f"{run['gen_tok_per_s']:.1f} generated tok/s (prefill "
+              f"included), mean TTFT {run['stats']['mean_ttft_s'] * 1e3:.1f}"
+              f" ms{extra}; {card}", flush=True)
+    lps = {k: [run["srv"].requests[r].logprobs for r in run["rids"]]
+           for k, run in runs.items()}
+    for label in ("w8", "w8kv8"):
+        gap = max(abs(a - b) for x, y in zip(lps[label], lps["bf16"])
+                  for a, b in zip(x, y))
+        print(f"  {label} forced down the bf16 server's tokens: max "
+              f"|dlogprob| {gap:.3g} nat from the unquantized server "
+              f"(the 0.05-nat convention of the CPU tests)", flush=True)
+    # bf16, 8 layers: served against the dense forward from a fresh cache;
+    # MoE routing in bf16 can flip an expert near a tie between the two
+    # shapes, hence a looser bound than phase 6's dense 0.1 nat
+    b1 = runs["bf16"]
+    logprob_check(b1["srv"], b1["rids"][:2] + b1["rids"][-1:], prompts, 0.5,
+                  f"Mixtral bf16 L{cfg.n_layers}")
+    del runs, b1, lps, bf16_rec, params
+    free_device_memory()
+    k5 = expert_q8_timing(tq, card)
+    # fp32, 2 layers at full width: the kernel path and the plain path give
+    # the same tokens, and the served log-probs match the fresh forward
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params32 = moe_params(cfg32, SEED + 57, torch.float32)
+    few = [prompts[0], prompts[5], prompts[-1]]
+    with torch.no_grad():
+        run = serve(params32, cfg32, few, 4)
+    logprob_check(run["srv"], run["rids"], few, 1e-4, "Mixtral fp32 L2")
+    del run
+    opts = dict(batch_slots=8, page_size=16, n_pages=800,
+                max_pages_per_seq=272)
+    compare_servers("Mixtral fp32 L2, kernel vs plain path",
+                    lambda: InferenceServer(params32, cfg32, **opts), few,
+                    1e-4)
+    del params32
+    free_device_memory()
+    return dict(k4=got["dma"], k5=got["q8"], k5_timing=k5)
+
+
+def moe_training_phase(fa, card) -> dict:
+    """Phase 57: Mixtral training at full width, 2 layers, then the fp32
+    kernel path against the plain path."""
+    from kfunca_tpu_torch.models.data import TokenDataset
+    from kfunca_tpu_torch.models.train import (
+        OptConfig, init_opt_state, make_train_step)
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = TransformerConfig(**{**MIXTRAL_LM, "n_layers": MOE_TRAIN_LAYERS,
+                               "max_seq_len": MOE_TRAIN_SEQ})
+    oc = OptConfig(lr=3e-4, warmup_steps=2, clip_norm=1.0)
+    params = moe_params(cfg, SEED + 58, torch.float32)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = init_opt_state(params, oc)
+    ds = TokenDataset(learnable_corpus(cfg.vocab_size), MOE_TRAIN_SEQ, 1,
+                      seed=SEED + 58)
+    step = make_train_step(cfg, oc, with_metrics=True)
+    steps = 6
+    print(f"[57] training at Mixtral-8x7B-v0.1 widths, {cfg.n_layers} of 32 "
+          f"layers ({n_params / 1e9:.3f} B parameters, "
+          f"{16 * n_params / 1e9:.1f} GB of fp32 params, grads and AdamW "
+          f"moments), 1 x {MOE_TRAIN_SEQ} tokens, bf16 activations",
+          flush=True)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    params, opt, metrics, seconds = run_steps(step, ds, params, opt, 0, steps)
+    launches, wgmma = read_flash(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(m["loss"]) for m in metrics),
+          "every MoE training loss is finite")
+    check(metrics[-1]["loss"] < metrics[0]["loss"],
+          "the last MoE loss is below the first")
+    want = cfg.n_layers * steps
+    check(launches == (want, want) and wgmma == launches,
+          f"K1, K2 launches {launches} == layers x steps {want}, all on "
+          f"the wgmma bodies ({wgmma})")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    print(f"[57] {ms:.1f} ms/step (host clock, steps 2-{steps}), "
+          f"{MOE_TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB ({state_gb:.2f} GB allocated before the first "
+          f"step: params and moments), losses {[round(m['loss'], 4) for m in metrics]}"
+          f"; K1 / K2 {launches[0]} / {launches[1]}; {card}", flush=True)
+    del params, opt, step
+    free_device_memory()
+    attention_parity(cfg, SEED + 59, "[57] Mixtral", 2048)
+    return dict(launches=launches, ms=ms, peak_gb=peak_gb)
+
+
+def attention_parity(cfg, seed, label, seq, want_k12=True):
+    """loss_fn and every gradient through the kernels against the plain
+    attention path, fp32 activations and params, 1 x seq tokens: loss 1e-5,
+    each gradient leaf 1e-4 of its largest entry (phase 12's)."""
+    from kfunca_tpu_torch.ops.attention import plain_attention
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+
+    c32 = dataclasses.replace(cfg, dtype="float32", max_seq_len=seq)
+    params = moe_params(c32, seed, torch.float32)
+    rng = np.random.default_rng(seed)
+    window = rng.integers(0, c32.vocab_size, (1, seq + 1))
+    tokens = torch.tensor(window[:, :-1], device="cuda")
+    targets = torch.tensor(window[:, 1:], device="cuda")
+    reset_flash(fa)
+    loss_k, grads_k = loss_and_grads(params, tokens, targets, c32)
+    launches, _ = read_flash(fa)
+    n = c32.n_layers if want_k12 else 0
+    check(launches == (n, n), f"{label}: K1, K2 launches {launches} == "
+          f"({n}, {n})")
+    with plain_attention():
+        loss_p, grads_p = loss_and_grads(params, tokens, targets, c32)
+    check(abs(loss_k - loss_p) <= 1e-5, f"{label}: kernel-path loss "
+          f"{loss_k:.7f} within 1e-5 of the plain path's {loss_p:.7f}")
+    worst = 0.0
+    for gk, gp in zip(grads_k, grads_p):
+        worst = max(worst, float((gk - gp).abs().max()
+                                 / gp.abs().max().clamp_min(1e-30)))
+    check(worst <= 1e-4, f"{label}: every gradient leaf within 1e-4 of its "
+          f"max (worst {worst:.3g})")
+    print(f"{label} fp32, {c32.n_layers} layers at full width, 1 x {seq} "
+          f"tokens: loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), "
+          f"worst gradient leaf {worst:.3g} of its max; K1 / K2 "
+          f"{launches[0]} / {launches[1]}", flush=True)
+    del params, grads_k, grads_p
+    free_device_memory()
+
+
+def mla_serving_phase(card) -> dict:
+    """Phase 58: DeepSeek-V3 through MLAServer at full width, 2 layers."""
+    from kfunca_tpu_torch.models import mla_serve
+    from kfunca_tpu_torch.models.generate import generate
+    from kfunca_tpu_torch.models.transformer import (
+        TransformerConfig, forward)
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = TransformerConfig(**{**DEEPSEEK_V3, "n_layers": 2,
+                               "moe_first_dense": 1})
+    params = moe_params(cfg, SEED + 60, torch.bfloat16)
+    gb = sum(p.numel() * p.element_size() for p in
+             tree_leaves(params)) / 1e9
+    new = 32
+    prompts = [p[:MLA_SERVE_LEN - new] for p in traffic(cfg)]
+    print(f"[58] DeepSeek-V3 widths through MLAServer, 2 layers (a dense "
+          f"one, then the 256-expert MoE), {gb:.1f} GB of bf16 weights, "
+          f"{len(prompts)} greedy requests and one sampled "
+          f"(prompts {min(map(len, prompts))}-{max(map(len, prompts))}, "
+          f"max_seq_len {MLA_SERVE_LEN}), max_new {new}, 8 slots",
+          flush=True)
+    srv = mla_serve.MLAServer(params, cfg, batch_slots=8,
+                              max_seq_len=MLA_SERVE_LEN, seed=SEED)
+    step_s, prefill_s = [], []
+    inner_step, inner_prefill = srv._decode_step, srv._prefill
+
+    def timed_step(*a):
+        t0 = time.perf_counter()
+        out = inner_step(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_prefill(*a):
+        t0 = time.perf_counter()
+        out = inner_prefill(*a)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        return out
+
+    srv._decode_step, srv._prefill = timed_step, timed_prefill
+    rids = [srv.submit(p, max_new=new) for p in prompts]
+    rids.append(srv.submit(prompts[0][:100], max_new=new, temperature=1.0))
+    t0 = time.perf_counter()
+    out = srv.run()
+    wall = time.perf_counter() - t0
+    check(all(len(out[r]) == new for r in rids), "every MLA request finished")
+    check(all(0 <= t < cfg.vocab_size for r in rids for t in out[r]),
+          "every token in the vocabulary")
+    latent = srv.cache_bytes() // (8 * MLA_SERVE_LEN * cfg.n_layers)
+    per_head = cfg.n_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                              + cfg.v_head_dim) * 2
+    check(latent == 1152, f"the latent cache holds {latent} == 1152 bytes a "
+          f"position a layer")
+    decode_ms = 1e3 * float(np.mean(step_s[1:]))
+    tok_s = sum(len(out[r]) for r in rids) / wall
+    print(f"[58] bf16: {srv.decode_steps} decode steps, {decode_ms:.2f} "
+          f"ms/step, {tok_s:.1f} generated tok/s over {wall:.2f} s (prefill "
+          f"included), mean prefill (TTFT less queueing) "
+          f"{1e3 * float(np.mean(prefill_s)):.1f} ms; latent cache {latent} "
+          f"bytes a position a layer against {per_head} for per-head K/V at "
+          f"these dims ({per_head / latent:.0f}x); {card}", flush=True)
+    del srv
+    free_device_memory()
+    # fp32 activations over the same weights: the server's greedy tokens
+    # are generate's, and one single-slot request's served log-probs stand
+    # near the expanded-form forward (the plain attention: qk 192, v 128)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    few = [prompts[1][:200], prompts[3][:64], prompts[7][:300]]
+    srv = mla_serve.MLAServer(params, f32, batch_slots=3, max_seq_len=512)
+    rids = [srv.submit(p, max_new=16) for p in few]
+    out = srv.run()
+    for r, p in zip(rids, few):
+        want = generate(params, torch.tensor([p], device="cuda"), f32, 16)
+        check(out[r] == want[0].tolist(), "MLAServer's fp32 greedy tokens "
+              f"equal generate's (first difference at "
+              f"{first_difference(out[r], want[0].tolist())})")
+    del srv
+    toks, served = served_logits_one_slot(params, f32, few[2], 16)
+    seq = torch.tensor([few[2] + toks[:-1]], device="cuda")
+    with torch.no_grad():
+        ref = torch.log_softmax(forward(params, seq, f32)[0, len(few[2]) - 1:],
+                                dim=-1)
+    got_lp = torch.stack([torch.log_softmax(s, -1) for s in served])
+    t = torch.tensor(toks, device="cuda")[:, None]
+    gap = float((got_lp.gather(-1, t) - ref.gather(-1, t)).abs().max())
+    check(gap <= 1e-3, f"served (absorbed-form) log-probs within 1e-3 nat of "
+          f"the expanded-form forward's (max {gap:.3g})")
+    print(f"[58] fp32 activations: 3 requests x 16 tokens equal generate's; "
+          f"one request's served log-probs (absorbed form, prefill and 15 "
+          f"decode steps) within {gap:.3g} nat of the expanded-form "
+          f"forward's (plain attention, qk 192 against v 128)", flush=True)
+    del params, served
+    free_device_memory()
+    return dict(decode_ms=decode_ms, tok_s=tok_s, latent=latent)
+
+
+def served_logits_one_slot(params, cfg, prompt, new):
+    """(tokens, the served logits of each) of one request through a
+    single-slot MLAServer: its prefill's last row, then each decode
+    step's."""
+    from kfunca_tpu_torch.models import mla_serve
+
+    srv = mla_serve.MLAServer(params, cfg, batch_slots=1, max_seq_len=512)
+    served = []
+    real_prefill, real_step = srv._prefill, mla_serve._mla_token_step
+
+    def prefill(*args):
+        last, cache = real_prefill(*args)
+        served.append(last)
+        return last, cache
+
+    def token_step(*args):
+        logits = real_step(*args)
+        served.append(logits[0])
+        return logits
+
+    srv._prefill, mla_serve._mla_token_step = prefill, token_step
+    try:
+        rid = srv.submit(prompt, max_new=new)
+        toks = srv.run()[rid]
+    finally:
+        mla_serve._mla_token_step = real_step
+    return toks, served[:new]
+
+
+def mla_training_phase(fa, card) -> dict:
+    """Phase 59: DeepSeek-V3's dense layers (MLA + the 18432 SwiGLU), 2
+    layers, 6 AdamW steps on the plain attention; then the JAX default head
+    geometry at DeepSeek-V3's width through K1/K2 against the plain path."""
+    from kfunca_tpu_torch.models.data import TokenDataset
+    from kfunca_tpu_torch.models.train import (
+        OptConfig, init_opt_state, make_train_step)
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = TransformerConfig(**{**DEEPSEEK_V3, "n_layers": 2, "n_experts": 0,
+                               "max_seq_len": MLA_TRAIN_SEQ})
+    oc = OptConfig(lr=3e-4, warmup_steps=2, clip_norm=1.0)
+    params = moe_params(cfg, SEED + 61, torch.float32)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = init_opt_state(params, oc)
+    ds = TokenDataset(learnable_corpus(cfg.vocab_size), MLA_TRAIN_SEQ, 1,
+                      seed=SEED + 61)
+    step = make_train_step(cfg, oc, with_metrics=True)
+    steps = 6
+    print(f"[59] MLA training at DeepSeek-V3's dense-layer widths, 2 layers "
+          f"({n_params / 1e9:.3f} B parameters, {16 * n_params / 1e9:.1f} GB "
+          f"of AdamW state), 1 x {MLA_TRAIN_SEQ} tokens, bf16 activations, "
+          f"plain attention (qk 192, v 128)", flush=True)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    params, opt, metrics, seconds = run_steps(step, ds, params, opt, 0, steps)
+    launches, _ = read_flash(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == (0, 0), f"no K1 / K2 launch at unequal head dims "
+          f"({launches})")
+    check(all(math.isfinite(m["loss"]) for m in metrics),
+          "every MLA training loss is finite")
+    check(metrics[-1]["loss"] < metrics[0]["loss"],
+          "the last MLA loss is below the first")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    print(f"[59] {ms:.1f} ms/step (host clock, steps 2-{steps}), "
+          f"{MLA_TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB ({state_gb:.2f} GB allocated before the first "
+          f"step), losses {[round(m['loss'], 4) for m in metrics]}"
+          f"; {card}", flush=True)
+    del params, opt, step
+    free_device_memory()
+    eq = dataclasses.replace(cfg, qk_nope_head_dim=64, qk_rope_head_dim=64,
+                             v_head_dim=128)
+    attention_parity(eq, SEED + 62, "[59] MLA qk 64 + 64 = v 128", 1024)
+    return dict(ms=ms, peak_gb=peak_gb)
+
+
+def tp_moe_mla_phase(pa, tq, card) -> dict:
+    """Phase 60: tp = 2 over a LocalMesh on the one card: the sharded step
+    for the Mixtral-width MoE and phase 59's MLA against the unsharded
+    gradients, then Mixtral serving with w8kv8 over split pools."""
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.models.transformer import (
+        TransformerConfig, rank_batches, tp_token_nll)
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh, shard_params
+
+    mesh = LocalMesh(1, 2)
+    seq = 512
+    for label, kw in (
+            ("Mixtral MoE", {**MIXTRAL_LM, "n_layers": 2}),
+            ("DeepSeek-V3 MLA", {**DEEPSEEK_V3, "n_layers": 2,
+                                 "n_experts": 0})):
+        cfg = TransformerConfig(**{**kw, "dtype": "float32",
+                                   "max_seq_len": seq})
+        params = moe_params(cfg, SEED + 63, torch.float32)
+        rng = np.random.default_rng(SEED + 63)
+        window = rng.integers(0, cfg.vocab_size, (1, seq + 1))
+        tok = torch.tensor(window[:, :-1], device="cuda")
+        tgt = torch.tensor(window[:, 1:], device="cuda")
+        loss, ref = loss_and_grads(params, tok, tgt, cfg)
+        for fsdp in (False, True):
+            sp = shard_params(params, mesh, fsdp=fsdp, cfg=cfg)
+            got_loss = []
+
+            def losses(vp):
+                nll = tp_token_nll(vp, rank_batches(mesh, tok),
+                                   rank_batches(mesh, tgt), cfg)
+                got_loss[:] = [float(n.detach().mean()) for n in nll]
+                return [n.mean() for n in nll]
+
+            grads = sharded_grads(sp, losses)
+            err, where, _ = sharded_grad_err(sp, grads, list(ref))
+            check(max(abs(x - loss) for x in got_loss) <= 1e-5,
+                  f"[60] {label} tp 2: loss {got_loss} within 1e-5 of the "
+                  f"unsharded {loss:.7f}")
+            check(err <= 1e-4, f"[60] {label} tp 2 (fsdp {fsdp}): every "
+                  f"rank's gradient within 1e-4 of its leaf's largest entry "
+                  f"(worst {err:.3g} at {where})")
+            print(f"[60] {label}, 2 layers fp32, 1 x {seq} tokens, dp 1 x tp "
+                  f"2{' fsdp' if fsdp else ''}: loss {got_loss[0]:.7f} vs "
+                  f"{loss:.7f}, worst gradient {err:.3g} of its leaf's "
+                  f"largest entry ({where})", flush=True)
+            del sp, grads
+            free_device_memory()
+        del params, ref
+        free_device_memory()
+
+    cfg = TransformerConfig(**{**MIXTRAL_LM, "n_layers": MOE_SERVE_LAYERS})
+    params = moe_params(cfg, SEED + 56, torch.bfloat16)
+    prompts = traffic(cfg)[:8]
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    kw = dict(quantize_weights=True, quantize_kv=True, fused_pool=False)
+    opts = dict(batch_slots=8, page_size=16, n_pages=800,
+                max_pages_per_seq=272)
+    want, _ = serve_greedy(lambda: InferenceServer(params, f32, **opts, **kw),
+                           prompts, 16)
+    free_device_memory()
+    got, _ = serve_greedy(lambda: InferenceServer(params, f32, mesh=mesh,
+                                                  **opts, **kw), prompts, 16)
+    free_device_memory()
+    check(got == want, "tp = 2 Mixtral w8kv8 in fp32 activations gives the "
+          "single device's tokens (first difference at "
+          f"{[first_difference(a, b) for a, b in zip(got, want)]})")
+    with torch.no_grad(), recorded_run() as single:
+        s_run = serve(params, cfg, prompts, 1, max_new=16, **kw)
+    s_ms = s_run["decode_ms_per_step"]
+    slps = [s_run["srv"].requests[r].logprobs for r in s_run["rids"]]
+    del s_run
+    free_device_memory()
+    reset_launches(pa, tq)
+    with torch.no_grad(), routed_in_decode() as routed, \
+            recorded_run(replay=single):
+        t_run = serve(params, cfg, prompts, 1, max_new=16, mesh=mesh, **kw)
+    k6, k5 = pa.paged_decode_attention.launches, tq.matmul_q8.launches
+    n_dec = t_run["stats"]["decode_steps"]
+    t_ms = t_run["decode_ms_per_step"]
+    tlps = [t_run["srv"].requests[r].logprobs for r in t_run["rids"]]
+    del t_run, single, params
+    free_device_memory()
+    gap = max(abs(a - b) for x, y in zip(slps, tlps) for a, b in zip(x, y))
+    check(gap <= 0.05, f"bf16 tp = 2 Mixtral log-probs of the forced tokens "
+          f"within 0.05 nat of the single device's (max {gap:.3g})")
+    check(k6 == 2 * cfg.n_layers * n_dec, f"K6 launches {k6} == ranks x "
+          f"layers x decode steps {2 * cfg.n_layers * n_dec}")
+    want_k5 = 2 * (2 * cfg.n_layers + 1) * n_dec + 3 * routed["experts"]
+    check(k5 == want_k5, f"K5 launches {k5} == ranks x (2 x layers + 1) x "
+          f"steps + 3 x the ranks' routed (step, layer, expert) {want_k5}")
+    print(f"[60] tp = 2 Mixtral serving, {cfg.n_layers} layers, w8kv8 over "
+          f"split pools, {len(prompts)} requests x 16: fp32 tokens equal the "
+          f"single device's; bf16 forced log-probs within {gap:.3g} nat; "
+          f"decode {s_ms:.2f} ms/step single device, {t_ms:.2f} tp = 2 on "
+          f"one card ({LOCAL_MESH_NOTE}); per rank and step K6 "
+          f"{k6 / 2 / n_dec:.0f}, K5 {k5 / 2 / n_dec:.1f}; {card}",
+          flush=True)
+    return dict(k5=k5, k6=k6, single_ms=s_ms, tp_ms=t_ms)
+
+
+def moe_mla_phases(card) -> list:
+    """Phases 56-60; returns the kernels-line entries of K5 at the routed
+    experts' products and K1 / K2 in the MoE training step."""
+    from kfunca_tpu_torch.ops import quant as tq
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+    from kfunca_tpu_torch.ops.pallas_kernels import paged_attention as pa
+
+    t0 = time.perf_counter()
+    serving = moe_serving_phase(pa, tq, card)
+    free_device_memory()
+    train = moe_training_phase(fa, card)
+    free_device_memory()
+    print(f"[57] K1 / K2 at the MoE step's attention shape", flush=True)
+    e1, e2 = rank_flash_checks(fa, MOE_ATTN, "Mixtral training shape")
+    ft = flash_timing(fa, MOE_ATTN, fp32=False)
+    free_device_memory()
+    mla_serving_phase(card)
+    free_device_memory()
+    mla_training_phase(fa, card)
+    free_device_memory()
+    tp_moe_mla_phase(pa, tq, card)
+    free_device_memory()
+    print(f"[56-60] {time.perf_counter() - t0:.1f} s", flush=True)
+    k5 = serving["k5_timing"]
+    entries = [{
+        "name": "matmul_q8", "route": "cuda",
+        "source": "kfunca_tpu_torch/csrc/quant.cu",
+        "replaces": "kfunca_tpu/ops/quant.py:77", "launches": serving["k5"],
+        "max_abs_err": k5["max_err"], "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
+        "path": "Mixtral w8 serving, a routed expert's products at m = 2 "
+                "(gate, up, down mean)"}]
+    for name, key, line, n, err in (
+            ("flash_attention_fwd_stats", "fwd", 247, train["launches"][0],
+             e1),
+            ("flash_attention_backward", "bwd", 547, train["launches"][1],
+             e2)):
+        t = ft[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "kfunca_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"kfunca_tpu/ops/pallas_kernels/flash_attention.py:"
+                        f"{line}", "launches": n, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "path": "Mixtral training step (B 1, 32 over 8 heads, S 4096)"})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6178,6 +6840,10 @@ def main() -> int:
     if sys.argv[1:] == ["--pipeline"]:  # phases 51-55 alone
         _kernels.build(["flash_attention", "ssm_scan"])
         print(json.dumps({"pipeline": pipeline_phases(card)}))
+        return 0
+    if sys.argv[1:] == ["--moe-mla"]:  # phases 56-60 alone
+        _kernels.build(["flash_attention", "paged_attention", "quant"])
+        print(json.dumps({"kernels": moe_mla_phases(card)}))
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -6251,6 +6917,8 @@ def main() -> int:
     kernels += mesh_phases(card)
     free_device_memory()
     pipeline_phases(card)
+    free_device_memory()
+    kernels += moe_mla_phases(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

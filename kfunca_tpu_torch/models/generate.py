@@ -35,9 +35,12 @@ NEG_INF = -1e30
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
                   device=None):
-    """Per-layer {"k", "v"} zeros of (batch, kv_heads, max_len, head_dim)."""
+    """Per-layer {"k", "v"} zeros of (batch, kv_heads, max_len, head_dim);
+    for an MLA config the compressed latent cache (mla.init_mla_cache)."""
     if cfg.attention == "mla":
-        raise NotImplementedError("MLA caches are a later slice of the port")
+        from .mla import init_mla_cache
+
+        return init_mla_cache(cfg, batch, max_len, device)
     dev = resolve_device(device)
     shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
@@ -143,7 +146,12 @@ def cached_attention_heads(y, p, layer_cache, start_pos: int,
 
 def _block_with_cache(x, p, layer_cache, start_pos: int,
                       cfg: TransformerConfig):
-    """One block over T new tokens at start_pos -> (x, layer_cache)."""
+    """One block over T new tokens at start_pos -> (x, layer_cache); an
+    MLA block decodes in the absorbed form (mla.mla_block_with_cache)."""
+    if cfg.attention == "mla":
+        from .mla import mla_block_with_cache
+
+        return mla_block_with_cache(x, p, layer_cache, start_pos, cfg)
     y = apply_norm(x, p, "attn_norm", cfg)
     o, layer_cache = cached_attention_mixer(y, p, layer_cache, start_pos, cfg)
     if cfg.parallel_residual:  # GPT-NeoX/GPT-J: branches share the input

@@ -7,7 +7,8 @@ maps, transposes (HF Linear weights are (out, in), ours (in, out); GPT-2's
 Conv1D is already (in, out)), fused wqkv, GPT-NeoX's per-head QKV
 de-interleave, MoE expert and shared-expert keys and MLA's kv_b_proj
 split, and the same NotImplementedErrors.  MoE and MLA configs load into
-TransformerConfig and params; the port's forward still refuses them.
+TransformerConfig and params, which the port's forward, train steps,
+generate and servers take (MLA models serve through mla_serve.MLAServer).
 
 `from_hf(path)` reads a checkpoint directory itself, without transformers
 or safetensors (a serving machine need not have them): config.json with `json`,

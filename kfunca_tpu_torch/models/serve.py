@@ -21,10 +21,13 @@ Counterpart of kfunca_tpu/models/serve.py, single-device path:
     for the fused pool, `paged_decode_attention` for split pools), run the
     MLP; then sample.  `paged_decode_burst` runs `steps` decode steps per
     scheduler call (a Python loop in place of lax.scan).
-  * Weight-quantized decode (quantize_weights): block matrices and the LM
-    head become (int8, column scales) pairs, w8a8 through the int8 matmul
-    kernel (ops/quant.py), or (packed int4, group scales) pairs, w4a8.
-    Prefill keeps the fp params.
+  * Weight-quantized decode (quantize_weights): block matrices (every
+    routed expert's three of a MoE block; its router, router bias and
+    shared expert stay fp) and the LM head become (int8, column scales)
+    pairs, w8a8 through the int8 matmul kernel (ops/quant.py), or (packed
+    int4, group scales) pairs, w4a8.  A MoE block's decode MLP runs each
+    expert over the slots routed to it: one K5 launch a product at m =
+    those rows.  Prefill keeps the fp params.
   * Prefix caching (prefix_cache): full prompt pages are content-hashed
     (chained per-page hash: the native core's 128-bit chain, or sha1 in
     the Python form) and shared read-only between sequences;
@@ -66,6 +69,10 @@ cache.  (The JAX server pins the XLA gather engine under a mesh; the port
 runs its own kernels on every rank.)
 
 Later slice of the port (raises NotImplementedError here): multi-LoRA.
+MLA configs are refused: they serve through models/mla_serve.MLAServer,
+as in the JAX package.  Under a mesh, MoE blocks with a shared expert or
+a router bias are refused (the JAX decode_param_specs has no spec for
+them).
 """
 
 from __future__ import annotations
@@ -364,7 +371,9 @@ _QUANTIZED = ("wqkv", "wo", "w_gate", "w_up", "w_down", "w_fc", "w_proj")
 
 def quantize_decode_params(params, bits: int = 8):
     """Symmetric quantization of every decode-path matrix: block weights
-    become (intN, scale) pairs and the LM head (the tied embedding's
+    (every routed expert's three matrices too) become (intN, scale) pairs;
+    a MoE block's router, router_bias and shared expert stay as they are,
+    as in the JAX function; and the LM head (the tied embedding's
     transpose where there is no "lm_head") is materialized quantized as
     "lm_head"; the paged decode step dispatches on the pair structure
     (_mm).  The embedding gather, norm gains and biases stay as they are.
@@ -381,9 +390,15 @@ def quantize_decode_params(params, bits: int = 8):
             return quantize_cols_int4(w, group=_w4_group(w.shape[0]))
     else:
         raise ValueError(f"unsupported weight bits {bits} (8 or 4)")
+    def qblk(blk):
+        out = {k: quant(v) if k in _QUANTIZED else v for k, v in blk.items()}
+        if "experts" in blk:
+            out["experts"] = [{n: quant(w) for n, w in ex.items()}
+                              for ex in blk["experts"]]
+        return out
+
     out = dict(params)
-    out["blocks"] = [{k: quant(v) if k in _QUANTIZED else v
-                      for k, v in blk.items()} for blk in params["blocks"]]
+    out["blocks"] = [qblk(blk) for blk in params["blocks"]]
     head = params.get("lm_head")
     out["lm_head"] = quant(params["embed"].T if head is None else head)
     return out
@@ -409,6 +424,13 @@ def decode_param_specs(params):
         return P("tp", None)
 
     def blk_spec(blk):
+        gap = [k for k in ("shared", "router_bias") if k in blk]
+        if gap:
+            # the JAX function names neither, and its server's walk over
+            # these specs fails on them (a KeyError): not served over a mesh
+            raise NotImplementedError(
+                f"tensor-parallel serving of MoE blocks with {gap} (DeepSeek "
+                f"routing): the JAX decode_param_specs has no spec for them")
         s = {"attn_norm": P(), "mlp_norm": P(),
              "wqkv": col(blk["wqkv"]), "wo": row(blk["wo"])}
         if "experts" in blk:
@@ -776,8 +798,10 @@ class InferenceServer:
                 "window invalidates shared-prefix reuse beyond the window)")
         if cfg.attention == "mla":
             raise NotImplementedError(
-                "this engine's page pools hold per-head K/V; MLA serving is a "
-                "later slice of the port")
+                "this engine's page pools hold per-head K/V; MLA models are "
+                "served by models.mla_serve.MLAServer (continuous batching "
+                "over compressed-latent slots, absorbed-form decode) or "
+                "decoded via models.generate.generate()")
         if max_loras:
             raise _later("multi-LoRA serving")
         hkv, hd = cfg.kv_heads, cfg.head_dim

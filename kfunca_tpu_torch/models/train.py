@@ -371,12 +371,15 @@ def ema_params(opt_state, dtype=None):
 
 def _value_and_grad(loss, params, tokens, targets):
     """(loss, grads) of loss(params, tokens, targets) by autograd over the
-    param leaves."""
+    param leaves; a leaf the loss does not reach (a MoE expert no token
+    chose, the router bias that only chooses) gets zeros, as under
+    jax.grad."""
     # views that share the masters' storage and carry the gradient
     views = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss_v = loss(tree_unflatten(params, views), tokens, targets)
-    grads = torch.autograd.grad(loss_v, views)
+    grads = torch.autograd.grad(loss_v, views, allow_unused=True,
+                                materialize_grads=True)
     return loss_v.detach(), tree_unflatten(params, grads)
 
 
@@ -661,7 +664,8 @@ def make_sharded_loss_step(token_nll, mesh, oc: OptConfig = OptConfig(),
                                 [t[sl] for t in tgts])
                 shares = [(n * w[sl].reshape(-1)).sum()
                           for n, w in zip(nll, ws)]
-            g = torch.autograd.grad(sum(shares), flat)
+            g = torch.autograd.grad(sum(shares), flat, allow_unused=True,
+                                    materialize_grads=True)
             if n_local > 1:
                 g = [x.float() for x in g]
             grads = g if grads is None else [a.add_(x)

@@ -10,17 +10,29 @@ first, as the JAX package does.
 
 Ported here: the config, init_params, the norms, RoPE, split_qkv,
 apply_qk_norm, the matmul helper, the dense MLP (swiglu, geglu, gelu), the
-attention mixer over the flash kernels (ops/attention.py), the block, the
-training forward and the two losses.  MoE, MLA and LoRA are later slices
-and raise NotImplementedError.
+routed MoE MLP (Mixtral, Qwen3-MoE and DeepSeek-V3 routing), the attention
+mixer over the flash kernels (ops/attention.py) or over multi-head latent
+attention (models/mla.py), the block, the training forward and the two
+losses.  LoRA is a later slice and raises NotImplementedError.
+
+The MoE MLP routes as the JAX function does (fp32 router logits, softmax
+or sigmoid scores, the selection bias, group-limited selection with masked
+experts at 0.0, mixing weights from the raw scores), with ties broken
+toward the lower expert index as lax.top_k breaks them.  Where the JAX
+function runs every expert over every token and scales the unrouted ones
+by an exact 0, the port runs each expert over the rows routed to it only
+and adds its weighted output back in expert order: the same sums, since
+adding +0.0 changes none.
 
 Tensor and data parallelism: `hidden_states`, `forward` and the losses
 also take a parallel.mesh.ShardedParams.  Each rank then runs its own
-heads (K1 and K2 per rank, through ops/attention) and a row-parallel wo
-with one all-reduce over tp, a column-parallel gate/up (or w_fc) and a
-row-parallel down (or w_proj) with one all-reduce, norms on replicated
-activations, the embedding over d_model (all-gathered) and the head as
-param_specs lays it out: an untied lm_head column-parallel over the
+heads (K1 and K2 per rank, through ops/attention; an MLA block's heads
+over the latent every rank computes) and a row-parallel wo with one
+all-reduce over tp, a column-parallel gate/up (or w_fc) and a
+row-parallel down (or w_proj) with one all-reduce (a MoE block: every
+expert split so, its partial outputs summed locally, one all-reduce),
+norms on replicated activations, the embedding over d_model
+(all-gathered) and the head as param_specs lays it out: an untied lm_head column-parallel over the
 vocabulary (the loss vocab-parallel, models/loss.py), a tied one
 row-parallel.  fsdp leaves are all-gathered over dp a layer at a time.
 The collectives are parallel/collectives.py's, so one code path serves
@@ -130,24 +142,21 @@ class TransformerConfig:
         raise ValueError(f"unknown rope_scaling_type {self.rope_scaling_type!r}")
 
 
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.attention == "mla":
-        raise NotImplementedError("MLA blocks are a later slice of the port")
-    if cfg.n_experts:
-        raise NotImplementedError("MoE blocks are a later slice of the port")
-
-
 def init_params(seed: int, cfg: TransformerConfig, device=None,
                 dtype: torch.dtype = torch.float32):
-    """Random parameters with the JAX init_params distributions: embedding
-    N(0, 0.02^2), learned positions N(0, 0.01^2), matrices
+    """Random parameters with the JAX init_params distributions and keys:
+    embedding N(0, 0.02^2), learned positions N(0, 0.01^2), matrices
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)), norm gains 1 (0 for rms_offset),
-    biases 0.  Drawn from a torch.Generator seeded with `seed` on the
-    target device (torch and jax.random give different numbers; tests
-    share weights through models/weights.py instead).  `dtype` is the
-    storage dtype: bf16 halves the memory of a full-size model on the
-    card."""
-    _check_supported(cfg)
+    biases and the MoE router bias 0; MLA blocks as mla.init_mla_block,
+    MoE blocks (layers from cfg.moe_first_dense on) a "router", a list
+    "experts" of SwiGLUs at moe_d_ff (or d_ff) and, with shared experts,
+    one "shared" SwiGLU at moe_d_ff * n_shared_experts.  Drawn from a
+    torch.Generator seeded with `seed` on the target device (torch and
+    jax.random give different numbers; tests share weights through
+    models/weights.py instead).  `dtype` is the storage dtype: bf16 halves
+    the memory of a full-size model on the card."""
+    from .mla import init_mla_block
+
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     gain0 = 0.0 if cfg.norm == "rms_offset" else 1.0
@@ -163,6 +172,10 @@ def init_params(seed: int, cfg: TransformerConfig, device=None,
     def full(n, value):
         return torch.full((n,), value, dtype=dtype, device=dev)
 
+    def swiglu(width):
+        return {"w_gate": linear(dm, width), "w_up": linear(dm, width),
+                "w_down": linear(width, dm)}
+
     dm = cfg.d_model
     params = {"embed": normal((cfg.vocab_size, dm), 0.02),
               "final_norm": full(dm, gain0), "blocks": []}
@@ -170,9 +183,14 @@ def init_params(seed: int, cfg: TransformerConfig, device=None,
         params["pos_embed"] = normal((cfg.max_seq_len, dm), 0.01)
     if cfg.norm == "layernorm":
         params["final_norm_b"] = full(dm, 0.0)
-    for _ in range(cfg.n_layers):
-        blk = {"attn_norm": full(dm, gain0), "wqkv": linear(dm, cfg.qkv_out),
-               "wo": linear(dm, dm), "mlp_norm": full(dm, gain0)}
+    for i in range(cfg.n_layers):
+        if cfg.attention == "mla":
+            blk = {"attn_norm": full(dm, gain0), "mlp_norm": full(dm, gain0),
+                   **init_mla_block(linear, full, cfg)}
+        else:
+            blk = {"attn_norm": full(dm, gain0),
+                   "wqkv": linear(dm, cfg.qkv_out), "wo": linear(dm, dm),
+                   "mlp_norm": full(dm, gain0)}
         if cfg.qk_norm:
             blk["q_norm"] = full(cfg.head_dim, 1.0)
             blk["k_norm"] = full(cfg.head_dim, 1.0)
@@ -188,10 +206,16 @@ def init_params(seed: int, cfg: TransformerConfig, device=None,
             if cfg.proj_bias:
                 blk["b_fc"] = full(cfg.d_ff, 0.0)
                 blk["b_proj"] = full(dm, 0.0)
+        elif cfg.n_experts and i >= cfg.moe_first_dense:
+            d_ex = cfg.moe_d_ff or cfg.d_ff  # fine-grained expert width
+            blk["router"] = linear(dm, cfg.n_experts)
+            if cfg.moe_score_bias:
+                blk["router_bias"] = full(cfg.n_experts, 0.0)
+            blk["experts"] = [swiglu(d_ex) for _ in range(cfg.n_experts)]
+            if cfg.n_shared_experts:  # one fused always-on SwiGLU
+                blk["shared"] = swiglu(d_ex * cfg.n_shared_experts)
         else:
-            blk["w_gate"] = linear(dm, cfg.d_ff)
-            blk["w_up"] = linear(dm, cfg.d_ff)
-            blk["w_down"] = linear(cfg.d_ff, dm)
+            blk.update(swiglu(cfg.d_ff))
         params["blocks"].append(blk)
     return params
 
@@ -318,10 +342,8 @@ def _plain_mm(y, w):
 
 
 def mlp_hidden(y, p, cfg: TransformerConfig, mm=_plain_mm):
-    """The MLP up to its down projection: the activation (B, S, d_ff) in
-    y's dtype that w_down (or w_proj) takes."""
-    if "experts" in p:
-        raise NotImplementedError("MoE blocks are a later slice of the port")
+    """The dense MLP up to its down projection: the activation (B, S, d_ff)
+    in y's dtype that w_down (or w_proj) takes."""
     if cfg.mlp_type == "gelu":
         h = mm(y, p["w_fc"])
         if "b_fc" in p:
@@ -340,10 +362,129 @@ def mlp_out_weight(p):
     return p["w_proj"] if "w_proj" in p else p["w_down"]
 
 
+def is_moe(p, cfg: TransformerConfig) -> bool:
+    """Whether block p's MLP is the routed mixture (the JAX test: a MoE
+    config and an "experts" entry; the first moe_first_dense layers of a
+    DeepSeek stack are dense)."""
+    return bool(cfg.n_experts) and cfg.mlp_type != "gelu" and "experts" in p
+
+
+def topk_lowest_first(x, k: int):
+    """lax.top_k along the last axis: the k largest values and their
+    indices, sorted, ties toward the lower index (a stable descending sort;
+    torch.topk promises no order among equal values)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_routing(y, p, cfg: TransformerConfig):
+    """The router of a MoE block over y (..., d): (topi (..., k) int64, the
+    chosen experts, and topv (..., k) fp32, their mixing weights).
+
+    fp32 logits y @ router; softmax over all experts or sigmoid scores;
+    the selection scores add router_bias where the block has one; with
+    moe_n_group > 1 only the moe_topk_group groups of largest top-2 sum stay
+    selectable, the others' scores set to 0.0 (not -inf, as HF does: a
+    negative bias can rank a masked expert above a kept one).  The mixing
+    weights are the raw scores at the chosen experts, renormalized under
+    moe_norm_topk (the sigmoid's denominator + 1e-20), times
+    moe_routed_scale."""
+    logits = y.float() @ p["router"].float()
+    if cfg.moe_score == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    choice = scores + p["router_bias"].float() if "router_bias" in p \
+        else scores
+    if cfg.moe_n_group > 1:
+        e_per_g = cfg.n_experts // cfg.moe_n_group
+        gs = choice.reshape(*choice.shape[:-1], cfg.moe_n_group, e_per_g)
+        group_scores = topk_lowest_first(gs, 2)[0].sum(dim=-1)
+        _, gsel = topk_lowest_first(group_scores, cfg.moe_topk_group)
+        gmask = torch.zeros_like(group_scores).scatter_(-1, gsel, 1.0)
+        keep = gmask.repeat_interleave(e_per_g, dim=-1) > 0
+        choice = torch.where(keep, choice, torch.zeros_like(choice))
+    _, topi = topk_lowest_first(choice, cfg.moe_top_k)
+    topv = scores.gather(-1, topi)
+    if cfg.moe_norm_topk:
+        denom = topv.sum(dim=-1, keepdim=True)
+        if cfg.moe_score == "sigmoid":
+            denom = denom + 1e-20  # HF V3 epsilon
+        topv = topv / denom
+    if cfg.moe_routed_scale != 1.0:
+        topv = topv * cfg.moe_routed_scale
+    return topi, topv
+
+
+def moe_plan(topi, n_experts: int):
+    """[(e, rows, slots)] for each expert that got a row, in expert order:
+    the flat rows routed to expert e (ascending) and the top-k slot that
+    chose it.  One host sync (the counts).  An expert without a row is
+    left out: the loss does not reach its weights (nor router_bias, which
+    only chooses), and the train steps give such leaves the zero gradient
+    the JAX function gives them."""
+    k = topi.shape[-1]
+    flat = topi.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=n_experts).tolist()
+    plan, start = [], 0
+    for e, c in enumerate(counts):
+        if c:
+            pos = order[start:start + c]
+            plan.append((e, pos // k, pos % k))
+        start += c
+    return plan
+
+
+def swiglu_hidden(y, pe, mm=_plain_mm):
+    """silu(y @ w_gate) * (y @ w_up) in y's dtype: an expert's activation."""
+    return (F.silu(mm(y, pe["w_gate"])) * mm(y, pe["w_up"])).to(y.dtype)
+
+
+def moe_hidden(y, p, plan, mm=_plain_mm):
+    """The activations of a MoE block's experts, each over its routed rows
+    (plan's order), then the shared expert's over every row where the
+    block has one: [(activation (rows, d_ex), its w_down)]."""
+    flat = y.reshape(-1, y.shape[-1])
+    acts = [(swiglu_hidden(flat[rows], p["experts"][e], mm),
+             p["experts"][e]["w_down"]) for e, rows, _ in plan]
+    if "shared" in p:
+        acts.append((swiglu_hidden(flat, p["shared"], mm),
+                     p["shared"]["w_down"]))
+    return acts
+
+
+def moe_combine(y, p, plan, topv, outs):
+    """The MoE output (..., d) fp32 from the experts' down products `outs`
+    (moe_hidden's order): each weighted by its mixing weight and added into
+    its rows in expert order, the shared expert's last, unweighted."""
+    n = math.prod(y.shape[:-1])
+    out = torch.zeros((n, y.shape[-1]), dtype=torch.float32, device=y.device)
+    w = topv.reshape(n, -1)
+    for (_, rows, slots), o in zip(plan, outs):
+        out.index_add_(0, rows, o.float() * w[rows, slots][:, None])
+    if "shared" in p:
+        out = out + outs[-1].float()
+    return out.reshape(y.shape)
+
+
+def moe_mlp(y, p, cfg: TransformerConfig, mm=_plain_mm):
+    """The routed mixture of a MoE block (module docstring); returns fp32.
+    `mm` reaches every expert's three products (and the shared expert's),
+    not the router's."""
+    topi, topv = moe_routing(y, p, cfg)
+    plan = moe_plan(topi, cfg.n_experts)
+    acts = moe_hidden(y, p, plan, mm)
+    return moe_combine(y, p, plan, topv, [mm(a, w) for a, w in acts])
+
+
 def mlp(y, p, cfg: TransformerConfig, mm=_plain_mm):
-    """Dense MLP (swiglu, geglu or tanh/erf-GELU); returns fp32.  `mm` is
-    the matmul, so that the paged decode step can pass one that takes
-    quantized (intN, scale) weights (models/serve._mm)."""
+    """Dense MLP (swiglu, geglu or tanh/erf-GELU) or the routed mixture of
+    a MoE block; returns fp32.  `mm` is the matmul, so that the paged
+    decode step can pass one that takes quantized (intN, scale) weights
+    (models/serve._mm)."""
+    if is_moe(p, cfg):
+        return moe_mlp(y, p, cfg, mm)
     out = mm(mlp_hidden(y, p, cfg, mm), mlp_out_weight(p))
     if "b_proj" in p:
         out = out + p["b_proj"].float()
@@ -354,8 +495,6 @@ def attention_heads(y, p, cfg: TransformerConfig):
     """Causal self-attention over the normed block input y (B, S, d) up to
     the output projection: fused QKV projection -> RoPE -> flash kernel.
     Returns (B, S, n_heads * head_dim) in y's dtype."""
-    if cfg.attention == "mla":
-        raise NotImplementedError("MLA blocks are a later slice of the port")
     if "lora" in p:
         raise NotImplementedError("LoRA adapters are a later slice of the port")
     b, s, _ = y.shape
@@ -377,8 +516,13 @@ def attention_heads(y, p, cfg: TransformerConfig):
 
 def attention_mixer(y, p, cfg: TransformerConfig):
     """Causal self-attention over the normed block input y (B, S, d): fused
-    QKV projection -> RoPE -> flash kernel -> output projection.  Returns
-    the post-wo output (B, S, d) fp32."""
+    QKV projection -> RoPE -> flash kernel -> output projection, or
+    multi-head latent attention (cfg.attention == "mla", models/mla.py).
+    Returns the post-wo output (B, S, d) fp32."""
+    if cfg.attention == "mla":
+        from .mla import mla_attention
+
+        return mla_attention(y, p, cfg)
     o = _plain_mm(attention_heads(y, p, cfg), p["wo"])
     if "bo" in p:
         o = o + p["bo"].float()
@@ -413,7 +557,6 @@ def hidden_states(params, tokens, cfg: TransformerConfig):
     its activations (torch.utils.checkpoint, non-reentrant).  With a
     ShardedParams the batch is split over dp (see rank_batches) and the
     result joined back (join_dp)."""
-    _check_supported(cfg)
     if isinstance(params, ShardedParams):
         xs, _ = tp_trunk(params, rank_batches(params.mesh, tokens), cfg)
         return join_dp(params.mesh, xs)
@@ -437,7 +580,6 @@ def _head(params):
 def forward(params, tokens, cfg: TransformerConfig):
     """tokens: (B, S) integers -> logits (B, S, vocab) fp32."""
     if isinstance(params, ShardedParams):
-        _check_supported(cfg)
         xs, top = tp_trunk(params, rank_batches(params.mesh, tokens), cfg)
         return join_dp(params.mesh, tp_logits(params, top, xs))
     return _plain_mm(hidden_states(params, tokens, cfg), _head(params))
@@ -581,11 +723,64 @@ def _bias(xs, ps, key):
 
 def tp_mlp(ys, ps, cfg: TransformerConfig, mesh, mm=_plain_mm):
     """The MLP over tp: column-parallel gate/up (or w_fc), row-parallel
-    down (or w_proj), the row-parallel bias added once after the sum."""
+    down (or w_proj), the row-parallel bias added once after the sum; a
+    MoE block's experts as tp_moe splits them."""
+    if is_moe(ps[0], cfg):
+        return tp_moe(ys, ps, cfg, mesh, mm)
     ys = cc.copy(ys, mesh)
     acts = [mlp_hidden(y, p, cfg, mm) for y, p in zip(ys, ps)]
     outs = row_parallel(acts, [mlp_out_weight(p) for p in ps], mesh, mm, True)
     return _bias(outs, ps, "b_proj")
+
+
+def tp_moe(ys, ps, cfg: TransformerConfig, mesh, mm=_plain_mm):
+    """A MoE block's MLP over tp.  Each rank routes its copy of the
+    replicated y with its replicated router (the same choices on every
+    rank; the mixing weights enter the split region through
+    collectives.copy, so the router's gradient is whole on every rank) and
+    runs every expert's column slice of w_gate / w_up and row slice of
+    w_down over the expert's routed rows (the shared expert likewise over
+    every row).  The ranks' partial down products are summed over tp in
+    ONE all-reduce a block: fp products weighted and added locally first;
+    int8 ones as their exact integer sums, concatenated over the experts
+    and dequantized after the sum, which gives one device's products bit
+    for bit (row_parallel's rule); int4 ones dequantized first.  A
+    quantized product scales each activation row by its max over the
+    whole row: one max all-reduce of every expert's row maxima."""
+    from ..ops.quant import gemm_w8_integer
+
+    routes = [moe_routing(y, p, cfg) for y, p in zip(ys, ps)]
+    topv = cc.copy([v for _, v in routes], mesh)
+    ys = cc.copy(ys, mesh)
+    # one plan a held rank: the same over tp, another for each dp stripe
+    plans = [moe_plan(i, cfg.n_experts) for i, _ in routes]
+    acts = [moe_hidden(y, p, plan, mm) for y, p, plan in zip(ys, ps, plans)]
+    quant = next((w for _, w in acts[0] if isinstance(w, tuple)), None)
+    if quant is None:
+        amax = [[None] * len(r) for r in acts]
+    else:
+        amax = cc.all_reduce(
+            [torch.cat([a.float().abs().amax(dim=-1) for a, _ in r])
+             for r in acts], mesh, "tp", "max")
+        amax = [m.split([a.shape[0] for a, _ in r])
+                for r, m in zip(acts, amax)]
+    if quant is None or quant[0].dtype != torch.int8:
+        outs = [[mm(a, w) if m is None else mm(a, w, row_absmax=m)
+                 for (a, w), m in zip(r, ms)] for r, ms in zip(acts, amax)]
+        return cc.reduce([moe_combine(y, p, plan, v, o) for y, p, plan, v, o
+                          in zip(ys, ps, plans, topv, outs)], mesh)
+    parts = [[gemm_w8_integer(a.float(), w[0], m) if isinstance(w, tuple)
+              else (mm(a, w), None) for (a, w), m in zip(r, ms)]
+             for r, ms in zip(acts, amax)]
+    sums = cc.reduce([torch.cat([acc for acc, _ in r]) for r in parts], mesh)
+    outs = []
+    for r, part, total in zip(acts, parts, sums):
+        accs = total.split([a.shape[0] for a, _ in r])
+        outs.append([acc if s is None else
+                     (acc * s[:, None]) * w[1].float()[None, :]
+                     for acc, (_, s), (_, w) in zip(accs, part, r)])
+    return [moe_combine(y, p, plan, v, o) for y, p, plan, v, o in
+            zip(ys, ps, plans, topv, outs)]
 
 
 def tp_block(xs, ps, cfg: TransformerConfig, sp: ShardedParams, heads,
@@ -593,10 +788,17 @@ def tp_block(xs, ps, cfg: TransformerConfig, sp: ShardedParams, heads,
     """One block over the held ranks' replicated activations xs (fp32
     results cast back to their dtype).  heads(i, y, p) is held rank i's
     attention up to wo: its own heads where attention splits over tp,
-    all of them where it is replicated."""
+    all of them where it is replicated.  For an MLA block y is the
+    replicated latent (mla.mla_latent), computed before the split."""
     mesh, split = sp.mesh, sp.attn_split
     ys = [apply_norm(x, p, "attn_norm", cfg) for x, p in zip(xs, ps)]
-    if split:
+    if cfg.attention == "mla":  # the heads read the latent every rank makes
+        from .mla import mla_latent
+
+        ys = [mla_latent(y, p, cfg) for y, p in zip(ys, ps)]
+        if split:
+            ys = list(zip(*(cc.copy(list(t), mesh) for t in zip(*ys))))
+    elif split:
         ys = cc.copy(ys, mesh)
     attn = [heads(i, y, p) for i, (y, p) in enumerate(zip(ys, ps))]
     os = _bias(row_parallel(attn, [p["wo"] for p in ps], mesh, mm, split),
@@ -637,9 +839,13 @@ def tp_trunk(sp: ShardedParams, tokens, cfg: TransformerConfig):
     top = _top_level(sp)
     xs = tp_embed(sp, top, tokens, cfg)
     lcfg = local_config(cfg, sp)
+    if cfg.attention == "mla":
+        from .mla import mla_heads as heads_of
+    else:
+        heads_of = attention_heads
 
     def heads(i, y, p):
-        return attention_heads(y, p, lcfg)
+        return heads_of(y, p, lcfg)
 
     for li in range(len(sp.local[0]["blocks"])):
         def run(*xs, li=li):

@@ -17,7 +17,7 @@ import torch
 from ..ops.quant import pack_int4
 from ..runtime.backend import resolve_device
 from ..utils.tree import tree_map
-from .transformer import TransformerConfig, _check_supported
+from .transformer import TransformerConfig
 
 
 def _to_tensor(leaf, device, dtype):
@@ -34,8 +34,8 @@ def _to_tensor(leaf, device, dtype):
 def params_from_jax(tree, cfg: TransformerConfig, device=None, dtype=None):
     """JAX params pytree (dicts and lists of arrays) -> the port's params on
     `device` (default: the CUDA device).  `dtype` recasts every float leaf
-    (None keeps each leaf's dtype).  Checks the tree against `cfg`."""
-    _check_supported(cfg)
+    (None keeps each leaf's dtype).  Checks the tree against `cfg`: an MHA
+    block by its wqkv, an MLA block by its own projections."""
     dev = resolve_device(device)
     if len(tree["blocks"]) != cfg.n_layers:
         raise ValueError(f"{len(tree['blocks'])} blocks for a config of "
@@ -44,14 +44,33 @@ def params_from_jax(tree, cfg: TransformerConfig, device=None, dtype=None):
         raise ValueError(f"embed {np.shape(tree['embed'])} does not match "
                          f"the config")
     for blk in tree["blocks"]:
-        if tuple(np.shape(blk["wqkv"])) != (cfg.d_model, cfg.qkv_out):
-            raise ValueError(f"wqkv {np.shape(blk['wqkv'])} does not match "
-                             f"the config's ({cfg.d_model}, {cfg.qkv_out})")
-
+        for key, want in _attention_shapes(blk, cfg):
+            _check_shape(blk, key, want)
     return tree_map(lambda x: _to_tensor(x, dev, dtype), tree)
 
 
+def _attention_shapes(blk, cfg: TransformerConfig):
+    """(key, shape) of each attention projection the config asks of a
+    block."""
+    if cfg.attention != "mla":
+        return [("wqkv", (cfg.d_model, cfg.qkv_out))]
+    from .mla import mla_dims
+
+    h, qk, nope, rope, v_dim, d_c = mla_dims(cfg)
+    if cfg.q_lora_rank:
+        q = [("w_dq", (cfg.d_model, cfg.q_lora_rank)),
+             ("w_uq", (cfg.q_lora_rank, h * qk))]
+    else:
+        q = [("w_q", (cfg.d_model, h * qk))]
+    return q + [("w_dkv", (cfg.d_model, d_c + rope)),
+                ("w_uk", (d_c, h * nope)), ("w_uv", (d_c, h * v_dim)),
+                ("wo", (h * v_dim, cfg.d_model))]
+
+
 def _check_shape(tree, key, want):
+    if key not in tree:
+        raise ValueError(f"the tree holds no {key} where the config needs "
+                         f"one of {tuple(want)}")
     got = tuple(np.shape(tree[key]))
     if got != tuple(want):
         raise ValueError(f"{key} {got} does not match the config's "

@@ -33,8 +33,10 @@ spec (tuples of axis names); checkpoints and `gather_params` keep it.
 fused wqkv (and bqkv) is [q | k | v] along its columns, and a contiguous
 split would not hand a rank whole heads, so a rank's shard is the
 columns of its q heads, then of their kv heads, then of their v heads.
-Where tp does not divide the kv heads, attention (wqkv, bqkv, wo) is
-replicated over tp and only the MLP and the vocabulary are split.  A leaf
+Where tp does not divide the kv heads, attention (wqkv, bqkv, wo; an MLA
+block's w_q or w_uq, w_uk, w_uv and wo) is replicated over tp and only the
+MLP and the vocabulary are split.  An MLA block's head-wise matrices split
+by whole heads as they are (a head's columns lie together).  A leaf
 whose spec is a `Halves` (its tp dimension two halves, as Mamba's in_proj
 is [hidden | gate]) gives a rank its columns of each half.  Any other axis
 (pp, ep) takes contiguous pieces.
@@ -422,7 +424,7 @@ def activation_spec() -> P:
     return P("dp", "tp", None)
 
 
-_ATTN_KEYS = ("wqkv", "bqkv", "wo")
+_ATTN_KEYS = ("wqkv", "bqkv", "wo", "w_q", "w_uq", "w_uk", "w_uv")
 _QKV_KEYS = ("wqkv", "bqkv")
 
 

@@ -78,6 +78,7 @@ def _global_leaves(tree) -> list:
             out.append(x)
 
     walk(tree)
+    del walk  # the walk -> cell -> walk cycle would hold `out` until gc
     return out
 
 
@@ -193,6 +194,7 @@ def _pieces(tree) -> list:
                         [([[0, n] for n in arr.shape], arr)]))
 
     walk(tree)
+    del walk  # the walk -> cell -> walk cycle would hold `out` until gc
     return out
 
 

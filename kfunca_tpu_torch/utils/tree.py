@@ -13,19 +13,22 @@ from __future__ import annotations
 def tree_leaves(tree) -> list:
     """The leaves of `tree` in jax.tree_util.tree_flatten order."""
     out: list = []
-
-    def walk(x):
-        if isinstance(x, dict):
-            for key in sorted(x):
-                walk(x[key])
-        elif isinstance(x, (list, tuple)):
-            for item in x:
-                walk(item)
-        elif x is not None:
-            out.append(x)
-
-    walk(tree)
+    _collect(tree, out)
     return out
+
+
+def _collect(x, out: list) -> None:
+    # a module-level walk: a nested recursive closure would be a reference
+    # cycle (function -> cell -> function) holding `out`, and with it every
+    # leaf (a train step's gradients), until the cyclic collector ran
+    if isinstance(x, dict):
+        for key in sorted(x):
+            _collect(x[key], out)
+    elif isinstance(x, (list, tuple)):
+        for item in x:
+            _collect(item, out)
+    elif x is not None:
+        out.append(x)
 
 
 def tree_map(fn, tree, *rest):

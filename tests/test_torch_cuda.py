@@ -2231,3 +2231,121 @@ def test_pipeline_paths_over_nccl_match_the_local_mesh(cuda, tmp_path):
                 np.testing.assert_allclose(got[r][f"{task}.{key}"], w,
                                            rtol=0, atol=tol,
                                            err_msg=f"rank {r} {task} {key}")
+
+
+# -- MoE and MLA blocks on the card ---------------------------------------------
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096)])
+def test_matmul_q8_over_routed_rows_at_mixtral_expert_shapes(cuda, m, k, n):
+    """K5 at the products a routed Mixtral-8x7B-v0.1 expert runs in the
+    decode step: m = the rows routed to it (1 to 8 slots) against its
+    4096 x 14336 gate / up and 14336 x 4096 down; bit for bit the plain
+    version (the exact integer sum times the same scales)."""
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + k)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda).to(torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda).to(torch.int8)
+    sa = torch.rand(m, generator=gen, device=cuda) * 0.02 + 0.001
+    sb = torch.rand(n, generator=gen, device=cuda) * 0.02 + 0.001
+    before = tq.matmul_q8.launches
+    got = tq.matmul_q8(a, b, sa, sb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tq.matmul_q8.launches == before + 1
+    assert torch.equal(got, tq.matmul_q8_plain(a, b, sa, sb,
+                                               out_dtype=torch.float32))
+
+
+def test_moe_decode_runs_k5_over_each_experts_routed_rows(cuda):
+    """A w8 MoE server's decode step launches K5 three times for each
+    expert that got a row, with m = its routed rows, plus wqkv, wo a layer
+    and the head; the tokens equal the same server on the CPU."""
+    cfg = transformer.TransformerConfig(**dict(SMALL, n_experts=4,
+                                               moe_top_k=2))
+    params = transformer.init_params(0, cfg, device="cpu")
+    params["embed"] = params["embed"] * 40
+    prompts = ([3, 5, 7], [9, 1, 4, 4, 7])
+
+    def drive(dev):
+        p = _to(params, dev)
+        srv = serve.InferenceServer(p, cfg, batch_slots=2, page_size=16,
+                                    n_pages=16, max_pages_per_seq=2,
+                                    quantize_weights=True, device=dev)
+        rids = [srv.submit(pr, max_new=4) for pr in prompts]
+        return srv, [srv.run()[r] for r in rids]
+
+    rows = []
+    real = tq.gemm_w8
+
+    def spy(a, *args, **kw):
+        rows.append(a.shape[0])
+        return real(a, *args, **kw)
+
+    _, want = drive("cpu")
+    before = tq.matmul_q8.launches
+    serve.gemm_w8, saved = spy, serve.gemm_w8
+    try:
+        srv, got = drive(cuda)
+    finally:
+        serve.gemm_w8 = saved
+    torch.cuda.synchronize()
+    assert got == want
+    assert tq.matmul_q8.launches - before == len(rows)
+    assert all(1 <= m <= 2 for m in rows)  # 2 slots, an expert's share
+    steps = srv.decode_steps
+    assert (len(rows) - (2 * cfg.n_layers + 1) * steps) % 3 == 0
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_block_with_equal_head_dims_runs_k1_k2(cuda, dtype):
+    """An MLA block whose head dims are equal (qk_nope 64 + qk_rope 64 =
+    v 128) runs K1 forward and K2 backward once each; its output and
+    gradients stand within the flash kernels' tolerances of the plain
+    attention path (ops.attention.plain_attention) over the same weights."""
+    from kfunca_tpu_torch.models import mla
+
+    cfg = transformer.TransformerConfig(
+        vocab_size=64, d_model=256, n_heads=4, n_layers=1, d_ff=128,
+        dtype="float32" if dtype == torch.float32 else "bfloat16",
+        attention="mla", q_lora_rank=96, kv_lora_rank=64)
+    params = transformer.init_params(0, cfg, device=cuda)
+    blk = params["blocks"][0]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    y = torch.randn((2, 200, 256), generator=gen, device=cuda).to(dtype)
+
+    def run():
+        leaves = [blk[k] for k in ("w_dq", "w_uq", "w_dkv", "w_uk", "w_uv",
+                                   "wo")]
+        for t in leaves:
+            t.requires_grad_(True)
+        yy = y.detach().requires_grad_(True)
+        out = mla.mla_attention(yy, blk, cfg)
+        grads = torch.autograd.grad(out.float().square().sum(),
+                                    [yy] + leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return out, grads
+
+    n1, n2 = (fa.flash_attention_fwd_stats.launches,
+              fa.flash_attention_backward.launches)
+    out, grads = run()
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd_stats.launches == n1 + 1
+    assert fa.flash_attention_backward.launches == n2 + 1
+    with attention.plain_attention():
+        want, want_g = run()
+    # fp32: the kernels' 1e-4; bf16: the flash kernels' 2^-7 of max |ref|,
+    # widened by the projections' own bf16 roundings on both paths
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+    for got, ref in zip((out,) + grads, (want,) + want_g):
+        ref = ref.float()
+        torch.testing.assert_close(got.float(), ref, rtol=tol,
+                                   atol=tol * float(ref.abs().max()))

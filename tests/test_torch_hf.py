@@ -256,14 +256,39 @@ def test_from_hf_of_a_model_instance_matches_jax(hf_models):
 
 
 def test_moe_and_mla_load_but_the_forward_waits(hf_models):
-    """MoE and MLA checkpoints load into TransformerConfig and params; the
-    port's forward refuses them until its MoE and MLA slices."""
-    for name, what in (("mixtral", "MoE"), ("deepseek_v3", "MLA")):
-        params, cfg = thf.from_hf(hf_models[name], dtype="float32",
-                                  device="cpu")
+    """MoE and MLA checkpoints load into TransformerConfig and params, and
+    (the forward no longer waits) the port's forward over its from_hf load
+    gives the JAX forward's logits over the JAX package's load, and
+    transformers' own: Mixtral, Qwen3-MoE and DeepSeek-V3 with a low-rank
+    and a direct query.  fp32: 1e-4 (sums in other orders; the random
+    routers leave no near tie between experts).  Two of the module's tiny
+    models keep family defaults that transformers' own forward cannot run
+    (Qwen3-MoE's 8 experts a token over 4, DeepSeek-V3's 128 kv heads over
+    4 heads, which its eager attention repeats 0 times): their twins here
+    take 2 experts a token and 4 kv heads, which neither package reads
+    otherwise."""
+    tokens = np.random.default_rng(2).integers(0, 128, (2, 12))
+    twins = {"qwen3_moe": dict(num_experts_per_tok=2),
+             "deepseek_v3_direct_q": dict(num_key_value_heads=4)}
+    for name in ("mixtral", "qwen3_moe", "deepseek_v3",
+                 "deepseek_v3_direct_q"):
+        model = hf_models[name]
+        if name in twins:
+            cfg_cls, model_cls, kw = MODELS[name]
+            torch.manual_seed(9)
+            model = getattr(transformers, model_cls)(getattr(
+                transformers, cfg_cls)(**{**kw, **twins[name]},
+                                       **EAGER)).eval()
+        params, cfg = thf.from_hf(model, dtype="float32", device="cpu")
         assert "router" in params["blocks"][-1]
-        with pytest.raises(NotImplementedError, match=what):
-            ttf.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg)
+        got = ttf.forward(params, torch.from_numpy(tokens), cfg).numpy()
+        params_j, cfg_j = jhf.from_hf(model, dtype="float32")
+        want = np.asarray(jtf.forward(params_j, jnp.asarray(
+            tokens, jnp.int32), cfg_j))
+        with torch.no_grad():
+            hf_logits = model(torch.from_numpy(tokens)).logits.numpy()
+        np.testing.assert_allclose(got, want, atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(got, hf_logits, atol=1e-4, err_msg=name)
 
 
 # -- the golden checkpoints ----------------------------------------------------

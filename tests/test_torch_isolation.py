@@ -60,7 +60,8 @@ def test_importing_the_port_loads_no_jax():
         "             'parallel', 'parallel.ring_attention', 'models.hf',",
         "             'models.tokenizer', 'models.api_server',",
         "             'models.speculative', 'parallel.mesh',",
-        "             'parallel.collectives', 'parallel.multihost'):",
+        "             'parallel.collectives', 'parallel.multihost',",
+        "             'models.mla', 'models.mla_serve'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -195,6 +196,30 @@ def test_slice_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
             call()
     params, _ = hf.from_hf(golden, dtype="float32", device="cpu")
     assert params["embed"].device.type == "cpu"
+
+
+def test_mla_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    """MLAServer and the latent cache lie on the card by default and raise
+    without one; on the CPU, when asked, the server serves, and it refuses
+    params on another device."""
+    from kfunca_tpu_torch.models import mla, mla_serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = transformer.TransformerConfig(**dict(
+        SMALL, n_kv_heads=None, attention="mla", kv_lora_rank=16,
+        qk_nope_head_dim=16, qk_rope_head_dim=16, n_experts=4))
+    params = transformer.init_params(0, cfg, device="cpu")
+    for call in (lambda: mla_serve.MLAServer(params, cfg),
+                 lambda: mla.init_mla_cache(cfg, 1, 8),
+                 lambda: generate.init_kv_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    srv = mla_serve.MLAServer(params, cfg, max_seq_len=16, device="cpu")
+    srv.submit([1, 2, 3], max_new=2)
+    assert len(srv.run()[0]) == 2
+    params["embed"] = params["embed"].to("meta")
+    with pytest.raises(ValueError, match="params are on"):
+        mla_serve.MLAServer(params, cfg, device="cpu")
 
 
 def test_the_mesh_rank_helpers_load_no_jax():

@@ -427,13 +427,11 @@ def test_chunked_softmax_xent_against_the_naive_loss():
 
 
 def test_unported_branches_raise():
+    """LoRA adapters are the one branch of the flagship still to come (MoE
+    and MLA blocks run: tests/test_torch_moe_mlp.py, test_torch_mla.py)."""
     _, tc = _cfgs()
     tp = ttf.init_params(0, tc, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        ttf.forward(tp, toks, dataclasses.replace(tc, attention="mla"))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf.forward(tp, toks, dataclasses.replace(tc, n_experts=4))
     lora = dict(tp, blocks=[dict(b, lora={}) for b in tp["blocks"]])
     with pytest.raises(NotImplementedError, match="LoRA"):
         ttf.forward(lora, toks, tc)
