@@ -587,13 +587,22 @@ def traffic(cfg, n_short=12):
     return [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lengths]
 
 
-def serve(params, cfg, prompts, burst, max_new=32, n_pages=800, **options):
+def serve(params, cfg, prompts, burst, max_new=32, n_pages=800, lora=None,
+          **options):
+    """One server over `prompts`, timed.  `lora`, when given, is
+    (serving adapters, a lora_id a prompt): each adapter is registered
+    (the server needs max_loras) and each prompt submitted under its id."""
     from kfunca_tpu_torch.models.serve import InferenceServer
     from kfunca_tpu_torch.runtime.backend import sync
 
     srv = InferenceServer(params, cfg, batch_slots=8, page_size=16,
                           n_pages=n_pages, max_pages_per_seq=272,
                           decode_burst=burst, **options)
+    ids = [0] * len(prompts)
+    if lora is not None:
+        for ads in lora[0]:
+            srv.register_lora(ads)
+        ids = lora[1]
     step_s = []
     inner = srv._step
 
@@ -605,7 +614,8 @@ def serve(params, cfg, prompts, burst, max_new=32, n_pages=800, **options):
         step_s.append((time.perf_counter() - t0, k))
 
     srv._step = timed_step
-    rids = [srv.submit(p, max_new=max_new) for p in prompts]
+    rids = [srv.submit(p, max_new=max_new, lora_id=lid)
+            for p, lid in zip(prompts, ids)]
     t0 = time.perf_counter()
     out = srv.run()
     sync(srv.device)
@@ -1702,9 +1712,10 @@ def first_difference(a, b):
     return min(len(a), len(b))
 
 
-def serve_greedy(make, prompts, max_new, plain=()):
+def serve_greedy(make, prompts, max_new, plain=(), lora_ids=None):
     """(tokens, log-probs) per prompt from a fresh server, inside the plain
-    contexts named in `plain` ("attention", "matmul_q8")."""
+    contexts named in `plain` ("attention", "matmul_q8"); each prompt under
+    its lora_id where `lora_ids` are given."""
     from kfunca_tpu_torch.ops.pallas_kernels.paged_attention import (
         plain_paged_attention)
     from kfunca_tpu_torch.ops.quant import plain_matmul_q8
@@ -1715,18 +1726,21 @@ def serve_greedy(make, prompts, max_new, plain=()):
         for name in plain:
             stack.enter_context(contexts[name]())
         srv = make()
-        rids = [srv.submit(p, max_new=max_new) for p in prompts]
+        ids = lora_ids or [0] * len(prompts)
+        rids = [srv.submit(p, max_new=max_new, lora_id=lid)
+                for p, lid in zip(prompts, ids)]
         out = srv.run()
     return [out[r] for r in rids], [srv.requests[r].logprobs for r in rids]
 
 
-def compare_servers(label, make, prompts, tol, max_new=16):
+def compare_servers(label, make, prompts, tol, max_new=16, lora_ids=None):
     """Serve `prompts` once on the kernels and once inside the plain
     contexts (same server options, same weights): equal greedy tokens and
     log-probs within `tol`.  Returns the kernel run's tokens."""
-    toks, lps = serve_greedy(make, prompts, max_new)
+    toks, lps = serve_greedy(make, prompts, max_new, lora_ids=lora_ids)
     ptoks, plps = serve_greedy(make, prompts, max_new,
-                               plain=("attention", "matmul_q8"))
+                               plain=("attention", "matmul_q8"),
+                               lora_ids=lora_ids)
     check(toks == ptoks, f"{label}: kernel path and plain path give the "
           f"same greedy tokens")
     worst = max(abs(x - y) for a, b in zip(lps, plps) for x, y in zip(a, b))
@@ -6810,6 +6824,745 @@ def moe_mla_phases(card) -> list:
     return entries
 
 
+# -- phases 61-65: the finetuning stack ----------------------------------------
+
+LORA_RANK = 16
+LORA_TARGETS = ("wqkv", "wo", "w_gate", "w_up", "w_down")
+LORA_TRAIN_LAYERS = 4  # phase 10's depth and batch: 1 x 8192 tokens
+QLORA_SEQ = 2048
+DPO_LAYERS, DPO_SEQ, DPO_PROMPT = 4, 2048, 1024
+GRPO_LAYERS, GRPO_PROMPT, GRPO_NEW, GRPO_GROUP = 4, 128, 64, 8
+KD_SEQ, KD_CHUNK, KD_TAU = 4096, 4096, 2.0
+# |QLoRA first loss - the bf16 base's loss| over the same batch and
+# adapters: the per-column int8 / group-wise int4 weight roundings of a
+# random 32-layer model move a loss of ln(32000) = 10.37 by far less
+QLORA_LOSS_BOUND = {8: 0.02, 4: 0.1}
+
+
+def lora_adapters(cfg, seed, targets, b_std=1e-3):
+    """init_lora on the card (alpha 2 x rank: scale 2) with B drawn from
+    the seed (b_std 0: B = 0, the base model), so that the deltas are
+    real: at Mistral-7B-v0.1 width a delta's std is about 128 x b_std,
+    beside a base product's 0.58."""
+    from kfunca_tpu_torch.models.lora import init_lora
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ad = init_lora(gen, cfg, rank=LORA_RANK, targets=targets,
+                   alpha=2.0 * LORA_RANK)
+    if b_std:
+        for blk in ad["blocks"]:
+            for ab in blk.values():
+                ab["B"] = torch.randn(ab["B"].shape, generator=gen,
+                                      device="cuda") * b_std
+    return ad
+
+
+def corpus_batch(cfg, seq, rows, seed):
+    """(tokens, targets) on the card from the learnable corpus."""
+    from kfunca_tpu_torch.models.data import TokenDataset
+
+    ds = TokenDataset(learnable_corpus(cfg.vocab_size), seq, rows, seed=seed)
+    return [torch.as_tensor(x).cuda() for x in ds.batch_at(0)]
+
+
+def timed_steps(step, state, opt, batches):
+    """Run step(state, opt, *batch) for each batch, each ending on a
+    synchronize: (state, opt, outputs as floats, seconds)."""
+    outs, seconds = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, opt, out = step(state, opt, *batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        outs.append({k: float(v) for k, v in out.items()}
+                    if isinstance(out, dict) else float(out))
+    return state, opt, outs, seconds
+
+
+def rel_close(got, want) -> float:
+    """max |got - want| / max(1, max |want|)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def lora_training_phase(fa, card) -> dict:
+    """Phase 61: LoRA on all five targets at Mistral-7B-v0.1 widths, 4
+    layers, 1 x 8192 tokens, bf16 base and activations; then the fp32
+    kernel path against the plain path at 2 layers, and merge_lora."""
+    from kfunca_tpu_torch.models.lora import (
+        attach_lora, make_lora_train_step, merge_lora)
+    from kfunca_tpu_torch.models.train import (
+        OptConfig, _value_and_grad, init_opt_state)
+    from kfunca_tpu_torch.models.transformer import (
+        TransformerConfig, forward, loss_fn)
+    from kfunca_tpu_torch.ops.attention import plain_attention
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": LORA_TRAIN_LAYERS,
+                               "max_seq_len": TRAIN_SEQ})
+    base = mistral_params(cfg, SEED + 61, torch.bfloat16)
+    tokens, targets = corpus_batch(cfg, TRAIN_SEQ, 1, SEED + 61)
+    zero = lora_adapters(cfg, SEED + 61, LORA_TARGETS, b_std=0.0)
+    with torch.no_grad():  # before the counted run
+        l_base = float(loss_fn(base, tokens, targets, cfg))
+        l_zero = float(loss_fn(attach_lora(base, zero), tokens, targets,
+                               cfg))
+    check(l_zero == l_base, f"B = 0 adapters give the base loss "
+          f"({l_zero} vs {l_base})")
+    del zero
+    ad = lora_adapters(cfg, SEED + 62, LORA_TARGETS)
+    n_train = sum(t.numel() for t in tree_leaves(ad["blocks"]))
+    n_base = sum(t.numel() for t in tree_leaves(base))
+    oc = OptConfig(lr=1e-3, weight_decay=0.0)
+    opt = init_opt_state(ad["blocks"], oc)
+    step = make_lora_train_step(base, cfg, oc)
+    probe = base["blocks"][0]["w_up"].float().sum()
+    steps = 6
+    batches = [corpus_batch(cfg, TRAIN_SEQ, 1, SEED + 61 + i)
+               for i in range(steps)]
+    free_device_memory()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)  # the main path: K1 / K2 counted from here
+    ad, opt, losses, seconds = timed_steps(step, ad, opt, batches)
+    launches, wgmma = read_flash(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses), "every LoRA loss is finite")
+    check(losses[-1] < losses[0], f"the last LoRA loss is below the first "
+          f"({losses})")
+    want = cfg.n_layers * steps
+    check(launches == (want, want) and wgmma == launches,
+          f"K1, K2 launches {launches} == layers x steps {want}, all on the "
+          f"wgmma bodies ({wgmma})")
+    check(all(t.grad is None for t in tree_leaves(base)),
+          "no base leaf has a .grad")
+    check(float(base["blocks"][0]["w_up"].float().sum()) == float(probe),
+          "the frozen base did not move")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    print(f"[61] LoRA (rank {LORA_RANK}, alpha {2 * LORA_RANK}, {LORA_TARGETS}"
+          f") at Mistral-7B-v0.1 widths, {cfg.n_layers} of 32 layers, bf16 "
+          f"frozen base ({n_base / 1e9:.3f} B) and activations, {n_train / 1e6:.2f}"
+          f" M trainable, AdamW, 1 x {TRAIN_SEQ} tokens: {ms:.1f} ms/step "
+          f"(host clock, steps 2-{steps}), {TRAIN_SEQ / ms * 1e3:.0f} tokens/s, "
+          f"peak memory {peak_gb:.2f} GB ({state_gb:.2f} GB allocated before "
+          f"the first step: base, adapters and moments); losses "
+          f"{[round(x, 4) for x in losses]}; B = 0 gave the base loss "
+          f"{l_base:.6f}; K1 / K2 {launches[0]} / {launches[1]}; {card}",
+          flush=True)
+    del base, ad, opt, step, batches
+    free_device_memory()
+
+    # fp32, 2 layers: the kernel path against the plain attention path
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                max_seq_len=1024)
+    p32 = mistral_params(cfg32, SEED + 63, torch.float32)
+    ad32 = lora_adapters(cfg32, SEED + 64, LORA_TARGETS)
+    rng = np.random.default_rng(SEED + 63)
+    window = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (2, 1025)),
+                             device="cuda")
+    tokens, targets = window[:, :-1], window[:, 1:]
+
+    def loss(blocks, tok, tgt):
+        return loss_fn(attach_lora(p32, {"blocks": blocks,
+                                         "scale": ad32["scale"]}),
+                       tok, tgt, cfg32)
+
+    lk, gk = _value_and_grad(loss, ad32["blocks"], tokens, targets)
+    with plain_attention():
+        lp, gp = _value_and_grad(loss, ad32["blocks"], tokens, targets)
+    l_err = abs(float(lk) - float(lp)) / max(1.0, abs(float(lp)))
+    g_err = max(rel_close(a, b) for a, b in zip(tree_leaves(gk),
+                                                tree_leaves(gp)))
+    check(l_err <= 1e-5, f"fp32 LoRA loss, kernels vs plain path, within "
+          f"1e-5 ({l_err:.3g})")
+    check(g_err <= 1e-4, f"fp32 adapter gradients, kernels vs plain path, "
+          f"within 1e-4 of max(1, max |ref|) ({g_err:.3g})")
+    with torch.no_grad():
+        att = forward(attach_lora(p32, ad32), tokens[:1, :256], cfg32)
+        mer = forward(merge_lora(p32, ad32), tokens[:1, :256], cfg32)
+    m_err = rel_close(mer, att)
+    check(m_err <= 1e-4, f"merge_lora's forward within 1e-4 of the attached "
+          f"forward ({m_err:.3g})")
+    print(f"[61] fp32, 2 layers, 2 x 1024 tokens: LoRA loss {float(lk):.6f} "
+          f"(kernels) vs {float(lp):.6f} (plain attention), rel {l_err:.3g}; "
+          f"adapter gradients within {g_err:.3g} of max(1, max |ref|); "
+          f"merge_lora's logits within {m_err:.3g} of the attached forward's; "
+          f"{card}", flush=True)
+    del p32, ad32, gk, gp
+    free_device_memory()
+    return dict(launches=launches, ms=ms, peak_gb=peak_gb)
+
+
+def saved_block_probe(p, cfg, x):
+    """(bytes the autograd graph of one block keeps past its forward, the
+    float tensors of a block matrix's shape among the saved ones)."""
+    from kfunca_tpu_torch.models.transformer import _block
+
+    mats = {tuple(t.shape) for k, t in p.items()
+            if k in ("wqkv", "wo", "w_gate", "w_up", "w_down")
+            and not isinstance(t, tuple)} or {
+        (cfg.d_model, cfg.qkv_out), (cfg.d_model, cfg.d_model),
+        (cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)}
+    floats = []
+
+    def pack(t):
+        if t.is_floating_point() and tuple(t.shape) in mats:
+            floats.append(tuple(t.shape))
+        return t
+
+    xx = x.detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = _block(xx, p, cfg)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    del out, xx
+    return grown, floats
+
+
+def qlora_phase(fa, card) -> dict:
+    """Phase 62: QLoRA over int8 and int4 bases of all 32 layers, 1 x 2048
+    tokens, cfg.remat, adapters on wqkv and wo."""
+    from kfunca_tpu_torch.models.lora import (
+        attach_lora, make_lora_train_step, quantize_base)
+    from kfunca_tpu_torch.models.train import OptConfig, init_opt_state
+    from kfunca_tpu_torch.models.transformer import TransformerConfig, loss_fn
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = TransformerConfig(**{**MISTRAL, "max_seq_len": QLORA_SEQ,
+                               "remat": True})
+    oc = OptConfig(lr=1e-3, weight_decay=0.0)
+    steps = 3
+    batches = [corpus_batch(cfg, QLORA_SEQ, 1, SEED + 65 + i)
+               for i in range(steps)]
+    out = {}
+    for bits in (8, 4):
+        base = mistral_params(cfg, SEED + 65, torch.bfloat16)
+        bf16_gb = sum(t.numel() * t.element_size()
+                      for b in base["blocks"] for t in b.values()) / 1e9
+        ad = lora_adapters(cfg, SEED + 66, ("wqkv", "wo"))
+        with torch.no_grad():
+            fp_loss = float(loss_fn(attach_lora(base, ad), *batches[0], cfg))
+        q = quantize_base(base, bits)
+        if bits == 8:  # what one block's graph keeps, bf16 vs int8 base
+            x = torch.randn((1, QLORA_SEQ, cfg.d_model), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(SEED + 65)).to(torch.bfloat16)
+            fp_grown, fp_floats = saved_block_probe(base["blocks"][0], cfg, x)
+            q_grown, q_floats = saved_block_probe(q["blocks"][0], cfg, x)
+            deq = sum(t.numel() * 2 for k, t in base["blocks"][0].items()
+                      if k in ("wqkv", "wo", "w_gate", "w_up", "w_down"))
+            check(q_floats == [], f"an int8 block's graph saves no float "
+                  f"tensor of a weight's shape ({q_floats})")
+            check(q_grown - fp_grown < deq // 10,
+                  f"an int8 block keeps {q_grown / 1e6:.1f} MB past its "
+                  f"forward, the bf16 block {fp_grown / 1e6:.1f} MB: no "
+                  f"dequantized weight ({deq / 1e6:.1f} MB) is saved")
+            print(f"[62] one block at 1 x {QLORA_SEQ}, bf16: the graph keeps "
+                  f"{q_grown / 1e6:.1f} MB over an int8 base, {fp_grown / 1e6:.1f}"
+                  f" MB over the bf16 one (whose saved weights are the params "
+                  f"themselves); a dequantized block would add {deq / 1e6:.1f} "
+                  f"MB; float weight-shaped tensors saved: {len(q_floats)}; "
+                  f"{card}", flush=True)
+            del x
+        del base
+        free_device_memory()
+        q_gb = sum(t.numel() * t.element_size()
+                   for b in q["blocks"] for t in tree_leaves(b)) / 1e9
+        opt = init_opt_state(ad["blocks"], oc)
+        step = make_lora_train_step(q, cfg, oc)
+        torch.cuda.synchronize()
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash(fa)  # the main path: K1 / K2 counted from here
+        ad, opt, losses, seconds = timed_steps(step, ad, opt, batches)
+        launches, wgmma = read_flash(fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(all(math.isfinite(x) for x in losses),
+              f"every int{bits} QLoRA loss is finite")
+        want = (2 * cfg.n_layers * steps, cfg.n_layers * steps)
+        check(launches == want and wgmma == launches,
+              f"int{bits} QLoRA K1, K2 launches {launches} == (2 x layers x "
+              f"steps, layers x steps) {want} (remat), all on the wgmma "
+              f"bodies ({wgmma})")
+        gap = abs(losses[0] - fp_loss)
+        check(gap <= QLORA_LOSS_BOUND[bits], f"int{bits} QLoRA first loss "
+              f"{losses[0]:.5f} within {QLORA_LOSS_BOUND[bits]} of the bf16 "
+              f"base's {fp_loss:.5f}")
+        ms = 1e3 * float(np.mean(seconds[1:]))
+        print(f"[62] QLoRA int{bits}, Mistral-7B-v0.1 widths, all 32 layers, "
+              f"remat, rank {LORA_RANK} on wqkv + wo, 1 x {QLORA_SEQ} tokens, "
+              f"bf16 activations: {ms:.1f} ms/step (host clock, steps "
+              f"2-{steps}), peak memory {peak_gb:.2f} GB ({state_gb:.2f} GB "
+              f"allocated before the first step; the int{bits} blocks "
+              f"{q_gb:.2f} GB where bf16 blocks alone take {bf16_gb:.2f} GB); "
+              f"losses {[round(x, 5) for x in losses]}, the bf16 base "
+              f"{fp_loss:.5f} (|d| {gap:.2g}); K1 / K2 {launches[0]} / "
+              f"{launches[1]}; {card}", flush=True)
+        out[bits] = dict(ms=ms, peak_gb=peak_gb, launches=launches)
+        del q, ad, opt, step
+        free_device_memory()
+    return out
+
+
+def lora_serving_phase(pa, tq, card) -> dict:
+    """Phase 63: multi-LoRA serving at Mistral-7B-v0.1 widths, 32 layers, 8
+    slots, page 16, the 13-request mix with lora_id cycling 0-4 over 4
+    adapters, bf16 then w8kv8, each beside a max_loras=0 server; then the
+    fp32 checks at 2 layers (generate over the merged weights, the prefix
+    cache by adapter, the kernel and plain paths, tp = 2)."""
+    from kfunca_tpu_torch.models.generate import generate
+    from kfunca_tpu_torch.models.lora import merge_lora, to_serving
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh
+
+    cfg = TransformerConfig(**MISTRAL)
+    params = mistral_params(cfg, SEED + 67, torch.bfloat16)
+    prompts = traffic(cfg)
+    ids = [i % 5 for i in range(len(prompts))]
+    adapters = [to_serving(lora_adapters(cfg, SEED + 68 + i, ("wqkv",)))
+                for i in range(4)]
+    lora_kw = dict(max_loras=4, lora_rank=LORA_RANK)
+    print(f"[63] multi-LoRA serving, Mistral-7B-v0.1 widths, 32 layers, "
+          f"{len(prompts)} requests (lora_id {ids}), 4 rank-{LORA_RANK} wqkv "
+          f"adapters, max_new 32, 8 slots, page 16", flush=True)
+    out = {}
+    for label, kw in (("bf16", {}), ("w8kv8", dict(quantize_weights=True,
+                                                   quantize_kv=True))):
+        reset_launches(pa, tq)  # the main path: counted from here
+        with torch.no_grad():
+            run = serve(params, cfg, prompts, 1, lora=(adapters, ids),
+                        **lora_kw, **kw)
+        got = read_launches(pa, tq)
+        steps = run["stats"]["decode_steps"]
+        check(got["dma"] == cfg.n_layers * steps,
+              f"{label}: K4{'-int8' if kw else ''} launches {got['dma']} == "
+              f"layers x decode steps {cfg.n_layers * steps}")
+        want_q8 = (5 * cfg.n_layers + 1) * steps if kw else 0
+        check(got["q8"] == want_q8, f"{label}: K5 launches {got['q8']} == "
+              f"{want_q8}")
+        with torch.no_grad():
+            plain = serve(params, cfg, prompts, 1, **kw)
+        moved = sum(run["srv"].requests[a].tokens
+                    != plain["srv"].requests[b].tokens
+                    for a, b, lid in zip(run["rids"], plain["rids"], ids)
+                    if lid)
+        print(f"  {label}: {steps} decode steps, decode "
+              f"{run['decode_ms_per_step']:.2f} ms/step with adapters (per-call"
+              f" median {run['median_call_ms_per_step']:.2f}), "
+              f"{plain['decode_ms_per_step']:.2f} ms/step for max_loras=0 "
+              f"(median {plain['median_call_ms_per_step']:.2f}); "
+              f"{run['gen_tok_per_s']:.1f} / {plain['gen_tok_per_s']:.1f} "
+              f"generated tok/s; adapters changed the tokens of {moved} of "
+              f"{sum(1 for i in ids if i)} adapted requests; K4 {got['dma']}, "
+              f"K5 {got['q8']}; {card}", flush=True)
+        out[label] = dict(launches=got, ms=run["decode_ms_per_step"],
+                          base_ms=plain["decode_ms_per_step"])
+        del run, plain
+        free_device_memory()
+    del params, adapters
+    free_device_memory()
+
+    # fp32, 2 layers at full width
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p32 = mistral_params(cfg32, SEED + 69, torch.float32)
+    tr32 = [lora_adapters(cfg32, SEED + 70 + i, ("wqkv",)) for i in range(2)]
+    ads32 = [to_serving(a) for a in tr32]
+    few = [prompts[0][:200], prompts[5][:300], prompts[-1][:96],
+           prompts[3][:150], prompts[7][:64]]
+    few_ids = [0, 1, 2, 1, 0]
+    opts = dict(batch_slots=8, page_size=16, n_pages=800,
+                max_pages_per_seq=272)
+
+    def make(**kw):
+        def build():
+            srv = InferenceServer(p32, cfg32, max_loras=2,
+                                  lora_rank=LORA_RANK, **opts, **kw)
+            for a in ads32:
+                srv.register_lora(a)
+            return srv
+        return build
+
+    t0 = time.perf_counter()
+    toks, _ = serve_greedy(make(), few, 16, lora_ids=few_ids)
+    merged = [p32] + [merge_lora(p32, a) for a in tr32]
+    for p, lid, got in zip(few, few_ids, toks):
+        with torch.no_grad():
+            want = generate(merged[lid], torch.tensor([p], device="cuda"),
+                            cfg32, 16)[0].tolist()
+        check(got == want, f"adapter {lid}'s served tokens equal generate "
+              f"over merge_lora (first difference at "
+              f"{first_difference(got, want)})")
+    base_toks, _ = serve_greedy(
+        lambda: InferenceServer(p32, cfg32, **opts), few, 16)
+    check(all(a == b for a, b, lid in zip(toks, base_toks, few_ids)
+              if lid == 0), "the base requests' tokens equal the "
+          "max_loras=0 server's")
+    compare_servers("fp32 L2 multi-LoRA, kernel vs plain path", make(), few,
+                    1e-4, lora_ids=few_ids)
+    # int8 weights and KV: K4-int8's fp32 sums in another order than its
+    # plain version's can flip a later int8 activation rounding, so the
+    # log-probs are held to the 0.05 nat of phase 17's convention
+    compare_servers("fp32 L2 multi-LoRA w8kv8, kernel vs plain path",
+                    make(quantize_weights=True, quantize_kv=True), few, 0.05,
+                    lora_ids=few_ids)
+    # the prefix cache keys pages by adapter
+    pcfg = dataclasses.replace(cfg32, attention_window=None)
+    with torch.no_grad():
+        srv = InferenceServer(p32, pcfg, max_loras=2, lora_rank=LORA_RANK,
+                              prefix_cache=True, batch_slots=1, page_size=16,
+                              n_pages=64, max_pages_per_seq=8)
+        for a in ads32:
+            srv.register_lora(a)
+        hits, shared = [], few[0][:64]
+        for lid in (1, 2, 1):
+            before = srv.prefix_hit_pages
+            srv.submit(shared, max_new=4, lora_id=lid)
+            srv.run()
+            hits.append(srv.prefix_hit_pages - before)
+        del srv
+    reuse = (len(shared) - 1) // 16
+    check(hits == [0, 0, reuse], f"one prompt under two adapters shares no "
+          f"page, the same adapter again reuses its {reuse} ({hits})")
+    # tp = 2 on a LocalMesh, w8 + kv8 over split pools: the single device's
+    # tokens; K6 and K5 launched by every rank every step
+    tp_kw = dict(quantize_weights=True, quantize_kv=True, fused_pool=False)
+    want, _ = serve_greedy(make(**tp_kw), few, 16, lora_ids=few_ids)
+    reset_launches(pa, tq)
+    n0 = [0]
+
+    def tp_make():
+        srv = make(mesh=LocalMesh(1, 2), **tp_kw)()
+        n0[0] = srv
+        return srv
+
+    got, _ = serve_greedy(tp_make, few, 16, lora_ids=few_ids)
+    k6, k5 = (pa.paged_decode_attention.launches, tq.matmul_q8.launches)
+    n_dec = n0[0].decode_steps
+    del n0[0]
+    check(got == want, "tp = 2 multi-LoRA w8kv8 serving in fp32 gives the "
+          "single device's tokens")
+    check(k6 == 2 * cfg32.n_layers * n_dec, f"tp = 2: K6 launches {k6} == "
+          f"ranks x layers x decode steps {2 * cfg32.n_layers * n_dec}")
+    check(k5 == 2 * (5 * cfg32.n_layers + 1) * n_dec, f"tp = 2: K5 launches "
+          f"{k5} == ranks x (5 x layers + 1) x steps")
+    print(f"[63] fp32, 2 layers: {len(few)} requests under adapters "
+          f"{few_ids} equal generate over merge_lora and, for adapter 0, the "
+          f"max_loras=0 server; prefix hits {hits} (adapter 1, 2, 1); tp = 2 "
+          f"w8kv8 equal to one device, K6 {k6}, K5 {k5} over {n_dec} steps; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    out["tp"] = dict(k6=k6, k5=k5, n_dec=n_dec)
+    del p32, tr32, ads32, merged
+    free_device_memory()
+    return out
+
+
+def dpo_pairs(cfg, seed):
+    """(tok_c, tgt_c, tok_r, tgt_r): 2 pairs of DPO_SEQ tokens whose first
+    DPO_PROMPT are a shared prompt (their targets ignored)."""
+    rng = np.random.default_rng(seed)
+    p = rng.integers(0, cfg.vocab_size, (2, DPO_PROMPT))
+    out = []
+    for _ in range(2):
+        c = rng.integers(0, cfg.vocab_size, (2, DPO_SEQ + 1 - DPO_PROMPT))
+        s = torch.as_tensor(np.concatenate([p, c], axis=1), device="cuda")
+        tgt = s[:, 1:].clone()
+        tgt[:, :DPO_PROMPT - 1] = -100
+        out += [s[:, :-1], tgt]
+    return out
+
+
+def dpo_phase(fa, card) -> dict:
+    """Phase 64: LoRA-DPO at Mistral-7B-v0.1 widths, 4 layers, 2 pairs of
+    2048 tokens over 1024-token shared prompts; the full-parameter step at
+    2 layers."""
+    from kfunca_tpu_torch.models.dpo import make_dpo_step, make_lora_dpo_step
+    from kfunca_tpu_torch.models.train import OptConfig, init_opt_state
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": DPO_LAYERS,
+                               "max_seq_len": DPO_SEQ})
+    base = mistral_params(cfg, SEED + 72, torch.bfloat16)
+    ad = lora_adapters(cfg, SEED + 73, ("wqkv", "wo"), b_std=0.0)
+    oc = OptConfig(lr=1e-3, weight_decay=0.0)
+    opt = init_opt_state(ad["blocks"], oc)
+    step = make_lora_dpo_step(base, cfg, oc, beta=0.1)
+    steps = 3
+    batches = [dpo_pairs(cfg, SEED + 72 + i) for i in range(steps)]
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)  # the main path: counted from here
+    ad, opt, ms_out, seconds = timed_steps(step, ad, opt, batches)
+    launches, wgmma = read_flash(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m0 = ms_out[0]
+    check(abs(m0["loss"] - math.log(2.0)) <= 1e-6, f"LoRA-DPO step 0 loss "
+          f"{m0['loss']!r} within 1e-6 of log 2")
+    check(m0["chosen_reward"] == m0["rejected_reward"] == 0.0,
+          "every reward is 0 at step 0")
+    check(all(math.isfinite(m["loss"]) for m in ms_out),
+          "every DPO loss is finite")
+    want = (4 * cfg.n_layers * steps, 2 * cfg.n_layers * steps)
+    check(launches == want and wgmma == launches, f"LoRA-DPO K1, K2 "
+          f"launches {launches} == (4, 2) x layers x steps {want}, all on "
+          f"the wgmma bodies")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    print(f"[64] LoRA-DPO (rank {LORA_RANK}, wqkv + wo, beta 0.1) at "
+          f"Mistral-7B-v0.1 widths, {cfg.n_layers} layers, bf16 base and "
+          f"activations, 2 pairs x {DPO_SEQ} tokens over {DPO_PROMPT}-token "
+          f"prompts: {ms:.1f} ms/step (host clock, steps 2-{steps}), peak "
+          f"memory {peak_gb:.2f} GB; losses "
+          f"{[round(m['loss'], 6) for m in ms_out]}, margins "
+          f"{[round(m['reward_margin'], 5) for m in ms_out]}; K1 / K2 "
+          f"{launches[0]} / {launches[1]}; {card}", flush=True)
+    del base, ad, opt, step, batches
+    free_device_memory()
+    # the full-parameter step at 2 layers: the policy a copy of the reference
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    ref = mistral_params(cfg2, SEED + 74, torch.float32)
+    policy = {k: ([{n: t.clone() for n, t in b.items()} for b in v]
+                  if k == "blocks" else v.clone()) for k, v in ref.items()}
+    opt = init_opt_state(policy, oc)
+    step = make_dpo_step(ref, cfg2, oc, beta=0.1)
+    policy, opt, full, fsec = timed_steps(step, policy, opt,
+                                          [dpo_pairs(cfg2, SEED + 74 + i)
+                                           for i in range(2)])
+    check(abs(full[0]["loss"] - math.log(2.0)) <= 1e-6,
+          f"full-parameter DPO step 0 loss {full[0]['loss']!r} within 1e-6 "
+          f"of log 2")
+    check(math.isfinite(full[1]["loss"]), "full-parameter DPO loss finite")
+    print(f"[64] full-parameter DPO, 2 layers, fp32 masters: losses "
+          f"{[round(m['loss'], 6) for m in full]}, {1e3 * fsec[1]:.1f} ms "
+          f"for the second step; {card}", flush=True)
+    del ref, policy, opt, step
+    free_device_memory()
+    return dict(launches=launches, ms=ms, peak_gb=peak_gb)
+
+
+def grpo_distill_phase(fa, card) -> dict:
+    """Phase 65: GRPO (rollout_group, 2 prompts x a group of 8, then 2
+    steps) at 4 layers; distillation of a 4-layer teacher into a 2-layer
+    student, 1 x 4096 tokens, vocab chunk 4096, tau 2; chunked_kd_kl
+    against full logits in fp32 at 2 layers."""
+    from kfunca_tpu_torch.models.distill import (
+        chunked_kd_kl, make_distill_step)
+    from kfunca_tpu_torch.models.rlhf import (
+        grpo_advantages, make_grpo_step, rollout_group)
+    from kfunca_tpu_torch.models.train import OptConfig, init_opt_state
+    from kfunca_tpu_torch.models.transformer import (
+        TransformerConfig, hidden_states, lm_head_weight)
+
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": GRPO_LAYERS,
+                               "max_seq_len": 1024})
+    params = mistral_params(cfg, SEED + 75, torch.float32)
+    rng = np.random.default_rng(SEED + 75)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (2, GRPO_PROMPT)), device="cuda")
+    t0 = time.perf_counter()
+    roll = rollout_group(params, prompt, cfg, GRPO_GROUP, GRPO_NEW,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(SEED + 75), vocab_chunk=4096)
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    # a task-free reward: the share of completion tokens in the lower half
+    # of the vocabulary
+    rewards = (roll["completions"] < cfg.vocab_size // 2).float().mean(-1)
+    adv = grpo_advantages(rewards, GRPO_GROUP)
+    gmean = float(adv.reshape(-1, GRPO_GROUP).mean(-1).abs().max())
+    check(gmean <= 1e-6, f"the advantages have zero mean in each group "
+          f"({gmean:.3g})")
+    oc = OptConfig(lr=1e-5, weight_decay=0.0)
+    opt = init_opt_state(params, oc)
+    step = make_grpo_step(cfg, oc, vocab_chunk=4096)
+    batch = (roll["tokens"], roll["targets"], roll["old_logp"],
+             roll["old_logp"], adv)
+    reset_flash(fa)  # the main path: counted from here
+    params, opt, gm, gsec = timed_steps(step, params, opt, [batch, batch])
+    launches, wgmma = read_flash(fa)
+    check(abs(gm[0]["ratio_mean"] - 1.0) <= 1e-6 and gm[0]["clip_frac"] == 0,
+          f"first GRPO epoch: ratio_mean {gm[0]['ratio_mean']!r} is 1 and "
+          f"clip_frac {gm[0]['clip_frac']} is 0")
+    check(all(math.isfinite(m["loss"]) for m in gm), "GRPO losses finite")
+    want = (cfg.n_layers * 2, cfg.n_layers * 2)
+    check(launches == want and wgmma == launches, f"GRPO K1, K2 launches "
+          f"{launches} == layers x steps {want}, on the wgmma bodies")
+    print(f"[65] GRPO at Mistral-7B-v0.1 widths, {cfg.n_layers} layers, fp32 "
+          f"masters, bf16 activations: rollout_group of 2 prompts x "
+          f"{GRPO_GROUP} ({GRPO_PROMPT} + {GRPO_NEW} tokens) in {roll_s:.2f} s"
+          f", then 2 steps over {tuple(roll['tokens'].shape)}: "
+          f"{1e3 * gsec[1]:.1f} ms for the second; metrics {gm}; K1 / K2 "
+          f"{launches[0]} / {launches[1]}; {card}", flush=True)
+    del params, opt, step, roll, batch
+    free_device_memory()
+
+    t_cfg = TransformerConfig(**{**MISTRAL, "n_layers": 4,
+                                 "max_seq_len": KD_SEQ})
+    s_cfg = dataclasses.replace(t_cfg, n_layers=2)
+    teacher = mistral_params(t_cfg, SEED + 77, torch.bfloat16)
+    student = mistral_params(s_cfg, SEED + 78, torch.float32)
+    oc = OptConfig(lr=1e-4)
+    opt = init_opt_state(student, oc)
+    step = make_distill_step(teacher, t_cfg, s_cfg, oc, tau=KD_TAU,
+                             vocab_chunk=KD_CHUNK)
+    batches = [corpus_batch(s_cfg, KD_SEQ, 1, SEED + 77 + i)
+               for i in range(3)]
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    student, opt, dm, dsec = timed_steps(step, student, opt, batches)
+    launches_kd, wgmma = read_flash(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(m["loss"]) for m in dm), "distill losses finite")
+    want = ((t_cfg.n_layers + s_cfg.n_layers) * 3, s_cfg.n_layers * 3)
+    check(launches_kd == want and wgmma == launches_kd, f"distillation K1, "
+          f"K2 launches {launches_kd} == {want}")
+    print(f"[65] distillation, teacher {t_cfg.n_layers} layers (bf16) -> "
+          f"student {s_cfg.n_layers} layers (fp32 masters), bf16 activations,"
+          f" 1 x {KD_SEQ} tokens, vocab chunk {KD_CHUNK}, tau {KD_TAU}: "
+          f"{1e3 * float(np.mean(dsec[1:])):.1f} ms/step, peak memory "
+          f"{peak_gb:.2f} GB; losses {[round(m['loss'], 4) for m in dm]}; "
+          f"K1 / K2 {launches_kd[0]} / {launches_kd[1]}; {card}", flush=True)
+    del teacher, student, opt, step, batches
+    free_device_memory()
+
+    # fp32, 2 layers: the streamed KL against the full-logits KL
+    c32 = dataclasses.replace(s_cfg, dtype="float32")
+    s32 = mistral_params(c32, SEED + 79, torch.float32)
+    t32 = mistral_params(c32, SEED + 80, torch.float32)
+    tokens = corpus_batch(c32, KD_SEQ, 1, SEED + 79)[0]
+    with torch.no_grad():
+        x_s = hidden_states(s32, tokens, c32)[0]
+        x_t = hidden_states(t32, tokens, c32)[0]
+        w_s = lm_head_weight(s32, torch.float32).clone()
+        w_t = lm_head_weight(t32, torch.float32)
+    del s32, t32
+    free_device_memory()
+    g = torch.randn(KD_SEQ, device="cuda",
+                    generator=torch.Generator(device="cuda")
+                    .manual_seed(SEED + 79))
+
+    def run(fn):
+        xs = x_s.clone().requires_grad_(True)
+        ws = w_s.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        base_b = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kl = fn(xs, ws)
+        (kl * g).sum().backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_b
+        return kl.detach(), xs.grad, ws.grad, peak
+
+    def full(xs, ws):
+        lp_s = torch.log_softmax(xs @ ws / KD_TAU, -1)
+        lp_t = torch.log_softmax(x_t @ w_t / KD_TAU, -1)
+        return (lp_t.exp() * (lp_t - lp_s)).sum(-1)
+
+    kc, dxc, dwc, peak_c = run(lambda xs, ws: chunked_kd_kl(
+        xs, ws, x_t, w_t, KD_CHUNK, KD_TAU))
+    kf, dxf, dwf, peak_f = run(full)
+    e_kl, e_dx, e_dw = rel_close(kc, kf), rel_close(dxc, dxf), rel_close(
+        dwc, dwf)
+    check(e_kl <= 1e-4 and e_dx <= 1e-4 and e_dw <= 1e-4,
+          f"chunked_kd_kl (fp32, 2 layers, 1 x {KD_SEQ}) within 1e-4 of the "
+          f"full-logits KL: value {e_kl:.3g}, dx {e_dx:.3g}, dW {e_dw:.3g}")
+    print(f"[65] chunked_kd_kl vs full logits, fp32 2-layer activations, "
+          f"{KD_SEQ} tokens x vocab {c32.vocab_size}, chunk {KD_CHUNK}, tau "
+          f"{KD_TAU}: value {e_kl:.3g}, student dx {e_dx:.3g}, dW {e_dw:.3g} "
+          f"of max(1, max |ref|); peak transient memory {peak_c / 1e6:.0f} MB "
+          f"streamed vs {peak_f / 1e6:.0f} MB with full logits; {card}",
+          flush=True)
+    del x_s, x_t, w_s, w_t, kc, kf, dxc, dxf, dwc, dwf
+    free_device_memory()
+    return dict(grpo=launches, kd=launches_kd, kd_peak_c=peak_c,
+                kd_peak_f=peak_f)
+
+
+def lora_phases(card) -> list:
+    """Phases 61-65; returns the kernels-line entries of K1 / K2 (the LoRA
+    step), K4 and K4-int8 (multi-LoRA decode, bf16 and w8kv8), K5 (the w8
+    base under adapters) and K6 (a tp = 2 rank's multi-LoRA decode)."""
+    from kfunca_tpu_torch.ops import quant as tq
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+    from kfunca_tpu_torch.ops.pallas_kernels import paged_attention as pa
+
+    t0 = time.perf_counter()
+    train = lora_training_phase(fa, card)
+    free_device_memory()
+    qlora_phase(fa, card)
+    free_device_memory()
+    srv = lora_serving_phase(pa, tq, card)
+    free_device_memory()
+    dpo_phase(fa, card)
+    free_device_memory()
+    grpo_distill_phase(fa, card)
+    free_device_memory()
+    print(f"[61-65] {time.perf_counter() - t0:.1f} s", flush=True)
+    # each kernel on this slice's paths against its plain version, timed
+    print("[61-65] K1 / K2, K4, K4-int8, K6 and K5 against their plain "
+          "versions at this slice's shapes", flush=True)
+    e1, e2 = rank_flash_checks(fa, ATTN, "LoRA training shape")
+    ft = flash_timing(fa, ATTN, fp32=False)
+    dma, k6 = pa.paged_decode_attention_dma, pa.paged_decode_attention
+    e4 = kernel_checks(dma, pa.paged_decode_attention_plain)
+    errs = paged_form_checks(pa)
+    e5 = q8_checks(tq)
+    t4 = kernel_timing(dma, pa.paged_decode_attention_plain)
+    t4q = paged_form_timing(pa, dma, "fused", True)
+    t6 = paged_form_timing(pa, k6, "split", True, h=16, hkv=4)
+    t5 = q8_timing(tq, card, tag="[63]")
+    print(f"[61-65] with the checks and timings: {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    entries = []
+    for name, key, line, n, err in (
+            ("flash_attention_fwd_stats", "fwd", 247, train["launches"][0],
+             e1),
+            ("flash_attention_backward", "bwd", 547, train["launches"][1],
+             e2)):
+        t = ft[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "kfunca_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"kfunca_tpu/ops/pallas_kernels/flash_attention.py:"
+                        f"{line}", "launches": n, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "path": "LoRA training step, all five targets (B 1, 32 over 8 "
+                    "heads, S 8192)"})
+    src = "kfunca_tpu_torch/csrc/paged_attention.cu"
+    rep = "kfunca_tpu/ops/pallas_kernels/paged_attention.py"
+    for name, line, n, err, t, path in (
+            ("paged_decode_attention_dma", 459,
+             srv["bf16"]["launches"]["dma"], e4, t4,
+             "multi-LoRA decode, bf16, 32 layers"),
+            ("paged_decode_attention_dma", 459,
+             srv["w8kv8"]["launches"]["dma"], errs["dma_int8"], t4q,
+             "multi-LoRA decode, w8kv8 (the int8 body), 32 layers"),
+            ("paged_decode_attention", 583, srv["tp"]["k6"], errs["k6"], t6,
+             "tp = 2 multi-LoRA w8kv8 decode, a rank's 16 over 4 heads")):
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"{rep}:{line}", "launches": n, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "path": path})
+    entries.append({
+        "name": "matmul_q8", "route": "cuda",
+        "source": "kfunca_tpu_torch/csrc/quant.cu",
+        "replaces": "kfunca_tpu/ops/quant.py:77",
+        "launches": srv["w8kv8"]["launches"]["q8"], "max_abs_err": e5,
+        "ms": t5["ms"], "plain_ms": t5["plain_ms"],
+        "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
+        "library_ms": t5["library_ms"],
+        "path": "multi-LoRA decode over a w8 base, one device's 161 "
+                "products a step (mean)"})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6844,6 +7597,10 @@ def main() -> int:
     if sys.argv[1:] == ["--moe-mla"]:  # phases 56-60 alone
         _kernels.build(["flash_attention", "paged_attention", "quant"])
         print(json.dumps({"kernels": moe_mla_phases(card)}))
+        return 0
+    if sys.argv[1:] == ["--lora"]:  # phases 61-65 alone
+        _kernels.build(["flash_attention", "paged_attention", "quant"])
+        print(json.dumps({"kernels": lora_phases(card)}))
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -6919,6 +7676,8 @@ def main() -> int:
     pipeline_phases(card)
     free_device_memory()
     kernels += moe_mla_phases(card)
+    free_device_memory()
+    kernels += lora_phases(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,7 +44,8 @@ import torch
 from ..ops.attention import _sdpa_xla, causal_attention_fn
 from .generate import _rope_at
 from .transformer import (
-    TransformerConfig, _plain_mm, _rope, apply_norm, mlp, rms_norm,
+    TransformerConfig, _mm_with_lora, _plain_mm, _rope, apply_norm, mlp,
+    rms_norm,
 )
 
 NEG_INF = -1e30
@@ -83,9 +84,9 @@ def _mm(y, w):
 
 
 def _wo(attn, p):
-    if "lora" in p:
-        raise NotImplementedError("LoRA adapters are a later slice of the port")
-    return _plain_mm(attn, p["wo"])
+    """The output projection, with the block's wo adapter where it has one
+    (the JAX _mm_with_lora)."""
+    return _mm_with_lora(attn, p["wo"], p, "wo")
 
 
 def _pe_rope(x, cfg: TransformerConfig, positions=None):

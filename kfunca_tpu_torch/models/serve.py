@@ -50,6 +50,15 @@ Counterpart of kfunca_tpu/models/serve.py, single-device path:
     iteration while the other slots keep decoding.
   * fp32, bf16 and fp16 activations and pools; on the card each runs the
     paged kernels' body of its dtype.
+  * Multi-LoRA (max_loras > 0): stacked per-layer wqkv adapters, fp32,
+    lora_A (L, max_loras + 1, d_model, r) and lora_B (L, max_loras + 1, r,
+    qkv_out), slot 0 the zero adapter.  register_lora adds one and returns
+    its id; submit(lora_id=...) picks it per request.  The decode step
+    gathers each slot's A and B and adds (y @ A) @ B in fp32 to the slot's
+    qkv product (the base's: fp, w8 or w4) before the head split, so one
+    batch mixes adapters; prefill runs over the adapter's merged fp
+    weights (W + A @ B, cached per id).  Prefix-cache hashes are keyed by
+    the adapter, so two adapters never share a page.
 
 Prefill is models/generate.forward_with_cache (plain attention) over the
 prompt suffix padded to a page multiple, scattered into the slot's pages.
@@ -68,11 +77,11 @@ server keeps self.params, and each rank takes its kv heads of the prefill's
 cache.  (The JAX server pins the XLA gather engine under a mesh; the port
 runs its own kernels on every rank.)
 
-Later slice of the port (raises NotImplementedError here): multi-LoRA.
-MLA configs are refused: they serve through models/mla_serve.MLAServer,
-as in the JAX package.  Under a mesh, MoE blocks with a shared expert or
-a router bias are refused (the JAX decode_param_specs has no spec for
-them).
+Under a mesh each rank adds its heads' columns of the adapter delta (B
+split by whole heads as wqkv is, A replicated).  MLA configs are refused:
+they serve through models/mla_serve.MLAServer, as in the JAX package.
+Under a mesh, MoE blocks with a shared expert or a router bias are refused
+(the JAX decode_param_specs has no spec for them).
 """
 
 from __future__ import annotations
@@ -472,7 +481,7 @@ def _flat(pool):
 
 
 def _paged_heads(y, p, pools_k, pools_v, li, page_tables, positions,
-                 cfg: TransformerConfig, page_size: int):
+                 cfg: TransformerConfig, page_size: int, lora=None):
     """The attention of one block over B single tokens against the paged
     KV, up to the output projection: y (B, 1, dm) the normed input ->
     (B, 1, n_heads * head_dim) in y's dtype.
@@ -484,7 +493,11 @@ def _paged_heads(y, p, pools_k, pools_v, li, page_tables, positions,
     [sk heads | sv heads | 0]).  Split layout: pools_k and pools_v are
     (L, n_pages, page, Hkv, hd) stacks, or with int8 KV pairs (int8 stack,
     fp32 (L, n_pages, page, Hkv) scales).  page_tables: (B, max_pages)
-    int32; positions: (B,) int32 (index of the new token)."""
+    int32; positions: (B,) int32 (index of the new token).  lora: None or
+    (A (n_adapters, dm, r), B (n_adapters, r, qkv_out), ids (B,)), the
+    layer's adapter stacks and each slot's adapter: the slot's
+    (y @ A[id]) @ B[id] joins the qkv product in fp32 (adapter 0 is
+    zeros)."""
     b = y.shape[0]
     h, hd, hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     max_pages = page_tables.shape[1]
@@ -492,6 +505,9 @@ def _paged_heads(y, p, pools_k, pools_v, li, page_tables, positions,
     qkv = _mm(y, p["wqkv"])
     if "bqkv" in p:
         qkv = qkv + p["bqkv"].float()
+    if lora is not None:
+        a, b_, ids = lora
+        qkv = qkv + torch.bmm(torch.bmm(y.float(), a[ids]), b_[ids])
     q, k, v = split_qkv(qkv.to(y.dtype), cfg)  # q (B,H,1,hd), k/v (B,Hkv,1,hd)
     q, k = apply_qk_norm(q, k, p, cfg)
     if cfg.pos == "rope":  # each sequence at its own absolute position
@@ -555,12 +571,13 @@ def _paged_heads(y, p, pools_k, pools_v, li, page_tables, positions,
 
 
 def _paged_block(x, p, pools_k, pools_v, li, page_tables, positions,
-                 cfg: TransformerConfig, page_size: int):
+                 cfg: TransformerConfig, page_size: int, lora=None):
     """One transformer block over B single tokens against the paged KV:
-    x (B, 1, dm) -> x.  _paged_heads says what the pools hold."""
+    x (B, 1, dm) -> x.  _paged_heads says what the pools and `lora`
+    hold."""
     y = apply_norm(x, p, "attn_norm", cfg)
     attn = _paged_heads(y, p, pools_k, pools_v, li, page_tables, positions,
-                        cfg, page_size)
+                        cfg, page_size, lora)
     o = _mm(attn, p["wo"])
     if "bo" in p:
         o = o + p["bo"].float()
@@ -591,7 +608,7 @@ def apply_logit_penalties(logits, penalties):
 def paged_decode_step(params, pools_k, pools_v, page_tables, positions,
                       last_tokens, generator, cfg: TransformerConfig,
                       page_size: int, temperature=0.0, top_p=1.0,
-                      sampling=None, penalties=None):
+                      sampling=None, penalties=None, lora=None):
     """One batched decode step over the paged KV (the JAX package's
     _decode_step_impl and its jitted paged_decode_step).
 
@@ -603,14 +620,17 @@ def paged_decode_step(params, pools_k, pools_v, page_tables, positions,
     (pools_v None = fused), each slot's new K/V written in place.  `params`
     may hold quantized (intN, scale) pairs (quantize_decode_params).  Returns
     (tokens (B,) int32, logprobs (B,) fp32); idle slots decode garbage
-    that callers ignore.
+    that callers ignore.  `lora`, when given, is (A (L, n_adapters, dm,
+    r), B (L, n_adapters, r, qkv_out), ids (B,)): each slot's wqkv adapter
+    (_paged_heads).
 
     With a ShardedParams (decode_param_specs' layout) pools_k and pools_v
     are lists, one split pool a held rank, and every rank samples from
-    the same gathered logits (held rank 0's copy)."""
+    the same gathered logits (held rank 0's copy); lora's B is then a list
+    of each held rank's columns of the stack."""
     if isinstance(params, ShardedParams):
         raw = _tp_decode_logits(params, pools_k, pools_v, page_tables,
-                                positions, last_tokens, cfg, page_size)
+                                positions, last_tokens, cfg, page_size, lora)
         return _sample(raw, generator, temperature, top_p, sampling,
                        penalties)
     x = embed_tokens(params, last_tokens.long()[:, None], cfg)
@@ -623,7 +643,8 @@ def paged_decode_step(params, pools_k, pools_v, page_tables, positions,
         x = x + params["pos_embed"][pos][:, None].to(cfg.act_dtype)
     for li, p in enumerate(params["blocks"]):
         x = _paged_block(x, p, pools_k, pools_v, li, page_tables, positions,
-                         cfg, page_size)
+                         cfg, page_size, None if lora is None
+                         else (lora[0][li], lora[1][li], lora[2]))
     x = apply_norm(x, params, "final_norm", cfg)
     # the untied head, the quantized (intN, scale) head, or the tied
     # embedding's transpose: _mm dispatches on the structure
@@ -634,10 +655,10 @@ def paged_decode_step(params, pools_k, pools_v, page_tables, positions,
 
 def _tp_decode_logits(sp: ShardedParams, pools_k, pools_v, page_tables,
                       positions, last_tokens, cfg: TransformerConfig,
-                      page_size: int):
+                      page_size: int, lora=None):
     """The decode step's raw logits (B, V) over a mesh: each rank's heads
-    against its own pools, the row-parallel products summed over tp, the
-    logits gathered over tp."""
+    against its own pools (and its columns of the adapter delta), the
+    row-parallel products summed over tp, the logits gathered over tp."""
     n = len(sp.mesh.ranks)
     top = _top_level(sp)
     pos = None
@@ -649,8 +670,10 @@ def _tp_decode_logits(sp: ShardedParams, pools_k, pools_v, page_tables,
     lcfg = local_config(cfg, sp)
     for li in range(len(sp.local[0]["blocks"])):
         def heads(i, y, p, li=li):
+            ad = None if lora is None else (lora[0][li], lora[1][i][li],
+                                            lora[2])
             return _paged_heads(y, p, pools_k[i], pools_v[i], li, page_tables,
-                                positions, lcfg, page_size)
+                                positions, lcfg, page_size, ad)
 
         xs = tp_block(xs, [t["blocks"][li] for t in sp.local], cfg, sp,
                       heads, mm=_mm)
@@ -674,7 +697,7 @@ def _sample(raw, generator, temperature, top_p, sampling, penalties):
 def paged_decode_burst(params, pools_k, pools_v, page_tables, positions,
                        last_tokens, generator, cfg: TransformerConfig,
                        page_size: int, steps: int, temperature=0.0, top_p=1.0,
-                       sampling=None, penalties=None):
+                       sampling=None, penalties=None, lora=None):
     """`steps` decode steps in one call (the scheduler does its
     bookkeeping after the burst and discards each slot's tail past its
     finish; pages for max_new are reserved at admission, so decoding past
@@ -692,7 +715,7 @@ def paged_decode_burst(params, pools_k, pools_v, page_tables, positions,
         last_tokens, lp = paged_decode_step(
             params, pools_k, pools_v, page_tables, positions, last_tokens,
             generator, cfg, page_size, temperature, top_p, sampling,
-            penalties)
+            penalties, lora)
         toks.append(last_tokens)
         lps.append(lp)
         positions = positions + 1
@@ -713,6 +736,7 @@ class Request:
     max_new: int
     tokens: list = field(default_factory=list)  # generated
     done: bool = False
+    lora_id: int = 0  # 0 = the base model
     # per-request sampling overrides (None -> the server-wide default)
     temperature: float | None = None
     top_p: float | None = None
@@ -746,10 +770,6 @@ def _penalized(req: Request) -> bool:
                 or req.allowed_fn is not None)
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is a later slice of the port")
-
-
 class InferenceServer:
     """Continuous-batching inference over a paged KV cache.
 
@@ -768,7 +788,8 @@ class InferenceServer:
     longer prompt suffix that many tokens a scheduler iteration, so the
     other slots keep decoding meanwhile.  decode_burst runs that many
     decode steps a scheduler call when no prefill is in flight and no
-    request is constrained."""
+    request is constrained.  max_loras > 0 keeps that many wqkv adapters
+    of rank lora_rank (register_lora, submit(lora_id=...))."""
 
     def __init__(
         self,
@@ -784,6 +805,7 @@ class InferenceServer:
         seed: int = 0,
         prefix_cache: bool = False,
         max_loras: int = 0,
+        lora_rank: int = 8,
         quantize_weights: bool | str = False,
         quantize_kv: bool = False,
         mesh=None,
@@ -802,8 +824,6 @@ class InferenceServer:
                 "served by models.mla_serve.MLAServer (continuous batching "
                 "over compressed-latent slots, absorbed-form decode) or "
                 "decoded via models.generate.generate()")
-        if max_loras:
-            raise _later("multi-LoRA serving")
         hkv, hd = cfg.kv_heads, cfg.head_dim
         aligned = (hkv * hd) % 128 == 0 and 2 * hkv <= 128
         self.mesh = None if mesh is None else as_mesh(mesh)
@@ -932,8 +952,90 @@ class InferenceServer:
                                         dtype=torch.float32, device=dev)
         self.logit_bias = torch.zeros((self.B, cfg.vocab_size),
                                       dtype=torch.float32, device=dev)
+        # multi-LoRA: stacked per-layer wqkv adapters, slot 0 the zero
+        # (base) adapter; one decode step serves a mixed-adapter batch by
+        # per-slot gathers, and prefill runs over the adapter's merged
+        # weights (W + A @ B, made once an adapter)
+        self.max_loras = int(max_loras)
+        self.lora_rank = int(lora_rank)
+        self._n_loras = 0
+        self._merged_params: dict[int, dict] = {}
+        self.lora_A = self.lora_B = None
+        self._lora_B_ranks = None  # under a mesh: each held rank's columns
+        if self.max_loras:
+            stack = (cfg.n_layers, self.max_loras + 1)
+            self.lora_A = torch.zeros(stack + (cfg.d_model, self.lora_rank),
+                                      dtype=torch.float32, device=dev)
+            self.lora_B = torch.zeros(stack + (self.lora_rank, cfg.qkv_out),
+                                      dtype=torch.float32, device=dev)
+            self._split_lora_B()
+        self.slot_lora = np.zeros((self.B,), np.int64)
 
     # -- API ---------------------------------------------------------------
+
+    def register_lora(self, adapters) -> int:
+        """Register a wqkv LoRA adapter; returns its lora_id (>= 1; 0 is the
+        base model).  `adapters` is a list of per-layer dicts with "A"
+        (d_model, r) and "B" (r, qkv_out) arrays or tensors (models/lora
+        .to_serving gives them, the scale folded into B)."""
+        if self.max_loras == 0:
+            raise ValueError("server constructed with max_loras=0")
+        if self._n_loras >= self.max_loras:
+            raise ValueError("lora registry full")
+        if len(adapters) != self.cfg.n_layers:
+            raise ValueError(f"{len(adapters)} adapter layers for a model of "
+                             f"{self.cfg.n_layers}")
+        want_a = (self.cfg.d_model, self.lora_rank)
+        want_b = (self.lora_rank, self.cfg.qkv_out)
+        mats = []
+        for ad in adapters:
+            a = torch.as_tensor(ad["A"]).to(self.device, torch.float32)
+            b = torch.as_tensor(ad["B"]).to(self.device, torch.float32)
+            if tuple(a.shape) != want_a or tuple(b.shape) != want_b:
+                raise ValueError(f"adapter A {tuple(a.shape)}, B "
+                                 f"{tuple(b.shape)}; the server takes "
+                                 f"{want_a} and {want_b}")
+            mats.append((a, b))
+        lid = self._n_loras + 1
+        self._n_loras = lid
+        for li, (a, b) in enumerate(mats):
+            self.lora_A[li, lid] = a
+            self.lora_B[li, lid] = b
+        self._split_lora_B()
+        return lid
+
+    def _split_lora_B(self):
+        """Under a mesh, each held rank's columns of lora_B: its heads of
+        the [q | k | v] width, as decode_param_specs splits wqkv (all of
+        them where attention is replicated)."""
+        if self.mesh is None:
+            return
+        shard = self._decode_params.shards["blocks"][0]["wqkv"]
+        shard = shard[0] if isinstance(shard, tuple) else shard
+        if shard.tp_dim is None:
+            self._lora_B_ranks = [self.lora_B] * len(self.mesh.ranks)
+            return
+        self._lora_B_ranks = [self.lora_B.index_select(3, shard._tp_index(
+            self.mesh.index(r, "tp"), self.mesh.tp, self.device))
+            for r in self.mesh.ranks]
+
+    def _params_for(self, lora_id: int):
+        """The fp params, or adapter lora_id's merged weights (wqkv + A @ B
+        cast to wqkv's dtype), made once an adapter."""
+        if lora_id == 0:
+            return self.params
+        merged = self._merged_params.get(lora_id)
+        if merged is None:
+            merged = dict(self.params)
+            blocks = []
+            for li, blk in enumerate(self.params["blocks"]):
+                blk = dict(blk)
+                delta = self.lora_A[li, lora_id] @ self.lora_B[li, lora_id]
+                blk["wqkv"] = blk["wqkv"] + delta.to(blk["wqkv"].dtype)
+                blocks.append(blk)
+            merged["blocks"] = blocks
+            self._merged_params[lora_id] = merged
+        return merged
 
     def submit(self, prompt, max_new: int = 16, lora_id: int = 0, *,
                temperature: float | None = None, top_p: float | None = None,
@@ -951,14 +1053,15 @@ class InferenceServer:
         bool | None` constrains decoding: called on the host before every
         sample, its mask suppresses disallowed tokens (a -1e30 bias) for
         this request; it must leave at least one token allowed.  Reported
-        log-probs stay those of the raw distribution."""
-        if lora_id:
+        log-probs stay those of the raw distribution.  lora_id picks a
+        registered adapter (register_lora; 0 is the base model)."""
+        if lora_id and not (self.max_loras and 0 < lora_id <= self._n_loras):
             raise ValueError(f"unknown lora_id {lora_id}")
         rid = self._next_id
         self._next_id += 1
         stop = tuple(tuple(int(t) for t in s) for s in stop)
         req = Request(rid, np.asarray(prompt, np.int32), max_new,
-                      temperature=temperature, top_p=top_p, top_k=int(top_k),
+                      lora_id=int(lora_id), temperature=temperature, top_p=top_p, top_k=int(top_k),
                       min_p=float(min_p), eos=eos, stop=stop,
                       repetition_penalty=float(repetition_penalty),
                       presence_penalty=float(presence_penalty),
@@ -1055,11 +1158,11 @@ class InferenceServer:
         else:
             self._page_refs[page] = r
 
-    def _prefix_hashes(self, prompt: np.ndarray) -> list:
+    def _prefix_hashes(self, prompt: np.ndarray, lora_id: int = 0) -> list:
         """Chained content hash per FULL prompt page: page i's key commits
         to the entire token prefix [0, (i+1)*page_size) and the adapter id
-        (always 0 until multi-LoRA serving is ported)."""
-        return self._pcache.hash_chain(prompt, self.page_size, 0)
+        (another adapter's K/V of the same tokens differs)."""
+        return self._pcache.hash_chain(prompt, self.page_size, lora_id)
 
     def _evict_one(self) -> bool:
         """Drop the least-recently-used cache entry no sequence is using."""
@@ -1099,7 +1202,7 @@ class InferenceServer:
                 reused = []  # (hash key, page) pairs
                 hashes: list = []
                 if self.prefix_cache:
-                    hashes = self._prefix_hashes(req.prompt)
+                    hashes = self._prefix_hashes(req.prompt, req.lora_id)
                     # never reuse the page holding the LAST prompt token:
                     # its logits seed sampling, so it must be prefilled
                     for h in hashes[: (t - 1) // self.page_size]:
@@ -1134,6 +1237,7 @@ class InferenceServer:
                 self.prefix_fresh_pages += len(fresh)
                 break
             self.slot_req[slot] = rid
+            self.slot_lora[slot] = req.lora_id
             # table-index aligned: trash placeholders for the below-window
             # pages a windowed config never allocates
             self.slot_pages[slot] = [self.trash_page] * first_page + pages
@@ -1190,7 +1294,7 @@ class InferenceServer:
             req, c0 = stt["req"], stt["next"]
             cl = min(self.prefill_chunk, stt["stp"] - c0)
             logits, stt["cache"] = forward_with_cache(
-                self.params, stt["tokens"][:, c0 : c0 + cl], stt["cache"],
+                self._params_for(req.lora_id), stt["tokens"][:, c0 : c0 + cl], stt["cache"],
                 stt["prefix_len"] + c0, self.cfg)
             stt["next"] = c0 + cl
             if stt["next"] < stt["stp"]:
@@ -1242,8 +1346,8 @@ class InferenceServer:
         st = t - prefix_len
         stp = -(-st // self.page_size) * self.page_size
         tokens, cache = self._prefill_cache_init(slot, req, prefix_len, stp)
-        logits, cache = forward_with_cache(self.params, tokens, cache,
-                                           prefix_len, self.cfg)
+        logits, cache = forward_with_cache(self._params_for(req.lora_id),
+                                           tokens, cache, prefix_len, self.cfg)
         self._prefill_scatter(slot, t, cache, max(prefix_len, skip_len))
         return self._sample_first(slot, req, logits[:, st - 1])
 
@@ -1421,6 +1525,10 @@ class InferenceServer:
                 "freq": torch.from_numpy(self.slot_freq).to(dev),
                 "bias": self._bias_with_constraints(),
             }
+        lora = None
+        if self.max_loras:
+            lora = (self.lora_A, self._lora_B_ranks or self.lora_B,
+                    torch.from_numpy(self.slot_lora).to(dev))
         burst = self._burst_steps()
         args = (self._decode_params, self.pools_k, self.pools_v,
                 torch.from_numpy(self.page_tables).to(dev),
@@ -1430,10 +1538,11 @@ class InferenceServer:
         if burst > 1:
             tokens, lps = paged_decode_burst(
                 *args, burst, self.temperature, self.top_p, sampling,
-                penalties)
+                penalties, lora)
         else:
             tokens, lps = paged_decode_step(
-                *args, self.temperature, self.top_p, sampling, penalties)
+                *args, self.temperature, self.top_p, sampling, penalties,
+                lora)
             tokens, lps = tokens[None], lps[None]  # (1, B)
         self.decode_steps += burst
         tokens = tokens.cpu().numpy()  # (steps, B)
@@ -1517,6 +1626,7 @@ class InferenceServer:
             if page != self.trash_page:  # windowed slots hold trash markers
                 self._decref(page)  # cached pages survive on the cache's ref
         self.slot_watermark[slot] = 0
+        self.slot_lora[slot] = 0
         self.slot_req[slot] = None
         self.slot_pages[slot] = []
         self.page_tables[slot] = self.trash_page

@@ -374,13 +374,23 @@ def _value_and_grad(loss, params, tokens, targets):
     param leaves; a leaf the loss does not reach (a MoE expert no token
     chose, the router bias that only chooses) gets zeros, as under
     jax.grad."""
+    loss_v, _, grads = value_and_grad_aux(
+        lambda p: (loss(p, tokens, targets), None), params)
+    return loss_v, grads
+
+
+def value_and_grad_aux(fn, params):
+    """(loss, aux, grads) of `(loss, aux) = fn(params)` by autograd over
+    the param leaves (zeros for a leaf the loss does not reach):
+    jax.value_and_grad(fn, has_aux=True).  The train steps of models/dpo.py,
+    rlhf.py and distill.py take it."""
     # views that share the masters' storage and carry the gradient
     views = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
-        loss_v = loss(tree_unflatten(params, views), tokens, targets)
+        loss_v, aux = fn(tree_unflatten(params, views))
     grads = torch.autograd.grad(loss_v, views, allow_unused=True,
                                 materialize_grads=True)
-    return loss_v.detach(), tree_unflatten(params, grads)
+    return loss_v.detach(), aux, tree_unflatten(params, grads)
 
 
 def make_train_step(cfg: TransformerConfig, oc: OptConfig = OptConfig(),

@@ -13,7 +13,10 @@ apply_qk_norm, the matmul helper, the dense MLP (swiglu, geglu, gelu), the
 routed MoE MLP (Mixtral, Qwen3-MoE and DeepSeek-V3 routing), the attention
 mixer over the flash kernels (ops/attention.py) or over multi-head latent
 attention (models/mla.py), the block, the training forward and the two
-losses.  LoRA is a later slice and raises NotImplementedError.
+losses, and the low-rank adapter hooks that models/lora.py attaches
+(a block's "lora" entry: wqkv and wo, the dense MLP's w_gate, w_up and
+w_down, an MLA block's wo).  A quantized (intN, scale) weight of a frozen
+QLoRA base dequantizes per product and is made again in the backward.
 
 The MoE MLP routes as the JAX function does (fp32 router logits, softmax
 or sigmoid scores, the selection bias, group-limited selection with masked
@@ -322,6 +325,46 @@ class _MmFp32Out(torch.autograd.Function):
         return dy, dw
 
 
+class _DequantMm(torch.autograd.Function):
+    """y @ dequant(w_q, scale) with an fp32 result for a frozen QLoRA base
+    weight (models/lora.quantize_base): differentiable in y only.  It saves
+    the QUANTIZED pair, not the dequantized weight, and dequantizes again
+    in the backward, so a quantized base keeps no full-precision copy of
+    itself alive for the backward.  The products are _plain_mm's: fp32
+    with fp32 inputs, else y's dtype with an fp32 result (torch.mm's
+    out_dtype on the card; fp32 on the CPU, exact for 16-bit inputs); the
+    backward rounds the fp32 cotangent to y's dtype on the card, as
+    _MmFp32Out does."""
+
+    @staticmethod
+    def forward(ctx, y, w_q, scale):
+        from ..ops.quant import dequant_weight
+
+        ctx.save_for_backward(w_q, scale)
+        ctx.dtype = y.dtype
+        w = dequant_weight(w_q, scale, y.dtype)
+        if y.dtype == torch.float32:
+            return y @ w
+        if y.is_cuda:
+            return torch.mm(y, w, out_dtype=torch.float32)
+        return y.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..ops.quant import dequant_weight
+
+        w_q, scale = ctx.saved_tensors
+        dtype = ctx.dtype
+        w = dequant_weight(w_q, scale, dtype)
+        if dtype == torch.float32:
+            dy = g @ w.t()
+        elif g.is_cuda:
+            dy = torch.mm(g.to(dtype), w.t())
+        else:
+            dy = (g @ w.float().t()).to(dtype)
+        return dy, None, None
+
+
 def _plain_mm(y, w):
     """y @ w in y's dtype with an fp32 result, like the JAX package's
     jnp.dot(y, w.astype(y.dtype), preferred_element_type=float32): the
@@ -329,16 +372,38 @@ def _plain_mm(y, w):
     it (the MLP's gate/up reach silu in fp32).  On the card that is
     torch.mm's out_dtype=float32 (differentiable through _MmFp32Out); on
     the CPU, which lacks it, the bf16 inputs are widened to fp32, whose
-    products of bf16 values are exact."""
+    products of bf16 values are exact.  A quantized (intN, scale) pair (a
+    QLoRA base) is dequantized to y's dtype first, as the JAX _plain_mm
+    does (_DequantMm)."""
     if isinstance(w, tuple):
-        raise TypeError("quantized (intN, scale) weights take the decode "
-                        "step's matmul (models/serve._mm)")
+        y2 = y.reshape(-1, y.shape[-1])
+        out = _DequantMm.apply(y2, w[0], w[1])
+        return out.reshape(*y.shape[:-1], w[1].shape[-1])
     if y.dtype == torch.float32:
         return y @ w.to(y.dtype)
     if y.is_cuda:
         out = _MmFp32Out.apply(y.reshape(-1, y.shape[-1]), w)
         return out.reshape(*y.shape[:-1], w.shape[1])
     return y.float() @ w.to(y.dtype).float()
+
+
+def _lora_delta(y, p, name):
+    """The low-rank update of block p's matmul `name`: (y @ A) @ B * scale
+    in fp32, or None where the block carries no adapter for it (the
+    "lora" entry that models/lora.attach_lora adds)."""
+    ad = p.get("lora", {}).get(name)
+    if ad is None:
+        return None
+    t = (y.float() @ ad["A"].float()) @ ad["B"].float()
+    return t * float(ad.get("scale", 1.0))
+
+
+def _mm_with_lora(y, w, p, name, mm=None):
+    """mm(y, w) (default _plain_mm) plus the adapter's delta where block p
+    has one for `name`."""
+    out = (mm or _plain_mm)(y, w)
+    d = _lora_delta(y, p, name)
+    return out if d is None else out + d
 
 
 def mlp_hidden(y, p, cfg: TransformerConfig, mm=_plain_mm):
@@ -350,8 +415,8 @@ def mlp_hidden(y, p, cfg: TransformerConfig, mm=_plain_mm):
             h = h + p["b_fc"].float()
         approx = "none" if cfg.gelu_exact else "tanh"
         return F.gelu(h, approximate=approx).to(y.dtype)
-    gate = mm(y, p["w_gate"])
-    up = mm(y, p["w_up"])
+    gate = _mm_with_lora(y, p["w_gate"], p, "w_gate", mm)
+    up = _mm_with_lora(y, p["w_up"], p, "w_up", mm)
     g = (F.gelu(gate, approximate="tanh") if cfg.mlp_type == "geglu"
          else F.silu(gate))
     return (g * up).to(y.dtype)
@@ -482,10 +547,16 @@ def mlp(y, p, cfg: TransformerConfig, mm=_plain_mm):
     """Dense MLP (swiglu, geglu or tanh/erf-GELU) or the routed mixture of
     a MoE block; returns fp32.  `mm` is the matmul, so that the paged
     decode step can pass one that takes quantized (intN, scale) weights
-    (models/serve._mm)."""
+    (models/serve._mm).  A swiglu/geglu block's adapters on w_gate, w_up
+    and w_down add their deltas (the GELU MLP takes none, as in the JAX
+    function)."""
     if is_moe(p, cfg):
         return moe_mlp(y, p, cfg, mm)
-    out = mm(mlp_hidden(y, p, cfg, mm), mlp_out_weight(p))
+    h = mlp_hidden(y, p, cfg, mm)
+    if cfg.mlp_type == "gelu":
+        out = mm(h, p["w_proj"])
+    else:
+        out = _mm_with_lora(h, p["w_down"], p, "w_down", mm)
     if "b_proj" in p:
         out = out + p["b_proj"].float()
     return out
@@ -495,10 +566,8 @@ def attention_heads(y, p, cfg: TransformerConfig):
     """Causal self-attention over the normed block input y (B, S, d) up to
     the output projection: fused QKV projection -> RoPE -> flash kernel.
     Returns (B, S, n_heads * head_dim) in y's dtype."""
-    if "lora" in p:
-        raise NotImplementedError("LoRA adapters are a later slice of the port")
     b, s, _ = y.shape
-    qkv = _plain_mm(y, p["wqkv"])
+    qkv = _mm_with_lora(y, p["wqkv"], p, "wqkv")
     if "bqkv" in p:
         qkv = qkv + p["bqkv"].float()
     q, k, v = split_qkv(qkv.to(y.dtype), cfg)
@@ -523,7 +592,7 @@ def attention_mixer(y, p, cfg: TransformerConfig):
         from .mla import mla_attention
 
         return mla_attention(y, p, cfg)
-    o = _plain_mm(attention_heads(y, p, cfg), p["wo"])
+    o = _mm_with_lora(attention_heads(y, p, cfg), p["wo"], p, "wo")
     if "bo" in p:
         o = o + p["bo"].float()
     return o

@@ -184,6 +184,19 @@ def decode_params_from_jax(tree, device=None):
     return walk(tree)
 
 
+def lora_from_jax(tree, device=None):
+    """A JAX adapter tree ({"blocks": [{target: {"A", "B"}}], "scale"},
+    kfunca_tpu/models/lora.init_lora's layout, or a LoRA step's output,
+    whose scale is an array) -> the port's on `device` (default: the CUDA
+    device): the blocks' A and B as fp32 tensors, the scale a float.  A
+    quantize_base tree of the base goes through decode_params_from_jax
+    (int4 weights widened to int8 first, as its docstring says)."""
+    dev = resolve_device(device)
+    blocks = tree_map(lambda x: _to_tensor(x, dev, torch.float32),
+                      tree["blocks"])
+    return {"blocks": blocks, "scale": float(np.asarray(tree["scale"]))}
+
+
 def opt_state_from_jax(tree, device=None):
     """JAX optimizer state (init_opt_state's layout: "step", "m", "v", ...)
     -> the port's on `device` (default: the CUDA device), every leaf in its

@@ -2349,3 +2349,173 @@ def test_mla_block_with_equal_head_dims_runs_k1_k2(cuda, dtype):
         ref = ref.float()
         torch.testing.assert_close(got.float(), ref, rtol=tol,
                                    atol=tol * float(ref.abs().max()))
+
+
+# -- the finetuning stack: LoRA, QLoRA, multi-LoRA serving, distillation ------
+
+
+def _lora_case(cfg, dev, targets, seed=1, b_std=0.02):
+    from kfunca_tpu_torch.models import lora
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ad = lora.init_lora(gen, cfg, rank=4, targets=targets, alpha=8.0)
+    for blk in ad["blocks"]:
+        for ab in blk.values():
+            ab["B"] = torch.randn(ab["B"].shape, generator=gen,
+                                  device=dev) * b_std
+    return ad
+
+
+def test_lora_step_on_the_kernels_matches_the_plain_path(cuda):
+    """Two LoRA steps (all five targets, fp32) on K1/K2 against the same
+    steps with the attention on its plain version: losses within 1e-5,
+    adapters within 1e-4; K1 and K2 once a layer a step; the base gets no
+    gradient."""
+    from kfunca_tpu_torch.models import lora
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = transformer.TransformerConfig(**SMALL)
+    params = transformer.init_params(0, cfg, device=cuda)
+    targets = ("wqkv", "wo", "w_gate", "w_up", "w_down")
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 256, (2, 65)) for _ in range(2)]
+
+    def run():
+        ad = _lora_case(cfg, cuda, targets)
+        oc = train.OptConfig(lr=1e-2, weight_decay=0.0)
+        opt = train.init_opt_state(ad["blocks"], oc)
+        step = lora.make_lora_train_step(params, cfg, oc)
+        losses = []
+        for w in batches:
+            ad, opt, loss = step(ad, opt, w[:, :-1], w[:, 1:])
+            losses.append(float(loss))
+        return losses, tree_leaves(ad["blocks"])
+
+    n1, n2 = (fa.flash_attention_fwd_stats.launches,
+              fa.flash_attention_backward.launches)
+    got, got_ad = run()
+    assert fa.flash_attention_fwd_stats.launches - n1 == cfg.n_layers * 2
+    assert fa.flash_attention_backward.launches - n2 == cfg.n_layers * 2
+    with attention.plain_attention():
+        want, want_ad = run()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    for g, w in zip(got_ad, want_ad):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
+    assert all(t.grad is None for t in tree_leaves(params))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qlora_backward_saves_only_the_quantized_pairs(cuda, bits):
+    """A bf16 block over a quantize_base block keeps no float tensor of a
+    weight's shape for its backward and no more memory than the bf16
+    block (whose saved weights are the params themselves); its input
+    gradient is that of the dequantized weights'."""
+    from kfunca_tpu_torch.models import lora
+    from kfunca_tpu_torch.ops.quant import dequant_weight
+
+    cfg = transformer.TransformerConfig(**dict(SMALL, dtype="bfloat16"))
+    params = transformer.init_params(0, cfg, device=cuda,
+                                     dtype=torch.bfloat16)
+    blk = params["blocks"][0]
+    qblk = lora.quantize_base(params, bits)["blocks"][0]
+    names = ("wqkv", "wo", "w_gate", "w_up", "w_down")
+    shapes = {tuple(blk[k].shape) for k in names}
+    x = torch.randn((2, 128, cfg.d_model), device=cuda).to(torch.bfloat16)
+
+    def graph(p):
+        floats = []
+
+        def pack(t):
+            if t.is_floating_point() and tuple(t.shape) in shapes:
+                floats.append(tuple(t.shape))
+            return t
+
+        xx = x.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = transformer._block(xx, p, cfg)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        out.float().sum().backward()
+        return grown, floats, xx.grad
+
+    fp_grown, _, _ = graph(blk)
+    q_grown, q_floats, dx = graph(qblk)
+    assert q_floats == []
+    assert q_grown <= fp_grown
+    deq = {k: dequant_weight(*qblk[k], torch.bfloat16) for k in names}
+    _, _, want = graph({**blk, **deq})
+    torch.testing.assert_close(dx.float(), want.float(), rtol=0,
+                               atol=1e-6 * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(quantize_weights=True,
+                                         quantize_kv=True)],
+                         ids=["fp32", "w8kv8"])
+def test_multi_lora_decode_on_the_kernels_matches_the_plain_path(cuda, kw):
+    """A mixed-adapter batch decoded on K4 (K4-int8 and K5 with w8kv8)
+    against the plain kernels' versions on the card and against the same
+    server on the CPU: equal tokens; K4 once a layer a step, and with w8
+    weights K5 (5 x layers + 1) times a step."""
+    from kfunca_tpu_torch.models import lora
+
+    cfg = transformer.TransformerConfig(**SMALL)
+    params = transformer.init_params(0, cfg, device="cpu")
+    ads = [lora.to_serving(_lora_case(cfg, "cpu", ("wqkv",), seed=s,
+                                      b_std=0.2)) for s in (1, 2)]
+    prompts = [[3, 5, 7], list(range(1, 30)), [9, 9, 2, 4], [4, 1, 6]]
+    ids = [0, 1, 2, 1]
+
+    def drive(dev, plain=False):
+        srv = serve.InferenceServer(_to(params, dev), cfg, batch_slots=4,
+                                    page_size=16, n_pages=32,
+                                    max_pages_per_seq=4, max_loras=2,
+                                    lora_rank=4, device=dev, **kw)
+        for a in ads:
+            srv.register_lora(a)
+        rids = [srv.submit(p, max_new=8, lora_id=i)
+                for p, i in zip(prompts, ids)]
+        if plain:
+            with pa.plain_paged_attention(), tq.plain_matmul_q8():
+                out = srv.run()
+        else:
+            out = srv.run()
+        return [out[r] for r in rids], srv.decode_steps
+
+    want, _ = drive("cpu")
+    plain, _ = drive(cuda, plain=True)
+    pa.paged_decode_attention_dma.launches = tq.matmul_q8.launches = 0
+    got, steps = drive(cuda)
+    assert got == plain == want
+    assert pa.paged_decode_attention_dma.launches == cfg.n_layers * steps
+    assert tq.matmul_q8.launches == ((5 * cfg.n_layers + 1) * steps
+                                     if kw else 0)
+
+
+def test_chunked_kd_kl_on_the_card_matches_the_cpu(cuda):
+    """chunked_kd_kl's value and student gradients on the card (vocab 1000
+    in chunks of 384, tau 2) against the CPU's: 1e-5 and 1e-4 of
+    max(1, max |ref|)."""
+    from kfunca_tpu_torch.models.distill import chunked_kd_kl
+
+    gen = torch.Generator().manual_seed(0)
+    x_s, w_s = torch.randn(96, 48, generator=gen), torch.randn(
+        48, 1000, generator=gen) * 0.2
+    x_t, w_t = torch.randn(96, 64, generator=gen), torch.randn(
+        64, 1000, generator=gen) * 0.2
+    g = torch.randn(96, generator=gen)
+
+    def run(dev):
+        xs = x_s.to(dev).clone().requires_grad_(True)
+        ws = w_s.to(dev).clone().requires_grad_(True)
+        kl = chunked_kd_kl(xs, ws, x_t.to(dev), w_t.to(dev), 384, 2.0)
+        (kl * g.to(dev)).sum().backward()
+        return [t.detach().cpu() for t in (kl, xs.grad, ws.grad)]
+
+    want = run("cpu")
+    got = run(cuda)
+    for g_, w_, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        torch.testing.assert_close(g_, w_, rtol=0,
+                                   atol=tol * max(1.0, float(w_.abs().max())))

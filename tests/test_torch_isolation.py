@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
         "             'models.tokenizer', 'models.api_server',",
         "             'models.speculative', 'parallel.mesh',",
         "             'parallel.collectives', 'parallel.multihost',",
-        "             'models.mla', 'models.mla_serve'):",
+        "             'models.mla', 'models.mla_serve', 'models.lora',",
+        "             'models.dpo', 'models.rlhf', 'models.distill'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -540,3 +541,64 @@ def test_pipeline_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                                   meshlib.LocalMesh(1, 2, "cpu"))
     step = mamba.make_sharded_mamba_train_step(mc, mp.mesh)
     step(mp, train.init_opt_state(mp), tokens, tokens)
+
+
+def test_the_finetuning_slice_loads_no_jax():
+    """models/lora.py, dpo.py, rlhf.py and distill.py, imported alone in a
+    fresh interpreter, load no jax, jaxlib or kfunca_tpu module, and name
+    none in their source."""
+    code = ("import sys; "
+            "import kfunca_tpu_torch.models.lora, "
+            "kfunca_tpu_torch.models.dpo, kfunca_tpu_torch.models.rlhf, "
+            "kfunca_tpu_torch.models.distill; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    for name in ("lora", "dpo", "rlhf", "distill"):
+        assert not [m for m in _imports(PORT / "models" / f"{name}.py")
+                    if m and _foreign(m)]
+
+
+def test_finetuning_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    """The LoRA, DPO, GRPO and distillation steps and a multi-LoRA server
+    run on the card by default: without one they raise; asked for the
+    CPU, each takes a step."""
+    from kfunca_tpu_torch.models import distill, dpo, lora, rlhf, serve
+    from kfunca_tpu_torch.models import transformer as tf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tf.TransformerConfig(vocab_size=32, d_model=16, n_heads=2,
+                               n_layers=1, d_ff=16, max_seq_len=8,
+                               dtype="float32")
+    params = tf.init_params(0, cfg, device="cpu")
+    for call in (lambda: lora.make_lora_train_step(params, cfg),
+                 lambda: dpo.make_dpo_step(params, cfg),
+                 lambda: dpo.make_lora_dpo_step(params, cfg),
+                 lambda: rlhf.make_grpo_step(cfg),
+                 lambda: distill.make_distill_step(params, cfg, cfg),
+                 lambda: serve.InferenceServer(params, cfg, max_loras=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    ad = lora.init_lora(torch.Generator().manual_seed(0), cfg, rank=2)
+    tokens = np.zeros((1, 4), np.int32)
+    step = lora.make_lora_train_step(params, cfg, device="cpu")
+    ad, _, loss = step(ad, train.init_opt_state(ad["blocks"], device="cpu"),
+                       tokens, tokens)
+    assert np.isfinite(float(loss))
+    srv = serve.InferenceServer(params, cfg, max_loras=1, lora_rank=2,
+                                device="cpu", batch_slots=1, n_pages=4)
+    lid = srv.register_lora(lora.to_serving(ad))
+    rid = srv.submit([1, 2], max_new=2, lora_id=lid)
+    assert len(srv.run()[rid]) == 2
+    steps = (dpo.make_lora_dpo_step(params, cfg, device="cpu"),
+             distill.make_distill_step(params, cfg, cfg, device="cpu"))
+    opt = train.init_opt_state(ad["blocks"], device="cpu")
+    _, _, m = steps[0](ad, opt, tokens, tokens, tokens, tokens)
+    assert np.isfinite(float(m["loss"]))
+    student = tf.init_params(1, cfg, device="cpu")
+    _, _, m = steps[1](student, train.init_opt_state(student, device="cpu"),
+                       tokens, tokens)
+    assert np.isfinite(float(m["loss"]))

@@ -176,8 +176,11 @@ def test_window_frees_pages_behind_it():
 
 
 def test_later_slices_raise(served):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _port(served, max_loras=2)
+    # multi-LoRA serving is ported (tests/test_torch_lora_serve.py): the
+    # server takes max_loras and refuses an id nothing registered
+    srv = _port(served, max_loras=2)
+    with pytest.raises(ValueError, match="unknown lora_id 1"):
+        srv.submit([1, 2, 3], lora_id=1)
     # mesh serving is ported (tests/test_torch_tp_serve.py); what is not a
     # mesh is refused
     with pytest.raises(TypeError, match="LocalMesh or a DeviceMesh"):

@@ -193,6 +193,10 @@ def test_mesh_server_refuses_a_fused_pool_and_keeps_lora_for_later():
     with pytest.raises(ValueError, match="split pools"):
         tserve.InferenceServer(tparams, tc, mesh=mesh, fused_pool=True,
                                device="cpu", **SERVER)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tserve.InferenceServer(tparams, tc, mesh=mesh, max_loras=2,
-                               device="cpu", **SERVER)
+    # multi-LoRA serving under a mesh is ported
+    # (tests/test_torch_lora_serve.py): the server takes max_loras and
+    # refuses an id nothing registered
+    srv = tserve.InferenceServer(tparams, tc, mesh=mesh, max_loras=2,
+                                 device="cpu", **SERVER)
+    with pytest.raises(ValueError, match="unknown lora_id 1"):
+        srv.submit([1, 2, 3], lora_id=1)

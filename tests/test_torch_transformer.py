@@ -427,11 +427,18 @@ def test_chunked_softmax_xent_against_the_naive_loss():
 
 
 def test_unported_branches_raise():
-    """LoRA adapters are the one branch of the flagship still to come (MoE
-    and MLA blocks run: tests/test_torch_moe_mlp.py, test_torch_mla.py)."""
+    """No branch of the flagship is left to come: MoE and MLA blocks run
+    (tests/test_torch_moe_mlp.py, test_torch_mla.py), and so does a block's
+    "lora" entry (tests/test_torch_lora.py), which raised until the LoRA
+    slice.  An empty entry leaves the forward as it was; an adapter moves
+    it."""
     _, tc = _cfgs()
     tp = ttf.init_params(0, tc, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
     lora = dict(tp, blocks=[dict(b, lora={}) for b in tp["blocks"]])
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        ttf.forward(lora, toks, tc)
+    assert torch.equal(ttf.forward(lora, toks, tc), ttf.forward(tp, toks, tc))
+    ad = {"wqkv": {"A": torch.ones((tc.d_model, 2)),
+                   "B": torch.ones((2, tc.qkv_out)), "scale": 0.5}}
+    moved = dict(tp, blocks=[dict(b, lora=ad) for b in tp["blocks"]])
+    assert not torch.equal(ttf.forward(moved, toks, tc),
+                           ttf.forward(tp, toks, tc))
