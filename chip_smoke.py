@@ -11,7 +11,10 @@ the script in an archive of another commit times that commit's kernels
 through the same calls).  `python3 chip_smoke.py --mesh` runs phases
 47-50 (parallel/ over a mesh) alone, `python3 chip_smoke.py --pipeline`
 phases 51-55 (pipeline, zero-bubble and expert parallelism), `python3
-chip_smoke.py --moe-mla` phases 56-60 (the flagship's MoE and MLA blocks).
+chip_smoke.py --moe-mla` phases 56-60 (the flagship's MoE and MLA blocks),
+`python3 chip_smoke.py --lora` phases 61-65 (the finetuning stack) and
+`python3 chip_smoke.py --families` phases 66-70 (Mamba-2 and the vision
+family).
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
@@ -119,7 +122,7 @@ Phases (any failure raises and the script exits non-zero):
      forward and backward (K1, K2) at B=1, H=32, S=2048, hd=128;
  24. profile one eager MLP step, and time an eager 256-element add's host
      cost per op;
- 25. (at the end, after phase 60) print the kernels line (the seventeen
+ 25. (at the end, after phase 70) print the kernels line (the seventeen
      kernels, with the entries of the paths that run them at other shapes),
      the card line and, last, the result line;
  26. hold the selective-scan kernels K11 (forward and backward) against
@@ -327,7 +330,40 @@ Phases (any failure raises and the script exits non-zero):
      split pools: the single device's tokens in fp32 activations, bf16
      forced log-probs within 0.05 nat, K6 = ranks x layers x steps and K5 =
      ranks x (2 x layers + 1) x steps + 3 x the ranks' routed (step,
-     layer, expert).
+     layer, expert);
+ 61-65. the finetuning stack (LoRA, QLoRA, multi-LoRA serving, DPO, GRPO,
+     distillation; `lora_phases`);
+ 66. Mamba-2 at state-spaces/mamba2-2.7b widths (80 heads of 64, state
+     128, chunk 256): every gradient finite at 8 layers over 4 x 2048
+     tokens, then 6 AdamW steps in bf16 (ms/step, tokens/s, peak memory);
+     an 8-layer checkpoint in Mamba2ForCausalLM's layout written by the
+     script's safetensors writer and read by from_hf_mamba2, bit for bit,
+     with neither transformers nor safetensors loaded; in fp32 at 2 layers
+     the recurrent step within 1e-3 x max(1, max |ref|) of the chunked
+     forward over 256 tokens; generate at all 64 layers (4 prompts of
+     16-96 tokens, 16 new);
+ 67. the multimodal prefix LM at LLaVA-1.5-7B widths (clip-vit-large-
+     patch14-336 vision, vicuna-7b-v1.5 text cut to 4 layers), 2 x (576 +
+     128) positions, bf16, 6 AdamW steps: K1 = K2 = text layers x steps on
+     the wgmma bodies; in fp32 at 2 text layers the loss (1e-5) and every
+     gradient (1e-4 of its leaf's max) through K1/K2 against the plain
+     attention;
+ 68. CLIP at openai/clip-vit-base-patch32 widths, all layers, batch 256,
+     bf16, 6 AdamW steps: K1 = K2 = 12 x steps on the wgmma bodies;
+     clip_loss_sharded over LocalMesh(dp=4) against clip_loss on the
+     global batch in fp32 (loss 1e-5, gradients 1e-4);
+ 69. DiT-XL/2, all 28 layers, batch 32, bf16, 6 AdamW steps; ddim_sample,
+     50 steps at guidance 4 for 8 labels; in fp32 at 2 layers each of 10
+     DDIM steps on the card, from the CPU run's x at that step, within
+     1e-4 x max(1, max |ref|) of the CPU's step (the free-running
+     distance printed beside the CPU run's own under a one-ulp nudge of
+     every weight: the sampler amplifies fp32 roundings);
+ 70. bert-base-uncased and google/vit-base-patch16-224 written in their HF
+     layouts and read by from_hf_bert / from_hf_vit (bert_encode over 32 x
+     512 ragged tokens, padded keys changing no valid position;
+     hf_vit_encode over 64 images), and 6 MLM steps at bert-base widths;
+     then K1 and K2 against their plain versions and timed at the
+     multimodal and CLIP text shapes (`families_phases`).
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -905,7 +941,9 @@ def flash_timing(fa, shape=ATTN, fp32=True):
     out, lse = fa.flash_attention_fwd_stats(q, k, v, window=w)
     item = q.element_size()
     # what these inputs need: per q head, the unmasked (row, column) pairs
-    pairs = w * (w + 1) // 2 + (s - w) * w
+    # (no window: every earlier column, a window of S)
+    ww = s if w is None else w
+    pairs = ww * (ww + 1) // 2 + (s - ww) * ww
     qo_bytes, kv_bytes = q.numel() * item, k.numel() * item
     lse_bytes = lse.numel() * 4
     work = {
@@ -953,7 +991,7 @@ def flash_timing(fa, shape=ATTN, fp32=True):
     # yardstick only (the port never calls it)
     row = torch.arange(s, device="cuda")[:, None]
     col = torch.arange(s, device="cuda")[None, :]
-    mask = (col <= row) & (col > row - w)
+    mask = (col <= row) & (col > row - ww)
     ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
 
     def sdpa():
@@ -7563,6 +7601,768 @@ def lora_phases(card) -> list:
     return entries
 
 
+# -- phases 66-70: Mamba-2 and the vision family --------------------------------
+
+# state-spaces/mamba2-2.7b (config.json and mamba_ssm's Mamba2 defaults):
+# d_model 2560, 64 layers, expand 2 (d_inner 5120), headdim 64 (80 heads),
+# d_state 128, ngroups 1, d_conv 4, chunk 256, vocab 50288 (50277 padded to
+# a multiple of 16)
+MAMBA2 = dict(vocab_size=50288, d_model=2560, n_layers=64, n_heads=80,
+              head_dim=64, d_state=128, n_groups=1, d_conv=4, expand=2,
+              chunk_size=256, norm_eps=1e-5, dtype="bfloat16")
+MAMBA2_TRAIN_LAYERS = 8  # phase 28's cut
+MAMBA2_BATCH, MAMBA2_SEQ = 4, 2048
+MAMBA2_CKPT_LAYERS = 8
+# LLaVA-1.5-7B: its vision tower openai/clip-vit-large-patch14-336 (image
+# 336, patch 14: 576 patches, d 1024, 16 heads, 24 layers, d_ff 4096, in
+# the repo's RMSNorm / SwiGLU ViT form) and its LM lmsys/vicuna-7b-v1.5
+# (Llama: d 4096, 32 heads of 128, d_ff 11008, vocab 32000, rms eps 1e-5)
+LLAVA_VIT = dict(image_size=336, patch_size=14, channels=3, d_model=1024,
+                 n_heads=16, n_layers=24, d_ff=4096, dtype="bfloat16")
+LLAVA_TEXT = dict(vocab_size=32000, d_model=4096, n_heads=32, n_layers=32,
+                  d_ff=11008, max_seq_len=4096, norm_eps=1e-5,
+                  dtype="bfloat16")
+MM_TEXT_LAYERS = 4  # 32 need over 110 GB of fp32 AdamW state
+MM_BATCH, MM_TOKENS = 2, 128
+# openai/clip-vit-base-patch32: vision 224 / 32 (49 patches), d 768, 12
+# heads, 12 layers, d_ff 3072; text d 512, 8 heads, 12 layers, d_ff 2048,
+# vocab 49408, 77 positions; projection 512.  The text tower in its
+# published form (pre-LayerNorm, learned positions, biased projections,
+# GELU), which TransformerConfig takes; the vision tower in the repo's
+# ViT form
+CLIP_VIT = dict(image_size=224, patch_size=32, channels=3, d_model=768,
+                n_heads=12, n_layers=12, d_ff=3072, dtype="bfloat16")
+CLIP_TEXT = dict(vocab_size=49408, d_model=512, n_heads=8, n_layers=12,
+                 d_ff=2048, max_seq_len=77, norm="layernorm", pos="learned",
+                 mlp_type="gelu", proj_bias=True, norm_eps=1e-5,
+                 dtype="bfloat16")
+CLIP_EMBED, CLIP_BATCH = 512, 256
+# DiT-XL/2 (facebookresearch/DiT): 32 x 32 x 4 latents, patch 2 (256
+# tokens), d 1152, 16 heads, 28 layers, mlp ratio 4, 1000 classes, 1000
+# steps; the repo predicts epsilon only (the published model also learns
+# sigma: an architecture difference, not a cut)
+DIT_XL2 = dict(image_size=32, patch_size=2, channels=4, d_model=1152,
+               n_heads=16, n_layers=28, d_ff=4608, n_classes=1000,
+               timesteps=1000, dtype="bfloat16")
+DIT_BATCH = 32
+# bert-base-uncased and google/vit-base-patch16-224 (config.json)
+BERT_BASE = dict(vocab_size=30522, d_model=768, n_heads=12, n_layers=12,
+                 d_ff=3072, max_seq_len=512, arch="bert", type_vocab=2,
+                 norm_eps=1e-12)
+VIT_BASE = dict(image_size=224, patch_size=16, channels=3, d_model=768,
+                n_heads=12, n_layers=12, d_ff=3072, norm_eps=1e-12)
+BERT_BATCH, BERT_SEQ, MLM_BATCH, VIT_IMAGES = 32, 512, 16, 64
+
+
+def leaves_equal(a, b) -> bool:
+    """Two trees of the same paths, every leaf the same numbers."""
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return leaf_paths(a) == leaf_paths(b) and all(
+        x.shape == y.shape and torch.equal(x.float().cpu(), y.float().cpu())
+        for x, y in zip(la, lb))
+
+
+def grads_rel_err(grads, ref) -> float:
+    """The worst leaf's max |g - ref| over its largest |ref| entry."""
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    worst = 0.0
+    for g, r in zip(tree_leaves(grads), tree_leaves(ref)):
+        worst = max(worst, float((g.float() - r.float()).abs().max())
+                    / max(float(r.abs().max()), 1e-30))
+    return worst
+
+
+def profiled_step(label, fn, card):
+    """One call of fn (a training step) under torch.profiler, printed as
+    phase 7's profiles are (host clock, device busy, top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = profile_summary(prof, wall_us, 1)
+    print_profile(f"{label} one profiled step", out, card)
+    return out
+
+
+def mamba2_hf_state(params) -> dict:
+    """The params as Mamba2ForCausalLM names them (bf16): Linears (out,
+    in), conv1d.weight (conv_dim, 1, k)."""
+    sd = {"backbone.embeddings.weight": params["embed"],
+          "backbone.norm_f.weight": params["final_norm"]}
+    for i, p in enumerate(params["layers"]):
+        m = f"backbone.layers.{i}.mixer."
+        sd[f"backbone.layers.{i}.norm.weight"] = p["norm"]
+        sd[m + "in_proj.weight"] = p["in_proj"].t()
+        sd[m + "conv1d.weight"] = p["conv_w"].t()[:, None, :]
+        sd[m + "conv1d.bias"] = p["conv_b"]
+        for k in ("dt_bias", "A_log", "D"):
+            sd[m + k] = p[k]
+        sd[m + "norm.weight"] = p["mixer_norm"]
+        sd[m + "out_proj.weight"] = p["out_proj"].t()
+    return {k: v.detach().to(torch.bfloat16).contiguous().cpu()
+            for k, v in sd.items()}
+
+
+def mamba2_phase(card) -> dict:
+    """Phase 66: Mamba-2 at state-spaces/mamba2-2.7b widths."""
+    from kfunca_tpu_torch.models import mamba2
+    from kfunca_tpu_torch.models.data import TokenDataset
+    from kfunca_tpu_torch.models.train import (
+        OptConfig, init_opt_state, value_and_grad_aux)
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = mamba2.Mamba2Config(**{**MAMBA2, "n_layers": MAMBA2_TRAIN_LAYERS})
+    params = mamba2.init_mamba2_params(SEED + 66, cfg, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    oc = OptConfig(lr=3e-4, warmup_steps=2, clip_norm=1.0)
+    opt = init_opt_state(params, oc)
+    ds = TokenDataset(learnable_corpus(cfg.vocab_size), MAMBA2_SEQ,
+                      MAMBA2_BATCH, seed=SEED + 66)
+    tokens, targets = (torch.as_tensor(x).cuda() for x in ds.batch_at(0))
+    print(f"[66] Mamba-2 at state-spaces/mamba2-2.7b widths (80 heads of 64, "
+          f"state 128, chunk 256), {cfg.n_layers} of 64 layers "
+          f"({n_params / 1e9:.3f} B parameters), {MAMBA2_BATCH} x "
+          f"{MAMBA2_SEQ} tokens, bf16 activations, SSD in fp32", flush=True)
+    loss, _, grads = value_and_grad_aux(
+        lambda p: (mamba2.loss_fn(p, tokens, targets, cfg), None), params)
+    bad = [i for i, g in enumerate(tree_leaves(grads))
+           if not bool(torch.isfinite(g).all())]
+    check(bool(torch.isfinite(loss)) and not bad,
+          f"every Mamba-2 gradient is finite at chunk 256 (non-finite "
+          f"leaves {bad})")
+    del grads
+    step = mamba2.make_mamba2_train_step(cfg, oc)
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses, seconds = 6, [], []
+    for i in range(steps):
+        t, y = (torch.as_tensor(x).cuda() for x in ds.batch_at(i))
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, t, y)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses)
+          and all(bool(torch.isfinite(p).all()) for p in tree_leaves(params)),
+          "every Mamba-2 loss and param is finite after 6 steps")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    print(f"[66] {ms:.1f} ms/step (host clock, steps 2-{steps}), "
+          f"{MAMBA2_BATCH * MAMBA2_SEQ / ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB, "
+          f"losses {[round(x, 4) for x in losses]}; {card}", flush=True)
+    prof = profiled_step("[66]", lambda: step(params, opt, t, y), card)
+    ckpt = mamba2_checkpoint(params, cfg, card)
+    del params, opt, step
+    free_device_memory()
+
+    # fp32, 2 layers: the chunked forward against the recurrent step
+    c32 = mamba2.Mamba2Config(**{**MAMBA2, "n_layers": 2, "dtype": "float32"})
+    p32 = mamba2.init_mamba2_params(SEED + 67, c32, device="cuda")
+    tok = torch.as_tensor(ds.batch_at(7)[0][:1, :256]).cuda()
+    with torch.no_grad():
+        par = mamba2.forward(p32, tok, c32)[0]
+        states = mamba2.init_mamba2_state(c32, 1)
+        rec = []
+        for i in range(tok.shape[1]):
+            logits, states = mamba2._token_step(p32, tok[:, i], states, c32)
+            rec.append(logits[0])
+        rec = torch.stack(rec)
+    err = float((rec - par).abs().max())
+    top = max(1.0, float(par.abs().max()))
+    check(err <= 1e-3 * top, f"the recurrent step within 1e-3 x max(1, max "
+          f"|ref|) of the chunked forward (err {err:.3g}, max {top:.3g})")
+    print(f"[66] fp32, 2 layers, 256 tokens: the recurrent step's logits "
+          f"within {err:.3g} of the chunked SSD forward's (max |logit| "
+          f"{top:.3g})", flush=True)
+    del p32, states
+    free_device_memory()
+
+    # generate at all 64 layers
+    cfg64 = mamba2.Mamba2Config(**MAMBA2)
+    p64 = mamba2.init_mamba2_params(SEED + 68, cfg64, device="cuda")
+    corpus = learnable_corpus(cfg64.vocab_size)
+    steps_run, t0 = 0, time.perf_counter()
+    for j, n in enumerate((16, 40, 64, 96)):
+        prompt = torch.as_tensor(corpus[j * 100:j * 100 + n][None]).cuda()
+        out = mamba2.generate(p64, prompt, cfg64, max_new_tokens=16)
+        check(out.shape == (1, 16) and bool((out >= 0).all())
+              and bool((out < cfg64.vocab_size).all()),
+              f"generate gives 16 tokens for a {n}-token prompt")
+        steps_run += n + 16
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    print(f"[66] generate at all {cfg64.n_layers} layers, bf16, 4 prompts of "
+          f"16-96 tokens, "
+          f"16 new each: {gen_s:.2f} s, {1e3 * gen_s / steps_run:.2f} ms a "
+          f"token step (prefill token by token, as the reference), "
+          f"{64 / gen_s:.1f} generated tok/s; {card}", flush=True)
+    del p64
+    free_device_memory()
+    return dict(ms=ms, peak_gb=peak_gb, recurrent_err=err, ckpt=ckpt,
+                generate_ms_a_token=1e3 * gen_s / steps_run, profile=prof)
+
+
+def mamba2_checkpoint(params, cfg, card) -> float:
+    """An 8-layer checkpoint in Mamba2ForCausalLM's layout, written by the
+    script's safetensors writer and read by from_hf_mamba2 with neither
+    transformers nor safetensors loaded: the params bit for bit."""
+    from kfunca_tpu_torch.models import mamba2
+    from kfunca_tpu_torch.utils.tree import tree_map
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = mamba2_hf_state(params)
+        nbytes = write_safetensors(os.path.join(tmp, "model.safetensors"), sd)
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"model_type": "mamba2", "vocab_size": cfg.vocab_size,
+                       "hidden_size": cfg.d_model,
+                       "num_hidden_layers": cfg.n_layers,
+                       "num_heads": cfg.n_heads, "head_dim": cfg.head_dim,
+                       "state_size": cfg.d_state, "n_groups": cfg.n_groups,
+                       "conv_kernel": cfg.d_conv, "expand": cfg.expand,
+                       "chunk_size": cfg.chunk_size,
+                       "layer_norm_epsilon": cfg.norm_eps,
+                       "tie_word_embeddings": True}, f)
+        t0 = time.perf_counter()
+        got, gcfg = mamba2.from_hf_mamba2(tmp, dtype=cfg.dtype)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    check(gcfg == cfg, "the checkpoint's config is the model's")
+    check(leaves_equal(got, tree_map(lambda t: t.to(torch.bfloat16), params)),
+          "from_hf_mamba2 gives the written (bf16-rounded) params bit for "
+          "bit")
+    check(not {m.split(".")[0] for m in sys.modules} & {
+        "transformers", "safetensors"},
+        "neither transformers nor safetensors is loaded")
+    print(f"[66] checkpoint in Mamba2ForCausalLM's layout, {cfg.n_layers} "
+          f"layers, bf16 "
+          f"({nbytes / 1e9:.2f} GB), read by from_hf_mamba2 in {load_s:.2f} s "
+          f"({nbytes / 1e9 / load_s:.2f} GB/s): bit for bit; {card}",
+          flush=True)
+    return nbytes / 1e9 / load_s
+
+
+def multimodal_phase(fa, card) -> dict:
+    """Phase 67: the multimodal prefix LM at LLaVA-1.5-7B widths."""
+    from kfunca_tpu_torch.models import vision
+    from kfunca_tpu_torch.models.train import (
+        OptConfig, init_opt_state, make_loss_train_step, value_and_grad_aux)
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.ops.attention import plain_attention
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    def config(text_layers, dtype):
+        return vision.MultimodalConfig(
+            vit=vision.ViTConfig(**{**LLAVA_VIT, "dtype": dtype}),
+            text=TransformerConfig(**{**LLAVA_TEXT, "n_layers": text_layers,
+                                      "dtype": dtype}))
+
+    cfg = config(MM_TEXT_LAYERS, "bfloat16")
+    params = vision.init_multimodal_params(SEED + 70, cfg, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    oc = OptConfig(lr=1e-4, warmup_steps=2, clip_norm=1.0)
+    opt = init_opt_state(params, oc)
+    step = make_loss_train_step(
+        lambda p, x, y: vision.multimodal_loss(p, x[0], x[1], y, cfg), oc)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    corpus = torch.as_tensor(learnable_corpus(cfg.text.vocab_size)).cuda()
+    n, side = cfg.vit.n_patches, cfg.vit.image_size
+    print(f"[67] the multimodal prefix LM at LLaVA-1.5-7B widths: vision "
+          f"clip-vit-large-patch14-336 ({n} patches, 24 layers of 1024), "
+          f"text vicuna-7b-v1.5 cut to {MM_TEXT_LAYERS} of 32 layers "
+          f"({n_params / 1e9:.3f} B parameters), {MM_BATCH} x ({n} + "
+          f"{MM_TOKENS}) positions, bf16 activations", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    steps, losses, seconds = 6, [], []
+    for i in range(steps):
+        images = torch.randn((MM_BATCH, side, side, 3), generator=gen,
+                             device="cuda")
+        w = corpus[i * 1000:i * 1000 + MM_BATCH * (MM_TOKENS + 1)].reshape(
+            MM_BATCH, MM_TOKENS + 1)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, (images, w[:, :-1]), w[:, 1:])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches, wgmma = read_flash(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses),
+          "every multimodal loss is finite")
+    want = MM_TEXT_LAYERS * steps
+    check(launches == (want, want) and wgmma == launches,
+          f"K1, K2 launches {launches} == text layers x steps {want}, all "
+          f"on the wgmma bodies ({wgmma})")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    print(f"[67] {ms:.1f} ms/step (host clock, steps 2-{steps}), peak memory "
+          f"{peak_gb:.2f} GB, losses {[round(x, 4) for x in losses]}; K1 / "
+          f"K2 {launches[0]} / {launches[1]}, all wgmma; {card}", flush=True)
+    profiled_step("[67]", lambda: step(params, opt, (images, w[:, :-1]),
+                                       w[:, 1:]), card)
+    del params, opt, step
+    free_device_memory()
+
+    # fp32 at 2 text layers: through K1/K2 against the plain attention
+    c32 = config(2, "float32")
+    p32 = vision.init_multimodal_params(SEED + 71, c32, device="cuda")
+    images = torch.randn((MM_BATCH, side, side, 3), generator=gen,
+                         device="cuda")
+    w = corpus[:MM_BATCH * (MM_TOKENS + 1)].reshape(MM_BATCH, MM_TOKENS + 1)
+
+    def loss_fn(p):
+        return vision.multimodal_loss(p, images, w[:, :-1], w[:, 1:], c32), None
+
+    loss_k, _, grads_k = value_and_grad_aux(loss_fn, p32)
+    with plain_attention():
+        loss_p, _, grads_p = value_and_grad_aux(loss_fn, p32)
+    worst = grads_rel_err(grads_k, grads_p)
+    check(abs(float(loss_k) - float(loss_p)) <= 1e-5,
+          f"multimodal fp32 loss {float(loss_k):.7f} within 1e-5 of the "
+          f"plain path's {float(loss_p):.7f}")
+    check(worst <= 1e-4, f"every multimodal gradient leaf within 1e-4 of "
+          f"its max (worst {worst:.3g})")
+    print(f"[67] fp32, 2 text layers: loss {float(loss_k):.6f} (K1/K2) vs "
+          f"{float(loss_p):.6f} (plain attention), worst gradient leaf off "
+          f"by {worst:.3g} of its max", flush=True)
+    del p32, grads_k, grads_p
+    free_device_memory()
+    return dict(launches=launches, ms=ms, peak_gb=peak_gb)
+
+
+def clip_phase(fa, card) -> dict:
+    """Phase 68: CLIP at openai/clip-vit-base-patch32 widths."""
+    from kfunca_tpu_torch.models import clip, vision
+    from kfunca_tpu_torch.models.train import (
+        OptConfig, init_opt_state, value_and_grad_aux)
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+    def config(dtype):
+        return clip.ClipConfig(
+            vit=vision.ViTConfig(**{**CLIP_VIT, "dtype": dtype}),
+            text=TransformerConfig(**{**CLIP_TEXT, "dtype": dtype}),
+            embed_dim=CLIP_EMBED)
+
+    cfg = config("bfloat16")
+    params = clip.init_clip_params(SEED + 72, cfg, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    oc = OptConfig(lr=1e-4, weight_decay=0.0)
+    opt = init_opt_state(params, oc)
+    step = clip.make_clip_train_step(cfg, oc)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+
+    def batch():
+        side, text = CLIP_VIT["image_size"], CLIP_TEXT
+        return (torch.randn((CLIP_BATCH, side, side, 3), generator=gen,
+                            device="cuda"),
+                torch.randint(0, text["vocab_size"],
+                              (CLIP_BATCH, text["max_seq_len"]),
+                              generator=gen, device="cuda"))
+
+    print(f"[68] CLIP at openai/clip-vit-base-patch32 widths, all layers "
+          f"({n_params / 1e6:.1f} M parameters), batch {CLIP_BATCH}, 77 "
+          f"text tokens, bf16 activations", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    steps, hist, seconds = 6, [], []
+    for _ in range(steps):
+        images, tokens = batch()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, images, tokens)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        hist.append({k: float(v) for k, v in m.items()})
+    launches, wgmma = read_flash(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(h["loss"]) for h in hist),
+          "every CLIP loss is finite")
+    want = CLIP_TEXT["n_layers"] * steps
+    check(launches == (want, want) and wgmma == launches,
+          f"K1, K2 launches {launches} == text layers x steps {want}, all "
+          f"on the wgmma bodies ({wgmma})")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    print(f"[68] {ms:.1f} ms/step (host clock, steps 2-{steps}), "
+          f"{CLIP_BATCH / ms * 1e3:.0f} pairs/s, peak memory {peak_gb:.2f} "
+          f"GB, losses {[round(h['loss'], 4) for h in hist]}, logit scale "
+          f"{hist[-1]['logit_scale']:.4f}; K1 / K2 {launches[0]} / "
+          f"{launches[1]}, all wgmma; {card}", flush=True)
+    profiled_step("[68]", lambda: step(params, opt, images, tokens), card)
+    del params, opt, step
+    free_device_memory()
+
+    # clip_loss_sharded over LocalMesh(dp=4) against clip_loss, fp32
+    c32 = config("float32")
+    p32 = clip.init_clip_params(SEED + 73, c32, device="cuda")
+    images, tokens = batch()
+    loss_ref, _, grads_ref = value_and_grad_aux(
+        lambda p: clip.clip_loss(p, images, tokens, c32), p32)
+    views = [t.detach().requires_grad_(True) for t in tree_leaves(p32)]
+    losses = clip.clip_loss_sharded(tree_unflatten(p32, views), images,
+                                    tokens, c32, LocalMesh(4, 1))
+    grads = tree_unflatten(p32, torch.autograd.grad(losses, views))
+    lerr = max(abs(float(x.detach()) - float(loss_ref)) for x in losses)
+    worst = grads_rel_err(grads, grads_ref)
+    check(lerr <= 1e-5, f"every dp rank's sharded CLIP loss within 1e-5 of "
+          f"the global batch's (err {lerr:.3g})")
+    check(worst <= 1e-4, f"sharded CLIP gradients within 1e-4 of each "
+          f"leaf's max (worst {worst:.3g})")
+    print(f"[68] clip_loss_sharded over LocalMesh(dp=4) on the one card, "
+          f"fp32, global batch {CLIP_BATCH}: loss {float(loss_ref):.6f}, "
+          f"ranks within {lerr:.3g}, gradients within {worst:.3g} of each "
+          f"leaf's max", flush=True)
+    del p32, grads, grads_ref, views
+    free_device_memory()
+    return dict(launches=launches, ms=ms, peak_gb=peak_gb)
+
+
+def dit_phase(card) -> dict:
+    """Phase 69: DiT-XL/2."""
+    from kfunca_tpu_torch.models import dit
+    from kfunca_tpu_torch.models.train import OptConfig, init_opt_state
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = dit.DiTConfig(**DIT_XL2)
+    params = dit.init_dit_params(SEED + 74, cfg, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    oc = OptConfig(lr=1e-4, weight_decay=0.0)
+    opt = init_opt_state(params, oc)
+    step = dit.make_dit_train_step(cfg, oc)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 74)
+    print(f"[69] DiT-XL/2, all 28 layers ({n_params / 1e6:.1f} M "
+          f"parameters), batch {DIT_BATCH} of 32 x 32 x 4 latents (256 "
+          f"tokens), bf16 activations; epsilon only (the published model also "
+          f"learns sigma)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses, seconds = 6, [], []
+    shape = (cfg.image_size, cfg.image_size, cfg.channels)
+    for _ in range(steps):
+        x = torch.randn((DIT_BATCH,) + shape, generator=gen, device="cuda")
+        y = torch.randint(0, cfg.n_classes, (DIT_BATCH,), generator=gen,
+                          device="cuda")
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, gen, x, y)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses), "every DiT loss is finite")
+    ms = 1e3 * float(np.mean(seconds[1:]))
+    print(f"[69] {ms:.1f} ms/step (host clock, steps 2-{steps}), "
+          f"{DIT_BATCH / ms * 1e3:.0f} images/s, peak memory {peak_gb:.2f} "
+          f"GB, losses {[round(x, 4) for x in losses]}; {card}", flush=True)
+    profiled_step("[69]", lambda: step(params, opt, gen, x, y), card)
+    labels = torch.arange(8, device="cuda") * 97 % cfg.n_classes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dit.ddim_sample(params, gen, labels, cfg, steps=50, guidance=4.0)
+    torch.cuda.synchronize()
+    ddim_s = time.perf_counter() - t0
+    check(out.shape == (8,) + shape and bool(torch.isfinite(out).all()),
+          "the DDIM samples are finite")
+    print(f"[69] ddim_sample, 50 steps at guidance 4.0 for 8 labels (16 "
+          f"rows a forward): {ddim_s:.2f} s, {1e3 * ddim_s / 50:.1f} ms a "
+          f"sampling step; {card}", flush=True)
+    del params, opt, step
+    free_device_memory()
+
+    # fp32, 2 layers, the zero leaves drawn nonzero: card against CPU
+    c32 = dit.DiTConfig(**{**DIT_XL2, "n_layers": 2, "dtype": "float32"})
+    p32 = dit.init_dit_params(SEED + 75, c32, device="cuda")
+    g32 = torch.Generator(device="cuda").manual_seed(SEED + 75)
+    p32 = tree_map(lambda t: t if bool(t.abs().max() > 0) else torch.randn(
+        t.shape, generator=g32, device="cuda") * 0.02, p32)
+    x0 = torch.randn((2,) + shape, generator=g32, device="cuda")
+    labels = torch.tensor([3, c32.n_classes - 29], device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), p32)
+    # teacher-forced: every step on the card from the CPU run's x there
+    ts = dit.ddim_timesteps(c32, 10)
+    abs_ = {dev: dit.alphas_bar(c32, dev) for dev in ("cpu", "cuda")}
+
+    def step(params, x, i, dev):
+        ab = abs_[dev]
+        ab_prev = ab[ts[i + 1]] if i + 1 < len(ts) else torch.ones(
+            (), device=dev)
+        return dit.ddim_step(params, x, labels.to(dev), c32, ts[i], ab[ts[i]],
+                             ab_prev, guidance=4.0)
+
+    traj, forced = [x0.cpu()], 0.0
+    for i in range(len(ts)):
+        traj.append(step(cpu, traj[-1], i, "cpu"))
+        got = step(p32, traj[-2].cuda(), i, "cuda").cpu()
+        forced = max(forced, float((got - traj[-1]).abs().max())
+                     / max(1.0, float(traj[-1].abs().max())))
+    check(forced <= 1e-4, f"every DDIM step on the card within 1e-4 x max(1, "
+          f"max |ref|) of the CPU's from the same x (worst {forced:.3g})")
+    # free-running: the sampler amplifies fp32 roundings (x0 divides by
+    # sqrt(ab_t), guidance 4 weighs cond - uncond by 4), so beside the
+    # card's distance stands the CPU run's own with every weight one ulp up
+    free = dit.ddim_loop(p32, x0, labels, c32, steps=10, guidance=4.0).cpu()
+    nudged = dit.ddim_loop(
+        tree_map(lambda t: torch.nextafter(t, torch.full_like(
+            t, float("inf"))), cpu), x0.cpu(), labels.cpu(), c32, steps=10,
+        guidance=4.0)
+    err = float((free - traj[-1]).abs().max())
+    spread = float((nudged - traj[-1]).abs().max())
+    check(bool(torch.isfinite(free).all()), "the card's DDIM run is finite")
+    print(f"[69] fp32, 2 layers, 10 DDIM steps at guidance 4 from the same "
+          f"noise: each step on the card within {forced:.3g} x max(1, max "
+          f"|ref|) of the CPU's from the same x; run free, the card ends "
+          f"{err:.3g} from the CPU, which moves {spread:.3g} when every "
+          f"weight moves one ulp", flush=True)
+    del p32
+    free_device_memory()
+    return dict(ms=ms, peak_gb=peak_gb, ddim_ms=1e3 * ddim_s / 50)
+
+
+def bert_hf_state(params, cfg) -> dict:
+    """The params as BertModel names them (fp32): Linears (out, in), qkv
+    split."""
+    d = cfg.d_model
+    sd = {"embeddings.word_embeddings.weight": params["embed"],
+          "embeddings.position_embeddings.weight": params["pos_embed"],
+          "embeddings.token_type_embeddings.weight": params["type_embed"],
+          "embeddings.LayerNorm.weight": params["embed_norm"],
+          "embeddings.LayerNorm.bias": params["embed_norm_b"],
+          "pooler.dense.weight": params["pooler_w"].t(),
+          "pooler.dense.bias": params["pooler_b"]}
+    for i, b in enumerate(params["blocks"]):
+        p = f"encoder.layer.{i}."
+        for j, n in enumerate(("query", "key", "value")):
+            sd[p + f"attention.self.{n}.weight"] = \
+                b["wqkv"][:, j * d:(j + 1) * d].t()
+            sd[p + f"attention.self.{n}.bias"] = b["bqkv"][j * d:(j + 1) * d]
+        for name, w, bias in (("attention.output.dense", "wo", "bo"),
+                              ("intermediate.dense", "w_fc", "b_fc"),
+                              ("output.dense", "w_proj", "b_proj")):
+            sd[p + name + ".weight"] = b[w].t()
+            sd[p + name + ".bias"] = b[bias]
+        for name, key in (("attention.output.LayerNorm", "attn_norm"),
+                          ("output.LayerNorm", "mlp_norm")):
+            sd[p + name + ".weight"] = b[key]
+            sd[p + name + ".bias"] = b[key + "_b"]
+    return {k: v.detach().float().contiguous().cpu() for k, v in sd.items()}
+
+
+def vit_hf_state(gen, cfg) -> dict:
+    """A ViTModel state dict at cfg's widths, random from `gen` (fp32)."""
+    d, f, p = cfg.d_model, cfg.d_ff, cfg.patch_size
+
+    def r(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).cpu()
+
+    sd = {"embeddings.patch_embeddings.projection.weight": r(d, 3, p, p),
+          "embeddings.patch_embeddings.projection.bias": r(d),
+          "embeddings.cls_token": r(1, 1, d),
+          "embeddings.position_embeddings": r(1, cfg.n_patches + 1, d),
+          "layernorm.weight": 1 + r(d), "layernorm.bias": r(d),
+          "pooler.dense.weight": r(d, d), "pooler.dense.bias": r(d)}
+    for i in range(cfg.n_layers):
+        q = f"encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            sd[q + f"attention.attention.{n}.weight"] = r(d, d)
+            sd[q + f"attention.attention.{n}.bias"] = r(d)
+        for name, shape in (("attention.output.dense", (d, d)),
+                            ("intermediate.dense", (f, d)),
+                            ("output.dense", (d, f))):
+            sd[q + name + ".weight"] = r(*shape)
+            sd[q + name + ".bias"] = r(shape[0])
+        for name in ("layernorm_before", "layernorm_after"):
+            sd[q + name + ".weight"] = 1 + r(d)
+            sd[q + name + ".bias"] = r(d)
+    return sd
+
+
+def encoders_phase(card) -> dict:
+    """Phase 70: bert-base-uncased and google/vit-base-patch16-224 read
+    from their HF layouts, and MLM training at bert-base widths."""
+    from kfunca_tpu_torch.models import encoder, hf_vision
+    from kfunca_tpu_torch.models.train import OptConfig, init_opt_state
+
+    bcfg = encoder.EncoderConfig(**BERT_BASE, dtype="float32")
+    src = encoder.init_bert_params(SEED + 76, bcfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 76)
+    with tempfile.TemporaryDirectory() as tmp:
+        nbytes = write_safetensors(os.path.join(tmp, "model.safetensors"),
+                                   bert_hf_state(src, bcfg))
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"model_type": "bert", "vocab_size": bcfg.vocab_size,
+                       "hidden_size": bcfg.d_model,
+                       "num_hidden_layers": bcfg.n_layers,
+                       "num_attention_heads": bcfg.n_heads,
+                       "intermediate_size": bcfg.d_ff,
+                       "max_position_embeddings": bcfg.max_seq_len,
+                       "type_vocab_size": bcfg.type_vocab,
+                       "layer_norm_eps": bcfg.norm_eps,
+                       "hidden_act": "gelu"}, f)
+        params, cfg = encoder.from_hf_bert(tmp)
+    check(cfg == bcfg and leaves_equal(params, src),
+          "from_hf_bert gives the written bert-base params bit for bit")
+    tokens = torch.randint(0, bcfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                           generator=gen, device="cuda")
+    lengths = torch.randint(64, BERT_SEQ + 1, (BERT_BATCH,), generator=gen,
+                            device="cuda")
+    valid = torch.arange(BERT_SEQ, device="cuda")[None, :] < lengths[:, None]
+    types = (torch.arange(BERT_SEQ, device="cuda")[None, :]
+             >= (lengths // 2)[:, None]).long()
+    with torch.no_grad():
+        a = encoder.bert_encode(params, tokens, cfg, valid, types)
+        b = encoder.bert_encode(params, torch.where(valid, tokens, 103), cfg,
+                                valid, types)
+        err = float((a[valid] - b[valid]).abs().max())
+        check(err <= 1e-5 * max(1.0, float(a[valid].abs().max())),
+              f"padded keys change no valid position (err {err:.3g})")
+        ms = {}
+        for dtype in ("float32", "bfloat16"):
+            c = encoder.EncoderConfig(**BERT_BASE, dtype=dtype)
+            ms[dtype] = time_ms(lambda: encoder.bert_encode(
+                params, tokens, c, valid, types), reps=5, warm=1)
+    print(f"[70] bert-base-uncased in the HF BERT layout ({nbytes / 1e6:.0f} "
+          f"MB fp32) read by from_hf_bert: bit for bit; bert_encode over "
+          f"{BERT_BATCH} x {BERT_SEQ} tokens, ragged padding "
+          f"({int(valid.sum())} valid): {ms['float32']:.2f} ms fp32, "
+          f"{ms['bfloat16']:.2f} ms bf16 (CUDA events); padded keys change "
+          f"no valid position (err {err:.3g}); {card}", flush=True)
+    del params, src
+    free_device_memory()
+
+    mcfg = encoder.EncoderConfig(**{**BERT_BASE, "arch": "preln",
+                                    "type_vocab": 0}, dtype="bfloat16")
+    params = encoder.init_encoder_params(SEED + 77, mcfg, device="cuda")
+    oc = OptConfig(lr=1e-4, weight_decay=0.01)
+    opt = init_opt_state(params, oc)
+    step = encoder.make_mlm_train_step(mcfg, oc, vocab_chunk=4096)
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses, seconds = 6, [], []
+    for _ in range(steps):
+        toks = torch.randint(0, mcfg.vocab_size, (MLM_BATCH, BERT_SEQ),
+                             generator=gen, device="cuda")
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, gen, toks)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(x) for x in losses), "every MLM loss is finite")
+    mlm_ms = 1e3 * float(np.mean(seconds[1:]))
+    print(f"[70] make_mlm_train_step at bert-base widths (the preln arch), "
+          f"{MLM_BATCH} x {BERT_SEQ} tokens, bf16: {mlm_ms:.1f} ms/step, "
+          f"peak memory {peak_gb:.2f} GB, losses "
+          f"{[round(x, 4) for x in losses]}; {card}", flush=True)
+    del params, opt, step
+    free_device_memory()
+
+    vcfg = hf_vision.HFViTConfig(**VIT_BASE)
+    sd = vit_hf_state(gen, vcfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_safetensors(os.path.join(tmp, "model.safetensors"), sd)
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"model_type": "vit", "image_size": vcfg.image_size,
+                       "patch_size": vcfg.patch_size, "num_channels": 3,
+                       "hidden_size": vcfg.d_model,
+                       "num_hidden_layers": vcfg.n_layers,
+                       "num_attention_heads": vcfg.n_heads,
+                       "intermediate_size": vcfg.d_ff,
+                       "layer_norm_eps": vcfg.norm_eps, "hidden_act": "gelu",
+                       "qkv_bias": True}, f)
+        vp, vc = hf_vision.from_hf_vit(tmp)
+    check(vc == vcfg and torch.equal(
+        vp["blocks"][-1]["w_fc"].cpu(),
+        sd[f"encoder.layer.{vcfg.n_layers - 1}.intermediate.dense.weight"]
+        .t()),
+        "from_hf_vit reads the written vit-base params")
+    side = vcfg.image_size
+    images = torch.rand((VIT_IMAGES, side, side, 3), generator=gen,
+                        device="cuda") * 2 - 1
+    with torch.no_grad():
+        out = hf_vision.hf_vit_encode(vp, images, vc)
+        check(out.shape == (VIT_IMAGES, vcfg.n_patches + 1, vcfg.d_model)
+              and bool(torch.isfinite(out).all()),
+              "hf_vit_encode gives finite (images, N + 1, d) states")
+        vit_ms = time_ms(lambda: hf_vision.hf_vit_encode(vp, images, vc),
+                         reps=5, warm=1)
+    print(f"[70] google/vit-base-patch16-224 in the HF ViT layout read by "
+          f"from_hf_vit; hf_vit_encode over {VIT_IMAGES} images: "
+          f"{vit_ms:.2f} ms fp32 (CUDA events); {card}", flush=True)
+    del vp
+    free_device_memory()
+    return dict(bert_ms=ms, mlm_ms=mlm_ms, vit_ms=vit_ms)
+
+
+def mm_attention_shape() -> dict:
+    """The multimodal text blocks' attention: N + T positions, causal."""
+    n = (LLAVA_VIT["image_size"] // LLAVA_VIT["patch_size"]) ** 2
+    h = LLAVA_TEXT["n_heads"]
+    return dict(b=MM_BATCH, h=h, hkv=h, sq=n + MM_TOKENS, skv=n + MM_TOKENS,
+                hd=LLAVA_TEXT["d_model"] // h, window=None)
+
+
+def clip_attention_shape() -> dict:
+    """CLIP's text tower's attention: 77 positions, causal."""
+    h, s = CLIP_TEXT["n_heads"], CLIP_TEXT["max_seq_len"]
+    return dict(b=CLIP_BATCH, h=h, hkv=h, sq=s, skv=s,
+                hd=CLIP_TEXT["d_model"] // h, window=None)
+
+
+def families_phases(card) -> list:
+    """Phases 66-70; returns the kernels-line entries of K1 / K2 at the
+    multimodal and CLIP text paths."""
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    mamba2_phase(card)
+    free_device_memory()
+    mm = multimodal_phase(fa, card)
+    free_device_memory()
+    cl = clip_phase(fa, card)
+    free_device_memory()
+    dit_phase(card)
+    free_device_memory()
+    encoders_phase(card)
+    free_device_memory()
+    print(f"[66-70] {time.perf_counter() - t0:.1f} s", flush=True)
+    entries = []
+    for label, shape, run, path in (
+            ("multimodal", mm_attention_shape(), mm,
+             f"the multimodal prefix LM's text blocks, LLaVA-1.5-7B widths "
+             f"(B {MM_BATCH}, 32 heads of 128, S 576 + {MM_TOKENS}, causal)"),
+            ("CLIP text", clip_attention_shape(), cl,
+             f"CLIP's text tower, clip-vit-base-patch32 widths (B "
+             f"{CLIP_BATCH}, 8 heads of 64, S 77, causal)")):
+        e1, e2 = rank_flash_checks(fa, shape, f"{label} shape")
+        ft = flash_timing(fa, shape, fp32=False)
+        for name, key, line, n, err in (
+                ("flash_attention_fwd_stats", "fwd", 247, run["launches"][0],
+                 e1),
+                ("flash_attention_backward", "bwd", 547, run["launches"][1],
+                 e2)):
+            t = ft[key]
+            print(f"[66-70] {name} at the {label} shape: {t['ms']:.4f} ms, "
+                  f"plain {t['plain_ms']:.3f}, SDPA {t['library_ms']:.4f}, "
+                  f"bound {t['bound_ms']:.4f} ({t['bound_by']}); {n} "
+                  f"launches; {card}", flush=True)
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": "kfunca_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"kfunca_tpu/ops/pallas_kernels/"
+                            f"flash_attention.py:{line}",
+                "launches": n, "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "path": path})
+        free_device_memory()
+    print(f"[66-70] with the checks and timings: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7601,6 +8401,10 @@ def main() -> int:
     if sys.argv[1:] == ["--lora"]:  # phases 61-65 alone
         _kernels.build(["flash_attention", "paged_attention", "quant"])
         print(json.dumps({"kernels": lora_phases(card)}))
+        return 0
+    if sys.argv[1:] == ["--families"]:  # phases 66-70 alone
+        _kernels.build(["flash_attention"])
+        print(json.dumps({"kernels": families_phases(card)}))
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -7678,6 +8482,8 @@ def main() -> int:
     kernels += moe_mla_phases(card)
     free_device_memory()
     kernels += lora_phases(card)
+    free_device_memory()
+    kernels += families_phases(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -87,11 +87,27 @@ HF_CONFIG_DEFAULTS = {
                         routed_scaling_factor=2.5, n_group=8, topk_group=4,
                         first_k_dense_replace=3, tie_word_embeddings=False),
 }
+# The same for the families with loaders of their own (models/mamba.py,
+# mamba2.py, encoder.py, hf_vision.py): the keys their config readers
+# take a default for ("auto" is MambaConfig's derived dt rank).
+FAMILY_CONFIG_DEFAULTS = {
+    "mamba": dict(state_size=16, conv_kernel=4, expand=2,
+                  time_step_rank="auto", layer_norm_epsilon=1e-5),
+    "mamba2": dict(num_heads=128, head_dim=64, state_size=128, n_groups=8,
+                   conv_kernel=4, expand=2, chunk_size=256,
+                   layer_norm_epsilon=1e-5),
+    "bert": dict(hidden_act="gelu", max_position_embeddings=512,
+                 type_vocab_size=2, layer_norm_eps=1e-12),
+    "vit": dict(image_size=224, patch_size=16, num_channels=3,
+                hidden_act="gelu", layer_norm_eps=1e-12, qkv_bias=True),
+}
 
 
 def with_config_defaults(raw: dict) -> dict:
     """config.json's dict with the config class's defaults under it."""
-    return {**HF_CONFIG_DEFAULTS.get(raw.get("model_type"), {}), **raw}
+    mt = raw.get("model_type")
+    return {**HF_CONFIG_DEFAULTS.get(mt, FAMILY_CONFIG_DEFAULTS.get(mt, {})),
+            **raw}
 
 
 def config_from_hf(hf_config, dtype: str = "bfloat16") -> TransformerConfig:
@@ -605,20 +621,34 @@ def read_checkpoint(path) -> dict:
                             "pytorch_model.bin or index of their shards")
 
 
+def is_checkpoint_path(model_or_path) -> bool:
+    """Whether a from_hf* argument names a directory (else it is a model
+    instance)."""
+    return isinstance(model_or_path, (str, bytes)) or hasattr(
+        model_or_path, "__fspath__")
+
+
+def read_hf_dir(path) -> tuple[dict, dict]:
+    """(config.json with its config class's defaults under it, the state
+    dict) of a checkpoint directory, through the readers above: neither
+    transformers nor safetensors is imported.  Every from_hf* loader of
+    the port reads a directory so."""
+    path = os.fsdecode(path)
+    with open(os.path.join(path, "config.json")) as f:
+        raw = with_config_defaults(json.load(f))
+    return raw, read_checkpoint(path)
+
+
 def from_hf(model_or_path, dtype: str = "bfloat16", device=None):
     """(params, cfg) from a checkpoint directory or a transformers model
     instance (anything with .config and .state_dict()).  `dtype` is the
     activation dtype; params are fp32 on `device` (the card by default),
     the master-weight convention of both packages."""
     dev = resolve_device(device)
-    if isinstance(model_or_path, (str, bytes)) or hasattr(model_or_path,
-                                                          "__fspath__"):
-        path = os.fsdecode(model_or_path)
-        with open(os.path.join(path, "config.json")) as f:
-            raw = with_config_defaults(json.load(f))
+    if is_checkpoint_path(model_or_path):
+        raw, state_dict = read_hf_dir(model_or_path)
         cfg = config_from_hf(raw, dtype=dtype)
         tied = bool(raw.get("tie_word_embeddings", True))
-        state_dict = read_checkpoint(path)
     else:
         hf_cfg = model_or_path.config
         cfg = config_from_hf(hf_cfg, dtype=dtype)

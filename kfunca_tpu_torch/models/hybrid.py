@@ -19,8 +19,8 @@ import torch
 
 from ..runtime.backend import resolve_device
 from .mamba import (
-    MambaConfig, _linear, _mixer_step, init_mamba_mixer, mamba_mixer,
-    token_nll,
+    MambaConfig, _linear, _mixer_step, greedy_decode, init_mamba_mixer,
+    mamba_mixer, token_nll,
 )
 from .transformer import (
     _DTYPES, TransformerConfig, _plain_mm, attention_mixer, mlp, rms_norm,
@@ -213,7 +213,6 @@ def _hybrid_token_step(params, tok, states, pos: int, cfg: HybridConfig):
     return _plain_mm(x, params["embed"].t()), new_states
 
 
-@torch.no_grad()
 def generate(params, prompt, cfg: HybridConfig, max_new_tokens: int = 32,
              eos_id: int = -1):
     """Greedy generation: the prompt streams through the recurrent step
@@ -221,20 +220,7 @@ def generate(params, prompt, cfg: HybridConfig, max_new_tokens: int = 32,
     follow.  prompt (B, S) integers on the params' device ->
     (B, max_new_tokens) int32; slots after an EOS are 0."""
     b, s = prompt.shape
-    dev = prompt.device
-    states = init_hybrid_state(cfg, b, s + max_new_tokens, dev)
-    logits = None
-    for i in range(s):
-        logits, states = _hybrid_token_step(params, prompt[:, i], states, i,
-                                            cfg)
-    tok = torch.argmax(logits, dim=-1).int()
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    zero = torch.zeros_like(tok)
-    out = []
-    for pos in range(s, s + max_new_tokens):
-        logits, states = _hybrid_token_step(params, tok, states, pos, cfg)
-        nxt = torch.where(done, zero, torch.argmax(logits, dim=-1).int())
-        out.append(torch.where(done, zero, tok))
-        done = done | (tok == eos_id)
-        tok = nxt
-    return torch.stack(out, dim=1)
+    return greedy_decode(
+        lambda tok, st, pos: _hybrid_token_step(params, tok, st, pos, cfg),
+        init_hybrid_state(cfg, b, s + max_new_tokens, prompt.device), prompt,
+        max_new_tokens, eos_id)

@@ -45,6 +45,7 @@ from ..ops.pallas_kernels.ssm_scan import LB, _ks_scan, chunked_scan, ssm_scan
 from ..parallel import collectives as cc
 from ..parallel.mesh import Halves, P, ShardedParams, shard_tree
 from ..runtime.backend import resolve_device
+from .hf import is_checkpoint_path, read_hf_dir
 from .transformer import (_DTYPES, _masked_mean, _plain_mm, join_dp,
                           rank_batches, rms_norm, row_parallel)
 
@@ -442,28 +443,39 @@ def _token_step(params, tok, states, cfg: MambaConfig):
 
 
 @torch.no_grad()
-def generate(params, prompt, cfg: MambaConfig, max_new_tokens: int = 32,
-             eos_id: int = -1):
-    """Greedy generation: the prompt streams through the recurrent step
-    (teacher-forced), then new tokens follow.  prompt (B, S) integers on the
-    params' device -> (B, max_new_tokens) int32; slots after an EOS are 0."""
+def greedy_decode(token_step, states, prompt, max_new_tokens: int,
+                  eos_id: int):
+    """The recurrent families' greedy loop: the prompt (B, S) streams
+    through token_step(tok, states, position) -> (logits (B, V), states)
+    teacher-forced, then max_new_tokens new tokens follow.  Returns (B,
+    max_new_tokens) int32; slots after an EOS are 0 (the JAX generate's
+    scan)."""
     b, s = prompt.shape
-    dev = prompt.device
-    states = init_mamba_state(cfg, b, dev)
     logits = None
     for i in range(s):
-        logits, states = _token_step(params, prompt[:, i], states, cfg)
+        logits, states = token_step(prompt[:, i], states, i)
     tok = torch.argmax(logits, dim=-1).int()
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=prompt.device)
     zero = torch.zeros_like(tok)
     out = []
-    for _ in range(max_new_tokens):
-        logits, states = _token_step(params, tok, states, cfg)
+    for pos in range(s, s + max_new_tokens):
+        logits, states = token_step(tok, states, pos)
         nxt = torch.where(done, zero, torch.argmax(logits, dim=-1).int())
         out.append(torch.where(done, zero, tok))
         done = done | (tok == eos_id)
         tok = nxt
     return torch.stack(out, dim=1)
+
+
+def generate(params, prompt, cfg: MambaConfig, max_new_tokens: int = 32,
+             eos_id: int = -1):
+    """Greedy generation: the prompt streams through the recurrent step
+    (teacher-forced), then new tokens follow.  prompt (B, S) integers on the
+    params' device -> (B, max_new_tokens) int32; slots after an EOS are 0."""
+    return greedy_decode(
+        lambda tok, st, _: _token_step(params, tok, st, cfg),
+        init_mamba_state(cfg, prompt.shape[0], prompt.device), prompt,
+        max_new_tokens, eos_id)
 
 
 # -- HuggingFace interop (MambaForCausalLM) -----------------------------------
@@ -531,16 +543,16 @@ def params_from_hf_mamba(state_dict, cfg: MambaConfig, device=None):
 
 
 def from_hf_mamba(model_or_path, dtype: str = "bfloat16", device=None):
-    """(params, cfg) from a transformers Mamba model instance or path."""
-    if isinstance(model_or_path, (str, bytes)) or hasattr(
-            model_or_path, "__fspath__"):
-        from transformers import MambaForCausalLM
-
-        model = MambaForCausalLM.from_pretrained(model_or_path)
+    """(params, cfg) from a checkpoint directory (config.json and the
+    weights, read by models/hf.py's readers: no transformers) or a
+    transformers Mamba model instance."""
+    if is_checkpoint_path(model_or_path):
+        raw, sd = read_hf_dir(model_or_path)
+        cfg = config_from_hf_mamba(raw, dtype=dtype)
     else:
-        model = model_or_path
-    cfg = config_from_hf_mamba(model.config, dtype=dtype)
-    return params_from_hf_mamba(model.state_dict(), cfg, device), cfg
+        cfg = config_from_hf_mamba(model_or_path.config, dtype=dtype)
+        sd = model_or_path.state_dict()
+    return params_from_hf_mamba(sd, cfg, device), cfg
 
 
 def to_hf_mamba(params, cfg: MambaConfig) -> dict:

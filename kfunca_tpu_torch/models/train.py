@@ -463,18 +463,26 @@ def make_train_step(cfg: TransformerConfig, oc: OptConfig = OptConfig(),
     return train_step
 
 
+def _to_device(x, dev):
+    """x (an array or a tuple / list of them) as tensors on dev."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_device(t, dev) for t in x)
+    return torch.as_tensor(x).to(dev, non_blocking=True)
+
+
 def make_loss_train_step(loss, oc: OptConfig, device=None):
     """train_step(params, opt_state, tokens, targets) -> (params, opt_state,
     loss) for any model's loss(params, tokens, targets): autograd over the
     param leaves, then apply_update in place, as make_train_step does.  The
-    step of the Mamba and hybrid families (their JAX steps are
-    value_and_grad + apply_update)."""
+    step of the Mamba, Mamba-2 and hybrid families (their JAX steps are
+    value_and_grad + apply_update); `tokens` may be a tuple of inputs (the
+    multimodal LM's (images, tokens)), each moved to the device."""
     dev = resolve_device(device)
 
     def train_step(params, opt_state, tokens, targets):
         check_params_device(params, dev)
-        tokens = torch.as_tensor(tokens).to(dev, non_blocking=True)
-        targets = torch.as_tensor(targets).to(dev, non_blocking=True)
+        tokens = _to_device(tokens, dev)
+        targets = _to_device(targets, dev)
         loss_v, grads = _value_and_grad(loss, params, tokens, targets)
         params, opt_state = apply_update(params, grads, opt_state, oc)
         return params, opt_state, loss_v

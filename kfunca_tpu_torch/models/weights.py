@@ -220,3 +220,182 @@ def tree_to_numpy(tree):
 
 
 params_to_numpy = tree_to_numpy  # the same walk, under the params' name
+
+
+# -- Mamba-2 and the vision family: every leaf checked against the config --
+
+
+def _check_tree(tree, want, path="params"):
+    """Every leaf of `want` (a tree of shapes; a key ending in "?" may be
+    absent) stands in `tree` with its shape, and `tree` holds nothing
+    else."""
+    if isinstance(want, tuple):
+        got = tuple(np.shape(tree))
+        if got != want:
+            raise ValueError(f"{path} {got} does not match the config's "
+                             f"{want}")
+        return
+    if isinstance(want, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(want):
+            n = len(tree) if isinstance(tree, (list, tuple)) else "no list"
+            raise ValueError(f"{path}: {n} entries for a config of "
+                             f"{len(want)}")
+        for i, (t, w) in enumerate(zip(tree, want)):
+            _check_tree(t, w, f"{path}[{i}]")
+        return
+    keys = {k.rstrip("?") for k in want}
+    extra = sorted(set(tree) - keys)
+    if extra:
+        raise ValueError(f"{path} holds {extra}, which the config has no "
+                         f"place for")
+    for k, w in want.items():
+        name = k.rstrip("?")
+        if name not in tree:
+            if k.endswith("?"):
+                continue
+            raise ValueError(f"{path} holds no {name} where the config "
+                             f"needs one")
+        _check_tree(tree[name], w, f"{path}.{name}")
+
+
+def _converted(tree, want, device, dtype):
+    _check_tree(tree, want)
+    dev = resolve_device(device)
+    return tree_map(lambda x: _to_tensor(x, dev, dtype), tree)
+
+
+def _encoder_block_shapes(d, f):
+    return {"attn_norm": (d,), "wqkv": (d, 3 * d), "wo": (d, d),
+            "mlp_norm": (d,), "w_gate": (d, f), "w_up": (d, f),
+            "w_down": (f, d)}
+
+
+def _bert_block_shapes(d, f):
+    return {"wqkv": (d, 3 * d), "bqkv": (3 * d,), "wo": (d, d), "bo": (d,),
+            "attn_norm": (d,), "attn_norm_b": (d,), "w_fc": (d, f),
+            "b_fc": (f,), "w_proj": (f, d), "b_proj": (d,),
+            "mlp_norm": (d,), "mlp_norm_b": (d,)}
+
+
+def _dense_text_shapes(cfg: TransformerConfig):
+    """The shapes of a dense (no MoE, no MLA) transformer's params."""
+    if cfg.n_experts or cfg.attention == "mla":
+        raise ValueError("the text trunk of a vision-family model is dense: "
+                         "no MoE, no MLA")
+    d, f, lnorm = cfg.d_model, cfg.d_ff, cfg.norm == "layernorm"
+    blk = {"attn_norm": (d,), "wqkv": (d, cfg.qkv_out), "wo": (d, d),
+           "mlp_norm": (d,)}
+    if cfg.qk_norm:
+        blk.update(q_norm=(cfg.head_dim,), k_norm=(cfg.head_dim,))
+    if lnorm:
+        blk.update(attn_norm_b=(d,), mlp_norm_b=(d,))
+    if cfg.proj_bias:
+        blk.update(bqkv=(cfg.qkv_out,), bo=(d,))
+    if cfg.mlp_type == "gelu":
+        blk.update(w_fc=(d, f), w_proj=(f, d))
+        if cfg.proj_bias:
+            blk.update(b_fc=(f,), b_proj=(d,))
+    else:
+        blk.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
+    shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,),
+              "lm_head?": (d, cfg.vocab_size),
+              "blocks": [dict(blk) for _ in range(cfg.n_layers)]}
+    if cfg.pos == "learned":
+        shapes["pos_embed"] = (cfg.max_seq_len, d)
+    if lnorm:
+        shapes["final_norm_b"] = (d,)
+    return shapes
+
+
+def _vit_shapes(cfg):
+    d = cfg.d_model
+    return {"patch_proj": (cfg.patch_dim, d), "pos_embed": (cfg.n_patches, d),
+            "final_norm": (d,),
+            "blocks": [_encoder_block_shapes(d, cfg.d_ff)
+                       for _ in range(cfg.n_layers)]}
+
+
+def mamba2_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_mamba2_params pytree -> the port's Mamba-2 params on
+    `device` (default: the CUDA device), every leaf checked against the
+    Mamba2Config `cfg`; `dtype` recasts every float leaf."""
+    d, h, di = cfg.d_model, cfg.n_heads, cfg.d_inner
+    layer = {"norm": (d,), "in_proj": (d, cfg.proj_out),
+             "conv_w": (cfg.d_conv, cfg.conv_dim), "conv_b": (cfg.conv_dim,),
+             "dt_bias": (h,), "A_log": (h,), "D": (h,), "mixer_norm": (di,),
+             "out_proj": (di, d)}
+    want = {"embed": (cfg.vocab_size, d), "final_norm": (d,),
+            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+    return _converted(tree, want, device, dtype)
+
+
+def vit_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_vit_params pytree -> the port's ViT params, every leaf
+    checked against the ViTConfig `cfg`."""
+    return _converted(tree, _vit_shapes(cfg), device, dtype)
+
+
+def multimodal_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_multimodal_params pytree -> the port's, every leaf
+    checked against the MultimodalConfig `cfg`."""
+    want = {"vit": _vit_shapes(cfg.vit), "text": _dense_text_shapes(cfg.text),
+            "img_proj": (cfg.vit.d_model, cfg.text.d_model)}
+    return _converted(tree, want, device, dtype)
+
+
+def encoder_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_encoder_params (either arch) or from_hf_bert pytree -> the
+    port's, every leaf checked against the EncoderConfig `cfg`."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.arch == "bert":
+        want = {"embed": (cfg.vocab_size, d), "pos_embed": (cfg.max_seq_len, d),
+                "embed_norm": (d,), "embed_norm_b": (d,),
+                "pooler_w?": (d, d), "pooler_b?": (d,),
+                "blocks": [_bert_block_shapes(d, f)
+                           for _ in range(cfg.n_layers)]}
+        if cfg.type_vocab:
+            want["type_embed"] = (cfg.type_vocab, d)
+    else:
+        want = {"embed": (cfg.vocab_size, d), "pos_embed": (cfg.max_seq_len, d),
+                "final_norm": (d,),
+                "blocks": [_encoder_block_shapes(d, f)
+                           for _ in range(cfg.n_layers)]}
+    return _converted(tree, want, device, dtype)
+
+
+def hf_vit_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX from_hf_vit pytree -> the port's, every leaf checked against
+    the HFViTConfig `cfg`."""
+    d = cfg.d_model
+    want = {"patch_w": (cfg.patch_size ** 2 * cfg.channels, d),
+            "patch_b": (d,), "cls": (1, d), "pos_embed": (cfg.n_patches + 1, d),
+            "final_norm": (d,), "final_norm_b": (d,),
+            "pooler_w?": (d, d), "pooler_b?": (d,),
+            "blocks": [_bert_block_shapes(d, cfg.d_ff)
+                       for _ in range(cfg.n_layers)]}
+    return _converted(tree, want, device, dtype)
+
+
+def clip_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_clip_params pytree -> the port's, every leaf checked
+    against the ClipConfig `cfg` (logit_scale a 0-dim leaf)."""
+    want = {"vit": _vit_shapes(cfg.vit), "text": _dense_text_shapes(cfg.text),
+            "img_head": (cfg.vit.d_model, cfg.embed_dim),
+            "txt_head": (cfg.text.d_model, cfg.embed_dim),
+            "logit_scale": ()}
+    return _converted(tree, want, device, dtype)
+
+
+def dit_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_dit_params pytree -> the port's, every leaf checked
+    against the DiTConfig `cfg`."""
+    d, pd = cfg.d_model, cfg.patch_dim
+    blk = {"wqkv": (d, 3 * d), "wo": (d, d), "w_fc": (d, cfg.d_ff),
+           "w_proj": (cfg.d_ff, d), "ada": (d, 6 * d), "ada_b": (6 * d,)}
+    want = {"patch_proj": (pd, d), "pos_embed": (cfg.n_patches, d),
+            "t_mlp1": (256, d), "t_mlp1_b": (d,), "t_mlp2": (d, d),
+            "t_mlp2_b": (d,), "y_embed": (cfg.n_classes + 1, d),
+            "final_ada": (d, 2 * d), "final_ada_b": (2 * d,),
+            "final_proj": (d, pd), "final_proj_b": (pd,),
+            "blocks": [dict(blk) for _ in range(cfg.n_layers)]}
+    return _converted(tree, want, device, dtype)

@@ -2519,3 +2519,114 @@ def test_chunked_kd_kl_on_the_card_matches_the_cpu(cuda):
     for g_, w_, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
         torch.testing.assert_close(g_, w_, rtol=0,
                                    atol=tol * max(1.0, float(w_.abs().max())))
+
+
+def _grads_on_both_paths(loss_fn, params):
+    """(loss, grads) through K1/K2 and through the plain attention, with
+    the kernels' launches of the first run."""
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    n = (fa.flash_attention_fwd_stats.launches,
+         fa.flash_attention_backward.launches,
+         fa.flash_attention_fwd_stats.launches_wgmma,
+         fa.flash_attention_backward.launches_wgmma)
+    loss, _, grads = train.value_and_grad_aux(lambda p: (loss_fn(p), None),
+                                              params)
+    took = (fa.flash_attention_fwd_stats.launches - n[0],
+            fa.flash_attention_backward.launches - n[1],
+            fa.flash_attention_fwd_stats.launches_wgmma - n[2],
+            fa.flash_attention_backward.launches_wgmma - n[3])
+    with attention.plain_attention():
+        ref, _, ref_grads = train.value_and_grad_aux(
+            lambda p: (loss_fn(p), None), params)
+    return (loss, tree_leaves(grads)), (ref, tree_leaves(ref_grads)), took
+
+
+def _hold_step_parity(dtype, loss, grads, ref, ref_grads, took):
+    """K1 and K2 once a layer (2 layers), bf16 on the wgmma bodies; fp32:
+    the loss within 1e-5 of the plain path's and every gradient within
+    1e-4 of its leaf's largest entry; bf16 (whose products round another
+    way on each path, carried through the blocks): the loss within 2^-7
+    and every gradient finite."""
+    bf16 = int(dtype == "bfloat16")
+    assert took == (2, 2, 2 * bf16, 2 * bf16)
+    assert all(torch.isfinite(g).all() for g in grads)
+    if bf16:
+        assert abs(float(loss) - float(ref)) <= 2.0 ** -7
+        return
+    assert abs(float(loss) - float(ref)) <= 1e-5
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).abs().max()) <= 1e-4 * max(
+            float(r.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multimodal_step_runs_k1_k2_on_its_text_blocks(cuda, dtype):
+    """The multimodal prefix LM's text blocks take K1 and K2 once a layer
+    over N + T positions (bf16 on the wgmma bodies), held against the plain
+    attention path as _hold_step_parity says."""
+    from kfunca_tpu_torch.models import vision
+
+    vit = vision.ViTConfig(image_size=32, patch_size=8, d_model=64,
+                           n_heads=2, n_layers=1, d_ff=128, dtype=dtype)
+    text = transformer.TransformerConfig(vocab_size=128, d_model=128,
+                                         n_heads=2, n_layers=2, d_ff=256,
+                                         max_seq_len=64, dtype=dtype)
+    cfg = vision.MultimodalConfig(vit=vit, text=text)
+    params = vision.init_multimodal_params(0, cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    images = torch.randn((2, 32, 32, 3), generator=gen, device=cuda)
+    tokens = torch.randint(0, 128, (2, 24), generator=gen, device=cuda)
+    (loss, grads), (ref, ref_grads), took = _grads_on_both_paths(
+        lambda p: vision.multimodal_loss(p, images, tokens, tokens, cfg),
+        params)
+    _hold_step_parity(dtype, loss, grads, ref, ref_grads, took)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_clip_text_tower_runs_k1_k2(cuda, dtype):
+    """CLIP's text tower (transformer.hidden_states) takes K1 and K2 once a
+    layer, held against the plain attention path as _hold_step_parity
+    says."""
+    from kfunca_tpu_torch.models import clip, vision
+
+    vit = vision.ViTConfig(image_size=32, patch_size=16, d_model=64,
+                           n_heads=2, n_layers=1, d_ff=128, dtype=dtype)
+    text = transformer.TransformerConfig(vocab_size=128, d_model=128,
+                                         n_heads=2, n_layers=2, d_ff=256,
+                                         max_seq_len=32, dtype=dtype)
+    cfg = clip.ClipConfig(vit=vit, text=text, embed_dim=32)
+    params = clip.init_clip_params(0, cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    images = torch.randn((8, 32, 32, 3), generator=gen, device=cuda)
+    tokens = torch.randint(0, 128, (8, 17), generator=gen, device=cuda)
+    (loss, grads), (ref, ref_grads), took = _grads_on_both_paths(
+        lambda p: clip.clip_loss(p, images, tokens, cfg)[0], params)
+    _hold_step_parity(dtype, loss, grads, ref, ref_grads, took)
+
+
+def test_mamba2_gradients_are_finite_at_chunk_256(cuda):
+    """32 heads (A = -1..-32) and chunk 256 over 256 tokens: where the JAX
+    reference's decay square overflows and its gradients turn NaN, the
+    port's are finite on the card, and its fp32 forward is the CPU's."""
+    from kfunca_tpu_torch.models import mamba2
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = mamba2.Mamba2Config(vocab_size=64, d_model=64, n_layers=1,
+                              n_heads=32, head_dim=4, d_state=16,
+                              chunk_size=256, dtype="float32")
+    params = mamba2.init_mamba2_params(1, cfg, device=cuda)
+    tokens = torch.randint(0, 64, (2, 256), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(3))
+    loss, _, grads = train.value_and_grad_aux(
+        lambda p: (mamba2.loss_fn(p, tokens[:, :-1], tokens[:, 1:], cfg),
+                   None), params)
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in tree_leaves(grads))
+    cpu = [t.cpu() for t in tree_leaves(params)]
+    from kfunca_tpu_torch.utils.tree import tree_unflatten
+
+    want = mamba2.forward(tree_unflatten(params, cpu), tokens.cpu(), cfg)
+    got = mamba2.forward(params, tokens, cfg).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * max(
+        1.0, float(want.abs().max()))

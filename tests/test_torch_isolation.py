@@ -17,6 +17,7 @@ from kfunca_tpu_torch.models import (
     data, eval as evaluation, generate, serve, train, trainer, transformer,
     weights)
 from kfunca_tpu_torch.runtime import backend
+from kfunca_tpu_torch.utils.tree import tree_leaves
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "kfunca_tpu_torch"
@@ -62,7 +63,9 @@ def test_importing_the_port_loads_no_jax():
         "             'models.speculative', 'parallel.mesh',",
         "             'parallel.collectives', 'parallel.multihost',",
         "             'models.mla', 'models.mla_serve', 'models.lora',",
-        "             'models.dpo', 'models.rlhf', 'models.distill'):",
+        "             'models.dpo', 'models.rlhf', 'models.distill',",
+        "             'models.mamba2', 'models.vision', 'models.encoder',",
+        "             'models.hf_vision', 'models.clip', 'models.dit'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -156,18 +159,30 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
         backend.resolve_device("meta")
 
 
-def test_checkpoint_loader_imports_neither_transformers_nor_safetensors():
-    """from_hf reads a checkpoint directory with the port's own readers:
-    loading the golden checkpoints in a fresh interpreter leaves no
+def test_checkpoint_loader_imports_neither_transformers_nor_safetensors(
+        tmp_path):
+    """from_hf, from_hf_mamba, from_hf_mamba2, from_hf_bert and from_hf_vit
+    read a checkpoint directory with the port's own readers: loading the
+    golden checkpoints and one-layer checkpoints of the four families (in
+    their HF layouts, written here) in a fresh interpreter leaves no
     transformers or safetensors module behind, and no module of the slice
     names them (or JAX) in its source."""
+    from kfunca_tpu_torch.models import hf as thf
+
+    dirs = {k: str(v) for k, v in _family_checkpoints(tmp_path).items()}
     code = "\n".join([
         "import sys",
-        "from kfunca_tpu_torch.models import (api_server, hf, speculative,",
-        "                                     tokenizer)",
+        "from kfunca_tpu_torch.models import (api_server, encoder, hf,",
+        "                                     hf_vision, mamba, mamba2,",
+        "                                     speculative, tokenizer)",
         "for name in ('llama', 'gpt2'):",
         "    params, cfg = hf.from_hf(f'tests/fixtures/golden_{name}',",
         "                             dtype='float32', device='cpu')",
+        f"dirs = {dirs!r}",
+        "mamba.from_hf_mamba(dirs['mamba'], device='cpu')",
+        "mamba2.from_hf_mamba2(dirs['mamba2'], device='cpu')",
+        "encoder.from_hf_bert(dirs['bert'], device='cpu')",
+        "hf_vision.from_hf_vit(dirs['vit'], device='cpu')",
         "print(sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('transformers', 'safetensors', 'jax', 'kfunca_tpu')))",
     ])
@@ -175,10 +190,233 @@ def test_checkpoint_loader_imports_neither_transformers_nor_safetensors():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    for name in ("hf", "tokenizer", "api_server", "speculative"):
+    assert thf.is_checkpoint_path(tmp_path) and not thf.is_checkpoint_path(
+        object())
+    for name in ("hf", "tokenizer", "api_server", "speculative", "mamba",
+                 "mamba2", "encoder", "hf_vision"):
         mods = set(_imports(PORT / "models" / f"{name}.py"))
         assert not {m for m in mods if m.split(".")[0] in (
             "transformers", "safetensors", "jax", "kfunca_tpu")}, name
+
+
+def _write_checkpoint(path, config: dict, tensors: dict):
+    """config.json and a model.safetensors of fp32 tensors, written with
+    the file format's own layout (an 8-byte header length, a JSON header,
+    the raw bytes)."""
+    import json
+
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps(config))
+    header, blobs, off = {}, [], 0
+    for name, arr in tensors.items():
+        arr = np.ascontiguousarray(arr, np.float32)
+        header[name] = {"dtype": "F32", "shape": list(arr.shape),
+                        "data_offsets": [off, off + arr.nbytes]}
+        blobs.append(arr.tobytes())
+        off += arr.nbytes
+    head = json.dumps(header).encode()
+    with open(path / "model.safetensors", "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+    return path
+
+
+def _family_checkpoints(tmp_path) -> dict:
+    """One-layer checkpoints of the four families in their HF layouts."""
+    rng = np.random.default_rng(0)
+
+    def r(*shape):
+        return rng.normal(0, 0.1, shape).astype(np.float32)
+
+    d, v = 8, 16
+    out = {}
+    m = "backbone.layers.0.mixer."
+    out["mamba"] = _write_checkpoint(
+        tmp_path / "mamba",
+        dict(model_type="mamba", vocab_size=v, hidden_size=d,
+             num_hidden_layers=1, state_size=4, time_step_rank=2),
+        {"backbone.embeddings.weight": r(v, d),
+         "backbone.norm_f.weight": r(d),
+         "backbone.layers.0.norm.weight": r(d),
+         m + "in_proj.weight": r(32, d), m + "conv1d.weight": r(16, 1, 4),
+         m + "conv1d.bias": r(16), m + "x_proj.weight": r(10, 16),
+         m + "dt_proj.weight": r(16, 2), m + "dt_proj.bias": r(16),
+         m + "A_log": r(16, 4), m + "D": r(16), m + "out_proj.weight": r(d, 16)})
+    conv = 16 + 2 * 4  # d_inner + 2 * groups * state
+    out["mamba2"] = _write_checkpoint(
+        tmp_path / "mamba2",
+        dict(model_type="mamba2", vocab_size=v, hidden_size=d,
+             num_hidden_layers=1, num_heads=2, head_dim=8, state_size=4,
+             n_groups=1, chunk_size=4),
+        {"backbone.embeddings.weight": r(v, d),
+         "backbone.norm_f.weight": r(d),
+         "backbone.layers.0.norm.weight": r(d),
+         m + "in_proj.weight": r(16 + conv + 2, d),
+         m + "conv1d.weight": r(conv, 1, 4), m + "conv1d.bias": r(conv),
+         m + "dt_bias": r(2), m + "A_log": r(2), m + "D": r(2),
+         m + "norm.weight": r(16), m + "out_proj.weight": r(d, 16)})
+    enc = {}
+    for n in ("query", "key", "value"):
+        enc[f"attention.self.{n}"] = (d, d)
+    enc.update({"attention.output.dense": (d, d), "intermediate.dense": (16, d),
+                "output.dense": (d, 16)})
+    bert = {"embeddings.word_embeddings.weight": r(v, d),
+            "embeddings.position_embeddings.weight": r(8, d),
+            "embeddings.token_type_embeddings.weight": r(2, d),
+            "embeddings.LayerNorm.weight": r(d),
+            "embeddings.LayerNorm.bias": r(d)}
+    for k, shape in enc.items():
+        bert[f"encoder.layer.0.{k}.weight"] = r(*shape)
+        bert[f"encoder.layer.0.{k}.bias"] = r(shape[0])
+    for k in ("attention.output.LayerNorm", "output.LayerNorm"):
+        bert[f"encoder.layer.0.{k}.weight"] = r(d)
+        bert[f"encoder.layer.0.{k}.bias"] = r(d)
+    out["bert"] = _write_checkpoint(
+        tmp_path / "bert",
+        dict(model_type="bert", vocab_size=v, hidden_size=d,
+             num_hidden_layers=1, num_attention_heads=2,
+             intermediate_size=16, max_position_embeddings=8), bert)
+    vit = {"embeddings.patch_embeddings.projection.weight": r(d, 3, 4, 4),
+           "embeddings.patch_embeddings.projection.bias": r(d),
+           "embeddings.cls_token": r(1, 1, d),
+           "embeddings.position_embeddings": r(1, 5, d),
+           "layernorm.weight": r(d), "layernorm.bias": r(d)}
+    for k, shape in enc.items():
+        k = k.replace("attention.self", "attention.attention")
+        vit[f"encoder.layer.0.{k}.weight"] = r(*shape)
+        vit[f"encoder.layer.0.{k}.bias"] = r(shape[0])
+    for k in ("layernorm_before", "layernorm_after"):
+        vit[f"encoder.layer.0.{k}.weight"] = r(d)
+        vit[f"encoder.layer.0.{k}.bias"] = r(d)
+    out["vit"] = _write_checkpoint(
+        tmp_path / "vit",
+        dict(model_type="vit", hidden_size=d, num_hidden_layers=1,
+             num_attention_heads=2, intermediate_size=16, image_size=8,
+             patch_size=4), vit)
+    return out
+
+
+def test_from_hf_mamba_reads_a_directory_as_the_model(tmp_path):
+    """The directory a MambaForCausalLM saves gives the params of the
+    model instance itself."""
+    transformers = pytest.importorskip("transformers")
+    from kfunca_tpu_torch.models import mamba
+
+    torch.manual_seed(0)
+    model = transformers.MambaForCausalLM(transformers.MambaConfig(
+        vocab_size=64, hidden_size=16, num_hidden_layers=2, state_size=4,
+        expand=2, conv_kernel=4)).eval()
+    model.save_pretrained(tmp_path)
+    a, ca = mamba.from_hf_mamba(tmp_path, dtype="float32", device="cpu")
+    b, cb = mamba.from_hf_mamba(model, dtype="float32", device="cpu")
+    assert ca == cb
+    assert a.keys() == b.keys() and len(a["layers"]) == 2
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y)
+
+
+def test_the_vision_family_slice_loads_no_jax():
+    """models/mamba2.py, vision.py, encoder.py, hf_vision.py, clip.py and
+    dit.py, imported alone in a fresh interpreter, load no jax, jaxlib or
+    kfunca_tpu module (nor transformers), and name none in their source."""
+    names = ("mamba2", "vision", "encoder", "hf_vision", "clip", "dit")
+    code = ("import sys; "
+            + "; ".join(f"import kfunca_tpu_torch.models.{n}" for n in names)
+            + "; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu', "
+            "'transformers')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    for name in names:
+        assert not [m for m in _imports(PORT / "models" / f"{name}.py")
+                    if m and (_foreign(m) or m.startswith("transformers"))]
+
+
+def test_vision_family_entry_points_refuse_the_cpu_unless_asked(
+        monkeypatch, tmp_path):
+    """The inits, the train steps, ddim_sample, the from_hf_* loaders and
+    the converters take the card by default and raise without one; asked
+    for the CPU each runs (generate where its params live)."""
+    from kfunca_tpu_torch.models import (clip, dit, encoder, hf_vision,
+                                         mamba2, vision)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dirs = _family_checkpoints(tmp_path)
+    m2 = mamba2.Mamba2Config(vocab_size=32, d_model=8, n_layers=1,
+                             n_heads=2, head_dim=8, d_state=4,
+                             chunk_size=4, dtype="float32")
+    vit = vision.ViTConfig(image_size=8, patch_size=4, d_model=8, n_heads=2,
+                           n_layers=1, d_ff=16, dtype="float32")
+    text = transformer.TransformerConfig(vocab_size=32, d_model=8, n_heads=2,
+                                         n_layers=1, d_ff=16, max_seq_len=16,
+                                         dtype="float32")
+    mm = vision.MultimodalConfig(vit=vit, text=text)
+    cc = clip.ClipConfig(vit=vit, text=text, embed_dim=4)
+    enc = encoder.EncoderConfig(vocab_size=32, d_model=8, n_heads=2,
+                                n_layers=1, d_ff=16, max_seq_len=8,
+                                dtype="float32")
+    bert = encoder.EncoderConfig(vocab_size=32, d_model=8, n_heads=2,
+                                 n_layers=1, d_ff=16, max_seq_len=8,
+                                 dtype="float32", arch="bert", type_vocab=2)
+    dc = dit.DiTConfig(image_size=4, patch_size=2, channels=2, d_model=8,
+                       n_heads=2, n_layers=1, d_ff=16, n_classes=3,
+                       timesteps=10, dtype="float32")
+    dp = dit.init_dit_params(0, dc, device="cpu")
+    for call in (lambda: mamba2.init_mamba2_params(0, m2),
+                 lambda: mamba2.init_mamba2_state(m2, 1),
+                 lambda: mamba2.make_mamba2_train_step(m2),
+                 lambda: mamba2.from_hf_mamba2(dirs["mamba2"]),
+                 lambda: vision.init_vit_params(0, vit),
+                 lambda: vision.init_multimodal_params(0, mm),
+                 lambda: encoder.init_encoder_params(0, enc),
+                 lambda: encoder.init_encoder_params(0, bert),
+                 lambda: encoder.make_mlm_train_step(enc),
+                 lambda: encoder.from_hf_bert(dirs["bert"]),
+                 lambda: hf_vision.from_hf_vit(dirs["vit"]),
+                 lambda: clip.init_clip_params(0, cc),
+                 lambda: clip.make_clip_train_step(cc),
+                 lambda: dit.init_dit_params(0, dc),
+                 lambda: dit.make_dit_train_step(dc),
+                 lambda: dit.alphas_bar(dc),
+                 lambda: dit.ddim_sample(dp, torch.Generator(), [0], dc, 2),
+                 lambda: weights.dit_params_from_jax(
+                     weights.tree_to_numpy(dp), dc)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    cpu = torch.Generator()
+    tok = np.zeros((2, 8), np.int32)
+    p = mamba2.init_mamba2_params(0, m2, device="cpu")
+    mamba2.make_mamba2_train_step(m2, device="cpu")(
+        p, train.init_opt_state(p, device="cpu"), tok, tok)
+    assert mamba2.generate(p, torch.zeros((1, 3), dtype=torch.int64), m2,
+                           2).shape == (1, 2)
+    for cfg in (enc, bert):
+        p = encoder.init_encoder_params(0, cfg, device="cpu")
+        encoder.make_mlm_train_step(cfg, device="cpu")(
+            p, train.init_opt_state(p, device="cpu"), cpu, tok)
+    images = np.zeros((2, 8, 8, 3), np.float32)
+    p = clip.init_clip_params(0, cc, device="cpu")
+    _, _, m = clip.make_clip_train_step(cc, device="cpu")(
+        p, train.init_opt_state(p, device="cpu"), images, tok)
+    assert np.isfinite(float(m["loss"]))
+    p = vision.init_multimodal_params(0, mm, device="cpu")
+    assert vision.multimodal_forward(p, torch.from_numpy(images),
+                                     torch.from_numpy(tok), mm).shape == (
+        2, 8, 32)
+    dit.make_dit_train_step(dc, device="cpu")(
+        dp, train.init_opt_state(dp, device="cpu"), cpu,
+        np.zeros((2, 4, 4, 2), np.float32), np.zeros(2, np.int64))
+    assert dit.ddim_sample(dp, cpu, [0, 1], dc, 2, 2.0, device="cpu").shape \
+        == (2, 4, 4, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="generator"):
+        dit.ddim_sample(dp, cpu, [0], dc, 2, device="cuda:0")
+    for load, name in ((mamba2.from_hf_mamba2, "mamba2"),
+                       (encoder.from_hf_bert, "bert"),
+                       (hf_vision.from_hf_vit, "vit")):
+        params, _ = load(dirs[name], device="cpu")
+        assert {t.device.type for t in tree_leaves(params)} == {"cpu"}
 
 
 def test_slice_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
