@@ -14,7 +14,8 @@ phases 51-55 (pipeline, zero-bubble and expert parallelism), `python3
 chip_smoke.py --moe-mla` phases 56-60 (the flagship's MoE and MLA blocks),
 `python3 chip_smoke.py --lora` phases 61-65 (the finetuning stack) and
 `python3 chip_smoke.py --families` phases 66-70 (Mamba-2 and the vision
-family).
+family) and `python3 chip_smoke.py --seq2seq` phases 71-75 (F1's sharded
+MLA decode, T5, the audio frontend and Whisper).
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
@@ -363,7 +364,30 @@ Phases (any failure raises and the script exits non-zero):
      512 ragged tokens, padded keys changing no valid position;
      hf_vit_encode over 64 images), and 6 MLM steps at bert-base widths;
      then K1 and K2 against their plain versions and timed at the
-     multimodal and CLIP text shapes (`families_phases`).
+     multimodal and CLIP text shapes (`families_phases`);
+ 71. DeepSeek-V3's MLA widths, its first two (dense) layers, decoding over
+     LocalMesh(1, 2): generate's tokens those of the single device in fp32
+     activations, the bf16 log-probs of the same forced tokens within 2^-7
+     x max(1, |lp|) (`seq2seq_phases` from here; these phases run no hand
+     kernel);
+ 72. T5 at google/flan-t5-large widths, all 24 + 24 layers: 3 AdamW steps
+     at 8 x 512 encoder tokens / 128 labels (loss finite and falling),
+     t5_generate of 64 tokens at B 8, the tokens (fp32, 4 + 4 layers) the
+     argmax of the teacher-forced forward; the card's relative-position
+     buckets the CPU's for every offset in +-8 x 128;
+ 73. T5 at t5-base widths (relu, tied head), 12 + 12 layers: a forward and
+     t5_generate; the tp = 2 forward at 4 + 4 layers within 1e-4 x max(1,
+     max |ref|) of the single device's in fp32;
+ 74. whisper_features of 4 seeded 30 s clips at 16 kHz, 128 mels: the
+     card's (cuFFT) within 1e-4 of the CPU's;
+ 75. Whisper at openai/whisper-large-v3 widths, all 32 + 32 layers: 3
+     AdamW steps at 2 x 3000 frames x 128 labels; whisper_generate from
+     phase 74's features behind the published forced prompt; the tp = 2
+     forward at 4 + 4 layers within 1e-4 x max(1, max |ref|) in fp32, and
+     there (q, k and the decoder positions scaled up, so that the tokens
+     vary) the cached tokens behind the prompt the argmax of the
+     teacher-forced forward.
+`python3 chip_smoke.py --seq2seq` runs phases 71-75 alone.
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -7645,6 +7669,10 @@ DIT_XL2 = dict(image_size=32, patch_size=2, channels=4, d_model=1152,
                n_heads=16, n_layers=28, d_ff=4608, n_classes=1000,
                timesteps=1000, dtype="bfloat16")
 DIT_BATCH = 32
+# the card's free-running DDIM distance from the CPU's, in multiples of the
+# CPU run's own move under a one-ulp nudge of every weight (an H100 read
+# 2.58e-4 against 2.46e-4)
+DDIM_SPREADS = 4.0
 # bert-base-uncased and google/vit-base-patch16-224 (config.json)
 BERT_BASE = dict(vocab_size=30522, d_model=768, n_heads=12, n_layers=12,
                  d_ff=3072, max_seq_len=512, arch="bert", type_vocab=2,
@@ -8112,11 +8140,14 @@ def dit_phase(card) -> dict:
     err = float((free - traj[-1]).abs().max())
     spread = float((nudged - traj[-1]).abs().max())
     check(bool(torch.isfinite(free).all()), "the card's DDIM run is finite")
+    check(0.0 < spread and err <= DDIM_SPREADS * spread,
+          f"the card's free-running DDIM within {DDIM_SPREADS} x the CPU "
+          f"run's one-ulp spread ({err:.3g} against {spread:.3g})")
     print(f"[69] fp32, 2 layers, 10 DDIM steps at guidance 4 from the same "
           f"noise: each step on the card within {forced:.3g} x max(1, max "
           f"|ref|) of the CPU's from the same x; run free, the card ends "
           f"{err:.3g} from the CPU, which moves {spread:.3g} when every "
-          f"weight moves one ulp", flush=True)
+          f"weight moves one ulp (held within {DDIM_SPREADS:g}x)", flush=True)
     del p32
     free_device_memory()
     return dict(ms=ms, peak_gb=peak_gb, ddim_ms=1e3 * ddim_s / 50)
@@ -8363,6 +8394,435 @@ def families_phases(card) -> list:
     return entries
 
 
+# -- phases 71-75: F1's sharded MLA decode, T5, audio, Whisper -----------------
+
+# google/flan-t5-large (huggingface.co/google/flan-t5-large config.json):
+# d_model 1024, 16 heads of d_kv 64, d_ff 2816, 24 + 24 layers, vocab
+# 32128, feed_forward_proj gated-gelu, untied lm_head, layer_norm_epsilon
+# 1e-6, 32 relative buckets, max_distance 128
+FLAN_T5_LARGE = dict(vocab_size=32128, d_model=1024, n_heads=16, d_kv=64,
+                     d_ff=2816, n_enc_layers=24, n_dec_layers=24,
+                     norm_eps=1e-6, rel_buckets=32, rel_max_distance=128,
+                     mlp_type="gated-gelu", tied_head=False,
+                     dtype="bfloat16")
+# t5-base (huggingface.co/google-t5/t5-base config.json): d_model 768, 12
+# heads of 64, d_ff 3072, 12 + 12 layers, vocab 32128, relu, tied head
+T5_BASE = dict(vocab_size=32128, d_model=768, n_heads=12, d_kv=64, d_ff=3072,
+               n_enc_layers=12, n_dec_layers=12, norm_eps=1e-6,
+               mlp_type="relu", tied_head=True, dtype="bfloat16")
+# openai/whisper-large-v3 (huggingface.co/openai/whisper-large-v3
+# config.json): d_model 1280, 20 heads, 32 + 32 layers, ffn 5120, 128 mel
+# bins, vocab 51866, 1500 source and 448 target positions,
+# decoder_start_token_id 50258, eos_token_id 50257
+WHISPER_LARGE_V3 = dict(vocab_size=51866, n_mels=128, d_model=1280,
+                        n_heads=20, n_enc_layers=32, n_dec_layers=32,
+                        d_ff=5120, max_source_positions=1500,
+                        max_target_positions=448, dtype="bfloat16",
+                        decoder_start_id=50258, eos_id=50257)
+# its generation_config's forced prompt after <|startoftranscript|>
+# (50258, the decoder start): <|en|>, <|transcribe|>, <|notimestamps|>
+WHISPER_PROMPT = [50259, 50360, 50364]
+T5_BATCH, T5_SRC, T5_TGT, T5_NEW = 8, 512, 128, 64
+WHISPER_BATCH, WHISPER_LABELS, WHISPER_NEW = 2, 128, 32
+AUDIO_CLIPS, AUDIO_SECONDS = 4, 30
+TP_LAYERS = 4  # depth of the tp = 2 forward checks
+MLA_TP_PROMPT, MLA_TP_NEW = 64, 16
+SEQ2SEQ_TOL = 1e-4  # fp32 tp forward against the single device
+AUDIO_TOL = 1e-4  # cuFFT against pocketfft, log-mel units
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def forced_logprobs(params, cfg, prompt, forced):
+    """Log-probs of each forced token: prefill of the prompt, then one
+    cached decode step a forced token (generate.forward_with_cache)."""
+    from kfunca_tpu_torch.models import generate as gen
+
+    cache = gen.new_cache(params, cfg, prompt.shape[0],
+                          prompt.shape[1] + forced.shape[1], "cuda")
+    with torch.no_grad():
+        logits, cache = gen.forward_with_cache(params, prompt, cache, 0, cfg)
+        out = []
+        for i in range(forced.shape[1]):
+            lp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+            out.append(lp.gather(-1, forced[:, i:i + 1].long())[:, 0])
+            logits, cache = gen.forward_with_cache(
+                params, forced[:, i:i + 1], cache, prompt.shape[1] + i, cfg)
+    return torch.stack(out, dim=1)
+
+
+def mla_tp_decode_phase(card) -> dict:
+    """Phase 71: F1 on the card, sharded MLA decode at DeepSeek-V3's widths
+    (its first two layers, dense by first_k_dense_replace 3)."""
+    from kfunca_tpu_torch.models.generate import generate
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh, shard_params
+
+    cfg = TransformerConfig(**{**DEEPSEEK_V3, "n_layers": 2})
+    params = mistral_params(cfg, SEED + 71, torch.bfloat16)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    mesh = LocalMesh(1, 2, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    prompt = torch.randint(0, cfg.vocab_size, (2, MLA_TP_PROMPT),
+                           generator=gen, device="cuda")
+    print(f"[71] sharded MLA decode (F1) at DeepSeek-V3 widths, 2 dense "
+          f"layers, bf16 weights, LocalMesh(1, 2): B 2, prompt "
+          f"{MLA_TP_PROMPT}, {MLA_TP_NEW} new tokens; phases 71-75 run no "
+          f"hand kernel (T5, Whisper and the audio frontend leave attention, "
+          f"convs and FFTs to torch, as the JAX package leaves them to "
+          f"XLA), so the kernels line lists the earlier phases' kernels",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = {}, {}
+    for label, p in (("single", params),
+                     ("tp2", shard_params(params, mesh, cfg=f32))):
+        if label == "tp2":
+            check(p.attn_split, "the MLA heads split over tp = 2")
+        generate(p, prompt[:, :8], f32, 2)  # warm: cuBLAS's first calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[label] = generate(p, prompt, f32, MLA_TP_NEW)
+        torch.cuda.synchronize()
+        ms[label] = 1e3 * (time.perf_counter() - t0) / MLA_TP_NEW
+    first = min(first_difference(a.tolist(), b.tolist())
+                for a, b in zip(out["single"], out["tp2"]))
+    check(torch.equal(out["single"], out["tp2"]), f"fp32: the tp = 2 tokens "
+          f"are the single device's (first difference at {first})")
+    del p
+    forced = out["single"]
+    lps = {label: forced_logprobs(p, cfg, prompt, forced) for label, p in (
+        ("single", params), ("tp2", shard_params(params, mesh, cfg=cfg)))}
+    gap = float(((lps["tp2"] - lps["single"]).abs()
+                 / lps["single"].abs().clamp_min(1.0)).max())
+    check(gap <= 2.0 ** -7, f"bf16: forced log-probs over tp = 2 within "
+          f"2^-7 x max(1, |lp|) of the single device's ({gap:.3g})")
+    print(f"[71] fp32 tokens equal over tp = 2 ({MLA_TP_NEW} x 2); bf16 "
+          f"forced log-probs within {gap:.3g} x max(1, |lp|) (prefill and "
+          f"{MLA_TP_NEW} decode steps); generate fp32 {ms['single']:.1f} ms a "
+          f"token step single, {ms['tp2']:.1f} tp = 2 (prefill included, "
+          f"host clock), {2 * 1e3 / ms['tp2']:.1f} tokens/s over tp; peak "
+          f"{peak_gb():.2f} GB; {card}", flush=True)
+    del params
+    free_device_memory()
+    return dict(ms_single=ms["single"], ms_tp2=ms["tp2"], lp_gap=gap)
+
+
+def t5_batch(cfg, gen, batch, src, tgt):
+    enc = torch.randint(2, cfg.vocab_size, (batch, src), generator=gen,
+                        device="cuda")
+    labels = torch.randint(2, cfg.vocab_size, (batch, tgt), generator=gen,
+                           device="cuda")
+    return enc, labels
+
+
+def timed_train_steps(step, params, opt, args, steps=3):
+    """(params, opt, losses, seconds a step) of `steps` steps on the same
+    batch: on a fixed batch the loss of a working step falls."""
+    losses, seconds = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, *args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the losses are finite and fall ({losses})")
+    return params, opt, losses, seconds
+
+
+def bucket_table_phase():
+    """The card's buckets against the CPU's, every offset in +-8 x 128."""
+    from kfunca_tpu_torch.models.t5 import relative_position_bucket
+
+    rel = torch.arange(-8 * 128, 8 * 128 + 1, dtype=torch.int32)
+    for bidirectional in (True, False):
+        for buckets, distance in ((32, 128), (16, 128), (32, 64)):
+            cpu = relative_position_bucket(rel, bidirectional, buckets,
+                                           distance)
+            card = relative_position_bucket(rel.cuda(), bidirectional,
+                                            buckets, distance).cpu()
+            check(torch.equal(cpu, card), f"the card's buckets are the "
+                  f"CPU's ({buckets}, {distance}, bidirectional "
+                  f"{bidirectional})")
+
+
+def teacher_forced_check(label, forward, params, cfg, src, prefix, toks):
+    """Each generated token the argmax of the uncached forward over the
+    decoder's prefix (the start token, then any forced prompt) and the
+    generated tokens before it."""
+    with torch.no_grad():
+        logits = forward(params, src, torch.cat(
+            [prefix, toks[:, :-1].to(prefix.dtype)], 1), cfg)
+    got = logits[:, prefix.shape[1] - 1:].argmax(-1).int()
+    first = min(first_difference(g.tolist(), t.tolist())
+                for g, t in zip(got, toks))
+    check(torch.equal(got, toks), f"{label}, fp32: the cached tokens are "
+          f"the teacher-forced argmax (first difference at {first} of "
+          f"{toks.shape[1]})")
+    return int(toks.unique().numel())
+
+
+def t5_large_phase(card) -> dict:
+    """Phase 72: T5 at flan-t5-large widths, full depth."""
+    from kfunca_tpu_torch.models import t5
+    from kfunca_tpu_torch.models.train import OptConfig, init_opt_state
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = t5.T5Config(**FLAN_T5_LARGE)
+    params = t5.init_t5_params(SEED + 72, cfg, device="cuda")
+    n = sum(p.numel() for p in tree_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    enc, labels = t5_batch(cfg, gen, T5_BATCH, T5_SRC, T5_TGT)
+    oc = OptConfig(lr=1e-4)
+    opt = init_opt_state(params, oc)
+    print(f"[72] T5 at google/flan-t5-large widths, {cfg.n_enc_layers} + "
+          f"{cfg.n_dec_layers} layers "
+          f"({n / 1e6:.1f} M parameters), bf16 activations, AdamW on "
+          f"{T5_BATCH} x {T5_SRC} encoder tokens / {T5_TGT} labels",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, seconds = timed_train_steps(
+        t5.make_t5_train_step(cfg, oc), params, opt, (enc, labels))
+    train_gb = peak_gb()
+    step_ms = 1e3 * float(np.mean(seconds[1:]))
+    tok_s = T5_BATCH * (T5_SRC + T5_TGT) / step_ms * 1e3
+    del opt
+    free_device_memory()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = t5.t5_generate(params, enc, cfg, T5_NEW, eos_id=-1)
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t0) / T5_NEW
+    check(toks.shape == (T5_BATCH, T5_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        "t5_generate's tokens lie in the vocabulary")
+    print(f"[72] {step_ms:.1f} ms/step (host clock, steps 2-3), "
+          f"{tok_s:.0f} tokens/s, peak {train_gb:.2f} GB, losses "
+          f"{[round(x, 4) for x in losses]}; t5_generate {T5_NEW} tokens at "
+          f"B {T5_BATCH}: {gen_ms:.1f} ms a token (encoder included), "
+          f"{T5_BATCH * 1e3 / gen_ms:.0f} tokens/s; {card}", flush=True)
+    # fp32, 4 + 4 of the same layers: the cached tokens against the
+    # teacher-forced forward
+    c4 = dataclasses.replace(cfg, dtype="float32", n_enc_layers=4,
+                             n_dec_layers=4)
+    p4 = {**params, "encoder": params["encoder"][:4],
+          "decoder": params["decoder"][:4]}
+    toks = t5.t5_generate(p4, enc, c4, T5_NEW, eos_id=-1)
+    start = torch.full((enc.shape[0], 1), c4.decoder_start_id,
+                       device="cuda")
+    distinct = teacher_forced_check("t5", t5.t5_forward, p4, c4, enc, start,
+                                    toks)
+    bucket_table_phase()
+    print(f"[72] fp32 at 4 + 4 layers: {T5_BATCH} x {T5_NEW} cached tokens "
+          f"the teacher-forced argmax ({distinct} distinct tokens); the "
+          f"card's buckets the CPU's for every "
+          f"offset in +-1024 at (32, 128), (16, 128), (32, 64), both "
+          f"directions", flush=True)
+    del params, p4
+    free_device_memory()
+    return dict(step_ms=step_ms, tok_s=tok_s, peak_gb=train_gb,
+                gen_ms=gen_ms)
+
+
+def tp_forward_check(label, forward, shard, params, cfg, args):
+    """The forward over LocalMesh(1, 2) against the single device's, fp32,
+    within SEQ2SEQ_TOL x max(1, max |ref|)."""
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh
+
+    with torch.no_grad():
+        ref = forward(params, *args, cfg)
+        got = forward(shard(params, LocalMesh(1, 2, "cuda"), cfg), *args,
+                      cfg)
+    err = float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+    check(err <= SEQ2SEQ_TOL, f"{label}: the tp = 2 forward within "
+          f"{SEQ2SEQ_TOL} x max(1, max |ref|) of the single device's "
+          f"({err:.3g})")
+    return err
+
+
+def t5_base_phase(card) -> dict:
+    """Phase 73: T5 at t5-base widths (relu, tied head)."""
+    from kfunca_tpu_torch.models import t5
+
+    cfg = t5.T5Config(**T5_BASE)
+    params = t5.init_t5_params(SEED + 73, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 73)
+    enc, dec = t5_batch(cfg, gen, T5_BATCH, T5_SRC, T5_TGT)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd_ms = sync_ms(lambda: t5.t5_forward(params, enc, dec, cfg))
+        logits = t5.t5_forward(params, enc, dec, cfg)
+    check(bool(torch.isfinite(logits).all()), "the t5-base logits are "
+          "finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = t5.t5_generate(params, enc, cfg, 32, eos_id=-1)
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t0) / 32
+    check(toks.shape == (T5_BATCH, 32), "t5_generate's shape")
+    c4 = dataclasses.replace(cfg, dtype="float32", n_enc_layers=TP_LAYERS,
+                             n_dec_layers=TP_LAYERS)
+    p4 = {**params, "encoder": params["encoder"][:TP_LAYERS],
+          "decoder": params["decoder"][:TP_LAYERS]}
+    err = tp_forward_check("t5-base", t5.t5_forward, t5.shard_t5_params, p4,
+                           c4, (enc[:2], dec[:2]))
+    print(f"[73] T5 at t5-base widths (relu, tied head), {cfg.n_enc_layers}"
+          f" + {cfg.n_dec_layers} layers, "
+          f"bf16: forward of {T5_BATCH} x {T5_SRC} / {T5_TGT} in "
+          f"{fwd_ms:.1f} ms ({T5_BATCH * (T5_SRC + T5_TGT) / fwd_ms * 1e3:.0f}"
+          f" tokens/s, host clock), t5_generate {gen_ms:.1f} ms a token at B "
+          f"{T5_BATCH}; fp32 tp = 2 forward at {TP_LAYERS} + {TP_LAYERS} "
+          f"layers within {err:.3g} x max(1, max |ref|); peak "
+          f"{peak_gb():.2f} GB; {card}", flush=True)
+    del params, p4
+    free_device_memory()
+    return dict(fwd_ms=fwd_ms, gen_ms=gen_ms, tp_err=err)
+
+
+def audio_phase(card):
+    """Phase 74: whisper_features on the card against the CPU's."""
+    from kfunca_tpu_torch.models import audio
+    from kfunca_tpu_torch.models.whisper import WhisperConfig
+
+    cfg = WhisperConfig(**WHISPER_LARGE_V3)
+    rng = np.random.default_rng(SEED + 74)
+    wave = (rng.uniform(-1, 1, (AUDIO_CLIPS, AUDIO_SECONDS * 16000))
+            * 0.5).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    card_wave = torch.from_numpy(wave).cuda()
+    feats = audio.whisper_features(card_wave, cfg)
+    ms = sync_ms(lambda: audio.whisper_features(card_wave, cfg))
+    t0 = time.perf_counter()
+    cpu = audio.whisper_features(torch.from_numpy(wave), cfg)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    check(feats.shape == (AUDIO_CLIPS, 128, 3000), "whisper_features' shape")
+    err = float((feats.cpu() - cpu).abs().max())
+    check(err <= AUDIO_TOL, f"the card's log-mel features within "
+          f"{AUDIO_TOL} of the CPU's ({err:.3g})")
+    print(f"[74] whisper_features of {AUDIO_CLIPS} x {AUDIO_SECONDS} s at "
+          f"16 kHz, 128 mels: {ms:.2f} ms on the card (host clock; "
+          f"{AUDIO_CLIPS * AUDIO_SECONDS * 1e3 / ms:.0f} s of audio a "
+          f"second), {cpu_ms:.0f} ms on the host's CPU; worst difference "
+          f"{err:.3g} (cuFFT against pocketfft); peak {peak_gb():.2f} GB; "
+          f"{card}", flush=True)
+    return feats, dict(ms=ms, err=err)
+
+
+def whisper_phase(card, feats) -> dict:
+    """Phase 75: Whisper at whisper-large-v3 widths, full depth."""
+    from kfunca_tpu_torch.models import whisper
+    from kfunca_tpu_torch.models.train import OptConfig, init_opt_state
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = whisper.WhisperConfig(**WHISPER_LARGE_V3)
+    params = whisper.init_whisper_params(SEED + 75, cfg, device="cuda")
+    n = sum(p.numel() for p in tree_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 75)
+    labels = torch.randint(0, cfg.vocab_size,
+                           (WHISPER_BATCH, WHISPER_LABELS), generator=gen,
+                           device="cuda")
+    oc = OptConfig(lr=1e-4)
+    opt = init_opt_state(params, oc)
+    print(f"[75] Whisper at openai/whisper-large-v3 widths, "
+          f"{cfg.n_enc_layers} + {cfg.n_dec_layers} layers "
+          f"({n / 1e6:.1f} M parameters), bf16 activations, AdamW on "
+          f"{WHISPER_BATCH} x 3000 frames x {WHISPER_LABELS} labels",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, seconds = timed_train_steps(
+        whisper.make_whisper_train_step(cfg, oc), params, opt,
+        (feats[:WHISPER_BATCH], labels))
+    train_gb = peak_gb()
+    check(train_gb <= 70.0, f"the step's peak {train_gb:.1f} GB within 70")
+    step_ms = 1e3 * float(np.mean(seconds[1:]))
+    tok_s = WHISPER_BATCH * (1500 + WHISPER_LABELS) / step_ms * 1e3
+    del opt
+    free_device_memory()
+    prompt = torch.tensor([WHISPER_PROMPT] * feats.shape[0], device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = whisper.whisper_generate(params, feats, cfg, WHISPER_NEW, prompt)
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t0) / WHISPER_NEW
+    check(toks.shape == (feats.shape[0], WHISPER_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        "whisper_generate's tokens lie in the vocabulary")
+    c4 = dataclasses.replace(cfg, dtype="float32", n_enc_layers=TP_LAYERS,
+                             n_dec_layers=TP_LAYERS)
+    p4 = {**params, "encoder": params["encoder"][:TP_LAYERS],
+          "decoder": params["decoder"][:TP_LAYERS]}
+    err = tp_forward_check("whisper", whisper.whisper_forward,
+                           whisper.shard_whisper_params, p4, c4,
+                           (feats[:1], labels[:1, :16]))
+    # the cached decode (self-attention cache at prompt + i, cross K/V once,
+    # the forced prompt fed) against the teacher-forced forward; no EOS
+    # stop, so every position is the model's own argmax.  At the init's
+    # scales the decoder's queries are too small for attention to tell
+    # positions apart (every position reads the same mean of the encoder's
+    # values, and one token comes out throughout), so q and k are scaled
+    # 4x and the learned positions to std 0.5: each token then depends on
+    # the tokens before it
+    def sharp(a):
+        return {**a, "wq": a["wq"] * 4, "wk": a["wk"] * 4}
+
+    pt = {**p4, "dec_pos": p4["dec_pos"] * 25,
+          "decoder": [{**blk, "attn": sharp(blk["attn"]),
+                       "cross": sharp(blk["cross"])}
+                      for blk in p4["decoder"]]}
+    c4 = dataclasses.replace(c4, eos_id=-1)
+    toks = whisper.whisper_generate(pt, feats, c4, WHISPER_NEW, prompt)
+    prefix = torch.cat([torch.full((feats.shape[0], 1), c4.decoder_start_id,
+                                   device="cuda"), prompt], 1)
+    distinct = teacher_forced_check("whisper", whisper.whisper_forward, pt,
+                                    c4, feats, prefix, toks)
+    print(f"[75] {step_ms:.1f} ms/step (host clock, steps 2-3), "
+          f"{tok_s:.0f} tokens/s (encoder positions and labels), peak "
+          f"{train_gb:.2f} GB, losses {[round(x, 4) for x in losses]}; "
+          f"whisper_generate of {WHISPER_NEW} tokens at B {feats.shape[0]} "
+          f"after the forced prompt (50258 then {WHISPER_PROMPT}): "
+          f"{gen_ms:.1f} ms a token (encoder included), "
+          f"{feats.shape[0] * 1e3 / gen_ms:.0f} tokens/s; fp32 tp = 2 "
+          f"forward at {TP_LAYERS} + {TP_LAYERS} layers within {err:.3g} x "
+          f"max(1, max |ref|); fp32 at {TP_LAYERS} + {TP_LAYERS} layers: "
+          f"{feats.shape[0]} x {WHISPER_NEW} cached tokens the "
+          f"teacher-forced argmax ({distinct} distinct tokens); {card}",
+          flush=True)
+    del params, p4, pt
+    free_device_memory()
+    return dict(step_ms=step_ms, tok_s=tok_s, peak_gb=train_gb,
+                gen_ms=gen_ms, tp_err=err)
+
+
+def seq2seq_phases(card) -> dict:
+    """Phases 71-75; their readings (no kernel entry: they run none)."""
+    t0 = time.perf_counter()
+    out = {"mla_tp": mla_tp_decode_phase(card)}
+    out["t5_large"] = t5_large_phase(card)
+    out["t5_base"] = t5_base_phase(card)
+    feats, out["audio"] = audio_phase(card)
+    out["whisper"] = whisper_phase(card, feats)
+    del feats
+    free_device_memory()
+    print(f"[71-75] {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+class Laps:
+    """Prints each group of phases' seconds and the script's so far: the
+    whole script must end inside its time limit."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - self.last:.1f} s (script "
+              f"{now - self.start:.1f} s)", flush=True)
+        self.last = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8406,11 +8866,15 @@ def main() -> int:
         _kernels.build(["flash_attention"])
         print(json.dumps({"kernels": families_phases(card)}))
         return 0
+    if sys.argv[1:] == ["--seq2seq"]:  # phases 71-75 alone (no kernel)
+        print(json.dumps({"seq2seq": seq2seq_phases(card)}))
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
 
     t0 = time.perf_counter()
+    lap = Laps()
     built = _kernels.build()
     check(_native.get_lib() is not None, "the native core builds (g++)")
     print(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
@@ -8421,7 +8885,9 @@ def main() -> int:
             print(f"    {name}: {kernel}: {regs} registers, {spill} spill "
                   f"bytes")
 
+    lap("phase 2 (build)")
     k4, reference = serving_phases(card)
+    lap("phases 3-7")
     kernels = [k4]
     free_device_memory()
 
@@ -8446,6 +8912,7 @@ def main() -> int:
     end_to_end_fp32()
     free_device_memory()
     trainer_resume()
+    lap("phases 8-13")
 
     src = "kfunca_tpu_torch/csrc/flash_attention.cu"
     jax_src = "kfunca_tpu/ops/pallas_kernels/flash_attention.py"
@@ -8464,26 +8931,40 @@ def main() -> int:
         })
     free_device_memory()
     kernels += quant_phases(card, reference)
+    lap("phases 14-20")
     free_device_memory()
     kernels += eager_phases(card)
+    lap("phases 21-25")
     free_device_memory()
     kernels += ssm_phases(fa, card)
+    lap("phases 26-31")
     free_device_memory()
     kernels += runtime_phases(card)
+    lap("phases 32-36")
     free_device_memory()
     kernels += ring_phases(card)
+    lap("phases 37-40")
     free_device_memory()
     kernels += hf_phases(card)
+    lap("phases 41-46")
     free_device_memory()
     kernels += mesh_phases(card)
+    lap("phases 47-50")
     free_device_memory()
     pipeline_phases(card)
+    lap("phases 51-55")
     free_device_memory()
     kernels += moe_mla_phases(card)
+    lap("phases 56-60")
     free_device_memory()
     kernels += lora_phases(card)
+    lap("phases 61-65")
     free_device_memory()
     kernels += families_phases(card)
+    lap("phases 66-70")
+    free_device_memory()
+    seq2seq_phases(card)
+    lap("phases 71-75")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ decode loop is a Python loop.
 
 Under a mesh: forward_with_cache, generate and beam_search also take a
 parallel.mesh.ShardedParams, whose ranks each keep the cache of their own
-kv heads (new_cache); the logits come back gathered over tp.
+kv heads (new_cache; an MLA model's ranks each a latent cache, read by
+their own heads over the replicated latent); the logits come back
+gathered over tp.
 """
 
 from __future__ import annotations
@@ -187,13 +189,16 @@ def _tp_forward_with_cache(sp: ShardedParams, tokens, caches,
                                          device=tokens.device)
     xs = tp_embed(sp, top, [tokens] * n, cfg, positions=positions)
     lcfg = local_config(cfg, sp)
+    if cfg.attention == "mla":  # each rank's heads over the latent cache
+        from .mla import mla_cached_heads as cached_heads
+    else:
+        cached_heads = cached_attention_heads
     for li in range(len(sp.local[0]["blocks"])):
         ps = gathered(sp, [t["blocks"][li] for t in sp.local],
                       sp.shards["blocks"][li])
 
         def heads(i, y, p, li=li):
-            return cached_attention_heads(y, p, caches[i][li], start_pos,
-                                          lcfg)
+            return cached_heads(y, p, caches[i][li], start_pos, lcfg)
 
         xs = tp_block(xs, ps, cfg, sp, heads)
     xs = [apply_norm(x, p, "final_norm", cfg) for x, p in zip(xs, top)]

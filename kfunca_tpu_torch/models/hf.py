@@ -88,8 +88,9 @@ HF_CONFIG_DEFAULTS = {
                         first_k_dense_replace=3, tie_word_embeddings=False),
 }
 # The same for the families with loaders of their own (models/mamba.py,
-# mamba2.py, encoder.py, hf_vision.py): the keys their config readers
-# take a default for ("auto" is MambaConfig's derived dt rank).
+# mamba2.py, encoder.py, hf_vision.py, t5.py, whisper.py): the keys their
+# config readers take a default for ("auto" is MambaConfig's derived dt
+# rank).
 FAMILY_CONFIG_DEFAULTS = {
     "mamba": dict(state_size=16, conv_kernel=4, expand=2,
                   time_step_rank="auto", layer_norm_epsilon=1e-5),
@@ -100,6 +101,22 @@ FAMILY_CONFIG_DEFAULTS = {
                  type_vocab_size=2, layer_norm_eps=1e-12),
     "vit": dict(image_size=224, patch_size=16, num_channels=3,
                 hidden_act="gelu", layer_norm_eps=1e-12, qkv_bias=True),
+    # num_decoder_layers has no default of its own: absent, it is
+    # num_layers (models/t5.config_from_hf_t5)
+    "t5": dict(vocab_size=32128, d_model=512, d_kv=64, d_ff=2048,
+               num_layers=6, num_heads=8, relative_attention_num_buckets=32,
+               relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+               feed_forward_proj="relu", tie_word_embeddings=True,
+               pad_token_id=0, eos_token_id=1),
+    "whisper": dict(vocab_size=51865, num_mel_bins=80, d_model=384,
+                    encoder_layers=4, encoder_attention_heads=6,
+                    decoder_layers=4, decoder_attention_heads=6,
+                    encoder_ffn_dim=1536, decoder_ffn_dim=1536,
+                    max_source_positions=1500, max_target_positions=448,
+                    activation_function="gelu", scale_embedding=False,
+                    tie_word_embeddings=True, pad_token_id=50256,
+                    bos_token_id=50256, eos_token_id=50256,
+                    decoder_start_token_id=50257),
 }
 
 

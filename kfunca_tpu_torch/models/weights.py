@@ -399,3 +399,56 @@ def dit_params_from_jax(tree, cfg, device=None, dtype=None):
             "final_proj": (d, pd), "final_proj_b": (pd,),
             "blocks": [dict(blk) for _ in range(cfg.n_layers)]}
     return _converted(tree, want, device, dtype)
+
+
+def t5_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_t5_params or from_hf_t5 pytree -> the port's, every leaf
+    checked against the T5Config `cfg`."""
+    d, inner, f = cfg.d_model, cfg.inner_dim, cfg.d_ff
+    attn = {"wq": (d, inner), "wk": (d, inner), "wv": (d, inner),
+            "wo": (inner, d)}
+    mlp = ({"wi_0": (d, f), "wi_1": (d, f), "wo": (f, d)}
+           if cfg.mlp_type == "gated-gelu" else {"wi": (d, f), "wo": (f, d)})
+    want = {"embed": (cfg.vocab_size, d),
+            "enc_rel_bias": (cfg.rel_buckets, cfg.n_heads),
+            "dec_rel_bias": (cfg.rel_buckets, cfg.n_heads),
+            "enc_final_norm": (d,), "dec_final_norm": (d,),
+            "encoder": [{"attn_norm": (d,), "attn": dict(attn),
+                         "mlp_norm": (d,), "mlp": dict(mlp)}
+                        for _ in range(cfg.n_enc_layers)],
+            "decoder": [{"attn_norm": (d,), "attn": dict(attn),
+                         "cross_norm": (d,), "cross": dict(attn),
+                         "mlp_norm": (d,), "mlp": dict(mlp)}
+                        for _ in range(cfg.n_dec_layers)]}
+    if not cfg.tied_head:
+        want["lm_head"] = (d, cfg.vocab_size)
+    return _converted(tree, want, device, dtype)
+
+
+def whisper_params_from_jax(tree, cfg, device=None, dtype=None):
+    """A JAX init_whisper_params or from_hf_whisper pytree -> the port's,
+    every leaf checked against the WhisperConfig `cfg`."""
+    d, f = cfg.d_model, cfg.d_ff
+    attn = {"wq": (d, d), "bq": (d,), "wk": (d, d), "wv": (d, d),
+            "bv": (d,), "wo": (d, d), "bo": (d,)}
+    mlp = {"fc1": (d, f), "fc1_b": (f,), "fc2": (f, d), "fc2_b": (d,)}
+
+    def block(cross):
+        blk = {"attn": dict(attn), "mlp": dict(mlp)}
+        for name in ("attn_norm", "mlp_norm") + (("cross_norm",) if cross
+                                                 else ()):
+            blk[name] = blk[name + "_b"] = (d,)
+        if cross:
+            blk["cross"] = dict(attn)
+        return blk
+
+    want = {"conv1_w": (3, cfg.n_mels, d), "conv1_b": (d,),
+            "conv2_w": (3, d, d), "conv2_b": (d,),
+            "enc_pos": (cfg.max_source_positions, d),
+            "embed": (cfg.vocab_size, d),
+            "dec_pos": (cfg.max_target_positions, d),
+            "enc_final_norm": (d,), "enc_final_norm_b": (d,),
+            "dec_final_norm": (d,), "dec_final_norm_b": (d,),
+            "encoder": [block(False) for _ in range(cfg.n_enc_layers)],
+            "decoder": [block(True) for _ in range(cfg.n_dec_layers)]}
+    return _converted(tree, want, device, dtype)

@@ -65,7 +65,9 @@ def test_importing_the_port_loads_no_jax():
         "             'models.mla', 'models.mla_serve', 'models.lora',",
         "             'models.dpo', 'models.rlhf', 'models.distill',",
         "             'models.mamba2', 'models.vision', 'models.encoder',",
-        "             'models.hf_vision', 'models.clip', 'models.dit'):",
+        "             'models.hf_vision', 'models.clip', 'models.dit',",
+        "             'models.t5', 'models.whisper', 'models.audio',",
+        "             'models.seq2seq'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -417,6 +419,160 @@ def test_vision_family_entry_points_refuse_the_cpu_unless_asked(
                        (hf_vision.from_hf_vit, "vit")):
         params, _ = load(dirs[name], device="cpu")
         assert {t.device.type for t in tree_leaves(params)} == {"cpu"}
+
+
+def _seq2seq_checkpoints(tmp_path) -> dict:
+    """One-layer T5 (tied, relu) and Whisper checkpoints in their HF
+    layouts, as save_pretrained leaves them (no tied copies)."""
+    rng = np.random.default_rng(1)
+
+    def r(*shape):
+        return rng.normal(0, 0.1, shape).astype(np.float32)
+
+    d, v, inner, f = 8, 16, 8, 16
+    t5 = {"shared.weight": r(v, d), "encoder.final_layer_norm.weight": r(d),
+          "decoder.final_layer_norm.weight": r(d)}
+    for stack, subs in (("encoder", ("SelfAttention",)),
+                        ("decoder", ("SelfAttention", "EncDecAttention"))):
+        b = f"{stack}.block.0.layer"
+        t5[f"{b}.0.SelfAttention.relative_attention_bias.weight"] = r(32, 2)
+        for i, sub in enumerate(subs):
+            t5[f"{b}.{i}.layer_norm.weight"] = r(d)
+            for n in ("q", "k", "v"):
+                t5[f"{b}.{i}.{sub}.{n}.weight"] = r(inner, d)
+            t5[f"{b}.{i}.{sub}.o.weight"] = r(d, inner)
+        m = len(subs)
+        t5[f"{b}.{m}.layer_norm.weight"] = r(d)
+        t5[f"{b}.{m}.DenseReluDense.wi.weight"] = r(f, d)
+        t5[f"{b}.{m}.DenseReluDense.wo.weight"] = r(d, f)
+    wh = {"model.encoder.conv1.weight": r(d, 4, 3),
+          "model.encoder.conv1.bias": r(d),
+          "model.encoder.conv2.weight": r(d, d, 3),
+          "model.encoder.conv2.bias": r(d),
+          "model.encoder.embed_positions.weight": r(4, d),
+          "model.decoder.embed_tokens.weight": r(v, d),
+          "model.decoder.embed_positions.weight": r(8, d)}
+    for stack, atts in (("encoder", ("self_attn",)),
+                        ("decoder", ("self_attn", "encoder_attn"))):
+        lp = f"model.{stack}.layers.0"
+        for norm in ("final_layer_norm",) + tuple(
+                f"{a}_layer_norm" for a in atts):
+            wh[f"{lp}.{norm}.weight"], wh[f"{lp}.{norm}.bias"] = r(d), r(d)
+        wh[f"model.{stack}.layer_norm.weight"] = r(d)
+        wh[f"model.{stack}.layer_norm.bias"] = r(d)
+        for a in atts:
+            for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                wh[f"{lp}.{a}.{n}.weight"] = r(d, d)
+                if n != "k_proj":
+                    wh[f"{lp}.{a}.{n}.bias"] = r(d)
+        wh[f"{lp}.fc1.weight"], wh[f"{lp}.fc1.bias"] = r(f, d), r(f)
+        wh[f"{lp}.fc2.weight"], wh[f"{lp}.fc2.bias"] = r(d, f), r(d)
+    return {
+        "t5": _write_checkpoint(
+            tmp_path / "t5", dict(model_type="t5", vocab_size=v, d_model=d,
+                                  d_kv=4, d_ff=f, num_layers=1, num_heads=2),
+            t5),
+        "whisper": _write_checkpoint(
+            tmp_path / "whisper",
+            dict(model_type="whisper", vocab_size=v, num_mel_bins=4,
+                 d_model=d, encoder_layers=1, encoder_attention_heads=2,
+                 decoder_layers=1, decoder_attention_heads=2,
+                 encoder_ffn_dim=f, decoder_ffn_dim=f,
+                 max_source_positions=4, max_target_positions=8), wh),
+    }
+
+
+def test_the_seq2seq_slice_loads_no_jax_and_no_transformers(tmp_path):
+    """models/t5.py, whisper.py and audio.py (with seq2seq.py, which the
+    first two share), imported alone in a fresh interpreter whose
+    transformers import is blocked, read T5 and Whisper
+    directories (config.json over FAMILY_CONFIG_DEFAULTS: the decoder's
+    layers default to the encoder's, the head is tied) and run; no jax,
+    jaxlib, kfunca_tpu, transformers or safetensors module is loaded, and
+    none is named in their source."""
+    dirs = {k: str(v) for k, v in _seq2seq_checkpoints(tmp_path).items()}
+    code = "\n".join([
+        "import sys",
+        "sys.modules['transformers'] = None  # any import of it raises",
+        "import torch",
+        "from kfunca_tpu_torch.models import audio, t5, whisper",
+        f"dirs = {dirs!r}",
+        "p, c = t5.from_hf_t5(dirs['t5'], dtype='float32', device='cpu')",
+        "assert (c.n_dec_layers, c.tied_head, c.rel_buckets) == (1, True, 32)",
+        "tok = torch.tensor([[3, 4, 5]])",
+        "assert t5.t5_generate(p, tok, c, 3).shape == (1, 3)",
+        "p, c = whisper.from_hf_whisper(dirs['whisper'], dtype='float32',",
+        "                               device='cpu')",
+        "assert (c.n_mels, c.d_ff, c.eos_id) == (4, 16, 50256)",
+        "f = torch.zeros((1, 4, 8))",
+        "assert whisper.whisper_forward(p, f, tok, c).shape == (1, 3, 16)",
+        "assert audio.log_mel_spectrogram(torch.zeros(800)).shape == "
+        "(1, 80, 5)",
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in",
+        "             ('transformers', 'safetensors', 'jax', 'jaxlib',",
+        "              'kfunca_tpu') and sys.modules[m] is not None))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    for name in ("t5", "whisper", "audio", "seq2seq"):
+        assert not [m for m in _imports(PORT / "models" / f"{name}.py")
+                    if m and (_foreign(m) or m.startswith(
+                        ("transformers", "safetensors")))]
+
+
+def test_seq2seq_entry_points_refuse_the_cpu_unless_asked(monkeypatch,
+                                                          tmp_path):
+    """The inits, train steps, from_hf_* loaders, converters and the audio
+    frontend (of an array) take the card by default and raise without one;
+    asked for the CPU each runs."""
+    from kfunca_tpu_torch.models import audio, t5, whisper
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dirs = _seq2seq_checkpoints(tmp_path)
+    tc = t5.T5Config(vocab_size=16, d_model=8, n_heads=2, d_kv=4, d_ff=16,
+                     n_enc_layers=1, n_dec_layers=1, dtype="float32")
+    wc = whisper.WhisperConfig(vocab_size=16, n_mels=4, d_model=8, n_heads=2,
+                               n_enc_layers=1, n_dec_layers=1, d_ff=16,
+                               max_source_positions=4,
+                               max_target_positions=8, dtype="float32")
+    tp = t5.init_t5_params(0, tc, device="cpu")
+    wp = whisper.init_whisper_params(0, wc, device="cpu")
+    for call in (lambda: t5.init_t5_params(0, tc),
+                 lambda: t5.make_t5_train_step(tc),
+                 lambda: t5.from_hf_t5(dirs["t5"]),
+                 lambda: weights.t5_params_from_jax(
+                     weights.tree_to_numpy(tp), tc),
+                 lambda: whisper.init_whisper_params(0, wc),
+                 lambda: whisper.make_whisper_train_step(wc),
+                 lambda: whisper.sinusoidal_positions(4, 8),
+                 lambda: whisper.from_hf_whisper(dirs["whisper"]),
+                 lambda: weights.whisper_params_from_jax(
+                     weights.tree_to_numpy(wp), wc),
+                 lambda: audio.log_mel_spectrogram(np.zeros(800, np.float32)),
+                 lambda: audio.whisper_features(np.zeros(800, np.float32),
+                                                wc)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    tok = np.array([[3, 4, 5, 6]], np.int32)
+    _, _, loss = t5.make_t5_train_step(tc, device="cpu")(
+        tp, train.init_opt_state(tp, device="cpu"), tok, tok)
+    assert np.isfinite(float(loss))
+    _, _, loss = whisper.make_whisper_train_step(wc, device="cpu")(
+        wp, train.init_opt_state(wp, device="cpu"),
+        np.zeros((1, 4, 8), np.float32), tok)
+    assert np.isfinite(float(loss))
+    for load, name in ((t5.from_hf_t5, "t5"),
+                       (whisper.from_hf_whisper, "whisper")):
+        params, _ = load(dirs[name], device="cpu")
+        assert {t.device.type for t in tree_leaves(params)} == {"cpu"}
+    assert audio.log_mel_spectrogram(np.zeros(800, np.float32),
+                                     device="cpu").device.type == "cpu"
+    tp["embed"] = tp["embed"].to("meta")
+    with pytest.raises(ValueError, match="params are on"):
+        t5.make_t5_train_step(tc, device="cpu")(
+            tp, train.init_opt_state(wp, device="cpu"), tok, tok)
 
 
 def test_slice_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
