@@ -14,8 +14,10 @@ phases 51-55 (pipeline, zero-bubble and expert parallelism), `python3
 chip_smoke.py --moe-mla` phases 56-60 (the flagship's MoE and MLA blocks),
 `python3 chip_smoke.py --lora` phases 61-65 (the finetuning stack) and
 `python3 chip_smoke.py --families` phases 66-70 (Mamba-2 and the vision
-family) and `python3 chip_smoke.py --seq2seq` phases 71-75 (F1's sharded
-MLA decode, T5, the audio frontend and Whisper).
+family), `python3 chip_smoke.py --seq2seq` phases 71-75 (F1's sharded
+MLA decode, T5, the audio frontend and Whisper) and `python3 chip_smoke.py
+--autotune-orbax` phases 76-80 (autotune over K1, K2, K5, K7 and K8;
+save_orbax / load_orbax).
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
@@ -388,6 +390,30 @@ Phases (any failure raises and the script exits non-zero):
      vary) the cached tokens behind the prompt the argmax of the
      teacher-forced forward.
 `python3 chip_smoke.py --seq2seq` runs phases 71-75 alone.
+ 76. autotune("attn_fwd" / "attn_bwd") into a temporary cache at the
+     training shape without a window (1, 32, 8192, 128) and CLIP's text
+     shape (256, 8, 77, 64), bf16: every candidate tile's out / lse and
+     dq / dk / dv within phase 8's tolerances of the plain versions and
+     bitwise equal on a second launch; causal_attention_fn launches the
+     recorded tiles (a spy), and today's with an empty cache
+     (`autotune_orbax_phases` from here);
+ 77. autotune("gemm_q8") at Mistral-7B-v0.1's w8 decode products (m = 8):
+     every candidate plan bitwise equal to the plain version (fp32 out)
+     and to today's plan (bf16 out); matmul_q8_auto launches the winner,
+     and today's plan with an empty cache;
+ 78. autotune("reduce" / "welford") at 16387^2 and 4096^2 fp32: every
+     candidate split target within phase 21's tolerances and bitwise
+     equal on a second launch;
+ 79. save_orbax / load_orbax of Mistral-7B-v0.1's params at 4 layers in
+     bf16, back onto the card bit for bit, GB/s each way; the committed
+     JAX-written tests/fixtures/orbax_tiny bit for bit as its generator's
+     arrays;
+ 80. phase 13's config: 3 AdamW steps, save_orbax / load_orbax of params,
+     optimizer state and step, 3 more: bitwise 6 uninterrupted steps.
+`python3 chip_smoke.py --autotune-orbax` runs phases 76-80 alone.  Each
+sweep prints every candidate's median ms and the spread of its rounds,
+and whether the winner beats today's launch parameters by more than both
+spreads (the rule for runtime/autotune_defaults.json).
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -8809,6 +8835,445 @@ def seq2seq_phases(card) -> dict:
     return out
 
 
+# -- phases 76-80: autotune over K1, K2, K5, K7, K8; orbax checkpoints ---------
+
+# phase 76: the training step's attention at Mistral-7B-v0.1 widths without
+# a window (causal_attention_fn's form: equal heads), and CLIP's text tower
+# (openai/clip-vit-base-patch32: 8 heads of 64 over 77 tokens) at B 256,
+# where one 128-row q tile holds 77 valid rows
+AT_ATTN_SHAPES = [(1, 32, 8192, 128), (256, 8, 77, 64)]
+# phase 77: Mistral-7B-v0.1's w8 decode products at 8 slots (k, n): wqkv,
+# wo, gate and up fused, down, the LM head
+AT_Q8_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                (4096, 32000)]
+# phase 78: bench.py's reduction shape and the eager MLP step's
+AT_RED_SHAPES = [(16387, 16387), (4096, 4096)]
+
+
+@contextlib.contextmanager
+def scratch_autotune_cache():
+    """A temporary autotune cache of its own (as phase 36's), and the
+    user's back after."""
+    from kfunca_tpu_torch.runtime import autotune as at
+
+    before = os.environ.get("KFUNCA_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["KFUNCA_AUTOTUNE_CACHE"] = os.path.join(tmp, "at.json")
+        at._CACHE = None
+        try:
+            yield tmp
+        finally:
+            if before is None:
+                os.environ.pop("KFUNCA_AUTOTUNE_CACHE", None)
+            else:
+                os.environ["KFUNCA_AUTOTUNE_CACHE"] = before
+            at._CACHE = at._DEFAULTS = None
+
+
+def empty_autotune_cache(tmp):
+    """Point the cache at a fresh empty file inside `tmp`."""
+    from kfunca_tpu_torch.runtime import autotune as at
+
+    path = os.path.join(tmp, f"empty-{time.perf_counter_ns()}.json")
+    os.environ["KFUNCA_AUTOTUNE_CACHE"] = path
+    at._CACHE = None
+    at._DEFAULTS = {}  # no shipped entry either: today's launch parameters
+
+
+def sweep_line(r) -> str:
+    return "; ".join(f"{c['params']}: {c['ms']:.4f} ms (spread "
+                     f"{c['spread_ms']:.4f})" for c in r["all"])
+
+
+def beats_default(r) -> bool:
+    """Whether the sweep's winner beats today's launch parameters (the
+    first candidate) by more than the spread of either's rounds: the rule
+    for shipping it in runtime/autotune_defaults.json."""
+    base, best = r["all"][0], min(r["all"], key=lambda c: c["ms"])
+    return best is not base and base["ms"] - best["ms"] > max(
+        base["spread_ms"], best["spread_ms"])
+
+
+@contextlib.contextmanager
+def spying(module, name, keys):
+    """Records, per call of module.name, the keyword arguments in `keys`."""
+    seen, real = [], getattr(module, name)
+
+    def spy(*args, **kw):
+        seen.append({k: kw[k] for k in keys if k in kw})
+        return real(*args, **kw)
+
+    spy.__dict__ = real.__dict__  # the wrapper counts its launches on itself
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def attention_tiles_phase(fa, card) -> dict:
+    """Phase 76: autotune("attn_fwd" / "attn_bwd") at AT_ATTN_SHAPES, every
+    candidate tile held to the plain versions within phase 8's tolerances
+    and to itself bit for bit on a second launch; then causal_attention_fn
+    launches the recorded tiles, and today's with an empty cache."""
+    import kfunca_tpu_torch as kfunca
+    from kfunca_tpu_torch.ops import attention as oa
+    from kfunca_tpu_torch.runtime import autotune as at
+
+    out = {"fwd": {}, "bwd": {}}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 76)
+    dt = torch.bfloat16
+    with scratch_autotune_cache() as tmp:
+        for shape in AT_ATTN_SHAPES:
+            b, h, s, d = shape
+            tag = "x".join(map(str, shape))
+            rf = kfunca.autotune("attn_fwd", *shape, verbose=False)
+            rb = kfunca.autotune("attn_bwd", *shape, verbose=False)
+            out["fwd"][tag], out["bwd"][tag] = rf, rb
+            q, k, v, g = flash_case(dt, gen, b=b, h=h, hkv=h, sq=s, skv=s,
+                                    hd=d)
+            r_out, r_lse, r_dq, r_dk, r_dv = flash_plain(fa, q, k, v, g, None)
+            e1 = e2 = 0.0
+            for tile in fa.fwd_tiles(d):
+                o, lse = fa.flash_attention_fwd_stats(q, k, v, **tile)
+                o2, lse2 = fa.flash_attention_fwd_stats(q, k, v, **tile)
+                torch.cuda.synchronize()
+                what = f"K1 {tag} at {tile}"
+                check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                      f"{what}: two launches bitwise equal")
+                e1 = max(e1, flash_err(o, r_out, dt, f"out {what}"),
+                         flash_err(lse, r_lse, torch.float32, f"lse {what}"))
+            o, lse = fa.flash_attention_fwd_stats(q, k, v)
+            for tile in fa.BWD_TILES:
+                grads = fa.flash_attention_backward(q, k, v, g, o, lse, **tile)
+                again = fa.flash_attention_backward(q, k, v, g, o, lse, **tile)
+                torch.cuda.synchronize()
+                what = f"K2 {tag} at {tile}"
+                check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+                      f"{what}: two launches bitwise equal")
+                for name, got, ref in zip(("dq", "dk", "dv"), grads,
+                                          (r_dq, r_dk, r_dv)):
+                    e2 = max(e2, flash_err(got, ref, dt, f"{name} {what}"))
+                del grads, again
+            out["fwd"][tag]["max_err"], out["bwd"][tag]["max_err"] = e1, e2
+            for label, r in (("attn_fwd (K1)", rf), ("attn_bwd (K2)", rb)):
+                print(f"[76] autotune {label} at {tag} bf16: winner "
+                      f"{r['params']} {r['ms']:.4f} ms; {sweep_line(r)}; "
+                      f"beats today's by more than the spread: "
+                      f"{beats_default(r)}; {card}", flush=True)
+            print(f"  every tile within phase 8's tolerances of the plain "
+                  f"versions (K1 max err {e1:.3g}, K2 {e2:.3g}) and bitwise "
+                  f"equal to itself on a second launch", flush=True)
+            # the winners reach causal_attention_fn's launches
+            ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            keys = ("kv_rows", "q_rows", "stages")
+            for empty in (False, True):
+                if empty:
+                    empty_autotune_cache(tmp)
+                want = ({}, {}) if empty else (rf["params"], rb["params"])
+                n1 = fa.flash_attention_fwd_stats.launches_wgmma
+                n2 = fa.flash_attention_backward.launches_wgmma
+                with spying(oa, "flash_attention_fwd_stats", keys) as sf, \
+                        spying(oa, "flash_attention_backward", keys) as sb:
+                    oa.causal_attention_fn(ql, kl, vl).backward(g)
+                    torch.cuda.synchronize()
+                check(sf == [want[0]] and sb == [want[1]]
+                      and fa.flash_attention_fwd_stats.launches_wgmma == n1 + 1
+                      and fa.flash_attention_backward.launches_wgmma == n2 + 1,
+                      f"causal_attention_fn at {tag} launched K1 at "
+                      f"{want[0] or 'today'}'s tile and K2 at "
+                      f"{want[1] or 'today'}'s (got {sf}, {sb})")
+            print(f"  causal_attention_fn at {tag} launched the recorded "
+                  f"tiles {rf['params']} / {rb['params']}, and today's "
+                  f"with an empty cache", flush=True)
+            os.environ["KFUNCA_AUTOTUNE_CACHE"] = os.path.join(tmp, "at.json")
+            at._CACHE = at._DEFAULTS = None
+            del q, k, v, g, r_out, r_lse, r_dq, r_dk, r_dv, o, lse, ql, kl, vl
+            free_device_memory()
+    return out
+
+
+def q8_plan_phase(tq, card) -> dict:
+    """Phase 77: autotune("gemm_q8") at Mistral-7B-v0.1's w8 decode products
+    (m = 8), every candidate plan bitwise equal to the plain version (fp32
+    out) and to today's plan (bf16 out); then matmul_q8_auto launches the
+    recorded plan, and today's with an empty cache."""
+    import kfunca_tpu_torch as kfunca
+    from kfunca_tpu_torch.runtime import autotune as at
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 77)
+    with scratch_autotune_cache() as tmp:
+        for k, n in AT_Q8_SHAPES:
+            tag = f"8x{k}x{n}"
+            r = out[tag] = kfunca.autotune("gemm_q8", 8, k, n, verbose=False)
+            a, b, sa, sb = q8_case(gen, 8, k, n)
+            want32 = tq.matmul_q8_plain(a, b, sa, sb, torch.float32)
+            want16 = tq.matmul_q8(a, b, sa, sb)
+            for plan in at.SWEEPS["gemm_q8"]:
+                got32 = tq.matmul_q8(a, b, sa, sb, torch.float32, **plan)
+                got16 = tq.matmul_q8(a, b, sa, sb, **plan)
+                torch.cuda.synchronize()
+                check(torch.equal(got32, want32) and torch.equal(got16, want16),
+                      f"matmul_q8 {tag} at {plan} (split "
+                      f"{tq.q8_plan(8, k, n, **plan)[0]}) bitwise equal to "
+                      f"the plain version and to today's plan")
+            for empty in (False, True):
+                if empty:
+                    empty_autotune_cache(tmp)
+                want = {} if empty else r["params"]
+                with spying(tq, "matmul_q8", ("wave", "min_stages")) as seen:
+                    got = tq.matmul_q8_auto(a, b, sa, sb)
+                    torch.cuda.synchronize()
+                check(seen == [want] and torch.equal(got, want16),
+                      f"matmul_q8_auto {tag} launched K5 at "
+                      f"{want or 'today'}'s plan (got {seen})")
+            os.environ["KFUNCA_AUTOTUNE_CACHE"] = os.path.join(tmp, "at.json")
+            at._CACHE = at._DEFAULTS = None
+            print(f"[77] autotune gemm_q8 at {tag}: winner {r['params']} "
+                  f"(split {tq.q8_plan(8, k, n, **r['params'])[0]}) "
+                  f"{r['ms']:.4f} ms; {sweep_line(r)}; beats today's by "
+                  f"more than the spread: {beats_default(r)}; every plan "
+                  f"bitwise equal, matmul_q8_auto took the winner; {card}",
+                  flush=True)
+    return out
+
+
+def split_target_phase(rd, wf, card) -> dict:
+    """Phase 78: autotune("reduce" / "welford") at AT_RED_SHAPES in fp32,
+    every candidate target within phase 21's tolerances of the plain
+    versions and bitwise equal to itself on a second launch; then
+    reduce_2d and welford_norm_stat launch the recorded targets, and
+    today's with an empty cache."""
+    import kfunca_tpu_torch as kfunca
+    from kfunca_tpu_torch.runtime import autotune as at
+
+    out = {"reduce": {}, "welford": {}}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 78)
+    with scratch_autotune_cache() as tmp:
+        for shape in AT_RED_SHAPES:
+            tag = "x".join(map(str, shape))
+            rr = out["reduce"][tag] = kfunca.autotune("reduce", *shape,
+                                                      verbose=False)
+            rw = out["welford"][tag] = kfunca.autotune("welford", *shape,
+                                                       verbose=False)
+            x = torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5
+            mass = x.abs().sum(0, keepdim=True).double()
+            want = rd.reduce_2d_plain(x, "sum").double()
+            pm, ps = wf.welford_norm_stat_plain(x)
+            for cand in at.SWEEPS["reduce"]:
+                t = cand["target_blocks"]
+                got, again = rd.reduce_2d(x, "sum", **cand), rd.reduce_2d(
+                    x, "sum", **cand)
+                m, sd = wf.welford_norm_stat(x, **cand)
+                m2, sd2 = wf.welford_norm_stat(x, **cand)
+                torch.cuda.synchronize()
+                err = (got.double() - want).abs()
+                check(bool((err <= 1e-5 * mass).all())
+                      and torch.equal(got, again),
+                      f"K8 sum {tag} at target {t} (splits "
+                      f"{wf.split_count(*shape, target=t)}): within 1e-5 of "
+                      f"the column's sum of |x| (max err "
+                      f"{err.max().item():.3g}), two launches bitwise equal")
+                em = (m - pm).abs().max().item()
+                es = ((sd - ps).abs() / ps.abs()).max().item()
+                check(em <= 1e-5 * x.abs().mean().item() and es <= 1e-4
+                      and torch.equal(m, m2) and torch.equal(sd, sd2),
+                      f"K7 {tag} at target {t}: mean err {em:.3g}, invstd "
+                      f"rel err {es:.3g}, two launches bitwise equal")
+            for label, r in (("reduce (K8 sum)", rr), ("welford (K7)", rw)):
+                print(f"[78] autotune {label} at {tag} fp32: winner "
+                      f"{r['params']} {r['ms']:.4f} ms; {sweep_line(r)}; "
+                      f"beats today's by more than the spread: "
+                      f"{beats_default(r)}; {card}", flush=True)
+            # the winners reach the wrappers' launches
+            for empty in (False, True):
+                if empty:
+                    empty_autotune_cache(tmp)
+                t8, t7 = ((wf.TARGET_BLOCKS,) * 2 if empty else
+                          (rr["params"]["target_blocks"],
+                           rw["params"]["target_blocks"]))
+                with spying(rd, "split_count", ("target",)) as s8, \
+                        spying(wf, "split_count", ("target",)) as s7:
+                    rd.reduce_2d(x, "sum")
+                    wf.welford_norm_stat(x)
+                    torch.cuda.synchronize()
+                check(s8 == [{"target": t8}] and s7 == [{"target": t7}],
+                      f"reduce_2d / welford_norm_stat at {tag} launched "
+                      f"targets {t8} / {t7} (got {s8}, {s7})")
+            print(f"  reduce_2d and welford_norm_stat at {tag} launched the "
+                  f"recorded targets, and today's {wf.TARGET_BLOCKS} with an "
+                  f"empty cache", flush=True)
+            os.environ["KFUNCA_AUTOTUNE_CACHE"] = os.path.join(tmp, "at.json")
+            at._CACHE = at._DEFAULTS = None
+            del x, mass, want, pm, ps
+            free_device_memory()
+    print("  every target within phase 21's tolerances and bitwise "
+          "repeatable", flush=True)
+    return out
+
+
+def orbax_width_phase(card) -> dict:
+    """Phase 79: save_orbax then load_orbax of Mistral-7B-v0.1's params at
+    4 layers in bf16, back onto the card bit for bit, with GB/s each way;
+    then the committed JAX-written fixture (tests/fixtures/orbax_tiny)
+    against the arrays its generator makes from its seed."""
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+    from kfunca_tpu_torch.utils import checkpoint as ck
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": 4})
+    params = mistral_params(cfg, SEED + 79, torch.bfloat16)
+    leaves = tree_leaves(params)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mistral")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_orbax(path, params)
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(path) for f in fs)
+        t0 = time.perf_counter()
+        got = ck.load_orbax(path, params)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    back = tree_leaves(got)
+    check(len(back) == len(leaves) and all(
+        b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)
+        for a, b in zip(leaves, back)),
+        "save_orbax -> load_orbax gives Mistral-7B-v0.1's 4-layer bf16 "
+        "params back on the card bit for bit")
+    print(f"[79] orbax at width: Mistral-7B-v0.1 params, 4 layers, bf16, "
+          f"{len(leaves)} leaves, {nbytes / 1e9:.3f} GB ({disk / 1e9:.3f} GB "
+          f"on disk): save_orbax {save_s:.2f} s ({nbytes / save_s / 1e9:.2f} "
+          f"GB/s, from the card), load_orbax {load_s:.2f} s "
+          f"({nbytes / load_s / 1e9:.2f} GB/s, to the card; the page cache "
+          f"warm from the save), bit for bit; {card}", flush=True)
+    del params, got, leaves, back
+    free_device_memory()
+    # the fixture the JAX package's save_orbax wrote, and its generator
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(here, "tests", "fixtures", "orbax_tiny")
+    spec = importlib.util.spec_from_file_location(
+        "make_orbax_tiny", os.path.join(here, "tests", "fixtures",
+                                        "make_orbax_tiny.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)  # numpy only: JAX is imported by its main()
+    want = gen.arrays()
+
+    def proto(path, x):
+        if isinstance(x, int):
+            return x
+        t = torch.from_numpy(np.array(x))
+        return t.bfloat16() if path in gen.BF16 else t
+
+    like = {k: (proto(k, v) if not isinstance(v, list) else
+                [{kk: proto(kk, vv) for kk, vv in d.items()} for d in v])
+            for k, v in want.items()}
+    fx = ck.load_orbax(fixture, like)
+    flat_got = [t for t in tree_leaves(fx) if isinstance(t, torch.Tensor)]
+    flat_want = [t for t in tree_leaves(like) if isinstance(t, torch.Tensor)]
+    check(fx["step"] == want["step"] and len(flat_got) == len(flat_want)
+          and all(g.is_cuda and g.dtype == w.dtype and torch.equal(g.cpu(), w)
+                  for g, w in zip(flat_got, flat_want)),
+        "the JAX-written fixture loads on the card bit for bit as its "
+        "generator's arrays")
+    print(f"  tests/fixtures/orbax_tiny (written by the JAX package's "
+          f"save_orbax: OCDBT over ocdbt.process_0, zstd): {len(flat_got)} "
+          f"arrays (bf16, fp32, fp16, int8, int32, bool, a 0-d fp32) and "
+          f"the step bit for bit on the card", flush=True)
+    return dict(gb=nbytes / 1e9, save_gb_s=nbytes / save_s / 1e9,
+                load_gb_s=nbytes / load_s / 1e9, disk_gb=disk / 1e9)
+
+
+def orbax_resume_phase(card) -> None:
+    """Phase 80: phase 13's config trained 3 AdamW steps, its params,
+    optimizer state and step saved with save_orbax and loaded with
+    load_orbax, 3 more steps: bitwise the params of 6 uninterrupted
+    steps."""
+    from kfunca_tpu_torch.models.data import TokenDataset
+    from kfunca_tpu_torch.models.train import (OptConfig, init_opt_state,
+                                               make_train_step)
+    from kfunca_tpu_torch.models.transformer import (TransformerConfig,
+                                                     init_params)
+    from kfunca_tpu_torch.utils import checkpoint as ck
+    from kfunca_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
+                            n_kv_heads=2, n_layers=2, d_ff=512,
+                            max_seq_len=128, attention_window=48,
+                            dtype="bfloat16")
+    oc = OptConfig(lr=1e-3, warmup_steps=2, clip_norm=1.0)
+    ds = TokenDataset(learnable_corpus(512, 1 << 14), 128, 4, seed=SEED)
+    step = make_train_step(cfg, oc, with_metrics=True)
+
+    def fresh():
+        params = init_params(SEED + 80, cfg, device="cuda")
+        return params, init_opt_state(params, oc)
+
+    params, opt = fresh()
+    params, opt, full, _ = run_steps(step, ds, params, opt, 0, 6)
+    want = [p.clone() for p in tree_leaves(params)]
+    params, opt = fresh()
+    params, opt, first, _ = run_steps(step, ds, params, opt, 0, 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state")
+        ck.save_orbax(path, {"params": params, "opt": opt, "step": 3})
+        like = {"params": tree_map(torch.empty_like, params),
+                "opt": tree_map(torch.empty_like, opt), "step": 0}
+        state = ck.load_orbax(path, like)
+    check(state["step"] == 3 and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(state["opt"]),
+                                          tree_leaves(opt))),
+        "load_orbax gives the optimizer state and step back bit for bit")
+    params, opt, rest, _ = run_steps(step, ds, state["params"], state["opt"],
+                                     3, 3)
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(params), want)),
+          "3 steps, save_orbax / load_orbax, 3 steps: bitwise the params "
+          "of 6 uninterrupted steps")
+    losses = [m["loss"] for m in full]
+    check([m["loss"] for m in first + rest] == losses,
+          "the resumed run's losses are the uninterrupted run's")
+    print(f"[80] orbax resume (d_model 256, 2 layers, 4 x 128 tokens, bf16, "
+          f"AdamW): losses {[round(x, 4) for x in losses]}; resumed at step "
+          f"3 bitwise equal to 6 uninterrupted steps; {card}", flush=True)
+
+
+def autotune_orbax_phases(card) -> dict:
+    """Phases 76-80; their sweeps by kernel name."""
+    from kfunca_tpu_torch.ops import quant as tq
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+    from kfunca_tpu_torch.ops.pallas_kernels import reduce as rd
+    from kfunca_tpu_torch.ops.pallas_kernels import welford as wf
+
+    t0 = time.perf_counter()
+    attn = attention_tiles_phase(fa, card)
+    free_device_memory()
+    q8 = q8_plan_phase(tq, card)
+    free_device_memory()
+    red = split_target_phase(rd, wf, card)
+    free_device_memory()
+    orbax_width_phase(card)
+    free_device_memory()
+    orbax_resume_phase(card)
+    free_device_memory()
+    print(f"[76-80] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def brief(rs):
+        return {tag: {"winner": r["params"], "ms": r["ms"],
+                      "all": r["all"], "ships": beats_default(r)}
+                for tag, r in rs.items()}
+
+    return {"flash_attention_fwd_stats": brief(attn["fwd"]),
+            "flash_attention_backward": brief(attn["bwd"]),
+            "matmul_q8": brief(q8), "reduce_2d": brief(red["reduce"]),
+            "welford_norm_stat": brief(red["welford"])}
+
+
+
 class Laps:
     """Prints each group of phases' seconds and the script's so far: the
     whole script must end inside its time limit."""
@@ -8868,6 +9333,16 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--seq2seq"]:  # phases 71-75 alone (no kernel)
         print(json.dumps({"seq2seq": seq2seq_phases(card)}))
+        return 0
+    if sys.argv[1:] == ["--autotune-orbax"]:  # phases 76-80 alone
+        names = ["flash_attention", "quant", "reduce"]
+        _kernels.build(names)
+        check(_native.get_lib() is not None, "the native core builds (g++)")
+        for name in names:
+            for kernel, regs, spill in ptxas_summary(_kernels.build_log(name)):
+                print(f"    {name}: {kernel}: {regs} registers, {spill} spill "
+                      f"bytes")
+        print(json.dumps({"sweeps": autotune_orbax_phases(card)}))
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -8965,6 +9440,12 @@ def main() -> int:
     free_device_memory()
     seq2seq_phases(card)
     lap("phases 71-75")
+    free_device_memory()
+    sweeps = autotune_orbax_phases(card)
+    lap("phases 76-80")
+    for entry in kernels:  # the first entry of each swept kernel
+        if entry["name"] in sweeps:
+            entry["sweep"] = sweeps.pop(entry["name"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -36,8 +36,13 @@ namespace {
 
 constexpr int kWgThreads = 384;
 constexpr int kBlockRows = 128;  // resident q rows of a dq block: 2 x 64
+// The launch parameters below are the defaults (K12's, and K1's and K2's
+// without a tuned entry); K1 and K2 also build the other tiles that
+// runtime/autotune.py sweeps (flash_attention.cu: kFwdTiles, kBwdTiles).
 constexpr int kStreamRows = 64;  // rows of a k / v tile streamed by dq
 constexpr int kQRows = 64;       // rows of a q / dO tile streamed by dk/dv
+// one consumer warpgroup's wgmma rows: both consumers of a dk/dv block
+// work on the same kv rows, so this is not a tunable parameter
 constexpr int kKvRows = 64;      // resident kv rows of a dk/dv block
 constexpr int kStages = 2;
 constexpr int kFwdStages = 3;
@@ -153,22 +158,25 @@ __device__ __forceinline__ void put_acc(float* __restrict__ dst, int row,
   }
 }
 
-template <int HD>
+// SR: the k / v rows the dq kernel streams; QR: the q / dO rows the dk/dv
+// kernel streams; ST: the depth of both rings
+template <int HD, int SR = kStreamRows, int QR = kQRows, int ST = kStages>
 struct WgBwdSmem {
-  // the dq kernel: q and dO resident (128 rows), k and v streamed (64)
+  static constexpr int kBars = (1 + 2 * ST) * 8 > 64 ? (1 + 2 * ST) * 8 : 64;
+  // the dq kernel: q and dO resident (128 rows), k and v streamed (SR)
   static constexpr int kBlockTile = kBlockRows * HD * 2;    // bytes
-  static constexpr int kStreamTile = kStreamRows * HD * 2;
+  static constexpr int kStreamTile = SR * HD * 2;
   static constexpr size_t kDqBytes =
-      2 * kBlockTile + kStages * 2 * kStreamTile + 64 + 1024;
-  // the dk/dv kernel: k and v resident (64 rows), q and dO streamed (64),
-  // with the tile's lse and delta (2 x 64 floats a stage), and P^T passed
-  // from consumer A to consumer B (fp32, 64 x 64 a stage)
+      2 * kBlockTile + ST * 2 * kStreamTile + kBars + 1024;
+  // the dk/dv kernel: k and v resident (64 rows), q and dO streamed (QR),
+  // with the tile's lse and delta (2 x QR floats a stage), and P^T passed
+  // from consumer A to consumer B (fp32, 64 x QR a stage)
   static constexpr int kKvTile = kKvRows * HD * 2;
-  static constexpr int kQTile = kQRows * HD * 2;
-  static constexpr int kPTile = kKvRows * kQRows * 4;
-  static constexpr size_t kDkvBytes = 2 * kKvTile + kStages * 2 * kQTile +
-                                      kStages * kPTile +
-                                      kStages * 2 * kQRows * 4 + 64 + 1024;
+  static constexpr int kQTile = QR * HD * 2;
+  static constexpr int kPTile = kKvRows * QR * 4;
+  static constexpr size_t kDkvBytes = 2 * kKvTile + ST * 2 * kQTile +
+                                      ST * kPTile + ST * 2 * QR * 4 + kBars +
+                                      1024;
 };
 
 // K2 / K12b, dk and dv.  grid (kv tiles of 64 rows, Hkv, B).  K and V stay
@@ -189,7 +197,7 @@ struct WgBwdSmem {
 // producer refilled the stage, which waits for B's release of it.
 // lse_p and delta_p are (B*H, Sq_pad) with Sq_pad a multiple of 64 (the
 // producer copies a tile's 256 bytes of each with one bulk copy).
-template <int HD, bool kHop>
+template <int HD, bool kHop, int QR = kQRows, int ST = kStages>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
@@ -199,18 +207,18 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
     typename GradOf<kHop>::T* __restrict__ dk,
     typename GradOf<kHop>::T* __restrict__ dv, int H, int Hkv, int Sq,
     int Skv, int Sq_pad, int window, int shift, float scale) {
-  using L = WgBwdSmem<HD>;
+  using L = WgBwdSmem<HD, kStreamRows, QR, ST>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align1024(smem_raw);
   uint8_t* K_s = smem;
   uint8_t* V_s = K_s + L::kKvTile;
   uint8_t* ring = V_s + L::kKvTile;  // stage s: q tile, dO tile
-  float* P_s = reinterpret_cast<float*>(ring + kStages * 2 * L::kQTile);
-  float* stats = P_s + kStages * kKvRows * kQRows;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + kStages * 2 * kQRows);
+  float* P_s = reinterpret_cast<float*>(ring + ST * 2 * L::kQTile);
+  float* stats = P_s + ST * kKvRows * QR;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + ST * 2 * QR);
   uint64_t* kv_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + ST;
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int group = kHop ? 1 : H / Hkv;
@@ -220,12 +228,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
   const int win = kHop ? 0 : window;
   // q tiles holding a row that attends a column of this kv tile: rows from
   // col0 - d (causal) to the tile's last column + window - 1
-  const int qt_first = (kHop ? max(col0 - d, 0) : col0) / kQRows;
-  int qt_last = (Sq - 1) / kQRows;
+  const int qt_first = (kHop ? max(col0 - d, 0) : col0) / QR;
+  int qt_last = (Sq - 1) / QR;
   if (win > 0) {
     const long long r =
         (long long)min(col0 + kKvRows - 1, Skv - 1) + win - 1;
-    if (r / kQRows < qt_last) qt_last = (int)(r / kQRows);
+    if (r / QR < qt_last) qt_last = (int)(r / QR);
   }
   const int n_qt = qt_last >= qt_first ? qt_last - qt_first + 1 : 0;
   const int n_iter = group * n_qt;
@@ -233,7 +241,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 2);
     }
@@ -253,24 +261,24 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
                             col0, bkv);
       }
       for (int it = 0; it < n_iter; ++it) {
-        const int s = it % kStages;
+        const int s = it % ST;
         const int bh = b * H + kvh * group + it / n_qt;
-        const int row0 = (qt_first + it % n_qt) * kQRows;
-        hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        const int row0 = (qt_first + it % n_qt) * QR;
+        hopper::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
         uint8_t* Q_t = ring + s * 2 * L::kQTile;
         uint8_t* G_t = Q_t + L::kQTile;
-        hopper::mbar_expect_tx(&full[s], 2 * L::kQTile + 2 * kQRows * 4);
+        hopper::mbar_expect_tx(&full[s], 2 * L::kQTile + 2 * QR * 4);
         for (int j = 0; j < HD / 64; ++j) {
-          hopper::tma_load_3d(Q_t + j * kQRows * 128, &map_q, &full[s],
+          hopper::tma_load_3d(Q_t + j * QR * 128, &map_q, &full[s],
                               64 * j, row0, bh);
-          hopper::tma_load_3d(G_t + j * kQRows * 128, &map_g, &full[s],
+          hopper::tma_load_3d(G_t + j * QR * 128, &map_g, &full[s],
                               64 * j, row0, bh);
         }
         const long long off = (long long)bh * Sq_pad + row0;
-        hopper::bulk_load(stats + s * 2 * kQRows, lse_p + off, kQRows * 4,
+        hopper::bulk_load(stats + s * 2 * QR, lse_p + off, QR * 4,
                           &full[s]);
-        hopper::bulk_load(stats + s * 2 * kQRows + kQRows, delta_p + off,
-                          kQRows * 4, &full[s]);
+        hopper::bulk_load(stats + s * 2 * QR + QR, delta_p + off,
+                          QR * 4, &full[s]);
       }
     }
   } else {  // consumers: A (wg 1) and B (wg 2)
@@ -287,26 +295,26 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
     hopper::mbar_wait(kv_full, 0);
 
     for (int it = 0; it < n_iter; ++it) {
-      const int s = it % kStages;
-      const int row0 = (qt_first + it % n_qt) * kQRows;
+      const int s = it % ST;
+      const int row0 = (qt_first + it % n_qt) * QR;
       const uint8_t* Q_t = ring + s * 2 * L::kQTile;
       const uint8_t* G_t = Q_t + L::kQTile;
-      const float* lse_t = stats + s * 2 * kQRows;
-      const float* delta_t = lse_t + kQRows;
+      const float* lse_t = stats + s * 2 * QR;
+      const float* delta_t = lse_t + QR;
       // the stage's P^T, in the accumulator's register order: A's and B's
       // thread tid hold the same (kv row, q row) pairs, and float4 v of
       // thread tid sits at P_t[v * 128 + tid] (a warp's 16-byte accesses
       // fall on consecutive addresses)
-      float4* P_t = reinterpret_cast<float4*>(P_s + s * kKvRows * kQRows) + tid;
-      hopper::mbar_wait(&full[s], (it / kStages) & 1);
+      float4* P_t = reinterpret_cast<float4*>(P_s + s * kKvRows * QR) + tid;
+      hopper::mbar_wait(&full[s], (it / ST) & 1);
 
-      float x[kQRows / 2];  // A: S^T, then P^T; B: dP^T, then dS^T
+      float x[QR / 2];  // A: S^T, then P^T; B: dP^T, then dS^T
       hopper::wgmma_fence();
       const uint64_t qg_desc = kmajor_desc(is_a ? Q_t : G_t, 0);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         hopper::wgmma_ss<true, 0>(x, kmajor(kv_desc, kKvRows, kk),
-                                  kmajor(qg_desc, kQRows, kk), kk > 0);
+                                  kmajor(qg_desc, QR, kk), kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(x);
@@ -316,11 +324,11 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
         // an end of the sequences test each pair
         const bool edge = !(col0 + kKvRows - 1 <= row0 + d &&
                             col0 + kKvRows - 1 < Skv &&
-                            row0 + kQRows - 1 < Sq &&
+                            row0 + QR - 1 < Sq &&
                             (win <= 0 ||
-                             col0 > row0 + kQRows - 1 + d - win));
+                             col0 > row0 + QR - 1 + d - win));
 #pragma unroll
-        for (int j = 0; j < kQRows / 8; ++j)
+        for (int j = 0; j < QR / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int qc = 8 * j + 2 * t + e;  // q row within the tile
@@ -334,14 +342,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
             }
           }
 #pragma unroll
-        for (int v = 0; v < kQRows / 8; ++v)
+        for (int v = 0; v < QR / 8; ++v)
           P_t[v * 128] = make_float4(x[4 * v], x[4 * v + 1], x[4 * v + 2],
                                      x[4 * v + 3]);
         hopper::bar_arrive(1 + s, 256);
       } else {
         hopper::bar_sync(1 + s, 256);
 #pragma unroll
-        for (int v = 0; v < kQRows / 8; ++v) {
+        for (int v = 0; v < QR / 8; ++v) {
           const float4 p = P_t[v * 128];
           const float dl0 = delta_t[8 * v + 2 * t];
           const float dl1 = delta_t[8 * v + 2 * t + 1];
@@ -351,14 +359,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
           x[4 * v + 3] = p.w * (x[4 * v + 3] - dl1);
         }
       }
-      uint32_t f[kQRows / 16][4];
-      to_frags<kQRows / 16>(x, f);
+      uint32_t f[QR / 16][4];
+      to_frags<QR / 16>(x, f);
 
       hopper::fence_regs(acc);
       hopper::wgmma_fence();
-      const uint64_t mn = mnmajor_desc(is_a ? G_t : Q_t, kQRows);
+      const uint64_t mn = mnmajor_desc(is_a ? G_t : Q_t, QR);
 #pragma unroll
-      for (int kk = 0; kk < kQRows / 16; ++kk)
+      for (int kk = 0; kk < QR / 16; ++kk)
         hopper::wgmma_rs<1>(acc, f[kk], mnmajor(mn, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -382,7 +390,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
 //   S = Q.K^T, dP = dO.V^T (K-major), P = exp(scale S - lse),
 //   dS = P (dP - delta) rounded to bf16 as A fragments,
 //   dQ += dS.K (MN-major k, transpose-B).
-template <int HD, bool kHop>
+template <int HD, bool kHop, int SR = kStreamRows, int ST = kStages>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
@@ -391,17 +399,17 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
     const float* __restrict__ lse_p, const float* __restrict__ delta_p,
     typename GradOf<kHop>::T* __restrict__ dq, int H, int Hkv, int Sq,
     int Skv, int Sq_pad, int window, int shift, float scale) {
-  using L = WgBwdSmem<HD>;
+  using L = WgBwdSmem<HD, SR, kQRows, ST>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align1024(smem_raw);
   uint8_t* Q_s = smem;
   uint8_t* G_s = Q_s + L::kBlockTile;
   uint8_t* ring = G_s + L::kBlockTile;  // stage s: k tile, v tile
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(ring + kStages * 2 * L::kStreamTile);
+      reinterpret_cast<uint64_t*>(ring + ST * 2 * L::kStreamTile);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + ST;
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -414,13 +422,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
   // row0 + d - window + 1 (or 0) to the tile's last row + d (and below Skv)
   const int col_hi = min(min(row0 + kBlockRows - 1, Sq - 1) + d, Skv - 1);
   const int col_lo = win > 0 ? max(row0 + d - win + 1, 0) : 0;
-  const int kt_first = col_lo / kStreamRows;
-  const int n_iter = col_lo <= col_hi ? col_hi / kStreamRows - kt_first + 1 : 0;
+  const int kt_first = col_lo / SR;
+  const int n_iter = col_lo <= col_hi ? col_hi / SR - kt_first + 1 : 0;
   if (kHop && n_iter == 0) return;  // every row precedes the kv shard
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 2);
     }
@@ -440,16 +448,16 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
                             64 * j, row0, bh);
       }
       for (int it = 0; it < n_iter; ++it) {
-        const int s = it % kStages;
-        const int c0 = (kt_first + it) * kStreamRows;
-        hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        const int s = it % ST;
+        const int c0 = (kt_first + it) * SR;
+        hopper::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
         uint8_t* K_t = ring + s * 2 * L::kStreamTile;
         uint8_t* V_t = K_t + L::kStreamTile;
         hopper::mbar_expect_tx(&full[s], 2 * L::kStreamTile);
         for (int j = 0; j < HD / 64; ++j) {
-          hopper::tma_load_3d(K_t + j * kStreamRows * 128, &map_k, &full[s],
+          hopper::tma_load_3d(K_t + j * SR * 128, &map_k, &full[s],
                               64 * j, c0, bkv);
-          hopper::tma_load_3d(V_t + j * kStreamRows * 128, &map_v, &full[s],
+          hopper::tma_load_3d(V_t + j * SR * 128, &map_v, &full[s],
                               64 * j, c0, bkv);
         }
       }
@@ -478,13 +486,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
     hopper::mbar_wait(q_full, 0);
 
     for (int it = 0; it < n_iter; ++it) {
-      const int s = it % kStages;
-      const int c0 = (kt_first + it) * kStreamRows;
+      const int s = it % ST;
+      const int c0 = (kt_first + it) * SR;
       const uint8_t* K_t = ring + s * 2 * L::kStreamTile;
       const uint8_t* V_t = K_t + L::kStreamTile;
-      hopper::mbar_wait(&full[s], (it / kStages) & 1);
+      hopper::mbar_wait(&full[s], (it / ST) & 1);
 
-      float sc[32], dp[32];
+      float sc[SR / 2], dp[SR / 2];
       hopper::fence_regs(sc);
       hopper::fence_regs(dp);
       hopper::wgmma_fence();
@@ -493,21 +501,21 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         hopper::wgmma_ss<true, 0>(sc, kmajor(q_desc, kBlockRows, kk),
-                                  kmajor(k_desc, kStreamRows, kk), kk > 0);
+                                  kmajor(k_desc, SR, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
         hopper::wgmma_ss<true, 0>(dp, kmajor(g_desc, kBlockRows, kk),
-                                  kmajor(v_desc, kStreamRows, kk), kk > 0);
+                                  kmajor(v_desc, SR, kk), kk > 0);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
       hopper::fence_regs(dp);
 
-      const bool edge = !(c0 + kStreamRows - 1 <= q_lo + d &&
-                          c0 + kStreamRows - 1 < Skv && q_lo + 63 < Sq &&
+      const bool edge = !(c0 + SR - 1 <= q_lo + d &&
+                          c0 + SR - 1 < Skv && q_lo + 63 < Sq &&
                           (win <= 0 || c0 > q_lo + 63 + d - win));
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < SR / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = c0 + 8 * j + 2 * t + e;
@@ -520,14 +528,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
             dp[x] = p * (dp[x] - dl[i]);
           }
         }
-      uint32_t df[4][4];
-      to_frags<4>(dp, df);
+      uint32_t df[SR / 16][4];
+      to_frags<SR / 16>(dp, df);
 
       hopper::fence_regs(dq_acc);
       hopper::wgmma_fence();
-      const uint64_t k_mn = mnmajor_desc(K_t, kStreamRows);
+      const uint64_t k_mn = mnmajor_desc(K_t, SR);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < SR / 16; ++kk)
         hopper::wgmma_rs<1>(dq_acc, df[kk], mnmajor(k_mn, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -544,12 +552,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
 
 // K1 / K12, the forward.  Shared memory: Q (128 rows) | the ring of
 // kFwdStages stages of a k tile and a v tile (64 rows each) | barriers.
-template <int HD>
+// SR: the k / v rows a stage streams; ST: the ring's depth
+template <int HD, int SR = kStreamRows, int ST = kFwdStages>
 struct WgFwdSmem {
   static constexpr int kQTile = kBlockRows * HD * 2;  // bytes
-  static constexpr int kKvTile = kStreamRows * HD * 2;
-  static constexpr size_t kBytes = kQTile + kFwdStages * 2 * kKvTile +
-                                   (1 + 2 * kFwdStages) * 8 + 1024;
+  static constexpr int kKvTile = SR * HD * 2;
+  static constexpr size_t kBytes =
+      kQTile + ST * 2 * kKvTile + (1 + 2 * ST) * 8 + 1024;
 };
 
 // grid (q tiles of 128 rows, H, B), the heaviest (last) q tiles first.  Q
@@ -571,7 +580,7 @@ struct WgFwdSmem {
 // and its l and O, rescaled by exp2(0) = 1 and added exact zeros, are
 // unchanged too; lane t = 0 of a quad starts l from the carry's l, the
 // others from 0, so that the quad's sum counts it once.
-template <int HD, bool kHop>
+template <int HD, bool kHop, int SR = kStreamRows, int ST = kFwdStages>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
@@ -580,16 +589,16 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
     float* __restrict__ m_io, float* __restrict__ l_io,
     float* __restrict__ acc_io, int H, int Hkv, int Sq, int Skv, int window,
     int shift, float scale) {
-  using L = WgFwdSmem<HD>;
+  using L = WgFwdSmem<HD, SR, ST>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align1024(smem_raw);
   uint8_t* Q_s = smem;
   uint8_t* ring = Q_s + L::kQTile;  // stage s: k tile, v tile
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(ring + kFwdStages * 2 * L::kKvTile);
+      reinterpret_cast<uint64_t*>(ring + ST * 2 * L::kKvTile);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + kFwdStages;
+  uint64_t* empty = full + ST;
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -600,13 +609,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
   const int win = kHop ? 0 : window;
   const int col_hi = min(min(row0 + kBlockRows - 1, Sq - 1) + d, Skv - 1);
   const int col_lo = win > 0 ? max(row0 + d - win + 1, 0) : 0;
-  const int kt_first = col_lo / kStreamRows;
-  const int n_iter = col_lo <= col_hi ? col_hi / kStreamRows - kt_first + 1 : 0;
+  const int kt_first = col_lo / SR;
+  const int n_iter = col_lo <= col_hi ? col_hi / SR - kt_first + 1 : 0;
   if (kHop && n_iter == 0) return;  // every row precedes the kv shard
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
-    for (int s = 0; s < kFwdStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       hopper::mbar_init(&full[s], 1);
       hopper::mbar_init(&empty[s], 2);
     }
@@ -623,16 +632,16 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
         hopper::tma_load_3d(Q_s + j * kBlockRows * 128, &map_q, q_full,
                             64 * j, row0, bh);
       for (int it = 0; it < n_iter; ++it) {
-        const int s = it % kFwdStages;
-        const int c0 = (kt_first + it) * kStreamRows;
-        hopper::mbar_wait(&empty[s], ((it / kFwdStages) & 1) ^ 1);
+        const int s = it % ST;
+        const int c0 = (kt_first + it) * SR;
+        hopper::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
         uint8_t* K_t = ring + s * 2 * L::kKvTile;
         uint8_t* V_t = K_t + L::kKvTile;
         hopper::mbar_expect_tx(&full[s], 2 * L::kKvTile);
         for (int j = 0; j < HD / 64; ++j) {
-          hopper::tma_load_3d(K_t + j * kStreamRows * 128, &map_k, &full[s],
+          hopper::tma_load_3d(K_t + j * SR * 128, &map_k, &full[s],
                               64 * j, c0, bkv);
-          hopper::tma_load_3d(V_t + j * kStreamRows * 128, &map_v, &full[s],
+          hopper::tma_load_3d(V_t + j * SR * 128, &map_v, &full[s],
                               64 * j, c0, bkv);
         }
       }
@@ -666,28 +675,28 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
     hopper::mbar_wait(q_full, 0);
 
     for (int it = 0; it < n_iter; ++it) {
-      const int s = it % kFwdStages;
-      const int c0 = (kt_first + it) * kStreamRows;
+      const int s = it % ST;
+      const int c0 = (kt_first + it) * SR;
       const uint8_t* K_t = ring + s * 2 * L::kKvTile;
       const uint8_t* V_t = K_t + L::kKvTile;
-      hopper::mbar_wait(&full[s], (it / kFwdStages) & 1);
+      hopper::mbar_wait(&full[s], (it / ST) & 1);
       const bool dead = q_lo >= Sq || c0 > q_lo + 63 + d ||
-                        (win > 0 && c0 + kStreamRows - 1 <= q_lo + d - win);
+                        (win > 0 && c0 + SR - 1 <= q_lo + d - win);
       if (!dead) {
-        float sc[32];
+        float sc[SR / 2];
         hopper::fence_regs(sc);
         hopper::wgmma_fence();
         const uint64_t k_desc = kmajor_desc(K_t, 0);
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
           hopper::wgmma_ss<true, 0>(sc, kmajor(q_desc, kBlockRows, kk),
-                                    kmajor(k_desc, kStreamRows, kk), kk > 0);
+                                    kmajor(k_desc, SR, kk), kk > 0);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(sc);
 
-        const bool edge = !(c0 + kStreamRows - 1 <= q_lo + d &&
-                            c0 + kStreamRows - 1 < Skv && q_lo + 63 < Sq &&
+        const bool edge = !(c0 + SR - 1 <= q_lo + d &&
+                            c0 + SR - 1 < Skv && q_lo + 63 < Sq &&
                             (win <= 0 || c0 > q_lo + 63 + d - win));
         if (edge) {
 #pragma unroll
@@ -698,7 +707,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
             const int hi = row < Sq ? min(row + d, Skv - 1) : -1;
             const int lo = win > 0 ? row + d - win + 1 : 0;
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
+            for (int j = 0; j < SR / 8; ++j)
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int col = c0 + 8 * j + 2 * t + e;
@@ -708,7 +717,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
         }
         float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < SR / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
 #pragma unroll
@@ -724,7 +733,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
           m[i] = m_new;
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < SR / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
 #pragma unroll
@@ -742,14 +751,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
             o[4 * j + e] *= alpha[0];
             o[4 * j + 2 + e] *= alpha[1];
           }
-        uint32_t pf[4][4];
-        to_frags<4>(sc, pf);
+        uint32_t pf[SR / 16][4];
+        to_frags<SR / 16>(sc, pf);
 
         hopper::fence_regs(o);
         hopper::wgmma_fence();
-        const uint64_t v_mn = mnmajor_desc(V_t, kStreamRows);
+        const uint64_t v_mn = mnmajor_desc(V_t, SR);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < SR / 16; ++kk)
           hopper::wgmma_rs<1>(o, pf[kk], mnmajor(v_mn, kk), 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();

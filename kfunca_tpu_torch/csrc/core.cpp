@@ -702,3 +702,693 @@ KF_EXPORT int64_t kf_bpe_vocab_size(int64_t id) {
     if (it == s.models.end()) return -1;
     return (int64_t)it->second.token_bytes.size();
 }
+
+// ---------------------------------------------------------------------------
+// A zstd decoder, for utils/orbax_format.py: the checkpoints of orbax's
+// StandardCheckpointer are TensorStore OCDBT stores (most manifest and
+// B+tree node bodies and every zarr chunk are zstd frames).  Not in the JAX
+// package's core, which leaves the format to orbax.
+//
+// kf_zstd_decompress decodes RFC 8878 frames without a dictionary: raw,
+// RLE and compressed blocks; Huffman-coded literals (direct and
+// FSE-compressed weights, one or four streams, treeless blocks reusing the
+// previous table); FSE-coded sequences in predefined, RLE, FSE-compressed
+// and repeat modes; the repeat offsets; the XXH64 content checksum where a
+// frame carries one; skippable frames and concatenated frames.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+namespace zstd {
+
+struct Error {
+    int64_t code;
+};
+constexpr int64_t kCorrupt = -1, kChecksum = -2, kDictionary = -3,
+                  kTruncated = -4;
+
+[[noreturn]] void fail(int64_t code) { throw Error{code}; }
+
+inline uint32_t le16(const uint8_t *p) { return p[0] | (p[1] << 8); }
+inline uint32_t le24(const uint8_t *p) { return le16(p) | (p[2] << 16); }
+inline uint32_t le32(const uint8_t *p) { return le24(p) | ((uint32_t)p[3] << 24); }
+inline uint64_t le64(const uint8_t *p) {
+    return le32(p) | ((uint64_t)le32(p + 4) << 32);
+}
+inline int highbit(uint32_t v) { return 31 - __builtin_clz(v); }
+
+// the output of all frames: the caller's buffer while it holds it, then a
+// heap buffer (the caller asks again with a buffer of the returned size)
+struct Out {
+    uint8_t *dst;
+    size_t cap;
+    std::vector<uint8_t> heap;
+    bool on_heap = false;
+    size_t len = 0;
+    uint8_t *data() { return on_heap ? heap.data() : dst; }
+    void ensure(size_t total) {
+        if (!on_heap) {
+            if (total <= cap) return;
+            heap.resize(std::max(total, 2 * cap + 65536));
+            if (len) memcpy(heap.data(), dst, len);
+            on_heap = true;
+        } else if (heap.size() < total) {
+            heap.resize(std::max(total, 2 * heap.size()));
+        }
+    }
+};
+
+// forward bits, least significant first (FSE table descriptions)
+struct FwdBits {
+    const uint8_t *p;
+    size_t n;
+    size_t pos = 0;  // in bits
+    uint32_t peek(int k) const {
+        uint32_t v = 0;
+        for (int i = 0; i < k; i++) {
+            size_t b = pos + i;
+            if (b / 8 < n) v |= ((p[b / 8] >> (b % 8)) & 1u) << i;
+        }
+        return v;
+    }
+    void skip(int k) {
+        pos += k;
+        if ((pos + 7) / 8 > n) fail(kCorrupt);
+    }
+};
+
+// backward bits (Huffman streams, FSE streams): the last byte's highest
+// set bit marks the start; bits are read from there toward the first byte,
+// and reading past the first byte gives zeros (pos goes negative)
+struct BackBits {
+    const uint8_t *p;
+    int64_t n;
+    int64_t pos;  // bits not yet read
+    BackBits(const uint8_t *data, size_t size) : p(data), n((int64_t)size) {
+        if (size == 0 || data[size - 1] == 0) fail(kCorrupt);
+        pos = (int64_t)(size - 1) * 8 + highbit(data[size - 1]);
+    }
+    uint64_t peek(int k) const {  // the k bits below pos, zeros past start
+        if (k == 0) return 0;
+        int64_t lo = pos - k;
+        if (lo >= 0 && (lo >> 3) + 8 <= n && k <= 56) {
+            uint64_t w;
+            memcpy(&w, p + (lo >> 3), 8);  // little-endian hosts
+            return (w >> (lo & 7)) & ((1ull << k) - 1);
+        }
+        uint64_t v = 0;
+        int64_t first = lo < 0 ? 0 : lo;
+        int64_t shift0 = first - lo;  // zero bits below the stream's start
+        int64_t b = first;
+        while (b < pos) {
+            int64_t byte = b >> 3, bit = b & 7;
+            int take = (int)std::min<int64_t>(8 - bit, pos - b);
+            uint64_t chunk = (p[byte] >> bit) & ((1u << take) - 1u);
+            v |= chunk << (b - first + shift0);
+            b += take;
+        }
+        return v;
+    }
+    uint64_t read(int k) {
+        uint64_t v = peek(k);
+        pos -= k;
+        return v;
+    }
+};
+
+struct FseEntry {
+    uint16_t symbol;
+    uint8_t nbits;
+    uint16_t base;
+};
+
+struct Fse {
+    int log = 0;
+    std::vector<FseEntry> table;
+};
+
+// normalized counts -> decoding table (RFC 8878 4.1.1)
+void fse_build(Fse &t, const int16_t *norm, int n_sym, int log) {
+    const int size = 1 << log;
+    t.log = log;
+    t.table.assign(size, FseEntry{0, 0, 0});
+    std::vector<uint16_t> next(n_sym);
+    int high = size - 1;
+    for (int s = 0; s < n_sym; s++) {
+        if (norm[s] == -1) {
+            t.table[high--].symbol = (uint16_t)s;
+            next[s] = 1;
+        } else {
+            next[s] = (uint16_t)std::max<int>(norm[s], 0);
+        }
+    }
+    const int step = (size >> 1) + (size >> 3) + 3, mask = size - 1;
+    int pos = 0;
+    for (int s = 0; s < n_sym; s++)
+        for (int i = 0; i < norm[s]; i++) {
+            t.table[pos].symbol = (uint16_t)s;
+            do pos = (pos + step) & mask;
+            while (pos > high);
+        }
+    if (pos != 0) fail(kCorrupt);
+    for (int u = 0; u < size; u++) {
+        const int s = t.table[u].symbol;
+        const uint32_t st = next[s]++;
+        if (st == 0) fail(kCorrupt);
+        const int nb = log - highbit(st);
+        t.table[u].nbits = (uint8_t)nb;
+        t.table[u].base = (uint16_t)((st << nb) - size);
+    }
+}
+
+// an FSE table description at p (n bytes available): returns the bytes it
+// took
+size_t fse_read(Fse &t, const uint8_t *p, size_t n, int max_sym, int max_log) {
+    FwdBits bits{p, n};
+    const int log = (int)bits.peek(4) + 5;
+    bits.skip(4);
+    if (log > max_log) fail(kCorrupt);
+    int16_t norm[256] = {0};
+    int remaining = (1 << log) + 1, threshold = 1 << log, nb = log + 1;
+    int s = 0;
+    while (remaining > 1) {
+        if (s > max_sym) fail(kCorrupt);
+        const int max = 2 * threshold - 1 - remaining;
+        int value;
+        const uint32_t low = bits.peek(nb - 1);
+        if ((int)low < max) {
+            value = (int)low;
+            bits.skip(nb - 1);
+        } else {
+            value = (int)bits.peek(nb);
+            if (value >= threshold) value -= max;
+            bits.skip(nb);
+        }
+        const int proba = value - 1;
+        remaining -= proba < 0 ? -proba : proba;
+        norm[s++] = (int16_t)proba;
+        if (proba == 0) {
+            for (;;) {  // 2-bit repeat flags of more zero probabilities
+                const int rep = (int)bits.peek(2);
+                bits.skip(2);
+                for (int i = 0; i < rep; i++) {
+                    if (s > max_sym) fail(kCorrupt);
+                    norm[s++] = 0;
+                }
+                if (rep != 3) break;
+            }
+        }
+        while (remaining < threshold && nb > 1) {
+            nb--;
+            threshold >>= 1;
+        }
+    }
+    if (remaining != 1) fail(kCorrupt);
+    fse_build(t, norm, s, log);
+    return (bits.pos + 7) / 8;
+}
+
+void fse_rle(Fse &t, int symbol) {
+    t.log = 0;
+    t.table.assign(1, FseEntry{(uint16_t)symbol, 0, 0});
+}
+
+struct Huffman {
+    int max_bits = 0;
+    std::vector<uint8_t> symbol, nbits;  // 1 << max_bits entries
+};
+
+// a Huffman tree description; returns the bytes it took
+size_t huf_read(Huffman &h, const uint8_t *p, size_t n) {
+    if (n < 1) fail(kCorrupt);
+    uint8_t w[256] = {0};
+    int n_w = 0;
+    size_t used;
+    const int head = p[0];
+    if (head >= 128) {  // direct: 4 bits a weight
+        n_w = head - 127;
+        used = 1 + (n_w + 1) / 2;
+        if (used > n) fail(kCorrupt);
+        for (int i = 0; i < n_w; i++)
+            w[i] = (i & 1) ? (p[1 + i / 2] & 15) : (p[1 + i / 2] >> 4);
+    } else {  // FSE-compressed weights: two interleaved states
+        used = 1 + (size_t)head;
+        if (used > n || head == 0) fail(kCorrupt);
+        Fse t;
+        const size_t d = fse_read(t, p + 1, head, 255, 6);
+        if (d >= (size_t)head) fail(kCorrupt);
+        BackBits bits(p + 1 + d, head - d);
+        uint32_t s1 = (uint32_t)bits.read(t.log), s2 = (uint32_t)bits.read(t.log);
+        auto step = [&](uint32_t &s) {
+            const FseEntry &e = t.table[s];
+            w[n_w++] = (uint8_t)e.symbol;
+            s = e.base + (uint32_t)bits.read(e.nbits);
+        };
+        for (;;) {
+            if (n_w > 253) fail(kCorrupt);
+            step(s1);
+            if (bits.pos < 0) {
+                w[n_w++] = (uint8_t)t.table[s2].symbol;
+                break;
+            }
+            step(s2);
+            if (bits.pos < 0) {
+                w[n_w++] = (uint8_t)t.table[s1].symbol;
+                break;
+            }
+        }
+    }
+    // the last weight is implied: the sum of 2^(w-1) fills a power of two
+    uint32_t total = 0;
+    for (int i = 0; i < n_w; i++) {
+        if (w[i] > 11) fail(kCorrupt);
+        if (w[i]) total += 1u << (w[i] - 1);
+    }
+    if (total == 0 || n_w >= 256) fail(kCorrupt);
+    const int max_bits = highbit(total) + 1;
+    const uint32_t rest = (1u << max_bits) - total;
+    if (rest & (rest - 1)) fail(kCorrupt);
+    w[n_w++] = (uint8_t)(highbit(rest) + 1);
+    if (max_bits > 11) fail(kCorrupt);
+    h.max_bits = max_bits;
+    h.symbol.assign(1u << max_bits, 0);
+    h.nbits.assign(1u << max_bits, 0);
+    uint32_t pos = 0;
+    for (int weight = 1; weight <= max_bits; weight++)
+        for (int s = 0; s < n_w; s++) {
+            if (w[s] != weight) continue;
+            const uint32_t len = 1u << (weight - 1);
+            for (uint32_t i = 0; i < len; i++) {
+                h.symbol[pos + i] = (uint8_t)s;
+                h.nbits[pos + i] = (uint8_t)(max_bits + 1 - weight);
+            }
+            pos += len;
+        }
+    if (pos != (1u << max_bits)) fail(kCorrupt);
+    return used;
+}
+
+void huf_stream(const Huffman &h, const uint8_t *p, size_t n, uint8_t *out,
+                size_t count) {
+    BackBits bits(p, n);
+    const int mb = h.max_bits;
+    const uint64_t mask = (1ull << mb) - 1;
+    size_t i = 0;
+    // the bulk: 57 bits at a time from one 8-byte load
+    while (i < count && bits.pos >= 64) {
+        const int64_t lo = bits.pos - 57;
+        uint64_t w;
+        memcpy(&w, p + (lo >> 3), 8);  // little-endian hosts
+        w >>= lo & 7;
+        int avail = 57;
+        while (avail >= mb && i < count) {
+            const uint32_t idx = (uint32_t)((w >> (avail - mb)) & mask);
+            out[i++] = h.symbol[idx];
+            avail -= h.nbits[idx];
+        }
+        bits.pos = lo + avail;
+    }
+    for (; i < count; i++) {
+        const uint32_t idx = (uint32_t)bits.peek(h.max_bits);
+        out[i] = h.symbol[idx];
+        bits.pos -= h.nbits[idx];
+    }
+    if (bits.pos != 0) fail(kCorrupt);
+}
+
+// RFC 8878 3.1.1.3.2.1.1: predefined distributions
+const int16_t kLLDefault[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                                2, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2,
+                                2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+const int16_t kMLDefault[53] = {1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1,
+                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+const int16_t kOFDefault[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1, 1,  1,  1,  1, 1,
+                                1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+const uint32_t kLLBase[36] = {0,  1,  2,  3,  4,  5,  6,  7,  8,    9,
+                              10, 11, 12, 13, 14, 15, 16, 18, 20,   22,
+                              24, 28, 32, 40, 48, 64, 128, 256, 512, 1024,
+                              2048, 4096, 8192, 16384, 32768, 65536};
+const uint8_t kLLBits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3,
+                             4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const uint32_t kMLBase[53] = {3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13,
+                              14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24,
+                              25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35,
+                              37, 39, 41, 43, 47, 51, 59, 67, 83, 99, 131,
+                              259, 515, 1027, 2051, 4099, 8195, 16387,
+                              32771, 65539};
+const uint8_t kMLBits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 4, 4,
+                             5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+
+// what a frame's blocks carry over from one block to the next
+struct State {
+    Huffman huf;
+    bool have_huf = false;
+    Fse ll, of, ml;
+    bool have_ll = false, have_of = false, have_ml = false;
+    uint32_t rep[3] = {1, 4, 8};
+    std::vector<uint8_t> lit;
+};
+
+size_t read_table(Fse &t, bool &have, int mode, const uint8_t *p, size_t n,
+                  const int16_t *def, int n_def, int def_log, int max_sym,
+                  int max_log) {
+    switch (mode) {
+    case 0:
+        fse_build(t, def, n_def, def_log);
+        have = true;
+        return 0;
+    case 1:
+        if (n < 1 || p[0] > max_sym) fail(kCorrupt);
+        fse_rle(t, p[0]);
+        have = true;
+        return 1;
+    case 2:
+        have = true;
+        return fse_read(t, p, n, max_sym, max_log);
+    default:
+        if (!have) fail(kCorrupt);
+        return 0;
+    }
+}
+
+void compressed_block(State &st, const uint8_t *p, size_t n, Out &out,
+                      size_t frame_start) {
+    // literals
+    if (n < 1) fail(kCorrupt);
+    const int ltype = p[0] & 3, lfmt = (p[0] >> 2) & 3;
+    size_t regen, csize = 0, hsize;
+    int streams = 1;
+    if (ltype < 2) {
+        if (lfmt == 0 || lfmt == 2) {
+            regen = p[0] >> 3;
+            hsize = 1;
+        } else if (lfmt == 1) {
+            if (n < 2) fail(kCorrupt);
+            regen = (p[0] >> 4) + ((size_t)p[1] << 4);
+            hsize = 2;
+        } else {
+            if (n < 3) fail(kCorrupt);
+            regen = (p[0] >> 4) + ((size_t)p[1] << 4) + ((size_t)p[2] << 12);
+            hsize = 3;
+        }
+    } else {
+        if (lfmt == 0 || lfmt == 1) {
+            if (n < 3) fail(kCorrupt);
+            const uint32_t v = le24(p);
+            regen = (v >> 4) & 1023;
+            csize = (v >> 14) & 1023;
+            hsize = 3;
+            streams = lfmt == 0 ? 1 : 4;
+        } else if (lfmt == 2) {
+            if (n < 4) fail(kCorrupt);
+            const uint32_t v = le32(p);
+            regen = (v >> 4) & 16383;
+            csize = (v >> 18) & 16383;
+            hsize = 4;
+            streams = 4;
+        } else {
+            if (n < 5) fail(kCorrupt);
+            const uint64_t v = le32(p) | ((uint64_t)p[4] << 32);
+            regen = (v >> 4) & 262143;
+            csize = (v >> 22) & 262143;
+            hsize = 5;
+            streams = 4;
+        }
+    }
+    if (regen > (1u << 17)) fail(kCorrupt);
+    st.lit.resize(regen);
+    size_t pos = hsize;
+    if (ltype == 0) {
+        if (pos + regen > n) fail(kCorrupt);
+        if (regen) memcpy(st.lit.data(), p + pos, regen);
+        pos += regen;
+    } else if (ltype == 1) {
+        if (pos + 1 > n) fail(kCorrupt);
+        memset(st.lit.data(), p[pos], regen);
+        pos += 1;
+    } else {
+        if (pos + csize > n) fail(kCorrupt);
+        const uint8_t *q = p + pos;
+        size_t qn = csize;
+        if (ltype == 2) {
+            const size_t t = huf_read(st.huf, q, qn);
+            st.have_huf = true;
+            q += t;
+            qn -= t;
+        } else if (!st.have_huf) {
+            fail(kCorrupt);
+        }
+        if (streams == 1) {
+            huf_stream(st.huf, q, qn, st.lit.data(), regen);
+        } else {
+            if (qn < 6) fail(kCorrupt);
+            size_t sz[4] = {le16(q), le16(q + 2), le16(q + 4), 0};
+            if (6 + sz[0] + sz[1] + sz[2] > qn) fail(kCorrupt);
+            sz[3] = qn - 6 - sz[0] - sz[1] - sz[2];
+            const size_t per = (regen + 3) / 4;
+            if (3 * per > regen) fail(kCorrupt);
+            const uint8_t *s = q + 6;
+            for (int i = 0; i < 4; i++) {
+                const size_t cnt = i < 3 ? per : regen - 3 * per;
+                huf_stream(st.huf, s, sz[i], st.lit.data() + i * per, cnt);
+                s += sz[i];
+            }
+        }
+        pos += csize;
+    }
+
+    // sequences
+    if (pos >= n) fail(kCorrupt);
+    size_t n_seq = p[pos++];
+    if (n_seq >= 128) {
+        if (n_seq == 255) {
+            if (pos + 2 > n) fail(kCorrupt);
+            n_seq = le16(p + pos) + 0x7F00;
+            pos += 2;
+        } else {
+            if (pos + 1 > n) fail(kCorrupt);
+            n_seq = ((n_seq - 128) << 8) + p[pos];
+            pos += 1;
+        }
+    }
+    size_t li = 0;  // literals consumed
+    if (n_seq > 0) {
+        if (pos >= n) fail(kCorrupt);
+        const int modes = p[pos++];
+        if (modes & 3) fail(kCorrupt);
+        pos += read_table(st.ll, st.have_ll, modes >> 6, p + pos, n - pos,
+                          kLLDefault, 36, 6, 35, 9);
+        pos += read_table(st.of, st.have_of, (modes >> 4) & 3, p + pos,
+                          n - pos, kOFDefault, 29, 5, 31, 8);
+        pos += read_table(st.ml, st.have_ml, (modes >> 2) & 3, p + pos,
+                          n - pos, kMLDefault, 53, 6, 52, 9);
+        if (pos >= n) fail(kCorrupt);
+        BackBits bits(p + pos, n - pos);
+        uint32_t sl = (uint32_t)bits.read(st.ll.log);
+        uint32_t so = (uint32_t)bits.read(st.of.log);
+        uint32_t sm = (uint32_t)bits.read(st.ml.log);
+        for (size_t i = 0; i < n_seq; i++) {
+            const int of_code = st.of.table[so].symbol;
+            const int ll_code = st.ll.table[sl].symbol;
+            const int ml_code = st.ml.table[sm].symbol;
+            if (ll_code > 35 || ml_code > 52 || of_code > 31) fail(kCorrupt);
+            const uint64_t of_val = (1ull << of_code) + bits.read(of_code);
+            const size_t ml = kMLBase[ml_code] + bits.read(kMLBits[ml_code]);
+            const size_t ll = kLLBase[ll_code] + bits.read(kLLBits[ll_code]);
+            uint64_t offset;
+            if (of_val > 3) {
+                offset = of_val - 3;
+                st.rep[2] = st.rep[1];
+                st.rep[1] = st.rep[0];
+                st.rep[0] = (uint32_t)offset;
+            } else {
+                const int idx = (int)of_val - 1 + (ll == 0 ? 1 : 0);
+                if (idx == 0) {
+                    offset = st.rep[0];
+                } else {
+                    offset = idx == 3 ? (uint64_t)st.rep[0] - 1 : st.rep[idx];
+                    if (offset == 0) fail(kCorrupt);
+                    if (idx != 1) st.rep[2] = st.rep[1];
+                    st.rep[1] = st.rep[0];
+                    st.rep[0] = (uint32_t)offset;
+                }
+            }
+            if (i + 1 < n_seq) {
+                const FseEntry el = st.ll.table[sl], em = st.ml.table[sm],
+                               eo = st.of.table[so];
+                sl = el.base + (uint32_t)bits.read(el.nbits);
+                sm = em.base + (uint32_t)bits.read(em.nbits);
+                so = eo.base + (uint32_t)bits.read(eo.nbits);
+            }
+            if (li + ll > st.lit.size()) fail(kCorrupt);
+            out.ensure(out.len + ll + ml);
+            uint8_t *o = out.data();
+            memcpy(o + out.len, st.lit.data() + li, ll);
+            li += ll;
+            out.len += ll;
+            if (offset > out.len - frame_start) fail(kCorrupt);
+            const uint8_t *src = o + out.len - offset;
+            uint8_t *dst = o + out.len;
+            if (offset >= ml) {
+                memcpy(dst, src, ml);
+            } else {
+                for (size_t k = 0; k < ml; k++) dst[k] = src[k];
+            }
+            out.len += ml;
+        }
+        if (bits.pos != 0) fail(kCorrupt);
+    } else if (pos != n) {
+        fail(kCorrupt);
+    }
+    const size_t rest = st.lit.size() - li;
+    out.ensure(out.len + rest);
+    if (rest) memcpy(out.data() + out.len, st.lit.data() + li, rest);
+    out.len += rest;
+}
+
+uint64_t rotl(uint64_t x, int r) { return (x << r) | (x >> (64 - r)); }
+
+uint64_t xxh64(const uint8_t *p, size_t n) {
+    const uint64_t P1 = 11400714785074694791ull, P2 = 14029467366897019727ull,
+                   P3 = 1609587929392839161ull, P4 = 9650029242287828579ull,
+                   P5 = 2870177450012600261ull;
+    auto round = [&](uint64_t acc, uint64_t in) {
+        return rotl(acc + in * P2, 31) * P1;
+    };
+    const uint8_t *end = p + n;
+    uint64_t h;
+    if (n >= 32) {
+        uint64_t v1 = P1 + P2, v2 = P2, v3 = 0, v4 = 0 - P1;
+        for (; p + 32 <= end; p += 32) {
+            v1 = round(v1, le64(p));
+            v2 = round(v2, le64(p + 8));
+            v3 = round(v3, le64(p + 16));
+            v4 = round(v4, le64(p + 24));
+        }
+        h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
+        for (uint64_t v : {v1, v2, v3, v4}) h = (h ^ round(0, v)) * P1 + P4;
+    } else {
+        h = P5;
+    }
+    h += n;
+    for (; p + 8 <= end; p += 8) h = rotl(h ^ round(0, le64(p)), 27) * P1 + P4;
+    if (p + 4 <= end) {
+        h = rotl(h ^ ((uint64_t)le32(p) * P1), 23) * P2 + P3;
+        p += 4;
+    }
+    for (; p < end; p++) h = rotl(h ^ (*p * P5), 11) * P1;
+    h ^= h >> 33;
+    h *= P2;
+    h ^= h >> 29;
+    h *= P3;
+    h ^= h >> 32;
+    return h;
+}
+
+// one frame at p; returns the bytes it took
+size_t frame(const uint8_t *p, size_t n, Out &out) {
+    if (n < 4) fail(kTruncated);
+    const uint32_t magic = le32(p);
+    if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) {  // skippable
+        if (n < 8 || 8 + (size_t)le32(p + 4) > n) fail(kTruncated);
+        return 8 + le32(p + 4);
+    }
+    if (magic != 0xFD2FB528u) fail(kCorrupt);
+    size_t pos = 4;
+    if (pos >= n) fail(kTruncated);
+    const int fhd = p[pos++];
+    const int fcs_flag = fhd >> 6, single = (fhd >> 5) & 1,
+              checksum = (fhd >> 2) & 1, did_flag = fhd & 3;
+    if (fhd & 8) fail(kCorrupt);
+    if (!single) pos++;  // the window descriptor: the output is one buffer
+    if (pos > n) fail(kTruncated);
+    const int did_size = did_flag == 3 ? 4 : did_flag;
+    if (pos + did_size > n) fail(kTruncated);
+    uint32_t did = 0;
+    for (int i = 0; i < did_size; i++) did |= (uint32_t)p[pos + i] << (8 * i);
+    if (did != 0) fail(kDictionary);
+    pos += did_size;
+    const int fcs_size = fcs_flag == 0 ? single : (1 << fcs_flag);
+    if (pos + fcs_size > n) fail(kTruncated);
+    uint64_t fcs = 0;
+    bool has_fcs = fcs_size > 0;
+    for (int i = 0; i < fcs_size; i++) fcs |= (uint64_t)p[pos + i] << (8 * i);
+    if (fcs_size == 2) fcs += 256;
+    pos += fcs_size;
+    const size_t start = out.len;
+    if (has_fcs) {
+        // a block takes at least 4 bytes of input and gives at most 128 KB,
+        // so a header that claims more than the rest could give is corrupt;
+        // checked before anything is reserved from it
+        if (fcs > ((n - pos) / 4 + 1) * (uint64_t(1) << 17)) fail(kCorrupt);
+        out.ensure(start + fcs);
+    }
+    State st;
+    for (;;) {
+        if (pos + 3 > n) fail(kTruncated);
+        const uint32_t bh = le24(p + pos);
+        pos += 3;
+        const int last = bh & 1, type = (bh >> 1) & 3;
+        const size_t size = bh >> 3;
+        if (type == 0) {
+            if (pos + size > n) fail(kTruncated);
+            out.ensure(out.len + size);
+            if (size) memcpy(out.data() + out.len, p + pos, size);
+            out.len += size;
+            pos += size;
+        } else if (type == 1) {
+            if (pos + 1 > n) fail(kTruncated);
+            if (size > (1u << 17)) fail(kCorrupt);
+            out.ensure(out.len + size);
+            memset(out.data() + out.len, p[pos], size);
+            out.len += size;
+            pos += 1;
+        } else if (type == 2) {
+            if (pos + size > n) fail(kTruncated);
+            if (size > (1u << 17)) fail(kCorrupt);
+            compressed_block(st, p + pos, size, out, start);
+            pos += size;
+        } else {
+            fail(kCorrupt);
+        }
+        if (last) break;
+    }
+    if (has_fcs && out.len - start != fcs) fail(kCorrupt);
+    if (checksum) {
+        if (pos + 4 > n) fail(kTruncated);
+        const uint64_t h = xxh64(out.data() + start, out.len - start);
+        if ((uint32_t)h != le32(p + pos)) fail(kChecksum);
+        pos += 4;
+    }
+    return pos;
+}
+
+}  // namespace zstd
+}  // namespace
+
+// Decodes the zstd frames of src[0, n).  Returns the decoded size: when it
+// is at most `cap`, the bytes are in dst; when larger, dst is left partly
+// written and the caller asks again with a buffer of that size.  Negative
+// on error: -1 corrupt data, -2 a content checksum that does not match,
+// -3 a frame that needs a dictionary, -4 truncated input.
+KF_EXPORT int64_t kf_zstd_decompress(const uint8_t *src, int64_t n,
+                                     uint8_t *dst, int64_t cap) {
+    zstd::Out out;
+    out.dst = dst;
+    out.cap = cap < 0 ? 0 : (size_t)cap;
+    try {
+        size_t pos = 0;
+        if (n <= 0) zstd::fail(zstd::kTruncated);
+        while (pos < (size_t)n) pos += zstd::frame(src + pos, n - pos, out);
+    } catch (const zstd::Error &e) {
+        return e.code;
+    } catch (const std::exception &) {  // bad_alloc, length_error
+        return zstd::kCorrupt;
+    }
+    return (int64_t)out.len;
+}

@@ -70,6 +70,11 @@
 //     and q are read MN-major (transpose-B).  The dq
 //     kernel keeps 128 q rows of q and dO resident, streams 64-row k and v
 //     tiles, and computes dQ += dS.K the same way.
+//   * the streamed rows and the rings' depths above are the defaults (K12's
+//     too); the bf16 bodies are also built for the other tiles that
+//     runtime/autotune.py sweeps (fwd_tile, bwd_tile below), chosen at
+//     launch by the wrapper; a tile changes the order of the fp32 sums,
+//     not the arithmetic.
 // Left for later: overlapping one tile's softmax with the next tile's
 // products (two score buffers or accumulator sets a consumer, FA3's
 // intra-warpgroup pipelining), a persistent grid, and fusing the dq pass
@@ -500,7 +505,9 @@ __global__ void flash_stats_kernel(const __nv_bfloat16* __restrict__ g,
   }
 }
 
-template <int HD>
+// SR: the k / v rows the dq kernel streams; QR: the q / dO rows the dk/dv
+// kernel streams; ST: both rings' depth
+template <int HD, int SR, int QR, int ST>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                      const void* g, const void* out, const float* lse,
                      float* scratch, void* dq, void* dk, void* dv, int B,
@@ -510,23 +517,24 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   const long long n_pad = (long long)B * H * Sq_pad;
   float* lse_p = scratch;
   float* delta_p = scratch + n_pad;
-  // dq kernel: q, dO resident (128 rows), k, v streamed (64 rows);
-  // dk/dv kernel: k, v resident, q, dO streamed
+  // dq kernel: q, dO resident (128 rows), k, v streamed (SR rows);
+  // dk/dv kernel: k, v resident, q, dO streamed (QR rows)
   CUtensorMap dq_q, dq_g, dq_k, dq_v, kv_q, kv_g, kv_k, kv_v;
   if (!attn_map<HD>(&dq_q, q, B * H, Sq, kBlockRows) ||
       !attn_map<HD>(&dq_g, g, B * H, Sq, kBlockRows) ||
-      !attn_map<HD>(&dq_k, k, B * Hkv, Skv, kStreamRows) ||
-      !attn_map<HD>(&dq_v, v, B * Hkv, Skv, kStreamRows) ||
-      !attn_map<HD>(&kv_q, q, B * H, Sq, kQRows) ||
-      !attn_map<HD>(&kv_g, g, B * H, Sq, kQRows) ||
+      !attn_map<HD>(&dq_k, k, B * Hkv, Skv, SR) ||
+      !attn_map<HD>(&dq_v, v, B * Hkv, Skv, SR) ||
+      !attn_map<HD>(&kv_q, q, B * H, Sq, QR) ||
+      !attn_map<HD>(&kv_g, g, B * H, Sq, QR) ||
       !attn_map<HD>(&kv_k, k, B * Hkv, Skv, kKvRows) ||
       !attn_map<HD>(&kv_v, v, B * Hkv, Skv, kKvRows))
     return (int)cudaErrorInvalidValue;
-  using L = WgBwdSmem<HD>;
-  cudaError_t e =
-      hopper::allow_smem(flash_bwd_dq_wgmma<HD, false>, L::kDqBytes);
+  using L = WgBwdSmem<HD, SR, QR, ST>;
+  const auto dq_kernel = flash_bwd_dq_wgmma<HD, false, SR, ST>;
+  const auto dkv_kernel = flash_bwd_dkv_wgmma<HD, false, QR, ST>;
+  cudaError_t e = hopper::allow_smem(dq_kernel, L::kDqBytes);
   if (e != cudaSuccess) return (int)e;
-  e = hopper::allow_smem(flash_bwd_dkv_wgmma<HD, false>, L::kDkvBytes);
+  e = hopper::allow_smem(dkv_kernel, L::kDkvBytes);
   if (e != cudaSuccess) return (int)e;
 
   const int rows_per_block = kThreads / 32;
@@ -540,7 +548,7 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid_q((Sq + kBlockRows - 1) / kBlockRows, H, B);
-  flash_bwd_dq_wgmma<HD, false><<<grid_q, kWgThreads, L::kDqBytes, stream>>>(
+  dq_kernel<<<grid_q, kWgThreads, L::kDqBytes, stream>>>(
       dq_q, dq_k, dq_v, dq_g, lse_p, delta_p,
       static_cast<__nv_bfloat16*>(dq), H, Hkv, Sq, Skv, Sq_pad, window, 0,
       scale);
@@ -548,31 +556,78 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid_kv((Skv + kKvRows - 1) / kKvRows, Hkv, B);
-  flash_bwd_dkv_wgmma<HD, false><<<grid_kv, kWgThreads, L::kDkvBytes, stream>>>(
+  dkv_kernel<<<grid_kv, kWgThreads, L::kDkvBytes, stream>>>(
       kv_q, kv_k, kv_v, kv_g, lse_p, delta_p,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
       Hkv, Sq, Skv, Sq_pad, window, 0, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+// SR: the k / v rows a stage streams; ST: the ring's depth
+template <int HD, int SR, int ST>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                      float* lse, int B, int H, int Hkv, int Sq, int Skv,
                      int window, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!attn_map<HD>(&mq, q, B * H, Sq, kBlockRows) ||
-      !attn_map<HD>(&mk, k, B * Hkv, Skv, kStreamRows) ||
-      !attn_map<HD>(&mv, v, B * Hkv, Skv, kStreamRows))
+      !attn_map<HD>(&mk, k, B * Hkv, Skv, SR) ||
+      !attn_map<HD>(&mv, v, B * Hkv, Skv, SR))
     return (int)cudaErrorInvalidValue;
-  using L = WgFwdSmem<HD>;
-  const cudaError_t e =
-      hopper::allow_smem(flash_fwd_wgmma<HD, false>, L::kBytes);
+  using L = WgFwdSmem<HD, SR, ST>;
+  const auto kernel = flash_fwd_wgmma<HD, false, SR, ST>;
+  const cudaError_t e = hopper::allow_smem(kernel, L::kBytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kBlockRows - 1) / kBlockRows, H, B);
-  flash_fwd_wgmma<HD, false><<<grid, kWgThreads, L::kBytes, stream>>>(
+  kernel<<<grid, kWgThreads, L::kBytes, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, nullptr, nullptr,
       nullptr, H, Hkv, Sq, Skv, window, 0, scale);
   return (int)cudaGetLastError();
+}
+
+// The bf16 tiles built for runtime/autotune.py's sweeps
+// (ops/pallas_kernels/flash_attention.FWD_TILES, BWD_TILES); the first of
+// each is the default.  A tile outside these is refused.
+//   forward (kv rows a stage, stages): (64, 3) (64, 2), and at hd 64
+//     (128, 2) (at hd 128 ptxas spills its consumers' 128-column score
+//     tile beside the 128-column accumulator);
+//   backward (dq's kv rows, dk/dv's q rows, stages): (64, 64, 2)
+//     (32, 32, 2) (64, 64, 3).
+// Only tiles that won or tied at some shape on the card are kept: (64, 4)
+// and (32, 4) forward and (32, 64, 2), (64, 32, 2) backward lost at every
+// shape swept.  Each fits 227 KB of shared memory (the largest, the
+// backward's (64, 64, 3) dk/dv at hd 128, 179 KB) and spills nothing
+// (chip_smoke.py prints ptxas's report of each).
+// The fp32 bodies have one tile.
+template <int HD>
+int fwd_tile(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int H, int Hkv, int Sq, int Skv, int window,
+             float scale, int rows, int stages, cudaStream_t s) {
+#define KF_FWD(R, ST)                                                        \
+  if (rows == R && stages == ST)                                             \
+    return launch_fwd_wgmma<HD, R, ST>(q, k, v, out, lse, B, H, Hkv, Sq, Skv, \
+                                       window, scale, s);
+  KF_FWD(64, 3) KF_FWD(64, 2)
+  if constexpr (HD == 64) {  // at hd 128 its consumers would spill
+    KF_FWD(128, 2)
+  }
+#undef KF_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int HD>
+int bwd_tile(const void* q, const void* k, const void* v, const void* g,
+             const void* out, const float* lse, float* scratch, void* dq,
+             void* dk, void* dv, int B, int H, int Hkv, int Sq, int Skv,
+             int window, float scale, int rows, int q_rows, int stages,
+             cudaStream_t s) {
+#define KF_BWD(R, QR, ST)                                                   \
+  if (rows == R && q_rows == QR && stages == ST)                            \
+    return launch_bwd_wgmma<HD, R, QR, ST>(q, k, v, g, out, lse, scratch,   \
+                                           dq, dk, dv, B, H, Hkv, Sq, Skv,  \
+                                           window, scale, s);
+  KF_BWD(64, 64, 2) KF_BWD(32, 32, 2) KF_BWD(64, 64, 3)
+#undef KF_BWD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -582,7 +637,8 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
 // or 128; window <= 0 means no window; scale multiplies q.k.  Each returns
 // cudaGetLastError() after its launches (0 on success).  The caller checks
 // shapes, dtypes and contiguity and allocates every output and the (B, H,
-// Sq) float32 delta scratch.
+// Sq) float32 delta scratch.  The bf16 bodies launch the tile named by
+// rows, stages (and q_rows) from the tables above; fp32 ignores them.
 
 // out (B, H, Sq, hd); lse (B, H, Sq) float32, or NULL to skip the statistic;
 // q, k, v 16-byte aligned for bf16 (TMA)
@@ -590,17 +646,18 @@ extern "C" int kf_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int H, int Hkv, int Sq, int Skv,
                                       int hd, int window, float scale,
-                                      int dtype, void* stream) {
+                                      int dtype, int rows, int stages,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (B <= 0 || H <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || H % Hkv)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && hd == 128)
-    return launch_fwd_wgmma<128>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
-                                 scale, s);
+    return fwd_tile<128>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window, scale,
+                         rows, stages, s);
   if (dtype == 1 && hd == 64)
-    return launch_fwd_wgmma<64>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
-                                scale, s);
+    return fwd_tile<64>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window, scale,
+                        rows, stages, s);
   if (dtype == 0 && hd == 128)
     return launch_fwd<float, 128>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
                                   scale, s);
@@ -621,18 +678,19 @@ extern "C" int kf_flash_attention_bwd(const void* q, const void* k,
                                       void* delta, void* dq, void* dk,
                                       void* dv, int B, int H, int Hkv, int Sq,
                                       int Skv, int hd, int window, float scale,
-                                      int dtype, void* stream) {
+                                      int dtype, int rows, int q_rows,
+                                      int stages, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (B <= 0 || H <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || H % Hkv)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && hd == 128)
-    return launch_bwd_wgmma<128>(q, k, v, g, out, l, dl, dq, dk, dv, B, H, Hkv,
-                                 Sq, Skv, window, scale, s);
+    return bwd_tile<128>(q, k, v, g, out, l, dl, dq, dk, dv, B, H, Hkv, Sq,
+                         Skv, window, scale, rows, q_rows, stages, s);
   if (dtype == 1 && hd == 64)
-    return launch_bwd_wgmma<64>(q, k, v, g, out, l, dl, dq, dk, dv, B, H, Hkv,
-                                Sq, Skv, window, scale, s);
+    return bwd_tile<64>(q, k, v, g, out, l, dl, dq, dk, dv, B, H, Hkv, Sq,
+                        Skv, window, scale, rows, q_rows, stages, s);
   if (dtype == 0 && hd == 128)
     return launch_bwd<float, 128>(q, k, v, g, out, l, dl, dq, dk, dv, B, H,
                                   Hkv, Sq, Skv, window, scale, s);

@@ -39,6 +39,7 @@ import torch
 
 from ..core.iterator import check
 from ..core.tensor import GradFunction, Tensor
+from ..runtime import autotune as _autotune
 from ..runtime.launcher import Launcher
 from .pallas_kernels.flash_attention import (
     flash_attention_backward,
@@ -93,41 +94,61 @@ def _sdpa_xla(q, k, v):
     return _sdpa_xla_gqa(q, k, v, None)
 
 
+def _tuned_tiles(q, k):
+    """K1's and K2's recorded tiles for this shape class (runtime/
+    autotune.py, keyed as the JAX package's _tuned_blocks: shape_bucket(Sq,
+    Skv, D) and q's dtype), {} each without an entry; only bf16 has tiles
+    to choose from.  Memoized, so a launch pays a dict lookup."""
+    if q.dtype != torch.bfloat16:
+        return {}, {}
+    dims = (q.shape[2], k.shape[2], q.shape[3])
+    return (_autotune.tuned("attn_fwd", dims, q.dtype),
+            _autotune.tuned("attn_bwd", dims, q.dtype))
+
+
+_NO_TILES = ({}, {})
+
+
 class _FlashAttention(torch.autograd.Function):
-    """forward: K1 with statistics; backward: K2 from the saved lse."""
+    """forward: K1 with statistics; backward: K2 from the saved lse; each at
+    its tile (`tiles`: K1's and K2's launch parameters, {} the default)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window):
-        out, lse = flash_attention_fwd_stats(q, k, v, window=window)
+    def forward(ctx, q, k, v, window, tiles):
+        out, lse = flash_attention_fwd_stats(q, k, v, window=window,
+                                             **tiles[0])
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window = window
+        ctx.window, ctx.bwd_tile = window, tiles[1]
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, g, out, lse,
-                                              window=ctx.window)
-        return dq, dk, dv, None
+                                              window=ctx.window, **ctx.bwd_tile)
+        return dq, dk, dv, None, None
 
 
-def _apply(q, k, v, window):
+def _apply(q, k, v, window, tuned=False):
     if _plain:
         return flash_attention_plain(q, k, v, window)[0]
     if q.dtype == torch.float16:
-        out = _FlashAttention.apply(q.float(), k.float(), v.float(), window)
+        out = _FlashAttention.apply(q.float(), k.float(), v.float(), window,
+                                    _NO_TILES)
         return out.to(torch.float16)
-    return _FlashAttention.apply(q, k, v, window)
+    tiles = _tuned_tiles(q, k) if tuned else _NO_TILES
+    return _FlashAttention.apply(q, k, v, window, tiles)
 
 
 def causal_attention_fn(q, k, v):
-    """Differentiable causal attention, k/v with q's heads, no window."""
+    """Differentiable causal attention, k/v with q's heads, no window; K1
+    and K2 at the tiles autotune recorded for the shape class."""
     if k.shape != q.shape[:2] + k.shape[2:3] + q.shape[3:] or v.shape != k.shape:
         raise ValueError(
             f"causal_attention_fn takes k, v with q's batch, heads and head "
             f"dim; got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)} (grouped kv heads: make_flash_attention)")
-    return _apply(q, k, v, None)
+    return _apply(q, k, v, None, tuned=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,7 +174,7 @@ def _eager_forward(q, k, v):
     if q.dtype == torch.float16:
         out = flash_attention_fwd_stats(q.float(), k.float(), v.float())[0]
         return out.to(torch.float16)
-    return flash_attention_fwd_stats(q, k, v)[0]
+    return flash_attention_fwd_stats(q, k, v, **_tuned_tiles(q, k)[0])[0]
 
 
 def _eager_backward(q, k, v, g):
@@ -167,8 +188,10 @@ def _eager_backward(q, k, v, g):
     dt = q.dtype
     if dt == torch.float16:
         q, k, v = q.float(), k.float(), v.float()
-    out, lse = flash_attention_fwd_stats(q, k, v)
-    grads = flash_attention_backward(q, k, v, g.to(out.dtype), out, lse)
+    fwd, bwd = _tuned_tiles(q, k)
+    out, lse = flash_attention_fwd_stats(q, k, v, **fwd)
+    grads = flash_attention_backward(q, k, v, g.to(out.dtype), out, lse,
+                                     **bwd)
     return tuple(x.to(dt) for x in grads)
 
 

@@ -20,7 +20,16 @@ such a row; a model never meets one, since Sq == Skv there.)
 Not ported, because they are TPU layout choices: the `bq`/`bk` block-size
 arguments, `raw_stats`/`stats128` and the (B*H, Sq_padded, 128) exp2-domain
 residual.  The statistic that travels from forward to backward is the
-public (B, H, Sq) natural-log lse.
+public (B, H, Sq) natural-log lse.  In their place the bf16 bodies take
+their own launch parameters, the tiles built in csrc/flash_attention.cu:
+the forward's (`kv_rows` streamed a stage, `stages` of its ring), FWD_TILES
+(`fwd_tiles(head_dim)`: one of them is built for head dims up to 64 only),
+and the backward's (`kv_rows` the dq kernel streams, `q_rows` the dk/dv
+kernel streams, `stages`), BWD_TILES; the first of each is the default,
+any other raises ValueError, and the fp32 bodies take only the default.
+runtime/autotune.py sweeps them.  A tile changes the order of the fp32
+sums, so its results agree with the default's within rounding; each tile
+repeats bit for bit.
 
 bf16 inputs run the wgmma bodies (csrc/flash_attention.cu, TMA-fed): every
 product on the tensor cores with fp32 accumulators, P (and, backward, dS)
@@ -59,6 +68,38 @@ from ...runtime import _kernels
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # 4 fp32 tiles of 64 x (D + 4) must fit 227 KB of shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 bodies' tiles (csrc/flash_attention.cu fwd_tile, bwd_tile)
+FWD_TILES = ({"kv_rows": 64, "stages": 3}, {"kv_rows": 64, "stages": 2},
+             {"kv_rows": 128, "stages": 2})
+BWD_TILES = ({"kv_rows": 64, "q_rows": 64, "stages": 2},
+             {"kv_rows": 32, "q_rows": 32, "stages": 2},
+             {"kv_rows": 64, "q_rows": 64, "stages": 3})
+
+
+# a forward tile built for head dims up to 64 only: at 128 its consumers'
+# 128-column score tile beside the 128-column accumulator spills
+_HD64_ONLY = ({"kv_rows": 128, "stages": 2},)
+
+
+def fwd_tiles(head_dim: int) -> tuple:
+    """The forward tiles built for `head_dim` (padded to 64 or 128)."""
+    if head_dim <= 64:
+        return FWD_TILES
+    return tuple(t for t in FWD_TILES if t not in _HD64_ONLY)
+
+
+def _tile(tiles, dtype, given):
+    """The full tile for the launch parameters given (None: the default's);
+    raises for a tile the kernel was not built with."""
+    tile = {**tiles[0], **{k: v for k, v in given.items() if v is not None}}
+    if tile not in tiles:
+        raise ValueError(f"no flash attention tile {tile} at this head dim: "
+                         f"the bf16 bodies are built for the tiles "
+                         f"{list(tiles)}")
+    if dtype != torch.bfloat16 and tile != tiles[0]:
+        raise ValueError(f"the {dtype} body's tile is fixed at {tiles[0]}; "
+                         f"only bfloat16 takes the others")
+    return tile
 
 
 def _mask(sq, skv, window, device):
@@ -154,14 +195,18 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None):
+def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None,
+                              kv_rows=None, stages=None):
     """(out, lse): out (B, H, Sq, D) in q's dtype, lse (B, H, Sq) fp32 natural
     log, or None when save_stats is False (the kernel then skips the write).
+    `kv_rows`, `stages`: a tile of FWD_TILES (None: the default's).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (counted in `flash_attention_fwd_stats.launches`, and bf16 calls, which
     take the wgmma body, also in `.launches_wgmma`) or raise."""
     _check(q, k, v, window)
+    tile = _tile(fwd_tiles(q.shape[-1]), q.dtype,
+                 dict(kv_rows=kv_rows, stages=stages))
     if q.device.type == "cpu":
         out, lse = flash_attention_plain(q, k, v, window)
         return out, (lse if save_stats else None)
@@ -174,11 +219,13 @@ def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None):
            if save_stats else None)
     vp, i32 = _kernels.VP, _kernels.I32
     fn = _kernels.function("flash_attention", "kf_flash_attention_fwd",
-                           (vp,) * 5 + (i32,) * 7 + (_kernels.F32, i32, vp))
+                           (vp,) * 5 + (i32,) * 7 + (_kernels.F32,)
+                           + (i32,) * 3 + (vp,))
     err = fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
              lse.data_ptr() if save_stats else None, b, h, hkv, sq, skv, dp,
              0 if window is None else int(window), 1.0 / math.sqrt(d),
-             _DTYPE_CODES[q.dtype], _stream(q))
+             _DTYPE_CODES[q.dtype], tile["kv_rows"], tile["stages"],
+             _stream(q))
     if err:
         raise RuntimeError(f"flash forward kernel launch failed: CUDA error "
                            f"{err}")
@@ -192,21 +239,26 @@ flash_attention_fwd_stats.launches = 0
 flash_attention_fwd_stats.launches_wgmma = 0
 
 
-def flash_attention_forward(q, k, v, window=None):
+def flash_attention_forward(q, k, v, window=None, **tile):
     """K1 without the statistic: the inference form."""
     return flash_attention_fwd_stats(q, k, v, save_stats=False,
-                                     window=window)[0]
+                                     window=window, **tile)[0]
 
 
-def flash_attention_backward(q, k, v, g, out, lse, window=None):
+def flash_attention_backward(q, k, v, g, out, lse, window=None, kv_rows=None,
+                             q_rows=None, stages=None):
     """(dq, dk, dv) for cotangent g of `out`, from the forward's saved
     (out, lse).  dq as q; dk, dv as k, v, the GQA group summed in fp32.
+    `kv_rows`, `q_rows`, `stages`: a tile of BWD_TILES (None: the
+    default's).
 
     CPU tensors run the plain version (autograd through the plain forward,
     which recomputes out and lse); CUDA tensors launch the kernels (one
     count in `flash_attention_backward.launches` per call, whatever number
     of device functions it runs) or raise."""
     _check(q, k, v, window)
+    tile = _tile(BWD_TILES, q.dtype,
+                 dict(kv_rows=kv_rows, q_rows=q_rows, stages=stages))
     if g.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} and out {tuple(out.shape)} must "
                          f"have q's shape {tuple(q.shape)}")
@@ -232,12 +284,14 @@ def flash_attention_backward(q, k, v, g, out, lse, window=None):
                         device=q.device)
     vp, i32 = _kernels.VP, _kernels.I32
     fn = _kernels.function("flash_attention", "kf_flash_attention_bwd",
-                           (vp,) * 10 + (i32,) * 7 + (_kernels.F32, i32, vp))
+                           (vp,) * 10 + (i32,) * 7 + (_kernels.F32,)
+                           + (i32,) * 4 + (vp,))
     err = fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(),
              oc.data_ptr(), lc.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, dp,
              0 if window is None else int(window), 1.0 / math.sqrt(d),
-             _DTYPE_CODES[q.dtype], _stream(q))
+             _DTYPE_CODES[q.dtype], tile["kv_rows"], tile["q_rows"],
+             tile["stages"], _stream(q))
     if err:
         raise RuntimeError(f"flash backward kernel launch failed: CUDA error "
                            f"{err}")

@@ -15,7 +15,8 @@ not bit for bit; the kernel repeats bit for bit from run to run.
 
 The card's kernel is a split-row reduction in two launches (counted as one
 call), on K7's layout: a block of 256 threads takes 256 columns of one of
-`welford.split_count(R, C, block_cols)` row splits (from the shape alone),
+`welford.split_count(R, C, block_cols, target)` row splits (from the
+shape and `welford.split_target("reduce", ...)` alone),
 each thread summing (or taking the max of) its column over the split's
 rows, 16 loads in flight; 16-bit input with C even and a 4-byte aligned
 base is read two columns a thread (`pairs`), so a block takes 512.  The
@@ -34,7 +35,7 @@ import torch
 
 from ...core.dtype import from_torch
 from ...runtime import _kernels
-from .welford import SPLIT_COLS, split_count
+from .welford import SPLIT_COLS, split_count, split_target
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _OPS = {"sum": 0, "mean": 1, "max": 2}
@@ -78,13 +79,17 @@ def pairs(x) -> bool:
             and x.data_ptr() % 4 == 0)
 
 
-def reduce_2d(x, op="sum", out_dt=None):
-    """(R, C) -> (1, C) over dim 0 with fp32 accumulation.
+def reduce_2d(x, op="sum", out_dt=None, target_blocks=None):
+    """(R, C) -> (1, C) over dim 0 with fp32 accumulation.  `target_blocks`:
+    the blocks welford.split_count aims at, by default
+    `welford.split_target`'s (sums agree across targets within rounding;
+    max is exact at any).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (counted in `reduce_2d.launches`) or raise."""
     out_dt = out_dt or x.dtype
     _check(x, op, out_dt)
+    target = split_target("reduce", x.shape, target_blocks)
     if x.device.type == "cpu":
         return reduce_2d_plain(x, op, out_dt)
     if x.device.type != "cuda":
@@ -94,7 +99,8 @@ def reduce_2d(x, op="sum", out_dt=None):
         raise ValueError(f"the kernel needs R > 0 and C > 0, got {tuple(x.shape)}")
     x = x.contiguous()
     pair = pairs(x)
-    splits = split_count(rows, cols, SPLIT_COLS * (PAIR if pair else 1))
+    splits = split_count(rows, cols, SPLIT_COLS * (PAIR if pair else 1),
+                         target=target)
     out = torch.empty((1, cols), dtype=out_dt, device=x.device)
     ws = torch.empty((splits, cols), dtype=torch.float32, device=x.device)
     vp, i32 = _kernels.VP, _kernels.I32

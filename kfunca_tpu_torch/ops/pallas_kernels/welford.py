@@ -12,8 +12,11 @@ in XLA; the card's kernel reduces every row itself, so the two agree to
 fp32 rounding, not bit for bit.  The plain version is the two-pass formula.
 
 The card's kernel is a split-row reduction in two launches (counted as one
-call): the rows are cut into `split_count(R, C)` splits of ceil(R / S) rows
-(from the shape alone, so the result repeats bit for bit); a block of 256
+call): the rows are cut into `split_count(R, C, target=...)` splits of
+ceil(R / S) rows (from the shape and the target alone, so the result
+repeats bit for bit; the target is `split_target`'s: the caller's, or the
+one runtime/autotune.py recorded for the shape class, or TARGET_BLOCKS);
+a block of 256
 threads takes 256 columns of one split, each thread folding chunks of 16
 rows (the chunk's mean and M2 taken in registers, relative to its running
 mean) into its (count, mean, M2) by Chan's formula; the splits' partials go
@@ -47,21 +50,46 @@ def welford_norm_stat_plain(x):
     return mean, 1.0 / torch.sqrt(var + EPS)
 
 
-def split_count(rows: int, cols: int, block_cols: int = SPLIT_COLS) -> int:
+def split_count(rows: int, cols: int, block_cols: int = SPLIT_COLS,
+                target: int = TARGET_BLOCKS) -> int:
     """S, the row splits of a split-row kernel (K7's, and K8's whose blocks
-    own `block_cols` columns each), from the shape alone: enough blocks for
-    TARGET_BLOCKS, and no more splits than chunks of CHUNK rows."""
+    own `block_cols` columns each), from the shape and `target` alone:
+    enough blocks for `target` (the launch parameter runtime/autotune.py
+    sweeps as "welford" and "reduce"), and no more splits than chunks of
+    CHUNK rows."""
+    if int(target) < 1:
+        raise ValueError(f"split_count takes target >= 1, got {target}")
     strips = -(-cols // block_cols)
-    return max(1, min(-(-TARGET_BLOCKS // strips), -(-rows // CHUNK)))
+    return max(1, min(-(-int(target) // strips), -(-rows // CHUNK)))
 
 
-def welford_norm_stat(x):
-    """(mean, invstd) of each column of x over its rows.
+def split_target(op: str, shape, target_blocks=None) -> int:
+    """The blocks split_count aims at for `op` ("welford" for K7,
+    "reduce" for K8) over an (R, C) matrix: `target_blocks` where given,
+    else the winner `kfunca.autotune(op, R, C)` recorded for the shape
+    class (keyed float32, as the JAX package's), else TARGET_BLOCKS."""
+    if target_blocks is None:
+        from ...runtime import autotune
+
+        target_blocks = autotune.tuned(op, tuple(shape), torch.float32).get(
+            "target_blocks", TARGET_BLOCKS)
+    if int(target_blocks) < 1:
+        raise ValueError(f"split_count takes target >= 1, got "
+                         f"{target_blocks}")
+    return int(target_blocks)
+
+
+def welford_norm_stat(x, target_blocks=None):
+    """(mean, invstd) of each column of x over its rows.  `target_blocks`:
+    the blocks split_count aims at, by default `split_target`'s (a target
+    changes the order of the fp32 sums, so results agree across targets
+    within rounding).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (counted in `welford_norm_stat.launches`) or raise.  An empty matrix
     launches nothing and counts nothing."""
     _check(x)
+    target = split_target("welford", x.shape, target_blocks)
     if x.device.type == "cpu":
         return welford_norm_stat_plain(x)
     if x.device.type != "cuda":
@@ -72,7 +100,7 @@ def welford_norm_stat(x):
         # invstd of (1, C) for no rows, (1, 0) outputs for no columns
         mean = torch.full((1, cols), float("nan"), device=x.device)
         return mean, mean.clone()
-    splits = split_count(rows, cols)
+    splits = split_count(rows, cols, target=target)
     x = x.contiguous()
     mean = torch.empty((1, cols), dtype=torch.float32, device=x.device)
     invstd = torch.empty_like(mean)

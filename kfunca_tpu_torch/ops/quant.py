@@ -42,6 +42,7 @@ import contextlib
 import torch
 
 from ..runtime import _kernels
+from ..runtime import autotune as _autotune
 
 # |acc| <= k * 127 * 127 must fit an int32
 MAX_K_INT32 = (2 ** 31 - 1) // (127 * 127)
@@ -155,23 +156,29 @@ Q8_WAVE = 2 * _SMS  # the blocks a split plan aims at: two an SM
 Q8_MIN_STAGES = 4  # the fewest stages a k slice is cut to
 
 
-def q8_plan(m: int, k: int, n: int) -> tuple[int, int]:
+def q8_plan(m: int, k: int, n: int, wave: int = Q8_WAVE,
+            min_stages: int = Q8_MIN_STAGES) -> tuple[int, int]:
     """(split, k_per_split): how the K5 kernel cuts k among the blocks of
     one output tile.
 
     The grid is (n / 128 column tiles, m / 8 row tiles, split).  A skinny
     decode product has too few tiles for the card, so k is cut into slices
-    of whole 64-row stages until there are about two blocks an SM or a
-    slice would drop under 4 stages; the slices are then evened out (on
-    the card, two blocks an SM with their 8 stages of b in flight read
-    the decode shapes as fast as four, and fewer slices leave less to
-    add).  Shape only, so the plan (and the bits) never depend on timing.
+    of whole 64-row stages until there are about `wave` blocks (default
+    two an SM) or a slice would drop under `min_stages` stages (default
+    4); the slices are then evened out (on the card, two blocks an SM with
+    their 8 stages of b in flight read the decode shapes as fast as four,
+    and fewer slices leave less to add).  `wave` and `min_stages` are the
+    launch parameters runtime/autotune.py sweeps ("gemm_q8").  Shape and
+    those two only, so the plan (and the bits) never depend on timing.
     The last block to finish a tile adds the slices' int32 tiles in slice
     order; integer sums are exact in any order, so the result does not
     depend on the plan."""
+    if int(wave) < 1 or int(min_stages) < 1:
+        raise ValueError(f"q8_plan takes wave >= 1 and min_stages >= 1, "
+                         f"got {wave} and {min_stages}")
     tiles = -(-n // Q8_TILE[1]) * -(-m // Q8_TILE[0])
     stages = max(1, -(-k // Q8_STAGE_ROWS))  # k = 0: one slice, no stage
-    want = max(1, min(Q8_WAVE // tiles, stages // Q8_MIN_STAGES))
+    want = max(1, min(int(wave) // tiles, stages // int(min_stages)))
     per = -(-stages // want)
     return -(-stages // per), per * Q8_STAGE_ROWS
 
@@ -191,15 +198,21 @@ def _q8_tickets(device, stream: int, count: int):
     return t
 
 
-def matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
+def matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16,
+              wave=Q8_WAVE, min_stages=Q8_MIN_STAGES):
     """int8 (m, k) @ int8 (k, n) with exact int32 accumulation and fused
     per-row x per-column dequantization:
     out[i, j] = (acc[i, j] * a_scale[i]) * b_scale[j], in fp32 or bf16.
+    `wave`, `min_stages`: the split plan's parameters (q8_plan); the
+    result does not depend on them.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, one
     launch a call (counted in `matmul_q8.launches`), or raise.  Any m, k,
     n: the kernel masks ragged edges itself."""
     _check_q8(a_q8, b_q8, a_scale, b_scale, out_dtype)
+    m, k = a_q8.shape
+    n = b_q8.shape[1]
+    split, per = q8_plan(m, k, n, wave, min_stages)
     if a_q8.device.type == "cpu" or _plain:
         return matmul_q8_plain(a_q8, b_q8, a_scale, b_scale, out_dtype)
     if a_q8.device.type != "cuda":
@@ -207,14 +220,11 @@ def matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
     for name, t in (("a_q8", a_q8), ("b_q8", b_q8)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    m, k = a_q8.shape
-    n = b_q8.shape[1]
     sa = a_scale.float().contiguous()
     sb = b_scale.float().contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=a_q8.device)
     if m == 0 or n == 0:
         return out
-    split, per = q8_plan(m, k, n)
     tiles = -(-n // Q8_TILE[1]) * -(-m // Q8_TILE[0])
     stream = torch.cuda.current_stream(a_q8.device).cuda_stream
     scratch = tickets = None
@@ -240,10 +250,16 @@ def matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
 matmul_q8.launches = 0
 
 
-def matmul_q8_auto(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16):
+def matmul_q8_auto(a_q8, b_q8, a_scale, b_scale, out_dtype=torch.bfloat16,
+                   **kw):
     """The dispatched int8 GEMM of the JAX package's interface.  The port
-    has one engine, so this is `matmul_q8` (see the module docstring)."""
-    return matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=out_dtype)
+    has one engine, so this is `matmul_q8` (see the module docstring), with
+    the split plan autotune recorded for this shape class ("gemm_q8",
+    keyed "int8", as the JAX package's), explicit kwargs winning."""
+    dims = (a_q8.shape[0], a_q8.shape[1], b_q8.shape[1])
+    plan = _autotune.tuned("gemm_q8", dims, "int8")
+    return matmul_q8(a_q8, b_q8, a_scale, b_scale, out_dtype=out_dtype,
+                     **{**plan, **kw})
 
 
 def gemm_w8(a, w_q8, w_scale, out_dtype=None, row_absmax=None):

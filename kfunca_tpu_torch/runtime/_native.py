@@ -101,6 +101,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "kf_bpe_encode": (i64, [i64, u8p, i64, i32p]),
         "kf_bpe_decode": (i64, [i64, i32p, i64, u8p, i64]),
         "kf_bpe_vocab_size": (i64, [i64]),
+        "kf_zstd_decompress": (i64, [ctypes.c_void_p, i64, ctypes.c_void_p,
+                                     i64]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)

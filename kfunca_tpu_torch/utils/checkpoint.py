@@ -18,8 +18,12 @@ state through models/train.sharded_opt_state), whose leaves are written in
 the global layout of param_specs, so a directory written by either package
 loads in the other whatever the meshes.  save_async copies the tree to the
 host before it returns and writes it on a thread; an error surfaces on
-wait().  The orbax interop (save_orbax / load_orbax) needs orbax, which
-the port does not depend on: it stays queued.
+wait().
+
+save_orbax / load_orbax read and write orbax's StandardCheckpointer
+directory (OCDBT, zarr v2) with numpy and the native core alone (the
+format: utils/orbax_format.py); a directory written by either package
+loads in the other, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ from __future__ import annotations
 import glob
 import json
 import os
+import shutil
 import threading
+import time
 
 import numpy as np
 import torch
@@ -368,3 +374,206 @@ def save_async(path: str, tree) -> AsyncCheckpoint:
     handle = AsyncCheckpoint(t)
     t.start()
     return handle
+
+
+# ---------------------------------------------------------------------------
+# orbax interop: the StandardCheckpointer format without orbax
+# ---------------------------------------------------------------------------
+
+
+def _orbax_items(tree, keys=()):
+    """(keys, leaf) of each leaf in flatten order: keys a tuple of (key,
+    key_type), 2 a dict key and 1 a sequence index, as orbax records them;
+    a ShardedParams node as its global tree."""
+    if isinstance(tree, ShardedParams):
+        leaves = [gather_leaf(tree.mesh, s, list(xs))[0]
+                  for s, xs in tree.leaves()]
+        tree = tree_unflatten(tree.shards, leaves)
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _orbax_items(tree[k], keys + ((str(k), 2),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _orbax_items(v, keys + ((str(i), 1),))
+    elif tree is not None:
+        yield keys, tree
+
+
+def _orbax_host(leaf):
+    """(C-contiguous numpy array, zarr dtype, is a Python scalar) of a leaf:
+    torch tensors on any device (bf16 as its bits), eager kfunca Tensors
+    (their dtype kept), numpy arrays and scalars, Python numbers (stored as
+    int64 / float64 / bool, as orbax stores them)."""
+    from . import orbax_format as of
+    from ..core.tensor import Tensor
+
+    if isinstance(leaf, Tensor):
+        leaf = leaf.to_torch()
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16", False
+        arr = t.numpy()
+    else:
+        scalar = isinstance(leaf, (bool, int, float))
+        arr = np.asarray(leaf)  # not ascontiguousarray: it makes 0-d 1-d
+        if arr.dtype.name == "bfloat16":  # an ml_dtypes array
+            return arr.view(np.uint16), "bfloat16", scalar
+        if scalar:
+            return arr, of.NUMPY_TO_ZARR[arr.dtype], True
+    if arr.dtype not in of.NUMPY_TO_ZARR:
+        raise ValueError(f"save_orbax: dtype {arr.dtype} is not written "
+                         f"(float32, bfloat16, float16, float64, int8, "
+                         f"int16, int32, int64, uint8 and bool are)")
+    if not arr.flags.c_contiguous:
+        arr = arr.copy(order="C")
+    return arr, of.NUMPY_TO_ZARR[arr.dtype], False
+
+
+def save_orbax(dir_path: str, tree) -> None:
+    """Write `tree` as orbax's StandardCheckpointer writes it (use_ocdbt,
+    zarr v2), readable by the JAX package's load_orbax; an existing
+    directory is replaced, as orbax's force=True replaces it.  Leaves:
+    torch tensors on any device, eager kfunca Tensors, numpy arrays and
+    scalars, Python numbers; nodes: dicts, lists, tuples and ShardedParams
+    (written as the global tree).  Every chunk is a zstd frame of raw
+    blocks, so the directory is about the size of the raw arrays.  Needs no
+    native core."""
+    from . import orbax_format as of
+
+    dir_path = os.path.abspath(dir_path)
+    values, tree_md, array_md, sharding = {}, {}, [], {}
+    for keys, leaf in _orbax_items(tree):
+        host, zdt, scalar = _orbax_host(leaf)
+        name = ".".join(k for k, _ in keys)
+        shape = list(host.shape)
+        values[f"{name}/.zarray"] = [of.zarray_json(shape, zdt)]
+        chunk = ".".join("0" for _ in shape) or "0"
+        values[f"{name}/{chunk}"] = of.zstd_raw_frame_parts(
+            memoryview(host.reshape(-1).view(np.uint8)))
+        value_md = {"value_type": "scalar" if scalar else "jax.Array",
+                    "skip_deserialize": False}
+        if not scalar:
+            value_md["write_shape"] = shape
+            array_md.append({"array_metadata": {
+                "param_name": name, "write_shape": shape,
+                "chunk_shape": shape, "ext_metadata": None}})
+            sharding[of.sharding_key(name)] = json.dumps({
+                "sharding_type": "SingleDeviceSharding",
+                "device_str": "TFRT_CPU_0"})
+        tree_md[str(tuple(k for k, _ in keys))] = {
+            "key_metadata": [{"key": k, "key_type": t} for k, t in keys],
+            "value_metadata": value_md}
+    tmp = f"{dir_path}.{os.getpid()}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(os.path.join(tmp, "array_metadatas"))
+    started = time.time_ns()
+    of.write_ocdbt(tmp, values)
+    files = {
+        "_METADATA": {"tree_metadata": tree_md, "use_ocdbt": True,
+                      "use_zarr3": False,
+                      "store_array_data_equal_to_fill_value": True,
+                      "custom_metadata": None},
+        "_sharding": sharding,
+        os.path.join("array_metadatas", "process_0"): {
+            "array_metadatas": array_md},
+        "_CHECKPOINT_METADATA": {
+            "item_handlers": "orbax.checkpoint._src.handlers."
+                             "standard_checkpoint_handler."
+                             "StandardCheckpointHandler",
+            "metrics": {}, "performance_metrics": {},
+            "init_timestamp_nsecs": started,
+            "commit_timestamp_nsecs": time.time_ns(), "custom_metadata": {}},
+    }
+    for rel, obj in files.items():
+        with open(os.path.join(tmp, rel), "w") as f:
+            json.dump(obj, f)
+    if os.path.exists(dir_path):
+        shutil.rmtree(dir_path)
+    os.replace(tmp, dir_path)
+
+
+def _proto_dtype(proto) -> torch.dtype:
+    from ..core.dtype import to_torch
+    from ..core.tensor import Tensor
+
+    if isinstance(proto, torch.Tensor):
+        return proto.dtype
+    if isinstance(proto, Tensor):
+        return to_torch(proto.dtype())
+    arr = np.asarray(proto)
+    if arr.dtype.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros((), arr.dtype)).dtype
+
+
+def load_orbax(dir_path: str, like, device=None):
+    """Restore an orbax StandardCheckpointer directory (use_ocdbt, zarr v2;
+    written by the JAX package's save_orbax, by orbax, or by save_orbax)
+    against `like`'s structure and dtypes, as the JAX package's load_orbax.
+    Array leaves come back as torch tensors of `like`'s dtype on the card,
+    or on `device` (device="cpu" for the plain path); a Python-number leaf
+    of `like` as a number of its type.  A layout not read here (zarr3, a
+    dtype, a missing leaf or key, a shape other than `like`'s) raises
+    ValueError naming it, before anything is returned.  zstd decodes in the
+    native core: without it this raises RuntimeError."""
+    from . import orbax_format as of
+    from ..runtime import _native
+    from ..runtime.backend import resolve_device
+
+    dir_path = os.path.abspath(dir_path)
+    if _native.get_lib() is None:
+        raise RuntimeError("load_orbax decodes zstd in the native core "
+                           "(csrc/core.cpp, built by g++); it is not built "
+                           "(KFUNCA_NO_NATIVE=1, or no g++)")
+    dev = resolve_device(device)
+    try:
+        with open(os.path.join(dir_path, "_METADATA")) as f:
+            meta = json.load(f)
+    except OSError as e:
+        raise ValueError(f"{dir_path}: not an orbax checkpoint ({e})") from None
+    if meta.get("use_zarr3"):
+        raise ValueError(f"{dir_path}: use_zarr3 is true; only zarr v2 "
+                         f"checkpoints are read here")
+    if not meta.get("use_ocdbt"):
+        raise ValueError(f"{dir_path}: use_ocdbt is false; only OCDBT "
+                         f"checkpoints are read here")
+    tree_md = meta.get("tree_metadata", {})
+    store = of.OcdbtReader(dir_path)
+    items = list(_orbax_items(like))
+    out = []
+    for keys, proto in items:
+        path = str(tuple(k for k, _ in keys))
+        if path not in tree_md:
+            raise ValueError(f"{dir_path}: no leaf {path} in the checkpoint "
+                             f"(it holds {sorted(tree_md)})")
+        name = ".".join(k for k, _ in keys)
+        arr, zdt = of.read_zarr(store, name)
+        if isinstance(proto, (bool, int, float)):
+            if arr.shape != ():
+                raise ValueError(f"leaf {path}: shape {arr.shape} for a "
+                                 f"Python number of `like`")
+            out.append(type(proto)(arr.item()))
+            continue
+        if zdt == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        want = tuple(proto.sizes()) if hasattr(proto, "sizes") else tuple(
+            np.shape(proto))
+        if tuple(t.shape) != want:
+            raise ValueError(f"leaf {path}: the checkpoint holds shape "
+                             f"{tuple(t.shape)}, `like` has {want}")
+        out.append(t.to(device=dev, dtype=_proto_dtype(proto)))
+    it = iter(out)
+
+    def rebuild(x):
+        if isinstance(x, ShardedParams):  # the global tree's structure
+            return rebuild(x.shards)
+        if isinstance(x, dict):
+            return {k: rebuild(x[k]) for k in sorted(x)}
+        if isinstance(x, (list, tuple)):
+            return type(x)(rebuild(v) for v in x)
+        return None if x is None else next(it)
+
+    return rebuild(like)

@@ -693,6 +693,49 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     assert none is None and torch.equal(no_stats, out)
 
 
+# every built bf16 tile at both head dims, on cases with ragged tiles, GQA,
+# windows and rows without a column
+TILE_CASES = [FLASH_CASES[1], FLASH_CASES[3], FLASH_CASES[4], FLASH_CASES[5],
+              FLASH_CASES[6], (1, 4, 2, 333, 333, 128, None)]
+
+
+@pytest.mark.parametrize("tile", range(len(fa.FWD_TILES)))
+def test_every_forward_tile_matches_plain(cuda, tile):
+    for case in TILE_CASES:
+        if fa.FWD_TILES[tile] not in fa.fwd_tiles(case[5]):
+            continue  # a tile built for head dims up to 64
+        q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, case)
+        window = case[-1]
+        out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window,
+                                                **fa.FWD_TILES[tile])
+        again = fa.flash_attention_fwd_stats(q, k, v, window=window,
+                                             **fa.FWD_TILES[tile])
+        torch.cuda.synchronize()
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, window)
+        _flash_close(out, want_out, torch.bfloat16)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("tile", range(len(fa.BWD_TILES)))
+def test_every_backward_tile_matches_plain(cuda, tile):
+    for case in TILE_CASES:
+        q, k, v, g = _flash_inputs(cuda, torch.bfloat16, case)
+        window = case[-1]
+        out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
+        got = fa.flash_attention_backward(q, k, v, g, out, lse, window=window,
+                                          **fa.BWD_TILES[tile])
+        again = fa.flash_attention_backward(q, k, v, g, out, lse,
+                                            window=window,
+                                            **fa.BWD_TILES[tile])
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        want = fa.flash_attention_backward_plain(q, k, v, g, window)
+        for x, ref in zip(got, want):
+            assert torch.isfinite(x).all()
+            _flash_close(x, ref, torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_rows_without_a_column_and_unread_kv_rows(cuda, dtype):
     """Window 64 with Sq 300 over Skv 64: rows >= 127 see no column and get

@@ -67,7 +67,7 @@ def test_importing_the_port_loads_no_jax():
         "             'models.mamba2', 'models.vision', 'models.encoder',",
         "             'models.hf_vision', 'models.clip', 'models.dit',",
         "             'models.t5', 'models.whisper', 'models.audio',",
-        "             'models.seq2seq'):",
+        "             'models.seq2seq', 'utils.orbax_format'):",
         "    assert 'kfunca_tpu_torch.' + want in names, (want, names)",
         "print(sorted(m for m in sys.modules",
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'kfunca_tpu')))",
@@ -93,6 +93,33 @@ def test_no_jax_import_in_the_source():
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _foreign(m)]
     assert bad == []
+
+
+def test_orbax_interop_needs_no_orbax(tmp_path):
+    """save_orbax / load_orbax read and write orbax's format themselves: no
+    module of the port, and not chip_smoke.py, names orbax, tensorstore or
+    zstandard, and a round trip in a fresh interpreter loads none of them
+    (nor JAX)."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("orbax", "tensorstore", "zstandard")]
+    assert bad == []
+    code = "\n".join([
+        "import sys, torch",
+        "from kfunca_tpu_torch.utils import checkpoint",
+        "tree = {'w': torch.arange(6.).reshape(2, 3).bfloat16(), 'step': 4}",
+        f"checkpoint.save_orbax({str(tmp_path / 'c')!r}, tree)",
+        f"got = checkpoint.load_orbax({str(tmp_path / 'c')!r}, tree, "
+        "device='cpu')",
+        "assert torch.equal(got['w'], tree['w']) and got['step'] == 4",
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in",
+        "             ('orbax', 'tensorstore', 'zstandard', 'jax',",
+        "              'kfunca_tpu')))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_every_source_the_port_builds_lies_in_the_port():

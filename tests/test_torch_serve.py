@@ -72,6 +72,7 @@ def _port(served, **kw):
                                   **{**SERVER, **kw})
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_greedy_stream_matches_jax_server(served):
     srv = _port(served)
     rids, events, lps = _drive(srv, served["prompts"])
@@ -85,6 +86,7 @@ def test_greedy_stream_matches_jax_server(served):
     assert all(r is None for r in srv.slot_req)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_decode_burst_matches_single_steps(served):
     """Four decode steps per scheduler call give the single-step tokens;
     the burst's tail past a finish is discarded."""
@@ -152,6 +154,7 @@ def test_cancel_frees_pages(served):
     assert srv.pool.available == SERVER["n_pages"] - 1
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_window_frees_pages_behind_it():
     """A windowed sequence holds at most ceil(window/page) + 1 live pages
     once it is past the window, however long it decodes."""
@@ -345,6 +348,7 @@ def jax_option_run(request, shared):
                 fused=jsrv.fused_pool)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_option_stream_matches_jax_server(shared, jax_option_run):
     """Greedy serving under each new option: the JAX server's event stream
     (request, token, finished, free pages, trash-table entries) and its
@@ -472,6 +476,7 @@ def test_prefix_cache_matches_jax_server(shared, opt):
     assert sorted(srv._page_refs.values()) == [1] * ts["cached_pages"]
 
 
+@pytest.mark.usefixtures("one_thread")
 @PREFIX_OPTS
 @pytest.mark.parametrize("pressure", [False, True], ids=["", "pressure"])
 def test_prefix_cache_changes_no_output(shared, opt, pressure):
@@ -663,6 +668,7 @@ def test_token_logprobs_match_jax():
                                rtol=0)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_sampled_server_is_deterministic_per_seed(served):
     def run(seed):
         srv = _port(served, temperature=0.8, top_p=0.9, seed=seed)
