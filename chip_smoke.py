@@ -15,9 +15,10 @@ chip_smoke.py --moe-mla` phases 56-60 (the flagship's MoE and MLA blocks),
 `python3 chip_smoke.py --lora` phases 61-65 (the finetuning stack) and
 `python3 chip_smoke.py --families` phases 66-70 (Mamba-2 and the vision
 family), `python3 chip_smoke.py --seq2seq` phases 71-75 (F1's sharded
-MLA decode, T5, the audio frontend and Whisper) and `python3 chip_smoke.py
+MLA decode, T5, the audio frontend and Whisper), `python3 chip_smoke.py
 --autotune-orbax` phases 76-80 (autotune over K1, K2, K5, K7 and K8;
-save_orbax / load_orbax).
+save_orbax / load_orbax) and `python3 chip_smoke.py --gemma` phases 81-85
+(Gemma-2B, K1 / K2 / K12 at head dim 256).
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
@@ -125,7 +126,7 @@ Phases (any failure raises and the script exits non-zero):
      forward and backward (K1, K2) at B=1, H=32, S=2048, hd=128;
  24. profile one eager MLP step, and time an eager 256-element add's host
      cost per op;
- 25. (at the end, after phase 70) print the kernels line (the seventeen
+ 25. (at the end, after phase 85) print the kernels line (the seventeen
      kernels, with the entries of the paths that run them at other shapes),
      the card line and, last, the result line;
  26. hold the selective-scan kernels K11 (forward and backward) against
@@ -150,9 +151,10 @@ Phases (any failure raises and the script exits non-zero):
      (loss and every gradient, 2 layers at full width, 2 x 512 tokens), and
      two kernel runs bitwise;
  30. serve 6 greedy requests through MambaServer at 2 layers (fp32) and at
-     64 layers (fp32 and bf16): tokens equal generate's (in bf16 but for
+     16 of 64 layers (fp32 and bf16; the depth cut keeps the script inside
+     its time limit): tokens equal generate's (in bf16 but for
      near ties within the bf16 limit), and the recurrent prefill's served
-     log-prob stands within 1e-4 nat (fp32) or 0.25 nat (bf16) of the
+     log-prob stands within 1e-4 nat (fp32) or 0.08 nat (bf16) of the
      parallel forward through K11;
  31. the hybrid stack at AI21-Jamba2-3B widths: 4 training steps at 8
      layers (K1 and K2 once a step, on their wgmma bodies, K11 seven
@@ -414,6 +416,38 @@ Phases (any failure raises and the script exits non-zero):
 sweep prints every candidate's median ms and the spread of its rounds,
 and whether the winner beats today's launch parameters by more than both
 spreads (the rule for runtime/autotune_defaults.json).
+ 81. K1 and K2 at head dim 256 against their plain versions, bf16 and
+     fp32: Gemma-2B's attention (B 1, H 8, Hkv 1, S 8192, causal) and edges
+     (MQA 8:1 with window 37, head dims 160 and 200 padded, GQA 4:2 with
+     Sq != Skv both ways and ragged tiles, rows with no valid column);
+     every tile of the hd-256 tables, two bf16 runs of each bitwise equal;
+     head dim 257 raises HeadDimError;
+ 82. time K1 and K2 there beside their plain versions, SDPA forward and
+     backward and the bound (4 hd and 10 hd flops an unmasked pair at 989
+     TFLOP/s; the fp32 bodies beside 67 TFLOP/s);
+ 83. Gemma-2B (google/gemma-2b's config.json through hf.config_from_hf,
+     random weights from the seed): 6 AdamW steps through make_train_step,
+     all 18 layers, 1 x 4096 tokens (8192 peaked at 76.70 GB), bf16
+     activations, fp32 masters, loss_chunk over the 256k vocabulary, peak
+     memory within 75 GB; K1 = K2
+     = 18 x 6 launches on the wgmma bodies; a 2-step profile; fp32 parity
+     at 2 layers, full width, against the plain attention path (loss 1e-5,
+     every gradient 1e-4 of its max) and two kernel runs bitwise;
+ 84. K4, K4-int8 (B 8, H 8, Hkv 1, hd 256) and K5 (its five decode
+     products, the 256,000-column LM head among them) against their plain
+     versions, bitwise repeatable, and timed; the phase-5 traffic through
+     InferenceServer at all 18 layers in bf16 and w8kv8 (K4 = 18 x decode
+     steps, K5 = (5 x 18 + 1) x decode steps; ms/step, tok/s, TTFT), the
+     served log-probs within 0.1 nat of a fresh forward, and an fp32
+     2-layer server with the plain path's tokens;
+ 85. K12 and K12b at a shard of the ring (B 1, H 8, s_local 2048, hd 256;
+     past, diagonal, future) and edges against their plain versions, the
+     backward bitwise repeatable, each hop kind timed against its bound;
+     the ring over Gemma-2B's 8192-token context through LocalRing(4),
+     bf16 and fp32, against K1 / K2 on the gathered sequence, 16 + 16
+     launches a pass.
+`python3 chip_smoke.py --gemma` runs phases 81-85 alone; the full script
+prints their kernels-line entries with "path": "gemma-2b".
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -1220,15 +1254,17 @@ def loss_and_grads(params, tokens, targets, cfg):
     return float(loss.detach()), grads
 
 
-def end_to_end_fp32():
+def end_to_end_fp32(cfg=None, params=None, tag="[12]"):
     """loss_fn and its gradients through K1/K2 against the same function
-    with the attention routed to the plain version, in fp32."""
+    with the attention routed to the plain version, in fp32: at
+    Mistral-7B-v0.1's widths, or `cfg` and its `params`."""
     from kfunca_tpu_torch.models.transformer import TransformerConfig
     from kfunca_tpu_torch.ops.attention import plain_attention
 
-    cfg = TransformerConfig(**{**MISTRAL, "n_layers": 2, "dtype": "float32",
-                               "max_seq_len": 1024})
-    params = mistral_params(cfg, SEED + 3, torch.float32)
+    if cfg is None:
+        cfg = TransformerConfig(**{**MISTRAL, "n_layers": 2,
+                                   "dtype": "float32", "max_seq_len": 1024})
+        params = mistral_params(cfg, SEED + 3, torch.float32)
     rng = np.random.default_rng(SEED + 3)
     window = rng.integers(0, cfg.vocab_size, (2, 1025))
     tokens = torch.tensor(window[:, :-1], device="cuda")
@@ -1252,10 +1288,12 @@ def end_to_end_fp32():
     check(loss_k == loss_k2 and all(torch.equal(a, b) for a, b in
                                     zip(grads_k, grads_k2)),
           "two runs through the kernels give bitwise-equal gradients")
-    print(f"[12] fp32, 2 layers at full width, 2 x 1024 tokens: loss "
+    print(f"{tag} fp32, {cfg.n_layers} layers at full width (head dim "
+          f"{cfg.head_dim}), 2 x 1024 tokens: loss "
           f"{loss_k:.6f} (kernels) vs {loss_p:.6f} (plain attention), worst "
           f"gradient leaf off by {worst:.3g} of its max; two kernel runs "
           f"bitwise equal", flush=True)
+    return loss_k, loss_p, worst
 
 
 def trainer_resume():
@@ -1594,23 +1632,26 @@ def library_attention_forms(q, kw, window, form):
 
 
 def paged_form_timing(pa, entry, form, quantized, dtype=torch.bfloat16,
-                      h=32, hkv=8):
+                      h=32, hkv=8, hd=128, window=4096):
     """Times at the serving widths (`dtype` q, bf16 or fp16, window 4096;
-    h q heads over hkv kv heads, a tensor-parallel rank's share when
-    smaller) and the bound: the unmasked slots' k and v rows (int8: one
-    byte an element plus 2*Hkv fp32 scales a slot), q in, out out, the live
-    table entries, the positions."""
+    h q heads over hkv kv heads of hd, a tensor-parallel rank's share when
+    smaller, or another model's widths and window) and the bound: the
+    unmasked slots' k and v rows (int8: one byte an element plus 2*Hkv fp32
+    scales a slot), q in, out out, the live table entries, the
+    positions."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     positions = [96, 300, 511, 700, 1023, 1056, 2047, 4231]
     q, kw = pool_case(dtype, gen, positions, form=form,
-                      quantized=quantized, nan_dead=False, h=h, hkv=hkv)
-    window, page = 4096, 16
+                      quantized=quantized, nan_dead=False, h=h, hkv=hkv,
+                      hd=hd)
+    page = 16
     b, h, hd = q.shape
     live_pages = valid = 0
     for p in positions:
-        first = max(0, (p - window + 1) // page)
+        span = p + 1 if window is None else window
+        first = max(0, (p - span + 1) // page)
         live_pages += min(p // page + 1, kw["page_tables"].shape[1]) - first
-        valid += min(p + 1, window)
+        valid += min(p + 1, span)
     per_slot = (2 * hkv * hd + 2 * hkv * 4) if quantized else 2 * hkv * hd * 2
     nbytes = (valid * per_slot + 2 * q.numel() * q.element_size()
               + live_pages * 4 + 4 * len(positions))
@@ -3456,6 +3497,14 @@ def prefill_logits(srv, prompt):
 # parallel conv in fp32), where 0.1 had been guessed; the bf16 limit is
 # those readings with room: 0.25 nat.
 BF16_DEEP_NAT = 0.25
+# MambaServer decodes one token a slot a host round trip a layer, so its
+# 64 layers took 28 s (fp32) and 43 s (bf16) at 2-3 tok/s; 16 layers keep
+# every check of the phase at a quarter of the time
+MAMBA_SERVE_LAYERS = 16
+# at 16 layers the bf16 served log-prob moved by 0.0361 nat (three runs on
+# this card, the same each time) and the one near tie stood 0.0171 apart;
+# the limit is that reading with room, as 0.25 is for 64 and 28 layers
+BF16_SERVE_NAT = 0.08
 
 
 def near_tie(params, cfg, seq, a, b) -> float:
@@ -3480,8 +3529,10 @@ def mamba_serve_phase(card):
     gaps = {}
     for label, n_layers, dtype, tol in (
             ("fp32, 2 layers", 2, "float32", 1e-4),
-            ("fp32, 64 layers", 64, "float32", 1e-4),
-            ("bf16, 64 layers", 64, "bfloat16", BF16_DEEP_NAT)):
+            (f"fp32, {MAMBA_SERVE_LAYERS} layers", MAMBA_SERVE_LAYERS,
+             "float32", 1e-4),
+            (f"bf16, {MAMBA_SERVE_LAYERS} layers", MAMBA_SERVE_LAYERS,
+             "bfloat16", BF16_SERVE_NAT)):
         cfg = MambaConfig(**{**MAMBA, "n_layers": n_layers, "dtype": dtype})
         params = mamba_params(cfg, SEED + 53, _DTYPE[dtype])
         lengths = [16, 40, 96, 23, 64, 71]
@@ -3503,8 +3554,8 @@ def mamba_serve_phase(card):
             # cuBLAS sums other orders for other shapes; 16-bit roundings
             # then move a log-prob by a few hundredths, which can swap a
             # near tie.  Such a swap is allowed where the two tokens stand
-            # within this phase's bf16 limit (0.1 nat) on generate's own
-            # path; nothing after it is compared.
+            # within this phase's bf16 limit (BF16_SERVE_NAT) on generate's
+            # own path; nothing after it is compared.
             i = next(j for j, (a, b) in enumerate(zip(out[rid], want))
                      if a != b)
             margin = near_tie(params, cfg, p + want[:i], want[i], out[rid][i])
@@ -4265,15 +4316,16 @@ def hop_bounds(kind, b, h, s, d, item):
     return out
 
 
-def ring_hop_timing(rh) -> dict:
+def ring_hop_timing(rh, shape=HOP_SHAPE, kinds=HOP_KINDS) -> dict:
     """Phase 38: each hop kind, kernel and plain (in chunks of 8 heads, at
-    the same shape), at B=1, H=32, s_local=8192, D=128, bf16."""
+    the same shape), at B=1, H=32, s_local=8192, D=128 (or `shape`, with
+    its `kinds`' offsets), bf16."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 73)
-    b, h, s, d = (HOP_SHAPE[n] for n in ("b", "h", "s", "d"))
+    b, h, s, d = (shape[n] for n in ("b", "h", "s", "d"))
     q, k, v, g, carry, stats, accs = hop_inputs(gen, torch.bfloat16, b, h, s,
                                                 s, d)
     res = {}
-    for kind, offs in HOP_KINDS.items():
+    for kind, offs in kinds.items():
         bounds = hop_bounds(kind, b, h, s, d, q.element_size())
         fwd = lambda: rh.flash_attention_hop(q, k, v, *carry, *offs)
         bwd = lambda: rh.flash_attention_bwd_hop(q, k, v, g, *stats, *accs,
@@ -9274,6 +9326,560 @@ def autotune_orbax_phases(card) -> dict:
 
 
 
+# -- phases 81-85: Gemma-2B, and K1 / K2 / K12 at head dim 256 --------------
+
+# google/gemma-2b (huggingface.co/google/gemma-2b config.json), read through
+# hf.config_from_hf: hidden 2048, 18 layers, 8 heads over 1 kv head of 256,
+# intermediate 16384 (GeGLU, tanh GELU), vocab 256000, tied head, sqrt(d)
+# embedding scale, (1 + w) RMSNorm, eps 1e-6, rope_theta 1e4, 8192
+# positions, no window: 2.506 B parameters (a 524.3 M embedding, 110.1 M a
+# layer).  Random weights from the seed; nothing is downloaded.
+GEMMA_2B_HF = {
+    "architectures": ["GemmaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 2, "eos_token_id": 1,
+    "head_dim": 256, "hidden_act": "gelu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 16384,
+    "max_position_embeddings": 8192, "model_type": "gemma",
+    "num_attention_heads": 8, "num_hidden_layers": 18,
+    "num_key_value_heads": 1, "pad_token_id": 0, "rms_norm_eps": 1e-06,
+    "rope_scaling": None, "rope_theta": 10000.0, "torch_dtype": "bfloat16",
+    "use_cache": True, "vocab_size": 256000}
+# Gemma-2B's attention over its 8192-token context
+GEMMA_ATTN = dict(b=1, h=8, hkv=1, sq=8192, skv=8192, hd=256, window=None)
+# edges at the hd-256 kernels: MQA 8:1 with window 37, head dims 160 and
+# 200 (padded), GQA 4:2 with Sq != Skv both ways and ragged tiles, and a
+# window with Sq > Skv + window (rows with no valid column)
+GEMMA_FLASH_EDGES = [
+    dict(b=1, h=8, hkv=1, sq=300, skv=300, hd=256, window=37),
+    dict(b=1, h=4, hkv=2, sq=100, skv=160, hd=160, window=None),
+    dict(b=2, h=4, hkv=2, sq=160, skv=100, hd=200, window=None),
+    dict(b=1, h=2, hkv=1, sq=300, skv=64, hd=256, window=64),
+]
+# Training keeps all 18 layers and cuts the sequence: 18 layers of fp32
+# master params, grads and two AdamW moments are 40 GB, and beside the
+# activations of 1 x 8192 tokens the peak read 76.70 GB on the card, past
+# the phase's 75 GB, so one row of 4096; the LM head's 256,000 columns
+# stream in chunks of 16384
+GEMMA_TRAIN_SEQ = 4096
+GEMMA_LOSS_CHUNK = 16384
+GEMMA_PEAK_GB = 75.0
+# the ring: Gemma-2B's attention (its kv head repeated to the 8 q heads)
+# over the 8192-token context in cp = 4 shards of 2048 on one card
+GEMMA_RING = dict(b=1, h=8, hkv=1, s=8192, d=256, cp=4)
+GEMMA_HOP = dict(b=1, h=8, s=2048, d=256)  # one shard of GEMMA_RING
+GEMMA_HOP_KINDS = {"past": (2048, 0), "diagonal": (2048, 2048),
+                   "future": (0, 2048)}
+GEMMA_HOP_EDGES = [
+    (1, 4, 200, 200, 256, 400, 200),
+    (1, 3, 130, 100, 160, 37, 50),
+    (1, 2, 128, 128, 256, 0, 64),
+]
+# the decode step's products at Gemma-2B widths, 8 slots: (k, n, a step of
+# 18 layers): wqkv, wo, w_gate and w_up, w_down, the tied LM head
+GEMMA_Q8_SHAPES = [(2048, 2560, 18), (2048, 2048, 18), (2048, 16384, 36),
+                   (16384, 2048, 18), (2048, 256000, 1)]
+
+
+def gemma_config(**over):
+    """Gemma-2B's TransformerConfig from its config.json (bf16
+    activations), with `over` replaced."""
+    from kfunca_tpu_torch.models.hf import config_from_hf, with_config_defaults
+
+    cfg = config_from_hf(with_config_defaults(GEMMA_2B_HF), dtype="bfloat16")
+    check((cfg.head_dim, cfg.kv_heads, cfg.norm, cfg.mlp_type,
+           cfg.embed_scale) == (256, 1, "rms_offset", "geglu", True),
+          "config_from_hf reads google/gemma-2b as Gemma at head dim 256")
+    return dataclasses.replace(cfg, **over)
+
+
+def gemma_serving_params(cfg, seed, dtype):
+    """Random Gemma params for serving, the embedding drawn at half the
+    init's std (0.01).  At 0.02 the tied, sqrt(d)-scaled head predicts each
+    input token again with p = 1 in fp32 (its logit about 0.02^2 x 2048 x
+    45 / rms(x), some 35 above the rest), so every served log-prob read 0
+    and phase 84's log-prob checks held nothing; at 0.01 the input token
+    keeps about 2% and the rest of the vocabulary the remainder."""
+    from kfunca_tpu_torch.models.transformer import init_params
+
+    params = init_params(seed, cfg, device="cuda", dtype=dtype)
+    params["embed"].mul_(0.5)
+    return params
+
+
+def n_parameters(params) -> int:
+    from kfunca_tpu_torch.utils.tree import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def gemma_flash_checks(fa) -> tuple[float, float]:
+    """Phase 81: K1 and K2 against their plain versions at Gemma-2B's
+    attention and the edges, bf16 and fp32; on bf16 every tile of the
+    head dim's tables, each run twice bit for bit.  Tolerances as phase
+    8's (flash_err).  Returns the worst (K1, K2) errors."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    worst1 = worst2 = 0.0
+    for case in [GEMMA_ATTN] + GEMMA_FLASH_EDGES:
+        window, hd = case["window"], case["hd"]
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            q, k, v, g = flash_case(dtype, gen, **case)
+            r_out, r_lse, r_dq, r_dk, r_dv = flash_plain(fa, q, k, v, g,
+                                                         window)
+            tag = "x".join(str(case[n]) for n in ("b", "h", "hkv", "sq",
+                                                  "skv", "hd"))
+            tag = f"{tag} w={window} {str(dtype)[6:]}"
+            e1 = e2 = 0.0
+            ftiles = fa.fwd_tiles(hd) if bf16 else fa.fwd_tiles(hd)[:1]
+            for tile in ftiles:
+                n_wg = fa.flash_attention_fwd_stats.launches_wgmma
+                out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window,
+                                                        **tile)
+                torch.cuda.synchronize()
+                check(fa.flash_attention_fwd_stats.launches_wgmma - n_wg
+                      == bf16, f"K1 {tag} took the "
+                      f"{'wgmma' if bf16 else 'fp32'} body")
+                if bf16:
+                    again = fa.flash_attention_fwd_stats(q, k, v,
+                                                         window=window, **tile)
+                    check(torch.equal(again[0], out)
+                          and torch.equal(again[1], lse),
+                          f"two bf16 K1 runs at {tile} give bitwise-equal "
+                          f"out and lse")
+                    del again
+                e1 = max(e1, flash_err(out, r_out, dtype, f"out {tag} {tile}"),
+                         flash_err(lse, r_lse, torch.float32,
+                                   f"lse {tag} {tile}"))
+            out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
+            btiles = fa.bwd_tiles(hd) if bf16 else fa.bwd_tiles(hd)[:1]
+            for tile in btiles:
+                n_wg = fa.flash_attention_backward.launches_wgmma
+                dq, dk, dv = fa.flash_attention_backward(
+                    q, k, v, g, out, lse, window=window, **tile)
+                torch.cuda.synchronize()
+                check(fa.flash_attention_backward.launches_wgmma - n_wg
+                      == bf16, f"K2 {tag} took the "
+                      f"{'wgmma' if bf16 else 'fp32'} body")
+                if bf16:
+                    again = fa.flash_attention_backward(
+                        q, k, v, g, out, lse, window=window, **tile)
+                    check(all(torch.equal(x, y)
+                              for x, y in zip((dq, dk, dv), again)),
+                          f"two bf16 K2 runs at {tile} give bitwise-equal "
+                          f"dq, dk, dv")
+                    del again
+                e2 = max(e2, *(flash_err(x, r, dtype, f"{n} {tag} {tile}")
+                               for x, r, n in zip((dq, dk, dv),
+                                                  (r_dq, r_dk, r_dv),
+                                                  ("dq", "dk", "dv"))))
+            print(f"  {tag}: K1 max err {e1:.3g} over {len(ftiles)} tile(s), "
+                  f"K2 max err {e2:.3g} over {len(btiles)}", flush=True)
+            worst1, worst2 = max(worst1, e1), max(worst2, e2)
+            if window and case["sq"] > case["skv"] + window - 1:
+                dead = case["skv"] + window - 1  # first row with no column
+                check(not out[:, :, dead:].any() and not lse[:, :, dead:].any()
+                      and not dq[:, :, dead:].any(),
+                      "rows with no valid column give out = 0, lse = 0, "
+                      "dq = 0")
+            if case["skv"] > case["sq"]:
+                check(not dk[:, :, case["sq"]:].any()
+                      and not dv[:, :, case["sq"]:].any(),
+                      "kv rows that no q row reads get exact-zero dk/dv")
+            del q, k, v, g, r_out, r_lse, r_dq, r_dk, r_dv
+            del out, lse, dq, dk, dv
+            free_device_memory()
+    try:
+        q = torch.zeros((1, 1, 8, 257), dtype=torch.bfloat16, device="cuda")
+        fa.flash_attention_fwd_stats(q, q, q)
+        check(False, "K1 refuses head dim 257")
+    except fa.HeadDimError as e:
+        print(f"  head dim 257 raises HeadDimError: {e}", flush=True)
+    return worst1, worst2
+
+
+def gemma_training_phase(fa, card) -> dict:
+    """Phase 83: 6 AdamW steps of Gemma-2B through make_train_step, all 18
+    layers, 1 x GEMMA_TRAIN_SEQ tokens, bf16 activations, fp32 masters,
+    loss_chunk over the 256k vocabulary; K1 = K2 = layers x steps on the
+    wgmma bodies; a profile of 2 steps; then fp32 parity at 2 layers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kfunca_tpu_torch.models.data import TokenDataset
+    from kfunca_tpu_torch.models.train import (
+        OptConfig, init_opt_state, make_train_step)
+    from kfunca_tpu_torch.models.transformer import init_params
+
+    cfg = gemma_config()
+    oc = OptConfig(lr=3e-4, warmup_steps=2, clip_norm=1.0)
+    params = init_params(SEED + 83, cfg, device="cuda")
+    n_params = n_parameters(params)
+    opt = init_opt_state(params, oc)
+    ds = TokenDataset(learnable_corpus(cfg.vocab_size), GEMMA_TRAIN_SEQ, 1,
+                      seed=SEED + 83)
+    step = make_train_step(cfg, oc, loss_chunk=GEMMA_LOSS_CHUNK,
+                           with_metrics=True)
+    steps = 6
+    print(f"[83] training Gemma-2B, all {cfg.n_layers} layers "
+          f"({n_params / 1e9:.3f} B parameters), 1 x {GEMMA_TRAIN_SEQ} "
+          f"tokens, bf16 activations, fp32 masters, AdamW, loss_chunk "
+          f"{GEMMA_LOSS_CHUNK} over {cfg.vocab_size} columns", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: launch counts start at 0 here and are read after it
+    reset_flash(fa)
+    params, opt, metrics, seconds = run_steps(step, ds, params, opt, 0, steps)
+    launches, wgmma = read_flash(fa)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.n_layers * steps
+    check(launches == (want, want) and wgmma == launches,
+          f"K1, K2 launches {launches} (on the wgmma bodies {wgmma}) == "
+          f"layers x steps {want}")
+    for m in metrics:
+        print(f"  step {int(m['step'])}: loss {m['loss']:.4f}, grad norm "
+              f"{m['grad_norm']:.4f}, lr {m['lr']:.3g}")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              for m in metrics), "every loss and grad norm is finite")
+    # no ln(vocab) check here: with the tied head and the sqrt(d) scale,
+    # the residual stream at init is mostly the input token's own
+    # embedding row, so that token's logit is about |e|^2 / rms(e) = 0.02
+    # x 2048 = 41 and every other target costs about that much (the
+    # first loss read 35.7 on the card)
+    check(metrics[-1]["loss"] < metrics[0]["loss"],
+          "the last loss is below the first")
+    check(peak <= GEMMA_PEAK_GB, f"peak memory {peak:.2f} GB within "
+          f"{GEMMA_PEAK_GB} GB")
+    ms_step = 1e3 * float(np.mean(seconds[1:]))
+    print(f"  {ms_step:.1f} ms/step (host clock, steps 2-{steps}, each "
+          f"ending on a synchronize; first step {1e3 * seconds[0]:.1f} ms), "
+          f"{GEMMA_TRAIN_SEQ / ms_step * 1e3:.0f} tokens/s, peak memory "
+          f"{peak:.2f} GB; K1 and K2 launches {launches[0]} and "
+          f"{launches[1]} (= layers x steps, all on the wgmma bodies); "
+          f"{card}", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, _, _ = run_steps(step, ds, params, opt, steps, 2)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof = profile_summary(prof, wall_us, 2, n_top=10)
+    print_profile(f"[83] Gemma-2B training step profile (bf16, "
+                  f"{cfg.n_layers} layers, 1 x {GEMMA_TRAIN_SEQ}, 2 steps, "
+                  f"profiler on)", prof, card)
+    k1_ms, k1_share = kernel_share(prof, K1_KERNELS)
+    k2_ms, k2_share = kernel_share(prof, K2_KERNELS)
+    print(f"[83] K1 (forward): {k1_ms:.2f} ms/step, {100 * k1_share:.1f}% of "
+          f"the device's busy time; K2 (stats pre-pass, dq, dk/dv): "
+          f"{k2_ms:.2f} ms/step, {100 * k2_share:.1f}%", flush=True)
+    del params, opt, step
+    free_device_memory()
+    cfg32 = gemma_config(n_layers=2, dtype="float32", max_seq_len=1024)
+    end_to_end_fp32(cfg32, init_params(SEED + 84, cfg32, device="cuda"),
+                    tag="[83] Gemma-2B")
+    free_device_memory()
+    return dict(launches=launches, ms_step=ms_step,
+                peak_gb=peak, busy=prof["busy_ms"] / prof["wall_ms"])
+
+
+def gemma_paged_checks(pa) -> dict:
+    """Phase 84's kernel checks: K4 (bf16 and fp32 pools) and K4-int8
+    against their plain versions at Gemma-2B's decode shape (B 8, H 8, Hkv
+    1, hd 256, page 16), no window and window 37, each call repeated bit
+    for bit.  Tolerances as phase 3's (max_err)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 85)
+    dma = pa.paged_decode_attention_dma
+    positions = [0, 15, 16, 1000, 2047, 4095, 4200, 4300]
+    worst = {"dma": 0.0, "dma_int8": 0.0}
+    for key, dtype, quantized in (("dma", torch.bfloat16, False),
+                                  ("dma", torch.float32, False),
+                                  ("dma_int8", torch.bfloat16, True)):
+        q, kw = pool_case(dtype, gen, positions, quantized=quantized, h=8,
+                          hkv=1, hd=256)
+        for window in (None, 37):
+            out = run_form(pa, dma, "fused", q, kw, window)
+            again = run_form(pa, dma, "fused", q, kw, window)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"two {key} calls at Gemma-2B's "
+                  f"decode shape give bitwise-equal outputs")
+            err = max_err(out, run_form(pa, dma, "fused", q, kw, window,
+                                        plain=True), dtype)
+            worst[key] = max(worst[key], err)
+            print(f"  {key} {str(dtype)[6:]} B=8 H=8 Hkv=1 hd=256 window="
+                  f"{window}: max err {err:.3g}, bitwise repeatable",
+                  flush=True)
+    return worst
+
+
+def gemma_q8_checks(tq) -> float:
+    """K5 at Gemma-2B's decode products (8 slots): fp32 bit-equal to its
+    plain version, bf16 within one bf16 step (as phase 14)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 86)
+    worst = 0.0
+    for k, n, _ in GEMMA_Q8_SHAPES:
+        a, b, sa, sb = q8_case(gen, 8, k, n)
+        got = tq.matmul_q8(a, b, sa, sb, out_dtype=torch.float32)
+        want = tq.matmul_q8_plain(a, b, sa, sb, out_dtype=torch.float32)
+        check(torch.equal(got, want), f"matmul_q8 8x{k}x{n} fp32 bit-equal "
+              f"to its plain version")
+        got16, want16 = tq.matmul_q8(a, b, sa, sb), tq.matmul_q8_plain(a, b,
+                                                                       sa, sb)
+        err = (got16.float() - want16.float()).abs()
+        check(bool((err <= want16.float().abs() * 2.0 ** -7).all()),
+              f"matmul_q8 8x{k}x{n} bf16 within one bf16 step")
+        check(torch.equal(tq.matmul_q8(a, b, sa, sb), got16),
+              f"matmul_q8 8x{k}x{n} is bitwise repeatable")
+        worst = max(worst, float(err.max()))
+    print(f"  matmul_q8 at Gemma-2B's five decode products: fp32 bit-equal, "
+          f"bf16 max err {worst:.3g}, bitwise repeatable", flush=True)
+    return worst
+
+
+def gemma_serving_phase(card) -> dict:
+    """Phase 84: K4, K4-int8 and K5 at Gemma-2B's shapes against their
+    plain versions and timed; then the phase-5 traffic through
+    InferenceServer at all 18 layers in bf16 and w8kv8 (launches asserted
+    per run), the served log-probs against a fresh forward, and an fp32
+    2-layer server against the plain path."""
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.ops import quant as tq
+    from kfunca_tpu_torch.ops.pallas_kernels import paged_attention as pa
+
+    dma = pa.paged_decode_attention_dma
+    print("[84] K4, K4-int8 and K5 at Gemma-2B's decode shapes vs their "
+          "plain versions", flush=True)
+    errs = gemma_paged_checks(pa)
+    errs["q8"] = gemma_q8_checks(tq)
+    widths = dict(h=8, hkv=1, hd=256, window=None)
+    timing = {"dma": paged_form_timing(pa, dma, "fused", False, **widths),
+              "dma_int8": paged_form_timing(pa, dma, "fused", True,
+                                            **widths)}
+    for key, what in (("dma", "K4 paged_decode_attention_dma, fused bf16 "
+                       "pool"), ("dma_int8", "K4-int8, fused int8 pool")):
+        t = timing[key]
+        print(f"[84] {what} at Gemma-2B's decode shape (B=8, H=8, Hkv=1, "
+              f"hd=256, page 16, bf16 q, no window): kernel {t['ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, gather+sdpa "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['bytes']} B); {card}", flush=True)
+    timing["q8"] = q8_timing(tq, card, shapes=GEMMA_Q8_SHAPES, tag="[84]")
+    t = timing["q8"]
+    print(f"[84] matmul_q8 over one Gemma-2B decode step's {t['per_step']} "
+          f"launches: {t['step_ms']:.3f} ms against a bound of "
+          f"{t['step_bound_ms']:.3f} ms; {card}", flush=True)
+
+    cfg = gemma_config()
+    params = gemma_serving_params(cfg, SEED + 84, torch.bfloat16)
+    prompts = traffic(cfg)
+    print(f"[84] serving Gemma-2B, all {cfg.n_layers} layers, "
+          f"{len(prompts)} greedy requests (prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))}), max_new 32, "
+          f"8 slots, page 16", flush=True)
+    runs, launches = {}, {}
+    with torch.no_grad():
+        for label, options in (("bf16", {}),
+                               ("w8kv8", dict(quantize_weights=True,
+                                              quantize_kv=True))):
+            # each run drives a path of its own: counts start at 0 just
+            # before it and are read just after it
+            reset_launches(pa, tq)
+            run = serve(params, cfg, prompts, 1, **options)
+            got = read_launches(pa, tq)
+            steps = run["stats"]["decode_steps"]
+            want = {"dma": cfg.n_layers * steps, "k6": 0,
+                    "q8": (5 * cfg.n_layers + 1) * steps if options else 0}
+            check(steps > 0 and got == want,
+                  f"Gemma-2B {label}: launches {got} == {want} (K4 layers x "
+                  f"decode steps, K5 (5 x layers + 1) x decode steps)")
+            runs[label], launches[label] = run, got
+            print(f"  Gemma-2B {label}: {steps} decode steps, decode "
+                  f"{run['decode_ms_per_step']:.2f} ms/step (all steps; "
+                  f"per-call median {run['median_call_ms_per_step']:.2f}), "
+                  f"{run['gen_tok_per_s']:.1f} generated tok/s (prefill "
+                  f"included) over {run['wall_s']:.2f} s, mean TTFT "
+                  f"{run['stats']['mean_ttft_s'] * 1e3:.1f} ms; launches "
+                  f"{got}; {card}", flush=True)
+    # bf16 over 18 layers: the served and the reference path round at other
+    # places, a few hundredths of a nat; a wrong mask, position or page
+    # moves whole nats (phase 6's reasoning)
+    b1 = runs["bf16"]
+    lp = logprob_check(b1["srv"], b1["rids"][:2] + b1["rids"][-1:], prompts,
+                       0.1, f"Gemma-2B bf16 L{cfg.n_layers}")
+    del runs, b1
+    free_device_memory()
+    cfg32 = gemma_config(n_layers=2, dtype="float32")
+    params32 = gemma_serving_params(cfg32, SEED + 85, torch.float32)
+
+    def make():
+        return InferenceServer(params32, cfg32, batch_slots=8, page_size=16,
+                               n_pages=800, max_pages_per_seq=272)
+
+    # fp32, 2 layers at full width: only the order of the sums differs
+    compare_servers("Gemma-2B fp32 L2", make,
+                    [prompts[0], prompts[len(prompts) // 2], prompts[-1]],
+                    1e-4)
+    del params, params32
+    free_device_memory()
+    return dict(errs=errs, timing=timing, launches=launches, logprob=lp)
+
+
+def gemma_ring_phase(rh, ra, fa, card) -> dict:
+    """Phase 85: K12 and K12b at a shard of Gemma-2B's ring (B 1, H 8,
+    s_local 2048, hd 256) and the edges against their plain versions, the
+    backward bitwise repeatable, each hop kind timed; then the ring over
+    8192 tokens through LocalRing(4), bf16 and fp32, against K1 / K2 on the
+    gathered sequence, launches cp^2 = 16 + 16 a pass."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 87)
+    b, h, s, d = (GEMMA_HOP[n] for n in ("b", "h", "s", "d"))
+    worst = [0.0, 0.0]
+    cases = [((b, h, s, s, d) + offs, f"{kind} {b}x{h}x{s}x{d}")
+             for kind, offs in GEMMA_HOP_KINDS.items()]
+    cases += [(c, "x".join(map(str, c[:5])) + f" at {c[5]}/{c[6]}")
+              for c in GEMMA_HOP_EDGES]
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, tag in cases:
+            tag = f"{tag} {str(dtype)[6:]}"
+            e1, e2 = hop_case_check(rh, dtype, gen, *case, tag)
+            print(f"  {tag}: forward max err {e1:.3g}, backward {e2:.3g}",
+                  flush=True)
+            worst = [max(worst[0], e1), max(worst[1], e2)]
+    q, k, v, g, _, stats, accs = hop_inputs(gen, torch.bfloat16, b, h, s, s,
+                                            d)
+    runs = []
+    for _ in range(2):
+        runs.append([t.clone() for t in accs])
+        rh.flash_attention_bwd_hop(q, k, v, g, *stats, *runs[-1],
+                                   *GEMMA_HOP_KINDS["past"])
+    check(all(torch.equal(x, y) for x, y in zip(*runs)),
+          "two hd-256 backward hops give bitwise-equal dq, dk, dv")
+    del q, k, v, g, stats, accs, runs
+    free_device_memory()
+    timing = ring_hop_timing(rh, GEMMA_HOP, GEMMA_HOP_KINDS)
+    for kind, t in timing.items():
+        for key, label in (("fwd", "forward"), ("bwd", "backward")):
+            r = t[key]
+            plain = (f"{r['plain_ms']:.3f} ms" if "plain_ms" in r
+                     else "not timed (no work)")
+            print(f"[85] K12 {label}, {kind} hop (B=1, H=8, s_local=2048, "
+                  f"D=256, bf16): kernel {r['ms']:.4f} ms, plain {plain}, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); library: "
+                  f"none; {card}", flush=True)
+    free_device_memory()
+
+    b, h, hkv, s, d, cp = (GEMMA_RING[n] for n in ("b", "h", "hkv", "s", "d",
+                                                   "cp"))
+    ring = ra.make_ring_attention(ra.LocalRing(cp))
+    launches = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, g = ring_inputs(gen, b, h, hkv, s, d, dtype)
+        rh.flash_attention_hop.launches = 0
+        rh.flash_attention_bwd_hop.launches = 0
+        rh.flash_attention_hop.launches_wgmma = 0
+        rh.flash_attention_bwd_hop.launches_wgmma = 0
+        t0 = time.perf_counter()
+        out, grads = ring_pass(ring, q, k, v, g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (rh.flash_attention_hop.launches,
+               rh.flash_attention_bwd_hop.launches)
+        wgmma = (rh.flash_attention_hop.launches_wgmma,
+                 rh.flash_attention_bwd_hop.launches_wgmma)
+        bf16 = dtype == torch.bfloat16
+        check(got == (cp * cp, cp * cp), f"the Gemma-2B ring launches each "
+              f"hop cp^2 = {cp * cp} times a pass (got {got})")
+        check(wgmma == (got if bf16 else (0, 0)),
+              f"the {str(dtype)[6:]} ring's hops took the "
+              f"{'wgmma' if bf16 else 'fp32'} bodies ({wgmma})")
+        if bf16:
+            launches = got  # the main path's count: the bf16 pass
+        ref_out, lse = fa.flash_attention_fwd_stats(q, k, v)
+        ref = fa.flash_attention_backward(q, k, v, g, ref_out, lse)
+        errs = [flash_err(out, ref_out, dtype, "Gemma-2B ring out vs K1")]
+        errs += [flash_err(a, r, dtype, f"Gemma-2B ring {n} vs K2")
+                 for a, r, n in zip(grads, ref, ("dq", "dk", "dv"))]
+        extra = ""
+        if bf16:
+            lib_fwd, lib_bwd = sdpa_ring_yardstick(q, k, v, g)
+            extra = (f"; SDPA is_causal on the gathered sequence "
+                     f"{lib_fwd:.2f} / {lib_bwd:.2f} ms")
+        print(f"[85] ring attention, LocalRing({cp}) at Gemma-2B's attention "
+              f"(B={b}, H={h}, kv head repeated, S={s}, D={d}), "
+              f"{str(dtype)[6:]}: one pass {1e3 * wall:.1f} ms host clock, "
+              f"launches {got[0]} + {got[1]}; vs K1/K2 on the gathered "
+              f"sequence: out {errs[0]:.3g}, dq/dk/dv {max(errs[1:]):.3g}"
+              f"{extra}; {card}", flush=True)
+        del q, k, v, g, out, grads, ref_out, lse, ref
+        free_device_memory()
+    return dict(errs=worst, timing=timing, launches=launches)
+
+
+def gemma_phases(card) -> list:
+    """Phases 81-85; returns their kernels-line entries (path
+    "gemma-2b")."""
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+    from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
+    from kfunca_tpu_torch.parallel import ring_attention as ra
+
+    t0 = time.perf_counter()
+    print("[81] K1 and K2 at head dim 256 (Gemma-2B's attention and edges) "
+          "vs their plain versions", flush=True)
+    worst1, worst2 = gemma_flash_checks(fa)
+    free_device_memory()
+    timing = flash_timing(fa, shape=GEMMA_ATTN)
+    free_device_memory()
+    for label, key in (("K1 forward", "fwd"), ("K2 backward", "bwd")):
+        t = timing[key]
+        print(f"[82] {label} at Gemma-2B's attention (B=1, H=8, Hkv=1, "
+              f"S=8192, hd=256, causal, bf16): kernel {t['ms']:.3f} ms (fp32 "
+              f"inputs {t['ms_fp32']:.3f} ms, their bound "
+              f"{t['flops'] / PEAK_FLOPS[torch.float32] * 1e3:.3f} ms), plain "
+              f"{t['plain_ms']:.3f} ms, scaled_dot_product_attention "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; {t['flops'] / 1e9:.1f} GFLOP, "
+              f"{t['bytes']} B); {card}", flush=True)
+    laps = [time.perf_counter()]
+    train = gemma_training_phase(fa, card)
+    laps.append(time.perf_counter())
+    serving = gemma_serving_phase(card)
+    laps.append(time.perf_counter())
+    print("[85] K12 at head dim 256 and the ring at Gemma-2B's attention",
+          flush=True)
+    ring = gemma_ring_phase(rh, ra, fa, card)
+    laps.append(time.perf_counter())
+    print(f"[85] phases 81-82 {laps[0] - t0:.1f} s, 83 {laps[1] - laps[0]:.1f}"
+          f" s, 84 {laps[2] - laps[1]:.1f} s, 85 {laps[3] - laps[2]:.1f} s",
+          flush=True)
+
+    def entry(name, source, replaces, n, err, t):
+        return {"name": name, "path": "gemma-2b", "route": "cuda",
+                "source": f"kfunca_tpu_torch/csrc/{source}",
+                "replaces": f"kfunca_tpu/ops/{replaces}", "launches": n,
+                "max_abs_err": err, "max_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": t.get("library_ms")}
+
+    fl, rg = "pallas_kernels/flash_attention.py", "pallas_kernels/ring_hop.py"
+    pg = "pallas_kernels/paged_attention.py"
+    st, hop = serving["timing"], ring["timing"]["past"]
+    return [
+        entry("flash_attention_fwd_stats", "flash_attention.cu", f"{fl}:247",
+              train["launches"][0], worst1, timing["fwd"]),
+        entry("flash_attention_backward", "flash_attention.cu", f"{fl}:547",
+              train["launches"][1], worst2, timing["bwd"]),
+        entry("flash_attention_hop", "ring_hop.cu", f"{rg}:72",
+              ring["launches"][0], ring["errs"][0], hop["fwd"]),
+        entry("flash_attention_bwd_hop", "ring_hop.cu", f"{rg}:221",
+              ring["launches"][1], ring["errs"][1], hop["bwd"]),
+        entry("paged_decode_attention_dma", "paged_attention.cu", f"{pg}:459",
+              serving["launches"]["bf16"]["dma"], serving["errs"]["dma"],
+              st["dma"]),
+        entry("paged_decode_attention_dma_int8", "paged_attention.cu",
+              f"{pg}:459", serving["launches"]["w8kv8"]["dma"],
+              serving["errs"]["dma_int8"], st["dma_int8"]),
+        entry("matmul_q8", "quant.cu", "quant.py:77",
+              serving["launches"]["w8kv8"]["q8"], serving["errs"]["q8"],
+              st["q8"]),
+    ]
+
+
 class Laps:
     """Prints each group of phases' seconds and the script's so far: the
     whole script must end inside its time limit."""
@@ -9333,6 +9939,15 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--seq2seq"]:  # phases 71-75 alone (no kernel)
         print(json.dumps({"seq2seq": seq2seq_phases(card)}))
+        return 0
+    if sys.argv[1:] == ["--gemma"]:  # phases 81-85 alone
+        names = ["flash_attention", "ring_hop", "paged_attention", "quant"]
+        _kernels.build(names)
+        for name in names:
+            for kernel, regs, spill in ptxas_summary(_kernels.build_log(name)):
+                print(f"    {name}: {kernel}: {regs} registers, {spill} spill "
+                      f"bytes")
+        print(json.dumps({"kernels": gemma_phases(card)}))
         return 0
     if sys.argv[1:] == ["--autotune-orbax"]:  # phases 76-80 alone
         names = ["flash_attention", "quant", "reduce"]
@@ -9443,6 +10058,9 @@ def main() -> int:
     free_device_memory()
     sweeps = autotune_orbax_phases(card)
     lap("phases 76-80")
+    free_device_memory()
+    kernels += gemma_phases(card)
+    lap("phases 81-85")
     for entry in kernels:  # the first entry of each swept kernel
         if entry["name"] in sweeps:
             entry["sweep"] = sweeps.pop(entry["name"])

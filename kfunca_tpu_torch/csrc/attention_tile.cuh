@@ -5,8 +5,9 @@
 // layout both use (256 threads; thread (ty, tx) = (threadIdx.x / 16,
 // threadIdx.x % 16) owns score rows ty + 16 i and columns tx + 16 j), and
 // the shared-memory budget of a forward (Q | K | V | P) and a backward
-// (four tiles | P) block.  runtime/_kernels.py hashes this header into the
-// name of every library, so an edit rebuilds both.
+// (four tiles | P, or three at head dim 256: kBwdShared) block.
+// runtime/_kernels.py hashes this header into the name of every library,
+// so an edit rebuilds both.
 
 #pragma once
 
@@ -19,6 +20,15 @@ constexpr int kThreads = 256;
 constexpr int kTile = 64;        // q rows and kv rows per tile
 constexpr int kTLD = kTile + 4;  // row stride of the P / dS tile (floats)
 constexpr float kNegInf = -1e30f;
+constexpr size_t kSmemLimit = 232448;  // shared memory a block can use
+
+// A backward block keeps two resident tiles and two streamed ones (q, k,
+// v, dO: 64 x (HD + 4) fp32 each) beside P.  At head dim 256 four such
+// tiles and P take 283,648 bytes, past kSmemLimit, so there the two
+// streamed tiles take turns in one (217,088 bytes): each is loaded for the
+// products that read it, and the one read twice (k in dq, q in dk/dv) is
+// loaded again.  Up to head dim 128 the four tiles stay.
+template <int HD> constexpr bool kBwdShared = HD > 128;
 
 __device__ __forceinline__ void store16(uint4 raw, float* dst, float) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
@@ -38,8 +48,10 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 }
 
 // Stage rows [row0, row0 + 64) of a (n_rows, HD) matrix into shared memory
-// as fp32 with row stride HD + 4; rows at or past n_rows become zeros.  All
-// of a thread's 16-byte loads are issued before any is stored.
+// as fp32 with row stride HD + 4; rows at or past n_rows become zeros.  A
+// thread issues up to 8 of its 16-byte loads (all of them up to head dim
+// 128) before it stores any: at head dim 256 its 16 would hold 64
+// registers beside the accumulators.
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const T* __restrict__ src, int row0,
@@ -47,21 +59,25 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
   constexpr int E = 16 / sizeof(T);
   constexpr int VPR = HD / E;  // 16-byte vectors per row
   constexpr int PER = kTile * VPR / kThreads;
+  constexpr int BATCH = PER < 8 ? PER : 8;  // loads in flight
   constexpr int LD = HD + 4;
-  uint4 raw[PER];
 #pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    const int r = i / VPR;
-    raw[u] = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      raw[u] = __ldg(reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * HD + (i % VPR) * E));
-  }
+  for (int u0 = 0; u0 < PER; u0 += BATCH) {
+    uint4 raw[BATCH];
 #pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    store16(raw[u], dst + (i / VPR) * LD + (i % VPR) * E, T());
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = threadIdx.x + (u0 + u) * kThreads;
+      const int r = i / VPR;
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < n_rows)
+        raw[u] = __ldg(reinterpret_cast<const uint4*>(
+            src + (long long)(row0 + r) * HD + (i % VPR) * E));
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = threadIdx.x + (u0 + u) * kThreads;
+      store16(raw[u], dst + (i / VPR) * LD + (i % VPR) * E, T());
+    }
   }
 }
 
@@ -141,7 +157,8 @@ template <int HD> constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * kTile * (HD + 4) + kTile * kTLD);
 }
 template <int HD> constexpr size_t bwd_smem() {
-  return sizeof(float) * (4 * kTile * (HD + 4) + kTile * kTLD);
+  return sizeof(float) *
+         ((kBwdShared<HD> ? 3 : 4) * kTile * (HD + 4) + kTile * kTLD);
 }
 
 template <typename K>

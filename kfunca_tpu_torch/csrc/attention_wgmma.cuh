@@ -7,6 +7,14 @@
 // the TMA loads; setmaxnreg leaves it 24 registers), warpgroups 1 and 2 are
 // consumers of 64 rows each (240 registers).  Tiles are 128-byte swizzled
 // boxes 64 columns wide (hopper.cuh); hd / 64 boxes make a row of a tile.
+// The head dims built are 64, 128 and 256: 256 is wgmma's largest N, the
+// width of the second products (O += P.V, dV += P^T.dO, dK, dQ), whose
+// accumulator then takes 128 fp32 registers of a consumer thread beside
+// its score tile: there ptxas spills (chip_smoke.py's phase 2 prints how
+// much), which a later version may remove by splitting the head dim
+// between passes.  A producer of one warp (288 threads, no setmaxnreg) is
+// no way out: wgmma needs its four warps to be a warpgroup, warps 4k to
+// 4k + 3, and ptxas kept the 168 registers all the same.
 //
 // Each kernel is a template over the head dim and kHop:
 //   kHop = false (K1, K2): row i attends column j when j <= i, j < Skv,
@@ -38,7 +46,7 @@ constexpr int kWgThreads = 384;
 constexpr int kBlockRows = 128;  // resident q rows of a dq block: 2 x 64
 // The launch parameters below are the defaults (K12's, and K1's and K2's
 // without a tuned entry); K1 and K2 also build the other tiles that
-// runtime/autotune.py sweeps (flash_attention.cu: kFwdTiles, kBwdTiles).
+// runtime/autotune.py sweeps (flash_attention.cu: fwd_tile, bwd_tile).
 constexpr int kStreamRows = 64;  // rows of a k / v tile streamed by dq
 constexpr int kQRows = 64;       // rows of a q / dO tile streamed by dk/dv
 // one consumer warpgroup's wgmma rows: both consumers of a dk/dv block
@@ -46,6 +54,22 @@ constexpr int kQRows = 64;       // rows of a q / dO tile streamed by dk/dv
 constexpr int kKvRows = 64;      // resident kv rows of a dk/dv block
 constexpr int kStages = 2;
 constexpr int kFwdStages = 3;
+
+// The tiles K12 launches at a head dim (K1 and K2 take theirs from the
+// tables in flash_attention.cu, whose first entries are these): up to hd
+// 128 the constants above.  At hd 256 a
+// 128-row q tile takes 64 KB and a 64-row k or v tile 32 KB, so the
+// forward streams 64 rows through 2 stages (193 KB; 3 would need 262 KB)
+// and the dq kernel, whose resident q and dO take 128 KB, streams 32 rows
+// (193 KB; 64 would need 262 KB), as does the dk/dv kernel (146 KB).
+template <int HD> struct WgDefaults {
+  static constexpr int kFwdRows = kStreamRows;
+  static constexpr int kFwdDepth = HD > 128 ? 2 : kFwdStages;
+  static constexpr int kDqRows = HD > 128 ? 32 : kStreamRows;
+  static constexpr int kDkvRows = HD > 128 ? 32 : kQRows;
+  static constexpr int kDepth = kStages;
+};
+
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 

@@ -9,8 +9,9 @@
 //
 // Contract:
 //   q, g, out, dq (B, H, Sq, hd); k, v, dk, dv (B, Hkv, Skv, hd); all
-//   contiguous, one dtype (fp32 or bf16); hd is 64 or 128 here (the Python
-//   wrapper zero-pads other head dims and passes the scale of the true one).
+//   contiguous, one dtype (fp32 or bf16); hd is 64, 128 or 256 here (the
+//   Python wrapper zero-pads other head dims up to 256 and passes the scale
+//   of the true one; 256 is wgmma's largest N, the width of O += P.V).
 //   scores = scale * q.k; row i attends column j when j <= i, j < Skv and,
 //   with a window, j > i - window (top-left aligned causal mask).  Query
 //   head h reads kv head h / (H / Hkv).
@@ -49,7 +50,9 @@
 //     shared with K12): q, k, v (and dO) tiles in shared memory as fp32
 //     with rows padded by 4 floats; each of the 256 threads keeps a 4 x 4
 //     block of the score tile and a 4 x (hd/16) block of the output tile in
-//     registers; the ceiling is the 67 TFLOP/s fp32 pipe;
+//     registers; the ceiling is the 67 TFLOP/s fp32 pipe; at hd 256 the
+//     backward's two streamed tiles share one (attention_tile.cuh,
+//     kBwdShared), so that its block fits the 227 KB;
 //   * bf16 inputs (K1 and K2): wgmma (the bodies in attention_wgmma.cuh,
 //     shared with K12's bf16 hop), one thread of a producer issuing TMA
 //     loads of 128-byte swizzled boxes (hopper.cuh) into a ring of 2 (K2)
@@ -260,7 +263,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   float* Q_s = smem;
   float* G_s = Q_s + kTile * LD;
   float* K_s = G_s + kTile * LD;
-  float* V_s = K_s + kTile * LD;
+  float* V_s = kBwdShared<HD> ? K_s : K_s + kTile * LD;  // k, v take turns
   float* P_s = V_s + kTile * LD;
 
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -291,14 +294,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   kv_tile_range(row0, Sq, Skv, window, kt_first, kt_last);
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int col0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, HD>(K_s, kh, col0, Skv);
-    load_tile<T, HD>(V_s, vh, col0, Skv);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    tile_scores<HD>(Q_s, K_s, ty, tx, s);
-    tile_scores<HD>(G_s, V_s, ty, tx, dp);
+    __syncthreads();
+    if constexpr (kBwdShared<HD>) {  // v first, then k, which dS.K reads
+      load_tile<T, HD>(V_s, vh, col0, Skv);
+      __syncthreads();
+      tile_scores<HD>(G_s, V_s, ty, tx, dp);
+      __syncthreads();
+      load_tile<T, HD>(K_s, kh, col0, Skv);
+      __syncthreads();
+      tile_scores<HD>(Q_s, K_s, ty, tx, s);
+    } else {
+      load_tile<T, HD>(K_s, kh, col0, Skv);
+      load_tile<T, HD>(V_s, vh, col0, Skv);
+      __syncthreads();
+      tile_scores<HD>(Q_s, K_s, ty, tx, s);
+      tile_scores<HD>(G_s, V_s, ty, tx, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + ty + 16 * i;
@@ -337,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   float* K_s = smem;
   float* V_s = K_s + kTile * LD;
   float* Q_s = V_s + kTile * LD;
-  float* G_s = Q_s + kTile * LD;
+  float* G_s = kBwdShared<HD> ? Q_s : Q_s + kTile * LD;  // q, dO take turns
   float* P_s = G_s + kTile * LD;
 
   const int kt = blockIdx.x;
@@ -373,7 +385,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       const int row0 = qt * kTile;
       __syncthreads();
       load_tile<T, HD>(Q_s, q + qoff * HD, row0, Sq);
-      load_tile<T, HD>(G_s, g + qoff * HD, row0, Sq);
+      if constexpr (!kBwdShared<HD>)
+        load_tile<T, HD>(G_s, g + qoff * HD, row0, Sq);
       float lse_c[4], delta_c[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -386,6 +399,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       // transposed tiles: index [i][j] is kv row ty + 16 i, q row tx + 16 j
       float st[4][4], dpt[4][4];
       tile_scores<HD>(K_s, Q_s, ty, tx, st);
+      if constexpr (kBwdShared<HD>) {  // dO over q; q again for dK below
+        __syncthreads();
+        load_tile<T, HD>(G_s, g + qoff * HD, row0, Sq);
+        __syncthreads();
+      }
       tile_scores<HD>(V_s, G_s, ty, tx, dpt);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -407,6 +425,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
           P_s[(ty + 16 * i) * kTLD + tx + 16 * j] =
               st[i][j] * (dpt[i][j] - delta_c[j]);
       __syncwarp();
+      if constexpr (kBwdShared<HD>) {
+        __syncthreads();  // every warp has read dO
+        load_tile<T, HD>(Q_s, q + qoff * HD, row0, Sq);
+        __syncthreads();
+      }
       tile_accum<HD>(P_s, Q_s, ty, tx, dk_acc);
     }
   }
@@ -421,6 +444,7 @@ template <typename T, int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int H, int Hkv, int Sq, int Skv, int window,
                float scale, cudaStream_t stream) {
+  static_assert(fwd_smem<HD>() <= kSmemLimit, "K1's fp32 block");
   const size_t smem = fwd_smem<HD>();
   const cudaError_t e = allow_smem(flash_fwd_kernel<T, HD>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -437,6 +461,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
                const void* out, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int B, int H, int Hkv, int Sq, int Skv,
                int window, float scale, cudaStream_t stream) {
+  static_assert(bwd_smem<HD>() <= kSmemLimit, "K2's fp32 blocks");
   const size_t smem = bwd_smem<HD>();
   cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, HD>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -530,6 +555,8 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
       !attn_map<HD>(&kv_v, v, B * Hkv, Skv, kKvRows))
     return (int)cudaErrorInvalidValue;
   using L = WgBwdSmem<HD, SR, QR, ST>;
+  static_assert(L::kDqBytes <= kSmemLimit && L::kDkvBytes <= kSmemLimit,
+                "K2's tile fits a block's shared memory");
   const auto dq_kernel = flash_bwd_dq_wgmma<HD, false, SR, ST>;
   const auto dkv_kernel = flash_bwd_dkv_wgmma<HD, false, QR, ST>;
   cudaError_t e = hopper::allow_smem(dq_kernel, L::kDqBytes);
@@ -574,6 +601,8 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
       !attn_map<HD>(&mv, v, B * Hkv, Skv, SR))
     return (int)cudaErrorInvalidValue;
   using L = WgFwdSmem<HD, SR, ST>;
+  static_assert(L::kBytes <= kSmemLimit,
+                "K1's tile fits a block's shared memory");
   const auto kernel = flash_fwd_wgmma<HD, false, SR, ST>;
   const cudaError_t e = hopper::allow_smem(kernel, L::kBytes);
   if (e != cudaSuccess) return (int)e;
@@ -585,18 +614,20 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
 }
 
 // The bf16 tiles built for runtime/autotune.py's sweeps
-// (ops/pallas_kernels/flash_attention.FWD_TILES, BWD_TILES); the first of
+// (ops/pallas_kernels/flash_attention.fwd_tiles, bwd_tiles); the first of
 // each is the default.  A tile outside these is refused.
 //   forward (kv rows a stage, stages): (64, 3) (64, 2), and at hd 64
 //     (128, 2) (at hd 128 ptxas spills its consumers' 128-column score
-//     tile beside the 128-column accumulator);
+//     tile beside the 128-column accumulator); at hd 256 (64, 2);
 //   backward (dq's kv rows, dk/dv's q rows, stages): (64, 64, 2)
-//     (32, 32, 2) (64, 64, 3).
+//     (32, 32, 2) (64, 64, 3); at hd 256 (32, 32, 2).
 // Only tiles that won or tied at some shape on the card are kept: (64, 4)
 // and (32, 4) forward and (32, 64, 2), (64, 32, 2) backward lost at every
-// shape swept.  Each fits 227 KB of shared memory (the largest, the
-// backward's (64, 64, 3) dk/dv at hd 128, 179 KB) and spills nothing
-// (chip_smoke.py prints ptxas's report of each).
+// shape swept, and at hd 256 forward (32, 3) and backward (32, 64, 2)
+// lost at Gemma-2B's attention.  At hd 256 a block fits 227 KB of shared
+// memory only with these narrower tiles (the launchers assert the fit):
+// (64, 2) forward 193 KB, (32, 32, 2) backward 193 KB (dq) and 146 KB
+// (dk/dv).  chip_smoke.py prints ptxas's registers and spills of each.
 // The fp32 bodies have one tile.
 template <int HD>
 int fwd_tile(const void* q, const void* k, const void* v, void* out,
@@ -606,9 +637,13 @@ int fwd_tile(const void* q, const void* k, const void* v, void* out,
   if (rows == R && stages == ST)                                             \
     return launch_fwd_wgmma<HD, R, ST>(q, k, v, out, lse, B, H, Hkv, Sq, Skv, \
                                        window, scale, s);
-  KF_FWD(64, 3) KF_FWD(64, 2)
-  if constexpr (HD == 64) {  // at hd 128 its consumers would spill
-    KF_FWD(128, 2)
+  if constexpr (HD == 256) {
+    KF_FWD(64, 2)
+  } else {
+    KF_FWD(64, 3) KF_FWD(64, 2)
+    if constexpr (HD == 64) {  // at hd 128 its consumers would spill
+      KF_FWD(128, 2)
+    }
   }
 #undef KF_FWD
   return (int)cudaErrorInvalidValue;
@@ -625,7 +660,11 @@ int bwd_tile(const void* q, const void* k, const void* v, const void* g,
     return launch_bwd_wgmma<HD, R, QR, ST>(q, k, v, g, out, lse, scratch,   \
                                            dq, dk, dv, B, H, Hkv, Sq, Skv,  \
                                            window, scale, s);
-  KF_BWD(64, 64, 2) KF_BWD(32, 32, 2) KF_BWD(64, 64, 3)
+  if constexpr (HD == 256) {
+    KF_BWD(32, 32, 2)
+  } else {
+    KF_BWD(64, 64, 2) KF_BWD(32, 32, 2) KF_BWD(64, 64, 3)
+  }
 #undef KF_BWD
   return (int)cudaErrorInvalidValue;
 }
@@ -633,8 +672,8 @@ int bwd_tile(const void* q, const void* k, const void* v, const void* g,
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  dtype: 0 = float32,
-// 1 = bfloat16 for every tensor but lse and delta (float32).  hd must be 64
-// or 128; window <= 0 means no window; scale multiplies q.k.  Each returns
+// 1 = bfloat16 for every tensor but lse and delta (float32).  hd must be 64,
+// 128 or 256; window <= 0 means no window; scale multiplies q.k.  Each returns
 // cudaGetLastError() after its launches (0 on success).  The caller checks
 // shapes, dtypes and contiguity and allocates every output and the (B, H,
 // Sq) float32 delta scratch.  The bf16 bodies launch the tile named by
@@ -652,12 +691,18 @@ extern "C" int kf_flash_attention_fwd(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   if (B <= 0 || H <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || H % Hkv)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && hd == 256)
+    return fwd_tile<256>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window, scale,
+                         rows, stages, s);
   if (dtype == 1 && hd == 128)
     return fwd_tile<128>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window, scale,
                          rows, stages, s);
   if (dtype == 1 && hd == 64)
     return fwd_tile<64>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window, scale,
                         rows, stages, s);
+  if (dtype == 0 && hd == 256)
+    return launch_fwd<float, 256>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
+                                  scale, s);
   if (dtype == 0 && hd == 128)
     return launch_fwd<float, 128>(q, k, v, out, l, B, H, Hkv, Sq, Skv, window,
                                   scale, s);
@@ -685,12 +730,18 @@ extern "C" int kf_flash_attention_bwd(const void* q, const void* k,
   float* dl = static_cast<float*>(delta);
   if (B <= 0 || H <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || H % Hkv)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && hd == 256)
+    return bwd_tile<256>(q, k, v, g, out, l, dl, dq, dk, dv, B, H, Hkv, Sq,
+                         Skv, window, scale, rows, q_rows, stages, s);
   if (dtype == 1 && hd == 128)
     return bwd_tile<128>(q, k, v, g, out, l, dl, dq, dk, dv, B, H, Hkv, Sq,
                          Skv, window, scale, rows, q_rows, stages, s);
   if (dtype == 1 && hd == 64)
     return bwd_tile<64>(q, k, v, g, out, l, dl, dq, dk, dv, B, H, Hkv, Sq,
                         Skv, window, scale, rows, q_rows, stages, s);
+  if (dtype == 0 && hd == 256)
+    return launch_bwd<float, 256>(q, k, v, g, out, l, dl, dq, dk, dv, B, H,
+                                  Hkv, Sq, Skv, window, scale, s);
   if (dtype == 0 && hd == 128)
     return launch_bwd<float, 128>(q, k, v, g, out, l, dl, dq, dk, dv, B, H,
                                   Hkv, Sq, Skv, window, scale, s);

@@ -9,9 +9,10 @@
 //
 // Contract:
 //   q, g (BH, Sq, hd) and k, v (BH, Skv, hd), contiguous, one dtype (fp32
-//   or bf16); hd is 64 or 128 (the Python wrapper zero-pads other head
-//   dims).  q is PRE-SCALED by 1/sqrt(D), so scores are plain q.k.  Row i
-//   of the q shard attends column j of the kv shard when
+//   or bf16); hd is 64, 128 or 256 (the Python wrapper zero-pads other
+//   head dims up to 256, wgmma's largest N).  q is PRE-SCALED by
+//   1/sqrt(D), so scores are plain q.k.  Row i of the q shard attends
+//   column j of the kv shard when
 //   kv_off + j <= q_off + i, j < Skv and i < Sq (global causal positions).
 //   Forward: m, l (BH, Sq) and acc (BH, Sq, hd) fp32 are the online-softmax
 //   carry, read and written in place; acc stays unnormalized.  Masked
@@ -76,11 +77,15 @@
 //       - lse and delta are the caller's: read in place when Sq is a
 //         multiple of 64, else from the wrapper's zero-padded copy (the
 //         dk/dv producer bulk-copies 64 floats of each a tile);
+//       - the tiles are the head dim's defaults (WgDefaults): at hd 256 the
+//         forward streams 64-row k and v through 2 stages, the dq and dk/dv
+//         kernels 32-row tiles, so that each block fits 227 KB;
 //   * fp32 inputs: 64 x 64 tiles staged in shared memory as fp32 with rows
 //     padded by 4 floats (attention_tile.cuh, shared with K1/K2's fp32
 //     bodies); each of the 256 threads keeps a 4 x 4 block of the score
 //     tile and a 4 x (hd/16) block of the output tile in registers; the
-//     ceiling is the 67 TFLOP/s fp32 pipe.
+//     ceiling is the 67 TFLOP/s fp32 pipe; at hd 256 the backward's two
+//     streamed tiles share one (kBwdShared), as in K2's fp32 body.
 // Left for later: what K1 and K2 leave for later (attention_wgmma.cuh's
 // bodies: a tile's softmax overlapped with the next tile's products, a
 // persistent grid, one backward kernel), and overlapping a hop with the
@@ -266,7 +271,7 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dq_kernel(
   float* Q_s = smem;
   float* G_s = Q_s + kTile * LD;
   float* K_s = G_s + kTile * LD;
-  float* V_s = K_s + kTile * LD;
+  float* V_s = kBwdShared<HD> ? K_s : K_s + kTile * LD;  // k, v take turns
   float* P_s = V_s + kTile * LD;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
@@ -290,14 +295,23 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dq_kernel(
   const int kt_last = col_last / kTile;
   for (int kt = 0; kt <= kt_last; ++kt) {
     const int col0 = kt * kTile;
-    __syncthreads();
-    load_tile<float, HD>(K_s, kh, col0, Skv);
-    load_tile<float, HD>(V_s, vh, col0, Skv);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    tile_scores<HD>(Q_s, K_s, ty, tx, s);
-    tile_scores<HD>(G_s, V_s, ty, tx, dp);
+    __syncthreads();
+    if constexpr (kBwdShared<HD>) {  // v first, then k, which dS.K reads
+      load_tile<float, HD>(V_s, vh, col0, Skv);
+      __syncthreads();
+      tile_scores<HD>(G_s, V_s, ty, tx, dp);
+      __syncthreads();
+      load_tile<float, HD>(K_s, kh, col0, Skv);
+      __syncthreads();
+      tile_scores<HD>(Q_s, K_s, ty, tx, s);
+    } else {
+      load_tile<float, HD>(K_s, kh, col0, Skv);
+      load_tile<float, HD>(V_s, vh, col0, Skv);
+      __syncthreads();
+      tile_scores<HD>(Q_s, K_s, ty, tx, s);
+      tile_scores<HD>(G_s, V_s, ty, tx, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + ty + 16 * i;
@@ -344,7 +358,7 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dkv_kernel(
   float* K_s = smem;
   float* V_s = K_s + kTile * LD;
   float* Q_s = V_s + kTile * LD;
-  float* G_s = Q_s + kTile * LD;
+  float* G_s = kBwdShared<HD> ? Q_s : Q_s + kTile * LD;  // q, dO take turns
   float* P_s = G_s + kTile * LD;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
@@ -365,7 +379,8 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dkv_kernel(
     const int row0 = qt * kTile;
     __syncthreads();
     load_tile<float, HD>(Q_s, q + qbase * HD, row0, Sq);
-    load_tile<float, HD>(G_s, g + qbase * HD, row0, Sq);
+    if constexpr (!kBwdShared<HD>)
+      load_tile<float, HD>(G_s, g + qbase * HD, row0, Sq);
     float lse_c[4], delta_c[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -378,6 +393,11 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dkv_kernel(
     // transposed tiles: index [i][j] is kv row ty + 16 i, q row tx + 16 j
     float st[4][4], dpt[4][4];
     tile_scores<HD>(K_s, Q_s, ty, tx, st);
+    if constexpr (kBwdShared<HD>) {  // dO over q; q again for dK below
+      __syncthreads();
+      load_tile<float, HD>(G_s, g + qbase * HD, row0, Sq);
+      __syncthreads();
+    }
     tile_scores<HD>(V_s, G_s, ty, tx, dpt);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -399,6 +419,11 @@ __global__ void __launch_bounds__(kThreads) hop_bwd_dkv_kernel(
         P_s[(ty + 16 * i) * kTLD + tx + 16 * j] =
             st[i][j] * (dpt[i][j] - delta_c[j]);
     __syncwarp();
+    if constexpr (kBwdShared<HD>) {
+      __syncthreads();  // every warp has read dO
+      load_tile<float, HD>(Q_s, q + qbase * HD, row0, Sq);
+      __syncthreads();
+    }
     tile_accum<HD>(P_s, Q_s, ty, tx, dk_acc);
   }
 
@@ -412,6 +437,7 @@ template <int HD>
 int launch_fwd(const float* q, const float* k, const float* v, float* m,
                float* l, float* acc, int BH, int Sq, int Skv, int q_off,
                int kv_off, cudaStream_t stream) {
+  static_assert(fwd_smem<HD>() <= kSmemLimit, "K12's fp32 block");
   const size_t smem = fwd_smem<HD>();
   const cudaError_t e = allow_smem(hop_fwd_kernel<HD>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -426,6 +452,7 @@ int launch_bwd(const float* q, const float* k, const float* v,
                const float* g, const float* lse, const float* delta,
                float* dq, float* dk, float* dv, int BH, int Sq, int Skv,
                int q_off, int kv_off, cudaStream_t stream) {
+  static_assert(bwd_smem<HD>() <= kSmemLimit, "K12b's fp32 blocks");
   const size_t smem = bwd_smem<HD>();
   cudaError_t e = allow_smem(hop_bwd_dq_kernel<HD>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -450,17 +477,20 @@ template <int HD>
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, float* m,
                      float* l, float* acc, int BH, int Sq, int Skv, int q_off,
                      int kv_off, cudaStream_t stream) {
+  using D = WgDefaults<HD>;
   CUtensorMap mq, mk, mv;
   if (!attn_map<HD>(&mq, q, BH, Sq, kBlockRows) ||
-      !attn_map<HD>(&mk, k, BH, Skv, kStreamRows) ||
-      !attn_map<HD>(&mv, v, BH, Skv, kStreamRows))
+      !attn_map<HD>(&mk, k, BH, Skv, D::kFwdRows) ||
+      !attn_map<HD>(&mv, v, BH, Skv, D::kFwdRows))
     return (int)cudaErrorInvalidValue;
-  using L = WgFwdSmem<HD>;
-  const cudaError_t e =
-      hopper::allow_smem(flash_fwd_wgmma<HD, true>, L::kBytes);
+  using L = WgFwdSmem<HD, D::kFwdRows, D::kFwdDepth>;
+  static_assert(L::kBytes <= kSmemLimit,
+                "K12's tile fits a block's shared memory");
+  const auto kernel = flash_fwd_wgmma<HD, true, D::kFwdRows, D::kFwdDepth>;
+  const cudaError_t e = hopper::allow_smem(kernel, L::kBytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kBlockRows - 1) / kBlockRows, BH);
-  flash_fwd_wgmma<HD, true><<<grid, kWgThreads, L::kBytes, stream>>>(
+  kernel<<<grid, kWgThreads, L::kBytes, stream>>>(
       mq, mk, mv, nullptr, nullptr, m, l, acc, BH, BH, Sq, Skv, 0,
       q_off - kv_off, 1.f);
   return (int)cudaGetLastError();
@@ -472,34 +502,41 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                      int pitch, float* dq, float* dk, float* dv, int BH,
                      int Sq, int Skv, int q_off, int kv_off,
                      cudaStream_t stream) {
-  // dq kernel: q, dO resident (128 rows), k, v streamed (64 rows);
-  // dk/dv kernel: k, v resident, q, dO streamed (64 rows)
-  CUtensorMap q128, g128, q64, g64, k64, v64;
-  if (!attn_map<HD>(&q128, q, BH, Sq, kBlockRows) ||
-      !attn_map<HD>(&g128, g, BH, Sq, kBlockRows) ||
-      !attn_map<HD>(&q64, q, BH, Sq, kQRows) ||
-      !attn_map<HD>(&g64, g, BH, Sq, kQRows) ||
-      !attn_map<HD>(&k64, k, BH, Skv, kStreamRows) ||
-      !attn_map<HD>(&v64, v, BH, Skv, kStreamRows))
+  // dq kernel: q, dO resident (128 rows), k, v streamed (SR rows);
+  // dk/dv kernel: k, v resident (64 rows), q, dO streamed (QR rows)
+  using D = WgDefaults<HD>;
+  constexpr int SR = D::kDqRows, QR = D::kDkvRows, ST = D::kDepth;
+  CUtensorMap dq_q, dq_g, dq_k, dq_v, kv_q, kv_g, kv_k, kv_v;
+  if (!attn_map<HD>(&dq_q, q, BH, Sq, kBlockRows) ||
+      !attn_map<HD>(&dq_g, g, BH, Sq, kBlockRows) ||
+      !attn_map<HD>(&dq_k, k, BH, Skv, SR) ||
+      !attn_map<HD>(&dq_v, v, BH, Skv, SR) ||
+      !attn_map<HD>(&kv_q, q, BH, Sq, QR) ||
+      !attn_map<HD>(&kv_g, g, BH, Sq, QR) ||
+      !attn_map<HD>(&kv_k, k, BH, Skv, kKvRows) ||
+      !attn_map<HD>(&kv_v, v, BH, Skv, kKvRows))
     return (int)cudaErrorInvalidValue;
-  using L = WgBwdSmem<HD>;
-  cudaError_t e =
-      hopper::allow_smem(flash_bwd_dq_wgmma<HD, true>, L::kDqBytes);
+  using L = WgBwdSmem<HD, SR, QR, ST>;
+  static_assert(L::kDqBytes <= kSmemLimit && L::kDkvBytes <= kSmemLimit,
+                "K12b's tiles fit a block's shared memory");
+  const auto dq_kernel = flash_bwd_dq_wgmma<HD, true, SR, ST>;
+  const auto dkv_kernel = flash_bwd_dkv_wgmma<HD, true, QR, ST>;
+  cudaError_t e = hopper::allow_smem(dq_kernel, L::kDqBytes);
   if (e != cudaSuccess) return (int)e;
-  e = hopper::allow_smem(flash_bwd_dkv_wgmma<HD, true>, L::kDkvBytes);
+  e = hopper::allow_smem(dkv_kernel, L::kDkvBytes);
   if (e != cudaSuccess) return (int)e;
   const int shift = q_off - kv_off;
 
   const dim3 grid_q((Sq + kBlockRows - 1) / kBlockRows, BH);
-  flash_bwd_dq_wgmma<HD, true><<<grid_q, kWgThreads, L::kDqBytes, stream>>>(
-      q128, k64, v64, g128, lse, delta, dq, BH, BH, Sq, Skv, pitch, 0, shift,
-      1.f);
+  dq_kernel<<<grid_q, kWgThreads, L::kDqBytes, stream>>>(
+      dq_q, dq_k, dq_v, dq_g, lse, delta, dq, BH, BH, Sq, Skv, pitch, 0,
+      shift, 1.f);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   const dim3 grid_kv((Skv + kKvRows - 1) / kKvRows, BH);
-  flash_bwd_dkv_wgmma<HD, true><<<grid_kv, kWgThreads, L::kDkvBytes, stream>>>(
-      q64, k64, v64, g64, lse, delta, dk, dv, BH, BH, Sq, Skv, pitch, 0,
+  dkv_kernel<<<grid_kv, kWgThreads, L::kDkvBytes, stream>>>(
+      kv_q, kv_k, kv_v, kv_g, lse, delta, dk, dv, BH, BH, Sq, Skv, pitch, 0,
       shift, 1.f);
   return (int)cudaGetLastError();
 }
@@ -509,7 +546,7 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
 // Plain C entry points (bound with ctypes).  dtype: 0 = float32 (the fp32
 // tile), 1 = bfloat16 (the wgmma bodies; q, k, v and g 16-byte aligned for
 // TMA) for q, k, v and g; every statistic and accumulator is float32.  hd
-// must be 64 or 128.  Each returns cudaGetLastError() after its launches
+// must be 64, 128 or 256.  Each returns cudaGetLastError() after its launches
 // (0 on success).  The caller checks shapes, dtypes and contiguity.
 
 // m, l (BH, Sq), acc (BH, Sq, hd): the carry, updated in place
@@ -522,6 +559,9 @@ extern "C" int kf_ring_hop_fwd(const void* q, const void* k, const void* v,
   float* lf = static_cast<float*>(l);
   float* af = static_cast<float*>(acc);
   if (BH <= 0 || Sq <= 0 || Skv <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && hd == 256)
+    return launch_fwd_wgmma<256>(q, k, v, mf, lf, af, BH, Sq, Skv, q_off,
+                                 kv_off, s);
   if (dtype == 1 && hd == 128)
     return launch_fwd_wgmma<128>(q, k, v, mf, lf, af, BH, Sq, Skv, q_off,
                                  kv_off, s);
@@ -531,6 +571,9 @@ extern "C" int kf_ring_hop_fwd(const void* q, const void* k, const void* v,
   const float* q32 = static_cast<const float*>(q);
   const float* k32 = static_cast<const float*>(k);
   const float* v32 = static_cast<const float*>(v);
+  if (dtype == 0 && hd == 256)
+    return launch_fwd<256>(q32, k32, v32, mf, lf, af, BH, Sq, Skv, q_off,
+                           kv_off, s);
   if (dtype == 0 && hd == 128)
     return launch_fwd<128>(q32, k32, v32, mf, lf, af, BH, Sq, Skv, q_off,
                            kv_off, s);
@@ -560,6 +603,9 @@ extern "C" int kf_ring_hop_bwd(const void* q, const void* k, const void* v,
   if (dtype == 1 && (pitch < Sq || pitch % kQRows))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0 && pitch != Sq) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && hd == 256)
+    return launch_bwd_wgmma<256>(q, k, v, g, lf, df, pitch, dqf, dkf, dvf,
+                                 BH, Sq, Skv, q_off, kv_off, s);
   if (dtype == 1 && hd == 128)
     return launch_bwd_wgmma<128>(q, k, v, g, lf, df, pitch, dqf, dkf, dvf,
                                  BH, Sq, Skv, q_off, kv_off, s);
@@ -570,6 +616,9 @@ extern "C" int kf_ring_hop_bwd(const void* q, const void* k, const void* v,
   const float* k32 = static_cast<const float*>(k);
   const float* v32 = static_cast<const float*>(v);
   const float* g32 = static_cast<const float*>(g);
+  if (dtype == 0 && hd == 256)
+    return launch_bwd<256>(q32, k32, v32, g32, lf, df, dqf, dkf, dvf, BH, Sq,
+                           Skv, q_off, kv_off, s);
   if (dtype == 0 && hd == 128)
     return launch_bwd<128>(q32, k32, v32, g32, lf, df, dqf, dkf, dvf, BH, Sq,
                            Skv, q_off, kv_off, s);

@@ -22,11 +22,14 @@ arguments, `raw_stats`/`stats128` and the (B*H, Sq_padded, 128) exp2-domain
 residual.  The statistic that travels from forward to backward is the
 public (B, H, Sq) natural-log lse.  In their place the bf16 bodies take
 their own launch parameters, the tiles built in csrc/flash_attention.cu:
-the forward's (`kv_rows` streamed a stage, `stages` of its ring), FWD_TILES
-(`fwd_tiles(head_dim)`: one of them is built for head dims up to 64 only),
-and the backward's (`kv_rows` the dq kernel streams, `q_rows` the dk/dv
-kernel streams, `stages`), BWD_TILES; the first of each is the default,
-any other raises ValueError, and the fp32 bodies take only the default.
+the forward's (`kv_rows` streamed a stage, `stages` of its ring) and the
+backward's (`kv_rows` the dq kernel streams, `q_rows` the dk/dv kernel
+streams, `stages`), listed per head dim by `fwd_tiles(head_dim)` and
+`bwd_tiles(head_dim)` (FWD_TILES and BWD_TILES up to 128, one of the
+forward's for head dims up to 64 only; FWD_TILES_256 and BWD_TILES_256
+at 256, where only narrower tiles fit a block's shared memory); the first
+of each is the default, any other raises ValueError, and the fp32 bodies
+take only the default.
 runtime/autotune.py sweeps them.  A tile changes the order of the fp32
 sums, so its results agree with the default's within rounding; each tile
 repeats bit for bit.
@@ -46,9 +49,11 @@ taken here: ops/attention.py widens it to fp32 first.
 Layout: the kernels read contiguous (B, H, S, D) tensors.  The model hands
 over transposed views of the fused projection, so the wrappers call
 `.contiguous()` (a copy where needed) rather than take strides.  The
-kernels are compiled for head dims 64 and 128; any other head dim up to 128
-is zero-padded here to the next of the two (zeros change neither q.k nor
-the outputs' first D columns), and a larger one raises.
+kernels are compiled for head dims 64, 128 and 256; any other head dim up
+to 256 is zero-padded here to the next of the three (zeros change neither
+q.k nor the outputs' first D columns), as the TPU kernels pad to 128-lane
+multiples, and a larger one raises: 256 is wgmma's largest N, the width
+of the second products (O += P.V and the gradients').
 
 The kernels launch on PyTorch's current stream and do not synchronize.  The
 copies and the delta scratch a wrapper makes go out of scope when it
@@ -66,7 +71,9 @@ import torch.nn.functional as F
 from ...runtime import _kernels
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # 4 fp32 tiles of 64 x (D + 4) must fit 227 KB of shared memory
+# wgmma's largest N: the second products' width is the head dim
+MAX_HEAD_DIM = 256
+HEAD_DIMS = (64, 128, 256)  # the kernels' head dims; others pad up
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 bodies' tiles (csrc/flash_attention.cu fwd_tile, bwd_tile)
 FWD_TILES = ({"kv_rows": 64, "stages": 3}, {"kv_rows": 64, "stages": 2},
@@ -74,6 +81,10 @@ FWD_TILES = ({"kv_rows": 64, "stages": 3}, {"kv_rows": 64, "stages": 2},
 BWD_TILES = ({"kv_rows": 64, "q_rows": 64, "stages": 2},
              {"kv_rows": 32, "q_rows": 32, "stages": 2},
              {"kv_rows": 64, "q_rows": 64, "stages": 3})
+# at head dim 256 (129-256 padded), where the hd-128 defaults do not fit a
+# block's shared memory: the narrower tiles that won there on the card
+FWD_TILES_256 = ({"kv_rows": 64, "stages": 2},)
+BWD_TILES_256 = ({"kv_rows": 32, "q_rows": 32, "stages": 2},)
 
 
 # a forward tile built for head dims up to 64 only: at 128 its consumers'
@@ -81,11 +92,34 @@ BWD_TILES = ({"kv_rows": 64, "q_rows": 64, "stages": 2},
 _HD64_ONLY = ({"kv_rows": 128, "stages": 2},)
 
 
+class HeadDimError(ValueError):
+    """A head dim above MAX_HEAD_DIM on a CUDA tensor."""
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The kernels' head dim that `head_dim` is zero-padded to; raises
+    HeadDimError above MAX_HEAD_DIM."""
+    for dp in HEAD_DIMS:
+        if head_dim <= dp:
+            return dp
+    raise HeadDimError(
+        f"head dim {head_dim} exceeds the kernels' limit of {MAX_HEAD_DIM}: "
+        f"wgmma's N, the width of O += P.V, is at most 256")
+
+
 def fwd_tiles(head_dim: int) -> tuple:
-    """The forward tiles built for `head_dim` (padded to 64 or 128)."""
+    """The forward tiles built for `head_dim` (padded to 64, 128 or 256)."""
+    if head_dim > 128:
+        return FWD_TILES_256
     if head_dim <= 64:
         return FWD_TILES
     return tuple(t for t in FWD_TILES if t not in _HD64_ONLY)
+
+
+def bwd_tiles(head_dim: int) -> tuple:
+    """The backward tiles built for `head_dim` (padded to 64, 128 or
+    256)."""
+    return BWD_TILES_256 if head_dim > 128 else BWD_TILES
 
 
 def _tile(tiles, dtype, given):
@@ -169,13 +203,7 @@ def _check_cuda(q):
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
-    d = q.shape[-1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {d} exceeds the kernel's limit of {MAX_HEAD_DIM}: its "
-            "four fp32 tiles of 64 x (D + 4) must fit the 227 KB of shared "
-            "memory a block can use")
-    return 64 if d <= 64 else 128
+    return padded_head_dim(q.shape[-1])
 
 
 def _prep(t, dp):
@@ -199,7 +227,7 @@ def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None,
                               kv_rows=None, stages=None):
     """(out, lse): out (B, H, Sq, D) in q's dtype, lse (B, H, Sq) fp32 natural
     log, or None when save_stats is False (the kernel then skips the write).
-    `kv_rows`, `stages`: a tile of FWD_TILES (None: the default's).
+    `kv_rows`, `stages`: a tile of fwd_tiles(D) (None: the default's).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (counted in `flash_attention_fwd_stats.launches`, and bf16 calls, which
@@ -249,7 +277,7 @@ def flash_attention_backward(q, k, v, g, out, lse, window=None, kv_rows=None,
                              q_rows=None, stages=None):
     """(dq, dk, dv) for cotangent g of `out`, from the forward's saved
     (out, lse).  dq as q; dk, dv as k, v, the GQA group summed in fp32.
-    `kv_rows`, `q_rows`, `stages`: a tile of BWD_TILES (None: the
+    `kv_rows`, `q_rows`, `stages`: a tile of bwd_tiles(D) (None: the
     default's).
 
     CPU tensors run the plain version (autograd through the plain forward,
@@ -257,7 +285,7 @@ def flash_attention_backward(q, k, v, g, out, lse, window=None, kv_rows=None,
     count in `flash_attention_backward.launches` per call, whatever number
     of device functions it runs) or raise."""
     _check(q, k, v, window)
-    tile = _tile(BWD_TILES, q.dtype,
+    tile = _tile(bwd_tiles(q.shape[-1]), q.dtype,
                  dict(kv_rows=kv_rows, q_rows=q_rows, stages=stages))
     if g.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} and out {tuple(out.shape)} must "

@@ -41,10 +41,13 @@ runs the fp32 tile (FFMA, never TF32).  There is no fallback between the
 two.  The plain versions widen every input to fp32 and keep p and ds in
 fp32 (the reference the kernels are held to).
 
-Head dims 64 and 128 run as they are; any other head dim up to 128 is
-zero-padded here to the next of the two (zeros change neither q.k nor the
-first D columns of a product; the fp32 accumulators go through a padded
-copy), and a larger one raises.
+Head dims 64, 128 and 256 run as they are; any other head dim up to 256 is
+zero-padded here to the next of the three (zeros change neither q.k nor
+the first D columns of a product; the fp32 accumulators go through a
+padded copy), and a larger one raises flash_attention.HeadDimError: 256 is
+wgmma's largest N, the width of the second products.  Each head dim runs
+its own tiles (csrc/attention_wgmma.cuh WgDefaults): at 256 the forward
+streams 64 kv rows through 2 stages and the backward 32-row tiles.
 
 The kernels launch on PyTorch's current stream and do not synchronize.
 """
@@ -55,10 +58,9 @@ import torch
 import torch.nn.functional as F
 
 from ...runtime import _kernels
-from .flash_attention import _aligned
+from .flash_attention import _aligned, padded_head_dim
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # 4 fp32 tiles of 64 x (D + 4) must fit 227 KB of shared memory
 MAX_GRID_Y = 65535  # B * H rides the grid's y dimension
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -179,14 +181,10 @@ def _check_cuda(q):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     b, h, _, d = q.shape
-    if d > MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {d} exceeds the kernel's limit of {MAX_HEAD_DIM}: its "
-            "four fp32 tiles of 64 x (D + 4) must fit the 227 KB of shared "
-            "memory a block can use")
+    dp = padded_head_dim(d)  # raises HeadDimError above 256
     if b * h > MAX_GRID_Y:
         raise ValueError(f"B * H = {b * h} exceeds the grid's {MAX_GRID_Y}")
-    return 64 if d <= 64 else 128
+    return dp
 
 
 def _prep(t, dp):

@@ -23,10 +23,11 @@ take, at the JAX package's shape arguments and cache keys:
     matmul_q8_auto (and so gemm_w8) reads the winner.  Integer sums are
     exact, so every candidate gives the same bits;
   * "attn_fwd" / "attn_bwd" (b, h, s, d), keyed by shape_bucket(s, s, d):
-    K1's and K2's bf16 tiles (ops/pallas_kernels/flash_attention.
-    FWD_TILES, BWD_TILES: the kv / q rows a stage streams and the ring's
-    depth); ops/attention.causal_attention_fn and the eager
-    causal_attention read the winners, as the JAX package's _tuned_blocks;
+    K1's and K2's bf16 tiles built for the head dim d (ops/pallas_kernels/
+    flash_attention.fwd_tiles(d), bwd_tiles(d): the kv / q rows a stage
+    streams and the ring's depth); ops/attention.causal_attention_fn and
+    the eager causal_attention read the winners, as the JAX package's
+    _tuned_blocks;
     the windowed make_flash_attention reads nothing, as the JAX package's;
   * "reduce" / "welford" (r, c), keyed "float32": the blocks K8's and K7's
     split count aims at (ops/pallas_kernels/welford.split_count's
@@ -60,7 +61,7 @@ import numpy as np
 import torch
 
 from ..ops.pallas_kernels.flash_attention import (BWD_TILES, FWD_TILES,
-                                                 fwd_tiles)
+                                                 bwd_tiles, fwd_tiles)
 from ..ops.pallas_kernels.matmul import TILES as K3_TILES
 from ..ops.pallas_kernels.welford import TARGET_BLOCKS
 from ..ops.quant import Q8_MIN_STAGES, Q8_WAVE
@@ -334,8 +335,9 @@ def autotune(op: str, *shape: int, dtype=None, candidates: list | None = None,
                              f"bfloat16 (the {dtype} bodies have one), got "
                              f"{dtype}")
         b, h, s, d = shape
-        if candidates is None and op == "attn_fwd":  # the head dim's tiles
-            cands = [dict(t) for t in fwd_tiles(d)]
+        if candidates is None:  # the tiles built for the head dim
+            tiles = fwd_tiles(d) if op == "attn_fwd" else bwd_tiles(d)
+            cands = [dict(t) for t in tiles]
         make, flops = _attn_case(b, h, s, d, dtype, dev, gen,
                                  op == "attn_bwd")
         bucket = shape_bucket(s, s, d)

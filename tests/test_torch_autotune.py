@@ -473,3 +473,19 @@ def test_k1_blockwise_online_softmax_at_each_streamed_rows(kv_rows, window):
     out16, _ = _k1_blockwise(q, k, v, kv_rows, window, bf16_p=True)
     assert float((out16 - ref_out).abs().max()) <= 2.0 ** -7 * float(
         ref_out.abs().max())
+
+
+@pytest.mark.parametrize("op,tiles", [("attn_fwd", "FWD_TILES_256"),
+                                      ("attn_bwd", "BWD_TILES_256")])
+def test_attention_sweeps_take_the_head_dims_tiles(fresh, op, tiles):
+    """At head dims above 128 the sweeps run the hd-256 tables, the only
+    tiles built there, and record the winner under the head dim's class;
+    at 128 and below they run the tables of today's kernels."""
+    res = kfunca.autotune(op, 1, 2, 40, 200, reps=1, iters=1, device="cpu",
+                          verbose=False)
+    assert [c["params"] for c in res["all"]] == list(getattr(tfa, tiles))
+    assert autotune.tuned(op, (40, 40, 200), "bfloat16") == res["params"]
+    small = kfunca.autotune(op, 1, 2, 40, 128, reps=1, iters=1, device="cpu",
+                            verbose=False)
+    want = tfa.fwd_tiles(128) if op == "attn_fwd" else tfa.BWD_TILES
+    assert [c["params"] for c in small["all"]] == list(want)

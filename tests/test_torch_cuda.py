@@ -812,13 +812,120 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         fa.flash_attention_fwd_stats(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="one dtype"):
         fa.flash_attention_fwd_stats(q, k.bfloat16(), v)
-    with pytest.raises(ValueError, match="limit of 128"):
-        big = torch.zeros((1, 1, 8, 160), device=cuda)
+    with pytest.raises(ValueError, match="limit of 256"):
+        big = torch.zeros((1, 1, 8, 257), device=cuda)
         fa.flash_attention_fwd_stats(big, big, big)
     with pytest.raises(ValueError, match="different devices"):
         fa.flash_attention_fwd_stats(q, k.cpu(), v.cpu())
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention_fwd_stats(q, k, v, window=0)
+
+
+# -- K1 and K2 at head dim 256 (129-256 padded): Gemma's MQA 8:1, GQA 4:2
+# with a window and Sq != Skv both ways, rows without a column ------------
+
+FLASH_CASES_256 = [
+    (1, 8, 1, 256, 256, 256, None),
+    (1, 4, 2, 200, 150, 160, 37),
+    (2, 4, 2, 160, 260, 200, None),
+    (1, 2, 1, 300, 64, 256, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES_256, ids=str)
+def test_flash_kernels_match_plain_at_head_dim_256(cuda, dtype, case):
+    """The hd-256 instances (the wgmma bodies' on bf16, the fp32 tile's with
+    its shared streamed tile) against the plain versions, on the kernels:
+    one launch each, bf16 on the wgmma bodies."""
+    window = case[-1]
+    q, k, v, g = _flash_inputs(cuda, dtype, case)
+    n1w = fa.flash_attention_fwd_stats.launches_wgmma
+    n2 = fa.flash_attention_backward.launches
+    out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
+                                             window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == n2 + 1
+    assert fa.flash_attention_fwd_stats.launches_wgmma == (
+        n1w + (dtype == torch.bfloat16))
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, window)
+    want = fa.flash_attention_backward_plain(q, k, v, g, window)
+    _flash_close(out, want_out, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        _flash_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("kind,tile", [("fwd", i) for i in range(
+    len(fa.FWD_TILES_256))] + [("bwd", i) for i in range(
+        len(fa.BWD_TILES_256))])
+def test_every_hd256_tile_matches_plain_bitwise_repeatably(cuda, kind, tile):
+    for case in FLASH_CASES_256:
+        q, k, v, g = _flash_inputs(cuda, torch.bfloat16, case, seed=1)
+        window = case[-1]
+        if kind == "fwd":
+            params = fa.FWD_TILES_256[tile]
+            got = fa.flash_attention_fwd_stats(q, k, v, window=window,
+                                               **params)
+            again = fa.flash_attention_fwd_stats(q, k, v, window=window,
+                                                 **params)
+            want = fa.flash_attention_plain(q, k, v, window)
+            _flash_close(got[0], want[0], torch.bfloat16)
+            torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-5)
+        else:
+            params = fa.BWD_TILES_256[tile]
+            out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
+            got = fa.flash_attention_backward(q, k, v, g, out, lse,
+                                              window=window, **params)
+            again = fa.flash_attention_backward(q, k, v, g, out, lse,
+                                                window=window, **params)
+            want = fa.flash_attention_backward_plain(q, k, v, g, window)
+            for x, ref in zip(got, want):
+                _flash_close(x, ref, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+def test_dma_kernel_at_gemma_decode_width(cuda, dtype, quantized):
+    """K4 and K4-int8 at head dim 256 over one kv head (Gemma's MQA: a
+    fused page row of 2 x 256), no window and window 37, bitwise
+    repeatable."""
+    q, pool, pool_v, scales, tables, pos, base = _forms_case(
+        cuda, dtype, [0, 15, 16, 40, 95], "fused", quantized, h=8, hkv=1,
+        hd=256)
+    for window in (None, 37):
+        kw = dict(window=window, page_base=base, pool_v=pool_v,
+                  scales=scales)
+        got = paged_decode_attention_dma(q, pool, tables, pos, **kw)
+        again = paged_decode_attention_dma(q, pool, tables, pos, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _close(got, paged_decode_attention_plain(q, pool, tables, pos, **kw),
+               dtype)
+
+
+def test_head_dim_257_raises_head_dim_error(cuda):
+    """Above 256 (wgmma's largest N) K1, K2, K12 and K12b raise the named
+    error on the card; the plain versions take any head dim."""
+    from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
+
+    q = torch.zeros((1, 2, 16, 257), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(fa.HeadDimError, match="limit of 256"):
+        fa.flash_attention_fwd_stats(q, q, q)
+    lse = torch.zeros((1, 2, 16), device=cuda)
+    with pytest.raises(fa.HeadDimError, match="limit of 256"):
+        fa.flash_attention_backward(q, q, q, q, q, lse)
+    carry = rh.hop_carry_init(1, 2, 16, 257, device=cuda)
+    with pytest.raises(fa.HeadDimError, match="limit of 256"):
+        rh.flash_attention_hop(q, q, q, *carry, 0, 0)
+    stats = (lse.reshape(2, 16), lse.reshape(2, 16))
+    accs = rh.bwd_carry_init(1, 2, 16, 16, 257, device=cuda)
+    with pytest.raises(fa.HeadDimError, match="limit of 256"):
+        rh.flash_attention_bwd_hop(q, q, q, q, *stats, *accs, 0, 0)
 
 
 # -- the training step on the card -------------------------------------------------
@@ -1665,7 +1772,9 @@ def test_native_core_is_loaded_on_the_card(cuda):
 
 # (B, H, Sq, Skv, D, q_off, kv_off): diagonal, past, wholly future, ragged
 # shards with unaligned offsets, head dim 40 (padded to 64), and a hop that
-# leaves q rows 0..63 with no column (a whole consumer of the bf16 body)
+# leaves q rows 0..63 with no column (a whole consumer of the bf16 body);
+# then the hd-256 instances: past and ragged at 256, head dim 160 (padded
+# to 256), and the row-less consumer at 256
 HOP_CASES = [
     (1, 4, 256, 256, 128, 256, 256),
     (2, 3, 128, 128, 64, 128, 0),
@@ -1674,6 +1783,10 @@ HOP_CASES = [
     (1, 3, 130, 100, 128, 37, 50),
     (1, 2, 96, 96, 40, 96, 96),
     (1, 2, 128, 128, 128, 0, 64),
+    (1, 4, 256, 256, 256, 256, 0),
+    (1, 4, 200, 200, 256, 400, 200),
+    (1, 3, 130, 100, 160, 37, 50),
+    (1, 2, 128, 128, 256, 0, 64),
 ]
 
 
@@ -1763,6 +1876,20 @@ def test_ring_hop_backward_is_bitwise_repeatable(cuda):
     assert all(torch.equal(a, b_) for a, b_ in zip(*runs))
 
 
+def test_ring_hop_is_bitwise_repeatable_at_head_dim_256(cuda):
+    from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
+
+    q, k, v, g, carry, (lse, delta), accs = _hop_case(
+        cuda, torch.bfloat16, (1, 8, 512, 512, 256, 512, 0))
+    runs = []
+    for _ in range(2):
+        runs.append([t.clone() for t in carry + accs])
+        rh.flash_attention_hop(q, k, v, *runs[-1][:3], 512, 0)
+        rh.flash_attention_bwd_hop(q, k, v, g, lse, delta, *runs[-1][3:], 512,
+                                   0)
+    assert all(torch.equal(a, b_) for a, b_ in zip(*runs))
+
+
 def test_ring_hop_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     from kfunca_tpu_torch.ops.pallas_kernels import ring_hop as rh
 
@@ -1770,10 +1897,10 @@ def test_ring_hop_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
                                         (1, 2, 16, 16, 64, 0, 0))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         rh.flash_attention_hop(q.half(), k.half(), v.half(), *carry, 0, 0)
-    with pytest.raises(ValueError, match="limit of 128"):
-        big = torch.zeros((1, 1, 8, 160), device=cuda)
+    with pytest.raises(ValueError, match="limit of 256"):
+        big = torch.zeros((1, 1, 8, 257), device=cuda)
         rh.flash_attention_hop(big, big, big, *rh.hop_carry_init(
-            1, 1, 8, 160, device=cuda), 0, 0)
+            1, 1, 8, 257, device=cuda), 0, 0)
     with pytest.raises(ValueError, match="is on cpu"):
         rh.flash_attention_hop(q, k, v, carry[0].cpu(), *carry[1:], 0, 0)
 

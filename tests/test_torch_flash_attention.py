@@ -25,7 +25,8 @@ from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as tfa
 
 # (b, h, hkv, sq, skv, d, window): the shapes of tests/test_pallas_kernels.py
 # (MHA, ragged everything, tiles that do not divide, GQA 4:2 and 6:3,
-# windows 64 and 130)
+# windows 64 and 130), and head dims above 128, which the CUDA kernels pad
+# to 256 (Gemma's MQA 8:1 at 256, 200 padded, a window at 256)
 CASES = {
     "mha": (1, 2, 2, 128, 128, 128, None),
     "ragged": (1, 1, 1, 35, 67, 40, None),
@@ -33,6 +34,9 @@ CASES = {
     "gqa_4_2": (1, 4, 2, 256, 256, 64, None),
     "gqa_6_3_window_64": (1, 6, 3, 256, 256, 64, 64),
     "gqa_window_130": (1, 4, 2, 384, 384, 64, 130),
+    "hd256_mqa_8_1": (1, 8, 1, 128, 128, 256, None),
+    "hd200_padded": (1, 2, 2, 100, 160, 200, None),
+    "hd256_window_37": (1, 4, 2, 200, 200, 256, 37),
 }
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -229,22 +233,24 @@ def _attends(row, col, sq, skv, window):
     return ok
 
 
-def _dq_kv_tiles(row0, sq, skv, window):
-    """The 64-row kv tiles the dq block at q row row0 streams."""
+def _dq_kv_tiles(row0, sq, skv, window, kv_stream=KV_STREAM):
+    """The kv tiles (of kv_stream rows) the dq block at q row row0
+    streams."""
     col_hi = min(row0 + DQ_ROWS - 1, sq - 1, skv - 1)
     col_lo = max(row0 - window + 1, 0) if window is not None else 0
     if col_lo > col_hi:
         return range(0)
-    return range(col_lo // KV_STREAM, col_hi // KV_STREAM + 1)
+    return range(col_lo // kv_stream, col_hi // kv_stream + 1)
 
 
-def _dkv_q_tiles(col0, sq, skv, window):
-    """The 64-row q tiles the dk/dv block at kv row col0 streams."""
-    first = col0 // Q_STREAM
-    last = (sq - 1) // Q_STREAM
+def _dkv_q_tiles(col0, sq, skv, window, q_stream=Q_STREAM):
+    """The q tiles (of q_stream rows) the dk/dv block at kv row col0
+    streams."""
+    first = col0 // q_stream
+    last = (sq - 1) // q_stream
     if window is not None:
         col_last = min(col0 + DKV_ROWS - 1, skv - 1)
-        last = min(last, (col_last + window - 1) // Q_STREAM)
+        last = min(last, (col_last + window - 1) // q_stream)
     return range(first, last + 1)
 
 
@@ -252,8 +258,10 @@ def _bf16(x):
     return x.bfloat16().float()
 
 
-def _k2_emulation(q, k, v, g, out, lse, window):
-    """The bf16 body's blocking in plain torch: (dq, dk, dv) in bf16."""
+def _k2_emulation(q, k, v, g, out, lse, window, kv_stream=KV_STREAM,
+                  q_stream=Q_STREAM):
+    """The bf16 body's blocking in plain torch: (dq, dk, dv) in bf16, the
+    dq kernel streaming kv_stream kv rows and dk/dv q_stream q rows."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group, scale = h // hkv, 1.0 / np.sqrt(d)
@@ -278,9 +286,9 @@ def _k2_emulation(q, k, v, g, out, lse, window):
             for row0 in range(0, sq, DQ_ROWS):
                 rows = torch.arange(row0, min(row0 + DQ_ROWS, sq))
                 acc = torch.zeros((len(rows), d))
-                for kt in _dq_kv_tiles(row0, sq, skv, window):
-                    cols = torch.arange(kt * KV_STREAM,
-                                        min(kt * KV_STREAM + KV_STREAM, skv))
+                for kt in _dq_kv_tiles(row0, sq, skv, window, kv_stream):
+                    cols = torch.arange(kt * kv_stream,
+                                        min(kt * kv_stream + kv_stream, skv))
                     _, ds = p_ds(bi, hi, rows, cols)
                     acc += ds @ kf[bi, hi // group, cols]
                 dq[bi, hi, rows] = acc * scale
@@ -290,9 +298,9 @@ def _k2_emulation(q, k, v, g, out, lse, window):
                 dk_acc = torch.zeros((len(cols), d))
                 dv_acc = torch.zeros((len(cols), d))
                 for hi in range(kvh * group, (kvh + 1) * group):
-                    for qt in _dkv_q_tiles(col0, sq, skv, window):
-                        rows = torch.arange(qt * Q_STREAM,
-                                            min(qt * Q_STREAM + Q_STREAM, sq))
+                    for qt in _dkv_q_tiles(col0, sq, skv, window, q_stream):
+                        rows = torch.arange(qt * q_stream,
+                                            min(qt * q_stream + q_stream, sq))
                         p, ds = p_ds(bi, hi, rows, cols)
                         dv_acc += p.T @ gf[bi, hi, rows]
                         dk_acc += ds.T @ qf[bi, hi, rows]
@@ -392,20 +400,21 @@ def test_k2_bf16_tiling_emulation_matches_plain_and_jax(name):
 FWD_ROWS = 64  # q rows of a consumer
 
 
-def _k1_kv_tiles(row0, sq, skv, window):
-    """The 64-row kv tiles the K1 block at q row row0 streams (the dq
-    kernel's range: both blocks own 128 q rows)."""
-    return _dq_kv_tiles(row0, sq, skv, window)
+def _k1_kv_tiles(row0, sq, skv, window, kv_stream=KV_STREAM):
+    """The kv tiles the K1 block at q row row0 streams (the dq kernel's
+    range: both blocks own 128 q rows)."""
+    return _dq_kv_tiles(row0, sq, skv, window, kv_stream)
 
 
-def _k1_dead(q_lo, c0, sq, window):
+def _k1_dead(q_lo, c0, sq, window, kv_stream=KV_STREAM):
     """The consumer at q row q_lo skips the kv tile at column c0."""
     return (q_lo >= sq or c0 > q_lo + FWD_ROWS - 1
-            or (window is not None and c0 + KV_STREAM - 1 <= q_lo - window))
+            or (window is not None and c0 + kv_stream - 1 <= q_lo - window))
 
 
-def _k1_emulation(q, k, v, window):
-    """The bf16 body's blocking in plain torch: (out in bf16, lse)."""
+def _k1_emulation(q, k, v, window, kv_stream=KV_STREAM):
+    """The bf16 body's blocking in plain torch: (out in bf16, lse), k and v
+    streamed kv_stream rows at a time."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = h // hkv
@@ -421,11 +430,11 @@ def _k1_emulation(q, k, v, window):
                     m = torch.full((len(rows),), -1e30)
                     l = torch.zeros(len(rows))
                     o = torch.zeros((len(rows), d))
-                    for kt in _k1_kv_tiles(row0, sq, skv, window):
-                        c0 = kt * KV_STREAM
-                        if _k1_dead(q_lo, c0, sq, window):
+                    for kt in _k1_kv_tiles(row0, sq, skv, window, kv_stream):
+                        c0 = kt * kv_stream
+                        if _k1_dead(q_lo, c0, sq, window, kv_stream):
                             continue
-                        cols = torch.arange(c0, min(c0 + KV_STREAM, skv))
+                        cols = torch.arange(c0, min(c0 + kv_stream, skv))
                         s = qf[bi, hi, rows] @ kf[bi, kvh, cols].T
                         ok = _attends(rows[:, None], cols[None, :], sq, skv,
                                       window)
@@ -493,3 +502,151 @@ def test_k1_bf16_tiling_emulation_matches_plain_and_jax(name):
     _held_bf16(got_lse[:, :, :live],
                torch.from_numpy(np.array(jlse, np.float32)))
     assert not got[:, :, live:].any() and not got_lse[:, :, live:].any()
+
+
+# -- the hd-256 tiles (129-256 padded): K1 streams 64 kv rows, K2's dq
+# kernel 32 and its dk/dv kernel 32 q rows (flash_attention.fwd_tiles,
+# bwd_tiles) --------------------------------------------------------------
+
+EMULATED_256 = {
+    "hd256_mqa_window": (1, 8, 1, 200, 200, 256, 37),
+    "hd256_rows_without_a_column": (1, 2, 1, 300, 64, 256, 64),
+}
+
+
+@pytest.mark.parametrize("sq,skv,window", [
+    (200, 200, 37), (160, 100, None), (300, 64, 64), (513, 257, 200)])
+@pytest.mark.parametrize("tile", range(len(tfa.BWD_TILES_256)))
+def test_k2_hd256_live_tile_ranges_are_exactly_the_tiles_with_a_pair(
+        sq, skv, window, tile):
+    rows, q_rows = (tfa.bwd_tiles(256)[tile][k] for k in ("kv_rows",
+                                                          "q_rows"))
+    ok = _attends(torch.arange(sq)[:, None], torch.arange(skv)[None, :], sq,
+                  skv, window)
+    for row0 in range(0, sq, DQ_ROWS):
+        live = {kt for kt in range(-(-skv // rows))
+                if ok[row0:row0 + DQ_ROWS, kt * rows:(kt + 1) * rows].any()}
+        assert set(_dq_kv_tiles(row0, sq, skv, window, rows)) == live
+    for col0 in range(0, skv, DKV_ROWS):
+        live = {qt for qt in range(-(-sq // q_rows))
+                if ok[qt * q_rows:(qt + 1) * q_rows,
+                      col0:col0 + DKV_ROWS].any()}
+        assert set(_dkv_q_tiles(col0, sq, skv, window, q_rows)) == live
+
+
+@pytest.mark.parametrize("tile", range(len(tfa.FWD_TILES_256)))
+@pytest.mark.parametrize("name", list(EMULATED_256))
+def test_k1_bf16_tiling_emulation_at_the_hd256_tiles(name, tile):
+    """K1's emulated bf16 body at each hd-256 tile against the plain
+    version and the JAX K1 in interpret mode, as at head dims 64 and 128."""
+    case = EMULATED_256[name]
+    window = case[-1]
+    q, k, v, _ = _bf16_inputs(case, seed=13)
+    got, got_lse = _k1_emulation(q, k, v, window,
+                                 tfa.fwd_tiles(case[5])[tile]["kv_rows"])
+    ref, ref_lse = tfa.flash_attention_fwd_stats(q, k, v, window=window)
+    _held_bf16(got, ref)
+    torch.testing.assert_close(got_lse, ref_lse, atol=1e-4, rtol=1e-5)
+    sq, skv = case[3], case[4]
+    live = min(sq, skv + (window or sq) - 1)
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (q[:, :, :live], k, v))
+    jout, _ = jfa.flash_attention_fwd_stats(jq, jk, jv, bq=128, bk=128,
+                                            window=window, interpret=True)
+    _held_bf16(got[:, :, :live], torch.from_numpy(np.array(jout, np.float32)))
+    assert not got[:, :, live:].any() and not got_lse[:, :, live:].any()
+
+
+@pytest.mark.parametrize("tile", range(len(tfa.BWD_TILES_256)))
+@pytest.mark.parametrize("name", list(EMULATED_256))
+def test_k2_bf16_tiling_emulation_at_the_hd256_tiles(name, tile):
+    """K2's emulated bf16 body at each hd-256 tile against the plain
+    version and the JAX K2 in interpret mode, within phase 8's bf16
+    limit."""
+    case = EMULATED_256[name]
+    window = case[-1]
+    q, k, v, g = _bf16_inputs(case, seed=17)
+    out, lse = tfa.flash_attention_fwd_stats(q, k, v, window=window)
+    t = tfa.bwd_tiles(case[5])[tile]
+    got = _k2_emulation(q, k, v, g, out, lse, window, t["kv_rows"],
+                        t["q_rows"])
+    plain = tfa.flash_attention_backward(q, k, v, g, out, lse, window=window)
+    for x, ref in zip(got, plain):
+        _held_bf16(x, ref)
+    sq, skv = case[3], case[4]
+    live = min(sq, skv + (window or sq) - 1)
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                      for t in (q[:, :, :live], k, v, g[:, :, :live]))
+    jout, jlse = jfa.flash_attention_fwd_stats(jq, jk, jv, bq=128, bk=128,
+                                               window=window, interpret=True)
+    want = jfa.flash_attention_backward(jq, jk, jv, jg, out=jout, lse=jlse,
+                                        bq=128, bk=128, window=window,
+                                        interpret=True)
+    for x, w in zip((got[0][:, :, :live], got[1], got[2]), want):
+        _held_bf16(x, torch.from_numpy(np.asarray(w, np.float32)))
+    assert not got[0][:, :, live:].any()
+
+
+# -- shared memory a block takes, by the layouts of csrc/attention_wgmma.cuh
+# (WgFwdSmem, WgBwdSmem) and csrc/attention_tile.cuh (fwd_smem, bwd_smem);
+# each launcher also asserts its fit when it is compiled --------------------
+
+SMEM_LIMIT = 232448  # bytes a block can use on the H100
+BLOCK_ROWS, KV_ROWS = 128, 64  # resident q rows (K1, dq); kv rows (dk/dv)
+
+
+def _wgmma_smem(hd, tile, backward):
+    """Bytes of the bf16 body's block at kernel head dim `hd` and `tile`;
+    for the backward the larger of its dq and dk/dv kernels'."""
+    st = tile["stages"]
+    if not backward:
+        return (BLOCK_ROWS * hd * 2 + st * 2 * tile["kv_rows"] * hd * 2
+                + (1 + 2 * st) * 8 + 1024)
+    bars = max((1 + 2 * st) * 8, 64)
+    sr, qr = tile["kv_rows"], tile["q_rows"]
+    dq = 2 * BLOCK_ROWS * hd * 2 + st * 2 * sr * hd * 2
+    dkv = (2 * KV_ROWS * hd * 2 + st * 2 * qr * hd * 2 + st * KV_ROWS * qr * 4
+           + st * 2 * qr * 4)
+    return max(dq, dkv) + bars + 1024
+
+
+def _fp32_smem(hd, backward):
+    """Bytes of the fp32 body's block: three (forward) or four (backward;
+    three above head dim 128, where its streamed tiles share one) fp32
+    tiles of 64 x (hd + 4), and P (64 x 68)."""
+    tiles = 3 if not backward or hd > 128 else 4
+    return 4 * (tiles * 64 * (hd + 4) + 64 * 68)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_every_tile_fits_a_blocks_shared_memory(d):
+    """Each tile of the head dim's tables (and the fp32 bodies' one) fits
+    the 232,448 bytes a block can use; the hd-128 tiles that do not fit at
+    256 are left out of its tables."""
+    for tile in tfa.fwd_tiles(d):
+        assert _wgmma_smem(d, tile, backward=False) <= SMEM_LIMIT
+    for tile in tfa.bwd_tiles(d):
+        assert _wgmma_smem(d, tile, backward=True) <= SMEM_LIMIT
+    for backward in (False, True):
+        assert _fp32_smem(d, backward) <= SMEM_LIMIT
+    if d == 256:  # the hd-128 defaults would not fit: the reason for a table
+        assert _wgmma_smem(256, tfa.FWD_TILES[0], False) > SMEM_LIMIT
+        assert _wgmma_smem(256, tfa.BWD_TILES[0], True) > SMEM_LIMIT
+        assert 4 * (4 * 64 * 260 + 64 * 68) > SMEM_LIMIT  # four fp32 tiles
+    # the layouts' figures as the kernels' sources state them
+    assert _wgmma_smem(128, tfa.BWD_TILES[2], True) == 182848
+    assert _wgmma_smem(256, tfa.FWD_TILES_256[0], False) == 197672
+    assert _wgmma_smem(256, tfa.BWD_TILES_256[0], True) == 197696
+    assert _fp32_smem(256, True) == 217088
+
+
+def test_head_dims_pad_up_to_256_and_raise_above():
+    assert [tfa.padded_head_dim(d) for d in (1, 64, 65, 128, 129, 200, 256)] \
+        == [64, 64, 128, 128, 256, 256, 256]
+    with pytest.raises(tfa.HeadDimError, match="256"):
+        tfa.padded_head_dim(257)
+    assert issubclass(tfa.HeadDimError, ValueError)
+    q = torch.zeros((1, 1, 4, 257))
+    # the plain versions take any head dim; only a CUDA launch is limited
+    out, lse = tfa.flash_attention_fwd_stats(q, q, q)
+    assert out.shape == q.shape and lse.shape == (1, 1, 4)

@@ -41,12 +41,15 @@ from kfunca_tpu_torch.parallel import ring_attention as tring
 import torch_ring_ranks
 
 # (name, sq, skv, d, hops): each hop (q_off, kv_off) applied in turn to one
-# carry; the second hop is the case's kind
+# carry; the second hop is the case's kind; the hd-256 instances (Gemma's
+# head width, and 200 padded to 256 on the card) past a diagonal
 HOP_CASES = {
     "diagonal": (128, 128, 128, [(0, 0), (128, 128)]),
     "past": (128, 128, 128, [(128, 128), (128, 0)]),
     "future": (128, 128, 128, [(0, 0), (0, 128)]),
     "ragged": (200, 200, 64, [(200, 200), (200, 0)]),
+    "hd256_past": (128, 128, 256, [(128, 128), (128, 0)]),
+    "hd200_ragged_past": (100, 100, 200, [(100, 100), (100, 0)]),
 }
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
