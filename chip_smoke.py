@@ -18,7 +18,9 @@ family), `python3 chip_smoke.py --seq2seq` phases 71-75 (F1's sharded
 MLA decode, T5, the audio frontend and Whisper), `python3 chip_smoke.py
 --autotune-orbax` phases 76-80 (autotune over K1, K2, K5, K7 and K8;
 save_orbax / load_orbax) and `python3 chip_smoke.py --gemma` phases 81-85
-(Gemma-2B, K1 / K2 / K12 at head dim 256).
+(Gemma-2B, K1 / K2 / K12 at head dim 256) and `python3 chip_smoke.py
+--examples` phases 86-90 (the runnable examples of
+kfunca_tpu_torch/examples/, and serve_hf over Mistral-7B-v0.1's layout).
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
@@ -126,7 +128,7 @@ Phases (any failure raises and the script exits non-zero):
      forward and backward (K1, K2) at B=1, H=32, S=2048, hd=128;
  24. profile one eager MLP step, and time an eager 256-element add's host
      cost per op;
- 25. (at the end, after phase 85) print the kernels line (the seventeen
+ 25. (at the end, after phase 90) print the kernels line (the seventeen
      kernels, with the entries of the paths that run them at other shapes),
      the card line and, last, the result line;
  26. hold the selective-scan kernels K11 (forward and backward) against
@@ -214,9 +216,10 @@ Phases (any failure raises and the script exits non-zero):
      nor safetensors loaded: generate and InferenceServer give
      golden_tokens.json's tokens; K6 launches = layers x decode steps;
  42. a checkpoint at Mistral-7B-v0.1 widths cut to 8 layers, random bf16
-     weights, written with to_hf and the script's own safetensors writer as
-     the published layout (two bf16 shards, model.safetensors.index.json,
-     config.json) and read back by from_hf: params bit for bit the
+     weights, written with to_hf and the examples' writer (examples/
+     _checkpoint.py) as the published layout (two bf16 shards,
+     model.safetensors.index.json, config.json), kept for phase 89 and read
+     back by from_hf: params bit for bit the
      originals, 4 greedy requests equal to a server fed the originals, the
      load's GB/s;
  43. K4's and K6's fp16 bodies (fp16 q with fp16 or int8 pools) against the
@@ -342,7 +345,7 @@ Phases (any failure raises and the script exits non-zero):
      128, chunk 256): every gradient finite at 8 layers over 4 x 2048
      tokens, then 6 AdamW steps in bf16 (ms/step, tokens/s, peak memory);
      an 8-layer checkpoint in Mamba2ForCausalLM's layout written by the
-     script's safetensors writer and read by from_hf_mamba2, bit for bit,
+     examples' safetensors writer and read by from_hf_mamba2, bit for bit,
      with neither transformers nor safetensors loaded; in fp32 at 2 layers
      the recurrent step within 1e-3 x max(1, max |ref|) of the chunked
      forward over 256 tokens; generate at all 64 layers (4 prompts of
@@ -448,6 +451,37 @@ spreads (the rule for runtime/autotune_defaults.json).
      launches a pass.
 `python3 chip_smoke.py --gemma` runs phases 81-85 alone; the full script
 prints their kernels-line entries with "path": "gemma-2b".
+ 86. the serving examples of kfunca_tpu_torch/examples/ at their JAX
+     counterparts' defaults, in-process through main(argv): serve_lm
+     (K4 = 4 x decode steps), speculative_lm (token-exact against
+     generate), serve_hf on its hermetic tiny Llama (w8kv8: K4 = 4 x and
+     K5 = 21 x decode steps) and serve_deepseek (MLAServer token-exact
+     against generate); each example's own check ends the script when it
+     fails, and each prints its figures and launches beside the card line;
+ 87. the training examples: train_lm (K1 = K2 = 4 x 20 on the wgmma
+     bodies), finetune_e2e (K1 = K2 = 2 x 30 x 2 microbatches, K4 = 2 x
+     decode steps), align_lora_dpo and rl_grpo (fp32: K1 / K2 counted per
+     forward and backward);
+ 88. the family examples: zb_pipeline (the loss falls), seq2seq_t5,
+     asr_whisper and caption_multimodal (>= 90% held-out exact match;
+     caption's text blocks on K1 / K2) and generate_dit (the samples'
+     contrast); then K1 / K2 at train_lm's attention and K4 at serve_lm's
+     decode against their plain versions, timed;
+ 89. Mistral-7B-v0.1's checkpoint layout at 8 of 32 layers (phase 42's
+     directory, written by this phase when run alone, removed after it),
+     served by serve_hf --model DIR in w8kv8 (K5 =
+     41 x and K4-int8 = 8 x decode steps), with --no-quant (K4, bf16) and
+     with --tp 2 (K5 and K6 on each rank); compare_servers_forced holds
+     the w8kv8 and bf16 servers to the plain versions' log-probs (0.1 /
+     0.05 nat on every step), tp = 2 gives the single device's tokens in
+     fp32 activations; serve_api --hf DIR answers token-id requests over
+     HTTP, streamed and not; K4, K4-int8, K5 and K6 at these decode
+     shapes against their plain versions and timed;
+ 90. serve_api's hermetic model over HTTP (a sampled and a streamed text
+     request), then `python -m kfunca_tpu_torch.examples.serve_lm` as a
+     process of its own (exit 0, its 12 requests on K4).
+`python3 chip_smoke.py --examples` runs phases 86-90 alone; the full
+script prints their kernels-line entries with "path" naming the example.
 
 Needs no network and imports nothing of JAX or kfunca_tpu.
 """
@@ -1161,10 +1195,7 @@ def training_phases(fa, card):
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     # the main path: launch counts start at 0 here and are read after it
-    fa.flash_attention_fwd_stats.launches = 0
-    fa.flash_attention_fwd_stats.launches_wgmma = 0
-    fa.flash_attention_backward.launches = 0
-    fa.flash_attention_backward.launches_wgmma = 0
+    reset_flash()
     params, opt, metrics, seconds = run_steps(step, ds, params, opt, 0, steps)
     launches = (fa.flash_attention_fwd_stats.launches,
                 fa.flash_attention_backward.launches)
@@ -1201,10 +1232,7 @@ def training_phases(fa, card):
     accum = make_train_step(cfg, oc, grad_accum=2, loss_chunk=4096,
                             with_metrics=True)
     ds2 = TokenDataset(corpus, TRAIN_SEQ // 2, 2, seed=SEED + 2)
-    fa.flash_attention_fwd_stats.launches = 0
-    fa.flash_attention_fwd_stats.launches_wgmma = 0
-    fa.flash_attention_backward.launches = 0
-    fa.flash_attention_backward.launches_wgmma = 0
+    reset_flash()
     params, opt, metrics2, seconds2 = run_steps(accum, ds2, params, opt, 0, 2)
     launches2 = (fa.flash_attention_fwd_stats.launches,
                  fa.flash_attention_backward.launches)
@@ -1632,18 +1660,21 @@ def library_attention_forms(q, kw, window, form):
 
 
 def paged_form_timing(pa, entry, form, quantized, dtype=torch.bfloat16,
-                      h=32, hkv=8, hd=128, window=4096):
+                      h=32, hkv=8, hd=128, window=4096, positions=None,
+                      max_pages=272):
     """Times at the serving widths (`dtype` q, bf16 or fp16, window 4096;
     h q heads over hkv kv heads of hd, a tensor-parallel rank's share when
-    smaller, or another model's widths and window) and the bound: the
+    smaller, or another model's widths and window; by default 8 slots at
+    positions 96..4231, else a path's own slots) and the bound: the
     unmasked slots' k and v rows (int8: one byte an element plus 2*Hkv fp32
     scales a slot), q in, out out, the live table entries, the
     positions."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    positions = [96, 300, 511, 700, 1023, 1056, 2047, 4231]
+    if positions is None:
+        positions = [96, 300, 511, 700, 1023, 1056, 2047, 4231]
     q, kw = pool_case(dtype, gen, positions, form=form,
                       quantized=quantized, nan_dead=False, h=h, hkv=hkv,
-                      hd=hd)
+                      hd=hd, max_pages=max_pages)
     page = 16
     b, h, hd = q.shape
     live_pages = valid = 0
@@ -1746,12 +1777,11 @@ def q8_checks(tq) -> float:
     return worst
 
 
-def q8_timing(tq, card, shapes=Q8_DECODE_SHAPES, tag="[15]"):
+def q8_timing(tq, card, shapes=Q8_DECODE_SHAPES, tag="[15]", m=8):
     """K5, its plain version and the library call at each decode shape
-    (default: one device's); the kernels line gets the mean over one decode
-    step's 161 launches."""
+    (default: one device's, 8 slots); the kernels line gets the mean over
+    one decode step's launches."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    m = 8
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     count = 0
     for k, n, per_step in shapes:
@@ -1821,16 +1851,30 @@ def q8_host_cost(tq) -> tuple[float, float]:
     return off, on
 
 
-def reset_launches(pa, tq):
-    pa.paged_decode_attention_dma.launches = 0
-    pa.paged_decode_attention.launches = 0
-    tq.matmul_q8.launches = 0
+def reset_counts(*labels) -> None:
+    """Sets the kernel counters of examples/_common.COUNTERS to 0: those
+    whose label starts with one of `labels`, or all of them."""
+    from kfunca_tpu_torch.examples import _common
+
+    for label, fn, name in _common.COUNTERS:
+        if not labels or label.split()[0] in labels:
+            setattr(fn, name, 0)
 
 
-def read_launches(pa, tq):
-    return dict(dma=pa.paged_decode_attention_dma.launches,
-                k6=pa.paged_decode_attention.launches,
-                q8=tq.matmul_q8.launches)
+def read_counts() -> dict:
+    """Each kernel counter of examples/_common.COUNTERS by its label."""
+    from kfunca_tpu_torch.examples import _common
+
+    return _common.counts()
+
+
+def reset_launches():
+    reset_counts("K4", "K6", "K5")
+
+
+def read_launches():
+    c = read_counts()
+    return dict(dma=c["K4"], k6=c["K6"], q8=c["K5"])
 
 
 def first_difference(a, b):
@@ -2075,9 +2119,9 @@ def quant_phases(card, reference):
               "k6", False))
     with torch.no_grad():
         for label, ps, options, attn_key, w8 in plans:
-            reset_launches(pa, tq)
+            reset_launches()
             run = serve(params, cfg, ps, 1, **options)
-            got = read_launches(pa, tq)
+            got = read_launches()
             steps = run["stats"]["decode_steps"]
             want = {"dma": 0, "k6": 0,
                     "q8": (5 * cfg.n_layers + 1) * steps if w8 else 0}
@@ -3336,10 +3380,7 @@ def ssm_train(make_step, cfg, params, steps, ss, fa=None):
     torch.cuda.reset_peak_memory_stats()
     ss.ssm_scan_fwd.launches = ss.ssm_scan_bwd.launches = 0
     if fa is not None:
-        fa.flash_attention_fwd_stats.launches = 0
-        fa.flash_attention_fwd_stats.launches_wgmma = 0
-        fa.flash_attention_backward.launches = 0
-        fa.flash_attention_backward.launches_wgmma = 0
+        reset_flash()
     losses, seconds = [], []
     for i in range(steps):
         tokens, targets = ds.batch_at(i)
@@ -4611,30 +4652,6 @@ def golden_phase(pa, card):
           flush=True)
 
 
-def write_safetensors(path, tensors: dict) -> int:
-    """The script's own safetensors writer (bf16 / fp32 tensors): an 8-byte
-    little-endian header length, the JSON header, the raw bytes.  Returns
-    the bytes written."""
-    names = {torch.bfloat16: "BF16", torch.float32: "F32",
-             torch.float16: "F16"}
-    header, off, blobs = {}, 0, []
-    for name, t in tensors.items():
-        t = t.contiguous()
-        raw = t.view(torch.uint8).numpy().tobytes() if t.numel() else b""
-        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [off, off + len(raw)]}
-        blobs.append(raw)
-        off += len(raw)
-    head = json.dumps(header).encode()
-    head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(len(head).to_bytes(8, "little"))
-        f.write(head)
-        for raw in blobs:
-            f.write(raw)
-    return 8 + len(head) + off
-
-
 def mistral_hf_config(cfg) -> dict:
     """config.json of the published Mistral-7B-v0.1 at `cfg`'s depth."""
     return {"architectures": ["MistralForCausalLM"], "model_type": "mistral",
@@ -4648,42 +4665,60 @@ def mistral_hf_config(cfg) -> dict:
             "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
 
 
+# Mistral-7B-v0.1's checkpoint layout at MISTRAL_LAYOUT_LAYERS, written once
+# for phases 42 and 89 and removed after phase 89: "dir", "bytes", "write_s"
+MISTRAL_LAYOUT = {}
+MISTRAL_LAYOUT_LAYERS = 8  # 4.0 GB of bf16 weights
+
+
+def mistral_layout() -> dict:
+    """Mistral-7B-v0.1's checkpoint layout at MISTRAL_LAYOUT_LAYERS of 32
+    layers, random bf16 weights from SEED + 42, written by to_hf and the
+    examples' writer as the published layout: two bf16 .safetensors shards,
+    model.safetensors.index.json and config.json, in a temporary directory
+    (written on the first call)."""
+    from kfunca_tpu_torch.examples._checkpoint import write_hf_dir
+    from kfunca_tpu_torch.models.hf import to_hf
+    from kfunca_tpu_torch.models.transformer import TransformerConfig
+
+    if not MISTRAL_LAYOUT:
+        cfg = TransformerConfig(**{**MISTRAL,
+                                   "n_layers": MISTRAL_LAYOUT_LAYERS})
+        tmp = tempfile.TemporaryDirectory()
+        t0 = time.perf_counter()
+        sd = {k: v.to(torch.bfloat16) for k, v in to_hf(
+            mistral_params(cfg, SEED + 42, torch.bfloat16), cfg).items()}
+        nbytes = write_hf_dir(tmp.name, sd, mistral_hf_config(cfg), shards=2)
+        del sd
+        MISTRAL_LAYOUT.update(tmp=tmp, dir=tmp.name, bytes=nbytes,
+                              write_s=time.perf_counter() - t0)
+    return MISTRAL_LAYOUT
+
+
+def remove_mistral_layout() -> None:
+    if MISTRAL_LAYOUT:
+        MISTRAL_LAYOUT.pop("tmp").cleanup()
+        MISTRAL_LAYOUT.clear()
+
+
 def checkpoint_phase(card, prompts):
     """Phase 42: a checkpoint at Mistral-7B-v0.1 widths, 8 layers, random
-    bf16 weights, written by to_hf as the published layout (two bf16
-    .safetensors shards, model.safetensors.index.json, config.json) and
-    read back by from_hf: params bit for bit the originals, greedy tokens
-    those of a server fed the originals."""
-    from kfunca_tpu_torch.models.hf import from_hf, to_hf
+    bf16 weights, written by to_hf as the published layout (mistral_layout)
+    and read back by from_hf: params bit for bit the originals, greedy
+    tokens those of a server fed the originals."""
+    from kfunca_tpu_torch.models.hf import from_hf
     from kfunca_tpu_torch.models.transformer import TransformerConfig
     from kfunca_tpu_torch.utils.tree import tree_leaves
 
-    cfg = TransformerConfig(**{**MISTRAL, "n_layers": 8})
+    cfg = TransformerConfig(**{**MISTRAL, "n_layers": MISTRAL_LAYOUT_LAYERS})
+    layout = mistral_layout()
+    nbytes, write_s = layout["bytes"], layout["write_s"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded, lcfg = from_hf(layout["dir"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     params = mistral_params(cfg, SEED + 42, torch.bfloat16)
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        sd = {k: v.to(torch.bfloat16) for k, v in to_hf(params, cfg).items()}
-        names = list(sd)
-        half = len(names) // 2
-        shards = {"model-00001-of-00002.safetensors": names[:half],
-                  "model-00002-of-00002.safetensors": names[half:]}
-        nbytes = sum(write_safetensors(os.path.join(d, shard),
-                                       {k: sd[k] for k in keys})
-                     for shard, keys in shards.items())
-        with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
-            json.dump({"metadata": {"total_size": sum(
-                t.numel() * 2 for t in sd.values())},
-                "weight_map": {k: s for s, keys in shards.items()
-                               for k in keys}}, f)
-        with open(os.path.join(d, "config.json"), "w") as f:
-            json.dump(mistral_hf_config(cfg), f)
-        del sd
-        write_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loaded, lcfg = from_hf(d)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
     check(lcfg == cfg, "from_hf's config is the one the checkpoint was "
           "written from")
     a, b = tree_leaves(loaded), tree_leaves(params)
@@ -5124,15 +5159,14 @@ MESH_SEQ = 4096
 PARITY_LAYERS = 2
 
 
-def reset_flash(fa):
-    for fn in (fa.flash_attention_fwd_stats, fa.flash_attention_backward):
-        fn.launches = fn.launches_wgmma = 0
+def reset_flash():
+    reset_counts("K1", "K2")
 
 
-def read_flash(fa):
+def read_flash():
     """(K1, K2) launches and (K1, K2) on the wgmma bodies."""
-    f, b = fa.flash_attention_fwd_stats, fa.flash_attention_backward
-    return (f.launches, b.launches), (f.launches_wgmma, b.launches_wgmma)
+    c = read_counts()
+    return (c["K1"], c["K2"]), (c["K1 wgmma"], c["K2 wgmma"])
 
 
 def rank_flash_checks(fa, shape=RANK_ATTN,
@@ -5307,9 +5341,9 @@ def sharded_training_phase(fa, card) -> dict:
                                        grad_accum=accum, with_metrics=True)
         ds = TokenDataset(corpus, MESH_SEQ, batch, seed=SEED + 46)
         torch.cuda.reset_peak_memory_stats()
-        reset_flash(fa)  # the main path: counts start at 0 here
+        reset_flash()  # the main path: counts start at 0 here
         sp, st, metrics, seconds = run_steps(step, ds, sp, st, 0, steps)
-        launches, wgmma = read_flash(fa)
+        launches, wgmma = read_flash()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         micro = math.gcd(accum, batch // 2)
         want = MESH_LAYERS * 4 * micro * steps
@@ -5384,7 +5418,7 @@ def tp_serving_phase(pa, tq, card, prompts) -> dict:
             for r in single_run["rids"]]
     del single_run
     free_device_memory()
-    reset_launches(pa, tq)
+    reset_launches()
     with recorded_run(replay=single):
         tp_run = serve(params, cfg, prompts, 1, max_new=16, mesh=mesh, **kw)
     k6, k5 = (pa.paged_decode_attention.launches, tq.matmul_q8.launches)
@@ -5930,7 +5964,7 @@ def plm_phase(fa, card) -> dict:
     free_device_memory()
     step = plm.make_train_step(cfg, mesh, lr=1e-3)
     torch.cuda.reset_peak_memory_stats()
-    reset_flash(fa)  # the main path: counts start at 0 here
+    reset_flash()  # the main path: counts start at 0 here
     losses, seconds = [], []
     for i in range(PLM_STEPS):
         tok, tgt = plm_batch(cfg, SEED + 58 + i)
@@ -5939,7 +5973,7 @@ def plm_phase(fa, card) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    launches, wgmma = read_flash(fa)
+    launches, wgmma = read_flash()
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = PLM_LAYERS * cfg.n_microbatches * 2 * PLM_STEPS
     check(launches == (want, want) and wgmma == launches,
@@ -6074,10 +6108,10 @@ def zb_phase(fa, card) -> dict:
     stage = block_stage(cfg)
     sp = pl.stage_shards(pl.stack_stages(blocks[:ZB_STAGES], ZB_STAGES), mesh)
     zbh = zb.make_zb_train_step(stage, loss, mesh, n_micro=ZB_MICRO)
-    reset_flash(fa)  # the main path: counts start at 0 here
+    reset_flash()  # the main path: counts start at 0 here
     zl, zg = zbh(sp, x)
     torch.cuda.synchronize()
-    zb_launches, zb_wgmma = read_flash(fa)
+    zb_launches, zb_wgmma = read_flash()
     want = (3 * ZB_STAGES * ZB_MICRO, 2 * ZB_STAGES * ZB_MICRO)
     check(zb_launches == want and zb_wgmma == zb_launches,
           f"ZB-H1: K1, K2 launches {zb_launches} == (3, 2) x blocks x M "
@@ -6094,9 +6128,9 @@ def zb_phase(fa, card) -> dict:
         return lsum, torch.autograd.grad(
             lsum, [v for t in trees for k, v in sorted(t.items())])
 
-    reset_flash(fa)
+    reset_flash()
     gl, gg = gpipe_step()
-    gp_launches, _ = read_flash(fa)
+    gp_launches, _ = read_flash()
     keys = sorted(trees[0])
     worst = 0.0
     for r in range(ZB_STAGES):
@@ -6113,10 +6147,10 @@ def zb_phase(fa, card) -> dict:
     spv = pl.stage_shards(zb.stack_stages_v(blocks, ZB_STAGES), mesh)
     zbv = zb.make_zbv_train_step(lambda p, h: _block(h, p, cfg), loss, mesh,
                                  n_micro=ZB_MICRO)
-    reset_flash(fa)
+    reset_flash()
     vl, vg = zbv(spv, x)
     torch.cuda.synchronize()
-    v_launches, v_wgmma = read_flash(fa)
+    v_launches, v_wgmma = read_flash()
     want_v = (3 * 2 * ZB_STAGES * ZB_MICRO, 2 * 2 * ZB_STAGES * ZB_MICRO)
     check(v_launches == want_v and v_wgmma == v_launches,
           f"ZB-V: K1, K2 launches {v_launches} == (3, 2) x blocks x M "
@@ -6184,9 +6218,9 @@ def interleaved_phase(fa, card, zbr):
             return ys[0].detach(), dict(zip(
                 [(i, k) for i in range(n) for k in keys], gs))
 
-        reset_flash(fa)
+        reset_flash()
         out, grads = run()
-        launches, wgmma = read_flash(fa)
+        launches, wgmma = read_flash()
         want = len(blocks) * ZB_MICRO
         check(launches == (want, want) and wgmma == launches,
               f"{label}: K1, K2 launches {launches} == blocks x M {want}, "
@@ -6481,7 +6515,7 @@ def moe_serving_phase(pa, tq, card) -> dict:
     print(f"[56] serving Mixtral-8x7B-v0.1 widths, {cfg.n_layers} of 32 "
           f"layers ({gb:.1f} GB of bf16 weights), {len(prompts)} requests, "
           f"max_new 32, 8 slots, page 16", flush=True)
-    reset_launches(pa, tq)
+    reset_launches()
     runs, want_k4, want_k5 = {}, 0, 0
     with torch.no_grad(), recorded_run() as bf16_rec:
         runs["bf16"] = serve(params, cfg, prompts, 1)
@@ -6497,7 +6531,7 @@ def moe_serving_phase(pa, tq, card) -> dict:
         want_k4 += cfg.n_layers * steps
         want_k5 += (2 * cfg.n_layers + 1) * steps + 3 * routed["experts"]
         runs[label]["experts"] = routed["experts"]
-    got = read_launches(pa, tq)
+    got = read_launches()
     check(got["dma"] == want_k4, f"K4 launches {got['dma']} == layers x "
           f"decode steps {want_k4}")
     check(got["q8"] == want_k5, f"K5 launches {got['q8']} == (2 x layers + "
@@ -6575,9 +6609,9 @@ def moe_training_phase(fa, card) -> dict:
           flush=True)
     state_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    reset_flash(fa)
+    reset_flash()
     params, opt, metrics, seconds = run_steps(step, ds, params, opt, 0, steps)
-    launches, wgmma = read_flash(fa)
+    launches, wgmma = read_flash()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(math.isfinite(m["loss"]) for m in metrics),
           "every MoE training loss is finite")
@@ -6612,9 +6646,9 @@ def attention_parity(cfg, seed, label, seq, want_k12=True):
     window = rng.integers(0, c32.vocab_size, (1, seq + 1))
     tokens = torch.tensor(window[:, :-1], device="cuda")
     targets = torch.tensor(window[:, 1:], device="cuda")
-    reset_flash(fa)
+    reset_flash()
     loss_k, grads_k = loss_and_grads(params, tokens, targets, c32)
-    launches, _ = read_flash(fa)
+    launches, _ = read_flash()
     n = c32.n_layers if want_k12 else 0
     check(launches == (n, n), f"{label}: K1, K2 launches {launches} == "
           f"({n}, {n})")
@@ -6788,9 +6822,9 @@ def mla_training_phase(fa, card) -> dict:
           f"plain attention (qk 192, v 128)", flush=True)
     state_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    reset_flash(fa)
+    reset_flash()
     params, opt, metrics, seconds = run_steps(step, ds, params, opt, 0, steps)
-    launches, _ = read_flash(fa)
+    launches, _ = read_flash()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(launches == (0, 0), f"no K1 / K2 launch at unequal head dims "
           f"({launches})")
@@ -6884,7 +6918,7 @@ def tp_moe_mla_phase(pa, tq, card) -> dict:
     slps = [s_run["srv"].requests[r].logprobs for r in s_run["rids"]]
     del s_run
     free_device_memory()
-    reset_launches(pa, tq)
+    reset_launches()
     with torch.no_grad(), routed_in_decode() as routed, \
             recorded_run(replay=single):
         t_run = serve(params, cfg, prompts, 1, max_new=16, mesh=mesh, **kw)
@@ -7064,9 +7098,9 @@ def lora_training_phase(fa, card) -> dict:
     free_device_memory()
     state_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
-    reset_flash(fa)  # the main path: K1 / K2 counted from here
+    reset_flash()  # the main path: K1 / K2 counted from here
     ad, opt, losses, seconds = timed_steps(step, ad, opt, batches)
-    launches, wgmma = read_flash(fa)
+    launches, wgmma = read_flash()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(math.isfinite(x) for x in losses), "every LoRA loss is finite")
     check(losses[-1] < losses[0], f"the last LoRA loss is below the first "
@@ -7216,9 +7250,9 @@ def qlora_phase(fa, card) -> dict:
         torch.cuda.synchronize()
         state_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
-        reset_flash(fa)  # the main path: K1 / K2 counted from here
+        reset_flash()  # the main path: K1 / K2 counted from here
         ad, opt, losses, seconds = timed_steps(step, ad, opt, batches)
-        launches, wgmma = read_flash(fa)
+        launches, wgmma = read_flash()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         check(all(math.isfinite(x) for x in losses),
               f"every int{bits} QLoRA loss is finite")
@@ -7272,11 +7306,11 @@ def lora_serving_phase(pa, tq, card) -> dict:
     out = {}
     for label, kw in (("bf16", {}), ("w8kv8", dict(quantize_weights=True,
                                                    quantize_kv=True))):
-        reset_launches(pa, tq)  # the main path: counted from here
+        reset_launches()  # the main path: counted from here
         with torch.no_grad():
             run = serve(params, cfg, prompts, 1, lora=(adapters, ids),
                         **lora_kw, **kw)
-        got = read_launches(pa, tq)
+        got = read_launches()
         steps = run["stats"]["decode_steps"]
         check(got["dma"] == cfg.n_layers * steps,
               f"{label}: K4{'-int8' if kw else ''} launches {got['dma']} == "
@@ -7371,7 +7405,7 @@ def lora_serving_phase(pa, tq, card) -> dict:
     # tokens; K6 and K5 launched by every rank every step
     tp_kw = dict(quantize_weights=True, quantize_kv=True, fused_pool=False)
     want, _ = serve_greedy(make(**tp_kw), few, 16, lora_ids=few_ids)
-    reset_launches(pa, tq)
+    reset_launches()
     n0 = [0]
 
     def tp_make():
@@ -7434,9 +7468,9 @@ def dpo_phase(fa, card) -> dict:
     batches = [dpo_pairs(cfg, SEED + 72 + i) for i in range(steps)]
     free_device_memory()
     torch.cuda.reset_peak_memory_stats()
-    reset_flash(fa)  # the main path: counted from here
+    reset_flash()  # the main path: counted from here
     ad, opt, ms_out, seconds = timed_steps(step, ad, opt, batches)
-    launches, wgmma = read_flash(fa)
+    launches, wgmma = read_flash()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     m0 = ms_out[0]
     check(abs(m0["loss"] - math.log(2.0)) <= 1e-6, f"LoRA-DPO step 0 loss "
@@ -7519,9 +7553,9 @@ def grpo_distill_phase(fa, card) -> dict:
     step = make_grpo_step(cfg, oc, vocab_chunk=4096)
     batch = (roll["tokens"], roll["targets"], roll["old_logp"],
              roll["old_logp"], adv)
-    reset_flash(fa)  # the main path: counted from here
+    reset_flash()  # the main path: counted from here
     params, opt, gm, gsec = timed_steps(step, params, opt, [batch, batch])
-    launches, wgmma = read_flash(fa)
+    launches, wgmma = read_flash()
     check(abs(gm[0]["ratio_mean"] - 1.0) <= 1e-6 and gm[0]["clip_frac"] == 0,
           f"first GRPO epoch: ratio_mean {gm[0]['ratio_mean']!r} is 1 and "
           f"clip_frac {gm[0]['clip_frac']} is 0")
@@ -7551,9 +7585,9 @@ def grpo_distill_phase(fa, card) -> dict:
                for i in range(3)]
     free_device_memory()
     torch.cuda.reset_peak_memory_stats()
-    reset_flash(fa)
+    reset_flash()
     student, opt, dm, dsec = timed_steps(step, student, opt, batches)
-    launches_kd, wgmma = read_flash(fa)
+    launches_kd, wgmma = read_flash()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(math.isfinite(m["loss"]) for m in dm), "distill losses finite")
     want = ((t_cfg.n_layers + s_cfg.n_layers) * 3, s_cfg.n_layers * 3)
@@ -7918,8 +7952,9 @@ def mamba2_phase(card) -> dict:
 
 def mamba2_checkpoint(params, cfg, card) -> float:
     """An 8-layer checkpoint in Mamba2ForCausalLM's layout, written by the
-    script's safetensors writer and read by from_hf_mamba2 with neither
+    examples' safetensors writer and read by from_hf_mamba2 with neither
     transformers nor safetensors loaded: the params bit for bit."""
+    from kfunca_tpu_torch.examples._checkpoint import write_safetensors
     from kfunca_tpu_torch.models import mamba2
     from kfunca_tpu_torch.utils.tree import tree_map
 
@@ -7986,7 +8021,7 @@ def multimodal_phase(fa, card) -> dict:
           f"({n_params / 1e9:.3f} B parameters), {MM_BATCH} x ({n} + "
           f"{MM_TOKENS}) positions, bf16 activations", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    reset_flash(fa)
+    reset_flash()
     steps, losses, seconds = 6, [], []
     for i in range(steps):
         images = torch.randn((MM_BATCH, side, side, 3), generator=gen,
@@ -7998,7 +8033,7 @@ def multimodal_phase(fa, card) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    launches, wgmma = read_flash(fa)
+    launches, wgmma = read_flash()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(math.isfinite(x) for x in losses),
           "every multimodal loss is finite")
@@ -8077,7 +8112,7 @@ def clip_phase(fa, card) -> dict:
           f"({n_params / 1e6:.1f} M parameters), batch {CLIP_BATCH}, 77 "
           f"text tokens, bf16 activations", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    reset_flash(fa)
+    reset_flash()
     steps, hist, seconds = 6, [], []
     for _ in range(steps):
         images, tokens = batch()
@@ -8086,7 +8121,7 @@ def clip_phase(fa, card) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         hist.append({k: float(v) for k, v in m.items()})
-    launches, wgmma = read_flash(fa)
+    launches, wgmma = read_flash()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(math.isfinite(h["loss"]) for h in hist),
           "every CLIP loss is finite")
@@ -8292,6 +8327,7 @@ def vit_hf_state(gen, cfg) -> dict:
 def encoders_phase(card) -> dict:
     """Phase 70: bert-base-uncased and google/vit-base-patch16-224 read
     from their HF layouts, and MLM training at bert-base widths."""
+    from kfunca_tpu_torch.examples._checkpoint import write_safetensors
     from kfunca_tpu_torch.models import encoder, hf_vision
     from kfunca_tpu_torch.models.train import OptConfig, init_opt_state
 
@@ -9525,9 +9561,9 @@ def gemma_training_phase(fa, card) -> dict:
           f"{GEMMA_LOSS_CHUNK} over {cfg.vocab_size} columns", flush=True)
     torch.cuda.reset_peak_memory_stats()
     # the main path: launch counts start at 0 here and are read after it
-    reset_flash(fa)
+    reset_flash()
     params, opt, metrics, seconds = run_steps(step, ds, params, opt, 0, steps)
-    launches, wgmma = read_flash(fa)
+    launches, wgmma = read_flash()
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = cfg.n_layers * steps
     check(launches == (want, want) and wgmma == launches,
@@ -9679,9 +9715,9 @@ def gemma_serving_phase(card) -> dict:
                                               quantize_kv=True))):
             # each run drives a path of its own: counts start at 0 just
             # before it and are read just after it
-            reset_launches(pa, tq)
+            reset_launches()
             run = serve(params, cfg, prompts, 1, **options)
-            got = read_launches(pa, tq)
+            got = read_launches()
             steps = run["stats"]["decode_steps"]
             want = {"dma": cfg.n_layers * steps, "k6": 0,
                     "q8": (5 * cfg.n_layers + 1) * steps if options else 0}
@@ -9880,6 +9916,531 @@ def gemma_phases(card) -> list:
     ]
 
 
+# -- phases 86-90: the runnable examples -------------------------------------
+
+# each example at its JAX counterpart's defaults, in-process through
+# main(argv), grouped as the port's slices; phase 90 runs serve_api over
+# HTTP and serve_lm as a `python -m` process of its own
+EXAMPLES_SERVING = ("serve_lm", "speculative_lm", "serve_hf",
+                    "serve_deepseek")
+EXAMPLES_TRAINING = ("train_lm", "finetune_e2e", "align_lora_dpo", "rl_grpo")
+EXAMPLES_FAMILIES = ("zb_pipeline", "seq2seq_t5", "asr_whisper",
+                     "caption_multimodal", "generate_dit")
+# train_lm's attention at its defaults: 8 x 256 tokens, 4 heads of 64
+TRAIN_LM_ATTN = dict(b=8, h=4, hkv=4, sq=256, skv=256, hd=64, window=None)
+# serve_lm's decode at its defaults: 4 slots, 4 heads of 64 over a fused
+# bf16 pool, prompts of 4-23 tokens and 32 new ones
+SERVE_LM_POSITIONS = [19, 28, 41, 54]
+# serve_hf over Mistral-7B-v0.1's layout: 4 slots, prompts of 4-11 tokens
+# and 24 new ones; its tp = 2 rank holds 16 q heads over 4 kv heads
+SERVE_HF_POSITIONS = [14, 22, 27, 34]
+
+
+def run_example(tag, name, argv, card, events=False) -> dict:
+    """kfunca_tpu_torch.examples.<name>.main(argv): its own outcome check
+    raises SystemExit, which ends this script.  The kernel counts are set to
+    0 just before and read just after; the example's printout is shown (a
+    streaming example's token events counted, not shown)."""
+    import io
+
+    mod = importlib.import_module(f"kfunca_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+    finally:
+        lines = buf.getvalue().splitlines()
+        n_events = 0
+        for line in lines:
+            if line.startswith("req ") and ": +" in line and not events:
+                n_events += 1
+                continue
+            print(f"  [{name}] {line}")
+        if n_events:
+            print(f"  [{name}] ({n_events} streamed token events)")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"{tag} {name} {' '.join(argv)}: its check passed in {seconds:.1f} "
+          f"s; launches {counts}; {card}", flush=True)
+    return {"out": out, "seconds": seconds, "launches": counts}
+
+
+def check_counts(label, got, want) -> None:
+    """The launches of `want`'s kernels equal it; every other counter 0."""
+    full = {k: 0 for k in got}
+    full.update(want)
+    check(got == full, f"{label}: launches {got} == {full}")
+
+
+def shape_flash_checks(fa, shape) -> tuple[float, float]:
+    """K1 and K2 (bf16, the wgmma bodies) against their plain versions at
+    one path's attention shape; two runs bitwise equal."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 86)
+    q, k, v, g = flash_case(torch.bfloat16, gen, **shape)
+    w = shape["window"]
+    out, lse = fa.flash_attention_fwd_stats(q, k, v, window=w)
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse, window=w)
+    again = fa.flash_attention_backward(q, k, v, g, out, lse, window=w)
+    check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
+          "two bf16 K2 runs at the example's shape are bitwise equal")
+    r_out, r_lse, r_dq, r_dk, r_dv = flash_plain(fa, q, k, v, g, w)
+    tag = "x".join(str(shape[n]) for n in ("b", "h", "hkv", "sq", "hd"))
+    e1 = max(flash_err(out, r_out, torch.bfloat16, f"out {tag}"),
+             flash_err(lse, r_lse, torch.float32, f"lse {tag}"))
+    e2 = max(flash_err(dq, r_dq, torch.bfloat16, f"dq {tag}"),
+             flash_err(dk, r_dk, torch.bfloat16, f"dk {tag}"),
+             flash_err(dv, r_dv, torch.bfloat16, f"dv {tag}"))
+    print(f"  K1 / K2 at {tag} bf16 causal vs plain: max err {e1:.3g} / "
+          f"{e2:.3g}, K2 bitwise repeatable", flush=True)
+    return e1, e2
+
+
+def shape_paged_check(pa, entry, form, quantized, positions, **widths):
+    """K4 / K4-int8 / K6 against its plain version at one path's decode
+    shape (bf16 q), each call repeated bit for bit; phase 3's tolerance."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 87)
+    window = widths.pop("window")
+    q, kw = pool_case(torch.bfloat16, gen, positions, form=form,
+                      quantized=quantized, max_pages=16, **widths)
+    with torch.no_grad():
+        out = run_form(pa, entry, form, q, kw, window)
+        again = run_form(pa, entry, form, q, kw, window)
+        check(torch.equal(out, again), "two paged calls at the example's "
+              "decode shape are bitwise equal")
+        return max_err(out, run_form(pa, entry, form, q, kw, window,
+                                     plain=True), torch.bfloat16)
+
+
+def example_entry(path, name, source, replaces, n, err, t) -> dict:
+    return {"name": name, "path": path, "route": "cuda",
+            "source": f"kfunca_tpu_torch/csrc/{source}",
+            "replaces": f"kfunca_tpu/ops/{replaces}", "launches": n,
+            "max_abs_err": err, "max_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
+
+
+def serving_examples_phase(card) -> dict:
+    """Phase 86: serve_lm, speculative_lm, serve_hf (its hermetic tiny
+    Llama) and serve_deepseek at their defaults."""
+    runs = {}
+    for name in EXAMPLES_SERVING:
+        runs[name] = run_example("[86]", name, [], card)
+        free_device_memory()
+    r = runs["serve_lm"]
+    steps = r["out"]["stats"]["decode_steps"]
+    check_counts("serve_lm (4 layers, bf16)", r["launches"], {"K4": 4 * steps})
+    r = runs["serve_hf"]
+    steps = r["out"]["stats"]["decode_steps"]
+    check_counts("serve_hf hermetic (4 layers, w8kv8)", r["launches"],
+                 {"K4": 4 * steps, "K5": (5 * 4 + 1) * steps})
+    # the cached forwards of generate / speculative_generate and MLA's
+    # absorbed decode are torch ops in both packages: no kernel
+    for name in ("speculative_lm", "serve_deepseek"):
+        check_counts(name, runs[name]["launches"], {})
+    return runs
+
+
+def training_examples_phase(card) -> dict:
+    """Phase 87: train_lm, finetune_e2e, align_lora_dpo and rl_grpo at
+    their defaults (train_lm's checkpoint in a temporary directory)."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        runs["train_lm"] = run_example(
+            "[87]", "train_lm", ["--ckpt", os.path.join(d, "lm.npz")], card)
+    for name in EXAMPLES_TRAINING[1:]:
+        runs[name] = run_example("[87]", name, [], card)
+        free_device_memory()
+    n = 4 * 20  # train_lm: layers x steps, bf16 on the wgmma bodies
+    check_counts("train_lm", runs["train_lm"]["launches"],
+                 {"K1": n, "K1 wgmma": n, "K2": n, "K2 wgmma": n})
+    r = runs["finetune_e2e"]
+    n = 2 * 30 * 2  # layers x steps x grad_accum microbatches
+    check_counts("finetune_e2e", r["launches"],
+                 {"K1": n, "K1 wgmma": n, "K2": n, "K2 wgmma": n,
+                  "K4": 2 * r["out"]["decode_steps"]})
+    # fp32 examples run K1 / K2 on the fp32 bodies; their forwards without
+    # a backward (DPO's reference, GRPO's log-probs) launch K1 alone
+    got = runs["align_lora_dpo"]["launches"]
+    check(got["K2"] == 2 * (20 + 2 * 20) and got["K1"] == 2 * (20 + 4 * 20)
+          and got["K6"] > 0 and got["K1 wgmma"] == got["K2 wgmma"] == 0,
+          f"align_lora_dpo: K2 {got['K2']} == layers x (SFT + 2 x DPO "
+          f"steps), K1 {got['K1']} == layers x (SFT + 4 x DPO steps), the "
+          f"multi-LoRA server on split pools (K6 {got['K6']})")
+    got = runs["rl_grpo"]["launches"]
+    check(got["K2"] == 2 * 8 * 2 and got["K1"] == 2 * (8 * 4 + 1),
+          f"rl_grpo: K2 {got['K2']} == layers x rounds x epochs, K1 "
+          f"{got['K1']} == layers x (4 a round + the final rollout's 1)")
+    return runs
+
+
+def family_examples_phase(card) -> dict:
+    """Phase 88: zb_pipeline, seq2seq_t5, asr_whisper, caption_multimodal
+    and generate_dit at their defaults."""
+    runs = {}
+    for name in EXAMPLES_FAMILIES:
+        runs[name] = run_example("[88]", name, [], card)
+        free_device_memory()
+    got = runs["caption_multimodal"]["launches"]
+    check(got["K2"] == 2 * 200 and got["K1"] == 2 * (200 + 3),
+          f"caption_multimodal: K2 {got['K2']} == text layers x steps, K1 "
+          f"{got['K1']} == text layers x (steps + 3 caption steps)")
+    for name in ("zb_pipeline", "seq2seq_t5", "asr_whisper", "generate_dit"):
+        check_counts(name, runs[name]["launches"], {})
+    for name in ("seq2seq_t5", "asr_whisper", "caption_multimodal"):
+        print(f"[88] {name}: held-out exact match "
+              f"{runs[name]['out']['exact']:.1%} (>= 90% asked)", flush=True)
+    c = runs["generate_dit"]["out"]["contrast"]
+    print(f"[88] generate_dit: contrast mean {c.mean():+.3f} (> 1.7 asked), "
+          f"min {c.min():+.3f} (> 1.3 asked)", flush=True)
+    return runs
+
+
+def http_token_requests(srv, prompts, label) -> list:
+    """Greedy /v1/completions of token ids over HTTP, each prompt not
+    streamed and then streamed: both give the same tokens, 24 of them."""
+    import urllib.request
+
+    url = f"http://{srv.host}:{srv.port}/v1/completions"
+
+    def post(body):
+        return urllib.request.urlopen(urllib.request.Request(
+            url, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"}), timeout=300)
+
+    got = []
+    for p in prompts:
+        body = {"prompt": p, "max_tokens": 24, "temperature": 0.0}
+        t0 = time.perf_counter()
+        done = json.loads(post(body).read())["choices"][0]
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        streamed, first_s = [], None
+        for line in post({**body, "stream": True}):
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            if line == b"data: [DONE]":
+                break
+            first_s = first_s or time.perf_counter() - t0
+            streamed.append(json.loads(line[6:])["token"])
+        stream_s = time.perf_counter() - t0
+        check(done["tokens"] == streamed and len(streamed) == 24
+              and all(math.isfinite(x) for x in done["logprobs"]),
+              f"{label}: the streamed request gives the plain request's 24 "
+              f"tokens")
+        got.append((plain_s, first_s, stream_s))
+    return got
+
+
+def mistral_layout_phase(pa, tq, card) -> dict:
+    """Phase 89: serve_hf and serve_api over Mistral-7B-v0.1's checkpoint
+    layout (8 layers): w8kv8 (K5, K4-int8), --no-quant (K4, bf16), --tp 2
+    (K5 and K6 on each rank); the kernels held to their plain versions
+    through the served log-probs (compare_servers_forced) and tp = 2 to the
+    single device's tokens in fp32 activations (phase 48's check)."""
+    from kfunca_tpu_torch.examples import serve_api, serve_hf
+    from kfunca_tpu_torch.models.serve import InferenceServer
+    from kfunca_tpu_torch.parallel.mesh import LocalMesh
+
+    runs = {}
+    layers = MISTRAL_LAYOUT_LAYERS
+    layout = mistral_layout()
+    d, nbytes = layout["dir"], layout["bytes"]
+    print(f"[89] Mistral-7B-v0.1's layout at {layers} of 32 layers: "
+          f"{nbytes / 1e9:.3f} GB (2 bf16 shards + index + config.json), "
+          f"written in {layout['write_s']:.1f} s (by phase 42 in a whole "
+          f"run)", flush=True)
+    try:
+        for label, extra in (("w8kv8", []), ("bf16", ["--no-quant"]),
+                             ("tp2", ["--tp", "2"])):
+            run = run_example("[89]", "serve_hf", ["--model", d, *extra],
+                              card)
+            stats = run["out"]["stats"]
+            steps = stats["decode_steps"]
+            print(f"[89] serve_hf {label}: {stats['completed']} requests, "
+                  f"{stats['generated_tokens']} tokens in "
+                  f"{run['out']['seconds']:.2f} s, TTFT "
+                  f"{stats['mean_ttft_s'] * 1e3:.1f} ms, TPOT "
+                  f"{stats['mean_tpot_s'] * 1e3:.2f} ms, {steps} decode "
+                  f"steps; {card}", flush=True)
+            want = {"w8kv8": {"K4": layers * steps,
+                              "K5": (5 * layers + 1) * steps},
+                    "bf16": {"K4": layers * steps},
+                    "tp2": {"K6": 2 * layers * steps,
+                            "K5": 2 * (5 * layers + 1) * steps}}[label]
+            check_counts(f"serve_hf {label} over Mistral-7B-v0.1's layout",
+                         run["launches"], want)
+            runs[label] = run
+            free_device_memory()
+        args = serve_hf.parse(["--model", d])
+        t0 = time.perf_counter()
+        params, cfg = serve_hf.load(args, torch.device("cuda"))
+        load_s = time.perf_counter() - t0
+        prompts = serve_hf.prompts(cfg, args.requests)
+        print(f"[89] from_hf read {nbytes / 1e9:.3f} GB in {load_s:.2f} s "
+              f"({nbytes / load_s / 1e9:.2f} GB/s of checkpoint)", flush=True)
+        # kernels vs plain on the served path: every decode step's log-prob
+        # on the kernel run's tokens (bf16 over 8 layers: phase 17's 0.1
+        # nat with int8 weights and KV, phase 44's 0.05 without)
+        compare_servers_forced(
+            "serve_hf w8kv8 L8 (K5 + K4-int8)",
+            lambda: serve_hf.make_server(params, cfg, args), prompts, 0.1)
+        nq = serve_hf.parse(["--model", d, "--no-quant"])
+        compare_servers_forced(
+            "serve_hf bf16 L8 (K4)",
+            lambda: serve_hf.make_server(params, cfg, nq), prompts, 0.05)
+        # tp = 2 gives the single device's tokens in fp32 activations, both
+        # over split pools with int8 weights and KV (phase 48)
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        opts = dict(batch_slots=args.slots, page_size=16, n_pages=256,
+                    max_pages_per_seq=16, quantize_weights=True,
+                    quantize_kv=True, fused_pool=False)
+        single, _ = serve_greedy(
+            lambda: InferenceServer(params, f32, **opts), prompts, 16)
+        tp, _ = serve_greedy(
+            lambda: InferenceServer(params, f32, mesh=LocalMesh(1, 2),
+                                    **opts), prompts, 16)
+        check(tp == single, "serve_hf --tp 2 over Mistral-7B-v0.1's layout, "
+              "fp32 activations: the single device's tokens (first "
+              f"difference {[first_difference(a, b) for a, b in zip(tp, single)]})")
+        print(f"[89] tp = 2 over LocalMesh(1, 2), fp32 activations: "
+              f"{len(prompts)} requests x 16 tokens equal the single "
+              f"device's", flush=True)
+        del params
+        free_device_memory()
+
+        # serve_api --hf DIR: token ids over HTTP, then the shutdown
+        timings = []
+
+        def requests(srv):
+            timings.extend(http_token_requests(srv, prompts[:2],
+                                               "serve_api --hf"))
+
+        saved = serve_api.wait
+        serve_api.wait = requests
+        try:
+            run = run_example("[89]", "serve_api", ["--hf", d, "--port", "0"],
+                              card)
+        finally:
+            serve_api.wait = saved
+        engine = run["out"].engine
+        steps = engine.decode_steps
+        check_counts("serve_api --hf (bf16 pools)", run["launches"],
+                     {"K4": layers * steps})
+        for (plain_s, first_s, stream_s) in timings:
+            print(f"[89] serve_api --hf: 24 tokens not streamed in "
+                  f"{plain_s:.2f} s, streamed with TTFT {first_s * 1e3:.1f} "
+                  f"ms in {stream_s:.2f} s; {card}", flush=True)
+        runs["api"] = run
+        del engine, run
+        free_device_memory()
+    finally:
+        remove_mistral_layout()
+
+    print("[89] K4, K4-int8, K5 and K6 at serve_hf's decode shapes (4 slots) "
+          "vs their plain versions, timed", flush=True)
+    dma, k6 = pa.paged_decode_attention_dma, pa.paged_decode_attention
+    widths = dict(h=32, hkv=8, hd=128, window=4096)
+    rank = dict(h=16, hkv=4, hd=128, window=4096)
+    errs = {"dma": shape_paged_check(pa, dma, "fused", False,
+                                     SERVE_HF_POSITIONS, **widths),
+            "dma_int8": shape_paged_check(pa, dma, "fused", True,
+                                          SERVE_HF_POSITIONS, **widths),
+            "k6": shape_paged_check(pa, k6, "split", True,
+                                    SERVE_HF_POSITIONS, **rank)}
+    timing = {
+        "dma": paged_form_timing(pa, dma, "fused", False,
+                                 positions=SERVE_HF_POSITIONS, max_pages=16),
+        "dma_int8": paged_form_timing(pa, dma, "fused", True,
+                                      positions=SERVE_HF_POSITIONS,
+                                      max_pages=16),
+        "k6": paged_form_timing(pa, k6, "split", True, h=16, hkv=4,
+                                positions=SERVE_HF_POSITIONS, max_pages=16)}
+    shapes = [(k, n, max(1, per * layers // 32))
+              for k, n, per in Q8_DECODE_SHAPES]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 89)
+    errs["q8"] = 0.0
+    for k, n, _ in shapes:
+        a, b, sa, sb = q8_case(gen, 4, k, n)
+        got = tq.matmul_q8(a, b, sa, sb, out_dtype=torch.float32)
+        want = tq.matmul_q8_plain(a, b, sa, sb, out_dtype=torch.float32)
+        check(torch.equal(got, want),
+              f"matmul_q8 4x{k}x{n} fp32 bit-equal to its plain version")
+        errs["q8"] = max(errs["q8"], (got - want).abs().max().item())
+    timing["q8"] = q8_timing(tq, card, shapes=shapes, tag="[89]", m=4)
+    for key, what in (("dma", "K4, fused bf16 pool"),
+                      ("dma_int8", "K4-int8, fused int8 pool"),
+                      ("k6", "K6 at a tp = 2 rank (16 over 4 heads), split "
+                             "int8 pools")):
+        t = timing[key]
+        print(f"[89] {what}, 4 slots at positions {SERVE_HF_POSITIONS}: "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"gather+sdpa {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B), "
+              f"max err {errs[key]:.3g}; {card}", flush=True)
+    t = timing["q8"]
+    print(f"[89] matmul_q8 over one 8-layer decode step's {t['per_step']} "
+          f"launches at m = 4: {t['step_ms']:.3f} ms against a bound of "
+          f"{t['step_bound_ms']:.3f} ms; {card}", flush=True)
+    return dict(runs=runs, errs=errs, timing=timing)
+
+
+def entry_point_phase(card) -> dict:
+    """Phase 90: serve_api's hermetic model over HTTP (text in and out, a
+    sampled request and a streamed one), then serve_lm as `python -m
+    kfunca_tpu_torch.examples.serve_lm`, a process of its own."""
+    import urllib.request
+
+    from kfunca_tpu_torch.examples import serve_api
+
+    answers = []
+
+    def requests(srv):
+        url = f"http://{srv.host}:{srv.port}/v1/completions"
+        for body in ({"prompt": "the sea", "max_tokens": 24},
+                     {"prompt": "the wind", "max_tokens": 24,
+                      "stream": True}):
+            t0 = time.perf_counter()
+            resp = urllib.request.urlopen(urllib.request.Request(
+                url, data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"}), timeout=300)
+            if body.get("stream"):
+                events = [json.loads(line[6:]) for line in resp
+                          if line.startswith(b"data: {")]
+                answers.append(("streamed", [e["token"] for e in events],
+                                "".join(e["text"] for e in events),
+                                time.perf_counter() - t0))
+            else:
+                c = json.loads(resp.read())["choices"][0]
+                answers.append(("sampled", c["tokens"], c["text"],
+                                time.perf_counter() - t0))
+
+    saved = serve_api.wait
+    serve_api.wait = requests
+    try:
+        run = run_example("[90]", "serve_api", ["--port", "0"], card)
+    finally:
+        serve_api.wait = saved
+    vocab = run["out"].engine.cfg.vocab_size
+    for kind, toks, text, secs in answers:
+        check(len(toks) == 24 and all(0 <= t < vocab for t in toks)
+              and isinstance(text, str),
+              f"serve_api {kind}: 24 tokens of the tokenizer's {vocab} ids, "
+              f"decoded")
+        print(f"[90] serve_api {kind} text request: 24 tokens in "
+              f"{secs:.2f} s: {text[:60]!r}; {card}", flush=True)
+    steps = run["out"].engine.decode_steps
+    check_counts("serve_api hermetic (2 layers, fp32 pools)", run["launches"],
+                 {"K4": 2 * steps})
+    del run
+    free_device_memory()
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                   os.pathsep) if p])}
+    proc = subprocess.run(
+        [sys.executable, "-m", "kfunca_tpu_torch.examples.serve_lm"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"  [python -m ...serve_lm] {line}")
+    check(proc.returncode == 0 and "completed 12/12 requests" in proc.stdout
+          and re.search(r"kernel launches: K4 \d+", proc.stdout) is not None,
+          f"python -m kfunca_tpu_torch.examples.serve_lm exits 0 with its 12 "
+          f"requests completed on K4 (rc {proc.returncode}; "
+          f"{proc.stderr[-2000:]})")
+    print(f"[90] python -m kfunca_tpu_torch.examples.serve_lm: exit 0 in "
+          f"{secs:.1f} s (process start and import included); {card}",
+          flush=True)
+    return {"answers": answers, "serve_lm_s": secs}
+
+
+def examples_phases(card) -> list:
+    """Phases 86-90; returns their kernels-line entries (paths
+    "examples" and "mistral-7b-v0.1 layout")."""
+    from kfunca_tpu_torch.ops import quant as tq
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+    from kfunca_tpu_torch.ops.pallas_kernels import paged_attention as pa
+
+    laps = [time.perf_counter()]
+    print("[86] the serving examples at their defaults", flush=True)
+    serving = serving_examples_phase(card)
+    laps.append(time.perf_counter())
+    print("[87] the training examples at their defaults", flush=True)
+    training = training_examples_phase(card)
+    laps.append(time.perf_counter())
+    print("[88] the family examples at their defaults", flush=True)
+    family_examples_phase(card)
+    laps.append(time.perf_counter())
+    print("[88] K1 / K2 at train_lm's attention and K4 at serve_lm's decode "
+          "vs their plain versions, timed", flush=True)
+    e1, e2 = shape_flash_checks(fa, TRAIN_LM_ATTN)
+    ft = flash_timing(fa, shape=TRAIN_LM_ATTN, fp32=False)
+    lm = dict(h=4, hkv=4, hd=64, window=None)
+    dma = pa.paged_decode_attention_dma
+    e4 = shape_paged_check(pa, dma, "fused", False, SERVE_LM_POSITIONS, **lm)
+    t4 = paged_form_timing(pa, dma, "fused", False, positions=SERVE_LM_POSITIONS,
+                           max_pages=16, **lm)
+    for label, t in (("K1 forward", ft["fwd"]), ("K2 backward", ft["bwd"]),
+                     ("K4 (serve_lm, 4 slots, 4 heads of 64, bf16)", t4)):
+        print(f"[88] {label} at the example's shape: kernel {t['ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); {card}", flush=True)
+    free_device_memory()
+    laps.append(time.perf_counter())
+    print("[89] serve_hf and serve_api over Mistral-7B-v0.1's checkpoint "
+          "layout", flush=True)
+    full = mistral_layout_phase(pa, tq, card)
+    laps.append(time.perf_counter())
+    print("[90] serve_api over HTTP and python -m ...serve_lm", flush=True)
+    entry_point_phase(card)
+    laps.append(time.perf_counter())
+    print(f"[90] phase 86 {laps[1] - laps[0]:.1f} s, 87 "
+          f"{laps[2] - laps[1]:.1f} s, 88 {laps[3] - laps[2]:.1f} s (+ "
+          f"kernel checks {laps[4] - laps[3]:.1f} s), 89 "
+          f"{laps[5] - laps[4]:.1f} s, 90 {laps[6] - laps[5]:.1f} s",
+          flush=True)
+
+    fl, pg = "pallas_kernels/flash_attention.py", "pallas_kernels/paged_attention.py"
+    tl = training["train_lm"]["launches"]
+    full_runs, ft4 = full["runs"], full["timing"]
+    return [
+        example_entry("examples: train_lm", "flash_attention_fwd_stats",
+                      "flash_attention.cu", f"{fl}:247", tl["K1"], e1,
+                      ft["fwd"]),
+        example_entry("examples: train_lm", "flash_attention_backward",
+                      "flash_attention.cu", f"{fl}:547", tl["K2"], e2,
+                      ft["bwd"]),
+        example_entry("examples: serve_lm", "paged_decode_attention_dma",
+                      "paged_attention.cu", f"{pg}:459",
+                      serving["serve_lm"]["launches"]["K4"], e4, t4),
+        example_entry("mistral-7b-v0.1 layout: serve_hf --no-quant",
+                      "paged_decode_attention_dma", "paged_attention.cu",
+                      f"{pg}:459", full_runs["bf16"]["launches"]["K4"],
+                      full["errs"]["dma"], ft4["dma"]),
+        example_entry("mistral-7b-v0.1 layout: serve_hf",
+                      "paged_decode_attention_dma_int8", "paged_attention.cu",
+                      f"{pg}:459", full_runs["w8kv8"]["launches"]["K4"],
+                      full["errs"]["dma_int8"], ft4["dma_int8"]),
+        example_entry("mistral-7b-v0.1 layout: serve_hf", "matmul_q8",
+                      "quant.cu", "quant.py:77",
+                      full_runs["w8kv8"]["launches"]["K5"],
+                      full["errs"]["q8"], ft4["q8"]),
+        example_entry("mistral-7b-v0.1 layout: serve_hf --tp 2",
+                      "paged_decode_attention", "paged_attention.cu",
+                      f"{pg}:583", full_runs["tp2"]["launches"]["K6"],
+                      full["errs"]["k6"], ft4["k6"]),
+    ]
+
+
 class Laps:
     """Prints each group of phases' seconds and the script's so far: the
     whole script must end inside its time limit."""
@@ -9948,6 +10509,15 @@ def main() -> int:
                 print(f"    {name}: {kernel}: {regs} registers, {spill} spill "
                       f"bytes")
         print(json.dumps({"kernels": gemma_phases(card)}))
+        return 0
+    if sys.argv[1:] == ["--examples"]:  # phases 86-90 alone
+        _kernels.build(["flash_attention", "paged_attention", "quant"])
+        check(_native.get_lib() is not None, "the native core builds (g++)")
+        print(json.dumps({"kernels": examples_phases(card)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
         return 0
     if sys.argv[1:] == ["--autotune-orbax"]:  # phases 76-80 alone
         names = ["flash_attention", "quant", "reduce"]
@@ -10061,6 +10631,9 @@ def main() -> int:
     free_device_memory()
     kernels += gemma_phases(card)
     lap("phases 81-85")
+    free_device_memory()
+    kernels += examples_phases(card)
+    lap("phases 86-90")
     for entry in kernels:  # the first entry of each swept kernel
         if entry["name"] in sweeps:
             entry["sweep"] = sweeps.pop(entry["name"])

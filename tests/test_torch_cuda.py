@@ -2800,3 +2800,21 @@ def test_mamba2_gradients_are_finite_at_chunk_256(cuda):
     got = mamba2.forward(params, tokens, cfg).cpu()
     assert float((got - want).abs().max()) <= 1e-4 * max(
         1.0, float(want.abs().max()))
+
+
+def test_serving_examples_run_on_the_card(cuda):
+    """serve_lm and serve_hf (its hermetic tiny Llama, w8kv8) through
+    main(argv) on the card: every request completes, K4 runs layers x
+    decode steps times, and serve_hf's int8 products K5 (5 x layers + 1)
+    x decode steps times."""
+    from kfunca_tpu_torch.examples import serve_hf, serve_lm
+
+    out = serve_lm.main(["--requests", "6", "--max-new", "8"])
+    steps = out["stats"]["decode_steps"]
+    assert out["stats"]["completed"] == 6 and steps > 0
+    assert out["launches"]["K4"] == 4 * steps
+    out = serve_hf.main(["--requests", "3", "--max-new", "8"])
+    steps = out["stats"]["decode_steps"]
+    assert out["stats"]["completed"] == 3 and steps > 0
+    assert out["launches"]["K4"] == 4 * steps
+    assert out["launches"]["K5"] == (5 * 4 + 1) * steps

@@ -6,6 +6,7 @@ import ast
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -1023,3 +1024,79 @@ def test_finetuning_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     _, _, m = steps[1](student, train.init_opt_state(student, device="cpu"),
                        tokens, tokens)
     assert np.isfinite(float(m["loss"]))
+
+
+EXAMPLES = PORT / "examples"
+_EXAMPLE_NAMES = sorted(p.stem for p in (ROOT / "examples").glob("*.py"))
+
+
+def test_every_jax_example_has_its_port():
+    """kfunca_tpu_torch/examples/ holds one module for each script of
+    examples/, under the same name, each with main(argv) and run(args)."""
+    from kfunca_tpu_torch import examples
+
+    assert len(_EXAMPLE_NAMES) == 14
+    assert sorted(examples.NAMES) == _EXAMPLE_NAMES
+    for name in _EXAMPLE_NAMES:
+        source = (EXAMPLES / f"{name}.py").read_text()
+        assert "def main(argv=None)" in source and "def run(args" in source
+        assert 'if __name__ == "__main__":' in source
+
+
+@pytest.mark.parametrize("name", _EXAMPLE_NAMES)
+def test_example_names_no_jax_package_and_no_transformers(name):
+    """An example imports torch, numpy and the port only: not jax, not the
+    JAX package, not transformers or safetensors, and not the JAX
+    example's own module (importing it imports jax)."""
+    bad = [m for m in _imports(EXAMPLES / f"{name}.py")
+           if m and (_foreign(m) or m.split(".")[0] in (
+               "transformers", "safetensors", "examples"))]
+    assert bad == []
+
+
+def test_the_examples_load_no_jax_and_no_transformers(tmp_path):
+    """Every example, imported in a fresh interpreter whose transformers
+    import is blocked, leaves no jax, jaxlib, kfunca_tpu, transformers or
+    safetensors module loaded; the hermetic checkpoints of serve_hf and
+    serve_deepseek are written and read there too."""
+    code = "\n".join([
+        "import importlib, sys",
+        "sys.modules['transformers'] = None  # any import of it raises",
+        "from kfunca_tpu_torch import examples",
+        "for name in examples.NAMES:",
+        "    importlib.import_module('kfunca_tpu_torch.examples.' + name)",
+        "from kfunca_tpu_torch.examples import serve_deepseek, serve_hf",
+        "from kfunca_tpu_torch.models.hf import from_hf",
+        f"serve_hf.write_tiny_llama({str(tmp_path / 'llama')!r})",
+        f"serve_deepseek.write_tiny_deepseek({str(tmp_path / 'ds')!r})",
+        f"p, c = from_hf({str(tmp_path / 'llama')!r}, device='cpu')",
+        "assert (c.n_layers, c.kv_heads, 'lm_head' in p) == (4, 2, True)",
+        f"p, c = from_hf({str(tmp_path / 'ds')!r}, device='cpu')",
+        "assert (c.attention, c.n_experts, c.moe_first_dense) == "
+        "('mla', 8, 1)",
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in",
+        "             ('transformers', 'safetensors', 'jax', 'jaxlib',",
+        "              'kfunca_tpu') and sys.modules[m] is not None))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("name", _EXAMPLE_NAMES)
+def test_example_refuses_the_cpu_unless_asked(monkeypatch, name, tmp_path):
+    """Run with no flags, every example takes the card and raises without
+    one, before it writes or trains anything."""
+    import importlib
+
+    mod = importlib.import_module(f"kfunca_tpu_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # tempfile caches its directory: set the cache, not only TMPDIR, so
+    # that train_lm's default --ckpt and every mkdtemp land in tmp_path
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    assert tempfile.gettempdir() == str(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
+    assert not list(tmp_path.iterdir())
