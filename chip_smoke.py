@@ -20,7 +20,12 @@ MLA decode, T5, the audio frontend and Whisper), `python3 chip_smoke.py
 save_orbax / load_orbax) and `python3 chip_smoke.py --gemma` phases 81-85
 (Gemma-2B, K1 / K2 / K12 at head dim 256) and `python3 chip_smoke.py
 --examples` phases 86-90 (the runnable examples of
-kfunca_tpu_torch/examples/, and serve_hf over Mistral-7B-v0.1's layout).
+kfunca_tpu_torch/examples/, and serve_hf over Mistral-7B-v0.1's layout)
+and `python3 chip_smoke.py --fp32-attention` phases 91-93 (K1 / K2 on fp32
+inputs: the split-TF32 bodies, their timings and the accuracy gate);
+`python3 chip_smoke.py --fp32-attention-timing` prints phase 92's
+readings alone, through the wrappers' public calls (a copy of the script
+beside another commit's package times that commit's bodies).
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit);
@@ -43,7 +48,8 @@ Phases (any failure raises and the script exits non-zero):
   7. profile a few decode steps of a full batch (device busy share, device
      time by kernel, K4's ms a step);
   8. hold the flash attention forward (K1) and backward (K2; bf16 on their
-     wgmma bodies, fp32 on the fp32 ones, asserted by the launch counts)
+     wgmma bodies, fp32 on the split-TF32 wgmma bodies, asserted by the
+     launch counts)
      kernels against their plain PyTorch versions at Mistral-7B-v0.1
      attention widths (B=1, H=32, Hkv=8, hd=128, S=8192, window 4096; bf16
      and fp32)
@@ -52,7 +58,7 @@ Phases (any failure raises and the script exits non-zero):
      valid column); two bf16 K1 runs and two bf16 K2 runs bitwise equal;
   9. time K1 and K2 (each alone), their plain versions and the library
      yardstick (scaled_dot_product_attention, forward and backward) at the
-     full attention shape, beside the bound;
+     full attention shape, beside the bound (fp32: phase 92);
  10. take 6 AdamW training steps through make_train_step at Mistral-7B-v0.1
      widths (depth cut to 4 layers, 1 x 8192 tokens, bf16 activations, fp32
      master params), then 2 steps with loss_chunk and grad_accum; K1 and K2
@@ -61,8 +67,9 @@ Phases (any failure raises and the script exits non-zero):
  11. profile 2 training steps (device busy share, device time by kernel,
      K1's and K2's ms a step and share);
  12. hold the kernel path against the plain attention path end to end in
-     fp32 (loss and every gradient of loss_fn, 2 layers at full width), and
-     check that two kernel runs give bitwise-equal gradients;
+     fp32 (loss and every gradient of loss_fn, 2 layers at full width; K1 =
+     K2 = layers, on the split-TF32 bodies), and check that two kernel runs
+     give bitwise-equal gradients;
  13. run the Trainer at a small config: fit with checkpoints, delete the
      last one, resume, and compare bitwise with the uninterrupted run;
  14. hold the int8-KV branch of the paged decode kernel (K4-int8), the
@@ -129,8 +136,11 @@ Phases (any failure raises and the script exits non-zero):
  24. profile one eager MLP step, and time an eager 256-element add's host
      cost per op;
  25. (at the end, after phase 90) print the kernels line (the seventeen
-     kernels, with the entries of the paths that run them at other shapes),
-     the card line and, last, the result line;
+     kernels, with the entries of the paths that run them at other shapes;
+     K1's and K2's first entries also carry phase 92's fp32 readings:
+     ms_fp32, plain_fp32, bound_fp32 at 3 TF32 passes, bound_fp32_ffma at
+     the fp32 pipe, library_fp32 and max_abs_err_fp32), the card line and,
+     last, the result line;
  26. hold the selective-scan kernels K11 (forward and backward) against
      their plain PyTorch version (the chunked scan) at the Mamba training
      shape (B=4, L=2048, di=5120, N=16, fp32, S4D A, softplus dt) and at
@@ -255,7 +265,7 @@ Phases (any failure raises and the script exits non-zero):
      K1/K2 launches = layers x dp x tp x microbatches x steps, all wgmma;
  48. tp = 2 serving at 32 layers with int8 weights and KV over split pools,
      the 13-request mix: the single-device server's tokens in fp32
-     activations, bf16 log-probs of the forced tokens within 0.05 nat;
+     activations (at 16 of the 32 layers), bf16 log-probs of the forced tokens within 0.05 nat;
      decode ms/step and busy share beside the single device's; K5 161 and
      K6 32 launches a rank a decode step;
  49. the prefix cache (2 pages reused, a cache-less server's tokens) and
@@ -464,7 +474,7 @@ prints their kernels-line entries with "path": "gemma-2b".
      forward and backward);
  88. the family examples: zb_pipeline (the loss falls), seq2seq_t5,
      asr_whisper and caption_multimodal (>= 90% held-out exact match;
-     caption's text blocks on K1 / K2) and generate_dit (the samples'
+     caption's text blocks on K1 / K2, fp32 on the split-TF32 bodies) and generate_dit (the samples'
      contrast); then K1 / K2 at train_lm's attention and K4 at serve_lm's
      decode against their plain versions, timed;
  89. Mistral-7B-v0.1's checkpoint layout at 8 of 32 layers (phase 42's
@@ -480,6 +490,24 @@ prints their kernels-line entries with "path": "gemma-2b".
  90. serve_api's hermetic model over HTTP (a sampled and a streamed text
      request), then `python -m kfunca_tpu_torch.examples.serve_lm` as a
      process of its own (exit 0, its 12 requests on K4).
+ 91. (run after phase 13) K1 / K2 on fp32 inputs against their plain
+     versions (fp32 tolerance, 1e-4 x max(1, max |ref|); phase 8 holds the
+     training shape and the edges) at head dim 64 with GQA and a window,
+     rows without a column at hd 128 (out = lse = dq = 0) and hd 256 (the
+     fp32 tile): each launch on the body `route` names, counted in
+     .launches_wgmma or .launches_fp32_tile, K2 twice bitwise;
+ 92. time fp32 K1 and K2 at the training shape beside their plain
+     versions, SDPA on fp32 inputs (memory-efficient backend, boolean
+     mask, kv heads repeated) and two bounds: 3 TF32 passes at 495
+     TFLOP/s (the split-TF32 bodies') and the 67 TFLOP/s fp32 pipe (any
+     CUDA-core body's);
+ 93. the accuracy gate at (B 1, 8 heads over 2, S 2048, hd 128, causal):
+     out, lse, dq, dk and dv against a float64 evaluation, each within 1/64
+     of the error of the plain version with TF32 products (one TF32 pass
+     is as coarse), the plain fp32 version's and SDPA fp32's errors
+     printed beside; then kfunca.causal_attention forward + backward on
+     fp32 and fp16 tensors at (1, 32, 2048, 128): two K1 and one K2 launch
+     a dtype on the split-TF32 bodies, held to the plain versions.
 `python3 chip_smoke.py --examples` runs phases 86-90 alone; the full
 script prints their kernels-line entries with "path" naming the example.
 
@@ -889,7 +917,7 @@ def profile_summary(prof, wall_us, steps, n_top=8):
 # K1's device functions (the bf16 wgmma body and the fp32 one); K2's: the
 # stats / delta pre-pass, dq and dk/dv (the bf16 wgmma bodies and the fp32
 # ones); the paged decode body's split and combine passes (K4, K4-int8, K6)
-K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_kernel")
+K1_KERNELS = ("flash_fwd_wgmma", "flash_fwd_tf32", "flash_fwd_kernel")
 K2_KERNELS = ("flash_stats_kernel", "flash_delta_kernel", "flash_bwd_dq",
               "flash_bwd_dkv")
 PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel")
@@ -996,20 +1024,18 @@ def flash_checks(fa) -> tuple[float, float]:
         window = case["window"]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, g = flash_case(dtype, gen, **case)
+            # every head dim here is at most 128: bf16 and fp32 both take
+            # wgmma bodies (fp32 the split-TF32 ones)
             n_fwd = fa.flash_attention_fwd_stats.launches_wgmma
             out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
-            check(fa.flash_attention_fwd_stats.launches_wgmma - n_fwd
-                  == (dtype == torch.bfloat16),
-                  f"K1 {dtype} took the "
-                  f"{'wgmma' if dtype == torch.bfloat16 else 'fp32'} body")
+            check(fa.flash_attention_fwd_stats.launches_wgmma - n_fwd == 1,
+                  f"K1 {dtype} took the {fa.route(dtype, case['hd'])} body")
             n_wg = fa.flash_attention_backward.launches_wgmma
             dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
                                                      window=window)
             torch.cuda.synchronize()
-            check(fa.flash_attention_backward.launches_wgmma - n_wg
-                  == (dtype == torch.bfloat16),
-                  f"K2 {dtype} took the "
-                  f"{'wgmma' if dtype == torch.bfloat16 else 'fp32'} body")
+            check(fa.flash_attention_backward.launches_wgmma - n_wg == 1,
+                  f"K2 {dtype} took the {fa.route(dtype, case['hd'])} body")
             if dtype == torch.bfloat16:
                 again = fa.flash_attention_backward(q, k, v, g, out, lse,
                                                     window=window)
@@ -1293,11 +1319,25 @@ def end_to_end_fp32(cfg=None, params=None, tag="[12]"):
         cfg = TransformerConfig(**{**MISTRAL, "n_layers": 2,
                                    "dtype": "float32", "max_seq_len": 1024})
         params = mistral_params(cfg, SEED + 3, torch.float32)
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+
     rng = np.random.default_rng(SEED + 3)
     window = rng.integers(0, cfg.vocab_size, (2, 1025))
     tokens = torch.tensor(window[:, :-1], device="cuda")
     targets = torch.tensor(window[:, 1:], device="cuda")
+    body = fa.route(torch.float32, cfg.head_dim)
+    counter = "launches_fp32_tile" if body == "fp32_tile" else "launches_wgmma"
+    before = [getattr(w, c) for w in (fa.flash_attention_fwd_stats,
+                                      fa.flash_attention_backward)
+              for c in ("launches", counter)]
     loss_k, grads_k = loss_and_grads(params, tokens, targets, cfg)
+    after = [getattr(w, c) for w in (fa.flash_attention_fwd_stats,
+                                     fa.flash_attention_backward)
+             for c in ("launches", counter)]
+    n = [a - b for a, b in zip(after, before)]
+    check(n[0] == n[2] == cfg.n_layers and n[1] == n[0] and n[3] == n[2],
+          f"K1, K2 launches {n[0]}, {n[2]} == layers, all on the {body} "
+          f"bodies ({n[1]}, {n[3]})")
     loss_k2, grads_k2 = loss_and_grads(params, tokens, targets, cfg)
     with plain_attention():
         loss_p, grads_p = loss_and_grads(params, tokens, targets, cfg)
@@ -1317,7 +1357,8 @@ def end_to_end_fp32(cfg=None, params=None, tag="[12]"):
                                     zip(grads_k, grads_k2)),
           "two runs through the kernels give bitwise-equal gradients")
     print(f"{tag} fp32, {cfg.n_layers} layers at full width (head dim "
-          f"{cfg.head_dim}), 2 x 1024 tokens: loss "
+          f"{cfg.head_dim}; K1 and K2 on the {body} bodies), 2 x 1024 "
+          f"tokens: loss "
           f"{loss_k:.6f} (kernels) vs {loss_p:.6f} (plain attention), worst "
           f"gradient leaf off by {worst:.3g} of its max; two kernel runs "
           f"bitwise equal", flush=True)
@@ -5185,9 +5226,9 @@ def rank_flash_checks(fa, shape=RANK_ATTN,
                                                  window=w)
         took = (fa.flash_attention_fwd_stats.launches_wgmma - n_wg[0],
                 fa.flash_attention_backward.launches_wgmma - n_wg[1])
-        bf16 = int(dtype == torch.bfloat16)
-        check(took == (bf16, bf16), f"{label}: K1, K2 {dtype} took the "
-              f"{'wgmma' if bf16 else 'fp32'} bodies")
+        wg = int(fa.route(dtype, shape["hd"]) != "fp32_tile")
+        check(took == (wg, wg), f"{label}: K1, K2 {dtype} took the "
+              f"{fa.route(dtype, shape['hd'])} bodies")
         ref = flash_plain(fa, q, k, v, g, w)
         tag = f"{label} {str(dtype)[6:]}"
         worst[0] = max(worst[0], flash_err(out, ref[0], dtype, f"out {tag}"),
@@ -5375,10 +5416,13 @@ def sharded_training_phase(fa, card) -> dict:
     return out
 
 
+TP_F32_LAYERS = 16  # phase 48's fp32 token check (cut from 32 for 91-93)
+
+
 def tp_serving_phase(pa, tq, card, prompts) -> dict:
     """Phases 48-49: tp = 2 serving at all 32 layers with int8 weights and
-    KV over split pools (the 13-request mix), the prefix cache and
-    speculative decoding under tp."""
+    KV over split pools (the 13-request mix; its fp32 token check at
+    TP_F32_LAYERS), the prefix cache and speculative decoding under tp."""
     from kfunca_tpu_torch.models.generate import generate
     from kfunca_tpu_torch.models.serve import InferenceServer
     from kfunca_tpu_torch.models.speculative import speculative_generate
@@ -5387,27 +5431,32 @@ def tp_serving_phase(pa, tq, card, prompts) -> dict:
 
     cfg = TransformerConfig(**MISTRAL)
     params = mistral_params(cfg, SEED + 47, torch.bfloat16)
-    f32 = dataclasses.replace(cfg, dtype="float32")
     mesh = LocalMesh(1, 2)
     kw = dict(quantize_weights=True, quantize_kv=True, fused_pool=False)
     opts = dict(batch_slots=8, page_size=16, n_pages=800,
                 max_pages_per_seq=272)
 
-    def make(c, m=None):
-        return lambda: InferenceServer(params, c, mesh=m, **opts, **kw)
+    def make(c, m=None, p=params):
+        return lambda: InferenceServer(p, c, mesh=m, **opts, **kw)
 
+    # the fp32-activation token check at 16 of the 32 layers (cut to pay for
+    # phases 91-93; the bf16 readings below keep all 32)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    f32_cut = dataclasses.replace(f32, n_layers=TP_F32_LAYERS)
+    cut = {**params, "blocks": params["blocks"][:TP_F32_LAYERS]}
     t0 = time.perf_counter()
-    want, _ = serve_greedy(make(f32), prompts, 16)
+    want, _ = serve_greedy(make(f32_cut, p=cut), prompts, 16)
     free_device_memory()
-    got, _ = serve_greedy(make(f32, mesh), prompts, 16)
+    got, _ = serve_greedy(make(f32_cut, mesh, p=cut), prompts, 16)
     free_device_memory()
+    del cut
     check(got == want, "tp = 2 w8 + kv8 serving in fp32 activations gives "
           "the single-device server's tokens (first difference at "
           f"{[first_difference(a, b) for a, b in zip(got, want)]})")
-    print(f"[48] tp = 2 w8 + kv8 serving, 32 layers, fp32 activations over "
-          f"the bf16 weights: {len(prompts)} requests x 16 tokens equal the "
-          f"single-device server's; {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"[48] tp = 2 w8 + kv8 serving, {TP_F32_LAYERS} layers, fp32 "
+          f"activations over the bf16 weights: {len(prompts)} requests x 16 "
+          f"tokens equal the single-device server's; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # bf16 readings, the same call: single device, then tp = 2 forced down
     # the single-device run's tokens (recorded_run), its log-probs held to
     # 0.05 nat; launch counts from 0 just before the tp run (the main path)
@@ -10062,18 +10111,23 @@ def training_examples_phase(card) -> dict:
     check_counts("finetune_e2e", r["launches"],
                  {"K1": n, "K1 wgmma": n, "K2": n, "K2 wgmma": n,
                   "K4": 2 * r["out"]["decode_steps"]})
-    # fp32 examples run K1 / K2 on the fp32 bodies; their forwards without
-    # a backward (DPO's reference, GRPO's log-probs) launch K1 alone
+    # fp32 examples run K1 / K2 on the split-TF32 wgmma bodies; their
+    # forwards without a backward (DPO's reference, GRPO's log-probs) launch
+    # K1 alone
     got = runs["align_lora_dpo"]["launches"]
     check(got["K2"] == 2 * (20 + 2 * 20) and got["K1"] == 2 * (20 + 4 * 20)
-          and got["K6"] > 0 and got["K1 wgmma"] == got["K2 wgmma"] == 0,
+          and got["K6"] > 0 and got["K1 wgmma"] == got["K1"]
+          and got["K2 wgmma"] == got["K2"],
           f"align_lora_dpo: K2 {got['K2']} == layers x (SFT + 2 x DPO "
-          f"steps), K1 {got['K1']} == layers x (SFT + 4 x DPO steps), the "
-          f"multi-LoRA server on split pools (K6 {got['K6']})")
+          f"steps), K1 {got['K1']} == layers x (SFT + 4 x DPO steps), all "
+          f"on the split-TF32 bodies, the multi-LoRA server on split pools "
+          f"(K6 {got['K6']})")
     got = runs["rl_grpo"]["launches"]
-    check(got["K2"] == 2 * 8 * 2 and got["K1"] == 2 * (8 * 4 + 1),
+    check(got["K2"] == 2 * 8 * 2 and got["K1"] == 2 * (8 * 4 + 1)
+          and got["K1 wgmma"] == got["K1"] and got["K2 wgmma"] == got["K2"],
           f"rl_grpo: K2 {got['K2']} == layers x rounds x epochs, K1 "
-          f"{got['K1']} == layers x (4 a round + the final rollout's 1)")
+          f"{got['K1']} == layers x (4 a round + the final rollout's 1), "
+          f"all on the split-TF32 bodies")
     return runs
 
 
@@ -10085,9 +10139,11 @@ def family_examples_phase(card) -> dict:
         runs[name] = run_example("[88]", name, [], card)
         free_device_memory()
     got = runs["caption_multimodal"]["launches"]
-    check(got["K2"] == 2 * 200 and got["K1"] == 2 * (200 + 3),
+    check(got["K2"] == 2 * 200 and got["K1"] == 2 * (200 + 3)
+          and got["K1 wgmma"] == got["K1"] and got["K2 wgmma"] == got["K2"],
           f"caption_multimodal: K2 {got['K2']} == text layers x steps, K1 "
-          f"{got['K1']} == text layers x (steps + 3 caption steps)")
+          f"{got['K1']} == text layers x (steps + 3 caption steps), all on "
+          f"the split-TF32 bodies (fp32)")
     for name in ("zb_pipeline", "seq2seq_t5", "asr_whisper", "generate_dit"):
         check_counts(name, runs[name]["launches"], {})
     for name in ("seq2seq_t5", "asr_whisper", "caption_multimodal"):
@@ -10441,6 +10497,322 @@ def examples_phases(card) -> list:
     ]
 
 
+# -- phase 91-93: K1 and K2 on fp32 inputs ------------------------------------
+
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate, H100 SXM data sheet
+
+
+def fp32_attention_timing(fa, shape=ATTN, reps=(10, 5)) -> dict:
+    """K1 and K2 on fp32 inputs at an attention shape (default: the
+    training step's): each alone, their plain versions and SDPA on fp32
+    inputs forced to the memory-efficient backend (boolean mask, the kv
+    heads repeated to H), beside two bounds: the flops at 3 TF32 passes
+    (the split-TF32 bodies' least time, `bound_ms`) and at the 67 TFLOP/s
+    fp32 pipe (any CUDA-core body's, `bound_ffma_ms`), and the fp32 bytes."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    q, k, v, g = flash_case(torch.float32, gen, **shape)
+    b, h, hkv, s, hd, w = (shape[n] for n in ("b", "h", "hkv", "sq", "hd",
+                                              "window"))
+    out, lse = fa.flash_attention_fwd_stats(q, k, v, window=w)
+    ww = s if w is None else w
+    pairs = ww * (ww + 1) // 2 + (s - ww) * ww
+    qo, kv = q.numel() * 4, k.numel() * 4
+    work = {"fwd": (4 * hd * pairs * h * b, 2 * qo + 2 * kv + lse.numel() * 4),
+            "bwd": (10 * hd * pairs * h * b,
+                    4 * qo + 4 * kv + lse.numel() * 4)}
+    res = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        res[name] = dict(
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_ffma_ms=max(flops / PEAK_FLOPS[torch.float32],
+                              t_bytes) * 1e3,
+            flops=flops, bytes=nbytes)
+    res["fwd"]["ms"] = time_ms(
+        lambda: fa.flash_attention_fwd_stats(q, k, v, window=w),
+        reps=reps[0])
+    res["bwd"]["ms"] = time_ms(
+        lambda: fa.flash_attention_backward(q, k, v, g, out, lse, window=w),
+        reps=reps[1], warm=1)
+
+    def plain_fwd():
+        for qs, ks, vs, _ in kv_head_groups(q, k, v, g):
+            fa.flash_attention_plain(qs, ks, vs, w)
+
+    def plain_bwd():
+        for qs, ks, vs, gs in kv_head_groups(q, k, v, g):
+            fa.flash_attention_backward_plain(qs, ks, vs, gs, w)
+
+    res["fwd"]["plain_ms"] = time_ms(plain_fwd, reps=3, warm=1)
+    res["bwd"]["plain_ms"] = time_ms(plain_bwd, reps=3, warm=1)
+
+    # yardstick only (the port never calls it)
+    row = torch.arange(s, device="cuda")[:, None]
+    col = torch.arange(s, device="cuda")[None, :]
+    mask = (col <= row) & (col > row - ww)
+    ql = q.detach().clone().requires_grad_(True)
+    kl, vl = (t.repeat_interleave(h // hkv, dim=1).requires_grad_(True)
+              for t in (k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        def sdpa():
+            return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+
+        with torch.no_grad():
+            res["fwd"]["library_ms"] = time_ms(sdpa, reps=reps[0])
+        lib_out = sdpa()
+        res["bwd"]["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g,
+                                        retain_graph=True),
+            reps=reps[1], warm=1)
+    check(float((lib_out.detach() - out).abs().max()) < 1e-3,
+          "SDPA (efficient backend, fp32) agrees with K1 on fp32 inputs")
+    del lib_out, ql, kl, vl
+    # device time by kernel of one K1 and one K2 call (K2 is three kernels)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            o2, l2 = fa.flash_attention_fwd_stats(q, k, v, window=w)
+            fa.flash_attention_backward(q, k, v, g, o2, l2, window=w)
+        torch.cuda.synchronize()
+    res["kernels_ms"] = {
+        re.sub(r"^.*?::(\w+<[^>]*>|\w+)\(.*$", r"\1", e.key):
+            e.device_time_total / e.count / 1e3
+        for e in prof.key_averages() if e.device_time_total > 0
+        and "flash" in e.key}
+    return res
+
+
+# phase 91: fp32 K1 / K2 beyond phase 8's shapes (which hold the training
+# shape and the edges): head dim 64 with GQA and a window, rows that attend
+# no column at hd 128, and head dim 256 (the fp32 tile's route)
+FP32_EDGES = [
+    dict(b=1, h=8, hkv=2, sq=1024, skv=1024, hd=64, window=256),
+    dict(b=1, h=2, hkv=1, sq=300, skv=64, hd=128, window=64),
+    dict(b=1, h=4, hkv=2, sq=512, skv=512, hd=256, window=None),
+]
+# phase 93's accuracy gate and eager attention shapes
+GATE_SHAPE = dict(b=1, h=8, hkv=2, sq=2048, skv=2048, hd=128, window=None)
+EAGER_FP32_SHAPE = (1, 32, 2048, 128)
+
+
+def fp32_edge_checks(fa) -> tuple[float, float]:
+    """Phase 91: (worst K1 error, worst K2 error) of fp32 K1 / K2 against
+    their plain versions at FP32_EDGES (flash_err's fp32 tolerance), each
+    launch on the body `route` names, K2 twice bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 92)
+    worst1 = worst2 = 0.0
+    for case in FP32_EDGES:
+        w = case["window"]
+        body = fa.route(torch.float32, case["hd"])
+        counter = ("launches_fp32_tile" if body == "fp32_tile"
+                   else "launches_wgmma")
+        q, k, v, g = flash_case(torch.float32, gen, **case)
+        n1 = getattr(fa.flash_attention_fwd_stats, counter)
+        n2 = getattr(fa.flash_attention_backward, counter)
+        out, lse = fa.flash_attention_fwd_stats(q, k, v, window=w)
+        dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
+                                                 window=w)
+        again = fa.flash_attention_backward(q, k, v, g, out, lse, window=w)
+        torch.cuda.synchronize()
+        check(getattr(fa.flash_attention_fwd_stats, counter) == n1 + 1
+              and getattr(fa.flash_attention_backward, counter) == n2 + 2,
+              f"fp32 K1 / K2 at head dim {case['hd']} took the {body} bodies")
+        check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
+              f"two fp32 K2 runs at {case} give bitwise-equal gradients")
+        ref = flash_plain(fa, q, k, v, g, w)
+        tag = "x".join(str(case[n]) for n in ("b", "h", "hkv", "sq", "skv",
+                                               "hd")) + f" w={w} fp32"
+        e1 = max(flash_err(out, ref[0], torch.float32, f"out {tag}"),
+                 flash_err(lse, ref[1], torch.float32, f"lse {tag}"))
+        e2 = max(flash_err(x, r, torch.float32, f"{n} {tag}")
+                 for n, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                    ref[2:]))
+        if case["sq"] > case["skv"] + (w or case["sq"]) - 1:
+            dead = case["skv"] + w - 1  # the first row with no column
+            check(not out[:, :, dead:].any() and not lse[:, :, dead:].any()
+                  and not dq[:, :, dead:].any(),
+                  "fp32 rows with no valid column give out = 0, lse = 0, "
+                  "dq = 0")
+        print(f"  {tag} ({body}): K1 max err {e1:.3g}, K2 max err {e2:.3g}",
+              flush=True)
+        worst1, worst2 = max(worst1, e1), max(worst2, e2)
+        del q, k, v, g, out, lse, dq, dk, dv, again, ref
+    return worst1, worst2
+
+
+def attention64(q, k, v, g, window):
+    """(out, lse, dq, dk, dv) of K1 / K2's function in float64."""
+    q, k, v, g = (t.double() for t in (q, k, v, g))
+    group = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    sq, skv, hd = q.shape[2], k.shape[2], q.shape[3]
+    row = torch.arange(sq, device=q.device)[:, None]
+    col = torch.arange(skv, device=q.device)[None, :]
+    ok = col <= row
+    if window is not None:
+        ok = ok & (col > row - window)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.where(ok, q @ kr.transpose(-1, -2) * scale, -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    del s
+    out = p @ vr
+    ds = p * (g @ vr.transpose(-1, -2) - (g * out).sum(-1, keepdim=True))
+    dq = ds @ kr * scale
+
+    def fold(t):
+        return t.unflatten(1, (k.shape[1], group)).sum(2)
+
+    dk = fold(ds.transpose(-1, -2) @ q) * scale
+    dv = fold(p.transpose(-1, -2) @ g)
+    return out, lse, dq, dk, dv
+
+
+def accuracy_gate(fa, shape=GATE_SHAPE) -> dict:
+    """Phase 93: K1's and K2's five outputs on fp32 inputs against a
+    float64 evaluation, each within 1/64 of the plain version's error with
+    TF32 allowed (the gate that tells split TF32 from one TF32 pass); the
+    plain version's own error in fp32 (TF32 off) and SDPA's on fp32 inputs
+    (efficient backend; no lse) beside them.  Returns {output: (kernel,
+    plain fp32, plain TF32, SDPA)} max absolute errors."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 93)
+    q, k, v, g = flash_case(torch.float32, gen, **shape)
+    w = shape["window"]
+    ref = attention64(q, k, v, g, w)
+    out, lse = fa.flash_attention_fwd_stats(q, k, v, window=w)
+    kern = (out, lse, *fa.flash_attention_backward(q, k, v, g, out, lse,
+                                                   window=w))
+    plain = flash_plain(fa, q, k, v, g, w)
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 products
+    try:
+        plain_tf32 = flash_plain(fa, q, k, v, g, w)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    group = shape["h"] // shape["hkv"]
+    ql = q.detach().clone().requires_grad_(True)
+    kl, vl = (t.detach().clone().requires_grad_(True) for t in (k, v))
+    check(w is None, "the gate's shape is causal (SDPA's is_causal)")
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib = F.scaled_dot_product_attention(
+            ql, kl.repeat_interleave(group, dim=1),
+            vl.repeat_interleave(group, dim=1), is_causal=True)
+        lib_grads = torch.autograd.grad(lib, (ql, kl, vl), g)
+    sdpa = (lib.detach(), None, *lib_grads)
+
+    def err(x, r):
+        return None if x is None else float((x.double() - r).abs().max())
+
+    res = {}
+    for name, r, a, b, c, d in zip(("out", "lse", "dq", "dk", "dv"), ref,
+                                   kern, plain, plain_tf32, sdpa):
+        res[name] = (err(a, r), err(b, r), err(c, r), err(d, r))
+        e, e32, etf, esd = res[name]
+        print(f"  {name}: kernel {e:.3g}, plain fp32 {e32:.3g}, plain TF32 "
+              f"{etf:.3g} (gate {etf / 64:.3g}), SDPA fp32 "
+              f"{'n/a' if esd is None else f'{esd:.3g}'}", flush=True)
+        check(e <= etf / 64, f"{name}: the kernel's error against float64 "
+              f"{e:.3g} within 1/64 of the TF32 plain version's {etf:.3g}")
+    return res
+
+
+def eager_fp32_attention(gen) -> dict:
+    """Phase 93: `kfunca.causal_attention` forward and backward on fp32 and
+    fp16 tensors at EAGER_FP32_SHAPE: two K1 (the forward, the backward's
+    recompute) and one K2 launch a dtype on the split-TF32 bodies, held to
+    the plain versions (fp32: flash_err's tolerance; fp16: the fp32 results
+    rounded once, 2^-10 of the largest value).  Returns the launches."""
+    import kfunca_tpu_torch as kfunca
+    from kfunca_tpu_torch.ops.pallas_kernels import flash_attention as fa
+
+    counts = {}
+    for dtype in (torch.float32, torch.float16):
+        q_t, k_t, v_t, g_t = (torch.randn(EAGER_FP32_SHAPE, generator=gen,
+                                          device="cuda").to(dtype)
+                              for _ in range(4))
+        before = (fa.flash_attention_fwd_stats.launches_wgmma,
+                  fa.flash_attention_backward.launches_wgmma)
+        q, k, v = (kfunca.from_torch(x).set_requires_grad(True)
+                   for x in (q_t, k_t, v_t))
+        out = kfunca.causal_attention(q, k, v)
+        out.backward(kfunca.from_torch(g_t))
+        got = [x.to_torch() for x in (out, q.grad(), k.grad(), v.grad())]
+        torch.cuda.synchronize()
+        n = (fa.flash_attention_fwd_stats.launches_wgmma - before[0],
+             fa.flash_attention_backward.launches_wgmma - before[1])
+        check(n == (2, 1), f"eager causal_attention {dtype}: K1, K2 "
+              f"launches on the split-TF32 bodies {n} == (2, 1)")
+        counts[str(dtype)[6:]] = n
+        f32 = [t.float() for t in (q_t, k_t, v_t, g_t)]
+        want = (fa.flash_attention_plain(*f32[:3])[0],
+                *fa.flash_attention_backward_plain(*f32))
+        for name, x, r in zip(("out", "dq", "dk", "dv"), got, want):
+            check(x.dtype == dtype, f"eager attention {name} keeps {dtype}")
+            if dtype == torch.float32:
+                flash_err(x, r, dtype, f"eager attention {name} fp32")
+            else:
+                e = float((x.float() - r).abs().max())
+                tol = 2.0 ** -10 * float(r.abs().max())
+                check(e <= tol, f"eager attention {name} fp16: {e:.3g} <= "
+                      f"{tol:.3g}")
+    return counts
+
+
+def fp32_attention_phases(fa, card) -> dict:
+    """Phases 91-93; returns the K1 / K2 errors and readings for the
+    kernels line."""
+    t0 = time.perf_counter()
+    print("[91] K1 / K2 on fp32 inputs vs their plain versions (split-TF32 "
+          "bodies to head dim 128, the fp32 tile at 256)", flush=True)
+    worst1, worst2 = fp32_edge_checks(fa)
+    free_device_memory()
+    t1 = time.perf_counter()
+    timing = fp32_attention_timing(fa)
+    print_fp32_timing("[92]", timing, ATTN, card)
+    free_device_memory()
+    t2 = time.perf_counter()
+    print(f"[93] the accuracy gate at {GATE_SHAPE} (max abs error against "
+          f"float64)", flush=True)
+    gate = accuracy_gate(fa)
+    free_device_memory()
+    eager = eager_fp32_attention(
+        torch.Generator(device="cuda").manual_seed(SEED + 94))
+    print(f"[93] kfunca.causal_attention at {EAGER_FP32_SHAPE}, fp32 and "
+          f"fp16, forward + backward: launches (K1, K2) on the split-TF32 "
+          f"bodies {eager}; phases 91 {t1 - t0:.1f} s, 92 {t2 - t1:.1f} s, "
+          f"93 {time.perf_counter() - t2:.1f} s; {card}", flush=True)
+    free_device_memory()
+    return dict(worst=(worst1, worst2), timing=timing, gate=gate,
+                eager=eager)
+
+
+def print_fp32_timing(tag, timing, shape, card) -> None:
+    where = ", ".join(f"{n}={shape[n]}" for n in ("b", "h", "hkv", "sq", "hd",
+                                                  "window"))
+    for label, key in (("K1 forward", "fwd"), ("K2 backward", "bwd")):
+        t = timing[key]
+        print(f"{tag} {label}, fp32 inputs ({where}): kernel {t['ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, SDPA fp32 (efficient) "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms at 3 "
+              f"TF32 passes ({t['bound_by']}), {t['bound_ffma_ms']:.4f} ms "
+              f"at the 67 TFLOP/s fp32 pipe ({t['flops'] / 1e9:.2f} GFLOP, "
+              f"{t['bytes']} B); {card}", flush=True)
+    if "kernels_ms" in timing:
+        print(f"{tag} device ms by kernel of one K1 + K2 call: "
+              + ", ".join(f"{n} {ms:.4f}"
+                          for n, ms in timing["kernels_ms"].items()),
+              flush=True)
+
+
 class Laps:
     """Prints each group of phases' seconds and the script's so far: the
     whole script must end inside its time limit."""
@@ -10477,6 +10849,20 @@ def main() -> int:
         timing = k8_k9_timing(torch.Generator(device="cuda").manual_seed(SEED + 25))
         print_readings(timing, card)
         print(json.dumps({"k8_k9_timing": timing}))
+        return 0
+    if sys.argv[1:] == ["--fp32-attention-timing"]:  # phase 92's readings
+        _kernels.build(["flash_attention"])
+        timing = fp32_attention_timing(fa)
+        print_fp32_timing("[92]", timing, ATTN, card)
+        print(json.dumps({"fp32_attention_timing": timing}))
+        return 0
+    if sys.argv[1:] == ["--fp32-attention"]:  # phases 91-93 alone
+        _kernels.build(["flash_attention"])
+        for kernel, regs, spill in ptxas_summary(
+                _kernels.build_log("flash_attention")):
+            print(f"    flash_attention: {kernel}: {regs} registers, {spill} "
+                  f"spill bytes")
+        print(json.dumps({"fp32_attention": fp32_attention_phases(fa, card)}))
         return 0
     if sys.argv[1:] == ["--mesh"]:  # phases 47-50 alone
         _kernels.build(["flash_attention", "paged_attention", "quant"])
@@ -10555,13 +10941,13 @@ def main() -> int:
           "versions", flush=True)
     worst1, worst2 = flash_checks(fa)
     free_device_memory()
-    timing = flash_timing(fa)
+    timing = flash_timing(fa, fp32=False)  # fp32: phase 92
     free_device_memory()
     shape = ("B=1, H=32, Hkv=8, S=8192, hd=128, window 4096, bf16")
     for label, key in (("K1 forward", "fwd"), ("K2 backward", "bwd")):
         t = timing[key]
         print(f"[9] {label} at the training shape ({shape}): kernel "
-              f"{t['ms']:.3f} ms (fp32 inputs {t['ms_fp32']:.3f} ms), plain "
+              f"{t['ms']:.3f} ms, plain "
               f"{t['plain_ms']:.3f} ms, scaled_dot_product_attention "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}; {t['flops'] / 1e9:.1f} GFLOP, "
@@ -10573,21 +10959,29 @@ def main() -> int:
     free_device_memory()
     trainer_resume()
     lap("phases 8-13")
+    fp32 = fp32_attention_phases(fa, card)
+    lap("phases 91-93")
 
     src = "kfunca_tpu_torch/csrc/flash_attention.cu"
     jax_src = "kfunca_tpu/ops/pallas_kernels/flash_attention.py"
-    for name, line, key, n, worst in (
+    for name, line, key, n, worst, worst32 in (
             ("flash_attention_fwd_stats", 247, "fwd", train["launches"][0],
-             worst1),
+             worst1, fp32["worst"][0]),
             ("flash_attention_backward", 547, "bwd", train["launches"][1],
-             worst2)):
-        t = timing[key]
+             worst2, fp32["worst"][1])):
+        t, t32 = timing[key], fp32["timing"][key]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"{jax_src}:{line}", "launches": n,
             "max_abs_err": worst, "max_err": worst, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # fp32 inputs (phase 92): the split-TF32 bodies, their bound at
+            # 3 TF32 passes (and at the fp32 pipe), SDPA on fp32 inputs
+            "ms_fp32": t32["ms"], "plain_fp32": t32["plain_ms"],
+            "bound_fp32": t32["bound_ms"],
+            "bound_fp32_ffma": t32["bound_ffma_ms"],
+            "library_fp32": t32["library_ms"], "max_abs_err_fp32": worst32,
         })
     free_device_memory()
     kernels += quant_phases(card, reference)

@@ -1,5 +1,6 @@
-// The 64 x 64 fp32 attention tile shared by the flash attention kernels
-// (K1/K2, flash_attention.cu) and the ring-attention hop kernels (K12,
+// The 64 x 64 fp32 attention tile shared by the flash attention kernels at
+// head dim 256 (K1/K2, flash_attention.cu; at 64 and 128 fp32 runs the
+// split-TF32 wgmma bodies) and the ring-attention hop kernels (K12,
 // ring_hop.cu): staging a tile of rows into shared memory as fp32, the score
 // product q.k over a head dim and the second product P.v, with the block
 // layout both use (256 threads; thread (ty, tx) = (threadIdx.x / 16,

@@ -2,7 +2,8 @@
 // K1 / K2 / K12 (attention_wgmma.cuh) and by the TMA rings of K5
 // (quant.cu) and K11's forward (ssm_scan.cu): mbarriers, TMA loads,
 // shared-memory matrix descriptors for 128-byte swizzled tiles, and the
-// warpgroup matrix multiply (wgmma) in the shapes those bodies issue.
+// warpgroup matrix multiply (wgmma) in the shapes those bodies issue
+// (bf16 / fp16, and tf32 for the split-TF32 fp32 bodies of K1 and K2).
 // sm_90a only (wgmma and setmaxnreg do not exist on plain sm_90).
 // runtime/_kernels.py hashes this header into the name of every library.
 //
@@ -512,6 +513,172 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "n"(kTransB));
 }
 
+// -- split TF32 (the fp32 bodies of K1 and K2) ---------------------------------
+//
+// A tf32 wgmma reads 32-bit operands as tf32 (1 + 8 + 10 bits).  An fp32
+// value x is carried as two tf32 values, hi = rna(x) and lo = rna(x - hi),
+// whose sum is x within 2^-22 |x| (hi within 2^-11 |x|, lo within 2^-11
+// |x - hi|); a product a.b is then summed as a_hi.b_lo + a_lo.b_hi +
+// a_hi.b_hi on the tensor cores (a tf32 product is exact in fp32), the two
+// small terms first, dropping a_lo.b_lo (within 2^-22 |a.b|).  Operand
+// tiles stay in the 128-byte swizzled boxes above, 32 fp32 values (128
+// bytes) wide: a k8 step of tf32 is 32 bytes, as a k16 step of bf16, so the
+// K-major descriptors step alike.  tf32 wgmma reads shared-memory operands
+// K-major only (the transpose bits are for 16-bit types).
+
+// x rounded to tf32, to nearest with ties away from zero (as a float whose
+// low 13 bits are 0); inf and NaN pass through
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// x = hi + lo as above
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+// d = A.B (+ d when scale_d), m64n32k8 tf32: A and B from shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d = A.B (+ d when scale_d), m64n32k8 tf32: A from registers (the
+// fragment of tf32_frag), B from shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d = A.B (+ d when scale_d), m64n64k8 tf32: A and B from shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d = A.B (+ d when scale_d), m64n64k8 tf32: A from registers (the
+// fragment of tf32_frag), B from shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d = A.B (+ d when scale_d), m64n128k8 tf32: A and B from shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d = A.B (+ d when scale_d), m64n128k8 tf32: A from registers (the
+// fragment of tf32_frag), B from shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // -- host -------------------------------------------------------------------
 
 template <typename K>
@@ -559,28 +726,35 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of a row-major 16-bit tensor seen as `rank` (2 or 3) dimensions,
+// A map of a row-major tensor of `type` seen as `rank` (2 or 3) dimensions,
 // innermost first (dims[0] contiguous; strides in bytes of dims 1..), read
-// in boxes of box[0] = 64 elements (128 bytes, the swizzle's width) by
-// box[1] (x box[2]) rows, 128-byte swizzle, zeros past the edges.  Returns
-// false if the driver refuses it (a base or stride that is not 16-byte
-// aligned).
-inline bool make_map(CUtensorMap* map, const void* base, bool bf16, int rank,
-                     const uint64_t* dims, const uint64_t* strides,
-                     const uint32_t* box) {
+// in boxes of box[0] = 128 bytes (the swizzle's width: 64 16-bit or 32
+// 32-bit elements) by box[1] (x box[2]) rows, 128-byte swizzle, zeros past
+// the edges.  Returns false if the encoder refuses it (a base or stride that
+// is not 16-byte aligned).  make_map: a bf16 or fp16 tensor.
+inline bool make_map_of(CUtensorMap* map, const void* base,
+                        CUtensorMapDataType type, int rank,
+                        const uint64_t* dims, const uint64_t* strides,
+                        const uint32_t* box) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint32_t one[3] = {1, 1, 1};
-  return enc(map,
-             bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-             (cuuint32_t)rank, const_cast<void*>(base),
+  return enc(map, type, (cuuint32_t)rank, const_cast<void*>(base),
              reinterpret_cast<const cuuint64_t*>(dims),
              reinterpret_cast<const cuuint64_t*>(strides),
              reinterpret_cast<const cuuint32_t*>(box), one,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool make_map(CUtensorMap* map, const void* base, bool bf16, int rank,
+                     const uint64_t* dims, const uint64_t* strides,
+                     const uint32_t* box) {
+  return make_map_of(map, base,
+                     bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                     rank, dims, strides, box);
 }
 
 }  // namespace hopper

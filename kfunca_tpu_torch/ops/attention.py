@@ -19,7 +19,11 @@ finfo.min and gives the mean of V.  A model never meets such a row
 (Sq == Skv in training).
 
 fp16 inputs ride the fp32 path: fp16 values embed exactly in fp32, so they
-are widened before the kernel and the results narrowed after.
+are widened before the kernel and the results narrowed after.  On the card
+fp32 runs K1 and K2 on the tensor cores as split TF32 (three TF32 products
+a product, ops/pallas_kernels/flash_attention.py `route`), whose results
+stand within fp32 rounding of the plain version, not TF32's; at head dims
+above 128 on the FFMA tile.
 
 The eager-Tensor `causal_attention` (kfunca_tpu/ops/attention.py:119-154)
 runs the same kernel wrappers on the kfunca tape, without torch.autograd:

@@ -38,13 +38,25 @@ bf16 inputs run the wgmma bodies (csrc/flash_attention.cu, TMA-fed): every
 product on the tensor cores with fp32 accumulators, P (and, backward, dS)
 rounded to bf16 before the second products, as the TPU kernel does; the
 forward's l sums the fp32 P before that rounding, and `out` is rounded
-once.  Their launches are also counted in `.launches_wgmma` of each
-wrapper.  The forward is bound by operations (4·hd flops per unmasked
+once.  The forward is bound by operations (4·hd flops per unmasked
 pair); what it leaves for later: overlapping one tile's softmax with the
-next tile's S product, a persistent grid, and K12 on this body.  The
-plain versions stay in fp32 throughout (the reference the kernels are held
-to).  fp32 inputs run the fp32 bodies (FFMA, never TF32).  fp16 is not
-taken here: ops/attention.py widens it to fp32 first.
+next tile's S product and a persistent grid.  The plain versions stay in
+fp32 throughout (the reference the kernels are held to).
+
+fp32 inputs at head dims up to 128 run the split-TF32 wgmma bodies
+(route "split_tf32"): every product as three TF32 tensor-core products,
+a_hi.b_lo + a_lo.b_hi + a_hi.b_hi with hi = rna(x) and lo = rna(x - hi)
+(`tf32_split`), each sum in fp32.  hi + lo holds x within 2^-22 |x| and the
+dropped a_lo.b_lo is below 2^-22 |a.b|, so the results stand within fp32
+rounding of the plain fp32 version (chip_smoke.py holds out, lse, dq, dk
+and dv to a float64 evaluation within 1/64 of the plain version's own
+error with TF32 allowed); single-pass TF32 would not.  At head dims
+129-256 (padded to 256) fp32 keeps the FFMA tile of csrc/attention_tile.cuh
+(route "fp32_tile"): q's lo parts would not fit beside a 256-wide
+accumulator.  bf16 and split-TF32 launches are counted in
+`.launches_wgmma` of each wrapper, fp32-tile launches in
+`.launches_fp32_tile`.  fp16 is not taken here: ops/attention.py widens it
+to fp32 first.
 
 Layout: the kernels read contiguous (B, H, S, D) tensors.  The model hands
 over transposed views of the fused projection, so the wrappers call
@@ -120,6 +132,43 @@ def bwd_tiles(head_dim: int) -> tuple:
     """The backward tiles built for `head_dim` (padded to 64, 128 or
     256)."""
     return BWD_TILES_256 if head_dim > 128 else BWD_TILES
+
+
+def route(dtype, head_dim: int) -> str:
+    """The body a CUDA call on `dtype` at `head_dim` launches: "wgmma"
+    (bf16), "split_tf32" (fp32 up to head dim 128) or "fp32_tile" (fp32 at
+    head dims 129-256)."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "split_tf32" if padded_head_dim(head_dim) <= 128 else "fp32_tile"
+
+
+def _count(wrapper, dtype, head_dim):
+    wrapper.launches += 1
+    if route(dtype, head_dim) == "fp32_tile":
+        wrapper.launches_fp32_tile += 1
+    else:
+        wrapper.launches_wgmma += 1
+
+
+def tf32_split(x):
+    """(hi, lo) of fp32 x as the split-TF32 bodies carry it (the kernels'
+    `cvt.rna.tf32.f32`): hi = x rounded to TF32 (10 fraction bits, to
+    nearest, ties away from zero), lo = x - hi rounded the same way; by
+    integer operations on the bits, so it runs alike on every device.  inf
+    and NaN pass through hi.  For finite x below 2^128 - 2^114 (above, hi
+    rounds to inf) hi + lo is x within 2^-22 |x|, or within 2^-137 (half a
+    TF32 step) where x - hi is subnormal: two TF32 values cannot hold a
+    finer remainder."""
+    def rna(t):
+        b = t.contiguous().view(torch.int32)
+        finite = (b & 0x7F800000) != 0x7F800000
+        r = (b + 0x1000) & ~0x1FFF  # add half an ulp of TF32, truncate
+        return torch.where(finite, r, b).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 def _tile(tiles, dtype, given):
@@ -230,8 +279,8 @@ def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None,
     `kv_rows`, `stages`: a tile of fwd_tiles(D) (None: the default's).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (counted in `flash_attention_fwd_stats.launches`, and bf16 calls, which
-    take the wgmma body, also in `.launches_wgmma`) or raise."""
+    (counted in `flash_attention_fwd_stats.launches`, and by `route` also in
+    `.launches_wgmma` or `.launches_fp32_tile`) or raise."""
     _check(q, k, v, window)
     tile = _tile(fwd_tiles(q.shape[-1]), q.dtype,
                  dict(kv_rows=kv_rows, stages=stages))
@@ -257,14 +306,13 @@ def flash_attention_fwd_stats(q, k, v, save_stats=True, window=None,
     if err:
         raise RuntimeError(f"flash forward kernel launch failed: CUDA error "
                            f"{err}")
-    flash_attention_fwd_stats.launches += 1
-    if q.dtype == torch.bfloat16:
-        flash_attention_fwd_stats.launches_wgmma += 1
+    _count(flash_attention_fwd_stats, q.dtype, d)
     return (out if dp == d else out[..., :d]), lse
 
 
 flash_attention_fwd_stats.launches = 0
 flash_attention_fwd_stats.launches_wgmma = 0
+flash_attention_fwd_stats.launches_fp32_tile = 0
 
 
 def flash_attention_forward(q, k, v, window=None, **tile):
@@ -283,7 +331,8 @@ def flash_attention_backward(q, k, v, g, out, lse, window=None, kv_rows=None,
     CPU tensors run the plain version (autograd through the plain forward,
     which recomputes out and lse); CUDA tensors launch the kernels (one
     count in `flash_attention_backward.launches` per call, whatever number
-    of device functions it runs) or raise."""
+    of device functions it runs, and by `route` one in `.launches_wgmma` or
+    `.launches_fp32_tile`) or raise."""
     _check(q, k, v, window)
     tile = _tile(bwd_tiles(q.shape[-1]), q.dtype,
                  dict(kv_rows=kv_rows, q_rows=q_rows, stages=stages))
@@ -323,9 +372,7 @@ def flash_attention_backward(q, k, v, g, out, lse, window=None, kv_rows=None,
     if err:
         raise RuntimeError(f"flash backward kernel launch failed: CUDA error "
                            f"{err}")
-    flash_attention_backward.launches += 1
-    if q.dtype == torch.bfloat16:
-        flash_attention_backward.launches_wgmma += 1
+    _count(flash_attention_backward, q.dtype, d)
     if dp != d:
         dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
@@ -333,3 +380,4 @@ def flash_attention_backward(q, k, v, g, out, lse, window=None, kv_rows=None,
 
 flash_attention_backward.launches = 0
 flash_attention_backward.launches_wgmma = 0
+flash_attention_backward.launches_fp32_tile = 0

@@ -675,11 +675,10 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd_stats.launches == n1 + 1
     assert fa.flash_attention_backward.launches == n2 + 1
-    # bf16 takes the wgmma bodies, fp32 the fp32 ones
-    assert fa.flash_attention_fwd_stats.launches_wgmma == (
-        n1w + (dtype == torch.bfloat16))
-    assert fa.flash_attention_backward.launches_wgmma == (
-        n2w + (dtype == torch.bfloat16))
+    # every head dim here is at most 128: bf16 takes the bf16 wgmma bodies,
+    # fp32 the split-TF32 ones
+    assert fa.flash_attention_fwd_stats.launches_wgmma == n1w + 1
+    assert fa.flash_attention_backward.launches_wgmma == n2w + 1
     want_out, want_lse = fa.flash_attention_plain(q, k, v, window)
     want = fa.flash_attention_backward_plain(q, k, v, g, window)
     assert out.dtype == dtype and lse.dtype == torch.float32
@@ -821,6 +820,97 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         fa.flash_attention_fwd_stats(q, k, v, window=0)
 
 
+# -- K1 and K2 on fp32: the split-TF32 wgmma bodies at head dims 64 and
+# 128, the fp32 tile at 256 ----------------------------------------------------
+
+FP32_CASES = [
+    (1, 8, 2, 512, 512, 64, 100),
+    (1, 6, 3, 200, 200, 128, 37),
+    (1, 2, 1, 300, 64, 128, 64),
+    (2, 4, 2, 160, 100, 128, None),
+    (1, 4, 2, 256, 256, 256, None),
+]
+
+
+@pytest.mark.parametrize("case", FP32_CASES, ids=str)
+def test_flash_fp32_bodies_match_plain_bitwise_repeatably(cuda, case):
+    """fp32 K1 / K2 on the body `route` names (one launch each, counted),
+    within the fp32 tolerance of the plain versions, rows without a column
+    at zero, and a second run of each bit for bit."""
+    window, hd = case[-1], case[5]
+    body = fa.route(torch.float32, hd)
+    counter = "launches_fp32_tile" if body == "fp32_tile" else "launches_wgmma"
+    q, k, v, g = _flash_inputs(cuda, torch.float32, case, seed=4)
+    n1 = getattr(fa.flash_attention_fwd_stats, counter)
+    n2 = getattr(fa.flash_attention_backward, counter)
+    out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
+    grads = fa.flash_attention_backward(q, k, v, g, out, lse, window=window)
+    torch.cuda.synchronize()
+    assert getattr(fa.flash_attention_fwd_stats, counter) == n1 + 1
+    assert getattr(fa.flash_attention_backward, counter) == n2 + 1
+    assert body == ("split_tf32" if hd <= 128 else "fp32_tile")
+    again = fa.flash_attention_fwd_stats(q, k, v, window=window)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert all(torch.equal(x, y) for x, y in zip(
+        grads, fa.flash_attention_backward(q, k, v, g, out, lse,
+                                           window=window)))
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, window)
+    _flash_close(out, want_out, torch.float32)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for got, ref in zip(grads, fa.flash_attention_backward_plain(q, k, v, g,
+                                                                 window)):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        _flash_close(got, ref, torch.float32)
+    if window and case[3] > case[4] + window - 1:  # rows with no column
+        dead = case[4] + window - 1
+        assert not out[:, :, dead:].any() and not lse[:, :, dead:].any()
+        assert not grads[0][:, :, dead:].any()
+
+
+def _attention64(q, k, v, g, window):
+    """(out, lse, dq, dk, dv) of K1 / K2's function in float64."""
+    q, k, v, g = (t.double() for t in (q, k, v, g))
+    group = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    row = torch.arange(q.shape[2], device=q.device)[:, None]
+    col = torch.arange(k.shape[2], device=q.device)[None, :]
+    ok = (col <= row) if window is None else (col <= row) & (col > row - window)
+    scale = 1.0 / math.sqrt(q.shape[3])
+    s = torch.where(ok, q @ kr.transpose(-1, -2) * scale, -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = p @ vr
+    ds = p * (g @ vr.transpose(-1, -2) - (g * out).sum(-1, keepdim=True))
+    fold = lambda t: t.unflatten(1, (k.shape[1], group)).sum(2)
+    return (out, lse, ds @ kr * scale, fold(ds.transpose(-1, -2) @ q) * scale,
+            fold(p.transpose(-1, -2) @ g))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_fp32_holds_fp32_accuracy(cuda, hd):
+    """The accuracy gate of chip_smoke.py's phase 93 at a small shape: each
+    of out, lse, dq, dk and dv within 1/64 of the error the plain version
+    makes with TF32 products, both against float64 (one TF32 pass would
+    not pass)."""
+    case = (1, 4, 2, 512, 512, hd, None)
+    q, k, v, g = _flash_inputs(cuda, torch.float32, case, seed=5)
+    ref = _attention64(q, k, v, g, None)
+    out, lse = fa.flash_attention_fwd_stats(q, k, v)
+    got = (out, lse, *fa.flash_attention_backward(q, k, v, g, out, lse))
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = (*fa.flash_attention_plain(q, k, v),
+                *fa.flash_attention_backward_plain(q, k, v, g))
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    for name, x, y, r in zip(("out", "lse", "dq", "dk", "dv"), got, tf32,
+                             ref):
+        e = float((x.double() - r).abs().max())
+        e_tf32 = float((y.double() - r).abs().max())
+        assert e <= e_tf32 / 64, (name, e, e_tf32)
+
+
 # -- K1 and K2 at head dim 256 (129-256 padded): Gemma's MQA 8:1, GQA 4:2
 # with a window and Sq != Skv both ways, rows without a column ------------
 
@@ -841,6 +931,7 @@ def test_flash_kernels_match_plain_at_head_dim_256(cuda, dtype, case):
     window = case[-1]
     q, k, v, g = _flash_inputs(cuda, dtype, case)
     n1w = fa.flash_attention_fwd_stats.launches_wgmma
+    n1t = fa.flash_attention_fwd_stats.launches_fp32_tile
     n2 = fa.flash_attention_backward.launches
     out, lse = fa.flash_attention_fwd_stats(q, k, v, window=window)
     dq, dk, dv = fa.flash_attention_backward(q, k, v, g, out, lse,
@@ -849,6 +940,8 @@ def test_flash_kernels_match_plain_at_head_dim_256(cuda, dtype, case):
     assert fa.flash_attention_backward.launches == n2 + 1
     assert fa.flash_attention_fwd_stats.launches_wgmma == (
         n1w + (dtype == torch.bfloat16))
+    assert fa.flash_attention_fwd_stats.launches_fp32_tile == (
+        n1t + (dtype == torch.float32))
     want_out, want_lse = fa.flash_attention_plain(q, k, v, window)
     want = fa.flash_attention_backward_plain(q, k, v, g, window)
     _flash_close(out, want_out, dtype)

@@ -588,8 +588,9 @@ def test_k2_bf16_tiling_emulation_at_the_hd256_tiles(name, tile):
 
 
 # -- shared memory a block takes, by the layouts of csrc/attention_wgmma.cuh
-# (WgFwdSmem, WgBwdSmem) and csrc/attention_tile.cuh (fwd_smem, bwd_smem);
-# each launcher also asserts its fit when it is compiled --------------------
+# (WgFwdSmem, WgBwdSmem), csrc/flash_attention.cu (the split-TF32 bodies'
+# Tf32*Smem) and csrc/attention_tile.cuh (fwd_smem, bwd_smem); each
+# launcher also asserts its fit when it is compiled --------------------------
 
 SMEM_LIMIT = 232448  # bytes a block can use on the H100
 BLOCK_ROWS, KV_ROWS = 128, 64  # resident q rows (K1, dq); kv rows (dk/dv)
@@ -611,11 +612,26 @@ def _wgmma_smem(hd, tile, backward):
 
 
 def _fp32_smem(hd, backward):
-    """Bytes of the fp32 body's block: three (forward) or four (backward;
-    three above head dim 128, where its streamed tiles share one) fp32
-    tiles of 64 x (hd + 4), and P (64 x 68)."""
-    tiles = 3 if not backward or hd > 128 else 4
-    return 4 * (tiles * 64 * (hd + 4) + 64 * 68)
+    """Bytes of the fp32 body's block.  Head dims 64 and 128, the split-TF32
+    bodies (csrc/flash_attention.cu Tf32FwdSmem, Tf32DqSmem, Tf32DkvSmem;
+    two stages of sr = 64 or 32 rows): K1 keeps 128 q rows and a stage of
+    k (hi, lo), v and v^T (hi, lo); the dq kernel 64 q and dO rows, stages
+    of k and v (hi and lo each), P and dS (hi, lo); the dk/dv kernel 64 k
+    and v rows, stages of q and dO (hi and lo each) with their lse and
+    delta, P^T and dS^T (hi, lo); the backward is the larger of the two.
+    Head dim 256, the fp32 tile (csrc/attention_tile.cuh): three fp32 tiles
+    of 64 x (hd + 4) (the backward's streamed tiles share one) and P (64 x
+    68)."""
+    if hd > 128:
+        return 4 * (3 * 64 * (hd + 4) + 64 * 68)
+    sr = 64 if hd == 64 else 32
+    tile = sr * hd * 4
+    if not backward:
+        return BLOCK_ROWS * hd * 4 + 2 * 5 * tile + 3 * 8 + 1024
+    dq = 2 * KV_ROWS * hd * 4 + 2 * 4 * tile + 3 * KV_ROWS * sr * 4
+    dkv = (2 * KV_ROWS * hd * 4 + 2 * 4 * tile + 4 * KV_ROWS * sr * 4
+           + 2 * 2 * sr * 4)
+    return max(dq, dkv) + 3 * 8 + 1024
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -638,6 +654,7 @@ def test_every_tile_fits_a_blocks_shared_memory(d):
     assert _wgmma_smem(256, tfa.FWD_TILES_256[0], False) == 197672
     assert _wgmma_smem(256, tfa.BWD_TILES_256[0], True) == 197696
     assert _fp32_smem(256, True) == 217088
+    assert _fp32_smem(128, False) == 230424 and _fp32_smem(64, True) == 231448
 
 
 def test_head_dims_pad_up_to_256_and_raise_above():
